@@ -1,0 +1,77 @@
+"""Convert foundation-model parameters between the JAX package's pytree
+(as numpy arrays) and the port's tensors, in both directions.
+
+Layouts:
+
+* ``transformer`` kind. JAX leaves have no expert axis, and segment leaves
+  are stacked over layers, (L, ...) (``repro/models/transformer.py:50``).
+  The port adds a leading expert axis of 1: (1, ...) and (L, 1, ...).
+* ``moe`` kind. JAX stacks whole expert trees (``foundation.py:65``), so
+  ``experts`` leaves are (E, ...) and segment leaves (E, L, ...). The port
+  keeps (E, ...) and stores segment leaves (L, E, ...), so each layer's
+  weights for all experts are one contiguous slice. ``gate`` is unchanged.
+
+The trunk's unused ``head`` leaf (``transformer.py:56``) is carried along.
+A round trip returns identical arrays.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _map_trunk(tree: Dict, seg_fn: Callable, leaf_fn: Callable) -> Dict:
+    """Map one (possibly expert-stacked) trunk tree: ``seg_fn`` on the
+    layer-stacked segment leaves, ``leaf_fn`` on every other leaf."""
+    out = {k: tree_map(leaf_fn, v) for k, v in tree.items() if k != "trunk"}
+    trunk = tree["trunk"]
+    out["trunk"] = {k: tree_map(leaf_fn, v) for k, v in trunk.items()
+                    if k != "segments"}
+    out["trunk"]["segments"] = tree_map(seg_fn, trunk["segments"])
+    return out
+
+
+def from_jax(jparams: Dict[str, Any], device=None) -> Dict:
+    """JAX foundation params (numpy or jax arrays) -> the port's tensors on
+    ``device`` (CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a))
+
+    if "experts" not in jparams:                      # transformer kind
+        params = _map_trunk(jparams,
+                            lambda a: tensor(a).unsqueeze(1),
+                            lambda a: tensor(a).unsqueeze(0))
+    else:
+        params = {"experts": _map_trunk(
+            jparams["experts"],
+            lambda a: tensor(a).transpose(0, 1).contiguous(), tensor),
+            "gate": tensor(jparams["gate"])}
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def to_jax(params: Dict) -> Dict[str, Any]:
+    """The port's parameters -> the JAX package's layout, as numpy arrays."""
+    def array(t):
+        return t.detach().cpu().numpy()
+
+    if "experts" not in params:
+        return _map_trunk(params, lambda t: array(t.squeeze(1)),
+                          lambda t: array(t.squeeze(0)))
+    return {"experts": _map_trunk(
+        params["experts"], lambda t: array(t.transpose(0, 1).contiguous()),
+        array), "gate": array(params["gate"])}

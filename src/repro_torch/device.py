@@ -1,0 +1,29 @@
+"""Where the port runs: CUDA unless the caller asks for the CPU."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``None`` means ``"cuda"``. A CUDA device raises ``RuntimeError``
+    when no card is present; the CPU is used only when passed explicitly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def check_on(device: torch.device, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on ``device`` (type, and index when
+    ``device`` names one)."""
+    for t in tensors:
+        if t.device.type != device.type or (
+                device.index is not None and t.device.index != device.index):
+            raise ValueError(f"tensor on {t.device}, expected {device}")
