@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of Mirage's serving path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -10,18 +10,27 @@ exits non-zero:
    every kernel in ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel);
 2. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes and at ragged ones, with the tolerance stated;
-3. serving at the agent's full published width: ``evaluate_batch`` over 32
-   lockstep episodes of ``V100/medium/single`` at history 144, for
+   serving paths' shapes and at ragged ones, with the tolerance stated;
+3. the agent's serving path at its full published width: ``evaluate_batch``
+   over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
-   with the kernels' launch counts checked against decisions x layers x
-   launches per layer, the Q-values of the kernel path held against the
-   plain path on the CPU, and each learner's decision batch on the first
-   observation under torch.profiler (device-busy share, device time per
-   kernel);
-4. each kernel's time at the serving path's shapes beside its plain
-   version, the PyTorch library call that computes the same function, and
-   the least time the card could take (its bound).
+   with the flash and GEMM launch counts checked against decisions x
+   layers x launches per layer, the Q-values of the kernel path held
+   against the plain path on the CPU, and each learner's decision batch on
+   the first observation under torch.profiler (device-busy share, device
+   time per kernel);
+4. the payload LM's serving path, Mamba2-1.3B at its full published width
+   with seeded random weights drawn on the card: ``make_prefill_step`` on
+   4 prompts of 2048 tokens and 32 greedy ``make_serve_step`` decode steps
+   (exact RMSNorm and SSD launch counts per prefill and per step), the
+   first 2 layers' kernel path held against the plain path on the CPU,
+   ``ServeEngine`` through ``repro_torch.launch.serve`` at the CLI's
+   defaults, and a prefill and 5 decode steps under torch.profiler (one
+   pass each);
+5. each kernel's time at the serving paths' shapes (L2 flushed before each
+   launch) beside its plain version, the PyTorch library call that
+   computes the same function, and the least time the card could take
+   (its bound).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -43,7 +52,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import mirage_agent  # noqa: E402
+from repro_torch.configs import mamba2_1_3b, mirage_agent  # noqa: E402
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (DQNConfig, DQNLearner,  # noqa: E402
                               FoundationConfig, LearnerPolicy, Policy,
@@ -53,13 +62,21 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
                                           grouped_gemm_ref)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssd import ssd, ssd_ref  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.sim import get_scenario, make_vector_env  # noqa: E402
+from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# bf16 tensor-core FLOP/s; the bound of a kernel is the larger of its bytes
-# over the first and its operations over the second
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
+# tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores; the bound of
+# a kernel is the larger of its bytes over the first and its operations
+# over the peak for their type
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12
+L2_FLUSH_BYTES = 256 << 20     # written before each timed launch (L2: 50 MB)
 
 LANES = 32                                  # lockstep episodes per chunk
 HISTORY = 144
@@ -71,6 +88,15 @@ BF16_TOL = 2e-2      # bf16 rounds once at the output; two summation orders
 FP32_FLASH_TOL = 3e-5   # the repo's bound for the Pallas kernel in fp32
 FP32_GEMM_TOL = 1e-5    # fp32 sums of 41 terms in two orders
 PROFILE_STEPS = 5       # decision batches under torch.profiler
+FP32_NORM_TOL = 1e-5    # the repo's bounds for the Pallas kernels in fp32
+FP32_SSD_TOL = 5e-5
+
+LM = mamba2_1_3b.CONFIG
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+LM_PLAIN_LAYERS, LM_PLAIN_PROMPT = 2, 512   # the kernel-vs-plain model check
+NORMS_PER_PASS = 2 * LM.n_layers + 1        # block norms, out_norms, final
+LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
+                        # magnitude (a few bf16 ulps, as in the CPU tests)
 
 
 def line(tag: str, **kw) -> None:
@@ -108,6 +134,24 @@ def flash_inputs(gen, B, Sq, Skv, Hq, Hkv, D, dtype):
 def gemm_inputs(gen, E, C, d, f, dtype):
     return (_randn(gen, (E, C, d), dtype),
             _randn(gen, (E, d, f), dtype, 1.0 / d ** 0.5))
+
+
+def ssd_inputs(gen, Bz, S, H, P, N, G, dtype, init):
+    """x, dt, A, B, C, D, initial state at the scales of the repo's SSD
+    tests (tests/test_kernels.py: x 0.5 N(0,1), B and C 0.3 N(0,1),
+    A -exp(0.3 N(0,1)), D 1), but with the model's small steps,
+    dt = softplus(N(0,1) - 3), about 0.07: with the tests' dt of about 0.8
+    the within-chunk cumsum over 256 steps reaches ~-200, and its fp32
+    rounding alone nears the fp32 bound (tests/test_torch_ssm.py holds the
+    plain version within 1e-5 of an fp64 scan at the model's dt)."""
+    x = _randn(gen, (Bz, S, H, P), dtype, 0.5)
+    dt = F.softplus(_randn(gen, (Bz, S, H), torch.float32) - 3.0)
+    A = -torch.exp(_randn(gen, (H,), torch.float32, 0.3))
+    B = _randn(gen, (Bz, S, G, N), dtype, 0.3)
+    C = _randn(gen, (Bz, S, G, N), dtype, 0.3)
+    D = torch.ones(H, device="cuda")
+    s0 = _randn(gen, (Bz, H, P, N), torch.float32, 0.3) if init else None
+    return x, dt, A, B, C, D, s0
 
 
 def _err(out, ref, atol, rtol, what):
@@ -157,10 +201,49 @@ def phase_kernels() -> dict:
         errs["grouped_gemm"] = max(errs.get("grouped_gemm", 0.0), err)
         line("check", case=name, max_abs_err=err, atol=atol, rtol=rtol)
         del x, w, out
+    # the Mamba2-1.3B norms: prefill rows (4 x 2048) of d_model and d_inner,
+    # a decode step's 4 rows, and a ragged fp32 gemma case
+    d, din = LM.d_model, LM.d_inner
+    cases = [(f"rmsnorm ({r},{c}) bf16, w fp32", (r, c, torch.bfloat16),
+              False, BF16_TOL, BF16_TOL)
+             for r, c in ((LM_BATCH * LM_PROMPT, d), (LM_BATCH * LM_PROMPT, din),
+                          (LM_BATCH, din))]
+    cases.append(("rmsnorm (300,2048) fp32 gemma", (300, 2048, torch.float32),
+                  True, FP32_NORM_TOL, FP32_NORM_TOL))
+    for name, (rows, dim, dtype), gemma, atol, rtol in cases:
+        x = _randn(gen, (rows, dim), dtype, 3.0)
+        w = _randn(gen, (dim,), torch.float32)
+        out = rmsnorm(x, w, eps=LM.norm_eps, gemma=gemma)
+        torch.cuda.synchronize()
+        err = _err(out, rmsnorm_ref(x, w, eps=LM.norm_eps, gemma=gemma),
+                   atol, rtol, name)
+        errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), err)
+        line("check", case=name, max_abs_err=err, atol=atol, rtol=rtol)
+    # the scan at the prefill shape, and a ragged fp32 case with groups and
+    # an initial state; y and the final state both checked
+    cases = [
+        ("ssd prefill (4,2048,64,64) N=128 G=1 chunk 256 bf16",
+         (LM_BATCH, LM_PROMPT, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
+          LM.ssm_ngroups, torch.bfloat16, False), LM.ssm_chunk, BF16_TOL,
+         BF16_TOL),
+        ("ssd ragged (2,1000,8,64) N=128 G=2 chunk 256 fp32, initial state",
+         (2, 1000, 8, 64, 128, 2, torch.float32, True), 256, FP32_SSD_TOL,
+         0.0),
+    ]
+    for name, shape, chunk, atol, rtol in cases:
+        args = ssd_inputs(gen, *shape)
+        y, final = ssd(*args[:6], chunk, args[6])
+        torch.cuda.synchronize()
+        y_ref, final_ref = ssd_ref(*args[:6], chunk, args[6])
+        err = max(_err(y, y_ref, atol, rtol, name + " y"),
+                  _err(final, final_ref, atol, rtol, name + " state"))
+        errs["ssd"] = max(errs.get("ssd", 0.0), err)
+        line("check", case=name, max_abs_err=err, atol=atol, rtol=rtol)
+        del args, y, final, y_ref, final_ref
     return errs
 
 
-# ------------------------------------------------------------ 3. serving
+# ------------------------------------------------- 3. agent serving
 class TimedPolicy(Policy):
     """Counts decision batches and times each one on the host clock (the
     learner's ``act_batch`` returns numpy, so it waits for the card)."""
@@ -232,19 +315,19 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile_decisions(learner, states: np.ndarray, steps=PROFILE_STEPS):
-    """``steps`` decision batches of ``learner`` on ``states`` under
-    torch.profiler, after two warm-up calls: host wall time per batch, the
-    share of it the card was busy (the union of kernel intervals), and
-    device time per kernel name, largest first."""
-    for _ in range(2):
-        learner.act_batch(states, explore=False)
+def profile_device(what: str, fn, units: int, unit: str, warmup: int = 1,
+                   **meta) -> dict:
+    """``fn()`` under torch.profiler, after ``warmup`` calls: host wall
+    time per ``unit`` (``fn`` does ``units`` of them), the share of the
+    wall the card was busy (the union of kernel intervals), and device time
+    per kernel name, largest first."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            learner.act_batch(states, explore=False)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name, intervals = defaultdict(lambda: [0, 0.0]), []
@@ -258,14 +341,17 @@ def profile_decisions(learner, states: np.ndarray, steps=PROFILE_STEPS):
     if not intervals:
         raise RuntimeError("the profiler recorded no device activity")
     kernels = sorted(per_name.items(), key=lambda kv: -kv[1][1])
-    line("profile", kind=learner.fc.kind, lanes=len(states), steps=steps,
-         wall_ms_per_decision=wall_us / steps / 1e3,
-         device_busy_share=_union_us(intervals) / wall_us,
-         device_ms_per_decision=sum(us for _, us in per_name.values())
-         / steps / 1e3,
-         kernels=[{"name": n[:120], "calls_per_decision": c / steps,
-                   "ms_per_decision": us / steps / 1e3}
-                  for n, (c, us) in kernels])
+    rec = {"what": what, **meta, f"{unit}s": units,
+           f"wall_ms_per_{unit}": wall_us / units / 1e3,
+           "device_busy_share": _union_us(intervals) / wall_us,
+           f"device_ms_per_{unit}": sum(us for _, us in per_name.values())
+           / units / 1e3,
+           f"device_calls_per_{unit}": len(intervals) / units,
+           "kernels": [{"name": n[:120], f"calls_per_{unit}": c / units,
+                        f"ms_per_{unit}": us / units / 1e3}
+                       for n, (c, us) in kernels]}
+    line("profile", **rec)
+    return rec
 
 
 def phase_serve() -> dict:
@@ -282,32 +368,229 @@ def phase_serve() -> dict:
                                kernel_path=True)
         launches = launches or counts       # the moe+dqn run is the main path
         check_q_values(learner, states)
-        profile_decisions(learner, states)
+        profile_device(
+            kind, lambda: [learner.act_batch(states, explore=False)
+                           for _ in range(PROFILE_STEPS)],
+            PROFILE_STEPS, "decision", lanes=len(states))
         del learner
         torch.cuda.empty_cache()
     serve(venv, "reactive", ReactivePolicy(), kernel_path=False)
     return launches
 
 
-# ------------------------------------------------------------ 4. timing
-def time_ms(fn, reps=20, warmup=3) -> float:
+# ----------------------------------------------- 4. Mamba2-1.3B serving
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _rel_err(out, ref, what) -> float:
+    """max|out - ref| within LM_REL_TOL of ref's largest magnitude."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"{what}: bad output {out.shape} vs {ref.shape}")
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    if err > LM_REL_TOL * scale:
+        raise RuntimeError(f"{what}: kernel path off the plain path by {err}"
+                           f" (scale {scale}, tolerance {LM_REL_TOL} of it)")
+    return err
+
+
+def _counts():
+    return {"rmsnorm": rmsnorm.launches, "ssd": ssd.launches}
+
+
+def _set_counts(n: int = 0) -> None:
+    rmsnorm.launches = ssd.launches = n
+
+
+def _lm_inputs(gen, B, S):
+    toks = torch.randint(0, LM.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    return toks, torch.arange(S, device="cuda").expand(B, S)
+
+
+def lm_prefill_decode(params, toks, pos) -> dict:
+    """One prefill of ``toks`` and LM_DECODE greedy decode steps from its
+    cache, with the launch counts checked per prefill and per step."""
+    prefill_step, serve_step = make_prefill_step(LM), make_serve_step(LM)
+    B, S = toks.shape
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, toks, pos)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if _counts() != {"rmsnorm": NORMS_PER_PASS, "ssd": LM.n_layers}:
+            raise RuntimeError(f"prefill launched {_counts()}")
+        if logits.shape != (B, LM.vocab) or not torch.isfinite(logits).all():
+            raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        step_ms = []
+        for i in range(LM_DECODE):
+            before = _counts()
+            t0 = time.perf_counter()
+            tok, logits, cache = serve_step(params, tok, pos[:, -1:] + 1 + i,
+                                            cache, S + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            after = _counts()
+            if (after["rmsnorm"] - before["rmsnorm"] != NORMS_PER_PASS
+                    or after["ssd"] != before["ssd"]):
+                raise RuntimeError(f"decode step {i}: {before} -> {after}")
+        if not torch.isfinite(logits).all():
+            raise RuntimeError("non-finite decode logits")
+    ms = np.asarray(step_ms)
+    return {"prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
+            "decode_ms_mean": float(ms.mean()),
+            "decode_ms_p50": float(np.percentile(ms, 50)),
+            "decode_ms_p99": float(np.percentile(ms, 99)),
+            "decode_tokens_per_s": B / ms.mean() * 1e3,
+            "state_shape": list(cache["segments"][0]["b0"]["state"].shape)}
+
+
+def check_lm_plain(params, toks) -> None:
+    """The first LM_PLAIN_LAYERS layers of the full-width model, same
+    weights, prefill of one LM_PLAIN_PROMPT-token prompt: kernel path on the
+    card against the plain path on the CPU, last-token logits and final SSM
+    states."""
+    cfg = LM.replace(n_layers=LM_PLAIN_LAYERS)
+    sub = dict(params, segments=[{"b0": tree_map(
+        lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
+    x = toks[:1, :LM_PLAIN_PROMPT]
+    pos = torch.arange(LM_PLAIN_PROMPT, device="cuda")[None]
+    with torch.inference_mode():
+        _set_counts()
+        lg, cache = transformer.prefill(sub, cfg, x, pos)
+        torch.cuda.synchronize()
+        if _counts() != {"rmsnorm": 2 * LM_PLAIN_LAYERS + 1,
+                         "ssd": LM_PLAIN_LAYERS}:
+            raise RuntimeError(f"2-layer prefill launched {_counts()}")
+        t0 = time.perf_counter()
+        lg_cpu, cache_cpu = transformer.prefill(
+            tree_map(lambda t: t.cpu(), sub), cfg, x.cpu(), pos.cpu())
+        cpu_s = time.perf_counter() - t0
+    state, state_cpu = (c["segments"][0]["b0"]["state"]
+                        for c in (cache, cache_cpu))
+    line("lm_plain", layers=LM_PLAIN_LAYERS, prompt=LM_PLAIN_PROMPT,
+         logits_max_abs_err=_rel_err(lg, lg_cpu, "logits"),
+         logits_scale=lg_cpu.abs().max().item(),
+         state_max_abs_err=_rel_err(state, state_cpu, "final states"),
+         state_scale=state_cpu.abs().max().item(), rel_tol=LM_REL_TOL,
+         cpu_plain_s=cpu_s)
+
+
+def phase_lm() -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.init(gen, LM)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    line("lm_init", arch=LM.arch_id, layers=LM.n_layers, d_model=LM.d_model,
+         d_inner=LM.d_inner, heads=LM.ssm_nheads, state=LM.ssm_state,
+         vocab=LM.vocab, params=sum(t.numel() for t in leaves),
+         param_gb=sum(t.numel() * t.element_size() for t in leaves) / 1e9,
+         seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT)
+    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
+        lg, cache = make_prefill_step(LM)(params, toks[:, :LM.ssm_chunk],
+                                          pos[:, :LM.ssm_chunk])
+        make_serve_step(LM)(params, lg.argmax(-1, keepdim=True).to(torch.int32),
+                            pos[:, :1] + LM.ssm_chunk, cache, LM.ssm_chunk)
+    torch.cuda.synchronize()
+    del lg, cache
+
+    _set_counts()                     # the LM's main path
+    res = lm_prefill_decode(params, toks, pos)
+    launches = _counts()
+    line("lm_serve", batch=LM_BATCH, prompt=LM_PROMPT,
+         decode_steps=LM_DECODE, launches=launches,
+         ssd_per_prefill=LM.n_layers, rmsnorm_per_pass=NORMS_PER_PASS, **res)
+
+    check_lm_plain(params, toks)
+
+    # one prefill, then 5 decode steps from its cache, each profiled alone
+    prefill_step, serve_step = make_prefill_step(LM), make_serve_step(LM)
+    with torch.inference_mode():
+        lg, cache = prefill_step(params, toks, pos)
+    tok0 = lg.argmax(-1, keepdim=True).to(torch.int32)
+
+    def decode(n):
+        with torch.inference_mode():
+            tok, c = tok0, cache
+            for i in range(n):
+                tok, _, c = serve_step(params, tok, pos[:, -1:] + 1 + i, c,
+                                       LM_PROMPT + i)
+    with torch.inference_mode():
+        profile_device("mamba2 prefill",
+                       lambda: prefill_step(params, toks, pos), 1, "prefill",
+                       batch=LM_BATCH, prompt=LM_PROMPT)
+    profile_device("mamba2 decode", lambda: decode(PROFILE_STEPS),
+                   PROFILE_STEPS, "step", batch=LM_BATCH)
+    del params, cache
+    torch.cuda.empty_cache()
+
+    _set_counts()
+    out = serve_launcher.main(["--arch", LM.arch_id])
+    counts = _counts()
+    if out["done"] != out["requests"]:
+        raise RuntimeError(f"engine finished {out['done']} of "
+                           f"{out['requests']} requests")
+    if counts["ssd"] or not counts["rmsnorm"] \
+            or counts["rmsnorm"] % NORMS_PER_PASS:
+        raise RuntimeError(f"engine launched {counts}")
+    line("engine", **out, launches=counts,
+         decode_calls=counts["rmsnorm"] // NORMS_PER_PASS)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------ 5. timing
+def time_ms(fn, reps=20, warmup=3, flush=True) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls, one event pair
+    around each. With ``flush`` a 256 MB buffer is written before each call
+    (outside its events), so every call finds the 50 MB L2 cold, as a
+    serving step does its inputs; without it the calls run back to back
+    and a repeat may find its inputs still cached."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if flush else None
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
+    for start, end in pairs:
+        if flush:
+            buf.zero_()
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(s_.elapsed_time(e) for s_, e in pairs) / reps
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ssd_work(Bz, S, H, P, N, G, chunk, itemsize):
+    """Bytes and products the scan needs: x, dt, B, C read once, y and the
+    fp32 final state written once; per chunk of q rows, C.B^T once per
+    group over the causal triangle, and per head the masked scores times x
+    (triangle), C times the state and the state update."""
+    Q = min(chunk, S)
+    flops = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        tri = q * (q + 1) // 2
+        flops += Bz * (2 * tri * N * G + H * (2 * tri * P + 4 * q * N * P))
+    nbytes = (2 * Bz * S * H * P * itemsize + Bz * S * H * 4
+              + 2 * Bz * S * G * N * itemsize + 2 * H * 4 + Bz * H * P * N * 4)
+    return nbytes, flops
 
 
 def phase_timing(errs: dict, launches: dict) -> list:
@@ -321,6 +604,8 @@ def phase_timing(errs: dict, launches: dict) -> list:
                              reps=5),
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=False))}
+    warm_ms = time_ms(lambda: flash_attention(q, k, v, causal=False),
+                      flush=False)
     nbytes = 4 * q.numel() * q.element_size()          # q, k, v read; o written
     flops = 4 * B * H * HISTORY * HISTORY * D          # q.k^T and p.v
     bms, by = bound_ms(nbytes, flops)
@@ -331,20 +616,21 @@ def phase_timing(errs: dict, launches: dict) -> list:
         launches=launches["flash_attention"],
         max_abs_err=errs["flash_attention"], bound_ms=bms, bound_by=by,
         shape="q,k,v (640,144,8,32) bf16, non-causal: one trunk layer", **t)
-    line("time", **flash_rec)
+    line("time", **flash_rec, ms_l2_warm=warm_ms)
     del q, k, v, qt, kt, vt
 
     # one trunk layer's six projections at E=10, C = 2 actions x 32 lanes x 144
     C, d, f = 2 * LANES * HISTORY, TRUNK.d_model, TRUNK.d_ff
     per_layer = [(d, d)] * 4 + [(d, f), (f, d)]
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    nbytes = flops = 0
+    nbytes = flops = warm_ms = 0
     for din, dout in per_layer:
         x, w = gemm_inputs(gen, mirage_agent.N_EXPERTS, C, din, dout,
                            torch.bfloat16)
         one = {"ms": time_ms(lambda: grouped_gemm(x, w)),
                "plain_ms": time_ms(lambda: grouped_gemm_ref(x, w), reps=5),
                "library_ms": time_ms(lambda: torch.bmm(x, w))}
+        warm_ms += time_ms(lambda: grouped_gemm(x, w), flush=False)
         b = (x.numel() + w.numel() + x.shape[0] * C * dout) * x.element_size()
         fl = 2 * x.shape[0] * C * din * dout
         line("time", name="grouped_gemm", shape=f"({x.shape[0]},{C},{din})x"
@@ -361,8 +647,57 @@ def phase_timing(errs: dict, launches: dict) -> list:
         launches=launches["grouped_gemm"], max_abs_err=errs["grouped_gemm"],
         bound_ms=bms, bound_by=by,
         shape="the 6 projections of one trunk layer, E=10, C=9216, bf16", **tot)
-    line("time", **gemm_rec)
-    return [flash_rec, gemm_rec]
+    line("time", **gemm_rec, ms_l2_warm=warm_ms)
+
+    # the two norms of one Mamba2 layer at prefill: the block's pre-norm
+    # over d_model and out_norm over d_inner, 4 x 2048 rows, bf16, w fp32
+    rows = LM_BATCH * LM_PROMPT
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    nbytes = flops = 0
+    for dim in (LM.d_model, LM.d_inner):
+        x = _randn(gen, (rows, dim), torch.bfloat16, 3.0)
+        w = _randn(gen, (dim,), torch.float32)
+        w16 = w.to(torch.bfloat16)
+        one = {"ms": time_ms(lambda: rmsnorm(x, w, eps=LM.norm_eps)),
+               "plain_ms": time_ms(lambda: rmsnorm_ref(x, w, eps=LM.norm_eps),
+                                   reps=5),
+               # the library's fused path wants w in x's dtype
+               "library_ms": time_ms(lambda: F.rms_norm(x, (dim,), w16,
+                                                        LM.norm_eps))}
+        b = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+        fl = 4 * x.numel()            # square-add, scale, weight: fp32
+        line("time", name="rmsnorm", shape=f"({rows},{dim}) bf16, w fp32",
+             bound_ms=bound_ms(b, fl, FP32_FLOP_PER_S)[0], **one)
+        for key in tot:
+            tot[key] += one[key]
+        nbytes, flops = nbytes + b, flops + fl
+        del x, w, w16
+    bms, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    norm_rec = dict(
+        name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:17",
+        launches=launches["rmsnorm"], max_abs_err=errs["rmsnorm"],
+        bound_ms=bms, bound_by=by,
+        shape="one Mamba2 layer's two prefill norms, (8192,2048) and "
+              "(8192,4096) bf16, w fp32", **tot)
+    line("time", **norm_rec)
+
+    # the scan of one Mamba2 layer at prefill
+    shape = (LM_BATCH, LM_PROMPT, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
+             LM.ssm_ngroups)
+    args = ssd_inputs(gen, *shape, torch.bfloat16, False)[:6]
+    t = {"ms": time_ms(lambda: ssd(*args, LM.ssm_chunk)),
+         "plain_ms": time_ms(lambda: ssd_ref(*args, LM.ssm_chunk), reps=5),
+         "library_ms": None}                 # no one PyTorch call scans
+    bms, by = bound_ms(*ssd_work(*shape, LM.ssm_chunk, 2))
+    ssd_rec = dict(
+        name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:31",
+        launches=launches["ssd"], max_abs_err=errs["ssd"], bound_ms=bms,
+        bound_by=by, shape="x (4,2048,64,64) bf16, B/C (4,2048,1,128) bf16, "
+        "chunk 256: one Mamba2 layer's prefill scan", **t)
+    line("time", **ssd_rec)
+    return [flash_rec, gemm_rec, norm_rec, ssd_rec]
 
 
 def main() -> int:
@@ -373,6 +708,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     launches = phase_serve()
+    launches.update(phase_lm())
     records = phase_timing(errs, launches)
     print(json.dumps({"kernels": records}))
     print(card())

@@ -1,7 +1,11 @@
-"""Convert foundation-model parameters between the JAX package's pytree
-(as numpy arrays) and the port's tensors, in both directions.
+"""Convert model parameters between the JAX package's pytree (as numpy
+arrays) and the port's tensors, in both directions.
 
 Layouts:
+
+* LM tree of ``transformer.init`` (``embed.table``, ``segments[i].b0`` with
+  leaves stacked (L, ...), ``final_norm``, ``head``). The port keeps it as
+  it is: no expert axis, every leaf the same shape.
 
 * ``transformer`` kind. JAX leaves have no expert axis, and segment leaves
   are stacked over layers, (L, ...) (``repro/models/transformer.py:50``).
@@ -45,14 +49,16 @@ def _map_trunk(tree: Dict, seg_fn: Callable, leaf_fn: Callable) -> Dict:
 
 
 def from_jax(jparams: Dict[str, Any], device=None) -> Dict:
-    """JAX foundation params (numpy or jax arrays) -> the port's tensors on
-    ``device`` (CUDA unless ``device="cpu"``)."""
+    """JAX LM or foundation params (numpy or jax arrays) -> the port's
+    tensors on ``device`` (CUDA unless ``device="cpu"``)."""
     dev = resolve_device(device)
 
     def tensor(a):
         return torch.from_numpy(np.array(a))
 
-    if "experts" not in jparams:                      # transformer kind
+    if "segments" in jparams:                         # LM tree
+        params = tree_map(tensor, jparams)
+    elif "experts" not in jparams:                    # transformer kind
         params = _map_trunk(jparams,
                             lambda a: tensor(a).unsqueeze(1),
                             lambda a: tensor(a).unsqueeze(0))
@@ -69,6 +75,8 @@ def to_jax(params: Dict) -> Dict[str, Any]:
     def array(t):
         return t.detach().cpu().numpy()
 
+    if "segments" in params:
+        return tree_map(array, params)
     if "experts" not in params:
         return _map_trunk(params, lambda t: array(t.squeeze(1)),
                           lambda t: array(t.squeeze(0)))

@@ -37,6 +37,8 @@ SIGNATURES = {
                         + [_L] * 9 + [_I, _I, _F, _F, _P]),
     "moe_gemm": ("grouped_gemm",
                  [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P]),
+    "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _I, _L, _F, _I, _P]),
+    "ssd": ("ssd_fwd", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,79 @@
+"""Serving launcher: the long-running inference service Mirage keeps alive
+(port of ``repro.launch.serve``).
+
+Draws seeded random weights on the device, then serves a stream of
+synthetic requests (6-token prompts) through the slot-based engine until
+every request is done or the wall-clock guard fires.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      [--smoke] [--requests 8] [--device cpu]
+
+It runs on CUDA unless ``--device cpu`` is given. Restoring weights from a
+checkpoint (``--ckpt-dir``) waits for the port of ``train/checkpoint.py``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+
+def main(argv: Optional[List[str]] = None) -> Dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--s-max", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--wall-limit", type=float, default=None)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    if args.ckpt_dir:
+        raise NotImplementedError("--ckpt-dir: train/checkpoint.py is not "
+                                  "ported yet")
+
+    import numpy as np
+    import torch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import registry, transformer
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import PreemptionGuard
+
+    dev = resolve_device(args.device)
+    cfg = registry.get_config(args.arch, smoke=args.smoke)
+    params = transformer.init(torch.Generator(device=dev).manual_seed(0), cfg)
+
+    guard = PreemptionGuard(args.wall_limit, grace_s=5.0,
+                            install_signals=False)
+    eng = ServeEngine(cfg, params, batch=args.batch, s_max=args.s_max,
+                      device=dev)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for rid in range(args.requests):
+        prompt = [int(t) for t in rng.integers(0, cfg.vocab_size, 6)]
+        reqs.append(Request(rid=rid, prompt=prompt, max_new=args.max_new))
+        eng.add_request(reqs[-1])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)     # the weights are drawn
+    t0 = time.perf_counter()
+    served_tokens = 0
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        if guard.should_stop():
+            print("[serve] wall limit — stop and hand off")
+            break
+        served_tokens += eng.step()
+    dt = time.perf_counter() - t0
+    done = sum(r.done for r in reqs)
+    print(f"[serve] {served_tokens} tokens in {dt:.1f}s "
+          f"({served_tokens / max(dt, 1e-9):.1f} tok/s); "
+          f"{done}/{len(reqs)} requests done")
+    return {"arch": cfg.arch_id, "device": str(dev), "requests": len(reqs),
+            "done": done, "tokens": served_tokens, "seconds": dt,
+            "tokens_per_s": served_tokens / max(dt, 1e-9)}
+
+
+if __name__ == "__main__":
+    main()

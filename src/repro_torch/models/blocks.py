@@ -1,18 +1,28 @@
-"""Block assembly (port of ``repro.models.blocks``, serving subset: dense
-attention + MLP blocks in ``forward`` mode, over a leading expert axis)."""
+"""Block assembly (port of ``repro.models.blocks``, serving subset): dense
+attention + MLP blocks in ``forward`` mode over a leading expert axis (the
+agent), and Mamba2 SSD blocks in all three modes (the LM).
+
+Modes: ``forward`` (no cache), ``prefill`` (cache fill), ``decode`` (one
+token, cache update). Attention blocks have no KV cache in the port yet,
+so they raise in ``prefill`` and ``decode``.
+"""
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .common import ModelConfig
 from . import attention as attn_mod
+from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
 
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                lead: Sequence[int] = ()) -> Dict:
+    if kind == "mamba":
+        return {"ln": init_norm(cfg, lead=lead),
+                "mamba": ssm_mod.init_mamba(gen, cfg, lead)}
     if kind != "dense":
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     return {"ln1": init_norm(cfg, lead=lead), "ln2": init_norm(cfg, lead=lead),
@@ -21,9 +31,22 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
 
 
 def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
-                positions, mode: str = "forward"
-                ) -> Tuple[torch.Tensor, torch.Tensor, None]:
-    """x: (E, N, S, d). Returns (x_out, aux_loss, cache_out=None)."""
+                positions, mode: str = "forward", cache: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, float, Optional[Dict]]:
+    """x: (B, S, d) for the LM, (E, N, S, d) for the agent. Returns
+    (x_out, aux_loss, cache_out); the aux loss is the MoE router's, 0.0 for
+    every ported block, so it stays a Python number and costs no launch."""
+    aux = 0.0
+    if kind == "mamba":
+        h = apply_norm(params["ln"], x, cfg)
+        if mode == "decode":
+            y, cache = ssm_mod.mamba_decode(params["mamba"], h, cfg, cache)
+        elif mode == "prefill":
+            # prefill fills the SSM state cache with the final state
+            y, cache = ssm_mod.mamba_prefill(params["mamba"], h, cfg, cache)
+        else:
+            y = ssm_mod.mamba_forward(params["mamba"], h, cfg)
+        return x + y, aux, cache
     if kind != "dense" or mode != "forward":
         raise NotImplementedError(f"block {kind!r} in mode {mode!r} is not "
                                   "ported")
@@ -31,4 +54,12 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     x = x + attn_mod.attn_forward(params["attn"], h, cfg, positions)
     h = apply_norm(params["ln2"], x, cfg)
     x = x + apply_mlp(params["ffn"], h, cfg)
-    return x, torch.zeros((), device=x.device), None
+    return x, aux, None
+
+
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, s_cache: int,
+                     dtype=None, device=None) -> Dict:
+    if kind == "mamba":
+        return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+    raise NotImplementedError(f"{kind!r} blocks have no decode cache in the "
+                              "port until attention decode is ported")

@@ -1,10 +1,13 @@
-"""Normalization and MLP layers (port of ``repro.models.layers``, serving
-subset).
+"""Normalization, MLP and embedding layers (port of
+``repro.models.layers``, serving subset).
 
 Parameters are nested dicts of tensors whose leading axes (``lead``) stack
-experts and layers; each ``init_*`` draws from an explicit
-``torch.Generator``. Every weight product goes through the grouped-GEMM
-kernel over the leading expert axis.
+layers and, for the agent, experts; each ``init_*`` draws from an explicit
+``torch.Generator``, on the generator's device. The agent's MLP products go
+through the grouped-GEMM kernel over the leading expert axis; the RMS
+branch of ``apply_norm`` goes through the RMSNorm kernel. The LM's
+embedding lookup and fp32 logits are plain PyTorch, as the reference left
+them to XLA.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gemm import grouped_gemm
+from repro_torch.kernels.rmsnorm import rmsnorm
 from .common import ModelConfig
 
 
@@ -24,9 +28,18 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dims, dtype,
     """Fan-in scaled truncated normal (±2σ) of shape lead + (in, *out)."""
     if isinstance(out_dims, int):
         out_dims = (out_dims,)
-    w = torch.empty(tuple(lead) + (in_dim,) + tuple(out_dims))
+    w = torch.empty(tuple(lead) + (in_dim,) + tuple(out_dims),
+                    device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int,
+               dtype) -> torch.Tensor:
+    """Unit truncated normal (±2σ) of shape (vocab, dim)."""
+    w = torch.empty((vocab, dim), device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w.to(dtype)
 
 
 # ----------------------------------------------------------------------- norm
@@ -46,19 +59,23 @@ def _expand(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_norm(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm / LayerNorm in fp32, cast back to the input dtype."""
+    """RMSNorm / LayerNorm in fp32, cast back to the input dtype. RMSNorm
+    is the RMSNorm kernel (its scale has no expert axis); LayerNorm, which
+    no TPU kernel computes, is plain PyTorch."""
+    if cfg.norm_style != "layer":
+        scale = params["scale"]
+        if scale.ndim != 1:
+            raise NotImplementedError("RMSNorm over an expert axis is not "
+                                      "ported")
+        return rmsnorm(x, scale, eps=cfg.norm_eps, gemma=cfg.gemma_norm,
+                       device=x.device)
     dtype = x.dtype
     x = x.float()
-    scale = _expand(params["scale"].float(), x)
-    if cfg.norm_style == "layer":
-        mu = x.mean(dim=-1, keepdim=True)
-        var = (x - mu).square().mean(dim=-1, keepdim=True)
-        y = (x - mu) * torch.rsqrt(var + cfg.norm_eps)
-        return (y * scale + _expand(params["bias"].float(), x)).to(dtype)
-    y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    if cfg.gemma_norm:
-        scale = 1.0 + scale
-    return (y * scale).to(dtype)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + cfg.norm_eps)
+    return (y * _expand(params["scale"].float(), x)
+            + _expand(params["bias"].float(), x)).to(dtype)
 
 
 # ------------------------------------------------------------------------ mlp
@@ -99,3 +116,38 @@ def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "bo" in params:
         out = out + params["bo"].to(cfg.cdtype).unsqueeze(1)
     return out.reshape(x.shape)
+
+
+# ------------------------------------------------------------------ embedding
+def init_embedding(gen: torch.Generator, cfg: ModelConfig):
+    return {"table": embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype)}
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """Rows of the table in the compute dtype (gathered, then cast: the
+    same values as the reference's cast-then-take)."""
+    x = params["table"][tokens].to(cfg.cdtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
+    return x
+
+
+def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,
+              embed_params=None) -> torch.Tensor:
+    """Final projection to the (padded) vocab: fp32 logits from an fp32
+    product (PyTorch's default matmul precision, no TF32)."""
+    if cfg.tie_embeddings:
+        logits = x.float() @ embed_params["table"].float().T
+    else:
+        logits = x.float() @ params["head"].float()
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def init_lm_head(gen: torch.Generator, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return {}
+    return {"head": dense_init(gen, cfg.d_model, cfg.vocab, cfg.pdtype)}

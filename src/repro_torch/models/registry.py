@@ -1,0 +1,26 @@
+"""Architecture registry (port of ``repro.models.registry``): ``--arch <id>``
+resolution for the architectures the port runs. The reference's dry-run
+shape specs (``SHAPES``, ``input_specs``) describe JAX lowering and are not
+ported."""
+from __future__ import annotations
+
+import importlib
+from typing import Tuple
+
+from .common import ModelConfig
+
+_ARCH_MODULES = {
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "mirage-agent": "repro_torch.configs.mirage_agent",
+}
+
+
+def list_archs() -> Tuple[str, ...]:
+    return tuple(_ARCH_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(_ARCH_MODULES[arch])
+    return mod.SMOKE if smoke else mod.CONFIG

@@ -24,7 +24,11 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = ["analysis/cow.py", "sim/trace.py", "sim/cluster.py", "sim/faults.py",
           "sim/simulator.py", "sim/timeline.py", "sim/workload.py",
           "sim/scenarios.py", "core/state.py", "core/reward.py",
-          "core/provisioner.py", "core/policy.py", "core/baselines.py"]
+          "core/provisioner.py", "core/policy.py", "core/baselines.py",
+          "train/fault.py"]
+# copies that drop parts of their original (the rest must keep its length)
+PARTIAL = ("sim/scenarios.py",       # co-tenancy
+           "train/fault.py")         # PreemptionGuard only
 HOUR = 3600.0
 
 
@@ -38,7 +42,7 @@ def test_copy_is_original_minus_dropped_lines(path):
     for ln in copy:
         want = re.sub(r"^(\s*from )repro_torch\.", r"\1repro.", ln)
         assert any(o == want for o in it), f"{path}: {ln!r} not in original"
-    if path != "sim/scenarios.py":      # co-tenancy dropped there only
+    if path not in PARTIAL:
         assert len(copy) == len(orig)
 
 
@@ -84,6 +88,18 @@ def test_reactive_eval_bit_identical():
                                     tcore.ReactivePolicy(), episodes=5, seed=2)
     assert tres.summary()["n_episodes"] == 5
     assert vars(jres) == vars(tres)
+
+
+def test_preemption_guard_copy_behaves():
+    from repro.train.fault import PreemptionGuard as JGuard
+    from repro_torch.train import PreemptionGuard as TGuard
+    for guard in (JGuard, TGuard):
+        g = guard(wall_limit_s=None, install_signals=False)
+        assert not g.should_stop()
+        g.trigger()
+        assert g.should_stop()
+        assert guard(wall_limit_s=1.0, grace_s=2.0,
+                     install_signals=False).should_stop()
 
 
 def test_scenario_registry_matches():

@@ -42,7 +42,7 @@ def test_imports_without_jax_or_repro():
                           str(ROOT / "chip_smoke.py")], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30       # every module imported
+    assert int(out.stdout.split()[-1]) >= 45       # every module imported
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -60,10 +60,24 @@ def _entry_points():
                                   init_foundation)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gemm import expert_mlp, grouped_gemm
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.configs import mamba2_1_3b
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
     fc = FoundationConfig().reduced()
     x = torch.zeros(1, 4, 8)
     q = torch.zeros(1, 4, 2, 16)
+    h = torch.zeros(2)
+    s = torch.zeros(1, 4, 2, 16)
+    b = torch.zeros(1, 4, 1, 8)
     return {
+        "rmsnorm": lambda: rmsnorm(x, torch.ones(8)),
+        "ssd": lambda: ssd(s, torch.zeros(1, 4, 2), h, b, b, h, 4),
+        "init_cache": lambda: transformer.init_cache(mamba2_1_3b.SMOKE, 1, 8),
+        "ServeEngine": lambda: ServeEngine(mamba2_1_3b.SMOKE, {}),
+        "launch.serve": lambda: serve.main(["--smoke", "--requests", "1"]),
         "DQNLearner": lambda: DQNLearner(fc, DQNConfig()),
         "init_foundation": lambda: init_foundation(torch.Generator(), fc),
         "flash_attention": lambda: flash_attention(q, q, q),
@@ -77,7 +91,9 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["DQNLearner", "init_foundation",
                                   "flash_attention", "grouped_gemm",
-                                  "expert_mlp", "from_jax"])
+                                  "expert_mlp", "from_jax", "rmsnorm", "ssd",
+                                  "init_cache", "ServeEngine",
+                                  "launch.serve"])
 def test_entry_points_default_to_cuda(name):
     """Without ``device=`` an entry point asks for CUDA: where there is no
     card it raises rather than running on the CPU."""
