@@ -10,15 +10,18 @@ exits non-zero:
    every kernel in ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel);
 2. each kernel against its plain PyTorch version on the card, at the
-   serving paths' shapes and at ragged ones, with the tolerance stated;
+   serving paths' shapes and at ragged ones, with the tolerance stated; for
+   flash and the GEMM, each case checks through the launch counters which
+   variant ran (bf16 on the tensor cores, fp32 and unaligned inputs on the
+   CUDA cores);
 3. the agent's serving path at its full published width: ``evaluate_batch``
    over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
    with the flash and GEMM launch counts checked against decisions x
-   layers x launches per layer, the Q-values of the kernel path held
-   against the plain path on the CPU, and each learner's decision batch on
-   the first observation under torch.profiler (device-busy share, device
-   time per kernel);
+   layers x launches per layer, every one of them on the tensor cores, the
+   Q-values of the kernel path held against the plain path on the CPU, and
+   each learner's decision batch on the first observation under
+   torch.profiler (device-busy share, device time per kernel);
 4. the payload LM's serving path, Mamba2-1.3B at its full published width
    with seeded random weights drawn on the card: ``make_prefill_step`` on
    4 prompts of 2048 tokens and 32 greedy ``make_serve_step`` decode steps
@@ -30,7 +33,12 @@ exits non-zero:
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
-   (its bound).
+   (its bound); for flash and the GEMM also the variant that ran (by the
+   launch counters of the timed calls), the CUDA-core variant's time at
+   the same shape, the wrapper's host time per call, and the time without
+   the card's lead (the ruler of earlier runs, see ``time_ms``); and
+   flash's streaming form at a long sequence beside its CUDA-core variant
+   and the library call.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -60,8 +68,12 @@ from repro_torch.core import (DQNConfig, DQNLearner,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    _launch as flash_launch)
 from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
                                           grouped_gemm_ref)
+from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
+    _launch as gemm_launch)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd import ssd, ssd_ref  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
@@ -77,6 +89,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12
 L2_FLUSH_BYTES = 256 << 20     # written before each timed launch (L2: 50 MB)
+HOST_LEAD_CYCLES = 200_000_000  # the card's sleep before a timed loop, ~0.1 s
 
 LANES = 32                                  # lockstep episodes per chunk
 HISTORY = 144
@@ -162,44 +175,92 @@ def _err(out, ref, atol, rtol, what):
     return err
 
 
+def _run_variant(kernel, variant: str, name: str, fn):
+    """``fn()``, synchronised, after checking through the kernel's counters
+    that it launched once and ran ``variant``."""
+    n, n_tc = kernel.launches, kernel.tc_launches
+    out = fn()
+    torch.cuda.synchronize()
+    ran = (kernel.launches - n, kernel.tc_launches - n_tc)
+    if ran != (1, int(variant == "tc")):
+        raise RuntimeError(f"{name}: expected one {variant} launch, counted "
+                           f"{ran} (launches, tensor-core launches)")
+    return out
+
+
 def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     B = 2 * LANES * mirage_agent.N_EXPERTS
     errs = {}
+    # flash: both variants (bf16 on the tensor cores, fp32 on the CUDA
+    # cores), every head dim's tensor-core path, and q, k, v as strided views
+    # of one fused (B, S, 3, H, D) tensor
     cases = [
         ("flash agent (640,144,8,32) bf16", dict(causal=False),
-         (B, HISTORY, HISTORY, 8, 8, 32, torch.bfloat16), BF16_TOL, BF16_TOL),
+         (B, HISTORY, HISTORY, 8, 8, 32, torch.bfloat16), "tc", BF16_TOL,
+         BF16_TOL),
+        ("flash causal GQA window softcap (2,97|131,8/2,64) bf16",
+         dict(causal=True, window=40, softcap=30.0),
+         (2, 97, 131, 8, 2, 64, torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
         ("flash causal GQA window softcap (2,97|131,8/2,64) fp32",
          dict(causal=True, window=40, softcap=30.0),
-         (2, 97, 131, 8, 2, 64, torch.float32), FP32_FLASH_TOL, 0.0),
+         (2, 97, 131, 8, 2, 64, torch.float32), "simt", FP32_FLASH_TOL, 0.0),
+        ("flash (3,50,4,16) bf16", dict(causal=False),
+         (3, 50, 50, 4, 4, 16, torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
         ("flash causal (1,200,4,128) bf16", dict(causal=True),
-         (1, 200, 200, 4, 4, 128, torch.bfloat16), BF16_TOL, BF16_TOL),
+         (1, 200, 200, 4, 4, 128, torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
+        ("flash fused qkv views (2,77,3,4,64) bf16", dict(causal=True),
+         "fused", "tc", BF16_TOL, BF16_TOL),
     ]
-    for name, opts, shape, atol, rtol in cases:
-        q, k, v = flash_inputs(gen, *shape)
-        out = flash_attention(q, k, v, **opts)
-        torch.cuda.synchronize()
+    for name, opts, shape, variant, atol, rtol in cases:
+        if shape == "fused":
+            q, k, v = _randn(gen, (2, 77, 3, 4, 64), torch.bfloat16).unbind(2)
+        else:
+            q, k, v = flash_inputs(gen, *shape)
+        out = _run_variant(flash_attention, variant, name,
+                           lambda: flash_attention(q, k, v, **opts))
         err = _err(out, flash_attention_ref(q, k, v, **opts), atol, rtol, name)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0), err)
-        line("check", case=name, max_abs_err=err, atol=atol, rtol=rtol)
-    # every projection shape of the trunk (q, k, v, o; ffn in; ffn out)
+        line("check", case=name, variant=variant, max_abs_err=err, atol=atol,
+             rtol=rtol)
+    # the GEMM: every projection shape of the trunk (q, k, v, o; ffn in;
+    # ffn out) and a ragged one on the tensor cores, expert_mlp's strided
+    # gate view, and on the CUDA cores fp32 and an f (53) under TMA's
+    # 16-byte rule
     E, C = mirage_agent.N_EXPERTS, 2 * LANES * HISTORY
     d, f = TRUNK.d_model, TRUNK.d_ff
     cases = [(f"gemm ({E},{C},{a})x({E},{a},{b}) bf16",
-              (E, C, a, b, torch.bfloat16), BF16_TOL, BF16_TOL)
+              (E, C, a, b, torch.bfloat16), "tc", BF16_TOL)
              for a, b in ((d, d), (d, f), (f, d))]
-    cases.append(("gemm (10,300,41)x(10,41,256) fp32",
-                  (10, 300, 41, 256, torch.float32), FP32_GEMM_TOL,
-                  FP32_GEMM_TOL))
-    for name, shape, atol, rtol in cases:
-        x, w = gemm_inputs(gen, *shape)
-        out = grouped_gemm(x, w)
-        torch.cuda.synchronize()
-        err = _err(out, grouped_gemm_ref(x, w), atol, rtol, name)
+    cases += [
+        (f"gemm trunk layout, x stored ({C},{E},{d}) bf16", "rows", "tc",
+         BF16_TOL),
+        ("gemm ragged (3,1001,200)x(3,200,136) bf16",
+         (3, 1001, 200, 136, torch.bfloat16), "tc", BF16_TOL),
+        (f"gemm gate view wi[:, :, 0, :] of (3,{d},2,{f}), C=1000 bf16",
+         "gate", "tc", BF16_TOL),
+        ("gemm (10,300,41)x(10,41,256) fp32",
+         (10, 300, 41, 256, torch.float32), "simt", FP32_GEMM_TOL),
+        ("gemm unaligned (1,37,1024)x(1,1024,53) bf16",
+         (1, 37, 1024, 53, torch.bfloat16), "simt", BF16_TOL),
+    ]
+    for name, shape, variant, tol in cases:
+        if shape == "gate":
+            x, wi = gemm_inputs(gen, 3, 1000, d, 2 * f, torch.bfloat16)
+            w = wi.view(3, d, 2, f)[:, :, 0, :]
+        elif shape == "rows":     # the expert axis inside the rows
+            x, w = gemm_inputs(gen, E, C, d, d, torch.bfloat16)
+            x = x.transpose(0, 1).contiguous().transpose(0, 1)
+        else:
+            x, w = gemm_inputs(gen, *shape)
+        out = _run_variant(grouped_gemm, variant, name,
+                           lambda: grouped_gemm(x, w))
+        err = _err(out, grouped_gemm_ref(x, w), tol, tol, name)
         errs["grouped_gemm"] = max(errs.get("grouped_gemm", 0.0), err)
-        line("check", case=name, max_abs_err=err, atol=atol, rtol=rtol)
+        line("check", case=name, variant=variant, max_abs_err=err, atol=tol,
+             rtol=tol)
         del x, w, out
     # the Mamba2-1.3B norms: prefill rows (4 x 2048) of d_model and d_inner,
     # a decode step's 4 rows, and a ragged fp32 gemma case
@@ -263,25 +324,34 @@ class TimedPolicy(Policy):
 
 
 def serve(venv, name, policy, kernel_path: bool):
+    """``evaluate_batch`` of ``policy`` over LANES lockstep episodes. On the
+    kernel path every flash and GEMM launch must have run the tensor-core
+    variant, decisions x layers x launches per layer of each."""
     timed = TimedPolicy(policy)
-    flash_attention.launches = grouped_gemm.launches = 0
+    kernels = (flash_attention, grouped_gemm)
+    for kern in kernels:
+        kern.launches = kern.tc_launches = 0
     t0 = time.perf_counter()
     res = evaluate_batch(venv, timed, seed=1)
     wall = time.perf_counter() - t0
-    flash, gemm = flash_attention.launches, grouped_gemm.launches
+    (flash, flash_tc), (gemm, gemm_tc) = ((k.launches, k.tc_launches)
+                                          for k in kernels)
     decisions = len(timed.ms)
     layers = TRUNK.n_layers if kernel_path else 0
     if (kernel_path and not flash) or \
             flash != decisions * layers * FLASH_PER_LAYER or \
-            gemm != decisions * layers * GEMMS_PER_LAYER:
-        raise RuntimeError(f"{name}: {flash} flash and {gemm} GEMM launches "
-                           f"for {decisions} decision batches")
+            gemm != decisions * layers * GEMMS_PER_LAYER or \
+            (flash_tc, gemm_tc) != (flash, gemm):
+        raise RuntimeError(f"{name}: {flash} flash ({flash_tc} on the tensor "
+                           f"cores) and {gemm} GEMM ({gemm_tc}) launches for "
+                           f"{decisions} decision batches")
     summary = res.summary()
     if summary["n_episodes"] != LANES:
         raise RuntimeError(f"{name}: {summary['n_episodes']} episodes")
     ms = np.asarray(timed.ms)
     line("serve", method=name, summary=summary, decision_batches=decisions,
-         flash_launches=flash, gemm_launches=gemm,
+         flash_launches=flash, flash_tc_launches=flash_tc,
+         gemm_launches=gemm, gemm_tc_launches=gemm_tc,
          ms_per_decision_mean=float(ms.mean()),
          ms_per_decision_p50=float(np.percentile(ms, 50)),
          ms_per_decision_p99=float(np.percentile(ms, 99)),
@@ -549,18 +619,25 @@ def phase_lm() -> dict:
 
 
 # ------------------------------------------------------------ 5. timing
-def time_ms(fn, reps=20, warmup=3, flush=True) -> float:
+def time_ms(fn, reps=20, warmup=3, flush=True, lead=True) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` calls, one event pair
     around each. With ``flush`` a 256 MB buffer is written before each call
     (outside its events), so every call finds the 50 MB L2 cold, as a
     serving step does its inputs; without it the calls run back to back
-    and a repeat may find its inputs still cached."""
+    and a repeat may find its inputs still cached. The card first sleeps
+    for ``HOST_LEAD_CYCLES``, while the host queues every call: an event
+    pair then brackets the kernel's device time alone, not a wait for the
+    host to launch it (a wrapper's host cost is tens of microseconds,
+    as long as a short kernel). Without ``lead`` the host queues each call
+    as the card runs the one before, and a pair may hold host gaps."""
     buf = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if flush else None
     for _ in range(warmup):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda.synchronize()
+    if lead:
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
     for start, end in pairs:
         if flush:
             buf.zero_()
@@ -569,6 +646,31 @@ def time_ms(fn, reps=20, warmup=3, flush=True) -> float:
         end.record()
     torch.cuda.synchronize()
     return sum(s_.elapsed_time(e) for s_, e in pairs) / reps
+
+
+def timed_variant(kernel, fn, **kw):
+    """``time_ms(fn)`` and the variant that its launches of ``kernel`` ran,
+    read from the kernel's counters."""
+    n, n_tc = kernel.launches, kernel.tc_launches
+    ms = time_ms(fn, **kw)
+    n, n_tc = kernel.launches - n, kernel.tc_launches - n_tc
+    if not n:
+        raise RuntimeError(f"{kernel.__name__}: the timed calls launched nothing")
+    return ms, ("tc" if n_tc == n else "simt" if not n_tc else "mixed")
+
+
+def host_us(fn, reps=50) -> float:
+    """Host wall time per call of ``fn`` in microseconds, while the card
+    sleeps, so that no call waits for a queue slot."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_LEAD_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
@@ -599,13 +701,21 @@ def phase_timing(errs: dict, launches: dict) -> list:
     H, D = TRUNK.n_heads, TRUNK.hd
     q, k, v = flash_inputs(gen, B, HISTORY, HISTORY, H, H, D, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    t = {"ms": time_ms(lambda: flash_attention(q, k, v, causal=False)),
+    ms, variant = timed_variant(flash_attention,
+                                lambda: flash_attention(q, k, v, causal=False))
+    t = {"ms": ms,
          "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, causal=False),
                              reps=5),
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=False))}
-    warm_ms = time_ms(lambda: flash_attention(q, k, v, causal=False),
-                      flush=False)
+    t["simt_ms"] = time_ms(lambda: flash_launch(
+        q, k, v, "simt", causal=False, window=0, softcap=0.0, scale=D ** -0.5),
+        reps=5)
+    extra = {"ms_l2_warm": time_ms(lambda: flash_attention(q, k, v, causal=False),
+                                   flush=False),
+             "ms_no_lead": time_ms(lambda: flash_attention(q, k, v, causal=False),
+                                   lead=False),
+             "host_us": host_us(lambda: flash_attention(q, k, v, causal=False))}
     nbytes = 4 * q.numel() * q.element_size()          # q, k, v read; o written
     flops = 4 * B * H * HISTORY * HISTORY * D          # q.k^T and p.v
     bms, by = bound_ms(nbytes, flops)
@@ -615,27 +725,55 @@ def phase_timing(errs: dict, launches: dict) -> list:
         replaces="src/repro/kernels/flash_attention/kernel.py:33",
         launches=launches["flash_attention"],
         max_abs_err=errs["flash_attention"], bound_ms=bms, bound_by=by,
+        variant=variant,
         shape="q,k,v (640,144,8,32) bf16, non-causal: one trunk layer", **t)
-    line("time", **flash_rec, ms_l2_warm=warm_ms)
+    line("time", **flash_rec, **extra)
+    del q, k, v, qt, kt, vt
+
+    # flash's streaming form (double-buffered K/V tiles), which sequences
+    # too long for the short form take: on no serving path here, so timed
+    # at a long causal LM shape beside the CUDA-core variant and SDPA
+    Bl, Sl, Hl, Dl = 4, 1024, 8, 128
+    q, k, v = flash_inputs(gen, Bl, Sl, Sl, Hl, Hl, Dl, torch.bfloat16)
+    qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
+    ms, form_variant = timed_variant(flash_attention,
+                                     lambda: flash_attention(q, k, v))
+    pairs = Bl * Hl * Sl * (Sl + 1) // 2               # causal triangle
+    line("time", name="flash_attention streaming form",
+         shape=f"q,k,v ({Bl},{Sl},{Hl},{Dl}) bf16, causal", variant=form_variant,
+         ms=ms, simt_ms=time_ms(lambda: flash_launch(
+             q, k, v, "simt", causal=True, window=0, softcap=0.0,
+             scale=Dl ** -0.5), reps=5),
+         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True)),
+         bound_ms=bound_ms(4 * q.numel() * q.element_size(),
+                           4 * pairs * Dl)[0])
     del q, k, v, qt, kt, vt
 
     # one trunk layer's six projections at E=10, C = 2 actions x 32 lanes x 144
     C, d, f = 2 * LANES * HISTORY, TRUNK.d_model, TRUNK.d_ff
     per_layer = [(d, d)] * 4 + [(d, f), (f, d)]
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    nbytes = flops = warm_ms = 0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "simt_ms": 0.0}
+    extra = {"ms_l2_warm": 0.0, "ms_no_lead": 0.0, "host_us": 0.0}
+    nbytes = flops = 0
+    variants = set()
     for din, dout in per_layer:
         x, w = gemm_inputs(gen, mirage_agent.N_EXPERTS, C, din, dout,
                            torch.bfloat16)
-        one = {"ms": time_ms(lambda: grouped_gemm(x, w)),
+        ms, variant = timed_variant(grouped_gemm, lambda: grouped_gemm(x, w))
+        one = {"ms": ms,
                "plain_ms": time_ms(lambda: grouped_gemm_ref(x, w), reps=5),
-               "library_ms": time_ms(lambda: torch.bmm(x, w))}
-        warm_ms += time_ms(lambda: grouped_gemm(x, w), flush=False)
+               "library_ms": time_ms(lambda: torch.bmm(x, w)),
+               "simt_ms": time_ms(lambda: gemm_launch(x, w, "simt"), reps=3)}
+        extra["ms_l2_warm"] += time_ms(lambda: grouped_gemm(x, w), flush=False)
+        extra["ms_no_lead"] += time_ms(lambda: grouped_gemm(x, w), lead=False)
+        extra["host_us"] += host_us(lambda: grouped_gemm(x, w))
         b = (x.numel() + w.numel() + x.shape[0] * C * dout) * x.element_size()
         fl = 2 * x.shape[0] * C * din * dout
         line("time", name="grouped_gemm", shape=f"({x.shape[0]},{C},{din})x"
-             f"({x.shape[0]},{din},{dout}) bf16", bound_ms=bound_ms(b, fl)[0],
-             **one)
+             f"({x.shape[0]},{din},{dout}) bf16", variant=variant,
+             bound_ms=bound_ms(b, fl)[0], **one)
+        variants.add(variant)
         for key in tot:
             tot[key] += one[key]
         nbytes, flops = nbytes + b, flops + fl
@@ -646,8 +784,9 @@ def phase_timing(errs: dict, launches: dict) -> list:
         replaces="src/repro/kernels/moe_gemm/kernel.py:23",
         launches=launches["grouped_gemm"], max_abs_err=errs["grouped_gemm"],
         bound_ms=bms, bound_by=by,
+        variant=variants.pop() if len(variants) == 1 else "mixed",
         shape="the 6 projections of one trunk layer, E=10, C=9216, bf16", **tot)
-    line("time", **gemm_rec, ms_l2_warm=warm_ms)
+    line("time", **gemm_rec, **extra)
 
     # the two norms of one Mamba2 layer at prefill: the block's pre-norm
     # over d_model and out_norm over d_inner, 4 x 2048 rows, bf16, w fp32

@@ -28,15 +28,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# variant codes of the kernels that have two: the CUDA-core kernel and the
+# tensor-core one
+VARIANT_CODES = {"simt": 0, "tc": 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each library's entry point: (function, argtypes)
 SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I]
-                        + [_L] * 9 + [_I, _I, _F, _F, _P]),
-    "moe_gemm": ("grouped_gemm",
-                 [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _P]),
+                        [_P] * 4 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]),
+    "moe_gemm": ("grouped_gemm", [_P] * 3 + [_I] * 6 + [_L] * 4 + [_P]),
     "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _I, _L, _F, _I, _P]),
     "ssd": ("ssd_fwd", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_P]),
 }

@@ -2,8 +2,10 @@
 
 Port of ``repro/kernels/flash_attention`` (``_fwd_kernel`` in kernel.py,
 the (B, S, H, D) layout wrapper in ops.py). The kernel is
-``repro_torch/csrc/flash_attention.cu``; its note says what bounds it on
-the H100 and how the design answers that.
+``repro_torch/csrc/flash_attention.cu``, in two variants: bf16 on the
+tensor cores (``mma.sync``, ``cp.async`` loads) and a CUDA-core one for
+fp32 and for unaligned views. Its note says what bounds it on the H100 and
+how the design answers that.
 """
 from __future__ import annotations
 
@@ -62,34 +64,68 @@ def _check(q, k, v):
         raise ValueError("q, k, v need unit stride on the head dim")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    scale=None, device=None):
-    """Model-layout entry: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (B,Sq,Hq,D).
+def _row_strides(t):
+    """A (B, S, H, D) tensor's batch, sequence and head strides, 0 for an
+    axis of length 1 (the kernel never steps along it)."""
+    return [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
 
-    CUDA tensors launch the kernel (strided inputs are read in place);
-    CPU tensors, with ``device="cpu"``, run ``flash_attention_ref``."""
-    dev = resolve_device(device)
-    check_on(dev, q, k, v)
-    _check(q, k, v)
+
+def _flash_variant(q, k, v) -> str:
+    """The kernel a CUDA launch runs, chosen from the inputs alone: "tc"
+    (tensor cores, 16-byte copies) for bfloat16 whose rows start on 16-byte
+    boundaries -- every stride a multiple of 8 elements, 16-byte-aligned
+    data -- else "simt" (fp32 stays off the tensor cores: TF32 would break
+    its 3e-5 bound)."""
+    if q.dtype != torch.bfloat16:
+        return "simt"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(s % 8 for s in _row_strides(t)):
+            return "simt"
+    return "tc"
+
+
+def _launch(q, k, v, variant: str, *, causal, window, softcap, scale):
+    """Run ``variant`` of the kernel on CUDA tensors q, k, v (checked by the
+    caller) and return out; counts nothing."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    scale = scale or 1.0 / math.sqrt(D)
-    if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     fn = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _build.DTYPE_CODES[q.dtype], B, Hq, Hkv, Sq, Skv, D,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[variant],
+                 B, Hq, Hkv, Sq, Skv, D,
+                 *_row_strides(q), *_row_strides(k), *_row_strides(v),
                  int(bool(causal)), int(window), float(softcap), float(scale),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)
-    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
+                    scale=None, device=None):
+    """Model-layout entry: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (B,Sq,Hq,D).
+
+    CUDA tensors launch the kernel variant that ``_flash_variant`` names
+    (strided inputs are read in place); CPU tensors, with
+    ``device="cpu"``, run ``flash_attention_ref``."""
+    dev = resolve_device(device)
+    check_on(dev, q, k, v)
+    _check(q, k, v)
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    variant = _flash_variant(q, k, v)
+    out = _launch(q, k, v, variant, causal=causal, window=window,
+                  softcap=softcap, scale=scale)
+    if out.numel():                     # an empty out launches nothing
+        flash_attention.launches += 1
+        flash_attention.tc_launches += variant == "tc"
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0

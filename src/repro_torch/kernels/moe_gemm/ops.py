@@ -3,8 +3,10 @@ the public wrappers built on it.
 
 Port of ``repro/kernels/moe_gemm`` (``_gemm_kernel`` in kernel.py;
 ``moe_grouped_gemm`` and ``expert_mlp`` in ops.py). The kernel is
-``repro_torch/csrc/moe_gemm.cu``; its note says what bounds it on the H100
-and how the design answers that.
+``repro_torch/csrc/moe_gemm.cu``, in two variants: bf16 on the tensor cores
+(``wgmma`` fed by TMA) and a CUDA-core one for fp32 and for inputs that TMA
+cannot address. Its note says what bounds it on the H100 and how the design
+answers that.
 """
 from __future__ import annotations
 
@@ -21,10 +23,64 @@ def grouped_gemm_ref(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
+def _strides(x, w):
+    """(x_se, x_sc, w_se, w_sk), the stride of an axis of length 1 replaced
+    by the nested one: the kernel never steps along it, so its stride is
+    whatever the view happened to keep."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    x_sc = x.stride(1) if C > 1 else d
+    w_sk = w.stride(1) if d > 1 else f
+    return (x.stride(0) if E > 1 else C * x_sc, x_sc,
+            w.stride(0) if E > 1 else d * w_sk, w_sk)
+
+
+def _gemm_variant(x, w) -> str:
+    """The kernel a CUDA launch runs, chosen from the inputs alone: "tc"
+    (tensor cores, TMA loads) for bfloat16 that TMA can address -- d (> 0)
+    and f multiples of 8, the leading strides multiples of 8 elements, each
+    operand a view of one array in either order of its two leading axes
+    (the trunk's activations keep the expert axis inside their rows),
+    16-byte-aligned data -- else "simt"."""
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        return "simt"
+    E, C, d = x.shape
+    f = w.shape[2]
+    x_se, x_sc, w_se, w_sk = _strides(x, w)
+    if not d or d % 8 or f % 8 or any(s <= 0 or s % 8
+                                      for s in (x_se, x_sc, w_se, w_sk)):
+        return "simt"
+    for row, (inner, outer) in ((d, sorted([(x_se, E), (x_sc, C)])),
+                                (f, sorted([(w_se, E), (w_sk, d)]))):
+        if inner[0] < row or outer[0] < inner[0] * inner[1]:
+            return "simt"               # rows or axes overlap
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        return "simt"
+    return "tc"
+
+
+def _launch(x, w, variant: str):
+    """Run ``variant`` of the kernel on CUDA tensors x, w (checked by the
+    caller) and return out; counts nothing."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.load("moe_gemm")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 _build.DTYPE_CODES[x.dtype], _build.VARIANT_CODES[variant],
+                 E, C, d, f, *_strides(x, w),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check_launch("moe_gemm", err)
+    return out
+
+
 def grouped_gemm(x, w, *, device=None):
-    """out[e] = x[e] @ w[e]. CUDA tensors launch the kernel (the two
-    leading axes of x and w may be strided); CPU tensors, with
-    ``device="cpu"``, run ``grouped_gemm_ref``."""
+    """out[e] = x[e] @ w[e]. CUDA tensors launch the kernel variant that
+    ``_gemm_variant`` names (the two leading axes of x and w may be
+    strided); CPU tensors, with ``device="cpu"``, run ``grouped_gemm_ref``."""
     dev = resolve_device(device)
     check_on(dev, x, w)
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
@@ -38,23 +94,16 @@ def grouped_gemm(x, w, *, device=None):
         raise ValueError("x and w need unit stride on their last axis")
     if dev.type == "cpu":
         return grouped_gemm_ref(x, w)
-    E, C, d = x.shape
-    f = w.shape[2]
-    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    fn = _build.load("moe_gemm")
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 _build.DTYPE_CODES[x.dtype], E, C, d, f,
-                 x.stride(0), x.stride(1), w.stride(0), w.stride(1),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch("moe_gemm", err)
-    grouped_gemm.launches += 1
+    variant = _gemm_variant(x, w)
+    out = _launch(x, w, variant)
+    if out.numel():                     # an empty out launches nothing
+        grouped_gemm.launches += 1
+        grouped_gemm.tc_launches += variant == "tc"
     return out
 
 
 grouped_gemm.launches = 0
+grouped_gemm.tc_launches = 0
 
 
 def moe_grouped_gemm(x, w, *, device=None):

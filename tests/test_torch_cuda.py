@@ -7,7 +7,10 @@ test machine) and run on an H100 with
 
 This file imports nothing of JAX, so it runs where JAX is not installed.
 Shapes cover the agent's (S=144, a ragged last tile), GQA with a window and
-softcap at ragged lengths, and every supported head dim; for RMSNorm and
+softcap at ragged lengths, every supported head dim, and for flash and the
+GEMM both kernel variants (bf16 on the tensor cores; fp32 and unaligned
+views on the CUDA cores), each case asserting through the launch counters
+which one ran; for RMSNorm and
 the SSD scan, the Mamba2-1.3B serving shapes, ragged rows and chunks,
 groups and an initial state. Tolerances: fp32 3e-5 for attention, 1e-5 for
 the GEMM and RMSNorm and 5e-5 for the scan (the bounds of
@@ -42,57 +45,109 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launched(kernel, fn):
+    """Run ``fn`` and return the (launches, tc_launches) it added."""
+    n, n_tc = kernel.launches, kernel.tc_launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (kernel.launches - n, kernel.tc_launches - n_tc)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,dtype,causal,window,softcap", [
-    (2, 8, 8, 144, 144, 32, BF16, False, 0, 0.0),
-    (2, 8, 2, 97, 131, 64, FP32, True, 40, 30.0),
-    (1, 4, 4, 200, 200, 128, BF16, True, 0, 0.0),
-    (3, 4, 4, 24, 24, 16, FP32, False, 0, 0.0),
-])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Skv,D,dtype,causal,window,softcap,variant", [
+        (2, 8, 8, 144, 144, 32, BF16, False, 0, 0.0, "tc"),   # the agent's
+        (2, 8, 2, 97, 131, 64, FP32, True, 40, 30.0, "simt"),
+        (2, 8, 2, 97, 131, 64, BF16, True, 40, 30.0, "tc"),
+        (1, 4, 4, 200, 200, 128, BF16, True, 0, 0.0, "tc"),
+        (1, 2, 1, 131, 97, 128, BF16, False, 0, 0.0, "tc"),
+        (3, 4, 4, 24, 24, 16, FP32, False, 0, 0.0, "simt"),
+        (3, 4, 4, 50, 50, 16, BF16, False, 0, 0.0, "tc"),
+        (2, 4, 2, 256, 256, 32, BF16, True, 0, 0.0, "tc"),     # short form's largest
+        (2, 4, 4, 64, 64, 128, BF16, False, 0, 0.0, "tc"),
+        (1, 2, 2, 33, 300, 32, BF16, False, 100, 0.0, "tc"),   # window, Sq < Skv
+    ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
-                                    causal, window, softcap):
+                                    causal, window, softcap, variant):
     q, k, v = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in _normal(
         Sq, (B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
     opts = dict(causal=causal, window=window, softcap=softcap)
-    n = flash_attention.launches
-    out = flash_attention(q, k, v, **opts)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == n + 1
+    out, counts = _launched(flash_attention,
+                            lambda: flash_attention(q, k, v, **opts))
+    assert counts == (1, int(variant == "tc"))
     torch.testing.assert_close(out.float(), flash_attention_ref(
         q, k, v, **opts).float(), atol=3e-5 if dtype == FP32 else 2e-2,
         rtol=0 if dtype == FP32 else 2e-2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C,d,f,dtype", [
-    (10, 300, 41, 256, FP32), (10, 9216, 256, 1024, BF16),
-    (1, 37, 1024, 53, BF16)])
-def test_grouped_gemm_kernel_matches_plain(cuda, E, C, d, f, dtype):
+@pytest.mark.parametrize("layout,variant", [("fused", "tc"),
+                                            ("offset", "simt")])
+def test_flash_kernel_strided_views(cuda, layout, variant):
+    """q, k, v as views of one fused (B, S, 3, H, D) tensor (16-byte rows:
+    the tensor cores), and as views one element into a wider last axis
+    (rows off 16-byte boundaries: the CUDA-core kernel), in bf16."""
+    B, S, H, D = 2, 77, 4, 64
+    a, = _normal(5, (B, S, 3, H, D + 8))
+    t = torch.from_numpy(a).to(cuda, torch.bfloat16)
+    if layout == "fused":
+        t = t[..., :D].contiguous()
+        q, k, v = t.unbind(2)
+    else:
+        q, k, v = (t[:, :, i, :, 1:D + 1] for i in range(3))
+    out, counts = _launched(flash_attention,
+                            lambda: flash_attention(q, k, v, causal=True))
+    assert counts == (1, int(variant == "tc"))
+    torch.testing.assert_close(out.float(), flash_attention_ref(
+        q, k, v, causal=True).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f,dtype,layout,variant", [
+    (10, 300, 41, 256, FP32, "plain", "simt"),
+    (10, 9216, 256, 256, BF16, "plain", "tc"),      # the trunk's q, k, v, o
+    (10, 9216, 256, 1024, BF16, "plain", "tc"),     # its ffn in
+    (10, 9216, 1024, 256, BF16, "plain", "tc"),     # its ffn out
+    (10, 9216, 256, 256, BF16, "rows", "tc"),       # its normed activations
+    (3, 1001, 200, 136, BF16, "plain", "tc"),       # C, d and f off the tile
+    (1, 37, 1024, 53, BF16, "plain", "simt"),       # f off TMA's 16-byte rule
+    (2, 100, 64, 96, BF16, "offset", "simt"),       # x one element off 16 bytes
+])
+def test_grouped_gemm_kernel_matches_plain(cuda, E, C, d, f, dtype, layout,
+                                           variant):
+    """``layout``: "plain" contiguous x; "rows" x stored (C, E, d), the
+    expert axis inside the rows, as the trunk's activations are; "offset"
+    x one element past a 16-byte boundary."""
     torch.backends.cuda.matmul.allow_tf32 = False
     x, w = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in _normal(
         C, (E, C, d), (E, d, f), scale=d ** -0.25))
-    n = grouped_gemm.launches
-    out = grouped_gemm(x, w)
-    torch.cuda.synchronize()
-    assert grouped_gemm.launches == n + 1
+    if layout == "rows":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    elif layout == "offset":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(E, C, d)
+        assert x.data_ptr() % 16
+    out, counts = _launched(grouped_gemm, lambda: grouped_gemm(x, w))
+    assert counts == (1, int(variant == "tc"))
     tol = 1e-5 if dtype == FP32 else 2e-2
     torch.testing.assert_close(out.float(), grouped_gemm_ref(x, w).float(),
                                atol=tol, rtol=tol)
 
 
 @pytest.mark.cuda
-def test_expert_mlp_kernel_path(cuda):
+@pytest.mark.parametrize("dtype,tc", [(FP32, 0), (BF16, 3)])
+def test_expert_mlp_kernel_path(cuda, dtype, tc):
     """Three grouped-GEMM launches, the gate and up operands read as strided
-    views of wi."""
-    x, wi, wo = (torch.from_numpy(a).to(cuda) for a in _normal(
+    views of wi (w_sk = 2f): on the tensor cores in bf16."""
+    x, wi, wo = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in _normal(
         3, (3, 40, 96), (3, 96, 2, 64), (3, 64, 96), scale=0.2))
-    n = grouped_gemm.launches
-    out = expert_mlp(x, wi, wo, activation="gelu")
-    torch.cuda.synchronize()
-    assert grouped_gemm.launches == n + 3
+    out, counts = _launched(grouped_gemm, lambda: expert_mlp(
+        x, wi, wo, activation="gelu"))
+    assert counts == (3, tc)
     ref = expert_mlp(x.cpu(), wi.cpu(), wo.cpu(), activation="gelu",
                      device="cpu")
-    torch.testing.assert_close(out.cpu(), ref, atol=1e-5, rtol=1e-5)
+    tol = 1e-5 if dtype == FP32 else 2e-2
+    torch.testing.assert_close(out.cpu().float(), ref.float(), atol=tol,
+                               rtol=tol)
 
 
 @pytest.mark.cuda
@@ -181,6 +236,23 @@ def test_mamba_smoke_kernel_path(cuda):
     assert rmsnorm.launches == n_norm + 3 * (2 * L + 1)
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_empty_outputs_count_no_launch(cuda):
+    """An empty output launches nothing, and no launch is counted; a zero
+    contraction launches the CUDA-core kernel, which writes zeros."""
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    out, counts = _launched(grouped_gemm, lambda: grouped_gemm(
+        torch.zeros(2, 0, 64, **bf), torch.zeros(2, 64, 32, **bf)))
+    assert out.shape == (2, 0, 32) and counts == (0, 0)
+    out, counts = _launched(grouped_gemm, lambda: grouped_gemm(
+        torch.ones(2, 5, 0, **bf), torch.ones(2, 0, 32, **bf)))
+    assert counts == (1, 0) and not out.float().abs().max()
+    q = torch.zeros(1, 0, 2, 32, **bf)
+    out, counts = _launched(flash_attention, lambda: flash_attention(
+        q, torch.zeros(1, 4, 2, 32, **bf), torch.zeros(1, 4, 2, 32, **bf)))
+    assert out.shape == (1, 0, 2, 32) and counts == (0, 0)
 
 
 @pytest.mark.cuda
