@@ -10,10 +10,11 @@ exits non-zero:
    every kernel in ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel);
 2. each kernel against its plain PyTorch version on the card, at the
-   serving paths' shapes and at ragged ones, with the tolerance stated; for
-   flash and the GEMM, each case checks through the launch counters which
-   variant ran (bf16 on the tensor cores, fp32 and unaligned inputs on the
-   CUDA cores);
+   serving paths' shapes and at ragged ones, with the tolerance stated; each
+   case checks through the launch counters which variant ran (flash, the
+   GEMM and the SSD scan: bf16 on the tensor cores, fp32 and unaligned
+   inputs on the CUDA cores; RMSNorm: 16-byte vectors, and one element per
+   lane for rows off 16 bytes);
 3. the agent's serving path at its full published width: ``evaluate_batch``
    over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
@@ -25,7 +26,8 @@ exits non-zero:
 4. the payload LM's serving path, Mamba2-1.3B at its full published width
    with seeded random weights drawn on the card: ``make_prefill_step`` on
    4 prompts of 2048 tokens and 32 greedy ``make_serve_step`` decode steps
-   (exact RMSNorm and SSD launch counts per prefill and per step), the
+   (exact RMSNorm and SSD launch counts per prefill and per step, every
+   scan on the tensor cores and every norm vectorised), the
    first 2 layers' kernel path held against the plain path on the CPU,
    ``ServeEngine`` through ``repro_torch.launch.serve`` at the CLI's
    defaults, and a prefill and 5 decode steps under torch.profiler (one
@@ -33,12 +35,13 @@ exits non-zero:
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
-   (its bound); for flash and the GEMM also the variant that ran (by the
-   launch counters of the timed calls), the CUDA-core variant's time at
-   the same shape, the wrapper's host time per call, and the time without
-   the card's lead (the ruler of earlier runs, see ``time_ms``); and
-   flash's streaming form at a long sequence beside its CUDA-core variant
-   and the library call.
+   (its bound); for every kernel also the variant that ran (by the launch
+   counters of the timed calls), the other variant's time at the same shape
+   (``simt_ms``: the CUDA-core kernels, and RMSNorm's one element per
+   lane), the wrapper's host time per call, and the time without the card's
+   lead (the ruler of earlier runs, see ``time_ms``); flash's streaming
+   form at a long sequence beside its CUDA-core variant and the library
+   call; and RMSNorm at the decode step's 4 rows.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -75,7 +78,10 @@ from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
     _launch as gemm_launch)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
+    _launch as norm_launch)
 from repro_torch.kernels.ssd import ssd, ssd_ref  # noqa: E402
+from repro_torch.kernels.ssd.ops import _launch as ssd_launch  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.sim import get_scenario, make_vector_env  # noqa: E402
@@ -175,16 +181,24 @@ def _err(out, ref, atol, rtol, what):
     return err
 
 
+def _fast(kernel):
+    """The name of ``kernel``'s fast variant and the count of its launches:
+    16-byte vectors for RMSNorm, the tensor cores for the others."""
+    if kernel is rmsnorm:
+        return "vec", kernel.vec_launches
+    return "tc", kernel.tc_launches
+
+
 def _run_variant(kernel, variant: str, name: str, fn):
     """``fn()``, synchronised, after checking through the kernel's counters
     that it launched once and ran ``variant``."""
-    n, n_tc = kernel.launches, kernel.tc_launches
+    n, n_fast = kernel.launches, _fast(kernel)[1]
     out = fn()
     torch.cuda.synchronize()
-    ran = (kernel.launches - n, kernel.tc_launches - n_tc)
-    if ran != (1, int(variant == "tc")):
+    ran = (kernel.launches - n, _fast(kernel)[1] - n_fast)
+    if ran != (1, int(variant != "simt")):
         raise RuntimeError(f"{name}: expected one {variant} launch, counted "
-                           f"{ran} (launches, tensor-core launches)")
+                           f"{ran} (launches, {_fast(kernel)[0]} launches)")
     return out
 
 
@@ -262,44 +276,71 @@ def phase_kernels() -> dict:
         line("check", case=name, variant=variant, max_abs_err=err, atol=tol,
              rtol=tol)
         del x, w, out
-    # the Mamba2-1.3B norms: prefill rows (4 x 2048) of d_model and d_inner,
-    # a decode step's 4 rows, and a ragged fp32 gemma case
+    # the Mamba2-1.3B norms, vectorised: prefill rows (4 x 2048) of d_model
+    # and d_inner, a decode step's 4 rows, an fp32 gemma case and a ragged
+    # fp32 width; one element per lane: d = 300 in bf16 (off 16 bytes) and
+    # rows one element off a 16-byte boundary in bf16 and fp32
     d, din = LM.d_model, LM.d_inner
     cases = [(f"rmsnorm ({r},{c}) bf16, w fp32", (r, c, torch.bfloat16),
-              False, BF16_TOL, BF16_TOL)
+              False, "plain", "vec", BF16_TOL)
              for r, c in ((LM_BATCH * LM_PROMPT, d), (LM_BATCH * LM_PROMPT, din),
-                          (LM_BATCH, din))]
-    cases.append(("rmsnorm (300,2048) fp32 gemma", (300, 2048, torch.float32),
-                  True, FP32_NORM_TOL, FP32_NORM_TOL))
-    for name, (rows, dim, dtype), gemma, atol, rtol in cases:
+                          (LM_BATCH, d), (LM_BATCH, din))]
+    cases += [
+        ("rmsnorm (300,2048) fp32 gemma", (300, 2048, torch.float32), True,
+         "plain", "vec", FP32_NORM_TOL),
+        ("rmsnorm (33,300) fp32", (33, 300, torch.float32), False, "plain",
+         "vec", FP32_NORM_TOL),
+        ("rmsnorm (33,300) bf16 gemma", (33, 300, torch.bfloat16), True,
+         "plain", "simt", BF16_TOL),
+        ("rmsnorm offset view (64,4096) bf16", (64, 4096, torch.bfloat16),
+         False, "offset", "simt", BF16_TOL),
+        ("rmsnorm offset view (300,2048) fp32 gemma",
+         (300, 2048, torch.float32), True, "offset", "simt", FP32_NORM_TOL),
+    ]
+    for name, (rows, dim, dtype), gemma, layout, variant, tol in cases:
         x = _randn(gen, (rows, dim), dtype, 3.0)
+        if layout == "offset":      # one element past a 16-byte boundary
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(rows, dim)
         w = _randn(gen, (dim,), torch.float32)
-        out = rmsnorm(x, w, eps=LM.norm_eps, gemma=gemma)
-        torch.cuda.synchronize()
+        out = _run_variant(rmsnorm, variant, name, lambda: rmsnorm(
+            x, w, eps=LM.norm_eps, gemma=gemma))
         err = _err(out, rmsnorm_ref(x, w, eps=LM.norm_eps, gemma=gemma),
-                   atol, rtol, name)
+                   tol, tol, name)
         errs["rmsnorm"] = max(errs.get("rmsnorm", 0.0), err)
-        line("check", case=name, max_abs_err=err, atol=atol, rtol=rtol)
-    # the scan at the prefill shape, and a ragged fp32 case with groups and
-    # an initial state; y and the final state both checked
+        line("check", case=name, variant=variant, max_abs_err=err, atol=tol,
+             rtol=tol)
+    # the scan on the tensor cores at the prefill shape, ragged with groups
+    # and an initial state, at P = 128 and at a chunk of 64; on the CUDA cores
+    # in fp32, ragged with groups and an initial state; y and the final state
+    # both checked
     cases = [
         ("ssd prefill (4,2048,64,64) N=128 G=1 chunk 256 bf16",
          (LM_BATCH, LM_PROMPT, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
-          LM.ssm_ngroups, torch.bfloat16, False), LM.ssm_chunk, BF16_TOL,
+          LM.ssm_ngroups, torch.bfloat16, False), LM.ssm_chunk, "tc",
+         BF16_TOL, BF16_TOL),
+        ("ssd ragged (2,1000,8,64) N=128 G=2 chunk 256 bf16, initial state",
+         (2, 1000, 8, 64, 128, 2, torch.bfloat16, True), 256, "tc", BF16_TOL,
+         BF16_TOL),
+        ("ssd (1,517,2,128) N=128 chunk 256 bf16, initial state",
+         (1, 517, 2, 128, 128, 1, torch.bfloat16, True), 256, "tc", BF16_TOL,
+         BF16_TOL),
+        ("ssd (2,300,4,32) N=64 G=2 chunk 64 bf16",
+         (2, 300, 4, 32, 64, 2, torch.bfloat16, False), 64, "tc", BF16_TOL,
          BF16_TOL),
         ("ssd ragged (2,1000,8,64) N=128 G=2 chunk 256 fp32, initial state",
-         (2, 1000, 8, 64, 128, 2, torch.float32, True), 256, FP32_SSD_TOL,
-         0.0),
+         (2, 1000, 8, 64, 128, 2, torch.float32, True), 256, "simt",
+         FP32_SSD_TOL, 0.0),
     ]
-    for name, shape, chunk, atol, rtol in cases:
+    for name, shape, chunk, variant, atol, rtol in cases:
         args = ssd_inputs(gen, *shape)
-        y, final = ssd(*args[:6], chunk, args[6])
-        torch.cuda.synchronize()
+        y, final = _run_variant(ssd, variant, name,
+                                lambda: ssd(*args[:6], chunk, args[6]))
         y_ref, final_ref = ssd_ref(*args[:6], chunk, args[6])
         err = max(_err(y, y_ref, atol, rtol, name + " y"),
                   _err(final, final_ref, atol, rtol, name + " state"))
         errs["ssd"] = max(errs.get("ssd", 0.0), err)
-        line("check", case=name, max_abs_err=err, atol=atol, rtol=rtol)
+        line("check", case=name, variant=variant, max_abs_err=err, atol=atol,
+             rtol=rtol)
         del args, y, final, y_ref, final_ref
     return errs
 
@@ -470,11 +511,20 @@ def _rel_err(out, ref, what) -> float:
 
 
 def _counts():
-    return {"rmsnorm": rmsnorm.launches, "ssd": ssd.launches}
+    return {"rmsnorm": rmsnorm.launches, "rmsnorm_vec": rmsnorm.vec_launches,
+            "ssd": ssd.launches, "ssd_tc": ssd.tc_launches}
 
 
 def _set_counts(n: int = 0) -> None:
-    rmsnorm.launches = ssd.launches = n
+    rmsnorm.launches = rmsnorm.vec_launches = n
+    ssd.launches = ssd.tc_launches = n
+
+
+def _pass_counts(norms: int, scans: int) -> dict:
+    """The counts of a pass of ``norms`` RMSNorm and ``scans`` SSD launches,
+    every norm vectorised and every scan on the tensor cores."""
+    return {"rmsnorm": norms, "rmsnorm_vec": norms, "ssd": scans,
+            "ssd_tc": scans}
 
 
 def _lm_inputs(gen, B, S):
@@ -493,7 +543,7 @@ def lm_prefill_decode(params, toks, pos) -> dict:
         logits, cache = prefill_step(params, toks, pos)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        if _counts() != {"rmsnorm": NORMS_PER_PASS, "ssd": LM.n_layers}:
+        if _counts() != _pass_counts(NORMS_PER_PASS, LM.n_layers):
             raise RuntimeError(f"prefill launched {_counts()}")
         if logits.shape != (B, LM.vocab) or not torch.isfinite(logits).all():
             raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
@@ -507,8 +557,8 @@ def lm_prefill_decode(params, toks, pos) -> dict:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             after = _counts()
-            if (after["rmsnorm"] - before["rmsnorm"] != NORMS_PER_PASS
-                    or after["ssd"] != before["ssd"]):
+            if {k: after[k] - before[k] for k in after} != \
+                    _pass_counts(NORMS_PER_PASS, 0):
                 raise RuntimeError(f"decode step {i}: {before} -> {after}")
         if not torch.isfinite(logits).all():
             raise RuntimeError("non-finite decode logits")
@@ -536,8 +586,8 @@ def check_lm_plain(params, toks) -> None:
         _set_counts()
         lg, cache = transformer.prefill(sub, cfg, x, pos)
         torch.cuda.synchronize()
-        if _counts() != {"rmsnorm": 2 * LM_PLAIN_LAYERS + 1,
-                         "ssd": LM_PLAIN_LAYERS}:
+        if _counts() != _pass_counts(2 * LM_PLAIN_LAYERS + 1,
+                                     LM_PLAIN_LAYERS):
             raise RuntimeError(f"2-layer prefill launched {_counts()}")
         t0 = time.perf_counter()
         lg_cpu, cache_cpu = transformer.prefill(
@@ -651,12 +701,13 @@ def time_ms(fn, reps=20, warmup=3, flush=True, lead=True) -> float:
 def timed_variant(kernel, fn, **kw):
     """``time_ms(fn)`` and the variant that its launches of ``kernel`` ran,
     read from the kernel's counters."""
-    n, n_tc = kernel.launches, kernel.tc_launches
+    fast, n_fast = _fast(kernel)
+    n = kernel.launches
     ms = time_ms(fn, **kw)
-    n, n_tc = kernel.launches - n, kernel.tc_launches - n_tc
+    n, n_fast = kernel.launches - n, _fast(kernel)[1] - n_fast
     if not n:
         raise RuntimeError(f"{kernel.__name__}: the timed calls launched nothing")
-    return ms, ("tc" if n_tc == n else "simt" if not n_tc else "mixed")
+    return ms, (fast if n_fast == n else "simt" if not n_fast else "mixed")
 
 
 def host_us(fn, reps=50) -> float:
@@ -789,53 +840,81 @@ def phase_timing(errs: dict, launches: dict) -> list:
     line("time", **gemm_rec, **extra)
 
     # the two norms of one Mamba2 layer at prefill: the block's pre-norm
-    # over d_model and out_norm over d_inner, 4 x 2048 rows, bf16, w fp32
-    rows = LM_BATCH * LM_PROMPT
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    nbytes = flops = 0
-    for dim in (LM.d_model, LM.d_inner):
-        x = _randn(gen, (rows, dim), torch.bfloat16, 3.0)
-        w = _randn(gen, (dim,), torch.float32)
-        w16 = w.to(torch.bfloat16)
-        one = {"ms": time_ms(lambda: rmsnorm(x, w, eps=LM.norm_eps)),
-               "plain_ms": time_ms(lambda: rmsnorm_ref(x, w, eps=LM.norm_eps),
-                                   reps=5),
-               # the library's fused path wants w in x's dtype
-               "library_ms": time_ms(lambda: F.rms_norm(x, (dim,), w16,
-                                                        LM.norm_eps))}
-        b = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
-        fl = 4 * x.numel()            # square-add, scale, weight: fp32
-        line("time", name="rmsnorm", shape=f"({rows},{dim}) bf16, w fp32",
-             bound_ms=bound_ms(b, fl, FP32_FLOP_PER_S)[0], **one)
-        for key in tot:
-            tot[key] += one[key]
-        nbytes, flops = nbytes + b, flops + fl
-        del x, w, w16
-    bms, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
-    norm_rec = dict(
-        name="rmsnorm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-        replaces="src/repro/kernels/rmsnorm/kernel.py:17",
-        launches=launches["rmsnorm"], max_abs_err=errs["rmsnorm"],
-        bound_ms=bms, bound_by=by,
-        shape="one Mamba2 layer's two prefill norms, (8192,2048) and "
-              "(8192,4096) bf16, w fp32", **tot)
-    line("time", **norm_rec)
+    # over d_model and out_norm over d_inner, 4 x 2048 rows, bf16, w fp32;
+    # then the same two at a decode step's 4 rows, where the launch is the
+    # cost
+    for rows, what in ((LM_BATCH * LM_PROMPT, "prefill"), (LM_BATCH, "decode")):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "simt_ms": 0.0}
+        extra = {"ms_no_lead": 0.0, "host_us": 0.0}
+        nbytes = flops = 0
+        variants = set()
+        for dim in (LM.d_model, LM.d_inner):
+            x = _randn(gen, (rows, dim), torch.bfloat16, 3.0)
+            w = _randn(gen, (dim,), torch.float32)
+            w16 = w.to(torch.bfloat16)
+
+            def norm():
+                return rmsnorm(x, w, eps=LM.norm_eps)
+            ms, variant = timed_variant(rmsnorm, norm)
+            one = {"ms": ms,
+                   "plain_ms": time_ms(lambda: rmsnorm_ref(x, w, eps=LM.norm_eps),
+                                       reps=5),
+                   # the library's fused path wants w in x's dtype
+                   "library_ms": time_ms(lambda: F.rms_norm(x, (dim,), w16,
+                                                            LM.norm_eps)),
+                   "simt_ms": time_ms(lambda: norm_launch(
+                       x, w, "simt", eps=LM.norm_eps, gemma=False))}
+            extra["ms_no_lead"] += time_ms(norm, lead=False)
+            extra["host_us"] += host_us(norm)
+            b = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+            fl = 4 * x.numel()            # square-add, scale, weight: fp32
+            line("time", name=f"rmsnorm {what}",
+                 shape=f"({rows},{dim}) bf16, w fp32", variant=variant,
+                 bound_ms=bound_ms(b, fl, FP32_FLOP_PER_S)[0], **one)
+            variants.add(variant)
+            for key in tot:
+                tot[key] += one[key]
+            nbytes, flops = nbytes + b, flops + fl
+            del x, w, w16
+        bms, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+        rec = dict(
+            name="rmsnorm", route="cuda",
+            source="src/repro_torch/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm/kernel.py:17",
+            launches=launches["rmsnorm"], max_abs_err=errs["rmsnorm"],
+            bound_ms=bms, bound_by=by,
+            variant=variants.pop() if len(variants) == 1 else "mixed",
+            shape=f"one Mamba2 layer's two {what} norms, ({rows},2048) and "
+                  f"({rows},4096) bf16, w fp32", **tot)
+        if what == "prefill":
+            norm_rec = rec
+            line("time", **rec, **extra)
+        else:
+            line("time", **dict(rec, name="rmsnorm decode step"), **extra)
 
     # the scan of one Mamba2 layer at prefill
     shape = (LM_BATCH, LM_PROMPT, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
              LM.ssm_ngroups)
     args = ssd_inputs(gen, *shape, torch.bfloat16, False)[:6]
-    t = {"ms": time_ms(lambda: ssd(*args, LM.ssm_chunk)),
+
+    def scan():
+        return ssd(*args, LM.ssm_chunk)
+    ms, variant = timed_variant(ssd, scan)
+    t = {"ms": ms,
          "plain_ms": time_ms(lambda: ssd_ref(*args, LM.ssm_chunk), reps=5),
-         "library_ms": None}                 # no one PyTorch call scans
+         "library_ms": None,                 # no one PyTorch call scans
+         "simt_ms": time_ms(lambda: ssd_launch(*args, LM.ssm_chunk, None,
+                                               "simt"), reps=5)}
+    extra = {"ms_no_lead": time_ms(scan, lead=False), "host_us": host_us(scan)}
     bms, by = bound_ms(*ssd_work(*shape, LM.ssm_chunk, 2))
     ssd_rec = dict(
         name="ssd", route="cuda", source="src/repro_torch/csrc/ssd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:31",
         launches=launches["ssd"], max_abs_err=errs["ssd"], bound_ms=bms,
-        bound_by=by, shape="x (4,2048,64,64) bf16, B/C (4,2048,1,128) bf16, "
+        bound_by=by, variant=variant,
+        shape="x (4,2048,64,64) bf16, B/C (4,2048,1,128) bf16, "
         "chunk 256: one Mamba2 layer's prefill scan", **t)
-    line("time", **ssd_rec)
+    line("time", **ssd_rec, **extra)
     return [flash_rec, gemm_rec, norm_rec, ssd_rec]
 
 

@@ -212,79 +212,16 @@ constexpr int BQ = 64, BKV = 64;   // q rows per block (4 warps x 16), kv rows p
 constexpr int THREADS = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Byte offset of 16-byte chunk c of row r in a tile whose rows hold D/8
-// chunks. Chunks are XOR-swizzled within each 128-byte line, so the 8
-// rows that one ldmatrix phase reads at one column land in 8 different
-// bank groups.
-template <int D>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  constexpr int CPR = D / 8;
-  if constexpr (CPR >= 8) {
-    return (uint32_t)(r * CPR + ((c & ~7) | ((c & 7) ^ (r & 7)))) << 4;
-  } else {
-    const int lin = r * CPR + c, line = lin >> 3;
-    return (uint32_t)((line << 3) | ((lin & 7) ^ (line & 7))) << 4;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d (16x8 fp32) += a (16x16 bf16, row-major fragment) . b (16x8 bf16, col-major)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a . b, starting from zero
-__device__ __forceinline__ void mma16816_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                              uint32_t b1) {
-  const float z = 0.f;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(z));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ex2;
+using repro::ldsm_x4;
+using repro::ldsm_x4_trans;
+using repro::mma16816;
+using repro::mma16816_zero;
+using repro::pack_bf16;
+using repro::swz;
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -28,9 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# variant codes of the kernels that have two: the CUDA-core kernel and the
-# tensor-core one
-VARIANT_CODES = {"simt": 0, "tc": 1}
+# variant codes of the kernels' two kernels each: the CUDA-core one, and the
+# tensor-core one (flash, the GEMM, the SSD scan) or the 16-byte-vector one
+# (RMSNorm)
+VARIANT_CODES = {"simt": 0, "tc": 1, "vec": 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each library's entry point: (function, argtypes)
@@ -38,8 +39,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
                         [_P] * 4 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]),
     "moe_gemm": ("grouped_gemm", [_P] * 3 + [_I] * 6 + [_L] * 4 + [_P]),
-    "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _I, _L, _F, _I, _P]),
-    "ssd": ("ssd_fwd", [_P] * 9 + [_I] * 8 + [_L] * 12 + [_P]),
+    "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _L, _F, _I, _P]),
+    "ssd": ("ssd_fwd", [_P] * 9 + [_I] * 9 + [_L] * 12 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -102,6 +103,12 @@ def load(name: str):
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             _libs[name] = lib
         return getattr(_libs[name], SIGNATURES[name][0])
+
+
+def row_strides(t):
+    """A (B, S, H, D)-shaped tensor's batch, sequence and head strides, 0 for
+    an axis of length 1 (a kernel never steps along it)."""
+    return [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
 
 
 def check_launch(name: str, err: int) -> None:

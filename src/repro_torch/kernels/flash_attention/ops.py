@@ -64,12 +64,6 @@ def _check(q, k, v):
         raise ValueError("q, k, v need unit stride on the head dim")
 
 
-def _row_strides(t):
-    """A (B, S, H, D) tensor's batch, sequence and head strides, 0 for an
-    axis of length 1 (the kernel never steps along it)."""
-    return [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
-
-
 def _flash_variant(q, k, v) -> str:
     """The kernel a CUDA launch runs, chosen from the inputs alone: "tc"
     (tensor cores, 16-byte copies) for bfloat16 whose rows start on 16-byte
@@ -79,7 +73,7 @@ def _flash_variant(q, k, v) -> str:
     if q.dtype != torch.bfloat16:
         return "simt"
     for t in (q, k, v):
-        if t.data_ptr() % 16 or any(s % 8 for s in _row_strides(t)):
+        if t.data_ptr() % 16 or any(s % 8 for s in _build.row_strides(t)):
             return "simt"
     return "tc"
 
@@ -97,7 +91,7 @@ def _launch(q, k, v, variant: str, *, causal, window, softcap, scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[variant],
                  B, Hq, Hkv, Sq, Skv, D,
-                 *_row_strides(q), *_row_strides(k), *_row_strides(v),
+                 *_build.row_strides(q), *_build.row_strides(k), *_build.row_strides(v),
                  int(bool(causal)), int(window), float(softcap), float(scale),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)

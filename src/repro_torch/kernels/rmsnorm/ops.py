@@ -2,8 +2,10 @@
 
 Port of ``repro/kernels/rmsnorm`` (``_rmsnorm_kernel`` in kernel.py, the
 leading-dims wrapper in ops.py). The kernel is
-``repro_torch/csrc/rmsnorm.cu``; its note says what bounds it on the H100
-and how the design answers that.
+``repro_torch/csrc/rmsnorm.cu``, in two variants: 16-byte vector accesses
+with the row held in registers ("vec"), and one element per lane for rows
+those accesses cannot address ("simt"). Its note says what bounds it on the
+H100 and how the design answers that.
 """
 from __future__ import annotations
 
@@ -24,10 +26,52 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6, gemma: bool = False):
     return (y * wf).to(x.dtype)
 
 
+MAX_VECS = 512                      # 16-byte vectors in a row of the vec kernel
+
+
+def _rmsnorm_variant(x, w) -> str:
+    """The kernel a CUDA launch over the rows of x (..., d) runs, chosen
+    from the inputs alone: "vec" (16-byte loads and stores) where d is a
+    multiple of 16 bytes of x's elements, at most MAX_VECS of them, the rows
+    start on 16-byte boundaries (16-byte-aligned data, a row stride that is a
+    multiple of the same unless there is one row) and w is 16-byte-aligned
+    and contiguous, else "simt"."""
+    d = x.shape[-1]
+    per = 16 // x.element_size()
+    flat = x.reshape(-1, d)
+    if not d or d % per or d // per > MAX_VECS:
+        return "simt"
+    if flat.stride(-1) != 1 or flat.data_ptr() % 16 or \
+            (flat.shape[0] > 1 and flat.stride(0) % per):
+        return "simt"
+    if w.data_ptr() % 16 or w.stride(0) != 1:
+        return "simt"
+    return "vec"
+
+
+def _launch(flat, w, variant: str, *, eps, gemma):
+    """Run ``variant`` of the kernel over the rows of CUDA tensors flat
+    (rows, d) and w (d,) (checked by the caller) and return y; counts
+    nothing."""
+    out = torch.empty(flat.shape, dtype=flat.dtype, device=flat.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.load("rmsnorm")
+    with torch.cuda.device(flat.device):
+        err = fn(flat.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 _build.DTYPE_CODES[flat.dtype], _build.DTYPE_CODES[w.dtype],
+                 _build.VARIANT_CODES[variant], flat.shape[0], flat.shape[1],
+                 flat.stride(0), float(eps), int(bool(gemma)),
+                 torch.cuda.current_stream(flat.device).cuda_stream)
+    _build.check_launch("rmsnorm", err)
+    return out
+
+
 def rmsnorm(x, w, *, eps: float = 1e-6, gemma: bool = False, device=None):
     """x (..., d) in fp32 or bf16, w (d,) in either -> x's shape and dtype.
-    CUDA tensors launch the kernel over the flattened rows; CPU tensors,
-    with ``device="cpu"``, run ``rmsnorm_ref``."""
+    CUDA tensors launch the kernel variant that ``_rmsnorm_variant`` names
+    over the flattened rows; CPU tensors, with ``device="cpu"``, run
+    ``rmsnorm_ref``."""
     dev = resolve_device(device)
     check_on(dev, x, w)
     d = x.shape[-1]
@@ -43,18 +87,13 @@ def rmsnorm(x, w, *, eps: float = 1e-6, gemma: bool = False, device=None):
     w = w.contiguous()
     if flat.stride(-1) != 1:
         raise ValueError("x needs unit stride on its last axis")
-    out = torch.empty(flat.shape, dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out.reshape(x.shape)
-    fn = _build.load("rmsnorm")
-    with torch.cuda.device(x.device):
-        err = fn(flat.data_ptr(), w.data_ptr(), out.data_ptr(),
-                 _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[w.dtype],
-                 flat.shape[0], d, flat.stride(0), float(eps), int(bool(gemma)),
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_launch("rmsnorm", err)
-    rmsnorm.launches += 1
+    variant = _rmsnorm_variant(flat, w)
+    out = _launch(flat, w, variant, eps=eps, gemma=gemma)
+    if out.numel():                     # an empty out launches nothing
+        rmsnorm.launches += 1
+        rmsnorm.vec_launches += variant == "vec"
     return out.reshape(x.shape)
 
 
 rmsnorm.launches = 0
+rmsnorm.vec_launches = 0

@@ -5,8 +5,11 @@ wrapper in ops.py) and of the function it fuses,
 ``repro/models/ssm.py::ssd_chunked``. Unlike the Pallas kernel, both
 versions here also return the final state and take an initial one, as
 ``ssd_chunked`` does, and read B and C by group instead of repeating them
-to every head. The kernel is ``repro_torch/csrc/ssd.cu``; its note says
-what bounds it on the H100 and how the design answers that.
+to every head. The kernel is ``repro_torch/csrc/ssd.cu``, in two variants:
+bf16 on the tensor cores ("tc": ``mma.sync``, ``cp.async`` loads) and a
+CUDA-core one for fp32 and for inputs the 16-byte copies cannot address
+("simt"). Its note says what bounds it on the H100 and how the design
+answers that.
 """
 from __future__ import annotations
 
@@ -17,13 +20,25 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
+TC_STATE_DIMS = (16, 32, 64, 128)   # N of the tensor-core variant
 MAX_SMEM_BYTES = 232_448            # an H100 block's dynamic shared memory
-_TILE = 64                          # chunk rows per tile in ssd.cu
+_TILE = 64                          # chunk positions per tile in ssd.cu
+_TC_WARPS = 8                       # warps of a tc block
+_TC_ROWS = 16 * _TC_WARPS           # chunk rows per row tile of the tc kernel
 
 
-def smem_bytes(P: int, N: int, Q: int) -> int:
-    """Shared memory of one launch: state, C and B tiles, x tile, score
-    tile, and the chunk's dt and cumsum (``smem_bytes`` in ssd.cu)."""
+def smem_bytes(P: int, N: int, Q: int, variant: str = "simt") -> int:
+    """Shared memory of one launch (``simt_smem_bytes`` and
+    ``tc::smem_bytes`` in ssd.cu). simt: the fp32 state, C and B tiles, x
+    tile, score tile, and the chunk's dt and cumsum. tc: two bf16 C row
+    tiles, two B and two x column tiles, the bf16 state copy, the warps' y
+    staging rows, per chunk position (Q rounded up to whole column tiles)
+    two dt buffers, the cumsum, the update's weights and the scores' column
+    factors, and the scan's warp totals."""
+    if variant == "tc":
+        qt = -(-Q // _TILE) * _TILE
+        return (4 * _TC_ROWS * N + 4 * _TILE * N + 4 * _TILE * P + 2 * P * N
+                + 2 * _TC_ROWS * P + 20 * qt + 4 * _TC_WARPS)
     ld = _TILE + 4
     return 4 * (N * P + 2 * N * ld + _TILE * (P + 4) + _TILE * ld + 2 * Q)
 
@@ -104,27 +119,35 @@ def _check(x, dt, A, B, C, D, chunk, initial_state):
         raise ValueError("dt, A and D must be float32")
 
 
-def ssd(x, dt, A, B, C, D, chunk: int, initial_state=None, *, device=None):
-    """The chunked SSD scan: returns (y (Bz,S,H,P) in x's dtype, final
-    state (Bz,H,P,N) fp32). CUDA tensors launch the kernel (x, B, C and dt
-    are read in place through their strides); CPU tensors, with
-    ``device="cpu"``, run ``ssd_ref``."""
-    dev = resolve_device(device)
-    check_on(dev, x, dt, A, B, C, D,
-             *(() if initial_state is None else (initial_state,)))
-    _check(x, dt, A, B, C, D, chunk, initial_state)
-    if dev.type == "cpu":
-        return ssd_ref(x, dt, A, B, C, D, chunk, initial_state)
-    Bz, S, H, P = x.shape
-    G, N = B.shape[2], B.shape[3]
-    Q = min(chunk, S)
+def _ssd_variant(x, B, C) -> str:
+    """The kernel a CUDA launch runs, chosen from the inputs alone: "tc"
+    (tensor cores, 16-byte copies) for bfloat16 x, B and C with a state
+    size N in TC_STATE_DIMS whose rows start on 16-byte boundaries -- unit
+    stride on the last axis, every other stride a multiple of 8 elements,
+    16-byte-aligned data -- else "simt" (fp32 stays on the CUDA cores, to
+    keep its 5e-5 bound). A head dim outside HEAD_DIMS raises."""
+    P, N = x.shape[3], B.shape[3]
     if P not in HEAD_DIMS:
         raise ValueError(f"head dim {P} not supported (one of {HEAD_DIMS})")
-    if any(t.stride(-1) != 1 for t in (x, B, C)):
-        raise ValueError("x, B and C need unit stride on their last axis")
-    if smem_bytes(P, N, Q) > MAX_SMEM_BYTES:
-        raise ValueError(f"P={P}, N={N}, chunk={Q} need {smem_bytes(P, N, Q)} "
-                         f"bytes of shared memory, over {MAX_SMEM_BYTES}")
+    if x.dtype != torch.bfloat16 or N not in TC_STATE_DIMS:
+        return "simt"
+    for t in (x, B, C):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or \
+                any(s % 8 for s in _build.row_strides(t)):
+            return "simt"
+    return "tc"
+
+
+def _launch(x, dt, A, B, C, D, Q: int, initial_state, variant: str):
+    """Run ``variant`` of the kernel on CUDA tensors (checked by the
+    caller) over chunks of Q positions and return (y, final state); counts
+    nothing."""
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    smem = smem_bytes(P, N, Q, variant)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"P={P}, N={N}, chunk={Q} need {smem} bytes of "
+                         f"shared memory ({variant}), over {MAX_SMEM_BYTES}")
     y = torch.empty((Bz, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((Bz, H, P, N), dtype=torch.float32, device=x.device)
     A, D = A.contiguous(), D.contiguous()
@@ -135,12 +158,34 @@ def ssd(x, dt, A, B, C, D, chunk: int, initial_state=None, *, device=None):
                  C.data_ptr(), D.data_ptr(),
                  None if init is None else init.data_ptr(),
                  y.data_ptr(), final.data_ptr(), _build.DTYPE_CODES[x.dtype],
-                 Bz, S, H, G, P, N, Q, *x.stride()[:3], *dt.stride(),
-                 *B.stride()[:3], *C.stride()[:3],
+                 _build.VARIANT_CODES[variant], Bz, S, H, G, P, N, Q,
+                 *_build.row_strides(x), *dt.stride(), *_build.row_strides(B),
+                 *_build.row_strides(C),
                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check_launch("ssd", err)
-    ssd.launches += 1
     return y, final
 
 
+def ssd(x, dt, A, B, C, D, chunk: int, initial_state=None, *, device=None):
+    """The chunked SSD scan: returns (y (Bz,S,H,P) in x's dtype, final
+    state (Bz,H,P,N) fp32). CUDA tensors launch the kernel variant that
+    ``_ssd_variant`` names (x, B, C and dt are read in place through their
+    strides); CPU tensors, with ``device="cpu"``, run ``ssd_ref``."""
+    dev = resolve_device(device)
+    check_on(dev, x, dt, A, B, C, D,
+             *(() if initial_state is None else (initial_state,)))
+    _check(x, dt, A, B, C, D, chunk, initial_state)
+    if dev.type == "cpu":
+        return ssd_ref(x, dt, A, B, C, D, chunk, initial_state)
+    if any(t.stride(-1) != 1 for t in (x, B, C)):
+        raise ValueError("x, B and C need unit stride on their last axis")
+    Q = min(chunk, x.shape[1])
+    variant = _ssd_variant(x, B, C)
+    out = _launch(x, dt, A, B, C, D, Q, initial_state, variant)
+    ssd.launches += 1
+    ssd.tc_launches += variant == "tc"
+    return out
+
+
 ssd.launches = 0
+ssd.tc_launches = 0

@@ -7,12 +7,13 @@ test machine) and run on an H100 with
 
 This file imports nothing of JAX, so it runs where JAX is not installed.
 Shapes cover the agent's (S=144, a ragged last tile), GQA with a window and
-softcap at ragged lengths, every supported head dim, and for flash and the
-GEMM both kernel variants (bf16 on the tensor cores; fp32 and unaligned
-views on the CUDA cores), each case asserting through the launch counters
-which one ran; for RMSNorm and
-the SSD scan, the Mamba2-1.3B serving shapes, ragged rows and chunks,
-groups and an initial state. Tolerances: fp32 3e-5 for attention, 1e-5 for
+softcap at ragged lengths, every supported head dim, and for every kernel
+both of its variants (flash, the GEMM and the SSD scan: bf16 on the tensor
+cores, fp32 and unaligned views on the CUDA cores; RMSNorm: 16-byte vectors,
+and one element per lane for rows off 16 bytes), each case asserting
+through the launch counters which one ran; for RMSNorm and the SSD scan,
+the Mamba2-1.3B serving shapes, ragged rows and chunks, every head dim,
+groups, an initial state and the model's strided views. Tolerances: fp32 3e-5 for attention, 1e-5 for
 the GEMM and RMSNorm and 5e-5 for the scan (the bounds of
 tests/test_kernels.py; sums in two orders); bf16 2e-2 absolute and relative
 (one rounding at the output, after sums in two orders, may land one bf16
@@ -150,18 +151,46 @@ def test_expert_mlp_kernel_path(cuda, dtype, tc):
                                rtol=tol)
 
 
+def _counted(kernel, counter, fn):
+    """Run ``fn`` and return the (launches, ``counter``) it added."""
+    n, n_fast = kernel.launches, getattr(kernel, counter)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (kernel.launches - n, getattr(kernel, counter) - n_fast)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,dtype,w_dtype,gemma", [
-    (8192, 2048, BF16, FP32, False), (4, 4096, BF16, FP32, False),
-    (300, 2048, FP32, FP32, True), (37, 64, FP32, BF16, False)])
-def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, w_dtype, gemma):
+@pytest.mark.parametrize("rows,d,dtype,w_dtype,gemma,layout,variant", [
+    (8192, 2048, BF16, FP32, False, "plain", "vec"),   # Mamba2-1.3B prefill
+    (8192, 4096, BF16, FP32, False, "plain", "vec"),
+    (4, 2048, BF16, FP32, False, "plain", "vec"),      # its decode step
+    (4, 4096, BF16, FP32, False, "plain", "vec"),
+    (1, 1024, BF16, BF16, True, "plain", "vec"),
+    (37, 1024, FP32, BF16, False, "plain", "vec"),
+    (300, 2048, FP32, FP32, True, "plain", "vec"),
+    (33, 300, FP32, FP32, False, "plain", "vec"),      # ragged vectors
+    (33, 300, BF16, FP32, True, "plain", "simt"),      # d off 16 bytes
+    (37, 64, FP32, BF16, False, "offset", "simt"),     # x one element off
+    (64, 4096, BF16, BF16, False, "offset", "simt"),
+    (64, 1024, BF16, FP32, False, "rows", "vec"),      # strided rows
+])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, w_dtype, gemma,
+                                      layout, variant):
+    """``layout``: "plain" contiguous rows; "offset" x one element past a
+    16-byte boundary; "rows" x a view of every other row of a wider array
+    (row stride 2d)."""
     x, w = _normal(rows + d, (rows, d), (d,))
     x = torch.from_numpy(x * 3).to(cuda, TORCH[dtype])
     w = torch.from_numpy(w).to(cuda, TORCH[w_dtype])
-    n = rmsnorm.launches
-    out = rmsnorm(x, w, gemma=gemma)
-    torch.cuda.synchronize()
-    assert rmsnorm.launches == n + 1 and out.dtype == x.dtype
+    if layout == "offset":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(rows, d)
+        assert x.data_ptr() % 16
+    elif layout == "rows":
+        x = torch.stack([x, torch.zeros_like(x)], 1).view(2 * rows, d)[::2]
+        assert x.stride(0) == 2 * d
+    out, counts = _counted(rmsnorm, "vec_launches",
+                           lambda: rmsnorm(x, w, gemma=gemma))
+    assert counts == (1, int(variant == "vec")) and out.dtype == x.dtype
     tol = 1e-5 if dtype == FP32 else 2e-2
     torch.testing.assert_close(out.float(), rmsnorm_ref(x, w, gemma=gemma)
                                .float(), atol=tol, rtol=tol)
@@ -187,18 +216,26 @@ def _ssd_inputs(device, Bz, S, H, P, N, G, dtype, init):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Bz,S,H,P,N,G,chunk,dtype,init", [
-    (4, 2048, 64, 64, 128, 1, 256, BF16, False),    # Mamba2-1.3B prefill
-    (2, 1000, 8, 64, 128, 2, 256, FP32, True),      # ragged, groups, state
-    (2, 50, 4, 16, 8, 2, 16, FP32, True),
-    (1, 6, 8, 32, 16, 1, 256, FP32, False),         # one short chunk
-    (1, 130, 2, 128, 32, 1, 100, FP32, True)])
-def test_ssd_kernel_matches_plain(cuda, Bz, S, H, P, N, G, chunk, dtype, init):
+@pytest.mark.parametrize("Bz,S,H,P,N,G,chunk,dtype,init,variant", [
+    (4, 2048, 64, 64, 128, 1, 256, BF16, False, "tc"),  # Mamba2-1.3B prefill
+    (2, 1000, 8, 64, 128, 2, 256, BF16, True, "tc"),    # ragged, groups, state
+    (2, 300, 4, 16, 128, 1, 64, BF16, True, "tc"),
+    (2, 300, 4, 32, 64, 2, 128, BF16, False, "tc"),
+    (1, 517, 2, 128, 128, 1, 256, BF16, True, "tc"),   # one head a block
+    (1, 300, 3, 64, 128, 1, 128, BF16, True, "tc"),    # 3 heads a group: one
+    (1, 130, 4, 64, 16, 1, 64, BF16, True, "tc"),
+    (1, 6, 8, 32, 32, 1, 256, BF16, False, "tc"),       # one short chunk
+    (2, 200, 4, 64, 8, 1, 64, BF16, False, "simt"),     # N off the tc kernel
+    (2, 1000, 8, 64, 128, 2, 256, FP32, True, "simt"),
+    (2, 50, 4, 16, 8, 2, 16, FP32, True, "simt"),
+    (1, 6, 8, 32, 16, 1, 256, FP32, False, "simt"),
+    (1, 130, 2, 128, 32, 1, 100, FP32, True, "simt")])
+def test_ssd_kernel_matches_plain(cuda, Bz, S, H, P, N, G, chunk, dtype, init,
+                                  variant):
     x, dt, A, B, C, D, s0 = _ssd_inputs(cuda, Bz, S, H, P, N, G, dtype, init)
-    n = ssd.launches
-    y, final = ssd(x, dt, A, B, C, D, chunk, s0)
-    torch.cuda.synchronize()
-    assert ssd.launches == n + 1
+    (y, final), counts = _counted(ssd, "tc_launches", lambda: ssd(
+        x, dt, A, B, C, D, chunk, s0))
+    assert counts == (1, int(variant == "tc"))
     y_ref, final_ref = ssd_ref(x, dt, A, B, C, D, chunk, s0)
     tol = 5e-5 if dtype == FP32 else 2e-2
     torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
@@ -206,18 +243,47 @@ def test_ssd_kernel_matches_plain(cuda, Bz, S, H, P, N, G, chunk, dtype, init):
 
 
 @pytest.mark.cuda
-def test_mamba_smoke_kernel_path(cuda):
+@pytest.mark.parametrize("layout,variant", [("fused", "tc"),
+                                            ("offset", "simt")])
+def test_ssd_kernel_strided_views(cuda, layout, variant):
+    """x, B and C as the model's reshapes of one projection's slices,
+    (Bz, S, H*P + 2N) unflattened in place (16-byte rows: the tensor
+    cores), and one element into it (the CUDA-core kernel), in bf16."""
+    Bz, S, H, P, N = 2, 333, 8, 64, 128
+    a, = _normal(9, (Bz, S, H * P + 2 * N + 8))
+    t = torch.from_numpy(a * 0.4).to(cuda, torch.bfloat16)
+    t = t[..., :H * P + 2 * N] if layout == "fused" else \
+        t[..., 1:H * P + 2 * N + 1]
+    x = t[..., :H * P].unflatten(2, (H, P))
+    B = t[..., H * P:H * P + N].unflatten(2, (1, N))
+    C = t[..., H * P + N:].unflatten(2, (1, N))
+    _, dt, A, _, _, D, s0 = _ssd_inputs(cuda, Bz, S, H, P, N, 1, BF16, True)
+    (y, final), counts = _counted(ssd, "tc_launches", lambda: ssd(
+        x, dt, A, B, C, D, 128, s0))
+    assert counts == (1, int(variant == "tc"))
+    y_ref, final_ref = ssd_ref(x, dt, A, B, C, D, 128, s0)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(final, final_ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+def test_mamba_smoke_kernel_path(cuda, dtype):
     """Mamba2 SMOKE prefill and two decode steps on the card (both kernels)
-    against the plain path on the CPU, same weights."""
+    against the plain path on the CPU, same weights. In fp32 the scan runs
+    on the CUDA cores (1e-4); in bf16 compute on the tensor cores, and the
+    logits hold within 2e-2 of their largest magnitude (a few bf16 ulps of
+    the hidden state, as in the CPU model tests). Every norm is vectorised."""
     from repro_torch.configs import mamba2_1_3b
     from repro_torch.convert import tree_map
     from repro_torch.models import transformer
-    cfg = mamba2_1_3b.SMOKE
+    cfg = mamba2_1_3b.SMOKE.replace(compute_dtype=dtype)
     params = transformer.init(torch.Generator().manual_seed(0), cfg)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 40)))
     pos = torch.arange(40)[None].expand(2, 40)
-    n_ssd, n_norm = ssd.launches, rmsnorm.launches
+    n_ssd, n_tc = ssd.launches, ssd.tc_launches
+    n_norm, n_vec = rmsnorm.launches, rmsnorm.vec_launches
     outs = {}
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda t: t.to(dev), params)
@@ -233,9 +299,14 @@ def test_mamba_smoke_kernel_path(cuda):
     torch.cuda.synchronize()
     L = cfg.n_layers
     assert ssd.launches == n_ssd + L
-    assert rmsnorm.launches == n_norm + 3 * (2 * L + 1)
+    assert ssd.tc_launches == n_tc + (L if dtype == BF16 else 0)
+    assert rmsnorm.launches - n_norm == rmsnorm.vec_launches - n_vec == \
+        3 * (2 * L + 1)
     for a, b in zip(outs["cuda"], outs["cpu"]):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        if dtype == FP32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            assert (a - b).abs().max() <= 2e-2 * b.abs().max()
 
 
 @pytest.mark.cuda

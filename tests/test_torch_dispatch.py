@@ -1,5 +1,7 @@
 """How the flash and grouped-GEMM wrappers choose their kernel variant, and
-the CPU path of both at the agent trunk's widths against the Pallas kernels.
+the CPU path of both at the agent trunk's widths against the Pallas kernels
+(the RMSNorm and SSD choices are pinned in tests/test_torch_dispatch_lm.py;
+the test that no CPU call counts a launch covers all four kernels).
 
 Each kernel has two variants on the card: bf16 on the tensor cores ("tc")
 and a CUDA-core one ("simt") for fp32 and for inputs the tensor-core
@@ -25,6 +27,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import _flash_variant
 from repro_torch.kernels.moe_gemm import expert_mlp, grouped_gemm
 from repro_torch.kernels.moe_gemm.ops import _gemm_variant, _strides
+from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd import ssd
 from repro_torch.models import attention, layers
 
 BF16, FP32 = torch.bfloat16, torch.float32
@@ -138,15 +142,25 @@ def test_flash_variant(name, variant):
     assert _flash_variant(*_flash_case(name)) == variant
 
 
+def _counts():
+    return (grouped_gemm.launches, grouped_gemm.tc_launches,
+            flash_attention.launches, flash_attention.tc_launches,
+            rmsnorm.launches, rmsnorm.vec_launches, ssd.launches,
+            ssd.tc_launches)
+
+
 def test_cpu_path_counts_no_launch():
     """On the CPU the wrappers run their plain versions: no launch, of
     either variant, is counted."""
-    counts = (grouped_gemm.launches, grouped_gemm.tc_launches,
-              flash_attention.launches, flash_attention.tc_launches)
+    counts = _counts()
     grouped_gemm(*_gemm_case("contiguous"), device="cpu")
     flash_attention(*_flash_case("contiguous"), device="cpu")
-    assert counts == (grouped_gemm.launches, grouped_gemm.tc_launches,
-                      flash_attention.launches, flash_attention.tc_launches)
+    rmsnorm(torch.zeros(8, 64, dtype=BF16), torch.ones(64), device="cpu")
+    x, B = torch.zeros(1, 40, 4, 64, dtype=BF16), torch.zeros(1, 40, 1, 128,
+                                                              dtype=BF16)
+    ssd(x, torch.full((1, 40, 4), 0.1), -torch.ones(4), B, B, torch.ones(4),
+        16, device="cpu")
+    assert counts == _counts()
 
 
 # ------------------------------------------- CPU path against Pallas, trunk

@@ -137,6 +137,73 @@ def test_ssd_bf16_io():
     torch.testing.assert_close(final, f32)
 
 
+def _ssd_tc_rounding(x, dt, A, B, C, D, chunk, initial_state=None):
+    """``ssd_ref`` with exactly the bf16 roundings of the tensor-core
+    kernel (csrc/ssd.cu, "tc"): the masked scores (C_i . B_j)
+    exp(seg_i - seg_j) dt_j, the update's x_j exp(seg_last - seg_j) dt_j,
+    and the copy of the state that C_i . state reads, each rounded to bf16
+    as a product operand; the cumsum, decays, sums and the carried state
+    stay fp32. x, B, C hold bf16 values; y is rounded to bf16 at the end."""
+    def r(t):
+        return t.to(torch.bfloat16).float()
+
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    xf = x.float()
+    Bf = B.float().repeat_interleave(H // G, dim=2)
+    Cf = C.float().repeat_interleave(H // G, dim=2)
+    state = (initial_state.float() if initial_state is not None else
+             torch.zeros(Bz, H, P, N))
+    Q = min(chunk, S)
+    ys = []
+    for s0 in range(0, S, Q):
+        sl = slice(s0, min(s0 + Q, S))
+        xc, Bc, Cc, dtc = xf[:, sl], Bf[:, sl], Cf[:, sl], dt[:, sl]
+        q = xc.shape[1]
+        seg = torch.cumsum(dtc * A, dim=1)                       # (B,q,H)
+        mask = torch.tril(torch.ones(q, q, dtype=torch.bool))
+        L = torch.where(mask[None, :, :, None],
+                        torch.exp(seg[:, :, None] - seg[:, None, :]), 0.0)
+        scores = r(torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L
+                   * dtc[:, None])
+        y = torch.einsum("bijh,bjhp->bihp", scores, xc)
+        y = y + torch.exp(seg)[..., None] * torch.einsum(
+            "bihn,bhpn->bihp", Cc, r(state))
+        ys.append(y + xc * D[None, None, :, None])
+        w = torch.exp(seg[:, -1:] - seg) * dtc                   # (B,q,H)
+        state = torch.exp(seg[:, -1])[..., None, None] * state + \
+            torch.einsum("bjhp,bjhn->bhpn", r(xc * w[..., None]), Bc)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+@pytest.mark.parametrize("S", [1024, 1000])      # whole and ragged chunks
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_tensor_core_rounding_within_bf16_tol(S, G):
+    """The tensor-core kernel's roundings, in plain PyTorch, at the serving
+    chunk (256), state (128) and head dim (64), with the model's steps (dt
+    about 0.07) and an initial state: y and the final state stay within
+    chip_smoke.py's BF16_TOL (2e-2, absolute and relative) of ``ssd_ref``'s
+    fp32 result, and of the JAX ``ssd_chunked`` on the same numpy inputs."""
+    tol = 2e-2
+    x, dt, A, B, C, D, s0 = _ssd_inputs(S + G, 1, S, 4, 64, 128, G, True)
+    dt = np.log1p(np.exp(np.log(np.expm1(dt)) - 3)).astype(np.float32)
+    # x, B, C as the kernel reads them: bf16 values
+    x, B, C = (a.astype(jnp.bfloat16).astype(np.float32) for a in (x, B, C))
+    xb, Bb, Cb = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, B, C))
+    dtt, At, Dt, s0t = _t(dt, A, D, s0)
+    y, final = _ssd_tc_rounding(xb, dtt, At, Bb, Cb, Dt, 256, s0t)
+    y_ref, final_ref = ssd_ref(xb, dtt, At, Bb, Cb, Dt, 256, s0t)
+    jy, jfinal = j_ssm.ssd_chunked(*(jnp.asarray(a) for a in
+                                     (x, dt, A, B, C, D)), 256,
+                                   jnp.asarray(s0))
+    for ref_y, ref_s in ((y_ref.float(), final_ref),
+                         (torch.from_numpy(np.array(jy)),
+                          torch.from_numpy(np.array(jfinal)))):
+        torch.testing.assert_close(y.float(), ref_y, atol=tol, rtol=tol)
+        torch.testing.assert_close(final, ref_s, atol=tol, rtol=tol)
+    assert (y.float() - y_ref.float()).abs().max() > 0   # it does round
+
+
 @pytest.mark.parametrize("bad", ["groups", "dt_dtype", "xb_dtype", "state",
                                  "chunk"])
 def test_ssd_wrapper_rejects(bad):
