@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+H100.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,8 @@ exits non-zero:
    case checks through the launch counters which variant ran (flash, the
    GEMM and the SSD scan: bf16 on the tensor cores, fp32 and unaligned
    inputs on the CUDA cores; RMSNorm: 16-byte vectors, and one element per
-   lane for rows off 16 bytes);
+   lane for rows off 16 bytes); the backward kernels through autograd:
+   flash's (with the forward's row log-sum-exp) and the GEMM's two products;
 3. the agent's serving path at its full published width: ``evaluate_batch``
    over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
@@ -32,6 +34,17 @@ exits non-zero:
    ``ServeEngine`` through ``repro_torch.launch.serve`` at the CLI's
    defaults, and a prefill and 5 decode steps under torch.profiler (one
    pass each);
+4b. the agent's training path at phase 3's width on its scenario, run
+   after the LM phase so that phase 4 meets the card as before:
+   ``collect_offline_samples``, ``pretrain_foundation`` (moe, batch 16, 4
+   steps), ``train_online_dqn`` (32 episodes in rollouts of 8 lanes, replay
+   batches of 32, so each ``train_on`` is a full-width step at C = 9216),
+   ``train_online_pg`` (4 episodes), then the trained DQN learner serving
+   one ``evaluate_batch`` chunk of 32 lanes; ms per step, the losses (all
+   finite), the backward launch counts checked against steps x layers (one
+   flash backward and 12 GEMM backward launches a layer), one full-width
+   ``train_on``'s gradients at batch 4 held against the CPU plain path, and
+   a torch.profiler pass over 3 ``train_on`` steps;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -41,7 +54,9 @@ exits non-zero:
    lane), the wrapper's host time per call, and the time without the card's
    lead (the ruler of earlier runs, see ``time_ms``); flash's streaming
    form at a long sequence beside its CUDA-core variant and the library
-   call; and RMSNorm at the decode step's 4 rows.
+   call; and RMSNorm at the decode step's 4 rows; and the backward kernels
+   at the trunk's shapes (flash's at one layer, the GEMM's 12 launches of
+   one layer) beside SDPA's backward and ``torch.bmm``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -66,14 +81,20 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import mamba2_1_3b, mirage_agent  # noqa: E402
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (DQNConfig, DQNLearner,  # noqa: E402
-                              FoundationConfig, LearnerPolicy, Policy,
-                              ReactivePolicy, evaluate_batch, q_values)
+                              FoundationConfig, LearnerPolicy, PGConfig,
+                              PGLearner, Policy, ReactivePolicy,
+                              collect_offline_samples, evaluate_batch,
+                              init_foundation, pretrain_foundation, q_values,
+                              train_online_dqn, train_online_pg)
+from repro_torch.core.dqn import value_and_grad  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_ref)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
+    flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    _launch as flash_launch)
+    _flash_variant, _launch as flash_launch, _launch_bwd as flash_launch_bwd)
 from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
+                                          grouped_gemm_bwd_ref,
                                           grouped_gemm_ref)
 from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
     _launch as gemm_launch)
@@ -84,7 +105,7 @@ from repro_torch.kernels.ssd import ssd, ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd.ops import _launch as ssd_launch  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.sim import get_scenario, make_vector_env  # noqa: E402
+from repro_torch.sim import get_scenario, make_env, make_vector_env  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
@@ -109,6 +130,21 @@ FP32_GEMM_TOL = 1e-5    # fp32 sums of 41 terms in two orders
 PROFILE_STEPS = 5       # decision batches under torch.profiler
 FP32_NORM_TOL = 1e-5    # the repo's bounds for the Pallas kernels in fp32
 FP32_SSD_TOL = 5e-5
+FP32_FLASH_BWD_RTOL = 1e-5  # dq, dk, dv sum up to 1001 terms in two orders
+FP32_GEMM_BWD_TOL = 2e-5    # dW sums C = 1001 terms in two orders
+LSE_ATOL = 1e-4         # the forward's row log-sum-exp against the plain one
+
+# the training phase (3b): sizes chosen to fit the script's time limit
+TRAIN_SAMPLE_EPISODES, TRAIN_SAMPLE_POINTS = 4, 8   # 32 offline samples
+PRETRAIN_BATCH, PRETRAIN_EPOCHS = 16, 2             # 4 pretraining steps
+# 4 rollouts of 8 lanes: even if every episode ended at its first decision,
+# the replay would reach a batch of 32 by the last one
+DQN_EPISODES, DQN_LANES, DQN_BATCH = 32, 8, 32
+PG_EPISODES = 4
+GRAD_CHECK_BATCH = 4    # the full-width gradient check against the CPU
+GRAD_REL_TOL = 2e-2     # of each leaf's largest gradient magnitude (bf16)
+PROFILE_TRAIN_STEPS = 3
+GEMM_BWD_PER_LAYER = 2 * GEMMS_PER_LAYER            # dX and dW per GEMM
 
 LM = mamba2_1_3b.CONFIG
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
@@ -342,7 +378,115 @@ def phase_kernels() -> dict:
         line("check", case=name, variant=variant, max_abs_err=err, atol=atol,
              rtol=rtol)
         del args, y, final, y_ref, final_ref
+    check_backward(gen, errs)
     return errs
+
+
+def _bwd_counts():
+    return (flash_attention_bwd.launches, grouped_gemm.bwd_launches,
+            grouped_gemm.bwd_tc_launches, flash_attention_bwd.tc_launches)
+
+
+def check_backward(gen, errs: dict) -> None:
+    """The backward kernels through autograd, as training runs them, against
+    their plain versions on the same inputs. Flash: the forward keeps each
+    row's log-sum-exp (held against the plain one), and dq, dk, dv of one
+    backward launch of the variant named are held against
+    ``flash_attention_bwd_ref`` on the forward's out; the tensor-core
+    variant at every head dim it takes, causal, softcap and ragged, the
+    CUDA-core one for GQA, D = 128, long sequences and fp32. The GEMM: dX
+    and dW, two launches of the GEMM kernel each named by the variant that
+    ran (in bf16 dW reads x in place, transposed by the tensor-core kernel),
+    against ``grouped_gemm_bwd_ref``."""
+    B = 2 * LANES * mirage_agent.N_EXPERTS
+    bf16 = torch.bfloat16
+    cases = [
+        ("flash bwd agent (640,144,8,32) bf16", dict(causal=False,
+                                                     softcap=0.0),
+         (B, HISTORY, HISTORY, 8, 8, 32, bf16), "tc", BF16_TOL, BF16_TOL),
+        ("flash bwd softcap (3,50,4,16) bf16", dict(causal=False,
+                                                   softcap=30.0),
+         (3, 50, 50, 4, 4, 16, bf16), "tc", BF16_TOL, BF16_TOL),
+        ("flash bwd causal softcap (2,97|131,4,64) bf16",
+         dict(causal=True, softcap=30.0), (2, 97, 131, 4, 4, 64, bf16), "tc",
+         BF16_TOL, BF16_TOL),
+        ("flash bwd fused qkv views (2,77,3,4,64) bf16",
+         dict(causal=True, softcap=0.0), "fused", "tc", BF16_TOL, BF16_TOL),
+        ("flash bwd causal GQA ragged (2,1001,8/2,64) bf16",
+         dict(causal=True, softcap=0.0), (2, 1001, 1001, 8, 2, 64, bf16),
+         "simt", BF16_TOL, BF16_TOL),
+        ("flash bwd causal softcap GQA (1,200,4/2,128) bf16",
+         dict(causal=True, softcap=30.0), (1, 200, 200, 4, 2, 128, bf16),
+         "simt", BF16_TOL, BF16_TOL),
+        ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32",
+         dict(causal=True, softcap=30.0), (2, 97, 131, 8, 2, 64,
+                                            torch.float32),
+         "simt", FP32_FLASH_TOL, FP32_FLASH_BWD_RTOL),
+    ]
+    for name, opts, shape, variant, atol, rtol in cases:
+        if shape == "fused":
+            base = _randn(gen, (2, 77, 3, 4, 64), torch.bfloat16)
+            base.requires_grad_(True)
+            leaves = [base]
+            q, k, v = base.unbind(2)
+        else:
+            q, k, v = (t.requires_grad_(True)
+                       for t in flash_inputs(gen, *shape))
+            leaves = [q, k, v]
+        do = _randn(gen, q.shape, q.dtype)
+        before = _bwd_counts()
+        out = flash_attention(q, k, v, **opts)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        after = _bwd_counts()
+        if (after[0] - before[0], after[3] - before[3]) != \
+                (1, int(variant == "tc")):
+            raise RuntimeError(f"{name}: expected one {variant} backward "
+                               f"launch, counted {before} -> {after}")
+        q, k, v, out = (t.detach() for t in (q, k, v, out))
+        if shape == "fused":
+            grads = grads[0].unbind(2)
+        _, lse = flash_launch(q, k, v, _flash_variant(q, k, v), window=0,
+                              scale=q.shape[3] ** -0.5, lse=True, **opts)
+        lse_err = _err(lse, flash_attention_lse_ref(q, k, **opts), LSE_ATOL,
+                       1e-5, name + " lse")
+        refs = flash_attention_bwd_ref(q, k, v, out, lse, do, **opts)
+        err = max(_err(g, r, atol, rtol, f"{name} d{n}")
+                  for n, g, r in zip("qkv", grads, refs))
+        errs["flash_attention_bwd"] = max(
+            errs.get("flash_attention_bwd", 0.0), err)
+        line("check", case=name, variant=variant, max_abs_err=err,
+             lse_max_abs_err=lse_err, atol=atol, rtol=rtol)
+        del q, k, v, out, grads, refs, leaves, do
+    E, C = mirage_agent.N_EXPERTS, 2 * LANES * HISTORY
+    d, f = TRUNK.d_model, TRUNK.d_ff
+    cases = [(f"gemm bwd ({E},{C},{a})x({E},{a},{b}) bf16",
+              (E, C, a, b, torch.bfloat16), BF16_TOL)
+             for a, b in ((d, d), (d, f), (f, d))]
+    cases += [("gemm bwd ragged (3,1001,200)x(3,200,136) bf16",
+               (3, 1001, 200, 136, torch.bfloat16), BF16_TOL),
+              ("gemm bwd ragged (3,1001,200)x(3,200,136) fp32",
+               (3, 1001, 200, 136, torch.float32), FP32_GEMM_BWD_TOL)]
+    for name, shape, tol in cases:
+        x, w = (t.requires_grad_(True) for t in gemm_inputs(gen, *shape))
+        dy = _randn(gen, (shape[0], shape[1], shape[3]), shape[4])
+        before = _bwd_counts()
+        dx, dw = torch.autograd.grad(grouped_gemm(x, w), (x, w), dy)
+        torch.cuda.synchronize()
+        n, n_tc = (a - b for a, b in zip(_bwd_counts()[1:3], before[1:3]))
+        variant = "tc" if n_tc == n else "simt" if not n_tc else "mixed"
+        want = "tc" if shape[4] == torch.bfloat16 else "simt"
+        if n != 2 or variant != want:
+            raise RuntimeError(f"{name}: {n} backward launches ({n_tc} on "
+                               f"the tensor cores), expected 2 {want}")
+        rdx, rdw = grouped_gemm_bwd_ref(x.detach(), w.detach(), dy)
+        err = max(_err(dx, rdx, tol, tol, name + " dX"),
+                  _err(dw, rdw, tol, tol, name + " dW"))
+        errs["grouped_gemm_bwd"] = max(errs.get("grouped_gemm_bwd", 0.0),
+                                       err)
+        line("check", case=name, variant=variant, max_abs_err=err, atol=tol,
+             rtol=tol)
+        del x, w, dy, dx, dw, rdx, rdw
 
 
 # ------------------------------------------------- 3. agent serving
@@ -465,11 +609,17 @@ def profile_device(what: str, fn, units: int, unit: str, warmup: int = 1,
     return rec
 
 
-def phase_serve() -> dict:
+def agent_env():
+    """The agent phases' scenario: V100/medium/single, one month of trace
+    from seed 0, history 144, a decision every 600 s; and its LANES-lane
+    vector env, whose replay cache the training env shares."""
     scn = get_scenario("V100", "medium", "single")
     trace = scn.make_trace(months=1, seed=0)
     cfg = scn.env_config(history=HISTORY, interval=600.0)
-    venv = make_vector_env(trace, cfg, LANES, seed=0)
+    return trace, cfg, make_vector_env(trace, cfg, LANES, seed=0)
+
+
+def phase_serve(venv) -> dict:
     launches = None
     for kind in ("moe", "transformer"):
         fc = FoundationConfig(kind=kind, history=HISTORY, trunk=TRUNK)
@@ -487,6 +637,206 @@ def phase_serve() -> dict:
         torch.cuda.empty_cache()
     serve(venv, "reactive", ReactivePolicy(), kernel_path=False)
     return launches
+
+
+# ----------------------------------------------- 4b. agent training
+def _set_train_counts() -> None:
+    for kern in (flash_attention, grouped_gemm):
+        kern.launches = kern.tc_launches = 0
+    flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
+    grouped_gemm.bwd_launches = grouped_gemm.bwd_tc_launches = 0
+
+
+def _check_backward_counts(what: str, trunk_passes: int) -> dict:
+    """The backward launches since the counts were zeroed must be those of
+    ``trunk_passes`` differentiated trunk passes: per layer one flash
+    backward and GEMM_BWD_PER_LAYER GEMM backward launches."""
+    counts = {"flash_bwd_launches": flash_attention_bwd.launches,
+              "flash_bwd_tc_launches": flash_attention_bwd.tc_launches,
+              "gemm_bwd_launches": grouped_gemm.bwd_launches,
+              "gemm_bwd_tc_launches": grouped_gemm.bwd_tc_launches}
+    want = (trunk_passes * TRUNK.n_layers * FLASH_PER_LAYER,
+            trunk_passes * TRUNK.n_layers * GEMM_BWD_PER_LAYER)
+    if not trunk_passes or (counts["flash_bwd_launches"],
+                            counts["gemm_bwd_launches"]) != want:
+        raise RuntimeError(f"{what}: {counts} for {trunk_passes} trunk "
+                           f"passes, expected {want} flash and GEMM backward")
+    return counts
+
+
+def _finite(what: str, losses) -> list:
+    losses = [float(x) for x in losses]
+    if not losses or not np.isfinite(losses).all():
+        raise RuntimeError(f"{what}: non-finite or no losses {losses}")
+    return losses
+
+
+class _Timed:
+    """Wraps a learner method: host ms per call after a synchronize (the
+    card's work of the call included), and its return values."""
+
+    def __init__(self, obj, name: str):
+        self.inner = getattr(obj, name)
+        self.ms, self.out = [], []
+        setattr(obj, name, self)
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.inner(*args, **kw)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.out.append(out)
+        return out
+
+
+def _ms(ms) -> dict:
+    ms = np.asarray(ms)
+    return {"mean": float(ms.mean()), "p50": float(np.percentile(ms, 50)),
+            "max": float(ms.max()), "n": int(len(ms))}
+
+
+def check_train_grads(learner, batch) -> None:
+    """One full-width ``train_on`` step's loss and gradients with the
+    kernels on the card against the same step on the CPU plain path, same
+    weights and batch: every leaf within GRAD_REL_TOL of its largest
+    magnitude."""
+    dev = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    _set_train_counts()
+    loss, grads = value_and_grad(learner.loss, learner.params, dev)
+    torch.cuda.synchronize()
+    _check_backward_counts("gradient check", 1)
+    cpu = tree_map(lambda t: t.cpu(), learner.params)
+    t0 = time.perf_counter()
+    ploss, pgrads = value_and_grad(
+        learner.loss, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    worst, flat, pflat = 0.0, _leaves(grads), _leaves(pgrads)
+    for i, (g, pg) in enumerate(zip(flat, pflat)):
+        g = g.float().cpu()
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"gradient leaf {i} is not finite")
+        scale = float(pg.abs().max())
+        err = float((g - pg).abs().max())
+        if err > GRAD_REL_TOL * scale:
+            raise RuntimeError(f"gradient leaf {i} {tuple(g.shape)}: kernel "
+                               f"path off the CPU plain path by {err} (scale "
+                               f"{scale}, tolerance {GRAD_REL_TOL} of it)")
+        worst = max(worst, err / scale if scale else 0.0)
+    line("train", what="gradient check", batch=len(batch["a"]),
+         leaves=len(flat), loss=float(loss), cpu_loss=float(ploss),
+         worst_rel_err=worst, rel_tol=GRAD_REL_TOL, cpu_plain_s=cpu_s)
+
+
+def phase_train(trace, cfg, venv) -> dict:
+    """Pretraining, online DQN and PG at the full moe width on the serving
+    scenario; raises on a non-finite loss, a backward count that is not
+    the trunk's, or a gradient off the CPU plain path."""
+    env = make_env(trace, cfg, seed=0, cache=venv.cache)
+    fc = FoundationConfig(kind="moe", history=HISTORY, trunk=TRUNK)
+    t0 = time.perf_counter()
+    samples = collect_offline_samples(env, n_episodes=TRAIN_SAMPLE_EPISODES,
+                                      n_points=TRAIN_SAMPLE_POINTS, seed=0)
+    line("train", what="offline samples", n=len(samples),
+         seconds=time.perf_counter() - t0)
+    totals = defaultdict(int)
+
+    def tally(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    # offline pretraining (§4.9.1): every step one trunk pass over 2 x 16
+    # sequences (both actions), differentiated. A one-step call first warms
+    # the allocator and the libraries up; the weights' draw (on the host,
+    # then moved) is timed alone and taken out of the per-step time
+    pretrain_foundation(fc, samples[:PRETRAIN_BATCH], epochs=1, seed=0,
+                        batch_size=PRETRAIN_BATCH)
+    t0 = time.perf_counter()
+    init_foundation(torch.Generator().manual_seed(0), fc)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    _set_train_counts()
+    t0 = time.perf_counter()
+    params, losses = pretrain_foundation(fc, samples, epochs=PRETRAIN_EPOCHS,
+                                         seed=0, batch_size=PRETRAIN_BATCH)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = PRETRAIN_EPOCHS * -(-len(samples) // PRETRAIN_BATCH)
+    counts = _check_backward_counts("pretrain_foundation", steps)
+    tally(counts)
+    line("train", what="pretrain_foundation", kind="moe",
+         experts=fc.n_experts, history=HISTORY, batch=PRETRAIN_BATCH,
+         steps=steps, epoch_losses=_finite("pretrain", losses),
+         wall_ms=wall_ms, init_ms=init_ms,
+         ms_per_step=(wall_ms - init_ms) / steps, **counts)
+
+    # online DQN (§4.9.2): 4 train_on steps per finished episode once the
+    # replay holds a batch of 32; each one trunk pass over 2 x 32 sequences
+    learner = DQNLearner(fc, DQNConfig(batch_size=DQN_BATCH), seed=0,
+                         params=params)
+    train_on = _Timed(learner, "train_on")
+    _set_train_counts()
+    t0 = time.perf_counter()
+    returns = train_online_dqn(env, learner, episodes=DQN_EPISODES, seed=0,
+                               batch=DQN_LANES)
+    wall = time.perf_counter() - t0
+    counts = _check_backward_counts("train_online_dqn", len(train_on.ms))
+    tally(counts)
+    line("train", what="train_online_dqn", episodes=len(returns),
+         returns=returns, train_on_steps=len(train_on.ms),
+         losses=_finite("train_on", train_on.out),
+         ms_per_train_on=_ms(train_on.ms), wall_s=wall, **counts,
+         flash_launches=flash_attention.launches,
+         gemm_launches=grouped_gemm.launches)
+    del learner.train_on                  # the method again, untimed
+
+    # a fixed replay-shaped batch of the offline states, for the gradient
+    # check and the profile
+    rng = np.random.default_rng(0)
+    X = np.stack([s_["matrix"] for s_ in samples]).astype(np.float32)
+    ids = rng.integers(0, len(X), DQN_BATCH)
+    batch = {"s": X[ids], "a": rng.integers(0, 2, DQN_BATCH),
+             "r": np.array([samples[i]["reward"] for i in ids], np.float32),
+             "s2": X[rng.integers(0, len(X), DQN_BATCH)],
+             "done": np.zeros(DQN_BATCH, bool)}
+    check_train_grads(learner, {k: v[:GRAD_CHECK_BATCH]
+                                for k, v in batch.items()})
+    profile_device("moe+dqn train_on", lambda: [
+        learner.train_on(batch) for _ in range(PROFILE_TRAIN_STEPS)],
+        PROFILE_TRAIN_STEPS, "step", batch=DQN_BATCH)
+
+    # online PG: one update per finished episode, the episode padded to a
+    # multiple of 32 decisions, every row through the trunk
+    pg = PGLearner(fc, PGConfig(), seed=0, params=params)
+    update = _Timed(pg, "train_on_episode")
+    _set_train_counts()
+    t0 = time.perf_counter()
+    pg_returns = train_online_pg(env, pg, episodes=PG_EPISODES, seed=0,
+                                 batch=PG_EPISODES)
+    wall = time.perf_counter() - t0
+    counts = _check_backward_counts("train_online_pg", len(update.ms))
+    tally(counts)
+    line("train", what="train_online_pg", episodes=len(pg_returns),
+         returns=pg_returns, updates=len(update.ms),
+         losses=_finite("train_on_episode", update.out),
+         ms_per_update=_ms(update.ms), wall_s=wall, **counts)
+    del pg, update
+
+    # the trained DQN learner serves one chunk of 32 lanes
+    t0 = time.perf_counter()
+    res = evaluate_batch(venv, LearnerPolicy("moe+dqn", learner), seed=1)
+    summary = res.summary()
+    if summary["n_episodes"] != LANES:
+        raise RuntimeError(f"trained learner: {summary['n_episodes']} "
+                           "episodes")
+    line("train", what="trained moe+dqn evaluate_batch", summary=summary,
+         wall_s=time.perf_counter() - t0)
+    line("train", what="backward launches, all training", **totals,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del learner, params
+    torch.cuda.empty_cache()
+    return {"flash_attention_bwd": totals["flash_bwd_launches"],
+            "grouped_gemm_bwd": totals["gemm_bwd_launches"]}
 
 
 # ----------------------------------------------- 4. Mamba2-1.3B serving
@@ -915,7 +1265,105 @@ def phase_timing(errs: dict, launches: dict) -> list:
         shape="x (4,2048,64,64) bf16, B/C (4,2048,1,128) bf16, "
         "chunk 256: one Mamba2 layer's prefill scan", **t)
     line("time", **ssd_rec, **extra)
-    return [flash_rec, gemm_rec, norm_rec, ssd_rec]
+    return [flash_rec, gemm_rec, norm_rec, ssd_rec] + time_backward(
+        gen, errs, launches)
+
+
+def time_backward(gen, errs: dict, launches: dict) -> list:
+    """The backward kernels at the trunk's training shapes: flash's at one
+    layer, (640,144,8,32) bf16, from the forward's out and lse; the GEMM's
+    at one layer, dX and dW of its 6 projections (12 launches, with the
+    copies of Wᵀ that dX reads), through autograd as training runs them. Beside each: the plain version, the library's backward
+    (SDPA's through ``torch.autograd.grad``; two ``torch.bmm`` a
+    projection on transposed views) and the bound."""
+    B = 2 * LANES * mirage_agent.N_EXPERTS
+    H, D = TRUNK.n_heads, TRUNK.hd
+    q, k, v = flash_inputs(gen, B, HISTORY, HISTORY, H, H, D, torch.bfloat16)
+    do = _randn(gen, q.shape, torch.bfloat16)
+    o, lse = flash_launch(q, k, v, "tc", causal=False, window=0, softcap=0.0,
+                          scale=D ** -0.5, lse=True)
+
+    def bwd():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    ms, variant = timed_variant(flash_attention_bwd, bwd)
+    t = {"ms": ms,
+         "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
+             q, k, v, o, lse, do, causal=False), reps=5),
+         "simt_ms": time_ms(lambda: flash_launch_bwd(
+             q, k, v, o, lse, do, "simt", causal=False, softcap=0.0,
+             scale=D ** -0.5), reps=5)}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
+    dot = do.transpose(1, 2).contiguous()
+    t["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        sdpa, (qt, kt, vt), dot, retain_graph=True))
+    extra = {"ms_no_lead": time_ms(bwd, lead=False), "host_us": host_us(bwd)}
+    nbytes = 8 * q.numel() * q.element_size()   # q k v o dO read; dq dk dv
+    flops = 5 * 2 * B * H * HISTORY * HISTORY * D   # q.k^T again, 4 products
+    bms, by = bound_ms(nbytes, flops)
+    flash_rec = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:168",
+        launches=launches["flash_attention_bwd"],
+        max_abs_err=errs["flash_attention_bwd"], bound_ms=bms, bound_by=by,
+        variant=variant,
+        shape="q,k,v,o,dO (640,144,8,32) bf16, non-causal: one trunk "
+              "layer's backward", **t)
+    line("time", **flash_rec, **extra)
+    del q, k, v, o, lse, do, qt, kt, vt, sdpa, dot
+
+    C, d, f = 2 * LANES * HISTORY, TRUNK.d_model, TRUNK.d_ff
+    E = mirage_agent.N_EXPERTS
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    extra = {"ms_no_lead": 0.0, "host_us": 0.0}
+    nbytes = flops = 0
+    variants = set()
+    for din, dout in [(d, d)] * 4 + [(d, f), (f, d)]:
+        x, w = (t_.requires_grad_(True) for t_ in gemm_inputs(
+            gen, E, C, din, dout, torch.bfloat16))
+        dy = _randn(gen, (E, C, dout), torch.bfloat16)
+        out = grouped_gemm(x, w)
+
+        def bwd():
+            return torch.autograd.grad(out, (x, w), dy, retain_graph=True)
+        n, n_tc = grouped_gemm.bwd_launches, grouped_gemm.bwd_tc_launches
+        ms = time_ms(bwd)
+        n, n_tc = (grouped_gemm.bwd_launches - n,
+                   grouped_gemm.bwd_tc_launches - n_tc)
+        variant = "tc" if n_tc == n else "simt" if not n_tc else "mixed"
+        xd, wd = x.detach(), w.detach()
+        one = {"ms": ms,
+               "plain_ms": time_ms(lambda: grouped_gemm_bwd_ref(xd, wd, dy),
+                                   reps=5),
+               "library_ms": time_ms(lambda: (
+                   torch.bmm(dy, wd.transpose(1, 2)),
+                   torch.bmm(xd.transpose(1, 2), dy)))}
+        extra["ms_no_lead"] += time_ms(bwd, lead=False)
+        extra["host_us"] += host_us(bwd)
+        b = 2 * (2 * x.numel() + 2 * w.numel() + dy.numel())  # x w dy; dx dw
+        fl = 2 * 2 * E * C * din * dout
+        line("time", name="grouped_gemm_bwd",
+             shape=f"dX, dW of ({E},{C},{din})x({E},{din},{dout}) bf16",
+             variant=variant, bound_ms=bound_ms(b, fl)[0], **one)
+        variants.add(variant)
+        for key in tot:
+            tot[key] += one[key]
+        nbytes, flops = nbytes + b, flops + fl
+        del x, w, dy, out, xd, wd
+    bms, by = bound_ms(nbytes, flops)
+    gemm_rec = dict(
+        name="grouped_gemm_bwd", route="cuda",
+        source="src/repro_torch/csrc/moe_gemm.cu",
+        replaces="src/repro/kernels/moe_gemm/kernel.py:23",
+        launches=launches["grouped_gemm_bwd"],
+        max_abs_err=errs["grouped_gemm_bwd"], bound_ms=bms, bound_by=by,
+        variant=variants.pop() if len(variants) == 1 else "mixed",
+        shape="dX and dW of one trunk layer's 6 projections, E=10, C=9216, "
+              "bf16, with the copies of W^T", **tot)
+    line("time", **gemm_rec, **extra)
+    return [flash_rec, gemm_rec]
 
 
 def main() -> int:
@@ -925,8 +1373,10 @@ def main() -> int:
         return 1
     phase_build()
     errs = phase_kernels()
-    launches = phase_serve()
+    trace, cfg, venv = agent_env()
+    launches = phase_serve(venv)
     launches.update(phase_lm())
+    launches.update(phase_train(trace, cfg, venv))
     records = phase_timing(errs, launches)
     print(json.dumps({"kernels": records}))
     print(card())

@@ -16,7 +16,9 @@ Layouts:
   weights for all experts are one contiguous slice. ``gate`` is unchanged.
 
 The trunk's unused ``head`` leaf (``transformer.py:56``) is carried along.
-A round trip returns identical arrays.
+A round trip returns identical arrays. The optimizer state of
+``train/optimizer.py`` (``m`` and ``v`` shaped like the parameters, an
+int32 ``step``) converts the same way.
 """
 from __future__ import annotations
 
@@ -83,3 +85,19 @@ def to_jax(params: Dict) -> Dict[str, Any]:
     return {"experts": _map_trunk(
         params["experts"], lambda t: array(t.transpose(0, 1).contiguous()),
         array), "gate": array(params["gate"])}
+
+
+def opt_state_from_jax(jstate: Dict[str, Any], device=None) -> Dict:
+    """The JAX package's AdamW state -> the port's: ``m`` and ``v`` in the
+    parameters' layout, ``step`` an int32 scalar tensor."""
+    dev = resolve_device(device)
+    return {"m": from_jax(jstate["m"], device=dev),
+            "v": from_jax(jstate["v"], device=dev),
+            "step": torch.tensor(int(np.asarray(jstate["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def opt_state_to_jax(state: Dict) -> Dict[str, Any]:
+    """The port's AdamW state -> the JAX package's layout, as numpy."""
+    return {"m": to_jax(state["m"]), "v": to_jax(state["v"]),
+            "step": np.asarray(int(state["step"]), np.int32)}

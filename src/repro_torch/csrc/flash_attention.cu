@@ -57,6 +57,14 @@
 // or v, skip the kv tiles that the causal or window mask empties for the
 // whole block, and take strides for batch, sequence and head, so the
 // model's (B, S, H, D) views need no copy.
+//
+// Training: with a non-null lse pointer each row's log-sum-exp of its
+// masked logits, lse = max + ln(sum), is written as fp32 (B, Hq, Sq), the
+// residual flash_attention_bwd.cu recomputes the probabilities from. Both
+// terms are already in the registers when the row is stored, so it costs
+// one 4-byte store per row; serving passes null and writes nothing. (A
+// recomputing pass in the backward would read q and K once more and redo
+// q.k^T for every row.)
 #include <math.h>
 #include <stdint.h>
 
@@ -78,7 +86,7 @@ constexpr float kNegInf = -1e30f;
 template <typename T, int D>
 __global__ void __launch_bounds__(kBlockQ * (D > 32 ? D / 32 : 1))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int Hq, int group, int Sq, int Skv,
                  long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
@@ -185,11 +193,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + (((long long)b * Sq + qpos) * Hq + h) * D + d0;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) op[i] = from_f32<T>(acc[i] * inv);
+    if (lse != nullptr && tid % TPR == 0)
+      lse[((long long)b * Hq + h) * Sq + qpos] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <typename T, int D>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int Hq, int Hkv, int Sq, int Skv,
                         const long long* qs, const long long* ks_, const long long* vs_,
                         int causal, int window, float softcap, float scale,
@@ -198,7 +208,7 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
   flash_fwd_kernel<T, D><<<grid, kBlockQ * TPR, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2],
+      static_cast<T*>(o), lse, Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2],
       ks_[0], ks_[1], ks_[2], vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
   return cudaGetLastError();
 }
@@ -394,14 +404,21 @@ __device__ __forceinline__ void attend(Rows<D>& st, uint32_t kt, uint32_t vt, in
 
 // Normalise the rows and write them: staged in rows [r0, r0 + 16) of the
 // q tile at smem (rows only this warp reads), then 16-byte chunks to o for
-// positions p0 + r < Sq.
+// positions p0 + r < Sq; with lse, also each row's max * lse_mul + ln(sum)
+// (lse_mul turns the raw max into logits: the scale, or 1 under softcap).
 template <int D>
 __device__ __forceinline__ void store_rows(const Rows<D>& st, uint8_t* smem, int r0, bf16* o,
-                                           int b, int h, int Hq, int Sq, int p0, int lane) {
+                                           float* lse, float lse_mul, int b, int h, int Hq,
+                                           int Sq, int p0, int lane) {
   constexpr int CPR = D / 8;
   const int g = lane / 4, t4 = lane % 4;
-  const float i0 = 1.f / fmaxf(quad_sum(st.l0), 1e-30f);
-  const float i1 = 1.f / fmaxf(quad_sum(st.l1), 1e-30f);
+  const float l0 = fmaxf(quad_sum(st.l0), 1e-30f), l1 = fmaxf(quad_sum(st.l1), 1e-30f);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  if (lse != nullptr && t4 == 0) {
+    float* lp = lse + ((long long)b * Hq + h) * Sq;
+    if (p0 + g < Sq) lp[p0 + g] = st.m0 * lse_mul + logf(l0);
+    if (p0 + g + 8 < Sq) lp[p0 + g + 8] = st.m1 * lse_mul + logf(l1);
+  }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     *reinterpret_cast<uint32_t*>(smem + swz<D>(r0 + g, n) + 4 * t4) =
@@ -429,7 +446,7 @@ __device__ __forceinline__ Scores make_scores(int Skv, int causal, int window, f
 template <int D>
 __global__ void __launch_bounds__(THREADS, D <= 32 ? kMinBlocks32 : 1)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                     int Hq, int group, int Sq, int Skv,
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
@@ -499,7 +516,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   if (active) {
     if (t_begin >= t_end) start_rows(st, sq, r0, lane);
-    store_rows(st, smem, r0, o, b, h, Hq, Sq, p0, lane);
+    store_rows(st, smem, r0, o, lse, softcap != 0.f ? 1.f : scale, b, h, Hq, Sq, p0, lane);
   }
 }
 
@@ -511,6 +528,7 @@ template <int D>
 __global__ void __launch_bounds__(32 * kShortWarps, D <= 32 ? kMinBlocks32 : 1)
 flash_fwd_tc_short_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse,
                           int Hq, int group, int Sq, int Skv,
                           long long q_sb, long long q_ss, long long q_sh,
                           long long k_sb, long long k_ss, long long k_sh,
@@ -552,12 +570,12 @@ flash_fwd_tc_short_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     start_rows(st, sq, r0, lane);
     for (int t = kv_begin / BKV; t < (kv_end + BKV - 1) / BKV; ++t)
       attend(st, sk + t * TILE, sv + t * TILE, t * BKV, r0 + g, r0 + g + 8, sc, lane);
-    store_rows(st, smem, r0, o, b, h, Hq, Sq, r0, lane);
+    store_rows(st, smem, r0, o, lse, softcap != 0.f ? 1.f : scale, b, h, Hq, Sq, r0, lane);
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int Hq, int Hkv, int Sq, int Skv,
                    const long long* qs, const long long* ks_, const long long* vs_,
                    int causal, int window, float softcap, float scale, cudaStream_t stream) {
@@ -571,7 +589,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     const int groups = (int)(sq16 / 16), per = (groups + kShortWarps - 1) / kShortWarps;
     flash_fwd_tc_short_kernel<D><<<dim3(1, Hq, B), 32 * ((groups + per - 1) / per),
                                    (int)short_bytes, stream>>>(
-        qp, kp, vp, op, Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2],
+        qp, kp, vp, op, lse, Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2],
         vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
     return cudaGetLastError();
   }
@@ -591,7 +609,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_fwd_tc_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      qp, kp, vp, op, Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2],
+      qp, kp, vp, op, lse, Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2],
       vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
   return cudaGetLastError();
 }
@@ -601,7 +619,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // variant 0: the CUDA-core kernel for T; variant 1: the tensor-core kernel (bf16)
 template <typename T>
 cudaError_t dispatch_d(int variant, int D, const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Sq, int Skv,
+                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                        const long long* qs, const long long* ks_, const long long* vs_,
                        int causal, int window, float softcap, float scale,
                        cudaStream_t stream) {
@@ -609,10 +627,10 @@ cudaError_t dispatch_d(int variant, int D, const void* q, const void* k, const v
   case DD:                                                                                \
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {                                \
       if (variant == 1)                                                                   \
-        return tc::launch<DD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
+        return tc::launch<DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
                               window, softcap, scale, stream);                            \
     }                                                                                     \
-    return launch_simt<T, DD>(q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
+    return launch_simt<T, DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
                               window, softcap, scale, stream);
   switch (D) {
     REPRO_FLASH_D(16)
@@ -629,13 +647,14 @@ cudaError_t dispatch_d(int variant, int D, const void* q, const void* k, const v
 
 // q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D), each with unit stride on D and
 // the given (batch, seq, head) strides in elements. o: contiguous
-// (B, Sq, Hq, D). variant 0 runs the CUDA-core kernel (float32 or
+// (B, Sq, Hq, D). lse: null, or fp32 (B, Hq, Sq) for each row's log-sum-exp
+// (the backward's residual). variant 0 runs the CUDA-core kernel (float32 or
 // bfloat16); variant 1 the tensor-core kernel, which takes bfloat16 with
 // strides that are multiples of 8 and 16-byte-aligned pointers and refuses
 // anything else (the caller chooses; nothing falls back). Returns the CUDA
 // error of the launch (0 on success).
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int variant,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int variant,
     int B, int Hq, int Hkv, int Sq, int Skv, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -655,10 +674,10 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:
-      return dispatch_d<float>(variant, D, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, kst, vst,
+      return dispatch_d<float>(variant, D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, kst, vst,
                                causal, window, softcap, scale, s);
     case repro::kBFloat16:
-      return dispatch_d<__nv_bfloat16>(variant, D, q, k, v, o, B, Hq, Hkv, Sq, Skv, qs, kst,
+      return dispatch_d<__nv_bfloat16>(variant, D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, kst,
                                        vst, causal, window, softcap, scale, s);
     default:
       return cudaErrorInvalidValue;

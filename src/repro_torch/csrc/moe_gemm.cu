@@ -205,15 +205,17 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// d (64x256 fp32, wgmma's fragment layout) += a (64x16, K-major) . b (16x256, MN-major)
+// d (64x256 fp32, wgmma's fragment layout) += a (64x16, K-major, or
+// MN-major with TA) . b (16x256, MN-major)
+template <int TA>
 __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -224,6 +226,11 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 // (expert, row band, column tile), column tiles fastest, so the blocks in
 // flight share their x row bands through L2. The ring runs on across tiles:
 // the producer loads the next tile while the consumers store this one.
+// With TA the A operand is x's transpose: x is (E, d, C), read as 64x64
+// boxes of its rows (MN-major, C contiguous), one box per warpgroup, and
+// wgmma transposes it, as it does w; C and d keep their roles (out rows,
+// contraction), so the rest of the kernel is the same.
+template <int TA>
 __global__ void __launch_bounds__(THREADS, 1)
 grouped_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                        const __grid_constant__ CUtensorMap wmap,
@@ -260,9 +267,17 @@ grouped_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
           const int s = it % STAGES;
           if (it >= STAGES) mbar_wait(empty0 + 8 * s, (it / STAGES - 1) & 1);
           const uint32_t a = base + s * STAGE_BYTES, b = a + A_BYTES, bar = full0 + 8 * s;
-          mbar_expect_tx(bar, A_BYTES + boxes * BOX_BYTES);
           // a map's two outer axes are in stride order (see launch)
-          tma_load(a, &xmap, bar, ks * BK, x_swap ? e : m0, x_swap ? m0 : e);
+          if (TA) {
+            const int a_boxes = min(CONSUMERS, (C - m0 + HALF - 1) / HALF);  // boxes inside C
+            mbar_expect_tx(bar, (a_boxes + boxes) * BOX_BYTES);
+            for (int bx = 0; bx < a_boxes; ++bx)
+              tma_load(a + bx * BOX_BYTES, &xmap, bar, m0 + bx * HALF, x_swap ? e : ks * BK,
+                       x_swap ? ks * BK : e);
+          } else {
+            mbar_expect_tx(bar, A_BYTES + boxes * BOX_BYTES);
+            tma_load(a, &xmap, bar, ks * BK, x_swap ? e : m0, x_swap ? m0 : e);
+          }
           for (int bx = 0; bx < boxes; ++bx)
             tma_load(b + bx * BOX_BYTES, &wmap, bar, n0 + bx * HALF, w_swap ? e : ks * BK,
                      w_swap ? ks * BK : e);
@@ -291,11 +306,14 @@ grouped_gemm_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         // A: rows of 128 bytes, 8-row groups 1024 bytes apart; a k16 step is
-        // 32 bytes along the (swizzled) row. B: k rows of 128 bytes (64 f
-        // columns), 8-row groups 1024 bytes apart, the next 64 columns one
-        // box (8 KB) on; a k16 step is 16 rows.
-        wgmma(acc, sw128_desc(a + kk * 32, 16, 1024),
-              sw128_desc(b + kk * 16 * 128, BOX_BYTES, 1024));
+        // 32 bytes along the (swizzled) row (with TA: k rows of 128 bytes,
+        // the 64 C rows of this warpgroup's box, a k16 step 16 rows, as B).
+        // B: k rows of 128 bytes (64 f columns), 8-row groups 1024 bytes
+        // apart, the next 64 columns one box (8 KB) on; a k16 step is 16 rows.
+        wgmma<TA>(acc,
+                  TA ? sw128_desc(a + kk * 16 * 128, BOX_BYTES, 1024)
+                     : sw128_desc(a + kk * 32, 16, 1024),
+                  sw128_desc(b + kk * 16 * 128, BOX_BYTES, 1024));
       }
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
@@ -375,6 +393,7 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, long long n0, 
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int TA>
 cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int d, int f,
                    long long x_se, long long x_sc, long long w_se, long long w_sk,
                    cudaStream_t stream) {
@@ -382,7 +401,10 @@ cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int d,
   if (!enc) return cudaErrorNotSupported;
   CUtensorMap xm, wm, om;
   const bool x_swap = x_se < x_sc, w_swap = w_se < w_sk;
-  if (!make_map(enc, &xm, x, d, C, E, x_sc, x_se, BK, BM, x_swap) ||
+  // x is (E, C, d), or (E, d, C) with TA; x_sc is the stride of its rows
+  const bool x_ok = TA ? make_map(enc, &xm, x, C, d, E, x_sc, x_se, HALF, BK, x_swap)
+                       : make_map(enc, &xm, x, d, C, E, x_sc, x_se, BK, BM, x_swap);
+  if (!x_ok ||
       !make_map(enc, &wm, w, f, d, E, w_sk, w_se, HALF, BK, w_swap) ||
       !make_map(enc, &om, out, f, C, E, f, (long long)C * f, HALF, 64, false))
     return cudaErrorInvalidValue;
@@ -396,14 +418,17 @@ cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int d,
     int n = 0;
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(grouped_gemm_tc_kernel,
+      err = cudaFuncSetAttribute(grouped_gemm_tc_kernel<0>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(grouped_gemm_tc_kernel<1>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return err;
     sms[dev] = n;
   }
   const long long tiles = (long long)E * ((C + BM - 1) / BM) * ((f + BN - 1) / BN);
-  grouped_gemm_tc_kernel<<<(int)(tiles < sms[dev] ? tiles : sms[dev]), THREADS, SMEM_BYTES,
-                           stream>>>(
+  grouped_gemm_tc_kernel<TA><<<(int)(tiles < sms[dev] ? tiles : sms[dev]), THREADS, SMEM_BYTES,
+                               stream>>>(
       xm, wm, om, E, C, d, f, x_swap, w_swap);
   return cudaGetLastError();
 }
@@ -412,27 +437,31 @@ cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int d,
 
 }  // namespace
 
-// x: (E, C, d) with strides (x_se, x_sc, 1); w: (E, d, f) with strides
+// x: (E, C, d) with strides (x_se, x_sc, 1), or with trans_x (E, d, C)
+// with strides (x_se, x_sc, 1), read as its transpose (the backward's
+// dW = X^T.dY without a transposed copy); w: (E, d, f) with strides
 // (w_se, w_sk, 1); out: contiguous (E, C, f). variant 0 runs the CUDA-core
-// kernel (float32 or bfloat16, any strides); variant 1 the tensor-core
-// kernel, which takes bfloat16 with d, f, x_se, x_sc, w_se and w_sk
+// kernel (float32 or bfloat16, any strides, no trans_x); variant 1 the
+// tensor-core kernel, which takes bfloat16 with x's row length (d, or C
+// with trans_x, which also needs d > 0), f, x_se, x_sc, w_se and w_sk
 // multiples of 8 and 16-byte-aligned pointers, and refuses anything else
 // (the caller chooses; nothing falls back). Returns the CUDA error of the
 // launch (0 on success).
 extern "C" int grouped_gemm(const void* x, const void* w, void* out, int dtype, int variant,
-                            int E, int C, int d, int f, long long x_se, long long x_sc,
-                            long long w_se, long long w_sk, void* stream) {
+                            int trans_x, int E, int C, int d, int f, long long x_se,
+                            long long x_sc, long long w_se, long long w_sk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
-    const bool ok = dtype == repro::kBFloat16 && d % 8 == 0 && f % 8 == 0 && x_se % 8 == 0 &&
-                    x_sc % 8 == 0 && w_se % 8 == 0 && w_sk % 8 == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+    const bool ok = dtype == repro::kBFloat16 && (trans_x ? C % 8 == 0 && d > 0 : d % 8 == 0) &&
+                    f % 8 == 0 && x_se % 8 == 0 && x_sc % 8 == 0 && w_se % 8 == 0 &&
+                    w_sk % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    return ok ? tc::launch(x, w, out, E, C, d, f, x_se, x_sc, w_se, w_sk, s)
-              : cudaErrorInvalidValue;
+    if (!ok) return cudaErrorInvalidValue;
+    return trans_x ? tc::launch<1>(x, w, out, E, C, d, f, x_se, x_sc, w_se, w_sk, s)
+                   : tc::launch<0>(x, w, out, E, C, d, f, x_se, x_sc, w_se, w_sk, s);
   }
-  if (variant != 0) return cudaErrorInvalidValue;
+  if (variant != 0 || trans_x) return cudaErrorInvalidValue;
   switch (dtype) {
     case repro::kFloat32:
       return launch_simt<float>(x, w, out, E, C, d, f, x_se, x_sc, w_se, w_sk, s);

@@ -37,8 +37,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signature of each library's entry point: (function, argtypes)
 SIGNATURES = {
     "flash_attention": ("flash_attention_fwd",
-                        [_P] * 4 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]),
-    "moe_gemm": ("grouped_gemm", [_P] * 3 + [_I] * 6 + [_L] * 4 + [_P]),
+                        [_P] * 5 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            [_P] * 10 + [_I] * 8 + [_L] * 9
+                            + [_I, _F, _F, _P]),
+    "moe_gemm": ("grouped_gemm", [_P] * 3 + [_I] * 7 + [_L] * 4 + [_P]),
     "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _L, _F, _I, _P]),
     "ssd": ("ssd_fwd", [_P] * 9 + [_I] * 9 + [_L] * 12 + [_P]),
 }
@@ -109,6 +112,16 @@ def row_strides(t):
     """A (B, S, H, D)-shaped tensor's batch, sequence and head strides, 0 for
     an axis of length 1 (a kernel never steps along it)."""
     return [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a gradient through a kernel that
+    has no backward: its output would carry none, and every gradient
+    upstream of it would be dropped without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"the {name} kernel has no backward; call "
+                                  "it under torch.no_grad() or "
+                                  "torch.inference_mode()")
 
 
 def check_launch(name: str, err: int) -> None:

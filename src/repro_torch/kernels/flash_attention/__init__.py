@@ -1,1 +1,3 @@
-from .ops import flash_attention, flash_attention_ref  # noqa: F401
+from .ops import (flash_attention, flash_attention_bwd,  # noqa: F401
+                  flash_attention_bwd_ref, flash_attention_lse_ref,
+                  flash_attention_ref)

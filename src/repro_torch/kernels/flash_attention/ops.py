@@ -1,11 +1,26 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions, and
+the autograd wiring that makes ``flash_attention`` differentiable on the
+card.
 
 Port of ``repro/kernels/flash_attention`` (``_fwd_kernel`` in kernel.py,
-the (B, S, H, D) layout wrapper in ops.py). The kernel is
+the (B, S, H, D) layout wrapper in ops.py). The forward kernel is
 ``repro_torch/csrc/flash_attention.cu``, in two variants: bf16 on the
 tensor cores (``mma.sync``, ``cp.async`` loads) and a CUDA-core one for
-fp32 and for unaligned views. Its note says what bounds it on the H100 and
-how the design answers that.
+fp32 and for unaligned views. The backward kernel,
+``repro_torch/csrc/flash_attention_bwd.cu``, computes the VJP the JAX
+package writes out for its chunked attention (``flash_bwd``,
+``repro/models/attention.py:168-204``); the Pallas kernel has none. It has
+two variants too: bf16 on the tensor cores for short MHA sequences whose
+head fits in shared memory (the agent's trunk), and a CUDA-core one for the
+rest. Each source's note says what bounds it on the H100 and how the design
+answers that.
+
+On CUDA tensors that need a gradient, ``flash_attention`` runs through
+``_FlashFn``: its forward asks the kernel for each row's log-sum-exp, and
+its backward launches the backward kernel (``flash_attention_bwd``). With
+no gradient to track (serving, ``inference_mode``) the forward kernel is
+launched directly, as before. CPU tensors run the plain versions, which
+autograd differentiates.
 """
 from __future__ import annotations
 
@@ -18,30 +33,87 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+# the tensor-core backward's limits (csrc/flash_attention_bwd.cu, tc::): the
+# longest sequence its dS^T tile holds, and an H100 block's shared memory
+BWD_TC_MAX_S = 256
+BWD_TC_MAX_SMEM = 232448
+
+
+def _mask(Sq, Skv, causal, window, device):
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _logits_ref(q, k, *, causal, window, softcap, scale):
+    """fp32 masked logits (B, Hq, Sq, Skv), GQA by head index."""
+    Sq, Hq = q.shape[1], q.shape[2]
+    kf = k.float().repeat_interleave(Hq // k.shape[2], dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kf)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    mask = _mask(Sq, k.shape[1], causal, window, q.device)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF))
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
                         scale=None):
     """Plain PyTorch version: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) ->
     (B,Sq,Hq,D) in q's dtype, computed in fp32 with the kernel's masks."""
+    Hq, D = q.shape[2], q.shape[3]
+    scale = scale or 1.0 / math.sqrt(D)
+    s = _logits_ref(q, k, causal=causal, window=window, softcap=softcap,
+                    scale=scale)
+    p = torch.softmax(s, dim=-1)
+    vf = v.float().repeat_interleave(Hq // v.shape[2], dim=2)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, *, causal=True, softcap=0.0, scale=None):
+    """Plain version of the forward's second output: each row's
+    log-sum-exp of its masked logits, fp32 (B, Hq, Sq)."""
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    return torch.logsumexp(_logits_ref(q, k, causal=causal, window=0,
+                                       softcap=softcap, scale=scale), dim=-1)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
+                            softcap=0.0, scale=None):
+    """Plain version of the backward kernel, step by step as the JAX
+    package's ``flash_bwd`` (``repro/models/attention.py:168-204``): the
+    probabilities recomputed from ``lse``, fp32 throughout, GQA's dk and dv
+    summed over each kv head's q heads. Returns (dq, dk, dv) in the inputs'
+    dtypes and shapes."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
     scale = scale or 1.0 / math.sqrt(D)
-    kf = k.float().repeat_interleave(Hq // Hkv, dim=2)
-    vf = v.float().repeat_interleave(Hq // Hkv, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kf)
+    qs = q.float() * scale
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    go = do.float().transpose(1, 2)                          # (B,H,Sq,D)
+    oo = o.float().transpose(1, 2)
+    delta = (go * oo).sum(-1)                                # (B,H,Sq)
+    raw = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    capped = torch.tanh(raw / softcap) * softcap if softcap else raw
+    bias = torch.where(_mask(Sq, Skv, causal, 0, q.device), 0.0, NEG_INF)
+    p = torch.exp(capped + bias - lse[..., None].float())    # (B,H,Sq,Skv)
+    dv = torch.einsum("bhqk,bhqd->bkhd", p, go)
+    dp = torch.einsum("bhqd,bkhd->bhqk", go, vf)
+    ds = p * (dp - delta[..., None])
     if softcap:
-        s = torch.tanh(s / softcap) * softcap
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= (qpos - kpos) < window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+        ds = ds * (1.0 - torch.square(capped / softcap))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    # _repeat_kv's adjoint: sum each kv head's q heads
+    dk = dk.unflatten(2, (Hkv, rep)).sum(3)
+    dv = dv.unflatten(2, (Hkv, rep)).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v):
@@ -78,23 +150,166 @@ def _flash_variant(q, k, v) -> str:
     return "tc"
 
 
-def _launch(q, k, v, variant: str, *, causal, window, softcap, scale):
+def _launch(q, k, v, variant: str, *, causal, window, softcap, scale,
+            lse=False):
     """Run ``variant`` of the kernel on CUDA tensors q, k, v (checked by the
-    caller) and return out; counts nothing."""
+    caller) and return out, or (out, lse) with ``lse``; counts nothing."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse_t = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+             if lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse_t) if lse else out
     fn = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse_t.data_ptr() if lse else None,
                  _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[variant],
                  B, Hq, Hkv, Sq, Skv, D,
                  *_build.row_strides(q), *_build.row_strides(k), *_build.row_strides(v),
                  int(bool(causal)), int(window), float(softcap), float(scale),
                  torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention", err)
+    return (out, lse_t) if lse else out
+
+
+def bwd_smem_bytes(Sq: int, Skv: int, D: int) -> int:
+    """Shared memory of the tensor-core backward (``tc::smem_bytes``): q,
+    dO, K, V in bf16, dS^T rows of BWD_TC_MAX_S, lse and delta."""
+    sq16, skv16 = -(-Sq // 16) * 16, -(-Skv // 16) * 16
+    return 4 * D * (sq16 + skv16) + skv16 * BWD_TC_MAX_S * 2 + 8 * sq16
+
+
+def _flash_bwd_variant(q, k, v, o, do) -> str:
+    """The backward kernel a CUDA launch runs, chosen from the inputs alone
+    (o and do contiguous): "tc" where the forward takes the tensor cores
+    and, besides, o and do start on 16 bytes, each q head has its own kv
+    head, D <= 64 and both sequences fit the kernel's shared memory whole
+    (the agent's trunk), else "simt"."""
+    Sq, Hq, D = q.shape[1], q.shape[2], q.shape[3]
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if _flash_variant(q, k, v) != "tc" or o.data_ptr() % 16 \
+            or do.data_ptr() % 16 or Hq != Hkv or D > 64 \
+            or max(Sq, Skv) > BWD_TC_MAX_S \
+            or bwd_smem_bytes(Sq, Skv, D) > BWD_TC_MAX_SMEM:
+        return "simt"
+    return "tc"
+
+
+def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, softcap,
+                scale):
+    """Run ``variant`` of the backward kernel on CUDA tensors (o and do
+    contiguous) and return (dq, dk, dv); counts nothing."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Skv, Hkv, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Skv, Hkv, D), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+             if variant == "simt" else None)
+    fn = _build.load("flash_attention_bwd")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(),
+                 None if delta is None else delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[variant],
+                 B, Hq, Hkv, Sq, Skv, D,
+                 *_build.row_strides(q), *_build.row_strides(k),
+                 *_build.row_strides(v), int(bool(causal)), float(softcap),
+                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check_launch("flash_attention_bwd", err)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, softcap=0.0,
+                        scale=None, device=None):
+    """The backward of ``flash_attention`` from its out ``o`` and row
+    log-sum-exp ``lse`` (fp32 (B, Hq, Sq)) and the out's gradient ``do``:
+    (dq, dk, dv) in the inputs' dtypes and shapes. CUDA tensors launch the
+    backward kernel variant that ``_flash_bwd_variant`` names (no window:
+    the flash path never takes one); CPU tensors, with ``device="cpu"``,
+    run ``flash_attention_bwd_ref``."""
+    dev = resolve_device(device)
+    check_on(dev, q, k, v, o, lse, do)
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError("o and do must match q's shape and dtype")
+    if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 (B, Hq, Sq); got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    scale = scale or 1.0 / math.sqrt(q.shape[3])
+    if dev.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       softcap=softcap, scale=scale)
+    return _flash_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                           softcap=softcap, scale=scale)
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.tc_launches = 0
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, softcap, scale):
+    """The card's route of ``flash_attention_bwd`` (inputs checked): one
+    counted launch of the variant ``_flash_bwd_variant`` names."""
+    o, do = o.contiguous(), do.contiguous()
+    variant = _flash_bwd_variant(q, k, v, o, do)
+    grads = _launch_bwd(q, k, v, o, lse.contiguous(), do, variant,
+                        causal=causal, softcap=softcap, scale=scale)
+    if q.numel() and k.numel():         # an empty problem launches nothing
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.tc_launches += variant == "tc"
+    return grads
+
+
+class _FlashFn(torch.autograd.Function):
+    """The forward kernel with the row log-sum-exp kept, and the backward
+    kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, scale):
+        variant = _flash_variant(q, k, v)
+        out, lse = _launch(q, k, v, variant, causal=causal, window=0,
+                           softcap=softcap, scale=scale, lse=True)
+        _count(out, variant)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, softcap=softcap, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
+def _count(out, variant: str) -> None:
+    if out.numel():                     # an empty out launches nothing
+        flash_attention.launches += 1
+        flash_attention.tc_launches += variant == "tc"
+
+
+def _flash_cuda(q, k, v, *, causal, window, softcap, scale):
+    """The card's route of ``flash_attention`` (inputs checked): through
+    ``_FlashFn`` when autograd records a gradient for q, k or v, else one
+    launch of the forward kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if window:
+            raise NotImplementedError("flash attention has no backward "
+                                      "with a window; attention_core sends "
+                                      "windows to the reference math")
+        return _FlashFn.apply(q, k, v, causal, softcap, scale)
+    variant = _flash_variant(q, k, v)
+    out = _launch(q, k, v, variant, causal=causal, window=window,
+                  softcap=softcap, scale=scale)
+    _count(out, variant)
     return out
 
 
@@ -103,7 +318,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     """Model-layout entry: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D) -> (B,Sq,Hq,D).
 
     CUDA tensors launch the kernel variant that ``_flash_variant`` names
-    (strided inputs are read in place); CPU tensors, with
+    (strided inputs are read in place), differentiable through the
+    backward kernel when q, k or v needs a gradient; CPU tensors, with
     ``device="cpu"``, run ``flash_attention_ref``."""
     dev = resolve_device(device)
     check_on(dev, q, k, v)
@@ -112,13 +328,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
-    variant = _flash_variant(q, k, v)
-    out = _launch(q, k, v, variant, causal=causal, window=window,
-                  softcap=softcap, scale=scale)
-    if out.numel():                     # an empty out launches nothing
-        flash_attention.launches += 1
-        flash_attention.tc_launches += variant == "tc"
-    return out
+    return _flash_cuda(q, k, v, causal=causal, window=window,
+                       softcap=softcap, scale=scale)
 
 
 flash_attention.launches = 0

@@ -83,6 +83,7 @@ def rmsnorm(x, w, *, eps: float = 1e-6, gemma: bool = False, device=None):
                          "float32 or bfloat16")
     if dev.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps, gemma=gemma)
+    _build.refuse_grad("rmsnorm", x, w)
     flat = x.reshape(-1, d)          # a view where the layout allows one
     w = w.contiguous()
     if flat.stride(-1) != 1:

@@ -177,6 +177,8 @@ def ssd(x, dt, A, B, C, D, chunk: int, initial_state=None, *, device=None):
     _check(x, dt, A, B, C, D, chunk, initial_state)
     if dev.type == "cpu":
         return ssd_ref(x, dt, A, B, C, D, chunk, initial_state)
+    _build.refuse_grad("ssd", x, dt, A, B, C, D,
+                       *(() if initial_state is None else (initial_state,)))
     if any(t.stride(-1) != 1 for t in (x, B, C)):
         raise ValueError("x, B and C need unit stride on their last axis")
     Q = min(chunk, x.shape[1])

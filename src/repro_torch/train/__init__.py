@@ -1,4 +1,6 @@
-"""Training substrate, ported so far for serving: the prefill and serve
-step factories and the preemption guard."""
+"""Training substrate: the prefill and serve step factories, the
+preemption guard and AdamW."""
 from .fault import PreemptionGuard  # noqa: F401
+from .optimizer import (OptimizerConfig, adamw_update,  # noqa: F401
+                        global_norm, init_opt_state, lr_schedule)
 from .step import make_prefill_step, make_serve_step  # noqa: F401

@@ -18,14 +18,25 @@ the GEMM and RMSNorm and 5e-5 for the scan (the bounds of
 tests/test_kernels.py; sums in two orders); bf16 2e-2 absolute and relative
 (one rounding at the output, after sums in two orders, may land one bf16
 ulp apart).
+
+The backward kernels (flash's, and the GEMM's two products) run through
+autograd as training runs them, against their plain versions on the same
+inputs: flash fp32 3e-5 absolute and 1e-5 relative, the GEMM fp32 2e-5
+(sums over up to 1001 terms), bf16 2e-2; and one reduced DQN step with
+the kernels against the same step on the card's plain path.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
+                                                 flash_attention_lse_ref,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe_gemm import (expert_mlp, grouped_gemm,
+                                          grouped_gemm_bwd_ref,
                                           grouped_gemm_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.ssd import ssd, ssd_ref
@@ -331,3 +342,162 @@ def test_wrappers_reject_cpu_tensors_for_cuda(cuda):
     x = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError):
         grouped_gemm(x, torch.zeros(1, 8, 8))
+
+
+def _bwd_counts():
+    return (flash_attention_bwd.launches, grouped_gemm.bwd_launches,
+            grouped_gemm.bwd_tc_launches, flash_attention_bwd.tc_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,dtype,causal,softcap,variant", [
+    (4, 8, 8, 144, 144, 32, BF16, False, 0.0, "tc"),   # the trunk's
+    (2, 4, 4, 144, 144, 32, BF16, True, 0.0, "tc"),
+    (2, 4, 4, 100, 100, 16, BF16, False, 30.0, "tc"),
+    (2, 4, 4, 97, 131, 64, BF16, True, 30.0, "tc"),    # Sq < Skv, causal
+    (1, 2, 2, 131, 97, 64, BF16, False, 0.0, "tc"),    # Sq > Skv
+    (1, 2, 2, 256, 256, 32, BF16, False, 0.0, "tc"),   # the longest tc
+    (2, 8, 2, 1001, 1001, 64, BF16, True, 0.0, "simt"),  # ragged, GQA
+    (1, 4, 2, 130, 130, 128, BF16, True, 30.0, "simt"),
+    (2, 8, 2, 97, 131, 64, FP32, True, 30.0, "simt"),
+    (3, 4, 4, 24, 24, 16, FP32, False, 0.0, "simt"),
+    (1, 2, 1, 131, 97, 128, FP32, False, 0.0, "simt"),
+])
+def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
+                                      causal, softcap, variant):
+    """Through autograd: the forward kernel keeps each row's log-sum-exp
+    (checked against the plain one), and the backward kernel's dq, dk, dv
+    match ``flash_attention_bwd_ref`` on the forward's out, one backward
+    launch per call, of the variant named."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in
+                   _normal(Sq + D, (B, Sq, Hq, D), (B, Skv, Hkv, D),
+                           (B, Skv, Hkv, D), (B, Sq, Hq, D)))
+    opts = dict(causal=causal, softcap=softcap)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = _bwd_counts()
+    out = flash_attention(*leaves, **opts)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    after = _bwd_counts()
+    assert (after[0] - before[0], after[3] - before[3]) == \
+        (1, int(variant == "tc"))
+    lse = fa_ops._launch(q, k, v, fa_ops._flash_variant(q, k, v), window=0,
+                         scale=D ** -0.5, lse=True, **opts)[1]
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **opts),
+                               atol=1e-4, rtol=1e-5)
+    refs = flash_attention_bwd_ref(q, k, v, out.detach(), lse, do, **opts)
+    atol, rtol = (3e-5, 1e-5) if dtype == FP32 else (2e-2, 2e-2)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+def test_flash_backward_strided_views(cuda):
+    """q, k, v as views of one fused (B, S, 3, H, D) tensor, as a fused qkv
+    projection gives them: the gradient lands in the fused tensor."""
+    a, do = _normal(6, (2, 77, 3, 4, 64), (2, 77, 4, 64))
+    t = torch.from_numpy(a).to(cuda, torch.bfloat16).requires_grad_(True)
+    do = torch.from_numpy(do).to(cuda, torch.bfloat16)
+    q, k, v = t.unbind(2)
+    out = flash_attention(q, k, v, causal=True)
+    before = _bwd_counts()
+    g, = torch.autograd.grad(out, t, do)
+    torch.cuda.synchronize()
+    assert _bwd_counts()[3] == before[3] + 1          # on the tensor cores
+    lse = flash_attention_lse_ref(q.detach(), k.detach(), causal=True)
+    refs = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                   out.detach(), lse, do, causal=True)
+    torch.testing.assert_close(g.float(), torch.stack(refs, 2).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f,dtype,layout", [
+    (10, 9216, 256, 256, BF16, "plain"),     # the trunk's q, k, v, o
+    (10, 9216, 256, 1024, BF16, "plain"),    # its ffn in
+    (10, 9216, 1024, 256, BF16, "plain"),    # its ffn out
+    (3, 1001, 200, 136, BF16, "plain"),      # ragged C (dW's contraction)
+    (2, 300, 64, 96, BF16, "plain"),         # dW's rows in one 64-row box
+    (10, 2000, 256, 256, BF16, "rows"),      # x stored (C, E, d)
+    (3, 1001, 200, 136, FP32, "plain"),      # on the CUDA cores
+])
+def test_grouped_gemm_backward_matches_plain(cuda, E, C, d, f, dtype, layout):
+    """Through autograd: dX = dY.W^T and dW = X^T.dY, two launches of the
+    GEMM kernel (the tensor cores in bf16, dW reading x in place through
+    the transposed mode), against ``grouped_gemm_bwd_ref``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, dy = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in _normal(
+        C + d, (E, C, d), (E, d, f), (E, C, f), scale=d ** -0.25))
+    if layout == "rows":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    assert leaves[0].stride() == x.stride()    # clone keeps the layout
+    before = _bwd_counts()
+    dx, dw = torch.autograd.grad(grouped_gemm(*leaves), leaves, dy)
+    torch.cuda.synchronize()
+    after = _bwd_counts()
+    assert (after[1] - before[1], after[2] - before[2]) == \
+        (2, 2 if dtype == BF16 else 0)
+    rdx, rdw = grouped_gemm_bwd_ref(x, w, dy)
+    tol = 2e-5 if dtype == FP32 else 2e-2
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(dw.float(), rdw.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+def test_train_on_kernel_path_matches_plain(cuda, monkeypatch, dtype):
+    """One reduced moe DQN loss and gradient with the kernels against the
+    same on the card's plain path (the model's flash and GEMM calls sent
+    to the plain versions): every leaf within 1e-4 (fp32) or 2e-2 (bf16) of
+    its scale, one flash backward and 12 GEMM backward launches a layer."""
+    import dataclasses
+    from repro_torch.convert import tree_map
+    from repro_torch.core import DQNConfig, DQNLearner, FoundationConfig
+    from repro_torch.core.dqn import value_and_grad
+    from repro_torch.models import attention, layers
+    fc = FoundationConfig(kind="moe").reduced()
+    fc = dataclasses.replace(fc, trunk=fc.trunk.replace(compute_dtype=dtype))
+    learner = DQNLearner(fc, DQNConfig(), seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {"s": torch.from_numpy(rng.normal(size=(4, fc.history, 40))
+                                   .astype(np.float32)).to(cuda),
+             "a": torch.from_numpy(rng.integers(0, 2, 4)).to(cuda),
+             "r": torch.from_numpy(rng.normal(size=4).astype(np.float32))
+             .to(cuda)}
+    before = _bwd_counts()
+    loss, grads = value_and_grad(learner.loss, learner.params, batch)
+    torch.cuda.synchronize()
+    L = fc.trunk.n_layers
+    after = _bwd_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (L, 12 * L)
+    assert after[3] - before[3] == (L if dtype == BF16 else 0)
+    monkeypatch.setattr(attention, "flash_attention",
+                        lambda q, k, v, device=None, **kw:
+                        flash_attention_ref(q, k, v, **kw))
+    for mod in (attention, layers):
+        monkeypatch.setattr(mod, "grouped_gemm", lambda x, w, device=None:
+                            grouped_gemm_ref(x, w))
+    ploss, pgrads = value_and_grad(learner.loss, learner.params, batch)
+    tol = 1e-4 if dtype == FP32 else 2e-2
+    torch.testing.assert_close(loss, ploss, atol=0, rtol=tol)
+    flat, pflat = [], []
+    tree_map(flat.append, grads)
+    tree_map(pflat.append, pgrads)
+    for i, (g, pg) in enumerate(zip(flat, pflat)):
+        assert float((g - pg).abs().max()) <= tol * max(
+            float(pg.abs().max()), 1e-30), i
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_gradients(cuda):
+    """RMSNorm and the SSD scan have no backward kernel: asked to record a
+    gradient they raise instead of returning an output without one."""
+    x = torch.ones(4, 64, device=cuda, requires_grad=True)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        rmsnorm(x, w)
+    with torch.no_grad():
+        assert rmsnorm(x, w).shape == x.shape

@@ -23,8 +23,12 @@ from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.moe_gemm import moe_grouped_gemm as jax_grouped_gemm
 from repro_torch.configs import mirage_agent
 from repro_torch.core import DQNConfig, DQNLearner, FoundationConfig, q_values
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ops import _flash_variant
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.kernels.flash_attention.ops import (BWD_TC_MAX_SMEM,
+                                                     _flash_bwd_variant,
+                                                     _flash_variant,
+                                                     bwd_smem_bytes)
 from repro_torch.kernels.moe_gemm import expert_mlp, grouped_gemm
 from repro_torch.kernels.moe_gemm.ops import _gemm_variant, _strides
 from repro_torch.kernels.rmsnorm import rmsnorm
@@ -82,6 +86,41 @@ def _gemm_case(name):
 def test_gemm_variant(name, variant):
     x, w = _gemm_case(name)
     assert _gemm_variant(x, w) == variant
+
+
+def _gemm_t_case(name):
+    """x (E, K, M) and dY (E, K, f) of the backward's dW = x^T.dY: the
+    trunk's ffn-out shape, and one change each."""
+    E, K, M, f = 3, 144, 64, 96
+    x, dy = torch.zeros(E, K, M, dtype=BF16), torch.zeros(E, K, f, dtype=BF16)
+    if name == "fp32":
+        x, dy = x.float(), dy.float()
+    elif name == "ragged_k":                 # TMA zero-fills past K
+        x, dy = torch.zeros(E, 1001, M, dtype=BF16), torch.zeros(E, 1001, f,
+                                                                 dtype=BF16)
+    elif name == "m_ragged":
+        x = torch.zeros(E, K, 60, dtype=BF16)
+    elif name == "x_offset":
+        x = _offset(x)
+    elif name == "experts_inside_rows":
+        x = torch.zeros(K, E, M, dtype=BF16).transpose(0, 1)
+    elif name == "k_empty":
+        x, dy = torch.zeros(E, 0, M, dtype=BF16), torch.zeros(E, 0, f,
+                                                              dtype=BF16)
+    return x, dy
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("trunk", "tc"), ("ragged_k", "tc"), ("experts_inside_rows", "tc"),
+    ("fp32", "simt"), ("m_ragged", "simt"), ("x_offset", "simt"),
+    ("k_empty", "simt"),
+])
+def test_gemm_transposed_x_variant(name, variant):
+    """The backward's dW reads x in place, transposed by the tensor-core
+    kernel, where x's rows (M) hold a multiple of 8 elements; the rest
+    (fp32, ragged M, offset views, an empty contraction) take a contiguous
+    copy of x^T on the CUDA-core kernel."""
+    assert _gemm_variant(*_gemm_t_case(name), trans_x=True) == variant
 
 
 def test_gemm_strides_of_length_one_axes():
@@ -142,19 +181,71 @@ def test_flash_variant(name, variant):
     assert _flash_variant(*_flash_case(name)) == variant
 
 
+def _flash_bwd_case(name):
+    """q, k, v, o, dO for the backward: the trunk's shape, and one change
+    each that the tensor-core backward does not take."""
+    B, S, Hq, Hkv, D = 2, 144, 8, 8, 32
+    if name == "gqa":
+        Hkv = 2
+    elif name == "d128":
+        D = 128
+    elif name == "long":
+        S = 257
+    elif name == "d64_s256":                # over the shared-memory ceiling
+        S, D = 256, 64
+    q = torch.zeros(B, S, Hq, D, dtype=BF16)
+    k = v = torch.zeros(B, S, Hkv, D, dtype=BF16)
+    o = do = torch.zeros_like(q)
+    if name == "fp32":
+        q, k, v, o, do = (t.float() for t in (q, k, v, o, do))
+    elif name == "do_offset":
+        do = _offset(do)
+    elif name == "fused_qkv":
+        q, k, v = torch.zeros(B, S, 3, Hq, D, dtype=BF16).unbind(2)
+    return q, k, v, o, do
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("trunk", "tc"), ("fused_qkv", "tc"), ("fp32", "simt"), ("gqa", "simt"),
+    ("d128", "simt"), ("long", "simt"), ("d64_s256", "simt"),
+    ("do_offset", "simt"),
+])
+def test_flash_bwd_variant(name, variant):
+    """The tensor-core backward takes the trunk's bf16 MHA heads whole in
+    shared memory; GQA, D = 128, sequences past 256 or past the shared
+    memory, fp32 and operands off 16 bytes take the CUDA-core kernels."""
+    assert _flash_bwd_variant(*_flash_bwd_case(name)) == variant
+
+
+def test_flash_bwd_smem_mirror():
+    """``bwd_smem_bytes`` mirrors the kernel's ``tc::smem_bytes``: q, dO, K,
+    V in bf16, 256-column dS^T rows and fp32 lse and delta; the trunk's
+    head takes 112 KB, under the 227 KB ceiling."""
+    assert bwd_smem_bytes(144, 144, 32) == 4 * 32 * 288 + 144 * 512 + 8 * 144
+    assert bwd_smem_bytes(144, 144, 32) < BWD_TC_MAX_SMEM
+    assert bwd_smem_bytes(256, 256, 32) <= BWD_TC_MAX_SMEM
+    assert bwd_smem_bytes(256, 256, 64) > BWD_TC_MAX_SMEM
+
+
 def _counts():
     return (grouped_gemm.launches, grouped_gemm.tc_launches,
+            grouped_gemm.bwd_launches, grouped_gemm.bwd_tc_launches,
             flash_attention.launches, flash_attention.tc_launches,
-            rmsnorm.launches, rmsnorm.vec_launches, ssd.launches,
-            ssd.tc_launches)
+            flash_attention_bwd.launches, flash_attention_bwd.tc_launches,
+            rmsnorm.launches,
+            rmsnorm.vec_launches, ssd.launches, ssd.tc_launches)
 
 
 def test_cpu_path_counts_no_launch():
     """On the CPU the wrappers run their plain versions: no launch, of
-    either variant, is counted."""
+    either variant, is counted, and their gradients (autograd of the plain
+    versions) count no backward launch."""
     counts = _counts()
-    grouped_gemm(*_gemm_case("contiguous"), device="cpu")
-    flash_attention(*_flash_case("contiguous"), device="cpu")
+    x, w = (t.clone().requires_grad_(True) for t in _gemm_case("contiguous"))
+    grouped_gemm(x, w, device="cpu").float().sum().backward()
+    q, k, v = (t.clone().requires_grad_(True) for t in _flash_case("contiguous"))
+    flash_attention(q, k, v, device="cpu").float().sum().backward()
+    assert x.grad is not None and q.grad is not None
     rmsnorm(torch.zeros(8, 64, dtype=BF16), torch.ones(64), device="cpu")
     x, B = torch.zeros(1, 40, 4, 64, dtype=BF16), torch.zeros(1, 40, 1, 128,
                                                               dtype=BF16)

@@ -25,7 +25,7 @@ COPIED = ["analysis/cow.py", "sim/trace.py", "sim/cluster.py", "sim/faults.py",
           "sim/simulator.py", "sim/timeline.py", "sim/workload.py",
           "sim/scenarios.py", "core/state.py", "core/reward.py",
           "core/provisioner.py", "core/policy.py", "core/baselines.py",
-          "train/fault.py"]
+          "core/replay.py", "core/trees.py", "train/fault.py"]
 # copies that drop parts of their original (the rest must keep its length)
 PARTIAL = ("sim/scenarios.py",       # co-tenancy
            "train/fault.py")         # PreemptionGuard only

@@ -57,8 +57,10 @@ def test_source_names_no_jax_or_repro(path):
 def _entry_points():
     from repro_torch.convert import from_jax
     from repro_torch.core import (DQNConfig, DQNLearner, FoundationConfig,
-                                  init_foundation)
-    from repro_torch.kernels.flash_attention import flash_attention
+                                  PGConfig, PGLearner, build_policy,
+                                  init_foundation, pretrain_foundation)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.moe_gemm import expert_mlp, grouped_gemm
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd import ssd
@@ -79,6 +81,12 @@ def _entry_points():
         "ServeEngine": lambda: ServeEngine(mamba2_1_3b.SMOKE, {}),
         "launch.serve": lambda: serve.main(["--smoke", "--requests", "1"]),
         "DQNLearner": lambda: DQNLearner(fc, DQNConfig()),
+        "PGLearner": lambda: PGLearner(fc, PGConfig()),
+        "pretrain_foundation": lambda: pretrain_foundation(fc, []),
+        "build_policy": lambda: build_policy("moe+dqn", None,
+                                             offline_samples=[{}]),
+        "flash_attention_bwd": lambda: flash_attention_bwd(
+            q, q, q, q, torch.zeros(1, 2, 4), q),
         "init_foundation": lambda: init_foundation(torch.Generator(), fc),
         "flash_attention": lambda: flash_attention(q, q, q),
         "grouped_gemm": lambda: grouped_gemm(x, torch.zeros(1, 8, 8)),
@@ -89,8 +97,10 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["DQNLearner", "init_foundation",
-                                  "flash_attention", "grouped_gemm",
+@pytest.mark.parametrize("name", ["DQNLearner", "PGLearner",
+                                  "pretrain_foundation", "build_policy",
+                                  "init_foundation", "flash_attention",
+                                  "flash_attention_bwd", "grouped_gemm",
                                   "expert_mlp", "from_jax", "rmsnorm", "ssd",
                                   "init_cache", "ServeEngine",
                                   "launch.serve"])
