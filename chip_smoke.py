@@ -16,7 +16,9 @@ exits non-zero:
    GEMM and the SSD scan: bf16 on the tensor cores, fp32 and unaligned
    inputs on the CUDA cores; RMSNorm: 16-byte vectors, and one element per
    lane for rows off 16 bytes); the backward kernels through autograd:
-   flash's (with the forward's row log-sum-exp) and the GEMM's two products;
+   flash's (with the forward's row log-sum-exp) and the GEMM's (in bf16 both
+   products from one launch of the fused kernel, dW split along C and the
+   same bit for bit over repeated calls);
 3. the agent's serving path at its full published width: ``evaluate_batch``
    over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
@@ -42,7 +44,8 @@ exits non-zero:
    ``train_online_pg`` (4 episodes), then the trained DQN learner serving
    one ``evaluate_batch`` chunk of 32 lanes; ms per step, the losses (all
    finite), the backward launch counts checked against steps x layers (one
-   flash backward and 12 GEMM backward launches a layer), one full-width
+   flash backward a layer, and 12 GEMM backward products from 6 fused
+   calls, all on the tensor cores), one full-width
    ``train_on``'s gradients at batch 4 held against the CPU plain path, and
    a torch.profiler pass over 3 ``train_on`` steps;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
@@ -55,8 +58,10 @@ exits non-zero:
    lead (the ruler of earlier runs, see ``time_ms``); flash's streaming
    form at a long sequence beside its CUDA-core variant and the library
    call; and RMSNorm at the decode step's 4 rows; and the backward kernels
-   at the trunk's shapes (flash's at one layer, the GEMM's 12 launches of
-   one layer) beside SDPA's backward and ``torch.bmm``.
+   at the trunk's shapes (flash's at one layer; the GEMM's fused backward
+   of one layer's 6 projections beside the earlier two-launch route of the
+   same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
+   backward's host time split into its parts.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -96,6 +101,7 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
 from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
                                           grouped_gemm_bwd_ref,
                                           grouped_gemm_ref)
+from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
     _launch as gemm_launch)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
@@ -395,9 +401,12 @@ def check_backward(gen, errs: dict) -> None:
     ``flash_attention_bwd_ref`` on the forward's out; the tensor-core
     variant at every head dim it takes, causal, softcap and ragged, the
     CUDA-core one for GQA, D = 128, long sequences and fp32. The GEMM: dX
-    and dW, two launches of the GEMM kernel each named by the variant that
-    ran (in bf16 dW reads x in place, transposed by the tensor-core kernel),
-    against ``grouped_gemm_bwd_ref``."""
+    and dW against ``grouped_gemm_bwd_ref``, in bf16 from one launch of the
+    fused backward kernel (counted once in ``bwd_fused_calls``; dW split
+    along C and the same bit for bit over two more calls), with x or dY
+    strided as the trunk stores its activations; in fp32 from two launches
+    of the CUDA-core kernel. At each bf16 case the two-launch route that
+    phase 5 times beside it is held to the same tolerance."""
     B = 2 * LANES * mirage_agent.N_EXPERTS
     bf16 = torch.bfloat16
     cases = [
@@ -461,32 +470,60 @@ def check_backward(gen, errs: dict) -> None:
     E, C = mirage_agent.N_EXPERTS, 2 * LANES * HISTORY
     d, f = TRUNK.d_model, TRUNK.d_ff
     cases = [(f"gemm bwd ({E},{C},{a})x({E},{a},{b}) bf16",
-              (E, C, a, b, torch.bfloat16), BF16_TOL)
+              (E, C, a, b, bf16), "plain", BF16_TOL)
              for a, b in ((d, d), (d, f), (f, d))]
-    cases += [("gemm bwd ragged (3,1001,200)x(3,200,136) bf16",
-               (3, 1001, 200, 136, torch.bfloat16), BF16_TOL),
+    cases += [(f"gemm bwd trunk layout, x stored ({C},{E},{d}) bf16",
+               (E, C, d, d, bf16), "x_rows", BF16_TOL),
+              (f"gemm bwd dY stored (2000,{E},{d}) bf16",
+               (E, 2000, d, d, bf16), "dy_rows", BF16_TOL),
+              ("gemm bwd ragged (3,1001,200)x(3,200,136) bf16",
+               (3, 1001, 200, 136, bf16), "plain", BF16_TOL),
               ("gemm bwd ragged (3,1001,200)x(3,200,136) fp32",
-               (3, 1001, 200, 136, torch.float32), FP32_GEMM_BWD_TOL)]
-    for name, shape, tol in cases:
-        x, w = (t.requires_grad_(True) for t in gemm_inputs(gen, *shape))
+               (3, 1001, 200, 136, torch.float32), "plain",
+               FP32_GEMM_BWD_TOL)]
+    for name, shape, layout, tol in cases:
+        x, w = gemm_inputs(gen, *shape)
         dy = _randn(gen, (shape[0], shape[1], shape[3]), shape[4])
-        before = _bwd_counts()
+        if layout == "x_rows":
+            x = x.transpose(0, 1).contiguous().transpose(0, 1)
+        if layout == "dy_rows":
+            dy = dy.transpose(0, 1).contiguous().transpose(0, 1)
+        x.requires_grad_(True)
+        w.requires_grad_(True)
+        before, calls = _bwd_counts(), grouped_gemm.bwd_fused_calls
         dx, dw = torch.autograd.grad(grouped_gemm(x, w), (x, w), dy)
         torch.cuda.synchronize()
         n, n_tc = (a - b for a, b in zip(_bwd_counts()[1:3], before[1:3]))
-        variant = "tc" if n_tc == n else "simt" if not n_tc else "mixed"
-        want = "tc" if shape[4] == torch.bfloat16 else "simt"
-        if n != 2 or variant != want:
-            raise RuntimeError(f"{name}: {n} backward launches ({n_tc} on "
-                               f"the tensor cores), expected 2 {want}")
-        rdx, rdw = grouped_gemm_bwd_ref(x.detach(), w.detach(), dy)
+        fused = grouped_gemm.bwd_fused_calls - calls
+        bf = shape[4] == bf16
+        if (n, n_tc, fused) != ((2, 2, 1) if bf else (2, 0, 0)):
+            raise RuntimeError(f"{name}: {n} backward products ({n_tc} on "
+                               f"the tensor cores) in {fused} fused calls")
+        xd, wd = x.detach(), w.detach()
+        rdx, rdw = grouped_gemm_bwd_ref(xd, wd, dy)
         err = max(_err(dx, rdx, tol, tol, name + " dX"),
                   _err(dw, rdw, tol, tol, name + " dW"))
+        extra = {}
+        if bf:
+            for _ in range(2):
+                if not torch.equal(gemm_ops._launch_bwd(xd, wd, dy, True,
+                                                        True)[1], dw):
+                    raise RuntimeError(f"{name}: dW differs between calls")
+            odx, odw = gemm_ops._backward_two_launches(xd, wd, dy, True, True)
+            extra = {"splits": gemm_ops.split_count(
+                         shape[0], shape[2], shape[3], shape[1],
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count),
+                     "dw_bit_identical": True,
+                     "two_launch_max_abs_err": max(
+                         _err(odx, rdx, tol, tol, name + " two-launch dX"),
+                         _err(odw, rdw, tol, tol, name + " two-launch dW"))}
         errs["grouped_gemm_bwd"] = max(errs.get("grouped_gemm_bwd", 0.0),
                                        err)
-        line("check", case=name, variant=variant, max_abs_err=err, atol=tol,
-             rtol=tol)
-        del x, w, dy, dx, dw, rdx, rdw
+        line("check", case=name, variant="tc" if bf else "simt",
+             route="fused" if bf else "two launches", max_abs_err=err,
+             atol=tol, rtol=tol, **extra)
+        del x, w, dy, dx, dw, rdx, rdw, xd, wd
 
 
 # ------------------------------------------------- 3. agent serving
@@ -645,22 +682,28 @@ def _set_train_counts() -> None:
         kern.launches = kern.tc_launches = 0
     flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
     grouped_gemm.bwd_launches = grouped_gemm.bwd_tc_launches = 0
+    grouped_gemm.bwd_fused_calls = 0
 
 
 def _check_backward_counts(what: str, trunk_passes: int) -> dict:
     """The backward launches since the counts were zeroed must be those of
     ``trunk_passes`` differentiated trunk passes: per layer one flash
-    backward and GEMM_BWD_PER_LAYER GEMM backward launches."""
+    backward, GEMM_BWD_PER_LAYER GEMM backward products, all on the tensor
+    cores, from one fused call per projection."""
     counts = {"flash_bwd_launches": flash_attention_bwd.launches,
               "flash_bwd_tc_launches": flash_attention_bwd.tc_launches,
               "gemm_bwd_launches": grouped_gemm.bwd_launches,
-              "gemm_bwd_tc_launches": grouped_gemm.bwd_tc_launches}
-    want = (trunk_passes * TRUNK.n_layers * FLASH_PER_LAYER,
-            trunk_passes * TRUNK.n_layers * GEMM_BWD_PER_LAYER)
-    if not trunk_passes or (counts["flash_bwd_launches"],
-                            counts["gemm_bwd_launches"]) != want:
+              "gemm_bwd_tc_launches": grouped_gemm.bwd_tc_launches,
+              "gemm_bwd_fused_calls": grouped_gemm.bwd_fused_calls}
+    layers = trunk_passes * TRUNK.n_layers
+    want = (layers * FLASH_PER_LAYER, layers * GEMM_BWD_PER_LAYER,
+            layers * GEMM_BWD_PER_LAYER, layers * GEMMS_PER_LAYER)
+    got = (counts["flash_bwd_launches"], counts["gemm_bwd_launches"],
+           counts["gemm_bwd_tc_launches"], counts["gemm_bwd_fused_calls"])
+    if not trunk_passes or got != want:
         raise RuntimeError(f"{what}: {counts} for {trunk_passes} trunk "
-                           f"passes, expected {want} flash and GEMM backward")
+                           f"passes, expected {want} flash backward, GEMM "
+                           "backward products (tensor-core) and fused calls")
     return counts
 
 
@@ -836,7 +879,8 @@ def phase_train(trace, cfg, venv) -> dict:
     del learner, params
     torch.cuda.empty_cache()
     return {"flash_attention_bwd": totals["flash_bwd_launches"],
-            "grouped_gemm_bwd": totals["gemm_bwd_launches"]}
+            "grouped_gemm_bwd": totals["gemm_bwd_fused_calls"],
+            "grouped_gemm_bwd_products": totals["gemm_bwd_launches"]}
 
 
 # ----------------------------------------------- 4. Mamba2-1.3B serving
@@ -1269,13 +1313,99 @@ def phase_timing(errs: dict, launches: dict) -> list:
         gen, errs, launches)
 
 
+class _Identity(torch.autograd.Function):
+    """A Function whose backward launches nothing: ``torch.autograd.grad``
+    through it times the engine's own cost of one call."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def gemm_bwd_host(x, w, dy, out) -> dict:
+    """Host microseconds of one projection's backward and of its parts,
+    each timed alone with ``host_us`` (the card asleep): through autograd
+    and called directly, on the fused route and on the two-launch one (the
+    engine's hand-off is the difference), the variant choice, the three
+    ``torch.empty`` (dX, dW, the split-K workspace), a ``torch.cuda.device``
+    switch (the fused route skips it on the current device), the Wᵀ copy
+    of the two-launch route, and the C entry point: called with nothing to
+    do (ctypes alone), with dX only (3 tensor maps) and with both (6); the
+    difference of the last two is three ``cuTensorMapEncodeTiled``. The
+    engine's floor is ``torch.autograd.grad`` through a Function whose
+    backward launches nothing."""
+    xd, wd = x.detach(), w.detach()
+    E, C, d = xd.shape
+    f = wd.shape[2]
+    dev = xd.device
+    tiles = E * -(-d // gemm_ops.BLOCK_M) * -(-f // gemm_ops.BLOCK_N)
+    sms, counters = gemm_ops._device_state(dev, tiles)
+    splits = gemm_ops.split_count(E, d, f, C, sms)
+    dx, dw = torch.empty_like(xd), torch.empty_like(wd)
+    part = torch.empty(tiles * splits * gemm_ops.BLOCK_M * gemm_ops.BLOCK_N,
+                       device=dev)
+    fn = _build.load("moe_gemm", "grouped_gemm_bwd")
+
+    def call(dx_ptr, dw_ptr):
+        return lambda: fn(xd.data_ptr(), wd.data_ptr(), dy.data_ptr(), dx_ptr,
+                          dw_ptr, part.data_ptr() if splits > 1 else None,
+                          counters.data_ptr(), E, C, d, f, splits,
+                          *gemm_ops._strides(xd, wd),
+                          *gemm_ops._lead_strides(dy),
+                          torch.cuda.current_stream().cuda_stream)
+
+    def switch():
+        with torch.cuda.device(dev):
+            pass
+
+    def grad():
+        return torch.autograd.grad(out, (x, w), dy, retain_graph=True)
+    us = {"autograd_us": host_us(grad),
+          "backward_us": host_us(lambda: gemm_ops._backward(
+              xd, wd, dy, True, True)),
+          "variant_us": host_us(lambda: gemm_ops._bwd_variant(xd, wd, dy)),
+          "empty_us": host_us(lambda: (
+              torch.empty_like(xd), torch.empty_like(wd),
+              torch.empty(part.numel(), device=dev))),
+          "device_switch_us": host_us(switch),
+          "ctypes_us": host_us(call(None, None)),
+          "c_dx_us": host_us(call(dx.data_ptr(), None)),
+          "c_both_us": host_us(call(dx.data_ptr(), dw.data_ptr())),
+          "old_backward_us": host_us(lambda: gemm_ops._backward_two_launches(
+              xd, wd, dy, True, True)),
+          "wt_copy_us": host_us(lambda: wd.transpose(1, 2).contiguous())}
+    fused_variant = gemm_ops._bwd_variant
+    gemm_ops._bwd_variant = lambda *args: "simt"    # the two-launch route
+    try:
+        us["old_autograd_us"] = host_us(grad)
+    finally:
+        gemm_ops._bwd_variant = fused_variant
+    leaf = torch.zeros(8, device=dev, requires_grad=True)
+    ident, ones = _Identity.apply(leaf), torch.ones(8, device=dev)
+    us["engine_floor_us"] = host_us(lambda: torch.autograd.grad(
+        ident, leaf, ones, retain_graph=True))
+    us["engine_us"] = us["autograd_us"] - us["backward_us"]
+    us["encode3_us"] = us["c_both_us"] - us["c_dx_us"]
+    us["launch_us"] = us["c_both_us"] - us["ctypes_us"] - 2 * us["encode3_us"]
+    return us
+
+
 def time_backward(gen, errs: dict, launches: dict) -> list:
     """The backward kernels at the trunk's training shapes: flash's at one
     layer, (640,144,8,32) bf16, from the forward's out and lse; the GEMM's
-    at one layer, dX and dW of its 6 projections (12 launches, with the
-    copies of Wᵀ that dX reads), through autograd as training runs them. Beside each: the plain version, the library's backward
-    (SDPA's through ``torch.autograd.grad``; two ``torch.bmm`` a
-    projection on transposed views) and the bound."""
+    at one layer, dX and dW of its 6 projections through autograd as
+    training runs them (one launch of the fused kernel a projection),
+    beside the two-launch route of the same products (``old_ms``: dX on a
+    copy of Wᵀ, dW through the forward kernel's transposed-x mode) and each
+    product alone from the fused kernel (``dx_only_ms``, ``dw_only_ms``), with
+    the host time split as ``gemm_bwd_host`` gives it. Beside each: the
+    plain version, the library's backward (SDPA's through
+    ``torch.autograd.grad``; two ``torch.bmm`` a projection on transposed
+    views) and the bound."""
     B = 2 * LANES * mirage_agent.N_EXPERTS
     H, D = TRUNK.n_heads, TRUNK.hd
     q, k, v = flash_inputs(gen, B, HISTORY, HISTORY, H, H, D, torch.bfloat16)
@@ -1316,8 +1446,8 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
 
     C, d, f = 2 * LANES * HISTORY, TRUNK.d_model, TRUNK.d_ff
     E = mirage_agent.N_EXPERTS
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    extra = {"ms_no_lead": 0.0, "host_us": 0.0}
+    tot = {"ms": 0.0, "old_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    extra = defaultdict(float)
     nbytes = flops = 0
     variants = set()
     for din, dout in [(d, d)] * 4 + [(d, f), (f, d)]:
@@ -1329,24 +1459,40 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
         def bwd():
             return torch.autograd.grad(out, (x, w), dy, retain_graph=True)
         n, n_tc = grouped_gemm.bwd_launches, grouped_gemm.bwd_tc_launches
+        calls = grouped_gemm.bwd_fused_calls
         ms = time_ms(bwd)
-        n, n_tc = (grouped_gemm.bwd_launches - n,
-                   grouped_gemm.bwd_tc_launches - n_tc)
-        variant = "tc" if n_tc == n else "simt" if not n_tc else "mixed"
+        n, n_tc, calls = (grouped_gemm.bwd_launches - n,
+                          grouped_gemm.bwd_tc_launches - n_tc,
+                          grouped_gemm.bwd_fused_calls - calls)
+        variant = ("tc" if n_tc == n == 2 * calls else
+                   "simt" if not n_tc else "mixed")
         xd, wd = x.detach(), w.detach()
         one = {"ms": ms,
+               "old_ms": time_ms(lambda: gemm_ops._backward_two_launches(
+                   xd, wd, dy, True, True)),
                "plain_ms": time_ms(lambda: grouped_gemm_bwd_ref(xd, wd, dy),
                                    reps=5),
                "library_ms": time_ms(lambda: (
                    torch.bmm(dy, wd.transpose(1, 2)),
                    torch.bmm(xd.transpose(1, 2), dy)))}
+        # each product alone from the same kernel: what one grid for both
+        # saves over two launches of it
+        for key, need in (("dx_only_ms", (True, False)),
+                          ("dw_only_ms", (False, True))):
+            extra[key] += time_ms(lambda: gemm_ops._launch_bwd(
+                xd, wd, dy, *need))
         extra["ms_no_lead"] += time_ms(bwd, lead=False)
-        extra["host_us"] += host_us(bwd)
+        host = gemm_bwd_host(x, w, dy, out)
+        extra["host_us"] += host["autograd_us"]
+        extra["old_host_us"] += host["old_autograd_us"]
         b = 2 * (2 * x.numel() + 2 * w.numel() + dy.numel())  # x w dy; dx dw
         fl = 2 * 2 * E * C * din * dout
         line("time", name="grouped_gemm_bwd",
              shape=f"dX, dW of ({E},{C},{din})x({E},{din},{dout}) bf16",
-             variant=variant, bound_ms=bound_ms(b, fl)[0], **one)
+             variant=variant, splits=gemm_ops.split_count(
+                 E, din, dout, C,
+                 torch.cuda.get_device_properties(0).multi_processor_count),
+             bound_ms=bound_ms(b, fl)[0], **one, host=host)
         variants.add(variant)
         for key in tot:
             tot[key] += one[key]
@@ -1358,10 +1504,11 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
         source="src/repro_torch/csrc/moe_gemm.cu",
         replaces="src/repro/kernels/moe_gemm/kernel.py:23",
         launches=launches["grouped_gemm_bwd"],
+        products=launches["grouped_gemm_bwd_products"],
         max_abs_err=errs["grouped_gemm_bwd"], bound_ms=bms, bound_by=by,
         variant=variants.pop() if len(variants) == 1 else "mixed",
         shape="dX and dW of one trunk layer's 6 projections, E=10, C=9216, "
-              "bf16, with the copies of W^T", **tot)
+              "bf16, one fused launch a projection", **tot)
     line("time", **gemm_rec, **extra)
     return [flash_rec, gemm_rec]
 

@@ -50,6 +50,14 @@ def _map_trunk(tree: Dict, seg_fn: Callable, leaf_fn: Callable) -> Dict:
     return out
 
 
+def widened(params: Dict) -> bool:
+    """Whether ``params`` (or a tree shaped like it) is a transformer-kind
+    agent tree, whose every leaf carries the expert axis of 1 that the port
+    adds: its JAX counterpart has one dimension fewer."""
+    return isinstance(params, dict) and "trunk" in params \
+        and "experts" not in params
+
+
 def from_jax(jparams: Dict[str, Any], device=None) -> Dict:
     """JAX LM or foundation params (numpy or jax arrays) -> the port's
     tensors on ``device`` (CUDA unless ``device="cpu"``)."""

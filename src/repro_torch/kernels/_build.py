@@ -34,16 +34,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANT_CODES = {"simt": 0, "tc": 1, "vec": 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signature of each library's entry point: (function, argtypes)
+# C signature of each library's entry points: {function: argtypes}, the
+# first one the library's default
 SIGNATURES = {
-    "flash_attention": ("flash_attention_fwd",
-                        [_P] * 5 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]),
-    "flash_attention_bwd": ("flash_attention_bwd",
+    "flash_attention": {"flash_attention_fwd":
+                        [_P] * 5 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]},
+    "flash_attention_bwd": {"flash_attention_bwd":
                             [_P] * 10 + [_I] * 8 + [_L] * 9
-                            + [_I, _F, _F, _P]),
-    "moe_gemm": ("grouped_gemm", [_P] * 3 + [_I] * 7 + [_L] * 4 + [_P]),
-    "rmsnorm": ("rmsnorm_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _L, _F, _I, _P]),
-    "ssd": ("ssd_fwd", [_P] * 9 + [_I] * 9 + [_L] * 12 + [_P]),
+                            + [_I, _F, _F, _P]},
+    "moe_gemm": {"grouped_gemm": [_P] * 3 + [_I] * 7 + [_L] * 4 + [_P],
+                 "grouped_gemm_bwd": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P]},
+    "rmsnorm": {"rmsnorm_fwd":
+                [_P, _P, _P, _I, _I, _I, _I, _I, _L, _F, _I, _P]},
+    "ssd": {"ssd_fwd": [_P] * 9 + [_I] * 9 + [_L] * 12 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -95,17 +98,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     return logs
 
 
-def load(name: str):
-    """The C entry point of kernel library ``name``, built on first use."""
+def load(name: str, entry: str = ""):
+    """The C entry point ``entry`` (by default the first of SIGNATURES) of
+    kernel library ``name``, built on first use."""
     with _lock:
         if name not in _libs:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
             _libs[name] = lib
-        return getattr(_libs[name], SIGNATURES[name][0])
+        return getattr(_libs[name], entry or next(iter(SIGNATURES[name])))
 
 
 def row_strides(t):

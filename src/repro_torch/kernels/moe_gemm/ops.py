@@ -9,12 +9,15 @@ cannot address. Its note says what bounds it on the H100 and how the design
 answers that.
 
 On CUDA tensors that need a gradient, ``grouped_gemm`` runs through
-``_GemmFn``, whose backward is two more launches of the same kernel:
-dX = dY·Wᵀ (Wᵀ copied to a contiguous tensor, a few MB) and dW = Xᵀ·dY,
-which the tensor-core kernel reads straight from X (its ``trans_x`` mode:
-X's rows as MN-major tiles, transposed by ``wgmma``) and the CUDA-core one
-from a contiguous copy of Xᵀ. They are counted in
-``grouped_gemm.bwd_launches`` / ``bwd_tc_launches``.
+``_GemmFn``. In bf16 its backward is one launch of the fused backward
+kernel (``grouped_gemm_bwd`` in the same source), which computes
+dX = dY·Wᵀ reading W in place and dW = Xᵀ·dY reading X in place, dW split
+along C (``split_count``) and reduced in a fixed order; it is counted once
+in ``grouped_gemm.bwd_fused_calls``. Inputs that kernel does not take
+(fp32, unaligned views) keep the two-launch route: dX on a contiguous copy
+of Wᵀ, dW through the forward kernel's ``trans_x`` mode (tensor cores) or
+on a copy of Xᵀ (CUDA cores). Either way ``grouped_gemm.bwd_launches`` /
+``bwd_tc_launches`` count the products computed, dX and dW.
 With no gradient to track the kernel is launched directly, as before; CPU
 tensors run ``grouped_gemm_ref``, which autograd differentiates.
 """
@@ -41,16 +44,18 @@ def grouped_gemm_bwd_ref(x, w, dy):
     return dx, dw
 
 
+def _lead_strides(t):
+    """(expert stride, row stride) of a 3-D operand, the stride of an axis
+    of length 1 replaced by the nested one: the kernel never steps along
+    it, so its stride is whatever the view happened to keep."""
+    E, rows, row = t.shape
+    sc = t.stride(1) if rows > 1 else row
+    return (t.stride(0) if E > 1 else rows * sc), sc
+
+
 def _strides(x, w):
-    """(x_se, x_sc, w_se, w_sk), the stride of an axis of length 1 replaced
-    by the nested one: the kernel never steps along it, so its stride is
-    whatever the view happened to keep."""
-    E, rows, row = x.shape
-    k, f = w.shape[1], w.shape[2]
-    x_sc = x.stride(1) if rows > 1 else row
-    w_sk = w.stride(1) if k > 1 else f
-    return (x.stride(0) if E > 1 else rows * x_sc, x_sc,
-            w.stride(0) if E > 1 else k * w_sk, w_sk)
+    """(x_se, x_sc, w_se, w_sk), as ``_lead_strides`` gives them."""
+    return (*_lead_strides(x), *_lead_strides(w))
 
 
 def _gemm_variant(x, w, trans_x: bool = False) -> str:
@@ -101,6 +106,98 @@ def _launch(x, w, variant: str, trans_x: bool = False):
     return out
 
 
+# the fused backward kernel's tiles (rows x columns x contraction step)
+BLOCK_M, BLOCK_N, BLOCK_K = 128, 256, 64
+MIN_UNIT_STEPS = 8      # k-steps of 64 rows in a split-K unit, at least
+
+
+def split_count(E: int, d: int, f: int, C: int, sms: int) -> int:
+    """dW's split count along C: the largest that keeps the units of the E
+    * ceil(d/128) * ceil(f/256) output tiles to one per SM (a unit waits for
+    the other units of its tile, so all of them must run at once), with at
+    least MIN_UNIT_STEPS k-steps of 64 rows a unit; 1 where that leaves no
+    choice."""
+    tiles = E * -(-d // BLOCK_M) * -(-f // BLOCK_N)
+    return max(1, min(sms // tiles, -(-C // BLOCK_K) // MIN_UNIT_STEPS))
+
+
+def _bwd_variant(x, w, dy) -> str:
+    """"tc" where the fused tensor-core backward takes the inputs: bf16,
+    none empty, and x, w and dy each as the forward kernel's tensor-core
+    variant takes them (dy as the second operand of dW = x^T.dy); else
+    "simt", the two-launch route."""
+    if not (x.numel() and dy.numel()):
+        return "simt"
+    return "tc" if (_gemm_variant(x, w) == "tc" and
+                    _gemm_variant(x, dy, trans_x=True) == "tc") else "simt"
+
+
+def grouped_gemm_dw_split_ref(x, dy, splits: int):
+    """Plain model of the fused kernel's dW: fp32 partials of x^T.dy over
+    ``splits`` ranges of whole 64-row steps of C, cut as the kernel cuts
+    them, summed in split order and rounded to x's dtype once."""
+    C = x.shape[1]
+    nk = -(-C // BLOCK_K)
+    total = None
+    for s in range(splits):
+        lo, hi = (nk * s // splits * BLOCK_K,
+                  min(C, nk * (s + 1) // splits * BLOCK_K))
+        part = torch.einsum("ecd,ecf->edf", x[:, lo:hi].float(),
+                            dy[:, lo:hi].float())
+        total = part if total is None else total + part
+    return total.to(x.dtype)
+
+
+_devices = {}   # device index -> (SM count, the fused kernel's counters)
+
+
+def _device_state(dev, tiles: int):
+    """The SM count of ``dev`` and its counters for the fused backward (2 +
+    1 per dW tile, zero between launches: the kernel resets them),
+    allocated once per device and grown when a launch needs more. The
+    launches on a device share them, so they must run one after another,
+    as on one stream."""
+    state = _devices.get(dev.index)
+    if state is None or state[1].numel() < 2 + tiles:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        state = _devices[dev.index] = (sms, torch.zeros(
+            max(2 + tiles, 1024), dtype=torch.int32, device=dev))
+    return state
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_bwd(x, w, dy, need_dx: bool, need_dw: bool):
+    """(dx, dw) = (dy @ w^T, x^T @ dy) per expert, the one not needed None,
+    in one launch of the fused backward kernel (inputs checked by the
+    caller, ``_bwd_variant`` "tc"); counts nothing."""
+    E, C, d = x.shape
+    f = w.shape[2]
+    dev = x.device
+    dx = torch.empty((E, C, d), dtype=x.dtype, device=dev) if need_dx else None
+    dw = torch.empty((E, d, f), dtype=w.dtype, device=dev) if need_dw else None
+    tiles = E * -(-d // BLOCK_M) * -(-f // BLOCK_N)
+    sms, counters = _device_state(dev, tiles)
+    splits = split_count(E, d, f, C, sms) if need_dw else 1
+    part = (torch.empty(tiles * splits * BLOCK_M * BLOCK_N,
+                        dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    args = (x.data_ptr(), w.data_ptr(), dy.data_ptr(), _ptr(dx), _ptr(dw),
+            _ptr(part), counters.data_ptr(), E, C, d, f, splits,
+            *_strides(x, w), *_lead_strides(dy),
+            torch.cuda.current_stream(dev).cuda_stream)
+    fn = _build.load("moe_gemm", "grouped_gemm_bwd")
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    _build.check_launch("moe_gemm backward", err)
+    return dx, dw
+
+
 def _launch_bwd_product(a, b, trans_x: bool = False):
     """One backward product a @ b (a^T @ b with ``trans_x``) on the kernel,
     counted in ``bwd_launches`` (and ``bwd_tc_launches`` on the tensor
@@ -124,17 +221,39 @@ class _GemmFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        if dy.stride(-1) != 1:
-            dy = dy.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = _launch_bwd_product(dy, w.transpose(1, 2).contiguous())
-        if ctx.needs_input_grad[1]:
-            if _gemm_variant(x, dy, trans_x=True) == "tc":
-                dw = _launch_bwd_product(x, dy, trans_x=True)
-            else:
-                dw = _launch_bwd_product(x.transpose(1, 2).contiguous(), dy)
-        return dx, dw
+        return _backward(x, w, dy, *ctx.needs_input_grad[:2])
+
+
+def _backward(x, w, dy, need_dx: bool, need_dw: bool):
+    """(dx, dw) for the gradient dy of out = x @ w, each None where it is
+    not needed: one launch of the fused kernel where ``_bwd_variant``
+    says "tc", else ``_backward_two_launches``."""
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    if not (need_dx or need_dw):
+        return None, None
+    if _bwd_variant(x, w, dy) != "tc":
+        return _backward_two_launches(x, w, dy, need_dx, need_dw)
+    dx, dw = _launch_bwd(x, w, dy, need_dx, need_dw)
+    grouped_gemm.bwd_launches += need_dx + need_dw
+    grouped_gemm.bwd_tc_launches += need_dx + need_dw
+    grouped_gemm.bwd_fused_calls += 1
+    return dx, dw
+
+
+def _backward_two_launches(x, w, dy, need_dx: bool, need_dw: bool):
+    """The backward as two launches of the forward kernel: dX on a
+    contiguous copy of W^T, dW reading x in place (``trans_x``) where the
+    tensor-core variant takes it, else on a contiguous copy of x^T."""
+    dx = dw = None
+    if need_dx:
+        dx = _launch_bwd_product(dy, w.transpose(1, 2).contiguous())
+    if need_dw:
+        if _gemm_variant(x, dy, trans_x=True) == "tc":
+            dw = _launch_bwd_product(x, dy, trans_x=True)
+        else:
+            dw = _launch_bwd_product(x.transpose(1, 2).contiguous(), dy)
+    return dx, dw
 
 
 def _forward(x, w):
@@ -158,9 +277,9 @@ def _gemm_cuda(x, w):
 def grouped_gemm(x, w, *, device=None):
     """out[e] = x[e] @ w[e]. CUDA tensors launch the kernel variant that
     ``_gemm_variant`` names (the two leading axes of x and w may be
-    strided), differentiable through two more launches when x or w needs a
-    gradient; CPU tensors, with ``device="cpu"``, run
-    ``grouped_gemm_ref``."""
+    strided), differentiable through ``_GemmFn`` (one launch of the fused
+    backward kernel in bf16) when x or w needs a gradient; CPU tensors,
+    with ``device="cpu"``, run ``grouped_gemm_ref``."""
     dev = resolve_device(device)
     check_on(dev, x, w)
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
@@ -181,6 +300,7 @@ grouped_gemm.launches = 0
 grouped_gemm.tc_launches = 0
 grouped_gemm.bwd_launches = 0
 grouped_gemm.bwd_tc_launches = 0
+grouped_gemm.bwd_fused_calls = 0
 
 
 def moe_grouped_gemm(x, w, *, device=None):

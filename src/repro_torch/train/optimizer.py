@@ -9,10 +9,10 @@ not ``torch.optim.AdamW``:
 * gradients are clipped by the global norm of *all* leaves, with the norm
   held off zero (``max(gnorm, 1e-12)``);
 * bias corrections and the update are fp32, cast back to each leaf's dtype;
-* decay applies only to leaves with ``ndim >= 2`` of the tree given (the
-  port's transformer-kind agent adds an expert axis of 1, so a 1-D leaf of
-  the reference is 2-D here; the agent's learners train with weight decay
-  0, where that makes no difference);
+* decay applies only to leaves with ``ndim >= 2`` in the reference's
+  layout: in a transformer-kind agent tree (``convert.widened``) the port
+  adds an expert axis of 1 to every leaf, so there a leaf decays from
+  ``ndim >= 3``, exactly where its JAX original does;
 * m and v are kept in ``state_dtype``, or in each parameter's dtype.
 
 ``adamw_update`` runs under ``torch.no_grad()`` and returns new trees, as
@@ -26,7 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.convert import tree_map
+from repro_torch.convert import tree_map, widened
 from repro_torch.models.common import _TORCH_DTYPES
 
 
@@ -103,13 +103,14 @@ def adamw_update(grads, params, opt_state, ocfg: OptimizerConfig
     if not len(ps) == len(gs) == len(ms) == len(vs):
         raise ValueError("params, grads and optimizer state differ in "
                          "their trees")
+    matrix = 2 + widened(params)        # the rank of a decayed leaf
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(ps, gs, ms, vs):
         g = g.float() * clip
         m_new = b1 * m.float() + (1 - b1) * g
         v_new = b2 * v.float() + (1 - b2) * torch.square(g)
         delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + ocfg.eps)
-        if p.ndim >= 2 and ocfg.weight_decay:     # decay matrices only
+        if p.ndim >= matrix and ocfg.weight_decay:     # decay matrices only
             delta = delta + ocfg.weight_decay * p.float()
         new_p.append((p.float() - lr * delta).to(p.dtype))
         new_m.append(m_new.to(m.dtype))

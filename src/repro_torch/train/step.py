@@ -18,10 +18,8 @@ def make_prefill_step(cfg: ModelConfig, s_cache: Optional[int] = None):
 
 
 def make_serve_step(cfg: ModelConfig, sample: str = "greedy"):
-    """One new token against the cache; greedy argmax by default."""
-    if sample != "greedy":
-        raise NotImplementedError(f"sampling {sample!r} is not ported")
-
+    """One new token against the cache: the argmax, whatever ``sample``
+    names, as the reference takes it."""
     def serve_step(params, token, positions, cache, index):
         logits, cache = transformer.decode_step(params, cfg, token, positions,
                                                 cache, index)

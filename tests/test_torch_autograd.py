@@ -12,6 +12,9 @@ wiring of the flash and grouped-GEMM wrappers, on the CPU.
   ``moe_grouped_gemm`` raises), and against the Pallas kernel in interpret
   mode applied to the two backward products. fp32 2e-5, the repo's GEMM
   bound; bf16 2e-2 (one rounding at the output after sums in two orders).
+  The fused kernel's split-K dW, modelled by ``grouped_gemm_dw_split_ref``
+  (fp32 partials summed in split order, one rounding to bf16), against
+  both at the trunk's widths, bf16 2e-2.
 * On the card the wrappers differentiate through ``autograd.Function``s
   whose launches cannot run here. These tests route a reduced trunk's calls
   to the card's route on CPU tensors, with each launch replaced by its plain
@@ -44,7 +47,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.moe_gemm import ops as gemm_ops
 from repro_torch.kernels.moe_gemm import (grouped_gemm, grouped_gemm_bwd_ref,
-                                          grouped_gemm_ref)
+                                          grouped_gemm_dw_split_ref,
+                                          grouped_gemm_ref, split_count)
 from repro_torch.models import attention, layers
 
 FLASH_ATOL, FLASH_RTOL = 3e-5, 1e-5
@@ -145,6 +149,39 @@ def test_gemm_bwd_ref_matches_jax(E, C, d, f, dtype):
                                        atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("din,dout", [(256, 256), (256, 1024), (1024, 256)])
+@pytest.mark.parametrize("splits", [2, 6])
+def test_split_k_dw_model_matches_jax_at_trunk_widths(din, dout, splits):
+    """The trunk's projection widths (6 splits is the card's choice for
+    256->256), 2 experts and a ragged C = 1001 (16 k-steps of 64 rows, the
+    last ragged) in place of the trunk's E=10, C=9216."""
+    E, C = 2, 1001
+    x, w, dy = _normal(din + dout + splits, (E, C, din), (E, din, dout),
+                       (E, C, dout))
+    jx, jw, jdy = (jnp.asarray(a * din ** -0.25).astype(jnp.bfloat16)
+                   for a in (x, w, dy))
+    _, vjp = jax.vjp(lambda a, b: jnp.einsum(
+        "ecd,edf->ecf", a, b,
+        preferred_element_type=jnp.float32).astype(jnp.bfloat16), jx, jw)
+    _, jdw = vjp(jdy)
+    tx, tw, tdy = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                   .bfloat16() for a in (jx, jw, jdy))
+    dw = grouped_gemm_dw_split_ref(tx, tdy, splits)
+    plain = grouped_gemm_bwd_ref(tx, tw, tdy)[1]
+    assert dw.dtype == torch.bfloat16 and dw.shape == (E, din, dout)
+    for ref in (plain, torch.from_numpy(np.array(jdw.astype(jnp.float32)))):
+        torch.testing.assert_close(dw.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    # whole 64-row steps, summed in split order, one rounding
+    cut = [16 * s // splits * 64 for s in range(splits)] + [C]
+    total = 0
+    for lo, hi in zip(cut, cut[1:]):
+        total = total + torch.einsum("ecd,ecf->edf", tx[:, lo:hi].float(),
+                                     tdy[:, lo:hi].float())
+    assert torch.equal(dw, total.bfloat16())
+    assert torch.equal(grouped_gemm_dw_split_ref(tx, tdy, 1), plain)
+
+
 # ------------------------------------------------------ autograd wiring
 def _flash_route(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
                  device=None):
@@ -170,6 +207,17 @@ def _flash_launch(q, k, v, variant, *, causal, window, softcap, scale,
                                         scale=scale)
 
 
+def _gemm_launch_bwd(x, w, dy, need_dx, need_dw):
+    """The fused backward kernel's plain stand-in: dX as the plain backward
+    gives it, dW through the split-K model at the split count the kernel
+    would take on an H100's 132 SMs."""
+    E, C, d = x.shape
+    dx = grouped_gemm_bwd_ref(x, w, dy)[0] if need_dx else None
+    dw = grouped_gemm_dw_split_ref(x, dy, split_count(
+        E, d, w.shape[2], C, 132)) if need_dw else None
+    return dx, dw
+
+
 @pytest.fixture
 def card_route(monkeypatch):
     """The model's flash and GEMM calls take the card's route, each kernel
@@ -181,13 +229,14 @@ def card_route(monkeypatch):
     monkeypatch.setattr(gemm_ops, "_launch",
                         lambda x, w, variant, trans_x=False: grouped_gemm_ref(
                             x.transpose(1, 2) if trans_x else x, w))
+    monkeypatch.setattr(gemm_ops, "_launch_bwd", _gemm_launch_bwd)
     monkeypatch.setattr(attention, "flash_attention", _flash_route)
     monkeypatch.setattr(attention, "grouped_gemm", _gemm_route)
     monkeypatch.setattr(layers, "grouped_gemm", _gemm_route)
     for name, value in (("launches", 0), ("tc_launches", 0)):
         monkeypatch.setattr(flash_attention, name, value)
         monkeypatch.setattr(grouped_gemm, name, value)
-    for name in ("bwd_launches", "bwd_tc_launches"):
+    for name in ("bwd_launches", "bwd_tc_launches", "bwd_fused_calls"):
         monkeypatch.setattr(grouped_gemm, name, 0)
     monkeypatch.setattr(fa_ops.flash_attention_bwd, "launches", 0)
     monkeypatch.setattr(fa_ops.flash_attention_bwd, "tc_launches", 0)
@@ -220,8 +269,11 @@ def test_trunk_gradients_through_the_functions(card_route, monkeypatch, kind,
     assert grouped_gemm.bwd_launches == 2 * 6 * layers_n
     assert flash_attention.launches == layers_n
     assert grouped_gemm.launches == 6 * layers_n
-    # the tensor-core variants' rules hold for the bf16 trunk on CPU too
+    # the tensor-core variants' rules hold for the bf16 trunk on CPU too:
+    # there every projection's backward is one call of the fused kernel
     assert grouped_gemm.bwd_tc_launches == (grouped_gemm.bwd_launches
+                                            if dtype == "bfloat16" else 0)
+    assert grouped_gemm.bwd_fused_calls == (6 * layers_n
                                             if dtype == "bfloat16" else 0)
     assert fa_ops.flash_attention_bwd.tc_launches == (
         layers_n if dtype == "bfloat16" else 0)
@@ -241,6 +293,29 @@ def test_trunk_gradients_through_the_functions(card_route, monkeypatch, kind,
         assert seg[0]["b0"]["attn"][name].abs().sum() > 0, name
     for name in ("wi", "wo"):
         assert seg[0]["b0"]["ffn"][name].abs().sum() > 0, name
+
+
+@pytest.mark.parametrize("dtype,leaves", [
+    ("bfloat16", "xw"), ("bfloat16", "x"), ("bfloat16", "w"),
+    ("float32", "xw")])
+def test_gemm_backward_calls_per_projection(card_route, dtype, leaves):
+    """A bf16 projection's backward is one call of the fused kernel that
+    computes only the gradients autograd asks for; fp32 keeps the
+    two-launch route on the CUDA cores. Either way the products are
+    counted."""
+    x, w, dy = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in
+                _normal(3, (3, 144, 64), (3, 64, 96), (3, 144, 96)))
+    x.requires_grad_("x" in leaves)
+    w.requires_grad_("w" in leaves)
+    want = [t for t in (x, w) if t.requires_grad]
+    got = torch.autograd.grad(_gemm_route(x, w), want, dy)
+    refs = grouped_gemm_bwd_ref(x.detach(), w.detach(), dy)
+    for g, r in zip(got, [r for r, t in zip(refs, (x, w)) if t.requires_grad]):
+        assert torch.equal(g, r)
+    tc = dtype == "bfloat16"
+    assert grouped_gemm.bwd_fused_calls == int(tc)
+    assert grouped_gemm.bwd_launches == len(leaves)
+    assert grouped_gemm.bwd_tc_launches == (len(leaves) if tc else 0)
 
 
 def test_serving_never_enters_the_functions(card_route, monkeypatch):

@@ -22,8 +22,10 @@ ulp apart).
 The backward kernels (flash's, and the GEMM's two products) run through
 autograd as training runs them, against their plain versions on the same
 inputs: flash fp32 3e-5 absolute and 1e-5 relative, the GEMM fp32 2e-5
-(sums over up to 1001 terms), bf16 2e-2; and one reduced DQN step with
-the kernels against the same step on the card's plain path.
+(sums over up to 1001 terms), bf16 2e-2; the GEMM's fused bf16 backward
+also at split-K boundaries, with strided dY, and bit for bit against
+itself over repeated calls; and one reduced DQN step with the kernels
+against the same step on the card's plain path.
 """
 import numpy as np
 import pytest
@@ -444,6 +446,48 @@ def test_grouped_gemm_backward_matches_plain(cuda, E, C, d, f, dtype, layout):
     tol = 2e-5 if dtype == FP32 else 2e-2
     torch.testing.assert_close(dx.float(), rdx.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(dw.float(), rdw.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,C,d,f,layout", [
+    (10, 9216, 256, 256, "plain"),    # the trunk's q, k, v, o: 6 splits
+    (3, 1001, 200, 136, "plain"),     # 2 splits, the second ragged
+    (3, 1025, 200, 136, "plain"),     # a last k-step of one row
+    (10, 2000, 256, 256, "dy_rows"),  # dY stored (C, E, f)
+    (10, 2000, 256, 256, "rows"),     # x stored (C, E, d)
+    (2, 300, 64, 96, "plain"),        # too short to split
+])
+def test_grouped_gemm_fused_backward(cuda, E, C, d, f, layout):
+    """The fused backward kernel: one call a bf16 projection through
+    autograd, dX and dW within 2e-2 of the plain backward, dW split along
+    C as ``split_count`` says and the same bit for bit over repeated calls
+    (partials summed in a fixed order), and each product alone equal to
+    the same product of the call that computes both."""
+    from repro_torch.kernels.moe_gemm import ops
+    x, w, dy = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _normal(
+        C + d + f, (E, C, d), (E, d, f), (E, C, f), scale=d ** -0.25))
+    if layout == "rows":
+        x = x.transpose(0, 1).contiguous().transpose(0, 1)
+    if layout == "dy_rows":
+        dy = dy.transpose(0, 1).contiguous().transpose(0, 1)
+    assert ops._bwd_variant(x, w, dy) == "tc"
+    leaves = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    calls, before = grouped_gemm.bwd_fused_calls, _bwd_counts()
+    out = grouped_gemm(*leaves)
+    dx, dw = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    after = _bwd_counts()
+    assert grouped_gemm.bwd_fused_calls - calls == 1
+    assert (after[1] - before[1], after[2] - before[2]) == (2, 2)
+    rdx, rdw = grouped_gemm_bwd_ref(x, w, dy)
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(dw.float(), rdw.float(), atol=2e-2, rtol=2e-2)
+    for _ in range(2):
+        again = ops._launch_bwd(x, w, dy, True, True)
+        torch.cuda.synchronize()
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    assert torch.equal(ops._launch_bwd(x, w, dy, True, False)[0], dx)
+    assert torch.equal(ops._launch_bwd(x, w, dy, False, True)[1], dw)
 
 
 @pytest.mark.cuda

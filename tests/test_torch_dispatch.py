@@ -30,7 +30,9 @@ from repro_torch.kernels.flash_attention.ops import (BWD_TC_MAX_SMEM,
                                                      _flash_variant,
                                                      bwd_smem_bytes)
 from repro_torch.kernels.moe_gemm import expert_mlp, grouped_gemm
-from repro_torch.kernels.moe_gemm.ops import _gemm_variant, _strides
+from repro_torch.kernels.moe_gemm import ops as gemm_ops
+from repro_torch.kernels.moe_gemm.ops import (_bwd_variant, _gemm_variant,
+                                              _strides, split_count)
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.ssd import ssd
 from repro_torch.models import attention, layers
@@ -121,6 +123,121 @@ def test_gemm_transposed_x_variant(name, variant):
     (fp32, ragged M, offset views, an empty contraction) take a contiguous
     copy of x^T on the CUDA-core kernel."""
     assert _gemm_variant(*_gemm_t_case(name), trans_x=True) == variant
+
+
+def _gemm_bwd_case(name):
+    """x (E, C, d), w (E, d, f) and dY (E, C, f) of one projection's
+    backward: the trunk's three projections as the model hands them over
+    (activations stored (C, E, d), C = 2 x 32 x 144), a ragged C, and one
+    change each to a smaller case."""
+    if name.startswith("trunk"):
+        d, f = {"trunk_qkvo": (256, 256), "trunk_ffn_in": (256, 1024),
+                "trunk_ffn_out": (1024, 256)}[name]
+        x = torch.empty(9216, 10, d, dtype=BF16).transpose(0, 1)
+        return (x, torch.empty(10, d, f, dtype=BF16),
+                torch.empty(10, 9216, f, dtype=BF16))
+    E, C, d, f = 3, 1001, 64, 96
+    x, w, dy = (torch.zeros(E, C, d, dtype=BF16),
+                torch.zeros(E, d, f, dtype=BF16),
+                torch.zeros(E, C, f, dtype=BF16))
+    if name == "fp32":
+        x, w, dy = x.float(), w.float(), dy.float()
+    elif name == "dy_rows":                 # dY stored (C, E, f)
+        dy = torch.zeros(C, E, f, dtype=BF16).transpose(0, 1)
+    elif name == "dy_offset":
+        dy = _offset(dy)
+    elif name == "x_offset":
+        x = _offset(x)
+    elif name == "f_ragged":
+        w, dy = torch.zeros(E, d, 52, dtype=BF16), torch.zeros(E, C, 52,
+                                                               dtype=BF16)
+    elif name == "d_ragged":
+        x, w = torch.zeros(E, C, 60, dtype=BF16), torch.zeros(E, 60, f,
+                                                              dtype=BF16)
+    elif name == "c_empty":
+        x, dy = torch.zeros(E, 0, d, dtype=BF16), torch.zeros(E, 0, f,
+                                                              dtype=BF16)
+    elif name == "gate_view":               # w a view of (E, d, 2, f)
+        w = torch.zeros(E, d, 2, f, dtype=BF16)[:, :, 0, :]
+    return x, w, dy
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("trunk_qkvo", "tc"), ("trunk_ffn_in", "tc"), ("trunk_ffn_out", "tc"),
+    ("ragged_c", "tc"), ("dy_rows", "tc"), ("gate_view", "tc"),
+    ("fp32", "simt"), ("dy_offset", "simt"), ("x_offset", "simt"),
+    ("f_ragged", "simt"), ("d_ragged", "simt"), ("c_empty", "simt"),
+])
+def test_gemm_bwd_variant(name, variant):
+    """The fused backward kernel takes bf16 projections whose three
+    operands the tensor-core kernel's loads can address, strided on their
+    two leading axes; the rest (fp32, offset views, d or f off a multiple
+    of 8, an empty C) keep the two-launch route."""
+    assert _bwd_variant(*_gemm_bwd_case(name)) == variant
+
+
+@pytest.mark.parametrize("E,d,f,C,sms,splits", [
+    (10, 256, 256, 9216, 132, 6),    # q, k, v, o: 20 tiles, 120 units
+    (10, 256, 1024, 9216, 132, 1),   # ffn in: 80 tiles, one unit each
+    (10, 1024, 256, 9216, 132, 1),   # ffn out
+    (10, 256, 256, 4608, 132, 6),    # a pretraining step's C
+    (3, 200, 136, 1001, 132, 2),     # ragged C: 16 k-steps, 8 a unit
+    (2, 64, 96, 300, 132, 1),        # 5 k-steps: too few to split
+    (10, 256, 256, 9216, 114, 5),    # another SM count
+    (200, 256, 256, 9216, 132, 1),   # more tiles than SMs
+])
+def test_gemm_bwd_split_count(E, d, f, C, sms, splits):
+    """dW's split count: its units one per SM at most (they wait for each
+    other), each at least 8 k-steps of 64 rows."""
+    S = split_count(E, d, f, C, sms)
+    assert S == splits
+    tiles = E * -(-d // 128) * -(-f // 256)
+    assert S == 1 or (tiles * S <= sms and -(-C // 64) // S >= 8)
+
+
+@pytest.mark.parametrize("need", [(True, True), (True, False), (False, True)])
+def test_gemm_bwd_launch_arguments(monkeypatch, need):
+    """What ``_launch_bwd`` hands the C entry point, recorded on CPU
+    tensors in place of the call: the operands in place (x in the trunk's
+    (C, E, d) layout), null for a product not asked for, the split count
+    and an fp32 workspace of tiles x splits x 128 x 256 where dW is split,
+    the counters of the device, the strides of each operand."""
+    x, w, dy = (t.zero_() for t in _gemm_bwd_case("trunk_qkvo"))
+    x, w, dy = x[:, :1001], w, dy[:, :1001].contiguous()
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    counters = torch.zeros(1024, dtype=torch.int32)
+    monkeypatch.setattr(gemm_ops._build, "load", lambda name, fn: entry)
+    monkeypatch.setattr(gemm_ops, "_device_state",
+                        lambda dev, tiles: (132, counters))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 7}))
+    empty = torch.empty
+    sizes = []
+
+    def record_empty(*shape, **kw):
+        sizes.append((shape, kw.get("dtype")))
+        return empty(*shape, **kw)
+    monkeypatch.setattr(torch, "empty", record_empty)
+    dx, dw = gemm_ops._launch_bwd(x, w, dy, *need)
+    args = seen["args"]
+    assert args[:3] == (x.data_ptr(), w.data_ptr(), dy.data_ptr())
+    assert (dx is None, dw is None) == (not need[0], not need[1])
+    assert args[3] == (dx.data_ptr() if need[0] else None)
+    assert args[4] == (dw.data_ptr() if need[1] else None)
+    splits = split_count(10, 256, 256, 1001, 132) if need[1] else 1
+    assert splits == (2 if need[1] else 1)
+    assert (args[5] is None) == (splits == 1)
+    if splits > 1:
+        assert ((20 * splits * 128 * 256,), torch.float32) in sizes
+    assert args[6:12] == (counters.data_ptr(), 10, 1001, 256, 256, splits)
+    assert args[12:18] == (*_strides(x, w), dy.stride(0), dy.stride(1))
+    assert args[12:14] == (256, 10 * 256)      # experts inside the rows
+    assert args[18] == 7
 
 
 def test_gemm_strides_of_length_one_axes():
@@ -230,6 +347,7 @@ def test_flash_bwd_smem_mirror():
 def _counts():
     return (grouped_gemm.launches, grouped_gemm.tc_launches,
             grouped_gemm.bwd_launches, grouped_gemm.bwd_tc_launches,
+            grouped_gemm.bwd_fused_calls,
             flash_attention.launches, flash_attention.tc_launches,
             flash_attention_bwd.launches, flash_attention_bwd.tc_launches,
             rmsnorm.launches,

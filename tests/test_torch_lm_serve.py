@@ -152,6 +152,34 @@ def test_prefill_and_serve_steps_match_jax(model):
         np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
 
 
+@pytest.mark.parametrize("sample", ["temperature", "top_k"])
+def test_serve_step_takes_any_sample_as_the_reference(model, sample):
+    """The reference's ``make_serve_step`` takes any ``sample`` string and
+    always takes the argmax; the port's does the same: equal tokens and
+    logits within 1e-4 over 4 decode steps from one prefill."""
+    jp, tp = model
+    cfg_j, cfg_t = j_mamba.SMOKE, t_mamba.SMOKE
+    B, S = 2, 12
+    toks = np.random.default_rng(2).integers(0, cfg_j.vocab, (B, S))
+    pos = np.broadcast_to(np.arange(S)[None], (B, S)).copy()
+    jlg, jcache = j_make_prefill_step(cfg_j)(jp, jnp.asarray(toks),
+                                             jnp.asarray(pos))
+    with torch.inference_mode():
+        _, cache = make_prefill_step(cfg_t)(tp, torch.from_numpy(toks),
+                                            torch.from_numpy(pos))
+    jtok = jnp.argmax(jlg, -1).astype(jnp.int32)[:, None]
+    tok = torch.from_numpy(np.array(jtok))
+    jserve = j_make_serve_step(cfg_j, sample=sample)
+    serve = make_serve_step(cfg_t, sample=sample)
+    for i in range(S, S + 4):
+        jtok, jlg, jcache = jserve(jp, jtok, jnp.full((B, 1), i), jcache,
+                                   jnp.asarray(i))
+        with torch.inference_mode():
+            tok, lg, cache = serve(tp, tok, torch.full((B, 1), i), cache, i)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=TOL)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+
+
 def test_launcher_on_cpu(capsys):
     out = t_launch.main(["--smoke", "--device", "cpu", "--requests", "3",
                          "--max-new", "4", "--s-max", "32"])

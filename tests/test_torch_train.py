@@ -111,6 +111,34 @@ def test_adamw_matches_jax(weight_decay, state_dtype):
                                        rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["transformer", "moe"])
+def test_adamw_decay_on_converted_agent_params_matches_jax(kind):
+    """3 steps with weight decay 0.1 on the reduced agent's parameters,
+    drawn in JAX and converted: the port widens every transformer-kind leaf
+    by an expert axis of 1, and still decays exactly the leaves that JAX
+    decays (its 1-D LayerNorm scales and biases stay undecayed)."""
+    jfc, _ = _fcs(kind, "float32")
+    jp = jfn.init_foundation(jax.random.PRNGKey(0), jfc)
+    tp = convert.from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    assert any(np.ndim(a) == 1 for a in _leaves(jp)) == (kind == "transformer")
+    kw = dict(lr=1e-2, weight_decay=0.1, grad_clip=0.5, warmup_steps=3,
+              total_steps=20)
+    jcfg, tcfg = jopt.OptimizerConfig(**kw), topt.OptimizerConfig(**kw)
+    js, ts = jopt.init_opt_state(jp, jcfg), topt.init_opt_state(tp, tcfg)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        g = jax.tree.map(lambda a: (rng.normal(size=a.shape) * 3.0)
+                         .astype(np.float32), jp)
+        jp, js, _ = jopt.adamw_update(jax.tree.map(jnp.asarray, g), jp, js,
+                                      jcfg)
+        tp, ts, _ = topt.adamw_update(convert.from_jax(g, device="cpu"), tp,
+                                      ts, tcfg)
+    for jt, tt in ((jp, tp), (js["m"], ts["m"]), (js["v"], ts["v"])):
+        for a, b in zip(_leaves(jt), _leaves(convert.to_jax(tt))):
+            np.testing.assert_allclose(b, np.asarray(a), rtol=1e-6,
+                                       atol=1e-6)
+
+
 def test_adamw_does_not_write_its_inputs():
     p = {"w": torch.ones(3, 2)}
     cfg = topt.OptimizerConfig()
