@@ -48,6 +48,32 @@ exits non-zero:
    calls, all on the tensor cores), one full-width
    ``train_on``'s gradients at batch 4 held against the CPU plain path, and
    a torch.profiler pass over 3 ``train_on`` steps;
+6. the Fig-8 grid on torch learners at the agent's full width, as
+   ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
+   cluster (V100), single-node chains, the six cells {light, medium, heavy}
+   x {fault-free, faulty}, all eight methods trained on the fault-free
+   heavy cell (trace seed 100; 6 online episodes, 5 pretraining epochs, 4
+   offline episodes) and evaluated on 5 lanes a cell (trace seed 200,
+   ``evaluate_batch`` seed 7), one ``[grid]`` line per (cell, method); then
+   cross-tenant training, ``train_online_dqn`` at the full moe width over
+   16 episodes in 2 co-simulation groups of 8 contending chains. It raises
+   on a non-finite summary, a fallback, a flash or GEMM launch (forward or
+   backward) off the tensor cores, or backward counts that are not steps x
+   layers x (1 flash, 12 GEMM products);
+7. ``ProvisionService`` and ``ChainDriver`` serving the grid's moe+dqn
+   learner in ``benchmarks/bench_serve.py``'s world at history 144: (a) 128
+   tenants x 1 link, one fork each, and again with the circuit breaker
+   forced open (the loop's host-only cost); (b) 1024 tenants contending in
+   one co-simulation; (c) 8 tenants x 2 links, journaled, killed by an
+   uncatchable exception and restarted on its journals; (d) a 2-link
+   ``ChainDriver``, journaled, killed and resumed. Every learner run raises
+   unless the learner answered every decision (no fallback, no degraded
+   answer, no breaker trip, no shed, no deadline) with 4 flash and 24 GEMM
+   launches a batch on the tensor cores, and each resumed run must end
+   with its uninterrupted run's schedules; (a) and (b) print decisions/s,
+   the decision latency's p50 and p99, rounds, batches and the batch-size
+   histogram; then one full 64-lane service batch, and the decision alone
+   on its states, under torch.profiler;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -63,6 +89,11 @@ exits non-zero:
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
    backward's host time split into its parts.
 
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 5, and each ends with a
+``[phase]`` line of its wall time. Each kernel's ``launches`` in the JSON record sums
+the counts of every path that runs it (phases 3, 4, 4b, 6 and 7), each
+counted from 0 just before its path and read just after.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
 non-zero before printing any result.
@@ -70,10 +101,11 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -85,9 +117,12 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import mamba2_1_3b, mirage_agent  # noqa: E402
 from repro_torch.convert import tree_map  # noqa: E402
-from repro_torch.core import (DQNConfig, DQNLearner,  # noqa: E402
-                              FoundationConfig, LearnerPolicy, PGConfig,
-                              PGLearner, Policy, ReactivePolicy,
+from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
+                              CircuitBreaker, DecisionJournal, DQNConfig,
+                              DQNLearner, EnvConfig, FoundationConfig,
+                              LearnerPolicy, PGConfig, PGLearner, Policy,
+                              ReactivePolicy, ReplayCheckpointCache,
+                              RetryPolicy, build_policy, stack_obs,
                               collect_offline_samples, evaluate_batch,
                               init_foundation, pretrain_foundation, q_values,
                               train_online_dqn, train_online_pg)
@@ -111,7 +146,10 @@ from repro_torch.kernels.ssd import ssd, ssd_ref  # noqa: E402
 from repro_torch.kernels.ssd.ops import _launch as ssd_launch  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.sim import get_scenario, make_env, make_vector_env  # noqa: E402
+from repro_torch.serve import ProvisionService, ServiceConfig  # noqa: E402
+from repro_torch.sim import (LOAD_LEVELS, PROFILES,  # noqa: E402
+                             get_fault_spec, get_scenario, iter_scenarios,
+                             make_env, make_vector_env, synthesize_trace)
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
@@ -151,6 +189,20 @@ GRAD_CHECK_BATCH = 4    # the full-width gradient check against the CPU
 GRAD_REL_TOL = 2e-2     # of each leaf's largest gradient magnitude (bf16)
 PROFILE_TRAIN_STEPS = 3
 GEMM_BWD_PER_LAYER = 2 * GEMMS_PER_LAYER            # dX and dW per GEMM
+
+# the Fig-8 grid (phase 6): one cluster's single-node cells at
+# benchmarks/common.py's QUICK counts, the agent at its full width
+INTERVAL = 600.0                # seconds between decisions, as at history 144
+GRID_CLUSTER = "V100"
+GRID_MONTHS, GRID_EVAL_LANES = 1, 5
+GRID_ONLINE_EPISODES, GRID_PRETRAIN_EPOCHS, GRID_OFFLINE_EPISODES = 6, 5, 4
+CO_EPISODES, CO_TENANTS = 16, 8     # cross-tenant training: 2 groups of 8
+# the provisioning service (phase 7): benchmarks/bench_serve.py's fleets
+DAY = 24 * 3600.0
+SERVICE_TENANTS, SERVICE_CO_TENANTS, SERVICE_MAX_BATCH = 128, 1024, 64
+SERVICE_SUB_LIMIT = 6 * 3600.0
+SERVICE_SEED = 17
+JOURNAL_TENANTS = 8             # 8 tenants x 2 links, journaled
 
 LM = mamba2_1_3b.CONFIG
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
@@ -551,8 +603,7 @@ def serve(venv, name, policy, kernel_path: bool):
     variant, decisions x layers x launches per layer of each."""
     timed = TimedPolicy(policy)
     kernels = (flash_attention, grouped_gemm)
-    for kern in kernels:
-        kern.launches = kern.tc_launches = 0
+    _zero_forward_counts()
     t0 = time.perf_counter()
     res = evaluate_batch(venv, timed, seed=1)
     wall = time.perf_counter() - t0
@@ -677,9 +728,13 @@ def phase_serve(venv) -> dict:
 
 
 # ----------------------------------------------- 4b. agent training
-def _set_train_counts() -> None:
+def _zero_forward_counts() -> None:
     for kern in (flash_attention, grouped_gemm):
         kern.launches = kern.tc_launches = 0
+
+
+def _set_train_counts() -> None:
+    _zero_forward_counts()
     flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
     grouped_gemm.bwd_launches = grouped_gemm.bwd_tc_launches = 0
     grouped_gemm.bwd_fused_calls = 0
@@ -1060,6 +1115,349 @@ def phase_lm() -> dict:
          decode_calls=counts["rmsnorm"] // NORMS_PER_PASS)
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------- 6. the Fig-8 grid on the card
+def _forward_counts() -> dict:
+    return {"flash_launches": flash_attention.launches,
+            "flash_tc_launches": flash_attention.tc_launches,
+            "gemm_launches": grouped_gemm.launches,
+            "gemm_tc_launches": grouped_gemm.tc_launches}
+
+
+def _all_on_tensor_cores(what: str) -> dict:
+    """Every flash and GEMM launch since the counts were zeroed, forward
+    and backward, ran the tensor-core variant, and each kernel launched."""
+    counts = {**_forward_counts(),
+              "flash_bwd_launches": flash_attention_bwd.launches,
+              "flash_bwd_tc_launches": flash_attention_bwd.tc_launches,
+              "gemm_bwd_launches": grouped_gemm.bwd_launches,
+              "gemm_bwd_tc_launches": grouped_gemm.bwd_tc_launches}
+    pairs = [(counts[k], counts[k.replace("launches", "tc_launches")])
+             for k in counts if "tc" not in k]
+    counts["gemm_bwd_fused_calls"] = grouped_gemm.bwd_fused_calls
+    if any(n == 0 or n != tc for n, tc in pairs):
+        raise RuntimeError(f"{what}: launches off the tensor cores or "
+                           f"missing: {counts}")
+    return counts
+
+
+def _check_summary(what: str, res) -> dict:
+    summary = res.summary()
+    if not all(np.isfinite(float(v)) for v in summary.values()) or \
+            res.fallbacks != 0:
+        raise RuntimeError(f"{what}: {summary}, {res.fallbacks} fallbacks")
+    return summary
+
+
+def phase_grid() -> tuple:
+    """One cluster's Fig-8 grid on torch learners at the agent's full
+    width, as ``benchmarks/bench_interruption.py:run_grid`` runs it at its
+    QUICK scale; then cross-tenant training. Returns the trained policies
+    and the launches of the phase."""
+    _set_train_counts()
+    cells = [sc.with_chain_nodes(1) for sc in
+             iter_scenarios(clusters=[GRID_CLUSTER], chains=["single"])]
+    env_kw = dict(months=GRID_MONTHS, history=HISTORY, interval=INTERVAL)
+    env_train = next(sc for sc in cells if sc.load == "heavy"
+                     and not sc.fault).make_env(seed=100, **env_kw)
+    t0 = time.perf_counter()
+    samples = []
+    for li, sc in enumerate(c for c in cells if not c.fault):
+        samples += collect_offline_samples(
+            sc.make_env(seed=100 + li, **env_kw),
+            n_episodes=max(GRID_OFFLINE_EPISODES // len(LOAD_LEVELS), 1),
+            n_points=5, seed=1 + li)
+    line("grid", what="offline samples", n=len(samples),
+         seconds=time.perf_counter() - t0)
+    policies = {}
+    for m in ALL_METHODS:
+        t0 = time.perf_counter()
+        policies[m] = build_policy(
+            m, env_train, offline_samples=samples,
+            online_episodes=GRID_ONLINE_EPISODES,
+            pretrain_epochs=GRID_PRETRAIN_EPOCHS, history=HISTORY,
+            reduced=False, seed=0)
+        torch.cuda.synchronize()
+        line("grid", what="train", method=m,
+             train_wall_s=time.perf_counter() - t0)
+    for sc in cells:
+        venv = sc.make_vector_env(GRID_EVAL_LANES, seed=200, **env_kw)
+        key = sc.load + (f"/{sc.fault}" if sc.fault else "")
+        t_cell = time.perf_counter()
+        for m in ALL_METHODS:
+            t0 = time.perf_counter()
+            res = evaluate_batch(venv, policies[m], seed=7)
+            line("grid", cell=key, method=m,
+                 summary=_check_summary(f"{key} {m}", res),
+                 eval_wall_s=time.perf_counter() - t0)
+        line("grid", what="cell", cell=key,
+             eval_wall_s=time.perf_counter() - t_cell)
+    grid = _all_on_tensor_cores("grid")
+    line("grid", what="launches, training and evaluation", **grid)
+
+    # cross-tenant training: 2 co-sim groups of 8 chains contending for
+    # one simulated cluster each, a fresh learner at the full moe width
+    fc = FoundationConfig(kind="moe", history=HISTORY, trunk=TRUNK)
+    learner = DQNLearner(fc, DQNConfig(), seed=0)
+    train_on = _Timed(learner, "train_on")
+    _set_train_counts()
+    t0 = time.perf_counter()
+    returns = train_online_dqn(env_train, learner, episodes=CO_EPISODES,
+                               seed=0, tenants=CO_TENANTS)
+    wall = time.perf_counter() - t0
+    co = _check_backward_counts("cross-tenant train_online_dqn",
+                                len(train_on.ms))
+    co.update(_all_on_tensor_cores("cross-tenant train_online_dqn"))
+    if len(returns) != CO_EPISODES or not np.isfinite(returns).all():
+        raise RuntimeError(f"cross-tenant returns {returns}")
+    line("grid", what="cross-tenant train_online_dqn", tenants=CO_TENANTS,
+         groups=CO_EPISODES // CO_TENANTS, returns=returns,
+         train_on_steps=len(train_on.ms),
+         losses=_finite("train_on", train_on.out),
+         ms_per_train_on=_ms(train_on.ms), wall_s=wall, **co)
+    del learner, train_on
+    torch.cuda.empty_cache()
+    launches = {"flash_attention": grid["flash_launches"]
+                + co["flash_launches"],
+                "grouped_gemm": grid["gemm_launches"] + co["gemm_launches"],
+                "flash_attention_bwd": grid["flash_bwd_launches"]
+                + co["flash_bwd_launches"],
+                "grouped_gemm_bwd": grid["gemm_bwd_fused_calls"]
+                + co["gemm_bwd_fused_calls"],
+                "grouped_gemm_bwd_products": grid["gemm_bwd_launches"]
+                + co["gemm_bwd_launches"]}
+    return policies, launches
+
+
+# ------------------------------------------------ 7. the provisioning service
+class Kill(BaseException):
+    """Abrupt death of the serving process: not an ``Exception``, so the
+    service's ``FallbackPolicy`` cannot turn it into reactive decisions."""
+
+
+class Served(Policy):
+    """The learner's policy as the service consults it: records each
+    batch's size, keeps the first full batch's states, and raises ``Kill``
+    once ``kill_after`` batches were answered."""
+
+    def __init__(self, inner, kill_after=None):
+        self.inner, self.method = inner, inner.method
+        self.sizes = []
+        self.kill_after = kill_after
+
+    def act_batch(self, obs):
+        if self.kill_after is not None and len(self.sizes) >= self.kill_after:
+            raise Kill()
+        self.sizes.append(len(obs["matrix"]))
+        return self.inner.act_batch(obs)
+
+
+def service_world():
+    """``benchmarks/bench_serve.py``'s world at the agent's history: a month
+    of V100 trace (seed 5) under the faulty plan (seed 3), 6-hour
+    sub-jobs, a decision every 600 s over the last 144 snapshots."""
+    v100 = PROFILES["V100"]
+    jobs = synthesize_trace(v100, months=1, seed=5, load_scale=1.0)
+    plan = get_fault_spec("faulty").make_plan(
+        jobs[-1].submit_time + 3 * DAY, v100.n_nodes, seed=3)
+    cfg = EnvConfig(n_nodes=v100.n_nodes, history=HISTORY, interval=INTERVAL,
+                    sub_limit=SERVICE_SUB_LIMIT, faults=plan)
+    return jobs, cfg, ReplayCheckpointCache(jobs, cfg.n_nodes, faults=plan)
+
+
+def _retry(i):
+    return RetryPolicy(seed=100 + i, sleep=lambda _s: None)
+
+
+def _service(world, policy, tenants, links, co_sim=False, journal_dir=None,
+             breaker=None):
+    jobs, cfg, cache = world
+    return ProvisionService(
+        jobs, cfg, policy, svc=ServiceConfig(
+            tenants=tenants, links=links, max_batch=SERVICE_MAX_BATCH,
+            co_sim=co_sim), seed=SERVICE_SEED, journal_dir=journal_dir,
+        cache=cache, breaker=breaker, retry_factory=_retry)
+
+
+def _check_learner_run(what: str, res, policy, live_batches: int,
+                       reason: str = "completed") -> dict:
+    """The learner answered every decision (no fallback, no degraded
+    answer, no breaker trip, no shed, no deadline), and every live batch
+    launched 4 flash and 24 GEMM kernels on the tensor cores."""
+    counts = _forward_counts()
+    layers = live_batches * TRUNK.n_layers
+    bad = []
+    if res.reason != reason:
+        bad.append(f"reason {res.reason}")
+    for k in ("n_degraded", "breaker_trips", "n_shed"):
+        if getattr(res, k, 0):
+            bad.append(f"{k} {getattr(res, k)}")
+    if policy.n_fallbacks or policy.deadline_s is not None:
+        bad.append(f"{policy.n_fallbacks} fallbacks, deadline "
+                   f"{policy.deadline_s}")
+    if not live_batches or \
+            (counts["flash_launches"], counts["gemm_launches"]) != \
+            (layers * FLASH_PER_LAYER, layers * GEMMS_PER_LAYER) or \
+            counts["flash_tc_launches"] != counts["flash_launches"] or \
+            counts["gemm_tc_launches"] != counts["gemm_launches"]:
+        bad.append(f"launches {counts} for {live_batches} batches")
+    if bad:
+        raise RuntimeError(f"{what}: " + "; ".join(bad))
+    return counts
+
+
+def _serve_measured(what, world, learner_policy, tenants, co_sim=False):
+    """One journal-less learner run of the service: decisions/s, latency
+    quantiles, rounds, batches, the batch-size histogram, launches."""
+    served = Served(learner_policy)
+    svc = _service(world, served, tenants, 1, co_sim=co_sim)
+    _zero_forward_counts()
+    t0 = time.perf_counter()
+    res = svc.run()
+    wall = time.perf_counter() - t0
+    counts = _check_learner_run(what, res, svc.policy, res.n_batches)
+    hist = Counter(served.sizes)
+    line("service", what=what, tenants=tenants, links=1, co_sim=co_sim,
+         max_batch=SERVICE_MAX_BATCH, decisions=res.n_decisions,
+         decisions_per_s=res.n_decisions / wall,
+         latency_ms_p50=res.latency_quantile(0.5) * 1e3,
+         latency_ms_p99=res.p99_latency_s * 1e3,
+         rounds=res.n_rounds, batches=res.n_batches,
+         batch_sizes={str(k): hist[k] for k in sorted(hist)},
+         wall_s=wall, n_degraded=res.n_degraded,
+         breaker_trips=res.breaker_trips,
+         n_fallbacks=svc.policy.n_fallbacks, **counts)
+    return res, wall, counts
+
+
+def _kill_and_resume(what, run):
+    """``run(kill_after)`` uninterrupted, then killed after half its policy
+    calls, then again on the killed run's journal: the resumed run must
+    replay what the killed one applied and end with the uninterrupted
+    run's schedules."""
+    ref = run(None, "ref")
+    try:
+        run(max(1, ref["calls"] // 2), "run")
+    except Kill:
+        pass
+    else:
+        raise RuntimeError(f"{what}: the run was not killed")
+    resumed = run(None, "run")
+    if resumed["schedules"] != ref["schedules"] or not resumed["replayed"] \
+            or resumed["replayed"] + resumed["live"] != ref["live"]:
+        raise RuntimeError(f"{what}: the resumed run ({resumed['replayed']} "
+                           f"replayed, {resumed['live']} live) differs from "
+                           f"the uninterrupted one ({ref['live']})")
+    line("service", what=what, decisions=ref["live"],
+         replayed=resumed["replayed"], resumed_live=resumed["live"],
+         schedules_equal=True, **resumed["counts"])
+
+
+def phase_service(policies) -> dict:
+    """``ProvisionService`` and ``ChainDriver`` serving the grid's moe+dqn
+    learner; raises unless every learner run decided with the learner alone,
+    on the tensor cores, and the killed runs resume to their uninterrupted
+    schedules."""
+    world = service_world()
+    learner_policy = policies["moe+dqn"]
+    totals = defaultdict(int)
+
+    def tally():
+        for k in ("flash_launches", "gemm_launches"):
+            totals[k] += _forward_counts()[k]
+
+    # (a) 128 solo tenants, one fork each
+    res, wall, _ = _serve_measured("solo", world, learner_policy,
+                                   SERVICE_TENANTS)
+    tally()
+    # the same fleet with the breaker forced open: every decision reactive,
+    # the loop's host-only cost
+    breaker = CircuitBreaker(cooldown_s=float("inf"))
+    breaker.trip()
+    svc = _service(world, Served(learner_policy), SERVICE_TENANTS, 1,
+                   breaker=breaker)
+    _zero_forward_counts()
+    t0 = time.perf_counter()
+    dres = svc.run()
+    dwall = time.perf_counter() - t0
+    if dres.n_degraded != dres.n_decisions or flash_attention.launches:
+        raise RuntimeError(f"breaker open: {dres.n_degraded} of "
+                           f"{dres.n_decisions} degraded, "
+                           f"{flash_attention.launches} flash launches")
+    line("service", what="solo, breaker forced open", tenants=SERVICE_TENANTS,
+         decisions=dres.n_decisions, decisions_per_s=dres.n_decisions / dwall,
+         learner_decisions_per_s=res.n_decisions / wall, wall_s=dwall)
+
+    # (b) 1024 tenants contending in one shared simulator
+    _serve_measured("co-sim", world, learner_policy, SERVICE_CO_TENANTS,
+                    co_sim=True)
+    tally()
+
+    # (c) 8 tenants x 2 links, journaled, killed and resumed
+    jroot = Path(__file__).resolve().parent / "build" / "smoke_journals"
+    shutil.rmtree(jroot, ignore_errors=True)
+    jroot.mkdir(parents=True)
+
+    def service_run(kill_after, journal):
+        served = Served(learner_policy, kill_after)
+        svc = _service(world, served, JOURNAL_TENANTS, 2,
+                       journal_dir=str(jroot / f"service_{journal}"))
+        _zero_forward_counts()
+        try:
+            res = svc.run()
+        finally:                      # a killed run's launches count too
+            tally()
+        counts = _check_learner_run("journaled service", res, svc.policy,
+                                    res.n_batches)
+        return {"schedules": [t.schedule for t in res.tenants],
+                "replayed": res.n_replayed, "live": res.n_decisions,
+                "calls": len(served.sizes), "counts": counts}
+
+    _kill_and_resume("journaled service, killed and resumed", service_run)
+
+    # (d) a 2-link chain driver, journaled, killed and resumed
+    jobs, cfg, cache = world
+
+    def chain_run(kill_after, journal):
+        served = Served(learner_policy, kill_after)
+        driver = ChainDriver(jobs, cfg, served, links=2, seed=SERVICE_SEED,
+                             journal=DecisionJournal(
+                                 str(jroot / f"chain_{journal}.journal")),
+                             retry=_retry(0), cache=cache)
+        _zero_forward_counts()
+        try:
+            res = driver.run()
+        finally:
+            tally()
+        live = res.n_decisions - res.n_replayed
+        counts = _check_learner_run("chain driver", res, driver.policy, live)
+        if res.n_fallbacks:
+            raise RuntimeError(f"chain driver: {res.n_fallbacks} fallbacks")
+        return {"schedules": res.schedule, "replayed": res.n_replayed,
+                "live": live, "calls": len(served.sizes), "counts": counts}
+
+    _kill_and_resume("chain driver, killed and resumed", chain_run)
+    shutil.rmtree(jroot, ignore_errors=True)
+
+    # one full 64-lane service batch under the profiler: stacking the
+    # lanes' observations, the decision and applying 64 decisions to their
+    # lanes (no journal); then the decision alone on the same 64 states
+    svc = _service(world, learner_policy, SERVICE_TENANTS, 1)
+    svc.start()
+    svc._serve_chunk(list(range(SERVICE_MAX_BATCH)))           # warm-up
+    chunk = list(range(SERVICE_MAX_BATCH, 2 * SERVICE_MAX_BATCH))
+    states = np.array(stack_obs([svc.lanes[i].obs for i in chunk])["matrix"],
+                      np.float32)
+    profile_device("service batch", lambda: svc._serve_chunk(chunk), 1,
+                   "batch", warmup=0, lanes=SERVICE_MAX_BATCH)
+    learner = learner_policy.learner
+    profile_device("moe decision, service width", lambda: [
+        learner.act_batch(states, explore=False)
+        for _ in range(PROFILE_STEPS)], PROFILE_STEPS, "decision",
+        lanes=SERVICE_MAX_BATCH)
+    return {"flash_attention": totals["flash_launches"],
+            "grouped_gemm": totals["gemm_launches"]}
 
 
 # ------------------------------------------------------------ 5. timing
@@ -1513,18 +1911,33 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
     return [flash_rec, gemm_rec]
 
 
+def phase(name: str, fn, *args):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    line("phase", name=name, wall_s=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
-    phase_build()
-    errs = phase_kernels()
+    phase("1 build", phase_build)
+    errs = phase("2 kernels", phase_kernels)
     trace, cfg, venv = agent_env()
-    launches = phase_serve(venv)
-    launches.update(phase_lm())
-    launches.update(phase_train(trace, cfg, venv))
-    records = phase_timing(errs, launches)
+    launches = phase("3 agent serving", phase_serve, venv)
+    launches.update(phase("4 Mamba2 serving", phase_lm))
+    launches.update(phase("4b agent training", phase_train, trace, cfg, venv))
+    policies, grid = phase("6 grid", phase_grid)
+    service = phase("7 service", phase_service, policies)
+    del policies
+    torch.cuda.empty_cache()
+    for counts in (grid, service):
+        for k, v in counts.items():
+            launches[k] += v
+    records = phase("5 timing", phase_timing, errs, launches)
     print(json.dumps({"kernels": records}))
     print(card())
     print(json.dumps({"ok": True, "device": {

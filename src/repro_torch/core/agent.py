@@ -5,9 +5,8 @@ online on-policy training (§4.9.2), ``EvalResult``, ``LearnerPolicy``,
 
 Every numpy draw happens in the reference's order (the permutation of each
 pretraining epoch, replay sampling, exploration, the seeds of the rollout
-envs), so on weights converted from JAX the port takes the same decisions.
-The cross-tenant axis (``tenants > 1``) needs ``make_co_vector_env``, which
-the port has not copied yet: it raises until the co-simulation slice.
+envs), so on weights converted from JAX the port takes the same decisions, with and
+without the cross-tenant axis (``tenants > 1``).
 """
 from __future__ import annotations
 
@@ -18,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.sim.scenarios import make_vector_env
+from repro_torch.sim.scenarios import make_co_vector_env, make_vector_env
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                          init_opt_state)
 from .baselines import AvgWaitPolicy, ReactivePolicy, TreePolicy
@@ -109,16 +108,18 @@ def _rollout_batch(venv: VectorProvisionEnv, act_batch) -> Tuple[
 
 def _make_train_env(env: ProvisionEnv, b: int, tenants: int, seed: int,
                     cache: ReplayCheckpointCache):
-    """The per-iteration rollout env: a B-lane vector env. The reference's
-    cross-tenant axis (``tenants > 1``, co-tenant groups contending in one
-    shared simulator) needs ``make_co_vector_env``, not copied yet."""
+    """The per-iteration rollout env: a B-lane vector env, or — with a
+    cross-tenant axis (``tenants > 1``) — a co-tenant env whose ``b``
+    episode groups each hold ``tenants`` contending chains, so the
+    policy trains against fleet-wide contention instead of per-chain
+    isolation. Lanes flatten to ``b * tenants`` either way, and the
+    rollout loop is axis-agnostic (a pending co-tenant lane records its
+    decision as a no-op transition, exactly as the env applied it)."""
     if tenants <= 1:
         return make_vector_env(env.trace, env.cfg, b, seed=seed,
                                cache=cache)
-    raise NotImplementedError(
-        "tenants > 1 needs make_co_vector_env, which comes to the port with "
-        "the co-simulation slice (ROADMAP: the Fig-8/9 grid and "
-        "ProvisionService)")
+    return make_co_vector_env(env.trace, env.cfg, b, tenants, seed=seed,
+                              cache=cache)
 
 
 def train_online_dqn(env: ProvisionEnv, learner: DQNLearner,

@@ -1,15 +1,17 @@
 """Serving launcher: the long-running inference service Mirage keeps alive
 (port of ``repro.launch.serve``).
 
-Draws seeded random weights on the device, then serves a stream of
-synthetic requests (6-token prompts) through the slot-based engine until
-every request is done or the wall-clock guard fires.
+Draws seeded random weights on the device, or loads the newest checkpoint
+under ``--ckpt-dir`` if one exists (the successor sub-job resumes the same
+weights; the LM tree has one layout in both packages, so a checkpoint the
+JAX package wrote loads too), then serves a stream of synthetic requests
+(6-token prompts) through the slot-based engine until every request is
+done or the wall-clock guard fires.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
-      [--smoke] [--requests 8] [--device cpu]
+      [--smoke] [--requests 8] [--ckpt-dir checkpoints/svc] [--device cpu]
 
-It runs on CUDA unless ``--device cpu`` is given. Restoring weights from a
-checkpoint (``--ckpt-dir``) waits for the port of ``train/checkpoint.py``.
+It runs on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -31,9 +33,6 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir: train/checkpoint.py is not "
-                                  "ported yet")
 
     import numpy as np
     import torch
@@ -41,10 +40,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     from repro_torch.models import registry, transformer
     from repro_torch.serve import Request, ServeEngine
     from repro_torch.train import PreemptionGuard
+    from repro_torch.train.checkpoint import latest_step, restore_checkpoint
 
     dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch, smoke=args.smoke)
     params = transformer.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        state, step = restore_checkpoint(args.ckpt_dir, {"params": params},
+                                         device=dev)
+        params = state["params"]
+        print(f"[serve] restored weights from step {step}")
 
     guard = PreemptionGuard(args.wall_limit, grace_s=5.0,
                             install_signals=False)
@@ -72,6 +77,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
           f"{done}/{len(reqs)} requests done")
     return {"arch": cfg.arch_id, "device": str(dev), "requests": len(reqs),
             "done": done, "tokens": served_tokens, "seconds": dt,
+            "outputs": [list(r.out) for r in reqs],
             "tokens_per_s": served_tokens / max(dt, 1e-9)}
 
 

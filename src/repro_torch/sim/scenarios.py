@@ -139,6 +139,22 @@ class Scenario:
                               faults=self.make_fault_plan(trace, seed))
         return make_vector_env(trace, cfg, batch, seed=seed, cache=cache)
 
+    def make_co_vector_env(self, groups: int,
+                           tenants: Optional[int] = None,
+                           months: Optional[int] = None, seed: int = 0,
+                           history: int = 144, interval: float = 600.0,
+                           cache=None, trace: Optional[List[Job]] = None):
+        """A (groups x tenants)-lane CoTenantVectorEnv for this scenario:
+        each group is one shared simulator in which the cell's tenant
+        count of chains contend (``tenants`` overrides the cell's
+        count for ad-hoc sweeps)."""
+        trace = trace if trace is not None else self.make_trace(months, seed)
+        cfg = self.env_config(history, interval,
+                              faults=self.make_fault_plan(trace, seed))
+        return make_co_vector_env(trace, cfg, groups,
+                                  self.tenants if tenants is None
+                                  else tenants, seed=seed, cache=cache)
+
 
 def make_env(trace: List[Job], cfg, *, seed: int = 0, cache=None,
              **overrides):
@@ -172,6 +188,24 @@ def make_vector_env(trace: List[Job], cfg, batch: int, *, seed: int = 0,
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return VectorProvisionEnv(trace, cfg, batch, seed=seed, cache=cache)
+
+
+def make_co_vector_env(trace: List[Job], cfg, groups: int, tenants: int,
+                       *, seed: int = 0, cache=None, **overrides):
+    """THE constructor for co-tenant vectorized environments.
+
+    Like ``make_vector_env`` but returns a ``CoTenantVectorEnv`` whose
+    ``groups * tenants`` lanes are grouped into ``groups`` shared
+    simulators of ``tenants`` contending chains each. With
+    ``tenants=1`` group ``g`` is bit-identical to lane ``g`` of
+    ``make_vector_env(trace, cfg, groups, seed=seed)`` (test-pinned).
+    Pass ``cache=`` to share one ``ReplayCheckpointCache`` across envs
+    over the same trace."""
+    from repro_torch.core.cotenant import CoTenantVectorEnv
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return CoTenantVectorEnv(trace, cfg, groups, tenants, seed=seed,
+                             cache=cache)
 
 
 def _build_registry() -> Dict[str, Scenario]:

@@ -26,6 +26,10 @@ inputs: flash fp32 3e-5 absolute and 1e-5 relative, the GEMM fp32 2e-5
 also at split-K boundaries, with strided dY, and bit for bit against
 itself over repeated calls; and one reduced DQN step with the kernels
 against the same step on the card's plain path.
+
+Last, a 6-tenant ``ProvisionService`` over a reduced learner on the card:
+no fallback, the breaker closed, and its ragged batches' flash and GEMM
+launches (batches x layers x 1 and x 6) all on the tensor cores.
 """
 import numpy as np
 import pytest
@@ -545,3 +549,55 @@ def test_kernels_without_backward_refuse_gradients(cuda):
         rmsnorm(x, w)
     with torch.no_grad():
         assert rmsnorm(x, w).shape == x.shape
+
+
+@pytest.mark.cuda
+def test_provision_service_on_the_card(cuda):
+    """A 6-tenant ``ProvisionService`` over a reduced moe DQN learner on the
+    card, under the faulty plan: every decision came from the learner (no
+    fallback, no degraded answer, the breaker closed), and the ragged
+    dynamic batches (4 lanes, then what is left) launched one flash and six
+    GEMMs a layer each, all on the tensor cores."""
+    import dataclasses
+    from repro_torch.core import (DQNConfig, DQNLearner, EnvConfig,
+                                  FoundationConfig, LearnerPolicy,
+                                  ReplayCheckpointCache, RetryPolicy)
+    from repro_torch.serve import ProvisionService, ServiceConfig
+    from repro_torch.sim import PROFILES, get_fault_spec, synthesize_trace
+    v100 = PROFILES["V100"]
+    jobs = synthesize_trace(v100, months=1, seed=5, load_scale=1.0)
+    plan = get_fault_spec("faulty").make_plan(
+        jobs[-1].submit_time + 3 * 86400.0, v100.n_nodes, seed=3)
+    cfg = EnvConfig(n_nodes=v100.n_nodes, history=12, interval=1800.0,
+                    sub_limit=8 * 3600.0, faults=plan)
+    fc = dataclasses.replace(FoundationConfig(kind="moe").reduced(),
+                             history=12)
+    learner = DQNLearner(fc, DQNConfig(), seed=0, device=cuda)
+    sizes = []
+
+    class Sizes(LearnerPolicy):
+        def act_batch(self, obs):
+            sizes.append(len(obs["matrix"]))
+            return super().act_batch(obs)
+
+    service = ProvisionService(
+        jobs, cfg, Sizes("moe+dqn", learner),
+        svc=ServiceConfig(tenants=6, links=2, max_batch=4), seed=11,
+        cache=ReplayCheckpointCache(jobs, cfg.n_nodes, faults=plan),
+        retry_factory=lambda i: RetryPolicy(seed=100 + i,
+                                            sleep=lambda s: None))
+    counts = [(k.launches, k.tc_launches)
+              for k in (flash_attention, grouped_gemm)]
+    res = service.run()
+    torch.cuda.synchronize()
+    (flash, flash_tc), (gemm, gemm_tc) = (
+        (k.launches - n, k.tc_launches - n_tc)
+        for k, (n, n_tc) in zip((flash_attention, grouped_gemm), counts))
+    assert res.reason == "completed" and res.n_shed == 0
+    assert res.n_degraded == 0 and res.breaker_trips == 0
+    assert service.policy.n_fallbacks == 0
+    assert service.breaker.state == "closed"
+    assert len(sizes) == res.n_batches and set(sizes) >= {4, 2}
+    L = fc.trunk.n_layers
+    assert (flash, gemm) == (res.n_batches * L, res.n_batches * L * 6)
+    assert (flash_tc, gemm_tc) == (flash, gemm)

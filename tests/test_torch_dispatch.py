@@ -271,6 +271,43 @@ def test_gemm_trunk_inputs_take_the_tensor_cores(monkeypatch):
     assert seen == ["tc"] * 6 * TRUNK.n_layers
 
 
+@pytest.fixture(scope="module")
+def moe_learner():
+    fc = FoundationConfig(kind="moe", history=144, trunk=TRUNK)
+    return DQNLearner(fc, DQNConfig(), seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 37])
+def test_service_batches_take_the_tensor_cores(monkeypatch, moe_learner,
+                                               lanes):
+    """The provisioning service's dynamic batches are ragged, 1 to
+    ``max_batch`` lanes (C = 2 x lanes x 144 rows a projection): at any
+    lane count every grouped GEMM and every flash call of the MoE trunk
+    takes the tensor-core variant. The kernels are stubbed with zeros of
+    their output's shape, since only the inputs' layout matters here."""
+    seen = []
+
+    def gemm_probe(x, w, device=None):
+        seen.append(("gemm", x.shape[1], _gemm_variant(x, w)))
+        return x.new_zeros(x.shape[0], x.shape[1], w.shape[2])
+
+    def flash_probe(q, k, v, causal=True, device=None, **kw):
+        seen.append(("flash", q.shape[0], _flash_variant(q, k, v)))
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(attention, "grouped_gemm", gemm_probe)
+    monkeypatch.setattr(layers, "grouped_gemm", gemm_probe)
+    monkeypatch.setattr(attention, "flash_attention", flash_probe)
+    states = torch.zeros(lanes, 144, 40)
+    with torch.inference_mode():
+        q_values(moe_learner.params, moe_learner.fc, states)
+    rows = 2 * lanes * 144
+    assert sorted(seen) == sorted(
+        [("gemm", rows, "tc")] * 6 * TRUNK.n_layers
+        + [("flash", 2 * lanes * mirage_agent.N_EXPERTS, "tc")]
+        * TRUNK.n_layers)
+
+
 # ----------------------------------------------------------- flash variant
 def _flash_case(name):
     B, S, H, D = 2, 24, 4, 32

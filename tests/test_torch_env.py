@@ -23,12 +23,16 @@ from repro_torch.analysis import cow as tcow
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIED = ["analysis/cow.py", "sim/trace.py", "sim/cluster.py", "sim/faults.py",
           "sim/simulator.py", "sim/timeline.py", "sim/workload.py",
-          "sim/scenarios.py", "core/state.py", "core/reward.py",
-          "core/provisioner.py", "core/policy.py", "core/baselines.py",
-          "core/replay.py", "core/trees.py", "train/fault.py"]
+          "sim/scenarios.py", "sim/multitenant.py", "core/state.py",
+          "core/reward.py", "core/provisioner.py", "core/policy.py",
+          "core/baselines.py", "core/replay.py", "core/trees.py",
+          "core/cotenant.py", "core/control.py", "serve/cosim.py",
+          "serve/provision_service.py", "train/fault.py"]
 # copies that drop parts of their original (the rest must keep its length)
-PARTIAL = ("sim/scenarios.py",       # co-tenancy
-           "train/fault.py")         # PreemptionGuard only
+PARTIAL = ("train/fault.py",)        # PreemptionGuard only
+# the one import a copy rewrites beyond ``repro.`` -> ``repro_torch.``: the
+# port's own MessagePack codec in place of the ``msgpack`` module
+REWRITTEN = {"from repro_torch import _msgpack as msgpack": "import msgpack"}
 HOUR = 3600.0
 
 
@@ -40,7 +44,8 @@ def test_copy_is_original_minus_dropped_lines(path):
     copy = (SRC / "repro_torch" / path).read_text().splitlines()
     it = iter(orig)
     for ln in copy:
-        want = re.sub(r"^(\s*from )repro_torch\.", r"\1repro.", ln)
+        want = REWRITTEN.get(ln, re.sub(r"^(\s*from )repro_torch\.",
+                                        r"\1repro.", ln))
         assert any(o == want for o in it), f"{path}: {ln!r} not in original"
     if path not in PARTIAL:
         assert len(copy) == len(orig)
@@ -110,4 +115,21 @@ def test_scenario_registry_matches():
     assert [vars(a) for a in tj] == [vars(b) for b in tt]
     assert dataclasses.asdict(s_j.env_config(history=144)) == \
         dataclasses.asdict(s_t.env_config(history=144))
-    assert not hasattr(tsim, "make_co_vector_env")
+    # a co-tenant cell: 2 groups of its 8 contending chains, stepped alike
+    c_j = jsim.get_scenario("V100/heavy/single/co8")
+    c_t = tsim.get_scenario("V100/heavy/single/co8")
+    assert c_t.name == c_j.name and c_t.tenants == c_j.tenants == 8
+    jenv, tenv = (c.make_co_vector_env(2, months=1, seed=4, history=12,
+                                       interval=1800.0) for c in (c_j, c_t))
+    rng = np.random.default_rng(5)
+    with tcow.sanitized():
+        _assert_obs_equal(jenv.reset(), tenv.reset())
+        while not jenv.dones.all():
+            acts = (rng.random(16) < 0.2).astype(np.int64)
+            jo, jr, jd, ji = jenv.step(acts)
+            to, tr, td, ti = tenv.step(acts)
+            _assert_obs_equal(jo, to)
+            np.testing.assert_array_equal(jr, tr)
+            np.testing.assert_array_equal(jd, td)
+            assert ji == ti
+    assert tenv.dones.all()

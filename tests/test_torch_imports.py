@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and entry points run on CUDA unless the
-caller asks for the CPU."""
+neither JAX, nor the JAX package, nor ``msgpack`` (the card's machine has
+none of them), and entry points run on CUDA unless the caller asks for the
+CPU."""
 import os
 import re
 import subprocess
@@ -19,7 +20,7 @@ import importlib, importlib.util, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "repro"):
+        if top in ("jax", "jaxlib", "repro", "msgpack"):
             raise ImportError("blocked import of " + name)
 
 sys.meta_path.insert(0, Block())
@@ -30,7 +31,8 @@ for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "repro", "msgpack"))
 assert not bad, bad
 print(len(names))
 """
@@ -42,7 +44,7 @@ def test_imports_without_jax_or_repro():
                           str(ROOT / "chip_smoke.py")], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 45       # every module imported
+    assert int(out.stdout.split()[-1]) >= 61       # every module imported
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -65,9 +67,10 @@ def _entry_points():
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd import ssd
     from repro_torch.configs import mamba2_1_3b
-    from repro_torch.launch import serve
+    from repro_torch.launch import provision, serve
     from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
+    from repro_torch.train import restore_checkpoint
     fc = FoundationConfig().reduced()
     x = torch.zeros(1, 4, 8)
     q = torch.zeros(1, 4, 2, 16)
@@ -80,6 +83,8 @@ def _entry_points():
         "init_cache": lambda: transformer.init_cache(mamba2_1_3b.SMOKE, 1, 8),
         "ServeEngine": lambda: ServeEngine(mamba2_1_3b.SMOKE, {}),
         "launch.serve": lambda: serve.main(["--smoke", "--requests", "1"]),
+        "launch.provision": lambda: provision.main(["--method", "reactive"]),
+        "restore_checkpoint": lambda: restore_checkpoint("missing", {}),
         "DQNLearner": lambda: DQNLearner(fc, DQNConfig()),
         "PGLearner": lambda: PGLearner(fc, PGConfig()),
         "pretrain_foundation": lambda: pretrain_foundation(fc, []),
@@ -103,7 +108,8 @@ def _entry_points():
                                   "flash_attention_bwd", "grouped_gemm",
                                   "expert_mlp", "from_jax", "rmsnorm", "ssd",
                                   "init_cache", "ServeEngine",
-                                  "launch.serve"])
+                                  "launch.serve", "launch.provision",
+                                  "restore_checkpoint"])
 def test_entry_points_default_to_cuda(name):
     """Without ``device=`` an entry point asks for CUDA: where there is no
     card it raises rather than running on the CPU."""

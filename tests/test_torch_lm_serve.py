@@ -21,6 +21,7 @@ from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro.train import make_prefill_step as j_make_prefill_step
 from repro.train import make_serve_step as j_make_serve_step
+from repro.train.checkpoint import save_checkpoint as jax_save
 from repro_torch import convert
 from repro_torch.configs import mamba2_1_3b as t_mamba
 from repro_torch.configs import mirage_agent as t_agent
@@ -28,7 +29,8 @@ from repro_torch.launch import serve as t_launch
 from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as tt
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.train import make_prefill_step, make_serve_step
+from repro_torch.train import (make_prefill_step, make_serve_step,
+                               save_checkpoint)
 
 TOL = 1e-4
 
@@ -189,9 +191,40 @@ def test_launcher_on_cpu(capsys):
     assert "3/3 requests done" in capsys.readouterr().out
 
 
-def test_launcher_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        t_launch.main(["--smoke", "--device", "cpu", "--ckpt-dir", "x"])
+def test_launcher_refuses_checkpoints(tmp_path):
+    """``--ckpt-dir`` restores the LM tree; a checkpoint that lacks its
+    leaves is refused, and an empty directory serves fresh weights."""
+    save_checkpoint(str(tmp_path), 1, {"other": torch.zeros(2)})
+    with pytest.raises(KeyError, match="missing leaf"):
+        t_launch.main(["--smoke", "--device", "cpu", "--ckpt-dir",
+                       str(tmp_path)])
+    out = t_launch.main(["--smoke", "--device", "cpu", "--requests", "1",
+                         "--max-new", "2", "--ckpt-dir",
+                         str(tmp_path / "empty")])
+    assert out["done"] == 1
+
+
+def test_launcher_restores_jax_checkpoint(model, tmp_path, capsys):
+    """A smoke Mamba2 tree that JAX's ``save_checkpoint`` wrote is restored
+    by the port's launcher, which then gives the tokens the port's engine
+    gives on the same weights passed directly."""
+    jp, tp = model
+    jax_save(str(tmp_path), 7, {"params": jp})
+    argv = ["--smoke", "--device", "cpu", "--requests", "3", "--max-new",
+            "4", "--s-max", "32"]
+    out = t_launch.main(argv + ["--ckpt-dir", str(tmp_path)])
+    assert "restored weights from step 7" in capsys.readouterr().out
+    eng = ServeEngine(t_mamba.SMOKE, tp, batch=4, s_max=32, device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        0, t_mamba.SMOKE.vocab_size, 6)], max_new=4) for i in range(3)]
+    for r in reqs:
+        eng.add_request(r)
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        eng.step()
+    assert out["outputs"] == [r.out for r in reqs]
+    fresh = t_launch.main(argv)
+    assert fresh["outputs"] != out["outputs"]
 
 
 def test_launcher_defaults_to_cuda():

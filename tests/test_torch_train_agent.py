@@ -185,13 +185,64 @@ def test_online_training_returns_match_jax(jax_weights, monkeypatch):
     assert int(tp.opt_state["step"]) == 4
 
 
-def test_online_training_refuses_tenants():
-    fc = dataclasses.replace(tcore.FoundationConfig().reduced(),
-                             history=HISTORY)
-    learner = tcore.DQNLearner(fc, tcore.DQNConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="co-simulation"):
-        tcore.train_online_dqn(_env(tsim, tcore), learner, episodes=4,
-                               tenants=2)
+@pytest.mark.parametrize("algo", ["dqn", "pg"])
+def test_cotenant_training_returns_match_jax(jax_weights, monkeypatch, algo):
+    """``train_online_dqn`` / ``_pg`` with ``tenants=2``: each rollout is a
+    co-tenant env of 2 groups in which 2 chains contend for one simulated
+    cluster, 8 episodes in all; the returns, the update counts and the
+    trained weights' decisions equal JAX's."""
+    gaps = _Gaps(monkeypatch)
+    jfc, tfc = _fcs("moe")
+    params = tagent.init_foundation(torch.Generator().manual_seed(4), tfc,
+                                    device="cpu")
+    jparams = convert.to_jax(params)
+    kw = dict(episodes=8, seed=4, batch=2, tenants=2)
+    if algo == "dqn":
+        jl = jcore.DQNLearner(jfc, jcore.DQNConfig(batch_size=8), seed=4,
+                              params=jparams)
+        tl = tcore.DQNLearner(tfc, tcore.DQNConfig(batch_size=8), seed=4,
+                              params=params, device="cpu")
+        jret = jagent.train_online_dqn(_env(jsim, jcore), jl, **kw)
+        tret = tcore.train_online_dqn(_env(tsim, tcore), tl, **kw)
+        assert tl._steps > 0 and tl._steps == jl._steps
+    else:
+        jl = jcore.PGLearner(jfc, jcore.PGConfig(), seed=4, params=jparams)
+        tl = tcore.PGLearner(tfc, tcore.PGConfig(), seed=4, params=params,
+                             device="cpu")
+        jret = jagent.train_online_pg(_env(jsim, jcore), jl, **kw)
+        tret = tcore.train_online_pg(_env(tsim, tcore), tl, **kw)
+        assert int(tl.opt_state["step"]) == 8
+        assert tl.baseline == pytest.approx(jl.baseline)
+    assert gaps.min_gap > TIE_TOL, "a decision within the tolerance"
+    assert tret == jret and len(tret) == 8
+    assert len(set(tret)) > 1                 # the chains' outcomes differ
+
+
+def test_faulted_grid_cell_matches_jax(jax_weights, monkeypatch, samples):
+    """One cell of the Fig-8 grid under faults: a ``moe+dqn`` learner
+    trained as the grid trains it (fault-free heavy load), then
+    ``evaluate_batch`` on ``V100/heavy/single/faulty``, whose seeded node
+    failures requeue jobs; the ``EvalResult`` equals JAX's, fault and
+    requeue counts included."""
+    gaps = _Gaps(monkeypatch)
+    kw = dict(online_episodes=2, pretrain_epochs=2, history=HISTORY,
+              reduced=True, seed=0)
+    env_kw = dict(months=1, seed=100, history=HISTORY, interval=1800.0)
+    res = []
+    for sim, core, agent, smp, dev in (
+            (jsim, jcore, jagent, samples[0], {}),
+            (tsim, tcore, tcore, samples[1], {"device": "cpu"})):
+        train = sim.get_scenario("V100", "heavy", "single").make_env(**env_kw)
+        pol = agent.build_policy("moe+dqn", train, offline_samples=smp,
+                                 **kw, **dev)
+        cell = sim.get_scenario("V100", "heavy", "single", fault="faulty")
+        venv = cell.make_vector_env(3, **dict(env_kw, seed=200))
+        res.append(core.evaluate_batch(venv, pol, episodes=6, seed=7))
+    assert gaps.min_gap > TIE_TOL, "a decision within the tolerance"
+    assert vars(res[1]) == vars(res[0])
+    summary = res[1].summary()
+    assert summary["n_episodes"] == 6
+    assert summary["n_faults"] > 0 and summary["n_requeues"] > 0
 
 
 @pytest.mark.parametrize("method", jcore.ALL_METHODS)
