@@ -18,7 +18,12 @@ exits non-zero:
    lane for rows off 16 bytes); the backward kernels through autograd:
    flash's (with the forward's row log-sum-exp) and the GEMM's (in bf16 both
    products from one launch of the fused kernel, dW split along C and the
-   same bit for bit over repeated calls);
+   same bit for bit over repeated calls), and RMSNorm's and the SSD scan's
+   at phase 8's shapes, ragged rows and chunks, chunks whose length is not
+   a multiple of the scan backward's tiles (100, and the smoke config's
+   16), d off 8, gemma, G = 2, an initial state and the final state's
+   gradient, fp32 and bf16, their reductions (dw; dA, dB, dC, dD) the same
+   bit for bit over repeated calls;
 3. the agent's serving path at its full published width: ``evaluate_batch``
    over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
@@ -74,6 +79,21 @@ exits non-zero:
    the decision latency's p50 and p99, rounds, batches and the batch-size
    histogram; then one full 64-lane service batch, and the decision alone
    on its states, under torch.profiler;
+8. Mamba2-1.3B training at its full published width, seeded weights drawn
+   on the card, ``make_train_step`` at the train launcher's optimizer (lr
+   3e-4, warmup 20) on ``data_iterator`` batches: (a) the launcher's
+   defaults, 8 x 128, 5 steps; (b) 2 x 2048 (8 chunks of 256), 3 steps; each
+   after a warm-up step, with ms per step, tokens/s, the losses (all
+   finite) and the peak memory, raising unless every micro-batch pass
+   launched exactly 97 RMSNorm and 48 SSD kernels forward and as many
+   backward; (c) one step of (a) in two micro-batches, its loss against
+   the single batch's; the first 2 layers' gradients at 1 x 512 held leaf
+   by leaf against the CPU plain path; one (b) step under torch.profiler,
+   its device time split into cuBLAS, the scan's and the norms' kernels
+   forward and backward, AdamW (profiled alone) and the other elementwise
+   work; then ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
+   resumed ("resumed at step 3") against an uninterrupted 6-step run, and
+   ``launch.serve --smoke --ckpt-dir`` serving from its checkpoint;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -87,12 +107,15 @@ exits non-zero:
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
-   backward's host time split into its parts.
+   backward's host time split into its parts; and the RMSNorm and SSD
+   backward kernels at phase 8's (b) shapes beside their plain versions and,
+   for RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 5, and each ends with a
+Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 8, 5, and each ends with a
 ``[phase]`` line of its wall time. Each kernel's ``launches`` in the JSON record sums
-the counts of every path that runs it (phases 3, 4, 4b, 6 and 7), each
-counted from 0 just before its path and read just after.
+the counts of every path that runs it (phases 3, 4, 4b, 6, 7 and 8: runs
+(a), (b) and (c)), each counted from 0 just before its path and read just
+after.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -100,6 +123,8 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import shutil
 import subprocess
@@ -139,18 +164,28 @@ from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
 from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
     _launch as gemm_launch)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from repro_torch.data import DataConfig, data_iterator, synth_batch  # noqa: E402
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,  # noqa: E402
+                                         rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
-    _launch as norm_launch)
-from repro_torch.kernels.ssd import ssd, ssd_ref  # noqa: E402
+    _launch as norm_launch, _launch_bwd as norm_launch_bwd)
+from repro_torch.kernels.ssd import (ssd, ssd_bwd, ssd_bwd_ref,  # noqa: E402
+                                     ssd_ref)
 from repro_torch.kernels.ssd.ops import _launch as ssd_launch  # noqa: E402
+from repro_torch.kernels.ssd.ops import (  # noqa: E402
+    _launch_bwd as ssd_launch_bwd)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import ProvisionService, ServiceConfig  # noqa: E402
 from repro_torch.sim import (LOAD_LEVELS, PROFILES,  # noqa: E402
                              get_fault_spec, get_scenario, iter_scenarios,
                              make_env, make_vector_env, synthesize_trace)
-from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.train import (OptimizerConfig, adamw_update,  # noqa: E402
+                               init_opt_state, make_prefill_step,
+                               make_serve_step, make_train_step)
+from repro_torch.train.step import (  # noqa: E402
+    value_and_grad as value_and_grad_aux)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16
 # tensor-core FLOP/s and fp32 FLOP/s outside the tensor cores; the bound of
@@ -210,6 +245,13 @@ LM_PLAIN_LAYERS, LM_PLAIN_PROMPT = 2, 512   # the kernel-vs-plain model check
 NORMS_PER_PASS = 2 * LM.n_layers + 1        # block norms, out_norms, final
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
+FP32_BWD_REL_TOL = 1e-4  # the RMSNorm and SSD backward kernels against their
+BF16_BWD_REL_TOL = 2e-2  # plain versions: of each gradient's largest value
+# Mamba2-1.3B training (phase 8): the launcher's optimizer and defaults
+TRAIN_OCFG = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=10**9)
+LM_TRAIN_RUNS = (("a", 8, 128, 5), ("b", 2, 2048, 3))   # batch, seq, steps
+LM_GRAD_SEQ = 512       # the 2-layer gradient check: 1 x 512, two chunks
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 
 
 def line(tag: str, **kw) -> None:
@@ -437,6 +479,7 @@ def phase_kernels() -> dict:
              rtol=rtol)
         del args, y, final, y_ref, final_ref
     check_backward(gen, errs)
+    check_lm_backward(gen, errs)
     return errs
 
 
@@ -576,6 +619,118 @@ def check_backward(gen, errs: dict) -> None:
              route="fused" if bf else "two launches", max_abs_err=err,
              atol=tol, rtol=tol, **extra)
         del x, w, dy, dx, dw, rdx, rdw, xd, wd
+
+
+def _rel_err(out, ref, what, tol=LM_REL_TOL) -> float:
+    """max|out - ref|, raising unless within ``tol`` of ref's largest
+    magnitude."""
+    out, ref = out.float().cpu(), ref.float().cpu()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise RuntimeError(f"{what}: bad output {out.shape} vs {ref.shape}")
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    if err > tol * scale:
+        raise RuntimeError(f"{what}: kernel path off the plain path by {err}"
+                           f" (scale {scale}, tolerance {tol} of it)")
+    return err
+
+
+def check_lm_backward(gen, errs: dict) -> None:
+    """The RMSNorm and SSD backward kernels through autograd, as Mamba2
+    training runs them, against their plain versions on the same inputs
+    (fp32 1e-4, bf16 2e-2 of each gradient's largest value): one forward
+    and one backward launch each, and the reductions (RMSNorm's dw; the
+    scan's dA, dB, dC, dD) the same bit for bit over two more calls."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    d, din = LM.d_model, LM.d_inner
+    cases = [(f"rmsnorm bwd ({r},{c}) bf16, w fp32", r, c, bf16, False)
+             for r, c in ((8 * 128, d), (2 * 2048, din))]
+    cases += [("rmsnorm bwd (4096,2048) bf16 gemma", 4096, d, bf16, True),
+              ("rmsnorm bwd (4096,4096) fp32", 4096, din, f32, False),
+              ("rmsnorm bwd ragged (37,2048) fp32 gemma", 37, d, f32, True),
+              ("rmsnorm bwd (37,300) bf16, d off 8", 37, 300, bf16, False),
+              ("rmsnorm bwd (33,300) fp32 gemma", 33, 300, f32, True)]
+    for name, rows, dim, dtype, gemma in cases:
+        x = _randn(gen, (rows, dim), dtype, 3.0).requires_grad_(True)
+        w = (1.0 + 0.1 * _randn(gen, (dim,), f32)).requires_grad_(True)
+        dy = _randn(gen, (rows, dim), dtype)
+        n, nb = rmsnorm.launches, rmsnorm.bwd_launches
+        dx, dw = torch.autograd.grad(rmsnorm(x, w, eps=LM.norm_eps,
+                                             gemma=gemma), (x, w), dy)
+        torch.cuda.synchronize()
+        if (rmsnorm.launches - n, rmsnorm.bwd_launches - nb) != (1, 1):
+            raise RuntimeError(f"{name}: launches {rmsnorm.launches - n}, "
+                               f"backward {rmsnorm.bwd_launches - nb}")
+        xd, wd = x.detach(), w.detach()
+        rdx, rdw = rmsnorm_bwd_ref(xd, wd, dy, eps=LM.norm_eps, gemma=gemma)
+        tol = FP32_BWD_REL_TOL if dtype == f32 else BF16_BWD_REL_TOL
+        err = max(_rel_err(dx, rdx, name + " dx", tol),
+                  _rel_err(dw, rdw, name + " dw", tol))
+        for _ in range(2):
+            if not torch.equal(norm_launch_bwd(xd, wd, dy, eps=LM.norm_eps,
+                                               gemma=gemma)[1], dw):
+                raise RuntimeError(f"{name}: dw differs between calls")
+        errs["rmsnorm_bwd"] = max(errs.get("rmsnorm_bwd", 0.0), err)
+        line("check", case=name, max_abs_err=err, rel_tol=tol,
+             dw_bit_identical=True)
+        del x, w, dy, dx, dw, rdx, rdw, xd, wd
+    H, P, N = LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state
+    cases = [
+        ("ssd bwd (2,2048,64,64) N=128 G=1 chunk 256 bf16",
+         (2, 2048, H, P, N, 1, bf16, False), 256, False),
+        ("ssd bwd one chunk (8,128,64,64) N=128 G=1 chunk 256 bf16",
+         (8, 128, H, P, N, 1, bf16, False), 256, False),
+        ("ssd bwd (2,2048,64,64) N=128 G=1 chunk 256 fp32, initial state "
+         "and d_final", (2, 2048, H, P, N, 1, f32, True), 256, True),
+        ("ssd bwd ragged (2,300,8,64) N=128 G=2 chunk 256 bf16, initial "
+         "state and d_final", (2, 300, 8, P, N, 2, bf16, True), 256, True),
+        ("ssd bwd ragged (2,300,8,64) N=128 G=2 chunk 128 fp32, initial "
+         "state", (2, 300, 8, P, N, 2, f32, True), 128, False),
+        # chunks whose length is not a multiple of the backward's tiles
+        ("ssd bwd one chunk of 100 (1,100,64,64) N=128 G=1 chunk 256 fp32, "
+         "initial state and d_final", (1, 100, H, P, N, 1, f32, True), 256,
+         True),
+        ("ssd bwd one chunk of 100 (2,100,64,64) N=128 G=1 chunk 256 bf16",
+         (2, 100, H, P, N, 1, bf16, False), 256, False),
+        ("ssd bwd chunks of 100 then 50 (1,250,8,64) N=128 G=2 chunk 100 "
+         "bf16, initial state and d_final", (1, 250, 8, P, N, 2, bf16, True),
+         100, True),
+        ("ssd bwd the smoke config's scan (2,40,8,16) N=16 chunk 16 fp32, "
+         "initial state and d_final", (2, 40, 8, 16, 16, 1, f32, True), 16,
+         True),
+    ]
+    for name, shape, chunk, dfin in cases:
+        args = ssd_inputs(gen, *shape)
+        leaves = [t.requires_grad_(True) for t in args if t is not None]
+        x, dt, A, B, C, D = leaves[:6]
+        s0 = leaves[6] if len(leaves) > 6 else None
+        dy = _randn(gen, x.shape, x.dtype)
+        d_final = (_randn(gen, (x.shape[0], *x.shape[2:], B.shape[3]), f32,
+                          0.3)
+                   if dfin else None)
+        n, nb = ssd.launches, ssd.bwd_launches
+        y, final = ssd(x, dt, A, B, C, D, chunk, s0)
+        outs, grads_in = ((y, final), (dy, d_final)) if dfin else ((y,), (dy,))
+        grads = torch.autograd.grad(outs, leaves, grads_in)
+        torch.cuda.synchronize()
+        if (ssd.launches - n, ssd.bwd_launches - nb) != (1, 1):
+            raise RuntimeError(f"{name}: launches {ssd.launches - n}, "
+                               f"backward {ssd.bwd_launches - nb}")
+        det = [t.detach() for t in leaves]
+        s0d = det[6] if s0 is not None else None
+        refs = ssd_bwd_ref(*det[:6], chunk, dy, s0d, d_final)
+        tol = FP32_BWD_REL_TOL if shape[6] == f32 else BF16_BWD_REL_TOL
+        err = max(_rel_err(g, r, f"{name} {what}", tol) for g, r, what in zip(
+            grads, refs, ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")))
+        for _ in range(2):
+            again = ssd_launch_bwd(*det[:6], min(chunk, shape[1]), dy, s0d,
+                                   d_final)
+            if not all(torch.equal(again[i], grads[i]) for i in (2, 3, 4, 5)):
+                raise RuntimeError(f"{name}: dA, dB, dC or dD differ "
+                                   "between calls")
+        errs["ssd_bwd"] = max(errs.get("ssd_bwd", 0.0), err)
+        line("check", case=name, max_abs_err=err, rel_tol=tol,
+             reductions_bit_identical=True)
+        del args, leaves, grads, refs, det, again, y, final, dy
 
 
 # ------------------------------------------------- 3. agent serving
@@ -939,24 +1094,18 @@ def phase_train(trace, cfg, venv) -> dict:
 
 
 # ----------------------------------------------- 4. Mamba2-1.3B serving
-def _leaves(tree):
+def _items(tree, prefix=""):
+    """(path, leaf) for every leaf of a tree of dicts and lists, in order."""
     if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
+        return [i for k, v in tree.items() for i in _items(v, f"{prefix}/{k}")]
     if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
+        return [i for n, v in enumerate(tree)
+                for i in _items(v, f"{prefix}/{n}")]
+    return [(prefix, tree)]
 
 
-def _rel_err(out, ref, what) -> float:
-    """max|out - ref| within LM_REL_TOL of ref's largest magnitude."""
-    out, ref = out.float().cpu(), ref.float().cpu()
-    if out.shape != ref.shape or not torch.isfinite(out).all():
-        raise RuntimeError(f"{what}: bad output {out.shape} vs {ref.shape}")
-    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
-    if err > LM_REL_TOL * scale:
-        raise RuntimeError(f"{what}: kernel path off the plain path by {err}"
-                           f" (scale {scale}, tolerance {LM_REL_TOL} of it)")
-    return err
+def _leaves(tree):
+    return [t for _, t in _items(tree)]
 
 
 def _counts():
@@ -1460,6 +1609,241 @@ def phase_service(policies) -> dict:
             "grouped_gemm": totals["gemm_launches"]}
 
 
+# -------------------------------------------- 8. Mamba2-1.3B training
+def _set_lm_train_counts() -> None:
+    _set_counts()
+    rmsnorm.bwd_launches = ssd.bwd_launches = 0
+
+
+def _lm_train_counts() -> dict:
+    return dict(_counts(), rmsnorm_bwd=rmsnorm.bwd_launches,
+                ssd_bwd=ssd.bwd_launches)
+
+
+def _check_lm_train_counts(what: str, passes: int) -> dict:
+    """The launches since the counts were zeroed must be those of
+    ``passes`` differentiated micro-batch passes: NORMS_PER_PASS RMSNorm and
+    n_layers SSD launches, forward (every norm vectorised, every scan on the
+    tensor cores) and backward."""
+    got = _lm_train_counts()
+    want = dict(_pass_counts(passes * NORMS_PER_PASS, passes * LM.n_layers),
+                rmsnorm_bwd=passes * NORMS_PER_PASS,
+                ssd_bwd=passes * LM.n_layers)
+    if not passes or got != want:
+        raise RuntimeError(f"{what}: launched {got}, expected {want}")
+    return got
+
+
+def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1):
+    """``steps`` train steps of ``make_train_step`` at the launcher's
+    optimizer on ``data_iterator`` batches, after one warm-up step whose
+    result is dropped; host ms per step after ``synchronize``."""
+    step_fn = make_train_step(LM, TRAIN_OCFG, microbatches)
+    data = data_iterator(LM, DataConfig(batch=batch, seq_len=seq),
+                         device="cuda")
+    step_fn(params, opt, next(data))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _set_lm_train_counts()
+    ms, losses = [], []
+    for _ in range(steps):
+        b = next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    counts = _check_lm_train_counts(what, steps * microbatches)
+    line("lm_train", run=what, batch=batch, seq=seq, steps=steps,
+         microbatches=microbatches, ms_per_step=_ms(ms),
+         tokens_per_s=batch * seq / np.mean(ms) * 1e3,
+         losses=_finite(what, losses),
+         grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    return params, opt, counts
+
+
+def check_lm_train_grads(params) -> None:
+    """The first 2 layers of the full-width model, same weights, one
+    1 x LM_GRAD_SEQ batch (two chunks): ``loss_fn``'s gradient with the
+    kernels on the card against the plain path on the CPU, every leaf
+    within LM_REL_TOL of its largest magnitude."""
+    cfg = LM.replace(n_layers=LM_PLAIN_LAYERS)
+    sub = dict(params, segments=[{"b0": tree_map(
+        lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
+    batch = synth_batch(cfg, DataConfig(batch=1, seq_len=LM_GRAD_SEQ), 0,
+                        device="cuda")
+
+    def loss(p, b):
+        return transformer.loss_fn(p, cfg, b)
+    _set_lm_train_counts()
+    (lval, _), grads = value_and_grad_aux(loss, sub, batch, has_aux=True)
+    torch.cuda.synchronize()
+    got = _lm_train_counts()
+    if (got["rmsnorm_bwd"], got["ssd_bwd"]) != (2 * LM_PLAIN_LAYERS + 1,
+                                                LM_PLAIN_LAYERS):
+        raise RuntimeError(f"2-layer gradient launched {got}")
+    t0 = time.perf_counter()
+    (pval, _), pgrads = value_and_grad_aux(
+        loss, tree_map(lambda t: t.cpu(), sub),
+        {k: v.cpu() for k, v in batch.items()}, has_aux=True)
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for (path, g), pg in zip(_items(grads), _leaves(pgrads)):
+        _rel_err(g, pg, f"gradient {path} {tuple(g.shape)}")
+        scale = float(pg.abs().max())
+        errs[path] = (float((g.float().cpu() - pg.float()).abs().max())
+                      / scale if scale else 0.0)
+    worst = max(errs, key=errs.get)
+    line("lm_train", run="2-layer gradient check", layers=LM_PLAIN_LAYERS,
+         seq=LM_GRAD_SEQ, leaves=len(errs), loss=float(lval),
+         cpu_loss=float(pval), worst_rel_err=errs[worst], worst_leaf=worst,
+         rel_tol=LM_REL_TOL, cpu_plain_s=cpu_s)
+
+
+_KERNEL_GROUPS = (   # device-time groups of the training step's profile
+    ("ssd_bwd", ("chunk_state_kernel", "state_scan_kernel",
+                 "chunk_grad_kernel", "group_sum_kernel", "head_sum_kernel")),
+    ("ssd_fwd", ("ssd_tc_kernel", "ssd_kernel")),
+    ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "dw_sum_kernel")),
+    ("rmsnorm_fwd", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
+    ("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+)
+
+
+def _group_ms(rec: dict) -> dict:
+    """Device ms per step of each _KERNEL_GROUPS group in a profile record,
+    the rest as "other"."""
+    out = defaultdict(float)
+    for k in rec["kernels"]:
+        name = k["name"]
+        group = next((g for g, keys in _KERNEL_GROUPS
+                      if any(key in name for key in keys)), "other")
+        out[group] += k["ms_per_step"]
+    return dict(out)
+
+
+def profile_lm_train_step(params, opt, batch, seq) -> None:
+    """One train step of run (b) under torch.profiler, its device time
+    split by kernel group; AdamW's device time apart, from a profile of
+    ``adamw_update`` alone on that step's gradients (the rest of "other"
+    is the model's elementwise work and the loss)."""
+    step_fn = make_train_step(LM, TRAIN_OCFG)
+    b = synth_batch(LM, DataConfig(batch=batch, seq_len=seq), 100,
+                    device="cuda")
+    rec = profile_device("mamba2 train step (b)",
+                         lambda: step_fn(params, opt, b), 1, "step",
+                         batch=batch, seq=seq)
+    groups = _group_ms(rec)
+    (_, _), grads = value_and_grad_aux(
+        lambda p, bb: transformer.loss_fn(p, LM, bb), params, b,
+        has_aux=True)
+    adam = profile_device("adamw_update (b)", lambda: adamw_update(
+        grads, params, opt, TRAIN_OCFG), 1, "step", warmup=1)
+    del grads
+    groups["adamw"] = adam["device_ms_per_step"]
+    groups["other_elementwise"] = groups.pop("other", 0.0) - groups["adamw"]
+    line("lm_train", run="profile of one (b) step",
+         device_busy_share=rec["device_busy_share"],
+         wall_ms=rec["wall_ms_per_step"],
+         device_ms=rec["device_ms_per_step"], device_ms_by_group=groups,
+         adamw_busy_share=adam["device_busy_share"])
+
+
+def check_train_launcher() -> None:
+    """``repro_torch.launch.train --smoke`` on the card: 3 steps, then 3
+    more resumed from its checkpoint ("resumed at step 3"), their losses
+    equal to an uninterrupted 6-step run's within 1e-5 relative (the
+    embedding's gradient sums with atomics); then ``launch.serve --smoke
+    --ckpt-dir`` serves from the checkpoint."""
+    split, whole = TRAIN_DIR / "split", TRAIN_DIR / "whole"
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    common = ["--arch", LM.arch_id, "--smoke"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        first = train_launcher.main(common + ["--steps", "3", "--ckpt-dir",
+                                              str(split)])
+        second = train_launcher.main(common + ["--steps", "3", "--ckpt-dir",
+                                               str(split)])
+        ref = train_launcher.main(common + ["--steps", "6", "--ckpt-dir",
+                                            str(whole)])
+        served = serve_launcher.main(common + ["--requests", "2",
+                                               "--max-new", "4",
+                                               "--ckpt-dir", str(split)])
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    losses = first["losses"] + second["losses"]
+    if "resumed at step 3" not in out or second["steps_done"] != 6:
+        raise RuntimeError("the train launcher did not resume at step 3")
+    if len(losses) != 6 or not np.isfinite(losses).all():
+        raise RuntimeError(f"launcher losses {losses}")
+    rel = np.abs(np.array(losses) - ref["losses"]) / np.abs(ref["losses"])
+    if rel.max() > 1e-5:
+        raise RuntimeError(f"resumed losses {losses} differ from the "
+                           f"uninterrupted run's {ref['losses']}")
+    if "restored weights from step 6" not in out or \
+            served["done"] != served["requests"]:
+        raise RuntimeError("launch.serve did not serve from the checkpoint")
+    line("lm_train", run="launcher --smoke, resumed", losses=losses,
+         uninterrupted=ref["losses"], max_rel_diff=float(rel.max()),
+         served=served["done"], outputs=served["outputs"])
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def phase_lm_train() -> dict:
+    """Mamba2-1.3B training at full width with seeded weights drawn on the
+    card: runs (a) and (b), one micro-batched step (c), the 2-layer
+    gradient check, a profiled step and the launcher at ``--smoke``.
+    Returns the launches of (a), (b) and (c)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init(gen, LM)
+    opt = init_opt_state(params, TRAIN_OCFG)
+    totals = defaultdict(int)
+    for what, batch, seq, steps in LM_TRAIN_RUNS:
+        params, opt, counts = lm_train_run(params, opt, what, batch, seq,
+                                           steps)
+        for k, v in counts.items():
+            totals[k] += v
+    # (c): one step of (a) in two micro-batches, against the same step in one
+    b = synth_batch(LM, DataConfig(batch=8, seq_len=128), 50, device="cuda")
+    one = make_train_step(LM, TRAIN_OCFG)(params, opt, b)[2]
+    _set_lm_train_counts()
+    two = make_train_step(LM, TRAIN_OCFG, 2)(params, opt, b)[2]
+    torch.cuda.synchronize()
+    counts = _check_lm_train_counts("(c)", 2)
+    for k, v in counts.items():
+        totals[k] += v
+    rel = abs(float(two["loss"]) - float(one["loss"])) / abs(float(
+        one["loss"]))
+    if not np.isfinite(float(two["loss"])) or rel > BF16_TOL:
+        raise RuntimeError(f"(c): micro-batched loss {float(two['loss'])} "
+                           f"against {float(one['loss'])}")
+    # the loss is a forward value: the gradient's norm is what shows the
+    # accumulation over micro-batches
+    grad_rel = abs(float(two["grad_norm"]) - float(one["grad_norm"])) / abs(
+        float(one["grad_norm"]))
+    if not np.isfinite(float(two["grad_norm"])) or grad_rel > BF16_TOL:
+        raise RuntimeError(f"(c): micro-batched grad_norm "
+                           f"{float(two['grad_norm'])} against "
+                           f"{float(one['grad_norm'])}")
+    line("lm_train", run="c", batch=8, seq=128, microbatches=2,
+         loss=float(two["loss"]), single_batch_loss=float(one["loss"]),
+         rel_diff=rel, rel_tol=BF16_TOL,
+         grad_norm=float(two["grad_norm"]),
+         single_batch_grad_norm=float(one["grad_norm"]),
+         grad_norm_rel_diff=grad_rel, launches=counts)
+    del one, two
+    check_lm_train_grads(params)
+    profile_lm_train_step(params, opt, *LM_TRAIN_RUNS[1][1:3])
+    del params, opt
+    torch.cuda.empty_cache()
+    check_train_launcher()
+    torch.cuda.empty_cache()
+    return dict(totals)
+
+
 # ------------------------------------------------------------ 5. timing
 def time_ms(fn, reps=20, warmup=3, flush=True, lead=True) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` calls, one event pair
@@ -1708,7 +2092,7 @@ def phase_timing(errs: dict, launches: dict) -> list:
         "chunk 256: one Mamba2 layer's prefill scan", **t)
     line("time", **ssd_rec, **extra)
     return [flash_rec, gemm_rec, norm_rec, ssd_rec] + time_backward(
-        gen, errs, launches)
+        gen, errs, launches) + time_lm_backward(gen, errs, launches)
 
 
 class _Identity(torch.autograd.Function):
@@ -1911,6 +2295,105 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
     return [flash_rec, gemm_rec]
 
 
+def ssd_bwd_work(Bz, S, H, P, N, G, chunk, itemsize):
+    """Bytes and products the scan's backward needs: x, dy, dt, B, C read
+    and dx, ddt, dB, dC written once (A, D, dA, dD negligible); per chunk of
+    q rows, C.B^T once per group over the causal triangle, and per head
+    dy.x^T, the scores' products with dy and x (dx) and dCB's with C and B
+    (dB, dC) over the triangle, and six (q x P x N) products for the state
+    terms (the chunk state and its dy twin, dS.B, dS^T.x, S_in.C,
+    S_in^T.dy)."""
+    Q = min(chunk, S)
+    flops = 0
+    for s0 in range(0, S, Q):
+        q = min(Q, S - s0)
+        tri = q * (q + 1) // 2
+        flops += Bz * (2 * tri * N * G
+                       + H * (4 * tri * P + 4 * tri * N + 12 * q * P * N))
+    nbytes = (3 * Bz * S * H * P * itemsize + 2 * Bz * S * H * 4
+              + 4 * Bz * S * G * N * itemsize)
+    return nbytes, flops
+
+
+def time_lm_backward(gen, errs: dict, launches: dict) -> list:
+    """The RMSNorm and SSD backward kernels at phase 8's (b) shapes: one
+    Mamba2 layer's two norm backwards, (4096,2048) and (4096,4096) bf16 with
+    an fp32 w, and its scan's backward, x (2,2048,64,64) bf16, N=128,
+    chunk 256; beside their plain versions, the library's (autograd through
+    ``F.rms_norm``; none for the scan) and the bound."""
+    rows = LM_TRAIN_RUNS[1][1] * LM_TRAIN_RUNS[1][2]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    extra = {"ms_no_lead": 0.0, "host_us": 0.0}
+    nbytes = flops = 0
+    for dim in (LM.d_model, LM.d_inner):
+        x = _randn(gen, (rows, dim), torch.bfloat16, 3.0)
+        w = 1.0 + 0.1 * _randn(gen, (dim,), torch.float32)
+        dy = _randn(gen, (rows, dim), torch.bfloat16)
+
+        def bwd():
+            return rmsnorm_bwd(x, w, dy, eps=LM.norm_eps)
+        n = rmsnorm.bwd_launches
+        ms = time_ms(bwd)
+        if rmsnorm.bwd_launches == n:
+            raise RuntimeError("the timed RMSNorm backward launched nothing")
+        xl = x.clone().requires_grad_(True)
+        wl = w.to(torch.bfloat16).requires_grad_(True)
+        lib = F.rms_norm(xl, (dim,), wl, LM.norm_eps)
+        one = {"ms": ms,
+               "plain_ms": time_ms(lambda: rmsnorm_bwd_ref(
+                   x, w, dy, eps=LM.norm_eps), reps=5),
+               "library_ms": time_ms(lambda: torch.autograd.grad(
+                   lib, (xl, wl), dy, retain_graph=True))}
+        extra["ms_no_lead"] += time_ms(bwd, lead=False)
+        extra["host_us"] += host_us(bwd)
+        b = 3 * x.numel() * x.element_size() + 2 * w.numel() * 4
+        fl = 10 * x.numel()         # the two row sums, dx, dy.x.r: fp32
+        line("time", name="rmsnorm_bwd", shape=f"({rows},{dim}) bf16, w fp32",
+             bound_ms=bound_ms(b, fl, FP32_FLOP_PER_S)[0], **one)
+        for key in tot:
+            tot[key] += one[key]
+        nbytes, flops = nbytes + b, flops + fl
+        del x, w, dy, xl, wl, lib
+    bms, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    norm_rec = dict(
+        name="rmsnorm_bwd", route="cuda",
+        source="src/repro_torch/csrc/rmsnorm_bwd.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:17",
+        launches=launches["rmsnorm_bwd"], max_abs_err=errs["rmsnorm_bwd"],
+        bound_ms=bms, bound_by=by,
+        shape=f"one Mamba2 layer's two norm backwards, ({rows},2048) and "
+              f"({rows},4096) bf16, w fp32", **tot)
+    line("time", **norm_rec, **extra)
+
+    Bz, S = LM_TRAIN_RUNS[1][1:3]
+    shape = (Bz, S, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
+             LM.ssm_ngroups)
+    args = ssd_inputs(gen, *shape, torch.bfloat16, False)[:6]
+    dy = _randn(gen, args[0].shape, torch.bfloat16)
+
+    def bwd():
+        return ssd_bwd(*args, LM.ssm_chunk, dy)
+    n = ssd.bwd_launches
+    t = {"ms": time_ms(bwd, reps=10),
+         "plain_ms": time_ms(lambda: ssd_bwd_ref(*args, LM.ssm_chunk, dy),
+                             reps=3),
+         "library_ms": None}                 # no one PyTorch call does it
+    if ssd.bwd_launches == n:
+        raise RuntimeError("the timed SSD backward launched nothing")
+    extra = {"ms_no_lead": time_ms(bwd, reps=10, lead=False),
+             "host_us": host_us(bwd, reps=10)}
+    bms, by = bound_ms(*ssd_bwd_work(*shape, LM.ssm_chunk, 2))
+    ssd_rec = dict(
+        name="ssd_bwd", route="cuda", source="src/repro_torch/csrc/ssd_bwd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:31",
+        launches=launches["ssd_bwd"], max_abs_err=errs["ssd_bwd"],
+        bound_ms=bms, bound_by=by,
+        shape=f"x, dy ({Bz},{S},64,64) bf16, B/C ({Bz},{S},1,128) bf16, "
+              "chunk 256: one Mamba2 layer's scan backward", **t)
+    line("time", **ssd_rec, **extra)
+    return [norm_rec, ssd_rec]
+
+
 def phase(name: str, fn, *args):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -1934,9 +2417,10 @@ def main() -> int:
     service = phase("7 service", phase_service, policies)
     del policies
     torch.cuda.empty_cache()
-    for counts in (grid, service):
+    lm_train = phase("8 Mamba2 training", phase_lm_train)
+    for counts in (grid, service, lm_train):
         for k, v in counts.items():
-            launches[k] += v
+            launches[k] = launches.get(k, 0) + v
     records = phase("5 timing", phase_timing, errs, launches)
     print(json.dumps({"kernels": records}))
     print(card())

@@ -28,6 +28,7 @@ from repro_torch.convert import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
                                          init_opt_state)
+from repro_torch.train.step import value_and_grad  # noqa: F401  (re-export)
 from .foundation import FoundationConfig, init_foundation, q_values
 
 
@@ -39,20 +40,6 @@ class DQNConfig:
     target_update_every: int = 50
     lr: float = 1e-4
     batch_size: int = 32
-
-
-def value_and_grad(loss_fn, params: Dict, *args):
-    """(loss, grads) of ``loss_fn(params, *args)``: the gradient of every
-    leaf of ``params``, zeros for leaves the loss does not reach (as
-    ``jax.value_and_grad`` gives them)."""
-    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    leaves = []
-    tree_map(leaves.append, p)
-    loss = loss_fn(p, *args)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter(torch.zeros_like(t) if g is None else g
-              for t, g in zip(leaves, grads))
-    return loss.detach(), tree_map(lambda _: next(it), params)
 
 
 class DQNLearner:

@@ -46,7 +46,10 @@ SIGNATURES = {
                  "grouped_gemm_bwd": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P]},
     "rmsnorm": {"rmsnorm_fwd":
                 [_P, _P, _P, _I, _I, _I, _I, _I, _L, _F, _I, _P]},
+    "rmsnorm_bwd": {"rmsnorm_bwd":
+                    [_P] * 6 + [_I] * 4 + [_L, _I, _I, _F, _I, _P]},
     "ssd": {"ssd_fwd": [_P] * 9 + [_I] * 9 + [_L] * 12 + [_P]},
+    "ssd_bwd": {"ssd_bwd": [_P] * 23 + [_I] * 8 + [_L] * 12 + [_P]},
 }
 
 _lock = threading.Lock()
@@ -116,16 +119,6 @@ def row_strides(t):
     """A (B, S, H, D)-shaped tensor's batch, sequence and head strides, 0 for
     an axis of length 1 (a kernel never steps along it)."""
     return [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
-
-
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise where autograd would record a gradient through a kernel that
-    has no backward: its output would carry none, and every gradient
-    upstream of it would be dropped without a word."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"the {name} kernel has no backward; call "
-                                  "it under torch.no_grad() or "
-                                  "torch.inference_mode()")
 
 
 def check_launch(name: str, err: int) -> None:

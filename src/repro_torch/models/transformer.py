@@ -1,4 +1,6 @@
-"""Model assembly (port of ``repro.models.transformer``, serving subset).
+"""Model assembly (port of ``repro.models.transformer``): init, the
+forward and its next-token loss for training, prefill and decode for
+serving.
 
 The reference scans each segment over its stacked layer axis; here the
 layers run as a Python loop over the stacked (L, ...) leaves. One trunk
@@ -22,10 +24,11 @@ from repro_torch.convert import tree_map
 from repro_torch.device import resolve_device
 from .blocks import apply_block, init_block, init_block_cache
 from .common import ModelConfig, layer_plan
+from .attention import NEG_INF
 from .layers import (apply_norm, dense_init, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
 
-# features of ModelConfig that the serving subset does not port
+# features of ModelConfig that the port does not carry yet
 _UNPORTED = ("use_rope", "qk_norm", "qkv_bias", "use_mla", "parallel_block",
              "sandwich_norm")
 _CACHED_MODES = ("prefill", "decode")
@@ -35,7 +38,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     on = [name for name in _UNPORTED if getattr(cfg, name)]
     if on:
         raise NotImplementedError(f"{cfg.arch_id}: {', '.join(on)} not "
-                                  "ported (serving subset)")
+                                  "ported")
 
 
 def init(gen: torch.Generator, cfg: ModelConfig,
@@ -61,6 +64,12 @@ def init(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def param_count(params) -> int:
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    return sum(sizes)
+
+
 def _init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     params: Dict[str, Any] = {}
     if cfg.embed_inputs:
@@ -84,6 +93,17 @@ def _layer(tree, r: int):
     return tree[r]
 
 
+def _layers(tree, n: int) -> List:
+    """The ``n`` per-layer trees of a tree of (n, ...) leaves, each leaf cut
+    by one ``unbind``: its backward writes the leaf's gradient once, where
+    indexing layer by layer would add a zero-padded gradient of the whole
+    stacked leaf for every layer."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per.items()} for r in range(n)]
+    return tree.unbind(0)
+
+
 def _stack(trees: List):
     """Per-layer trees -> one tree of (L, ...) leaves."""
     if isinstance(trees[0], dict):
@@ -105,6 +125,8 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
     for si, (seg, seg_params) in enumerate(zip(layer_plan(cfg),
                                                params["segments"])):
         layers = []
+        per_layer = {name: _layers(p, seg.n_repeat)
+                     for name, p in seg_params.items()}
         for r in range(seg.n_repeat):
             new = {}
             for j, kind in enumerate(seg.pattern):
@@ -115,8 +137,8 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                                          dtype=cfg.cdtype, device=x.device)
                 elif mode == "decode":
                     c = _layer(cache["segments"][si][name], r)
-                x, a, new[name] = apply_block(_layer(seg_params[name], r), kind,
-                                              x, cfg, positions, mode, c)
+                x, a, new[name] = apply_block(per_layer[name][r], kind, x,
+                                              cfg, positions, mode, c)
                 aux = aux + a
             layers.append(new)
         if mode in _CACHED_MODES:
@@ -138,6 +160,32 @@ def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions):
     x = embed_inputs(params, cfg, inputs)
     x, aux, _ = apply_trunk(params, cfg, x, positions, mode="forward")
     return lm_logits(params, x, cfg, embed_params=params.get("embed")), aux
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
+    """Next-token cross entropy: (loss, {"ce", "aux", "accuracy"}). The
+    padded vocab entries are masked out, labels below 0 count as invalid,
+    and ``loss = ce + aux``; the trunk's aux is a Python 0.0 (no MoE block
+    is ported), which adds nothing and launches nothing."""
+    positions = batch.get("positions")
+    if positions is None:
+        B, S = batch["inputs"].shape[:2]
+        positions = torch.arange(S, device=batch["inputs"].device).expand(
+            B, S)
+    logits, aux = forward(params, cfg, batch["inputs"], positions)
+    labels = batch["labels"]
+    if cfg.vocab != cfg.vocab_size:     # the sharding-padded vocab entries
+        pad = torch.arange(cfg.vocab, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, NEG_INF, logits)
+    logp = torch.log_softmax(logits, dim=-1)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = torch.clamp(valid.sum(), min=1)
+    ce = torch.where(valid, nll, 0.0).sum() / denom
+    loss = ce if isinstance(aux, float) and aux == 0.0 else ce + aux
+    hits = valid & (logits.argmax(-1) == labels)
+    return loss, {"ce": ce, "aux": aux, "accuracy": hits.sum() / denom}
 
 
 # ---------------------------------------------------------------------- cache

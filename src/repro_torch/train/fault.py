@@ -9,9 +9,12 @@ checkpoint.restore_checkpoint's reshape path).
 """
 from __future__ import annotations
 
+import bisect
+import dataclasses
 import signal
 import threading
 import time
+from collections import deque
 from typing import Callable, Deque, Dict, List, Optional
 
 
@@ -49,3 +52,66 @@ class PreemptionGuard:
         if self.wall_limit_s is not None:
             return self.elapsed >= self.wall_limit_s - self.grace_s
         return False
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """Per-step wall-time tracker: flags steps slower than
+    ``threshold x`` the trailing median — on real pods this drives the
+    launcher's decision to health-check / evict a host and restart on a
+    shrunken mesh (elastic path).
+
+    The trailing window is kept in two views: ``_times`` in insertion
+    order (for eviction) and ``_sorted`` maintained incrementally with
+    ``bisect`` (for the median), so ``record`` is O(window) worst case
+    instead of re-sorting the whole window every step."""
+    window: int = 50
+    threshold: float = 2.5
+    _times: Deque[float] = dataclasses.field(default_factory=deque)
+    _sorted: List[float] = dataclasses.field(default_factory=list)
+    flagged: int = 0
+
+    def record(self, step_time_s: float) -> bool:
+        ts, srt = self._times, self._sorted
+        is_straggler = False
+        if len(ts) >= 10:
+            med = srt[len(srt) // 2]
+            is_straggler = step_time_s > self.threshold * med
+            if is_straggler:
+                self.flagged += 1
+        ts.append(step_time_s)
+        bisect.insort(srt, step_time_s)
+        if len(ts) > self.window:
+            old = ts.popleft()
+            del srt[bisect.bisect_left(srt, old)]
+        return is_straggler
+
+    @property
+    def median(self) -> float:
+        if not self._sorted:
+            return 0.0
+        return self._sorted[len(self._sorted) // 2]
+
+
+@dataclasses.dataclass
+class ElasticPlan:
+    """Mesh-shape fallbacks in preference order; the launcher walks down
+    the list as nodes fail and back up as they return. Restores resolve
+    through checkpoint.restore_checkpoint with the new mesh's shardings."""
+    shapes: List[Dict] = dataclasses.field(default_factory=lambda: [
+        {"pod": 2, "data": 16, "model": 16},
+        {"pod": 1, "data": 16, "model": 16},
+        {"pod": 1, "data": 8, "model": 16},
+    ])
+    level: int = 0
+
+    def current(self) -> Dict:
+        return self.shapes[self.level]
+
+    def degrade(self) -> Dict:
+        self.level = min(self.level + 1, len(self.shapes) - 1)
+        return self.current()
+
+    def recover(self) -> Dict:
+        self.level = max(self.level - 1, 0)
+        return self.current()

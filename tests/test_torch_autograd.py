@@ -15,14 +15,23 @@ wiring of the flash and grouped-GEMM wrappers, on the CPU.
   The fused kernel's split-K dW, modelled by ``grouped_gemm_dw_split_ref``
   (fp32 partials summed in split order, one rounding to bf16), against
   both at the trunk's widths, bf16 2e-2.
+* ``rmsnorm_bwd_ref`` against ``jax.vjp`` of the JAX package's RMSNorm
+  (``apply_norm``), with and without gemma: fp32 1e-5, bf16 2e-2 of each
+  gradient's scale (one rounding at the output, sums in other orders).
+* ``ssd_bwd_ref``, written as the backward kernel computes (the chunk
+  states recomputed, then a reverse walk over the chunks), against
+  ``jax.vjp`` of ``ssd_chunked`` and against torch autograd of ``ssd_ref``:
+  one chunk and many, a ragged last chunk, G = 1 and 2, an initial state
+  and the final state's gradient; fp32, 1e-5 of each gradient's scale
+  (sums over up to 100 positions in other orders).
 * On the card the wrappers differentiate through ``autograd.Function``s
   whose launches cannot run here. These tests route a reduced trunk's calls
-  to the card's route on CPU tensors, with each launch replaced by its plain
-  version, and check that every parameter leaf gets the gradient autograd
-  gives the plain path, with the backward launches counted, and that
-  serving (no_grad, inference_mode) never enters the Functions. A wrapper
-  whose output had no ``grad_fn`` would leave the attention and projection
-  weights without gradient and fail here.
+  (and a reduced Mamba2's) to the card's route on CPU tensors, with each
+  launch replaced by its plain version, and check that every parameter leaf
+  gets the gradient autograd gives the plain path, with the backward
+  launches counted, and that serving (no_grad, inference_mode) never enters
+  the Functions. A wrapper whose output had no ``grad_fn`` would leave the
+  weights upstream of it without gradient and fail here.
 """
 import dataclasses
 import math
@@ -33,8 +42,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import mamba2_1_3b as j_mamba
 from repro.kernels.moe_gemm.ops import moe_grouped_gemm
 from repro.models.attention import attention_chunked
+from repro.models.layers import apply_norm as j_apply_norm
+from repro.models.ssm import ssd_chunked
 from repro_torch.convert import tree_map
 from repro_torch.core import DQNConfig, DQNLearner, FoundationConfig
 from repro_torch.core.dqn import value_and_grad
@@ -49,7 +61,15 @@ from repro_torch.kernels.moe_gemm import ops as gemm_ops
 from repro_torch.kernels.moe_gemm import (grouped_gemm, grouped_gemm_bwd_ref,
                                           grouped_gemm_dw_split_ref,
                                           grouped_gemm_ref, split_count)
-from repro_torch.models import attention, layers
+from repro_torch.configs import mamba2_1_3b as t_mamba
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd, rmsnorm_bwd_ref,
+                                         rmsnorm_ref)
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ssd, ssd_bwd, ssd_bwd_ref, ssd_ref
+from repro_torch.models import attention, layers, ssm
+from repro_torch.models import transformer as tt
+from repro_torch.train.step import value_and_grad as value_and_grad_aux
 
 FLASH_ATOL, FLASH_RTOL = 3e-5, 1e-5
 
@@ -349,3 +369,214 @@ def test_flash_function_refuses_a_window(card_route):
         _flash_route(q, q, q, window=4)
     with torch.no_grad():
         assert _flash_route(q, q, q, window=4).shape == q.shape
+
+
+# ------------------------------------------------------ RMSNorm backward
+def _within(got, ref, tol, what):
+    """max|got - ref| within ``tol`` of ref's largest magnitude."""
+    got = np.asarray(got.float() if torch.is_tensor(got) else got,
+                     np.float32)
+    ref = np.asarray(ref.float() if torch.is_tensor(ref) else ref,
+                     np.float32)
+    assert got.shape == ref.shape, what
+    err, scale = np.abs(got - ref).max(), np.abs(ref).max()
+    assert err <= tol * max(scale, 1e-30), f"{what}: {err} (scale {scale})"
+
+
+def _f32(a):
+    return torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gemma", [False, True])
+def test_rmsnorm_bwd_ref_matches_jax_vjp(dtype, gemma):
+    x, w, dy = _normal(11, (3, 17, 48), (48,), (3, 17, 48))
+    cfg = j_mamba.SMOKE.replace(gemma_norm=gemma)
+    jdt = jnp.dtype(dtype)
+    jx, jdy = jnp.asarray(3 * x).astype(jdt), jnp.asarray(dy).astype(jdt)
+    jw = jnp.asarray(0.5 * w)
+    _, vjp = jax.vjp(lambda a, s: j_apply_norm({"scale": s}, a, cfg), jx, jw)
+    jdx, jdw = vjp(jdy)
+    tdt = getattr(torch, dtype)
+    tx, tdy, tw = _f32(jx).to(tdt), _f32(jdy).to(tdt), _f32(jw)
+    dx, dw = rmsnorm_bwd(tx, tw, tdy, eps=cfg.norm_eps, gemma=gemma,
+                         device="cpu")
+    assert dx.dtype == tdt and dw.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    _within(dx, _f32(jdx), tol, "dx")
+    _within(dw, _f32(jdw), tol, "dw")
+    # and against autograd of the forward's plain version
+    leaves = [tx.clone().requires_grad_(True), tw.clone().requires_grad_(True)]
+    auto = torch.autograd.grad(rmsnorm_ref(*leaves, eps=cfg.norm_eps,
+                                           gemma=gemma), leaves, tdy)
+    _within(dx, auto[0], tol, "dx (autograd)")
+    _within(dw, auto[1], tol, "dw (autograd)")
+
+
+# ---------------------------------------------------------- SSD backward
+def _ssd_inputs(seed, Bz, S, H, P, N, G):
+    rng = np.random.default_rng(seed)
+
+    def n(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+    dt = np.log1p(np.exp(n(Bz, S, H) - 1.0)).astype(np.float32)
+    return (n(Bz, S, H, P, scale=0.5), dt, -np.exp(n(H, scale=0.3)),
+            n(Bz, S, G, N, scale=0.3), n(Bz, S, G, N, scale=0.3), n(H),
+            n(Bz, H, P, N, scale=0.3), n(Bz, S, H, P), n(Bz, H, P, N))
+
+
+@pytest.mark.parametrize("S,chunk,G,init,dfin", [
+    (64, 64, 1, False, False),      # one chunk
+    (96, 32, 1, True, True),        # three whole chunks
+    (77, 16, 2, True, False),       # ragged last chunk, groups
+    (50, 64, 2, False, True),       # chunk longer than the sequence
+    (100, 256, 1, True, True),      # one chunk of 100, off the kernel's tiles
+])
+def test_ssd_bwd_ref_matches_jax_vjp(S, chunk, G, init, dfin):
+    Bz, H, P, N = 2, 4, 16, 8
+    x, dt, A, B, C, D, s0, dy, df = _ssd_inputs(S + chunk, Bz, S, H, P, N, G)
+    args = [jnp.asarray(a) for a in (x, dt, A, B, C, D)]
+    if init:
+        out, vjp = jax.vjp(lambda *a: ssd_chunked(*a[:6], chunk, a[6]),
+                           *args, jnp.asarray(s0))
+    else:
+        out, vjp = jax.vjp(lambda *a: ssd_chunked(*a, chunk), *args)
+    jgrads = vjp((jnp.asarray(dy), jnp.asarray(df) if dfin
+                  else jnp.zeros_like(out[1])))
+    targs = [torch.from_numpy(a) for a in (x, dt, A, B, C, D)]
+    t0 = torch.from_numpy(s0) if init else None
+    tdf = torch.from_numpy(df) if dfin else None
+    grads = ssd_bwd(*targs, chunk, torch.from_numpy(dy), t0, tdf,
+                    device="cpu")
+    assert (grads[6] is None) == (not init)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+    for name, g, jg in zip(names, grads, jgrads):
+        _within(g, jg, 1e-5, name)
+    # and against autograd of the forward's plain version
+    leaves = [t.clone().requires_grad_(True)
+              for t in targs + ([t0] if init else [])]
+    y, final = ssd_ref(*leaves[:6], chunk, leaves[6] if init else None)
+    auto = torch.autograd.grad((y, final), leaves,
+                               (torch.from_numpy(dy),
+                                tdf if dfin else torch.zeros_like(final)))
+    for name, g, ag in zip(names, grads, auto):
+        _within(g, ag, 1e-5, name + " (autograd)")
+
+
+def test_ssd_bwd_ref_bf16_dtypes_and_checks():
+    x, dt, A, B, C, D, s0, dy, df = _ssd_inputs(3, 1, 40, 2, 16, 8, 1)
+    bx, bB, bC, bdy = (torch.from_numpy(a).bfloat16() for a in (x, B, C, dy))
+    rest = [torch.from_numpy(a) for a in (dt, A)]
+    grads = ssd_bwd(bx, rest[0], rest[1], bB, bC, torch.from_numpy(D), 16,
+                    bdy, device="cpu")
+    assert [g.dtype for g in grads[:6]] == [torch.bfloat16] + \
+        [torch.float32] * 2 + [torch.bfloat16] * 2 + [torch.float32]
+    assert grads[3].shape == bB.shape and grads[6] is None
+    with pytest.raises(ValueError, match="dy"):
+        ssd_bwd(bx, rest[0], rest[1], bB, bC, torch.from_numpy(D), 16,
+                bdy.float(), device="cpu")
+    with pytest.raises(ValueError, match="d_final"):
+        ssd_bwd(bx, rest[0], rest[1], bB, bC, torch.from_numpy(D), 16, bdy,
+                d_final=torch.from_numpy(df).bfloat16(), device="cpu")
+
+
+# ------------------------------------------------ Mamba2 autograd wiring
+def _rmsnorm_route(x, w, *, eps=1e-6, gemma=False, device=None):
+    """``rmsnorm``'s card route, taken on CPU tensors."""
+    rms_ops._check(x, w)
+    return rms_ops._rmsnorm_cuda(x, w, eps=eps, gemma=gemma)
+
+
+def _ssd_route(x, dt, A, B, C, D, chunk, initial_state=None, *, device=None):
+    """``ssd``'s card route, taken on CPU tensors."""
+    ssd_ops._check(x, dt, A, B, C, D, chunk, initial_state)
+    return ssd_ops._ssd_cuda(x, dt, A, B, C, D, chunk, initial_state)
+
+
+@pytest.fixture
+def lm_card_route(monkeypatch):
+    """The Mamba2 model's RMSNorm and SSD calls take the card's route, each
+    kernel launch replaced by its plain version; counters start at 0."""
+    monkeypatch.setattr(rms_ops, "_launch", lambda flat, w, variant, *, eps,
+                        gemma: rmsnorm_ref(flat, w, eps=eps, gemma=gemma))
+    monkeypatch.setattr(rms_ops, "_launch_bwd", lambda flat, w, dy, *, eps,
+                        gemma: rmsnorm_bwd_ref(flat, w, dy, eps=eps,
+                                               gemma=gemma))
+    monkeypatch.setattr(ssd_ops, "_launch",
+                        lambda x, dt, A, B, C, D, Q, init, variant:
+                        ssd_ref(x, dt, A, B, C, D, Q, init))
+    monkeypatch.setattr(ssd_ops, "_launch_bwd", ssd_bwd_ref)
+    monkeypatch.setattr(layers, "rmsnorm", _rmsnorm_route)
+    monkeypatch.setattr(ssm, "ssd", _ssd_route)
+    for name in ("launches", "vec_launches", "bwd_launches"):
+        monkeypatch.setattr(rmsnorm, name, 0)
+    for name in ("launches", "tc_launches", "bwd_launches"):
+        monkeypatch.setattr(ssd, name, 0)
+
+
+def _lm(dtype):
+    cfg = t_mamba.SMOKE.replace(compute_dtype=dtype)
+    params = tt.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    batch = {"inputs": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_gradients_through_the_functions(lm_card_route, monkeypatch,
+                                                dtype):
+    """``loss_fn``'s gradient on the card's route (39 tokens: two chunks
+    of 16 and a ragged one) equals the plain path's, leaf by leaf (fp32
+    1e-5, bf16 2e-2 of each leaf's scale), with every norm and scan's
+    backward launched once a pass."""
+    cfg, params, batch = _lm(dtype)
+    (loss, metrics), grads = value_and_grad_aux(
+        lambda p, b: tt.loss_fn(p, cfg, b), params, batch, has_aux=True)
+    L = cfg.n_layers
+    assert (rmsnorm.launches, rmsnorm.bwd_launches) == (2 * L + 1, 2 * L + 1)
+    assert (ssd.launches, ssd.bwd_launches) == (L, L)
+    monkeypatch.undo()                       # the plain path
+    (ploss, _), pgrads = value_and_grad_aux(
+        lambda p, b: tt.loss_fn(p, cfg, b), params, batch, has_aux=True)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(loss, ploss, atol=0, rtol=tol)
+    flat, pflat = [], []
+    tree_map(flat.append, grads)
+    tree_map(pflat.append, pgrads)
+    for i, (g, pg) in enumerate(zip(flat, pflat)):
+        _within(g, pg, tol, f"leaf {i}")
+    # every leaf upstream of the norms and scans moved
+    for name in ("w_x", "w_B", "w_C", "w_dt", "A_log", "D", "dt_bias",
+                 "conv_x_w"):
+        assert grads["segments"][0]["b0"]["mamba"][name].abs().sum() > 0, \
+            name
+    assert grads["final_norm"]["scale"].abs().sum() > 0
+
+
+def test_mamba2_serving_never_enters_the_functions(lm_card_route,
+                                                   monkeypatch):
+    """Prefill and decode under no_grad and inference_mode, on parameters
+    that require grad, launch the forward kernels directly."""
+    class Refuse:
+        @staticmethod
+        def apply(*args):
+            raise AssertionError("serving went through an autograd.Function")
+    monkeypatch.setattr(rms_ops, "_RMSNormFn", Refuse)
+    monkeypatch.setattr(ssd_ops, "_SSDFn", Refuse)
+    cfg, params, batch = _lm("float32")
+    trainable = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    toks = batch["inputs"]
+    pos = torch.arange(toks.shape[1]).expand(toks.shape)
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            logits, cache = tt.prefill(trainable, cfg, toks, pos)
+            tok = logits.argmax(-1, keepdim=True)
+            logits2, _ = tt.decode_step(trainable, cfg, tok, pos[:, -1:] + 1,
+                                        cache, toks.shape[1])
+        assert logits.grad_fn is None and logits2.grad_fn is None
+    L = cfg.n_layers
+    assert rmsnorm.launches == 2 * 2 * (2 * L + 1)
+    assert ssd.launches == 2 * L
+    assert rmsnorm.bwd_launches == ssd.bwd_launches == 0

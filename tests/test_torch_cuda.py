@@ -25,7 +25,10 @@ inputs: flash fp32 3e-5 absolute and 1e-5 relative, the GEMM fp32 2e-5
 (sums over up to 1001 terms), bf16 2e-2; the GEMM's fused bf16 backward
 also at split-K boundaries, with strided dY, and bit for bit against
 itself over repeated calls; and one reduced DQN step with the kernels
-against the same step on the card's plain path.
+against the same step on the card's plain path. The RMSNorm and SSD
+backward kernels run through autograd against their plain versions, fp32
+1e-4 and bf16 2e-2 of each gradient's scale, their reductions (dw; dA, dB,
+dC, dD) the same bit for bit over repeated calls.
 
 Last, a 6-tenant ``ProvisionService`` over a reduced learner on the card:
 no fallback, the breaker closed, and its ragged batches' flash and GEMM
@@ -44,8 +47,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe_gemm import (expert_mlp, grouped_gemm,
                                           grouped_gemm_bwd_ref,
                                           grouped_gemm_ref)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
-from repro_torch.kernels.ssd import ssd, ssd_ref
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                         rmsnorm_bwd_ref, rmsnorm_ref)
+from repro_torch.kernels.ssd import ssd, ssd_bwd, ssd_bwd_ref, ssd_ref
 
 FP32, BF16 = "float32", "bfloat16"
 TORCH = {FP32: torch.float32, BF16: torch.bfloat16}
@@ -539,16 +543,87 @@ def test_train_on_kernel_path_matches_plain(cuda, monkeypatch, dtype):
             float(pg.abs().max()), 1e-30), i
 
 
+def _within(got, ref, tol, what):
+    """max|got - ref| within ``tol`` of ref's largest magnitude."""
+    got, ref = got.float(), ref.float()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    assert err <= tol * max(scale, 1e-30), f"{what}: {err} (scale {scale})"
+
+
 @pytest.mark.cuda
-def test_kernels_without_backward_refuse_gradients(cuda):
-    """RMSNorm and the SSD scan have no backward kernel: asked to record a
-    gradient they raise instead of returning an output without one."""
-    x = torch.ones(4, 64, device=cuda, requires_grad=True)
-    w = torch.ones(64, device=cuda)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        rmsnorm(x, w)
-    with torch.no_grad():
-        assert rmsnorm(x, w).shape == x.shape
+@pytest.mark.parametrize("rows,d,dtype,gemma", [
+    (1024, 2048, BF16, False), (4096, 4096, BF16, True), (37, 2048, FP32, True),
+    (33, 300, BF16, False), (37, 300, FP32, False)])
+def test_rmsnorm_backward_through_autograd(cuda, rows, d, dtype, gemma):
+    """The RMSNorm Function's backward kernel against ``rmsnorm_bwd_ref``
+    (fp32 1e-4, bf16 2e-2 of each gradient's scale; one rounding after sums
+    in other orders), with one forward and one backward launch counted and
+    dw the same bit for bit over a second call."""
+    x, w, dy = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in _normal(
+        rows + d, (rows, d), (d,), (rows, d)))
+    w = w.float()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    n, nb = rmsnorm.launches, rmsnorm.bwd_launches
+    dx, dw = torch.autograd.grad(rmsnorm(x, w, gemma=gemma), (x, w), dy)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches - n, rmsnorm.bwd_launches - nb) == (1, 1)
+    assert dx.dtype == x.dtype and dw.dtype == w.dtype
+    rdx, rdw = rmsnorm_bwd_ref(x.detach(), w.detach(), dy, gemma=gemma)
+    tol = 1e-4 if dtype == FP32 else 2e-2
+    _within(dx, rdx, tol, "dx")
+    _within(dw, rdw, tol, "dw")
+    again = rmsnorm_bwd(x.detach(), w.detach(), dy, gemma=gemma)[1]
+    assert torch.equal(again, dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk,dtype,init", [
+    ((2, 300, 4, 64, 128, 2), 128, BF16, True),    # ragged, groups, states
+    ((2, 300, 4, 64, 128, 2), 128, FP32, True),
+    ((2, 128, 4, 64, 128, 1), 256, BF16, False),   # one chunk
+    ((1, 200, 2, 32, 64, 1), 64, FP32, False),
+    ((1, 97, 2, 128, 128, 1), 64, BF16, True),     # P = 128
+    ((1, 100, 2, 64, 128, 1), 256, FP32, True),    # one chunk of 100, off 32
+    ((1, 250, 4, 64, 128, 2), 100, BF16, True),    # chunks of 100, then 50
+    ((2, 40, 8, 16, 16, 1), 16, FP32, True),       # the smoke config's scan
+])
+def test_ssd_backward_through_autograd(cuda, shape, chunk, dtype, init):
+    """The SSD Function's backward kernel against ``ssd_bwd_ref`` on the
+    same inputs, y's and the final state's gradients both given (fp32 1e-4,
+    bf16 2e-2 of each gradient's scale), with one forward and one backward
+    launch counted and dB, dC, dA and dD the same bit for bit over a second
+    call."""
+    Bz, S, H, P, N, G = shape
+    x, dt, A, B, C, s0, dy, dfin = _normal(
+        S + P, (Bz, S, H, P), (Bz, S, H), (H,), (Bz, S, G, N), (Bz, S, G, N),
+        (Bz, H, P, N), (Bz, S, H, P), (Bz, H, P, N))
+    t = TORCH[dtype]
+    x, B, C, dy = (torch.from_numpy(a * s).to(cuda, t) for a, s in
+                   ((x, 0.5), (B, 0.3), (C, 0.3), (dy, 1.0)))
+    dt = torch.nn.functional.softplus(torch.from_numpy(dt).to(cuda) - 3.0)
+    A = -torch.exp(0.3 * torch.from_numpy(A).to(cuda))
+    D = torch.ones(H, device=cuda)
+    s0 = (0.3 * torch.from_numpy(s0)).to(cuda) if init else None
+    dfin = torch.from_numpy(dfin).to(cuda)
+    leaves = [v.requires_grad_(True) for v in
+              (x, dt, A, B, C, D) + ((s0,) if init else ())]
+    n, nb = ssd.launches, ssd.bwd_launches
+    y, final = ssd(*leaves[:6], chunk, s0)
+    grads = torch.autograd.grad((y, final), leaves, (dy, dfin))
+    torch.cuda.synchronize()
+    assert (ssd.launches - n, ssd.bwd_launches - nb) == (1, 1)
+    args = [v.detach() for v in leaves[:6]]
+    init_d = s0.detach() if init else None
+    refs = ssd_bwd_ref(*args, chunk, dy, init_d, dfin)
+    tol = 1e-4 if dtype == FP32 else 2e-2
+    for name, g, r, leaf in zip(("dx", "ddt", "dA", "dB", "dC", "dD",
+                                 "dinit"), grads, refs, leaves):
+        assert g.dtype == leaf.dtype, name
+        _within(g, r, tol, name)
+    again = ssd_bwd(*args, chunk, dy, init_d, dfin)
+    for i in (2, 3, 4, 5):
+        assert torch.equal(again[i], grads[i])
 
 
 @pytest.mark.cuda

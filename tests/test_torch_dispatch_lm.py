@@ -16,10 +16,12 @@ import torch
 
 from repro_torch.configs import mamba2_1_3b
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.rmsnorm.ops import MAX_VECS, _rmsnorm_variant
+from repro_torch.kernels.rmsnorm.ops import (BWD_MAX_BLOCKS, MAX_VECS,
+                                             _rmsnorm_variant, bwd_blocks)
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.ssd.ops import (MAX_SMEM_BYTES, _ssd_variant,
-                                         smem_bytes)
+                                         bwd_smem_bytes, smem_bytes)
+from repro_torch.kernels.ssd.ops import _launch_bwd as ssd_launch_bwd
 from repro_torch.models import layers, ssm, transformer
 
 BF16, FP32 = torch.bfloat16, torch.float32
@@ -171,3 +173,35 @@ def test_model_inputs_take_the_fast_variants(monkeypatch):
         transformer.decode_step(params, cfg, toks[:, :1], pos[:, :1] + S,
                                 cache, S)
     assert norms == ["vec"] * 6 and scans == ["tc"]
+
+
+# ------------------------------------------------------ the backward kernels
+@pytest.mark.parametrize("rows", [1, 37, 255, 256, 257, 1024, 4096, 8193])
+def test_rmsnorm_backward_row_ranges_cover_the_rows(rows):
+    """The backward's row ranges depend on the row count alone (so dw's
+    fixed-order sum over them is the same on every card): at most
+    BWD_MAX_BLOCKS contiguous ranges that cover every row, none empty."""
+    blocks, per = bwd_blocks(rows)
+    assert blocks <= BWD_MAX_BLOCKS
+    assert blocks * per >= rows > (blocks - 1) * per
+
+
+@pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 128, 128),
+                                   (128, 128, 256), (16, 16, 16),
+                                   (32, 64, 64)])
+def test_ssd_backward_fits_shared_memory(P, N, Q):
+    """The backward's chunk kernels fit a block's shared memory at the
+    model's shape (and its one-chunk training shape), at P = 128 and at the
+    smoke config's."""
+    assert bwd_smem_bytes(P, N, Q) <= MAX_SMEM_BYTES
+
+
+def test_ssd_backward_refuses_state_dims_off_4():
+    """N and P must be multiples of 4 (its 16-byte operand reads): the
+    launch raises before reaching the card."""
+    x = torch.zeros(1, 8, 2, 16)
+    b = torch.zeros(1, 8, 1, 6)
+    h = torch.zeros(2)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ssd_launch_bwd(x, torch.zeros(1, 8, 2), h, b, b, h, 8, x, None,
+                       None)

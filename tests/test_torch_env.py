@@ -28,8 +28,10 @@ COPIED = ["analysis/cow.py", "sim/trace.py", "sim/cluster.py", "sim/faults.py",
           "core/baselines.py", "core/replay.py", "core/trees.py",
           "core/cotenant.py", "core/control.py", "serve/cosim.py",
           "serve/provision_service.py", "train/fault.py"]
-# copies that drop parts of their original (the rest must keep its length)
-PARTIAL = ("train/fault.py",)        # PreemptionGuard only
+# copies that drop parts of their original (the rest must keep its length):
+# none, train/fault.py is whole since StragglerMonitor and ElasticPlan
+# joined PreemptionGuard
+PARTIAL = ()
 # the one import a copy rewrites beyond ``repro.`` -> ``repro_torch.``: the
 # port's own MessagePack codec in place of the ``msgpack`` module
 REWRITTEN = {"from repro_torch import _msgpack as msgpack": "import msgpack"}

@@ -44,7 +44,7 @@ def test_imports_without_jax_or_repro():
                           str(ROOT / "chip_smoke.py")], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 61       # every module imported
+    assert int(out.stdout.split()[-1]) >= 66       # every module imported
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -64,13 +64,15 @@ def _entry_points():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.moe_gemm import expert_mlp, grouped_gemm
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.ssd import ssd, ssd_bwd
     from repro_torch.configs import mamba2_1_3b
-    from repro_torch.launch import provision, serve
+    from repro_torch.data import DataConfig, data_iterator, synth_batch
+    from repro_torch.launch import provision, serve, train
     from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
-    from repro_torch.train import restore_checkpoint
+    from repro_torch.train import (ChainConfig, ChainedTrainer,
+                                   OptimizerConfig, restore_checkpoint)
     fc = FoundationConfig().reduced()
     x = torch.zeros(1, 4, 8)
     q = torch.zeros(1, 4, 2, 16)
@@ -79,7 +81,15 @@ def _entry_points():
     b = torch.zeros(1, 4, 1, 8)
     return {
         "rmsnorm": lambda: rmsnorm(x, torch.ones(8)),
+        "rmsnorm_bwd": lambda: rmsnorm_bwd(x, torch.ones(8), x),
         "ssd": lambda: ssd(s, torch.zeros(1, 4, 2), h, b, b, h, 4),
+        "ssd_bwd": lambda: ssd_bwd(s, torch.zeros(1, 4, 2), h, b, b, h, 4, s),
+        "synth_batch": lambda: synth_batch(mamba2_1_3b.SMOKE, DataConfig(), 0),
+        "data_iterator": lambda: next(data_iterator(mamba2_1_3b.SMOKE,
+                                                    DataConfig())),
+        "ChainedTrainer": lambda: ChainedTrainer(
+            mamba2_1_3b.SMOKE, OptimizerConfig(), ChainConfig(), iter([])),
+        "launch.train": lambda: train.main(["--smoke", "--steps", "1"]),
         "init_cache": lambda: transformer.init_cache(mamba2_1_3b.SMOKE, 1, 8),
         "ServeEngine": lambda: ServeEngine(mamba2_1_3b.SMOKE, {}),
         "launch.serve": lambda: serve.main(["--smoke", "--requests", "1"]),
@@ -109,7 +119,9 @@ def _entry_points():
                                   "expert_mlp", "from_jax", "rmsnorm", "ssd",
                                   "init_cache", "ServeEngine",
                                   "launch.serve", "launch.provision",
-                                  "restore_checkpoint"])
+                                  "restore_checkpoint", "rmsnorm_bwd",
+                                  "ssd_bwd", "synth_batch", "data_iterator",
+                                  "ChainedTrainer", "launch.train"])
 def test_entry_points_default_to_cuda(name):
     """Without ``device=`` an entry point asks for CUDA: where there is no
     card it raises rather than running on the CPU."""
