@@ -21,9 +21,12 @@ exits non-zero:
    same bit for bit over repeated calls), and RMSNorm's and the SSD scan's
    at phase 8's shapes, ragged rows and chunks, chunks whose length is not
    a multiple of the scan backward's tiles (100, and the smoke config's
-   16), d off 8, gemma, G = 2, an initial state and the final state's
-   gradient, fp32 and bf16, their reductions (dw; dA, dB, dC, dD) the same
-   bit for bit over repeated calls;
+   16), d off 8, gemma, G = 2, P = 128, an initial state and the final
+   state's gradient, fp32 and bf16, each case's variant checked through
+   the counters (RMSNorm's "vec" and the scan's "tc" for bf16 they can
+   address, "simt" otherwise) and, where that is the fast one, the "simt"
+   variant held to the same bound on the same inputs; their reductions
+   (dw; dA, dB, dC, dD) the same bit for bit over repeated calls;
 3. the agent's serving path at its full published width: ``evaluate_batch``
    over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
@@ -86,9 +89,10 @@ exits non-zero:
    after a warm-up step, with ms per step, tokens/s, the losses (all
    finite) and the peak memory, raising unless every micro-batch pass
    launched exactly 97 RMSNorm and 48 SSD kernels forward and as many
-   backward; (c) one step of (a) in two micro-batches, its loss against
-   the single batch's; the first 2 layers' gradients at 1 x 512 held leaf
-   by leaf against the CPU plain path; one (b) step under torch.profiler,
+   backward, all vectorised / on the tensor cores both ways; (c) one step
+   of (a) in two micro-batches, its loss against the single batch's; the
+   first 2 layers' gradients at 1 x 512 held leaf by leaf against the CPU
+   plain path; one (b) step under torch.profiler,
    its device time split into cuBLAS, the scan's and the norms' kernels
    forward and backward, AdamW (profiled alone) and the other elementwise
    work; then ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
@@ -108,8 +112,9 @@ exits non-zero:
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
    backward's host time split into its parts; and the RMSNorm and SSD
-   backward kernels at phase 8's (b) shapes beside their plain versions and,
-   for RMSNorm, autograd through ``F.rms_norm``.
+   backward kernels at phase 8's (b) shapes (the fast variant as ``ms``,
+   the "simt" one as ``simt_ms``) beside their plain versions and, for
+   RMSNorm, autograd through ``F.rms_norm``.
 
 Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 8, 5, and each ends with a
 ``[phase]`` line of its wall time. Each kernel's ``launches`` in the JSON record sums
@@ -638,40 +643,59 @@ def check_lm_backward(gen, errs: dict) -> None:
     """The RMSNorm and SSD backward kernels through autograd, as Mamba2
     training runs them, against their plain versions on the same inputs
     (fp32 1e-4, bf16 2e-2 of each gradient's largest value): one forward
-    and one backward launch each, and the reductions (RMSNorm's dw; the
-    scan's dA, dB, dC, dD) the same bit for bit over two more calls."""
+    and one backward launch each, of the variant the case names (counted:
+    "vec" / "tc" for bf16 rows and chunks they can address), and the
+    reductions (RMSNorm's dw; the scan's dA, dB, dC, dD) the same bit for
+    bit over two more calls; where that variant is the fast one, the other
+    ("simt") on the same inputs, held to the same bound."""
     bf16, f32 = torch.bfloat16, torch.float32
     d, din = LM.d_model, LM.d_inner
-    cases = [(f"rmsnorm bwd ({r},{c}) bf16, w fp32", r, c, bf16, False)
-             for r, c in ((8 * 128, d), (2 * 2048, din))]
-    cases += [("rmsnorm bwd (4096,2048) bf16 gemma", 4096, d, bf16, True),
-              ("rmsnorm bwd (4096,4096) fp32", 4096, din, f32, False),
-              ("rmsnorm bwd ragged (37,2048) fp32 gemma", 37, d, f32, True),
-              ("rmsnorm bwd (37,300) bf16, d off 8", 37, 300, bf16, False),
-              ("rmsnorm bwd (33,300) fp32 gemma", 33, 300, f32, True)]
-    for name, rows, dim, dtype, gemma in cases:
+    cases = [(f"rmsnorm bwd ({r},{c}) bf16, w fp32", r, c, bf16, False, "vec")
+             for r, c in ((8 * 128, d), (2 * 2048, d), (2 * 2048, din))]
+    cases += [("rmsnorm bwd (4096,2048) bf16 gemma", 4096, d, bf16, True,
+               "vec"),
+              ("rmsnorm bwd (4096,4096) fp32, past the vectors", 4096, din,
+               f32, False, "simt"),
+              ("rmsnorm bwd ragged (37,2048) fp32 gemma", 37, d, f32, True,
+               "vec"),
+              ("rmsnorm bwd (37,300) bf16, d off 8", 37, 300, bf16, False,
+               "simt"),
+              ("rmsnorm bwd (33,300) fp32 gemma", 33, 300, f32, True, "vec")]
+    for name, rows, dim, dtype, gemma, variant in cases:
         x = _randn(gen, (rows, dim), dtype, 3.0).requires_grad_(True)
         w = (1.0 + 0.1 * _randn(gen, (dim,), f32)).requires_grad_(True)
         dy = _randn(gen, (rows, dim), dtype)
-        n, nb = rmsnorm.launches, rmsnorm.bwd_launches
+        n, nb, nv = (rmsnorm.launches, rmsnorm.bwd_launches,
+                     rmsnorm.bwd_vec_launches)
         dx, dw = torch.autograd.grad(rmsnorm(x, w, eps=LM.norm_eps,
                                              gemma=gemma), (x, w), dy)
         torch.cuda.synchronize()
-        if (rmsnorm.launches - n, rmsnorm.bwd_launches - nb) != (1, 1):
-            raise RuntimeError(f"{name}: launches {rmsnorm.launches - n}, "
-                               f"backward {rmsnorm.bwd_launches - nb}")
+        ran = (rmsnorm.launches - n, rmsnorm.bwd_launches - nb,
+               rmsnorm.bwd_vec_launches - nv)
+        if ran != (1, 1, int(variant == "vec")):
+            raise RuntimeError(f"{name}: expected one {variant} backward, "
+                               f"counted (launches, bwd, bwd vec) {ran}")
         xd, wd = x.detach(), w.detach()
         rdx, rdw = rmsnorm_bwd_ref(xd, wd, dy, eps=LM.norm_eps, gemma=gemma)
         tol = FP32_BWD_REL_TOL if dtype == f32 else BF16_BWD_REL_TOL
         err = max(_rel_err(dx, rdx, name + " dx", tol),
                   _rel_err(dw, rdw, name + " dw", tol))
         for _ in range(2):
-            if not torch.equal(norm_launch_bwd(xd, wd, dy, eps=LM.norm_eps,
+            if not torch.equal(norm_launch_bwd(xd, wd, dy, variant,
+                                               eps=LM.norm_eps,
                                                gemma=gemma)[1], dw):
                 raise RuntimeError(f"{name}: dw differs between calls")
+        extra = {}
+        if variant == "vec":
+            sdx, sdw = norm_launch_bwd(xd, wd, dy, "simt", eps=LM.norm_eps,
+                                       gemma=gemma)
+            extra["simt_max_abs_err"] = max(
+                _rel_err(sdx, rdx, name + " simt dx", tol),
+                _rel_err(sdw, rdw, name + " simt dw", tol))
+            err = max(err, extra["simt_max_abs_err"])
         errs["rmsnorm_bwd"] = max(errs.get("rmsnorm_bwd", 0.0), err)
-        line("check", case=name, max_abs_err=err, rel_tol=tol,
-             dw_bit_identical=True)
+        line("check", case=name, variant=variant, max_abs_err=err,
+             rel_tol=tol, dw_bit_identical=True, **extra)
         del x, w, dy, dx, dw, rdx, rdw, xd, wd
     H, P, N = LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state
     cases = [
@@ -697,8 +721,13 @@ def check_lm_backward(gen, errs: dict) -> None:
         ("ssd bwd the smoke config's scan (2,40,8,16) N=16 chunk 16 fp32, "
          "initial state and d_final", (2, 40, 8, 16, 16, 1, f32, True), 16,
          True),
+        ("ssd bwd P = N = chunk = 16 (2,40,8,16) bf16, initial state and "
+         "d_final", (2, 40, 8, 16, 16, 1, bf16, True), 16, True),
+        ("ssd bwd P = 128 (1,97,2,128) N=128 chunk 64 bf16, initial state",
+         (1, 97, 2, 128, 128, 1, bf16, True), 64, False),
     ]
     for name, shape, chunk, dfin in cases:
+        variant = "tc" if shape[6] == bf16 else "simt"
         args = ssd_inputs(gen, *shape)
         leaves = [t.requires_grad_(True) for t in args if t is not None]
         x, dt, A, B, C, D = leaves[:6]
@@ -707,29 +736,40 @@ def check_lm_backward(gen, errs: dict) -> None:
         d_final = (_randn(gen, (x.shape[0], *x.shape[2:], B.shape[3]), f32,
                           0.3)
                    if dfin else None)
-        n, nb = ssd.launches, ssd.bwd_launches
+        n, nb, ntc = ssd.launches, ssd.bwd_launches, ssd.bwd_tc_launches
         y, final = ssd(x, dt, A, B, C, D, chunk, s0)
         outs, grads_in = ((y, final), (dy, d_final)) if dfin else ((y,), (dy,))
         grads = torch.autograd.grad(outs, leaves, grads_in)
         torch.cuda.synchronize()
-        if (ssd.launches - n, ssd.bwd_launches - nb) != (1, 1):
-            raise RuntimeError(f"{name}: launches {ssd.launches - n}, "
-                               f"backward {ssd.bwd_launches - nb}")
+        ran = (ssd.launches - n, ssd.bwd_launches - nb,
+               ssd.bwd_tc_launches - ntc)
+        if ran != (1, 1, int(variant == "tc")):
+            raise RuntimeError(f"{name}: expected one {variant} backward, "
+                               f"counted (launches, bwd, bwd tc) {ran}")
         det = [t.detach() for t in leaves]
         s0d = det[6] if s0 is not None else None
         refs = ssd_bwd_ref(*det[:6], chunk, dy, s0d, d_final)
         tol = FP32_BWD_REL_TOL if shape[6] == f32 else BF16_BWD_REL_TOL
+        names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
         err = max(_rel_err(g, r, f"{name} {what}", tol) for g, r, what in zip(
-            grads, refs, ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")))
+            grads, refs, names))
+        Q = min(chunk, shape[1])
         for _ in range(2):
-            again = ssd_launch_bwd(*det[:6], min(chunk, shape[1]), dy, s0d,
-                                   d_final)
+            again = ssd_launch_bwd(*det[:6], Q, dy, s0d, d_final, variant)
             if not all(torch.equal(again[i], grads[i]) for i in (2, 3, 4, 5)):
                 raise RuntimeError(f"{name}: dA, dB, dC or dD differ "
                                    "between calls")
+        extra = {}
+        if variant == "tc":
+            other = ssd_launch_bwd(*det[:6], Q, dy, s0d, d_final, "simt")
+            extra["simt_max_abs_err"] = max(
+                _rel_err(g, r, f"{name} simt {what}", tol)
+                for g, r, what in zip(other, refs, names) if r is not None)
+            err = max(err, extra["simt_max_abs_err"])
+            del other
         errs["ssd_bwd"] = max(errs.get("ssd_bwd", 0.0), err)
-        line("check", case=name, max_abs_err=err, rel_tol=tol,
-             reductions_bit_identical=True)
+        line("check", case=name, variant=variant, max_abs_err=err,
+             rel_tol=tol, reductions_bit_identical=True, **extra)
         del args, leaves, grads, refs, det, again, y, final, dy
 
 
@@ -1612,23 +1652,25 @@ def phase_service(policies) -> dict:
 # -------------------------------------------- 8. Mamba2-1.3B training
 def _set_lm_train_counts() -> None:
     _set_counts()
-    rmsnorm.bwd_launches = ssd.bwd_launches = 0
+    rmsnorm.bwd_launches = rmsnorm.bwd_vec_launches = 0
+    ssd.bwd_launches = ssd.bwd_tc_launches = 0
 
 
 def _lm_train_counts() -> dict:
     return dict(_counts(), rmsnorm_bwd=rmsnorm.bwd_launches,
-                ssd_bwd=ssd.bwd_launches)
+                rmsnorm_bwd_vec=rmsnorm.bwd_vec_launches,
+                ssd_bwd=ssd.bwd_launches, ssd_bwd_tc=ssd.bwd_tc_launches)
 
 
 def _check_lm_train_counts(what: str, passes: int) -> dict:
     """The launches since the counts were zeroed must be those of
     ``passes`` differentiated micro-batch passes: NORMS_PER_PASS RMSNorm and
-    n_layers SSD launches, forward (every norm vectorised, every scan on the
-    tensor cores) and backward."""
+    n_layers SSD launches, forward and backward, every norm vectorised and
+    every scan on the tensor cores, both ways."""
     got = _lm_train_counts()
-    want = dict(_pass_counts(passes * NORMS_PER_PASS, passes * LM.n_layers),
-                rmsnorm_bwd=passes * NORMS_PER_PASS,
-                ssd_bwd=passes * LM.n_layers)
+    norms, scans = passes * NORMS_PER_PASS, passes * LM.n_layers
+    want = dict(_pass_counts(norms, scans), rmsnorm_bwd=norms,
+                rmsnorm_bwd_vec=norms, ssd_bwd=scans, ssd_bwd_tc=scans)
     if not passes or got != want:
         raise RuntimeError(f"{what}: launched {got}, expected {want}")
     return got
@@ -1681,8 +1723,10 @@ def check_lm_train_grads(params) -> None:
     (lval, _), grads = value_and_grad_aux(loss, sub, batch, has_aux=True)
     torch.cuda.synchronize()
     got = _lm_train_counts()
-    if (got["rmsnorm_bwd"], got["ssd_bwd"]) != (2 * LM_PLAIN_LAYERS + 1,
-                                                LM_PLAIN_LAYERS):
+    norms = 2 * LM_PLAIN_LAYERS + 1
+    if (got["rmsnorm_bwd"], got["rmsnorm_bwd_vec"], got["ssd_bwd"],
+            got["ssd_bwd_tc"]) != (norms, norms, LM_PLAIN_LAYERS,
+                                   LM_PLAIN_LAYERS):
         raise RuntimeError(f"2-layer gradient launched {got}")
     t0 = time.perf_counter()
     (pval, _), pgrads = value_and_grad_aux(
@@ -1703,10 +1747,13 @@ def check_lm_train_grads(params) -> None:
 
 
 _KERNEL_GROUPS = (   # device-time groups of the training step's profile
-    ("ssd_bwd", ("chunk_state_kernel", "state_scan_kernel",
-                 "chunk_grad_kernel", "group_sum_kernel", "head_sum_kernel")),
+    ("ssd_bwd", ("chunk_state_kernel", "chunk_state_tc_kernel",
+                 "state_scan_kernel", "chunk_grad_kernel",
+                 "chunk_grad_tc_kernel", "group_sum_kernel",
+                 "head_sum_kernel")),
     ("ssd_fwd", ("ssd_tc_kernel", "ssd_kernel")),
-    ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "dw_sum_kernel")),
+    ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_vec_kernel",
+                     "dw_sum_kernel", "dw_tree_sum_kernel")),
     ("rmsnorm_fwd", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
     ("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
@@ -2315,16 +2362,31 @@ def ssd_bwd_work(Bz, S, H, P, N, G, chunk, itemsize):
     return nbytes, flops
 
 
+def _bwd_variant(counter, n_fast, n_all, fast: str) -> str:
+    """The variant the timed backward calls ran, from the counts of their
+    launches (all, and of the fast variant) since ``n_all`` / ``n_fast``."""
+    ran, ran_fast = counter()[0] - n_all, counter()[1] - n_fast
+    if not ran:
+        raise RuntimeError("the timed backward launched nothing")
+    return fast if ran_fast == ran else "simt" if not ran_fast else "mixed"
+
+
 def time_lm_backward(gen, errs: dict, launches: dict) -> list:
     """The RMSNorm and SSD backward kernels at phase 8's (b) shapes: one
     Mamba2 layer's two norm backwards, (4096,2048) and (4096,4096) bf16 with
     an fp32 w, and its scan's backward, x (2,2048,64,64) bf16, N=128,
-    chunk 256; beside their plain versions, the library's (autograd through
-    ``F.rms_norm``; none for the scan) and the bound."""
+    chunk 256; the variant the wrapper picks (``ms``) beside the other one
+    at the same shapes (``simt_ms``: the strided-column norm backward, the
+    CUDA-core scan backward), their plain versions, the library's
+    (autograd through ``F.rms_norm``; none for the scan) and the bound."""
     rows = LM_TRAIN_RUNS[1][1] * LM_TRAIN_RUNS[1][2]
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    extra = {"ms_no_lead": 0.0, "host_us": 0.0}
+    extra = {"simt_ms": 0.0, "ms_no_lead": 0.0, "host_us": 0.0}
+    variants = set()
     nbytes = flops = 0
+
+    def norm_counts():
+        return rmsnorm.bwd_launches, rmsnorm.bwd_vec_launches
     for dim in (LM.d_model, LM.d_inner):
         x = _randn(gen, (rows, dim), torch.bfloat16, 3.0)
         w = 1.0 + 0.1 * _randn(gen, (dim,), torch.float32)
@@ -2332,10 +2394,9 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
 
         def bwd():
             return rmsnorm_bwd(x, w, dy, eps=LM.norm_eps)
-        n = rmsnorm.bwd_launches
+        n_all, n_fast = norm_counts()
         ms = time_ms(bwd)
-        if rmsnorm.bwd_launches == n:
-            raise RuntimeError("the timed RMSNorm backward launched nothing")
+        variants.add(_bwd_variant(norm_counts, n_fast, n_all, "vec"))
         xl = x.clone().requires_grad_(True)
         wl = w.to(torch.bfloat16).requires_grad_(True)
         lib = F.rms_norm(xl, (dim,), wl, LM.norm_eps)
@@ -2344,12 +2405,16 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
                    x, w, dy, eps=LM.norm_eps), reps=5),
                "library_ms": time_ms(lambda: torch.autograd.grad(
                    lib, (xl, wl), dy, retain_graph=True))}
+        simt = time_ms(lambda: norm_launch_bwd(x, w, dy, "simt",
+                                               eps=LM.norm_eps, gemma=False))
+        extra["simt_ms"] += simt
         extra["ms_no_lead"] += time_ms(bwd, lead=False)
         extra["host_us"] += host_us(bwd)
         b = 3 * x.numel() * x.element_size() + 2 * w.numel() * 4
         fl = 10 * x.numel()         # the two row sums, dx, dy.x.r: fp32
         line("time", name="rmsnorm_bwd", shape=f"({rows},{dim}) bf16, w fp32",
-             bound_ms=bound_ms(b, fl, FP32_FLOP_PER_S)[0], **one)
+             bound_ms=bound_ms(b, fl, FP32_FLOP_PER_S)[0], simt_ms=simt,
+             **one)
         for key in tot:
             tot[key] += one[key]
         nbytes, flops = nbytes + b, flops + fl
@@ -2361,6 +2426,7 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
         replaces="src/repro/kernels/rmsnorm/kernel.py:17",
         launches=launches["rmsnorm_bwd"], max_abs_err=errs["rmsnorm_bwd"],
         bound_ms=bms, bound_by=by,
+        variant=variants.pop() if len(variants) == 1 else "mixed",
         shape=f"one Mamba2 layer's two norm backwards, ({rows},2048) and "
               f"({rows},4096) bf16, w fp32", **tot)
     line("time", **norm_rec, **extra)
@@ -2373,21 +2439,26 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
 
     def bwd():
         return ssd_bwd(*args, LM.ssm_chunk, dy)
-    n = ssd.bwd_launches
-    t = {"ms": time_ms(bwd, reps=10),
-         "plain_ms": time_ms(lambda: ssd_bwd_ref(*args, LM.ssm_chunk, dy),
-                             reps=3),
-         "library_ms": None}                 # no one PyTorch call does it
-    if ssd.bwd_launches == n:
-        raise RuntimeError("the timed SSD backward launched nothing")
-    extra = {"ms_no_lead": time_ms(bwd, reps=10, lead=False),
+
+    def ssd_counts():
+        return ssd.bwd_launches, ssd.bwd_tc_launches
+    n_all, n_fast = ssd_counts()
+    t = {"ms": time_ms(bwd, reps=10)}
+    variant = _bwd_variant(ssd_counts, n_fast, n_all, "tc")
+    t.update(plain_ms=time_ms(lambda: ssd_bwd_ref(*args, LM.ssm_chunk, dy),
+                              reps=3),
+             library_ms=None)                 # no one PyTorch call does it
+    Q = min(LM.ssm_chunk, S)
+    extra = {"simt_ms": time_ms(lambda: ssd_launch_bwd(
+                 *args, Q, dy, None, None, "simt"), reps=5),
+             "ms_no_lead": time_ms(bwd, reps=10, lead=False),
              "host_us": host_us(bwd, reps=10)}
     bms, by = bound_ms(*ssd_bwd_work(*shape, LM.ssm_chunk, 2))
     ssd_rec = dict(
         name="ssd_bwd", route="cuda", source="src/repro_torch/csrc/ssd_bwd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:31",
         launches=launches["ssd_bwd"], max_abs_err=errs["ssd_bwd"],
-        bound_ms=bms, bound_by=by,
+        bound_ms=bms, bound_by=by, variant=variant,
         shape=f"x, dy ({Bz},{S},64,64) bf16, B/C ({Bz},{S},1,128) bf16, "
               "chunk 256: one Mamba2 layer's scan backward", **t)
     line("time", **ssd_rec, **extra)

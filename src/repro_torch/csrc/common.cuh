@@ -1,8 +1,9 @@
 // Shared helpers of the port's CUDA kernels: dtype codes and conversions,
-// and the tensor-core building blocks (cp.async copies, ldmatrix,
-// mma.sync.m16n8k16 on bf16) of the flash and SSD kernels. Each kernel file
-// is compiled by nvcc into its own shared library with a plain C interface
-// (no PyTorch headers), loaded from Python with ctypes.
+// the tensor-core building blocks (cp.async copies, ldmatrix,
+// mma.sync.m16n8k16 on bf16) of the flash and SSD kernels, and the 16-byte
+// vectors of the RMSNorm kernels. Each kernel file is compiled by nvcc into
+// its own shared library with a plain C interface (no PyTorch headers),
+// loaded from Python with ctypes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -119,6 +120,57 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 16 bytes of fp32 or bf16 as floats, and back (the RMSNorm kernels' vectors)
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = unpack_bf16(u[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                    pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+}
+
+// E elements of w from a 16-byte-aligned address, as floats
+template <int E>
+__device__ __forceinline__ void load_w(const float* w, float (&f)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(w + i));
+    f[i] = v.x;
+    f[i + 1] = v.y;
+    f[i + 2] = v.z;
+    f[i + 3] = v.w;
+  }
+}
+template <int E>
+__device__ __forceinline__ void load_w(const __nv_bfloat16* w, float (&f)[E]) {
+  if constexpr (E == 8) {
+    unpack16(__ldg(reinterpret_cast<const uint4*>(w)), f);
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(w));
+    const float2 a = unpack_bf16(v.x), b = unpack_bf16(v.y);
+    f[0] = a.x;
+    f[1] = a.y;
+    f[2] = b.x;
+    f[3] = b.y;
+  }
 }
 
 }  // namespace repro

@@ -40,7 +40,10 @@
 namespace {
 
 using repro::from_f32;
+using repro::load_w;
+using repro::pack16;
 using repro::to_f32;
+using repro::unpack16;
 
 constexpr int kRowsPerBlock = 8;
 constexpr int kThreads = 32 * kRowsPerBlock;
@@ -83,57 +86,6 @@ cudaError_t launch_simt(const void* x, const void* w, void* y, int rows, int d,
 constexpr int kVecRows = 4;
 constexpr int kVecThreads = 32 * kVecRows;
 constexpr int kMaxVecs = 16;      // 16-byte vectors a lane holds, at most
-
-// 16 bytes of T as floats
-__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = repro::unpack_bf16(u[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
-__device__ __forceinline__ uint4 pack16(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack16(const float (&f)[8]) {
-  return make_uint4(repro::pack_bf16(f[0], f[1]), repro::pack_bf16(f[2], f[3]),
-                    repro::pack_bf16(f[4], f[5]), repro::pack_bf16(f[6], f[7]));
-}
-
-// E elements of w from a 16-byte-aligned address, as floats
-template <int E>
-__device__ __forceinline__ void load_w(const float* w, float (&f)[E]) {
-#pragma unroll
-  for (int i = 0; i < E; i += 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(w + i));
-    f[i] = v.x;
-    f[i + 1] = v.y;
-    f[i + 2] = v.z;
-    f[i + 3] = v.w;
-  }
-}
-template <int E>
-__device__ __forceinline__ void load_w(const __nv_bfloat16* w, float (&f)[E]) {
-  if constexpr (E == 8) {
-    unpack16(__ldg(reinterpret_cast<const uint4*>(w)), f);
-  } else {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(w));
-    const float2 a = repro::unpack_bf16(v.x), b = repro::unpack_bf16(v.y);
-    f[0] = a.x;
-    f[1] = a.y;
-    f[2] = b.x;
-    f[3] = b.y;
-  }
-}
 
 template <typename T, typename W, int VPL>
 __global__ void __launch_bounds__(kVecThreads)

@@ -29,8 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # variant codes of the kernels' two kernels each: the CUDA-core one, and the
-# tensor-core one (flash, the GEMM, the SSD scan) or the 16-byte-vector one
-# (RMSNorm)
+# tensor-core one (flash, the GEMM, the SSD scan and its backward) or the
+# 16-byte-vector one (RMSNorm and its backward)
 VARIANT_CODES = {"simt": 0, "tc": 1, "vec": 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -47,9 +47,9 @@ SIGNATURES = {
     "rmsnorm": {"rmsnorm_fwd":
                 [_P, _P, _P, _I, _I, _I, _I, _I, _L, _F, _I, _P]},
     "rmsnorm_bwd": {"rmsnorm_bwd":
-                    [_P] * 6 + [_I] * 4 + [_L, _I, _I, _F, _I, _P]},
+                    [_P] * 6 + [_I] * 5 + [_L, _I, _I, _F, _I, _P]},
     "ssd": {"ssd_fwd": [_P] * 9 + [_I] * 9 + [_L] * 12 + [_P]},
-    "ssd_bwd": {"ssd_bwd": [_P] * 23 + [_I] * 8 + [_L] * 12 + [_P]},
+    "ssd_bwd": {"ssd_bwd": [_P] * 23 + [_I] * 9 + [_L] * 12 + [_P]},
 }
 
 _lock = threading.Lock()

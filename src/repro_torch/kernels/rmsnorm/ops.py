@@ -8,8 +8,10 @@ with the row held in registers ("vec"), and one element per lane for rows
 those accesses cannot address ("simt"). The backward kernel,
 ``repro_torch/csrc/rmsnorm_bwd.cu``, computes the VJP that JAX's autodiff
 gives the package's jnp RMSNorm (``apply_norm``,
-``repro/models/layers.py:41``); the Pallas kernel has none. Each source's
-note says what bounds it on the H100 and how the design answers that.
+``repro/models/layers.py:41``); the Pallas kernel has none. It has the same
+two variants, "vec" (a warp a row, the row in registers) and "simt". Each
+source's note says what bounds it on the H100 and how the design answers
+that.
 
 On CUDA tensors that need a gradient, ``rmsnorm`` runs through
 ``_RMSNormFn``: its forward launches the forward kernel, its backward the
@@ -93,34 +95,64 @@ def _launch(flat, w, variant: str, *, eps, gemma):
     return out
 
 
-BWD_MAX_BLOCKS = 256    # row ranges of the backward kernel, at most
+BWD_MAX_BLOCKS = 256    # row ranges of the simt backward kernel, at most
+BWD_VEC_WARPS = 4       # warps a block of the vec backward kernel
+BWD_VEC_MAX_BLOCKS = 256  # blocks of the vec backward kernel, at most
 
 
 def bwd_blocks(rows: int):
-    """(blocks, rows a block) of the backward kernel: contiguous row ranges,
-    a function of the row count alone, so dw's fixed-order sum over the
-    blocks is the same on every card and every call."""
+    """(blocks, rows a block) of the simt backward kernel: contiguous row
+    ranges, a function of the row count alone, so dw's fixed-order sum over
+    the blocks is the same on every card and every call."""
     per = -(-rows // BWD_MAX_BLOCKS)
     return -(-rows // per), per
 
 
-def _launch_bwd(flat, w, dy, *, eps, gemma):
-    """Run the backward kernel on CUDA tensors flat (rows, d), w (d,) and
-    contiguous dy (rows, d) (checked by the caller) and return (dx, dw);
-    counts nothing."""
+def bwd_vec_partition(rows: int):
+    """(blocks, rows a warp) of the vec backward kernel: warp q of block b
+    takes the contiguous rows [(BWD_VEC_WARPS b + q) per, ...), a function
+    of the row count alone, so dw's fixed-order sums are the same on every
+    card and every call."""
+    per = -(-rows // (BWD_VEC_WARPS * BWD_VEC_MAX_BLOCKS))
+    return -(-rows // (BWD_VEC_WARPS * per)), per
+
+
+def _rmsnorm_bwd_variant(x, w, dy) -> str:
+    """The backward kernel a CUDA launch over the rows of x (..., d) runs,
+    chosen from the inputs alone: "vec" (one warp a row, 16-byte loads and
+    stores) where the forward's "vec" conditions hold for x and w (at most
+    MAX_VECS vectors a row) and dy is contiguous and 16-byte-aligned, else
+    "simt"."""
+    d = x.shape[-1]
+    if _rmsnorm_variant(x, w) != "vec":
+        return "simt"
+    fdy = dy.reshape(-1, d)
+    if fdy.stride(-1) != 1 or fdy.data_ptr() % 16 or \
+            (fdy.shape[0] > 1 and fdy.stride(0) != d):
+        return "simt"
+    return "vec"
+
+
+def _launch_bwd(flat, w, dy, variant: str, *, eps, gemma):
+    """Run ``variant`` of the backward kernel on CUDA tensors flat (rows,
+    d), w (d,) and contiguous dy (rows, d) (checked by the caller) and
+    return (dx, dw); counts nothing."""
     rows, d = flat.shape
     dx = torch.empty((rows, d), dtype=flat.dtype, device=flat.device)
     dw = torch.empty((d,), dtype=w.dtype, device=flat.device)
     if rows == 0 or d == 0:
         return dx, dw.zero_()
-    blocks, per = bwd_blocks(rows)
+    blocks, per = (bwd_vec_partition(rows) if variant == "vec" else
+                   bwd_blocks(rows))
     part = torch.empty((blocks, d), dtype=torch.float32, device=flat.device)
     fn = _build.load("rmsnorm_bwd")
     with torch.cuda.device(flat.device):
         err = fn(flat.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 part.data_ptr(), dw.data_ptr(), _build.DTYPE_CODES[flat.dtype],
-                 _build.DTYPE_CODES[w.dtype], rows, d, flat.stride(0), blocks,
-                 per, float(eps), int(bool(gemma)),
+                 part.data_ptr(), dw.data_ptr(),
+                 _build.DTYPE_CODES[flat.dtype], _build.DTYPE_CODES[w.dtype],
+                 _build.VARIANT_CODES[variant],
+                 rows, d, flat.stride(0), blocks, per, float(eps),
+                 int(bool(gemma)),
                  torch.cuda.current_stream(flat.device).cuda_stream)
     _build.check_launch("rmsnorm_bwd", err)
     return dx, dw
@@ -162,16 +194,18 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6, gemma: bool = False,
     return _rmsnorm_bwd_cuda(x, w, dy, eps=eps, gemma=gemma)
 
 
-
 def _rmsnorm_bwd_cuda(x, w, dy, *, eps, gemma):
     """The card's route of ``rmsnorm_bwd`` (inputs checked): one counted
-    launch of the backward kernel."""
+    launch of the backward kernel variant that ``_rmsnorm_bwd_variant``
+    names."""
     flat = _flat(x)
-    dx, dw = _launch_bwd(flat, w.contiguous(),
-                         dy.reshape(flat.shape).contiguous(), eps=eps,
-                         gemma=gemma)
+    w = w.contiguous()
+    dy = dy.reshape(flat.shape).contiguous()
+    variant = _rmsnorm_bwd_variant(flat, w, dy)
+    dx, dw = _launch_bwd(flat, w, dy, variant, eps=eps, gemma=gemma)
     if flat.numel():                    # an empty problem launches nothing
         rmsnorm.bwd_launches += 1
+        rmsnorm.bwd_vec_launches += variant == "vec"
     return dx.reshape(x.shape), dw
 
 
@@ -230,3 +264,4 @@ def _rmsnorm_cuda(x, w, *, eps, gemma):
 rmsnorm.launches = 0
 rmsnorm.vec_launches = 0
 rmsnorm.bwd_launches = 0
+rmsnorm.bwd_vec_launches = 0

@@ -8,10 +8,11 @@ versions here also return the final state and take an initial one, as
 to every head. The kernel is ``repro_torch/csrc/ssd.cu``, in two variants:
 bf16 on the tensor cores ("tc": ``mma.sync``, ``cp.async`` loads) and a
 CUDA-core one for fp32 and for inputs the 16-byte copies cannot address
-("simt"). The backward kernel, ``repro_torch/csrc/ssd_bwd.cu``, computes
-the VJP that JAX's autodiff gives ``ssd_chunked``; the Pallas kernel has
-none. Each source's note says what bounds it on the H100 and how the design
-answers that.
+("simt"). The backward kernels, ``repro_torch/csrc/ssd_bwd.cu``, compute
+the VJP that JAX's autodiff gives ``ssd_chunked`` (the Pallas kernel has
+none), in the same two variants: "tc" for bf16 whose whole chunk fits
+shared memory, "simt" for the rest. Each source's note says what bounds it
+on the H100 and how the design answers that.
 
 On CUDA tensors that need a gradient, ``ssd`` runs through ``_SSDFn``: its
 forward launches the forward kernel, its backward the backward kernel
@@ -283,32 +284,57 @@ def _bwd_grad_bytes(kt: int, P: int, N: int, Q: int) -> int:
 
 
 def bwd_tile(P: int, N: int, Q: int) -> int:
-    """The backward's column tile (``grad_tile`` in ssd_bwd.cu): 32
+    """The simt backward's column tile (``grad_tile`` in ssd_bwd.cu): 32
     positions where the chunk kernel's shared memory fits, else 16."""
     return 32 if _bwd_grad_bytes(32, P, N, Q) <= MAX_SMEM_BYTES else 16
 
 
-def bwd_smem_bytes(P: int, N: int, Q: int) -> int:
-    """Shared memory of the backward's larger chunk kernel
-    (``state_smem_bytes`` and ``grad_smem_floats`` in ssd_bwd.cu)."""
+def bwd_smem_bytes(P: int, N: int, Q: int, variant: str = "simt") -> int:
+    """Shared memory of the backward's larger chunk kernel. simt:
+    ``state_smem_bytes`` and ``grad_smem_floats`` in ssd_bwd.cu. tc:
+    ``tc::state_smem_bytes`` (two stages of 64-position x, dy, B and C
+    tiles, four fp32 values a position) and ``tc::grad_smem_bytes`` (the
+    whole chunk's x, dy, B and C in bf16, a bf16 (P, N) state, nine fp32
+    values a position)."""
+    if variant == "tc":
+        q64, q16 = -(-Q // 64) * 64, -(-Q // 16) * 16
+        warps = 4 * (_TC_WARPS + 1)
+        state = 2 * 64 * (4 * P + 4 * N) + 16 * q64 + warps
+        grad = q16 * (4 * P + 4 * N) + 2 * P * N + 36 * q16 + warps
+        return max(state, grad)
     state = 4 * (2 * 32 * (P + 4) + 2 * 32 * (N + 4) + 2 * P * (N + 4)
                  + 4 * Q)
     return max(state, _bwd_grad_bytes(bwd_tile(P, N, Q), P, N, Q))
 
 
-def _launch_bwd(x, dt, A, B, C, D, Q: int, dy, initial_state, d_final):
-    """Run the backward kernel on CUDA tensors (checked by the caller; dy
-    contiguous) over chunks of Q positions and return (dx, ddt, dA, dB, dC,
-    dD, d_initial_state or None); counts nothing."""
+def _ssd_bwd_variant(x, B, C, dy, Q: int) -> str:
+    """The backward kernels a CUDA launch over chunks of Q positions runs,
+    chosen from the inputs alone: "tc" (tensor cores, 16-byte copies, the
+    whole chunk in shared memory) where the forward would take "tc" (bf16
+    x, B and C with 16-byte-aligned rows, N in TC_STATE_DIMS), dy is
+    16-byte-aligned and the tc kernels' shared memory fits a block's, else
+    "simt" (fp32, to keep its 1e-4 bound; unaligned views; P = 128 at
+    chunks over 176)."""
+    if _ssd_variant(x, B, C) != "tc" or dy.data_ptr() % 16:
+        return "simt"
+    P, N = x.shape[3], B.shape[3]
+    return "tc" if bwd_smem_bytes(P, N, Q, "tc") <= MAX_SMEM_BYTES else "simt"
+
+
+def _launch_bwd(x, dt, A, B, C, D, Q: int, dy, initial_state, d_final,
+                variant: str):
+    """Run ``variant`` of the backward kernels on CUDA tensors (checked by
+    the caller; dy contiguous) over chunks of Q positions and return (dx,
+    ddt, dA, dB, dC, dD, d_initial_state or None); counts nothing."""
     Bz, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     if P % 4 or N % 4:
         raise ValueError(f"the ssd backward kernel takes P and N in "
                          f"multiples of 4; got P={P}, N={N}")
-    smem = bwd_smem_bytes(P, N, Q)
+    smem = bwd_smem_bytes(P, N, Q, variant)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"P={P}, N={N}, chunk={Q} need {smem} bytes of "
-                         f"shared memory in the backward, over "
+                         f"shared memory in the backward ({variant}), over "
                          f"{MAX_SMEM_BYTES}")
     nc = -(-S // Q)
     dev = x.device
@@ -334,9 +360,10 @@ def _launch_bwd(x, dt, A, B, C, D, Q: int, dy, initial_state, d_final):
         err = fn(*(ptr(t) for t in (x, dt, A, B, C, D, init, dy, dfin, dx,
                                     ddt, dA, dB, dC, dD, dinit, states, ubuf,
                                     totals, dBh, dCh, dApart, dDpart)),
-                 _build.DTYPE_CODES[x.dtype], Bz, S, H, G, P, N, Q,
-                 *x.stride()[:3], *dt.stride(), *B.stride()[:3],
-                 *C.stride()[:3], torch.cuda.current_stream(dev).cuda_stream)
+                 _build.DTYPE_CODES[x.dtype], _build.VARIANT_CODES[variant],
+                 Bz, S, H, G, P, N, Q, *x.stride()[:3], *dt.stride(),
+                 *B.stride()[:3], *C.stride()[:3],
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("ssd_bwd", err)
     return dx, ddt, dA, dB, dC, dD, dinit
 
@@ -371,11 +398,15 @@ def ssd_bwd(x, dt, A, B, C, D, chunk: int, dy, initial_state=None,
 
 def _ssd_bwd_cuda(x, dt, A, B, C, D, chunk, dy, initial_state, d_final):
     """The card's route of ``ssd_bwd`` (inputs checked): one counted launch
-    of the backward kernel."""
+    of the backward kernel variant that ``_ssd_bwd_variant`` names."""
     _unit_last(x, B, C)
-    out = _launch_bwd(x, dt, A, B, C, D, min(chunk, x.shape[1]),
-                      dy.contiguous(), initial_state, d_final)
+    Q = min(chunk, x.shape[1])
+    dy = dy.contiguous()
+    variant = _ssd_bwd_variant(x, B, C, dy, Q)
+    out = _launch_bwd(x, dt, A, B, C, D, Q, dy, initial_state, d_final,
+                      variant)
     ssd.bwd_launches += 1
+    ssd.bwd_tc_launches += variant == "tc"
     return out
 
 
@@ -448,3 +479,4 @@ def _ssd_cuda(x, dt, A, B, C, D, chunk, initial_state):
 ssd.launches = 0
 ssd.tc_launches = 0
 ssd.bwd_launches = 0
+ssd.bwd_tc_launches = 0

@@ -499,18 +499,23 @@ def lm_card_route(monkeypatch):
     kernel launch replaced by its plain version; counters start at 0."""
     monkeypatch.setattr(rms_ops, "_launch", lambda flat, w, variant, *, eps,
                         gemma: rmsnorm_ref(flat, w, eps=eps, gemma=gemma))
-    monkeypatch.setattr(rms_ops, "_launch_bwd", lambda flat, w, dy, *, eps,
-                        gemma: rmsnorm_bwd_ref(flat, w, dy, eps=eps,
-                                               gemma=gemma))
+    monkeypatch.setattr(rms_ops, "_launch_bwd", lambda flat, w, dy, variant,
+                        *, eps, gemma: rmsnorm_bwd_ref(flat, w, dy, eps=eps,
+                                                       gemma=gemma))
     monkeypatch.setattr(ssd_ops, "_launch",
                         lambda x, dt, A, B, C, D, Q, init, variant:
                         ssd_ref(x, dt, A, B, C, D, Q, init))
-    monkeypatch.setattr(ssd_ops, "_launch_bwd", ssd_bwd_ref)
+    monkeypatch.setattr(ssd_ops, "_launch_bwd",
+                        lambda x, dt, A, B, C, D, Q, dy, init, d_final,
+                        variant: ssd_bwd_ref(x, dt, A, B, C, D, Q, dy, init,
+                                             d_final))
     monkeypatch.setattr(layers, "rmsnorm", _rmsnorm_route)
     monkeypatch.setattr(ssm, "ssd", _ssd_route)
-    for name in ("launches", "vec_launches", "bwd_launches"):
+    for name in ("launches", "vec_launches", "bwd_launches",
+                 "bwd_vec_launches"):
         monkeypatch.setattr(rmsnorm, name, 0)
-    for name in ("launches", "tc_launches", "bwd_launches"):
+    for name in ("launches", "tc_launches", "bwd_launches",
+                 "bwd_tc_launches"):
         monkeypatch.setattr(ssd, name, 0)
 
 
@@ -537,6 +542,10 @@ def test_mamba2_gradients_through_the_functions(lm_card_route, monkeypatch,
     L = cfg.n_layers
     assert (rmsnorm.launches, rmsnorm.bwd_launches) == (2 * L + 1, 2 * L + 1)
     assert (ssd.launches, ssd.bwd_launches) == (L, L)
+    # the variants the card would run: every norm's backward vectorised,
+    # the scan's on the tensor cores in bf16
+    assert rmsnorm.bwd_vec_launches == 2 * L + 1
+    assert ssd.bwd_tc_launches == (L if dtype == "bfloat16" else 0)
     monkeypatch.undo()                       # the plain path
     (ploss, _), pgrads = value_and_grad_aux(
         lambda p, b: tt.loss_fn(p, cfg, b), params, batch, has_aux=True)

@@ -28,7 +28,10 @@ itself over repeated calls; and one reduced DQN step with the kernels
 against the same step on the card's plain path. The RMSNorm and SSD
 backward kernels run through autograd against their plain versions, fp32
 1e-4 and bf16 2e-2 of each gradient's scale, their reductions (dw; dA, dB,
-dC, dD) the same bit for bit over repeated calls.
+dC, dD) the same bit for bit over repeated calls, each case asserting
+through the counters which variant ran; both variants of each (RMSNorm's
+"vec" and "simt", the scan's "tc" and "simt") are also launched directly
+on the same bf16 inputs, ragged chunks included.
 
 Last, a 6-tenant ``ProvisionService`` over a reduced learner on the card:
 no fallback, the breaker closed, and its ragged batches' flash and GEMM
@@ -49,7 +52,9 @@ from repro_torch.kernels.moe_gemm import (expert_mlp, grouped_gemm,
                                           grouped_gemm_ref)
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                          rmsnorm_bwd_ref, rmsnorm_ref)
+from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.ssd import ssd, ssd_bwd, ssd_bwd_ref, ssd_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
 
 FP32, BF16 = "float32", "bfloat16"
 TORCH = {FP32: torch.float32, BF16: torch.bfloat16}
@@ -565,9 +570,13 @@ def test_rmsnorm_backward_through_autograd(cuda, rows, d, dtype, gemma):
     x.requires_grad_(True)
     w.requires_grad_(True)
     n, nb = rmsnorm.launches, rmsnorm.bwd_launches
+    nv = rmsnorm.bwd_vec_launches
     dx, dw = torch.autograd.grad(rmsnorm(x, w, gemma=gemma), (x, w), dy)
     torch.cuda.synchronize()
     assert (rmsnorm.launches - n, rmsnorm.bwd_launches - nb) == (1, 1)
+    # vec wherever d is a multiple of 16 bytes of x's elements
+    vec = d % (16 // x.element_size()) == 0
+    assert rmsnorm.bwd_vec_launches - nv == int(vec)
     assert dx.dtype == x.dtype and dw.dtype == w.dtype
     rdx, rdw = rmsnorm_bwd_ref(x.detach(), w.detach(), dy, gemma=gemma)
     tol = 1e-4 if dtype == FP32 else 2e-2
@@ -608,11 +617,13 @@ def test_ssd_backward_through_autograd(cuda, shape, chunk, dtype, init):
     dfin = torch.from_numpy(dfin).to(cuda)
     leaves = [v.requires_grad_(True) for v in
               (x, dt, A, B, C, D) + ((s0,) if init else ())]
-    n, nb = ssd.launches, ssd.bwd_launches
+    n, nb, ntc = ssd.launches, ssd.bwd_launches, ssd.bwd_tc_launches
     y, final = ssd(*leaves[:6], chunk, s0)
     grads = torch.autograd.grad((y, final), leaves, (dy, dfin))
     torch.cuda.synchronize()
     assert (ssd.launches - n, ssd.bwd_launches - nb) == (1, 1)
+    # every bf16 case here fits the tc backward's shared memory
+    assert ssd.bwd_tc_launches - ntc == int(dtype == BF16)
     args = [v.detach() for v in leaves[:6]]
     init_d = s0.detach() if init else None
     refs = ssd_bwd_ref(*args, chunk, dy, init_d, dfin)
@@ -623,6 +634,66 @@ def test_ssd_backward_through_autograd(cuda, shape, chunk, dtype, init):
         _within(g, r, tol, name)
     again = ssd_bwd(*args, chunk, dy, init_d, dfin)
     for i in (2, 3, 4, 5):
+        assert torch.equal(again[i], grads[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,gemma", [
+    (4096, 2048, False), (4096, 4096, True), (37, 2048, False),
+    (1, 4096, True)])
+@pytest.mark.parametrize("variant", ["vec", "simt"])
+def test_rmsnorm_backward_variants(cuda, rows, d, gemma, variant):
+    """Each variant of the RMSNorm backward launched directly on bf16 rows
+    with an fp32 w, against ``rmsnorm_bwd_ref`` (2e-2 of each gradient's
+    scale), dw the same bit for bit over a second call."""
+    x, w, dy = (torch.from_numpy(a).to(cuda) for a in _normal(
+        rows * d, (rows, d), (d,), (rows, d)))
+    x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    w = 1.0 + 0.1 * w
+    dx, dw = norm_ops._launch_bwd(x, w, dy, variant, eps=1e-5, gemma=gemma)
+    rdx, rdw = rmsnorm_bwd_ref(x, w, dy, eps=1e-5, gemma=gemma)
+    _within(dx, rdx, 2e-2, "dx")
+    _within(dw, rdw, 2e-2, "dw")
+    again = norm_ops._launch_bwd(x, w, dy, variant, eps=1e-5, gemma=gemma)
+    assert torch.equal(again[1], dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,chunk,init", [
+    ((2, 2048, 8, 64, 128, 1), 256, False),   # the training shape, 8 heads
+    ((8, 128, 4, 64, 128, 1), 256, False),    # one chunk a sequence
+    ((2, 300, 8, 64, 128, 2), 256, True),     # ragged, groups, states
+    ((1, 250, 4, 64, 128, 2), 100, True),     # chunks of 100, then 50
+    ((2, 40, 8, 16, 16, 1), 16, True),        # P = N = chunk = 16
+    ((1, 97, 2, 128, 128, 1), 64, True),      # P = 128
+])
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+def test_ssd_backward_variants(cuda, shape, chunk, init, variant):
+    """Each variant of the SSD backward launched directly on bf16 inputs,
+    y's and the final state's gradients both given, against ``ssd_bwd_ref``
+    (2e-2 of each gradient's scale), dx, dB, dC, dA and dD the same bit for
+    bit over a second call."""
+    Bz, S, H, P, N, G = shape
+    x, dt, A, B, C, s0, dy, dfin = _normal(
+        S + P + N, (Bz, S, H, P), (Bz, S, H), (H,), (Bz, S, G, N),
+        (Bz, S, G, N), (Bz, H, P, N), (Bz, S, H, P), (Bz, H, P, N))
+    x, B, C, dy = (torch.from_numpy(a * s).to(cuda, torch.bfloat16)
+                   for a, s in ((x, 0.5), (B, 0.3), (C, 0.3), (dy, 1.0)))
+    dt = torch.nn.functional.softplus(torch.from_numpy(dt).to(cuda) - 3.0)
+    A = -torch.exp(0.3 * torch.from_numpy(A).to(cuda))
+    D = torch.ones(H, device=cuda)
+    s0 = (0.3 * torch.from_numpy(s0)).to(cuda) if init else None
+    dfin = torch.from_numpy(dfin).to(cuda)
+    Q = min(chunk, S)
+    grads = ssd_ops._launch_bwd(x, dt, A, B, C, D, Q, dy, s0, dfin, variant)
+    refs = ssd_bwd_ref(x, dt, A, B, C, D, chunk, dy, s0, dfin)
+    for name, g, r in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dinit"),
+                          grads, refs):
+        assert (g is None) == (r is None), name
+        if r is not None:
+            _within(g, r, 2e-2, name)
+    again = ssd_ops._launch_bwd(x, dt, A, B, C, D, Q, dy, s0, dfin, variant)
+    for i in range(6):
         assert torch.equal(again[i], grads[i])
 
 

@@ -11,16 +11,25 @@ the Mamba2 model hands the kernels at its full serving widths. Which variant
 a launch on the card really ran is asserted by the ``cuda`` tests and by
 ``chip_smoke.py`` through the ``vec_launches`` and ``tc_launches`` counters.
 """
+import contextlib
+
 import pytest
 import torch
 
 from repro_torch.configs import mamba2_1_3b
 from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.rmsnorm.ops import (BWD_MAX_BLOCKS, MAX_VECS,
-                                             _rmsnorm_variant, bwd_blocks)
+from repro_torch.kernels.rmsnorm import ops as norm_ops
+from repro_torch.kernels.rmsnorm.ops import (BWD_MAX_BLOCKS,
+                                             BWD_VEC_MAX_BLOCKS,
+                                             BWD_VEC_WARPS, MAX_VECS,
+                                             _rmsnorm_bwd_variant,
+                                             _rmsnorm_variant, bwd_blocks,
+                                             bwd_vec_partition)
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd
-from repro_torch.kernels.ssd.ops import (MAX_SMEM_BYTES, _ssd_variant,
-                                         bwd_smem_bytes, smem_bytes)
+from repro_torch.kernels.ssd.ops import (MAX_SMEM_BYTES, _ssd_bwd_variant,
+                                         _ssd_variant, bwd_smem_bytes,
+                                         smem_bytes)
 from repro_torch.kernels.ssd.ops import _launch_bwd as ssd_launch_bwd
 from repro_torch.models import layers, ssm, transformer
 
@@ -204,4 +213,180 @@ def test_ssd_backward_refuses_state_dims_off_4():
     h = torch.zeros(2)
     with pytest.raises(ValueError, match="multiples of 4"):
         ssd_launch_bwd(x, torch.zeros(1, 8, 2), h, b, b, h, 8, x, None,
-                       None)
+                       None, "simt")
+
+
+# ---------------------------------------------- the backward kernels' variants
+def _norm_bwd_case(name):
+    if name == "dy_offset":
+        x, w = _norm_case("contiguous")
+        return x, w, _offset(torch.zeros_like(x))
+    x, w = _norm_case(name)
+    return x, w, torch.zeros(x.shape, dtype=x.dtype)
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("contiguous", "vec"), ("fp32", "vec"), ("w_bf16", "vec"),
+    ("d300_bf16", "simt"), ("d300_fp32", "vec"), ("x_offset", "simt"),
+    ("w_offset", "simt"), ("dy_offset", "simt"), ("odd_row_stride", "simt"),
+    ("one_row_odd_stride", "vec"), ("d_over_max", "simt"),
+    ("leading_dims", "vec"),
+])
+def test_rmsnorm_bwd_variant(name, variant):
+    """The backward takes the vec kernel where the forward would and dy's
+    rows start on 16-byte boundaries too."""
+    assert _rmsnorm_bwd_variant(*_norm_bwd_case(name)) == variant
+
+
+@pytest.mark.parametrize("rows,d", [(8 * 128, LM.d_model),
+                                    (2 * 2048, LM.d_model),
+                                    (2 * 2048, LM.d_inner)])
+def test_rmsnorm_training_shapes_take_vec_backward(rows, d):
+    x = torch.empty(rows, d, dtype=BF16)
+    assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
+        "vec"
+
+
+@pytest.mark.parametrize("rows", [1, 37, 1023, 1024, 1025, 4096, 8193,
+                                  100_000])
+def test_rmsnorm_vec_backward_warps_cover_every_row_once(rows):
+    """The vec backward's warps take contiguous row ranges, a function of
+    the row count alone: BWD_VEC_WARPS a block, at most BWD_VEC_MAX_BLOCKS
+    blocks, every row in exactly one warp's range and no block without
+    rows."""
+    blocks, per = bwd_vec_partition(rows)
+    assert 1 <= blocks <= BWD_VEC_MAX_BLOCKS
+    taken = []
+    for warp in range(blocks * BWD_VEC_WARPS):
+        taken += range(min(rows, warp * per), min(rows, (warp + 1) * per))
+    assert taken == list(range(rows))
+    assert (blocks - 1) * BWD_VEC_WARPS * per < rows
+
+
+@contextlib.contextmanager
+def _recorded_launch(monkeypatch, module):
+    """Replace ``module``'s C entry and the CUDA stream and device calls so
+    that ``_launch_bwd`` runs on CPU tensors; yields the recorded args."""
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    monkeypatch.setattr(module._build, "load", lambda name: entry)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 7}))
+    yield seen
+
+
+@pytest.mark.parametrize("variant", ["vec", "simt"])
+def test_rmsnorm_bwd_launch_arguments(monkeypatch, variant):
+    """What the backward's ``_launch_bwd`` hands the C entry point: the
+    operands, the dtypes, the variant code, and the row partition of that
+    variant (warps' ranges for vec, blocks' for simt) with an fp32 partial
+    row for each block."""
+    rows, d = 4096, 2048
+    x = torch.zeros(rows, d, dtype=BF16)
+    w, dy = torch.zeros(d), torch.zeros(rows, d, dtype=BF16)
+    with _recorded_launch(monkeypatch, norm_ops) as seen:
+        dx, dw = norm_ops._launch_bwd(x, w, dy, variant, eps=1e-5,
+                                      gemma=True)
+    args = seen["args"]
+    blocks, per = (bwd_vec_partition(rows) if variant == "vec" else
+                   bwd_blocks(rows))
+    assert (blocks, per) == ((256, 4) if variant == "vec" else (256, 16))
+    assert args[:4] == (x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                        dx.data_ptr())
+    assert args[5] == dw.data_ptr() and dw.dtype == w.dtype
+    assert args[6:9] == (1, 0, 1 if variant == "vec" else 0)
+    assert args[9:14] == (rows, d, d, blocks, per)
+    assert args[14:] == (pytest.approx(1e-5), 1, 7)
+
+
+def _ssd_bwd_case(name):
+    Bz, S, H, P, G, N, Q = 2, 2048, 64, 64, 1, 128, 256
+    x = torch.zeros(Bz, S, H, P, dtype=BF16)
+    B = C = torch.zeros(Bz, S, G, N, dtype=BF16)
+    dy = torch.zeros_like(x)
+    if name == "fp32":
+        x, B, C, dy = x.float(), B.float(), C.float(), dy.float()
+    elif name == "x_offset":
+        x = _offset(x)
+    elif name == "dy_offset":
+        dy = _offset(dy)
+    elif name == "state_48":
+        B = C = torch.zeros(Bz, S, G, 48, dtype=BF16)
+    elif name in ("p128_chunk256", "p128_chunk128"):
+        x = dy = torch.zeros(1, 256, 4, 128, dtype=BF16)
+        B = C = torch.zeros(1, 256, 1, 128, dtype=BF16)
+        Q = 256 if name == "p128_chunk256" else 128
+    elif name == "one_chunk":              # the (a) run: 8 x 128
+        x = dy = torch.zeros(8, 128, H, P, dtype=BF16)
+        B = C = torch.zeros(8, 128, G, N, dtype=BF16)
+        Q = 128
+    elif name == "fused_projection":
+        fused = torch.zeros(Bz, S, H * P + 2 * N, dtype=BF16)
+        x = fused[..., :H * P].unflatten(2, (H, P))
+        B = fused[..., H * P:H * P + N].unflatten(2, (G, N))
+        C = fused[..., H * P + N:].unflatten(2, (G, N))
+    elif name == "smoke":
+        x = dy = torch.zeros(2, 40, 8, 16, dtype=BF16)
+        B = C = torch.zeros(2, 40, 1, 16, dtype=BF16)
+        Q = 16
+    return x, B, C, dy, Q
+
+
+@pytest.mark.parametrize("name,variant", [
+    ("contiguous", "tc"), ("fp32", "simt"), ("x_offset", "simt"),
+    ("dy_offset", "simt"), ("state_48", "simt"), ("p128_chunk256", "simt"),
+    ("p128_chunk128", "tc"), ("one_chunk", "tc"),
+    ("fused_projection", "tc"), ("smoke", "tc"),
+])
+def test_ssd_bwd_variant(name, variant):
+    """The backward takes the tensor cores where the forward would, dy is
+    16-byte-aligned and the whole chunk fits shared memory (P = 128 at
+    chunk 256 does not)."""
+    assert _ssd_bwd_variant(*_ssd_bwd_case(name)) == variant
+
+
+@pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 128, 128),
+                                   (128, 128, 128), (16, 16, 16),
+                                   (32, 64, 64), (64, 128, 100)])
+def test_ssd_tc_backward_fits_shared_memory(P, N, Q):
+    """The tc backward's kernels fit a block's shared memory at the model's
+    training shapes, at P = 128 up to chunk 128 and at the smoke config's;
+    its chunk kernel holds the whole chunk's x, dy, B and C."""
+    tc = bwd_smem_bytes(P, N, Q, "tc")
+    assert tc <= MAX_SMEM_BYTES
+    q16 = -(-Q // 16) * 16
+    assert tc >= q16 * (4 * P + 4 * N)
+    assert bwd_smem_bytes(64, 128, 256, "tc") == 222_244
+    assert bwd_smem_bytes(128, 128, 256, "tc") > MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("variant", ["tc", "simt"])
+def test_ssd_bwd_launch_arguments(monkeypatch, variant):
+    """What the backward's ``_launch_bwd`` hands the C entry point: the 23
+    operand and scratch pointers (null for an absent initial state and its
+    gradient), the dtype and variant codes, the sizes and chunk, and the
+    strides of x, dt, B and C as they lie (a fused projection's views)."""
+    x, B, C, dy, Q = _ssd_bwd_case("fused_projection")
+    dy = dy.contiguous()
+    Bz, S, H, P = x.shape
+    dt, A, D = torch.zeros(Bz, S, H), torch.zeros(H), torch.zeros(H)
+    with _recorded_launch(monkeypatch, ssd_ops) as seen:
+        out = ssd_ops._launch_bwd(x, dt, A, B, C, D, Q, dy, None, None,
+                                  variant)
+    args = seen["args"]
+    assert args[:9] == (x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                        B.data_ptr(), C.data_ptr(), D.data_ptr(), None,
+                        dy.data_ptr(), None)
+    assert args[9] == out[0].data_ptr() and args[15] is None
+    assert all(isinstance(a, int) for a in args[16:23])
+    assert args[23:32] == (1, 1 if variant == "tc" else 0, Bz, S, H, 1, P,
+                           128, Q)
+    assert args[32:44] == (*x.stride()[:3], *dt.stride(), *B.stride()[:3],
+                           *C.stride()[:3])
+    assert args[44] == 7
+    assert out[6] is None and out[3].shape == B.shape

@@ -38,7 +38,8 @@ from repro.models import transformer as jt
 from repro_torch import convert
 from repro_torch.configs import mamba2_1_3b as t_mamba
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
-from repro_torch.kernels.ssd import ssd, ssd_ref
+from repro_torch.kernels.ssd import ssd, ssd_bwd, ssd_ref
+from repro_torch.kernels.ssd.ops import _chunks
 from repro_torch.models import ssm as t_ssm
 from repro_torch.models import transformer as tt
 
@@ -202,6 +203,130 @@ def test_ssd_tensor_core_rounding_within_bf16_tol(S, G):
         torch.testing.assert_close(y.float(), ref_y, atol=tol, rtol=tol)
         torch.testing.assert_close(final, ref_s, atol=tol, rtol=tol)
     assert (y.float() - y_ref.float()).abs().max() > 0   # it does round
+
+
+def _ssd_bwd_tc_rounding(x, dt, A, B, C, D, chunk, dy, initial_state,
+                         d_final):
+    """``ssd_bwd_ref`` with exactly the bf16 roundings of the tensor-core
+    backward (csrc/ssd_bwd.cu, "tc"): the chunk state's x_s w_s and its dy
+    twin's dy_t exp(seg_t), the state gradient dS that the state terms of
+    dx, dB and d w read, the entering state S_in that dC's state term and
+    seg's share through it read, and the masked scores and dCB that
+    multiply dy, C and B, each rounded to bf16 as a product operand. G =
+    dy x^T and C.B^T (bf16 operands, exact products), the sums of the score
+    tiles, the scans, the decays and every sum stay fp32. x, B, C and dy
+    hold bf16 values; dx, dB and dC are rounded to bf16 at the end."""
+    def r(t):
+        return t.to(torch.bfloat16).float()
+
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    xc, dyc, dtc = _chunks(x, Q, nc), _chunks(dy, Q, nc), _chunks(dt, Q, nc)
+    Bc = _chunks(B, Q, nc).repeat_interleave(H // G, dim=3)
+    Cc = _chunks(C, Q, nc).repeat_interleave(H // G, dim=3)
+    seg = torch.cumsum(dtc * A, dim=2)
+    total = seg[:, :, -1, :]
+    decay = torch.exp(total[:, :, None, :] - seg)
+    w = decay * dtc
+    states = torch.einsum("bcqhp,bcqhn->bchpn", r(w[..., None] * xc), Bc)
+    s = initial_state.clone()
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = s * torch.exp(total[:, c])[..., None, None] + states[:, c]
+    dS = d_final.clone()
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    dx, ddt, dB, dC = ([None] * nc for _ in range(4))
+    dA, dD = torch.zeros(H), torch.zeros(H)
+    for c in reversed(range(nc)):
+        X, Y, Bt, Ct = xc[:, c], dyc[:, c], Bc[:, c], Cc[:, c]
+        dtq, sg, wq, tot = dtc[:, c], seg[:, c], w[:, c], total[:, c]
+        Sin = s_in[c]
+        esg = torch.exp(sg)
+        dtot = torch.exp(tot) * (dS * Sin).sum((-2, -1))
+        V = torch.einsum("bhpn,bshn->bshp", r(dS), Bt)
+        dw = (V * X).sum(-1)
+        dxc = wq[..., None] * V
+        dBc = wq[..., None] * torch.einsum("bhpn,bshp->bshn", r(dS), X)
+        ddtc = decay[:, c] * dw
+        dtot = dtot + (wq * dw).sum(1)
+        dseg = -wq * dw
+        W = torch.einsum("bhpn,bthp->bthn", r(Sin), Y)
+        dCc = esg[..., None] * W
+        dseg = dseg + (Ct * dCc).sum(-1)
+        L = torch.where(mask[None, :, :, None],
+                        torch.exp(sg[:, :, None, :] - sg[:, None, :, :]), 0.0)
+        Gm = torch.einsum("bthp,bshp->btsh", Y, X)
+        CB = torch.einsum("bthn,bshn->btsh", Ct, Bt)
+        scores = CB * L * dtq[:, None, :, :]
+        dCB = Gm * L * dtq[:, None, :, :]
+        dxc = dxc + torch.einsum("btsh,bthp->bshp", r(scores), Y)
+        dBc = dBc + torch.einsum("btsh,bthn->bshn", r(dCB), Ct)
+        dCc = dCc + torch.einsum("btsh,bshn->bthn", r(dCB), Bt)
+        ddtc = ddtc + (Gm * CB * L).sum(1)
+        M = Gm * scores
+        dseg = dseg + M.sum(2) - M.sum(1)
+        dxc = dxc + D[None, None, :, None] * Y
+        dD = dD + (Y * X).sum((0, 1, 3))
+        dseg[:, -1] = dseg[:, -1] + dtot
+        da = torch.flip(torch.cumsum(torch.flip(dseg, [1]), 1), [1])
+        ddtc = ddtc + A * da
+        dA = dA + (dtq * da).sum((0, 1))
+        dx[c], ddt[c], dB[c], dC[c] = dxc, ddtc, dBc, dCc
+        dS = dS * torch.exp(tot)[..., None, None] + torch.einsum(
+            "bthp,bthn->bhpn", r(esg[..., None] * Y), Ct)
+
+    def whole(parts):
+        t = torch.stack(parts, 1)
+        return t.reshape((Bz, nc * Q) + t.shape[3:])[:, :S]
+    dBg = whole(dB).unflatten(2, (G, H // G)).sum(3)
+    dCg = whole(dC).unflatten(2, (G, H // G)).sum(3)
+    return (whole(dx).to(torch.bfloat16), whole(ddt), dA,
+            dBg.to(torch.bfloat16), dCg.to(torch.bfloat16), dD, dS)
+
+
+@pytest.mark.parametrize("S", [512, 300])        # whole and ragged chunks
+@pytest.mark.parametrize("G", [1, 2])
+def test_ssd_tensor_core_backward_rounding_within_bf16_tol(S, G):
+    """The tensor-core backward's roundings, in plain PyTorch, at the
+    training chunk (256), state (128) and head dim (64), with the model's
+    steps (dt about 0.07), an initial state and the final state's gradient:
+    every gradient stays within chip_smoke.py's BF16_BWD_REL_TOL (2e-2 of
+    its largest magnitude) of ``jax.vjp`` of the JAX ``ssd_chunked`` on the
+    same numpy inputs, and of ``ssd_bwd``'s fp32 plain version; and the
+    roundings do move it off the fp32 result."""
+    tol = 2e-2
+    x, dt, A, B, C, D, s0 = _ssd_inputs(S + 10 * G, 1, S, 4, 64, 128, G,
+                                        True)
+    dt = np.log1p(np.exp(np.log(np.expm1(dt)) - 3)).astype(np.float32)
+    rng = np.random.default_rng(S + G)
+    dy = rng.normal(size=x.shape).astype(np.float32)
+    df = (rng.normal(size=s0.shape) * 0.3).astype(np.float32)
+    # x, B, C and dy as the kernel reads them: bf16 values
+    x, B, C, dy = (a.astype(jnp.bfloat16).astype(np.float32)
+                   for a in (x, B, C, dy))
+    (jy, jfinal), vjp = jax.vjp(
+        lambda *a: j_ssm.ssd_chunked(*a[:6], 256, a[6]),
+        *(jnp.asarray(a) for a in (x, dt, A, B, C, D, s0)))
+    jgrads = [torch.from_numpy(np.array(g))
+              for g in vjp((jnp.asarray(dy), jnp.asarray(df)))]
+    xb, Bb, Cb, dyb = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in (x, B, C, dy))
+    dtt, At, Dt, s0t, dft = _t(dt, A, D, s0, df)
+    got = _ssd_bwd_tc_rounding(xb, dtt, At, Bb, Cb, Dt, 256, dyb, s0t, dft)
+    plain = ssd_bwd(xb, dtt, At, Bb, Cb, Dt, 256, dyb, s0t, dft,
+                    device="cpu")
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+    for refs in (jgrads, plain):
+        for name, g, ref in zip(names, got, refs):
+            g, ref = g.float(), ref.float()
+            err, scale = float((g - ref).abs().max()), float(ref.abs().max())
+            assert err <= tol * scale, (name, err, scale)
+    moved = [float((g.float() - p.float()).abs().max())
+             for g, p in zip(got, plain)]
+    assert moved[0] > 0 and moved[4] > 0        # dx and dC do round
 
 
 @pytest.mark.parametrize("bad", ["groups", "dt_dtype", "xb_dtype", "state",
