@@ -172,10 +172,12 @@ from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
 from repro_torch.data import DataConfig, data_iterator, synth_batch  # noqa: E402
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,  # noqa: E402
                                          rmsnorm_bwd_ref, rmsnorm_ref)
+from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import (  # noqa: E402
     _launch as norm_launch, _launch_bwd as norm_launch_bwd)
 from repro_torch.kernels.ssd import (ssd, ssd_bwd, ssd_bwd_ref,  # noqa: E402
                                      ssd_ref)
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ops import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd.ops import (  # noqa: E402
     _launch_bwd as ssd_launch_bwd)
@@ -1706,44 +1708,105 @@ def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1):
     return params, opt, counts
 
 
-def check_lm_train_grads(params) -> None:
-    """The first 2 layers of the full-width model, same weights, one
-    1 x LM_GRAD_SEQ batch (two chunks): ``loss_fn``'s gradient with the
-    kernels on the card against the plain path on the CPU, every leaf
-    within LM_REL_TOL of its largest magnitude."""
+def _lm_grad_sub(params):
+    """The first LM_PLAIN_LAYERS layers of the model, same weights."""
     cfg = LM.replace(n_layers=LM_PLAIN_LAYERS)
     sub = dict(params, segments=[{"b0": tree_map(
         lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
-    batch = synth_batch(cfg, DataConfig(batch=1, seq_len=LM_GRAD_SEQ), 0,
-                        device="cuda")
+    return cfg, sub
 
+
+def _lm_grads(cfg, sub, batch):
+    """``loss_fn``'s value and gradient on ``batch``, and the launches."""
     def loss(p, b):
         return transformer.loss_fn(p, cfg, b)
     _set_lm_train_counts()
     (lval, _), grads = value_and_grad_aux(loss, sub, batch, has_aux=True)
     torch.cuda.synchronize()
-    got = _lm_train_counts()
-    norms = 2 * LM_PLAIN_LAYERS + 1
-    if (got["rmsnorm_bwd"], got["rmsnorm_bwd_vec"], got["ssd_bwd"],
-            got["ssd_bwd_tc"]) != (norms, norms, LM_PLAIN_LAYERS,
-                                   LM_PLAIN_LAYERS):
-        raise RuntimeError(f"2-layer gradient launched {got}")
-    t0 = time.perf_counter()
-    (pval, _), pgrads = value_and_grad_aux(
-        loss, tree_map(lambda t: t.cpu(), sub),
-        {k: v.cpu() for k, v in batch.items()}, has_aux=True)
-    cpu_s = time.perf_counter() - t0
+    return float(lval), grads, _lm_train_counts()
+
+
+def _grad_errs(grads, pgrads) -> dict:
+    """Each leaf's largest error over the reference leaf's largest
+    magnitude, every leaf within LM_REL_TOL of it."""
     errs = {}
     for (path, g), pg in zip(_items(grads), _leaves(pgrads)):
         _rel_err(g, pg, f"gradient {path} {tuple(g.shape)}")
         scale = float(pg.abs().max())
         errs[path] = (float((g.float().cpu() - pg.float()).abs().max())
                       / scale if scale else 0.0)
+    return errs
+
+
+def _cpu_inputs(sub, batch):
+    return (tree_map(lambda t: t.cpu(), sub),
+            {k: v.cpu() for k, v in batch.items()})
+
+
+def check_lm_train_grads(params) -> None:
+    """The first 2 layers of the full-width model, same weights, one
+    1 x LM_GRAD_SEQ batch (two chunks): ``loss_fn``'s gradient with the
+    kernels on the card against the plain path on the CPU, every leaf
+    within LM_REL_TOL of its largest magnitude."""
+    cfg, sub = _lm_grad_sub(params)
+    batch = synth_batch(cfg, DataConfig(batch=1, seq_len=LM_GRAD_SEQ), 0,
+                        device="cuda")
+    lval, grads, got = _lm_grads(cfg, sub, batch)
+    norms = 2 * LM_PLAIN_LAYERS + 1
+    if (got["rmsnorm_bwd"], got["rmsnorm_bwd_vec"], got["ssd_bwd"],
+            got["ssd_bwd_tc"]) != (norms, norms, LM_PLAIN_LAYERS,
+                                   LM_PLAIN_LAYERS):
+        raise RuntimeError(f"2-layer gradient launched {got}")
+    t0 = time.perf_counter()
+    pval, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
+    cpu_s = time.perf_counter() - t0
+    errs = _grad_errs(grads, pgrads)
     worst = max(errs, key=errs.get)
     line("lm_train", run="2-layer gradient check", layers=LM_PLAIN_LAYERS,
-         seq=LM_GRAD_SEQ, leaves=len(errs), loss=float(lval),
-         cpu_loss=float(pval), worst_rel_err=errs[worst], worst_leaf=worst,
-         rel_tol=LM_REL_TOL, cpu_plain_s=cpu_s)
+         seq=LM_GRAD_SEQ, leaves=len(errs), loss=lval, cpu_loss=pval,
+         worst_rel_err=errs[worst], worst_leaf=worst, rel_tol=LM_REL_TOL,
+         cpu_plain_s=cpu_s)
+
+
+def lm_grad_rounding(params, seeds=(0, 1, 2)) -> None:
+    """What the tensor-core SSD backward's bf16 roundings do to the 2-layer
+    gradient check: for each batch seed, the check's leaf errors against
+    one CPU reference with the scan's backward on "tc" (as training runs
+    it), on "simt" (fp32 products) and, as "simt_all", with the RMSNorm
+    backward on "simt" too (the backward kernels before the fast
+    variants); the variants are forced, every other kernel runs as in
+    training. Prints conv_C_w's errors (the leaf dC feeds), the worst leaf
+    of each, and on how many leaves tc's error is above simt's."""
+    cfg, sub = _lm_grad_sub(params)
+    choose_ssd = ssd_ops._ssd_bwd_variant
+    choose_norm = norm_ops._rmsnorm_bwd_variant
+    arms = {"tc": ("tc", "vec"), "simt": ("simt", "vec"),
+            "simt_all": ("simt", "simt")}
+    for seed in seeds:
+        batch = synth_batch(cfg, DataConfig(batch=1, seq_len=LM_GRAD_SEQ),
+                            seed, device="cuda")
+        _, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
+        row, all_errs = {"seed": seed}, {}
+        for arm, (scan, norm) in arms.items():
+            ssd_ops._ssd_bwd_variant = lambda *a, v=scan: v
+            norm_ops._rmsnorm_bwd_variant = lambda *a, v=norm: v
+            try:
+                _, grads, got = _lm_grads(cfg, sub, batch)
+            finally:
+                ssd_ops._ssd_bwd_variant = choose_ssd
+                norm_ops._rmsnorm_bwd_variant = choose_norm
+            if (got["ssd_bwd_tc"], got["rmsnorm_bwd_vec"] > 0) != (
+                    LM_PLAIN_LAYERS * (scan == "tc"), norm == "vec"):
+                raise RuntimeError(f"rounding study ({arm}) launched {got}")
+            errs = all_errs[arm] = _grad_errs(grads, pgrads)
+            worst = max(errs, key=errs.get)
+            row[arm] = {"conv_C_w": {p: e for p, e in errs.items()
+                                     if p.endswith("conv_C_w")},
+                        "worst_leaf": worst, "worst_rel_err": errs[worst]}
+        row["leaves_tc_above_simt"] = sum(
+            all_errs["tc"][p] > all_errs["simt"][p] for p in all_errs["tc"])
+        row["leaves"] = len(all_errs["tc"])
+        line("lm_train", run="2-layer gradient, tc vs simt roundings", **row)
 
 
 _KERNEL_GROUPS = (   # device-time groups of the training step's profile
@@ -1883,6 +1946,7 @@ def phase_lm_train() -> dict:
          grad_norm_rel_diff=grad_rel, launches=counts)
     del one, two
     check_lm_train_grads(params)
+    lm_grad_rounding(params)
     profile_lm_train_step(params, opt, *LM_TRAIN_RUNS[1][1:3])
     del params, opt
     torch.cuda.empty_cache()
@@ -2347,19 +2411,81 @@ def ssd_bwd_work(Bz, S, H, P, N, G, chunk, itemsize):
     and dx, ddt, dB, dC written once (A, D, dA, dD negligible); per chunk of
     q rows, C.B^T once per group over the causal triangle, and per head
     dy.x^T, the scores' products with dy and x (dx) and dCB's with C and B
-    (dB, dC) over the triangle, and six (q x P x N) products for the state
-    terms (the chunk state and its dy twin, dS.B, dS^T.x, S_in.C,
-    S_in^T.dy)."""
+    (dB, dC) over the triangle, and five (q x P x N) products for the state
+    terms (the chunk state and its dy twin, dS.B, dS^T.x, S_in^T.dy; seg's
+    state share is C_t . (S_in^T dy_t), from the last, so S_in.C is not
+    needed)."""
     Q = min(chunk, S)
     flops = 0
     for s0 in range(0, S, Q):
         q = min(Q, S - s0)
         tri = q * (q + 1) // 2
         flops += Bz * (2 * tri * N * G
-                       + H * (4 * tri * P + 4 * tri * N + 12 * q * P * N))
+                       + H * (4 * tri * P + 4 * tri * N + 10 * q * P * N))
     nbytes = (3 * Bz * S * H * P * itemsize + 2 * Bz * S * H * 4
               + 4 * Bz * S * G * N * itemsize)
     return nbytes, flops
+
+
+def ssd_bwd_host(args, dy, Q, rounds=5) -> dict:
+    """Host microseconds of one SSD backward call and of its parts, each
+    timed alone with ``host_us`` (the card asleep), the median of
+    ``rounds`` rounds that take every part in turn: the wrapper
+    ``ssd_bwd``, the variant choice, ``_launch_bwd`` with either variant on
+    the same inputs, its thirteen ``torch.empty``, and the C entry point
+    alone with either variant on buffers made once (ctypes, the launches'
+    set-up and their five kernel launches). ``rest_tc_us`` and
+    ``rest_simt_us`` are what ``_launch_bwd`` spends beside the last two,
+    ``rest_wrapper_us`` what the wrapper spends beside the variant choice
+    and ``_launch_bwd``: its Python."""
+    x, dt, A, B, C, D = args
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = -(-S // Q)
+
+    def empties():
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=x.device)
+        return [empty(Bz, S, H, P, dtype=x.dtype), empty(Bz, S, H), empty(H),
+                empty(Bz, S, G, N, dtype=B.dtype),
+                empty(Bz, S, G, N, dtype=B.dtype), empty(H),
+                empty(Bz, nc, H, P, N), empty(Bz, nc, H, P, N),
+                *(empty(Bz, nc, H) for _ in range(3)),
+                empty(Bz, S, H, N), empty(Bz, S, H, N)]
+    dx, ddt, dA, dB, dC, dD, states, ubuf, totals, dAp, dDp, dBh, dCh = (
+        empties())
+    fn = _build.load("ssd_bwd")
+    ptrs = [None if t is None else t.data_ptr() for t in (
+        x, dt, A, B, C, D, None, dy, None, dx, ddt, dA, dB, dC, dD, None,
+        states, ubuf, totals, dBh, dCh, dAp, dDp)]
+
+    def c_call(variant):
+        def call():
+            err = fn(*ptrs, _build.DTYPE_CODES[x.dtype],
+                     _build.VARIANT_CODES[variant], Bz, S, H, G, P, N, Q,
+                     *x.stride()[:3], *dt.stride(), *B.stride()[:3],
+                     *C.stride()[:3], torch.cuda.current_stream().cuda_stream)
+            _build.check_launch("ssd_bwd", err)
+        return call
+
+    def launch(variant):
+        return lambda: ssd_launch_bwd(*args, Q, dy, None, None, variant)
+    parts = {"wrapper_us": lambda: ssd_bwd(*args, Q, dy),
+             "variant_us": lambda: ssd_ops._ssd_bwd_variant(x, B, C, dy, Q),
+             "launch_tc_us": launch("tc"), "launch_simt_us": launch("simt"),
+             "empty_us": empties, "c_tc_us": c_call("tc"),
+             "c_simt_us": c_call("simt")}
+    got = defaultdict(list)
+    for _ in range(rounds):
+        for name, part in parts.items():
+            got[name].append(host_us(part, reps=10))
+    us = {name: float(np.median(v)) for name, v in got.items()}
+    for v in ("tc", "simt"):
+        us[f"rest_{v}_us"] = (us[f"launch_{v}_us"] - us["empty_us"]
+                              - us[f"c_{v}_us"])
+    us["rest_wrapper_us"] = (us["wrapper_us"] - us["variant_us"]
+                             - us["launch_tc_us"])
+    return us
 
 
 def _bwd_variant(counter, n_fast, n_all, fast: str) -> str:
@@ -2452,7 +2578,8 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
     extra = {"simt_ms": time_ms(lambda: ssd_launch_bwd(
                  *args, Q, dy, None, None, "simt"), reps=5),
              "ms_no_lead": time_ms(bwd, reps=10, lead=False),
-             "host_us": host_us(bwd, reps=10)}
+             "host_us": host_us(bwd, reps=10),
+             "host": ssd_bwd_host(args, dy, Q)}
     bms, by = bound_ms(*ssd_bwd_work(*shape, LM.ssm_chunk, 2))
     ssd_rec = dict(
         name="ssd_bwd", route="cuda", source="src/repro_torch/csrc/ssd_bwd.cu",

@@ -37,10 +37,12 @@
 //
 // What bounds it on the H100, at Mamba2-1.3B's training shape x (2, 2048,
 // 64, 64) bf16, B and C (2, 2048, 1, 128), chunk 256: its operations. Taken
-// at their least (C.B^T once per group, the causal triangle only), the
-// products are ~52 GFLOP a layer, ~0.052 ms on the bf16 tensor cores; its
-// bytes (x, dy, dx ~101 MB, dt and ddt ~2 MB, B, C, dB and dC ~4 MB, each
-// read or written once) are ~107 MB, ~0.032 ms.
+// at their least (C.B^T once per group, the causal triangle only, five
+// (q x P x N) state products a head: the chunk state, U, dS.B, x^T.dS and
+// S_in^T.dy, from which seg's state share also comes), the products are
+// ~47.5 GFLOP a layer, ~0.048 ms on the bf16 tensor cores; its bytes (x,
+// dy, dx ~101 MB, dt and ddt ~2 MB, B, C, dB and dC ~4 MB, each read or
+// written once) are ~107 MB, ~0.032 ms.
 //
 // "tc", bf16 with 16-byte-aligned rows, P and N in {16, 32, 64, 128}, the
 // whole chunk within shared memory (P = 128 up to chunks of 176): every
@@ -74,7 +76,7 @@
 // roundings against jax.vjp within 2e-2 of each gradient's scale, and the
 // 2-layer gradient check of chip_smoke.py (bound 0.02) reads 0.0125 at its
 // worst leaf with them, so no product needed TF32 or a split operand.
-// What holds it at ~13x its bound (~0.68 ms a layer on an H100, kernel 3
+// What holds it at ~14x its bound (~0.68 ms a layer on an H100, kernel 3
 // 0.40 of it): kernel 3 fits one 8-warp block an SM (222 KB of shared
 // memory, ~245 registers a thread), and its walks are paced by latency, not
 // by the products alone. repro_torch/analysis/ssd_bwd_phases.py stamps the
