@@ -12,7 +12,8 @@ exits non-zero:
    parallel);
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at ragged ones, with the tolerance stated; each
-   case checks through the launch counters which variant ran (flash, the
+   case checks through the launch counters which variant ran (flash, at
+   TinyLlama's causal GQA prefill shape (4,2048,32/4,64) among others, the
    GEMM and the SSD scan: bf16 on the tensor cores, fp32 and unaligned
    inputs on the CUDA cores; RMSNorm: 16-byte vectors, and one element per
    lane for rows off 16 bytes); the backward kernels through autograd:
@@ -56,6 +57,19 @@ exits non-zero:
    calls, all on the tensor cores), one full-width
    ``train_on``'s gradients at batch 4 held against the CPU plain path, and
    a torch.profiler pass over 3 ``train_on`` steps;
+4c. TinyLlama-1.1B serving at its full published width and depth, seeded
+   random weights drawn on the card (fp32, ~1.1 B parameters, bf16
+   compute): after a warm-up, ``make_prefill_step`` on 4 prompts of 2048
+   tokens into a cache of 2048 + 32 positions and 32 greedy
+   ``make_serve_step`` decode steps, raising unless each prefill launched
+   exactly 22 flash kernels, all on the tensor cores (the streaming form,
+   causal, 32 q heads over 4 kv heads of 64), and 45 RMSNorm kernels, all
+   vectorised, and each decode step no flash and 45 RMSNorm; finite
+   logits; the first 2 layers' last-token logits and KV cache held against
+   the plain path on the CPU at 1 x 512; a prefill and 5 decode steps under
+   torch.profiler; ``repro_torch.launch.serve --arch tinyllama-1.1b`` at
+   its defaults (every request done, no flash launch, RMSNorm a multiple
+   of 45);
 6. the Fig-8 grid on torch learners at the agent's full width, as
    ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
    cluster (V100), single-node chains, the six cells {light, medium, heavy}
@@ -107,7 +121,10 @@ exits non-zero:
    lane), the wrapper's host time per call, and the time without the card's
    lead (the ruler of earlier runs, see ``time_ms``); flash's streaming
    form at a long sequence beside its CUDA-core variant and the library
-   call; and RMSNorm at the decode step's 4 rows; and the backward kernels
+   call, and at one TinyLlama prefill layer, (4,2048) causal with 32 q
+   heads over 4 kv heads, beside its CUDA-core variant, its plain version
+   and SDPA with GQA, with its bound (k and v counted at 4 heads); and
+   RMSNorm at the decode step's 4 rows; and the backward kernels
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
@@ -116,11 +133,11 @@ exits non-zero:
    the "simt" one as ``simt_ms``) beside their plain versions and, for
    RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 6, 7, 8, 5, and each ends with a
-``[phase]`` line of its wall time. Each kernel's ``launches`` in the JSON record sums
-the counts of every path that runs it (phases 3, 4, 4b, 6, 7 and 8: runs
-(a), (b) and (c)), each counted from 0 just before its path and read just
-after.
+Phases run in the order 1, 2, 3, 4, 4b, 4c, 6, 7, 8, 5, and each ends with
+a ``[phase]`` line of its wall time. Each kernel's ``launches`` in the JSON
+record sums the counts of every path that runs it (phases 3, 4, 4b, 4c's
+prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c)), each counted
+from 0 just before its path and read just after.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -145,7 +162,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import mamba2_1_3b, mirage_agent  # noqa: E402
+from repro_torch.configs import (mamba2_1_3b, mirage_agent,  # noqa: E402
+                                 tinyllama_1_1b)
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
                               CircuitBreaker, DecisionJournal, DQNConfig,
@@ -250,6 +268,8 @@ LM = mamba2_1_3b.CONFIG
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 LM_PLAIN_LAYERS, LM_PLAIN_PROMPT = 2, 512   # the kernel-vs-plain model check
 NORMS_PER_PASS = 2 * LM.n_layers + 1        # block norms, out_norms, final
+DENSE = tinyllama_1_1b.CONFIG                # phase 4c
+DENSE_NORMS = 2 * DENSE.n_layers + 1        # ln1 and ln2 a layer, final
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
 FP32_BWD_REL_TOL = 1e-4  # the RMSNorm and SSD backward kernels against their
@@ -370,6 +390,10 @@ def phase_kernels() -> dict:
          (1, 200, 200, 4, 4, 128, torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
         ("flash fused qkv views (2,77,3,4,64) bf16", dict(causal=True),
          "fused", "tc", BF16_TOL, BF16_TOL),
+        ("flash TinyLlama prefill, causal GQA (4,2048,32/4,64) bf16",
+         dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, DENSE.nq,
+                             DENSE.nkv, DENSE.hd, torch.bfloat16), "tc",
+         BF16_TOL, BF16_TOL),
     ]
     for name, opts, shape, variant, atol, rtol in cases:
         if shape == "fused":
@@ -1151,41 +1175,48 @@ def _leaves(tree):
 
 
 def _counts():
-    return {"rmsnorm": rmsnorm.launches, "rmsnorm_vec": rmsnorm.vec_launches,
+    return {"flash_attention": flash_attention.launches,
+            "flash_tc": flash_attention.tc_launches,
+            "rmsnorm": rmsnorm.launches, "rmsnorm_vec": rmsnorm.vec_launches,
             "ssd": ssd.launches, "ssd_tc": ssd.tc_launches}
 
 
-def _set_counts(n: int = 0) -> None:
-    rmsnorm.launches = rmsnorm.vec_launches = n
-    ssd.launches = ssd.tc_launches = n
+def _set_counts() -> None:
+    flash_attention.launches = flash_attention.tc_launches = 0
+    rmsnorm.launches = rmsnorm.vec_launches = 0
+    ssd.launches = ssd.tc_launches = 0
 
 
-def _pass_counts(norms: int, scans: int) -> dict:
-    """The counts of a pass of ``norms`` RMSNorm and ``scans`` SSD launches,
-    every norm vectorised and every scan on the tensor cores."""
-    return {"rmsnorm": norms, "rmsnorm_vec": norms, "ssd": scans,
-            "ssd_tc": scans}
+def _pass_counts(norms: int, scans: int, flash: int = 0) -> dict:
+    """The counts of a pass of ``norms`` RMSNorm, ``scans`` SSD and
+    ``flash`` flash launches, every norm vectorised and every scan and
+    flash on the tensor cores."""
+    return {"flash_attention": flash, "flash_tc": flash, "rmsnorm": norms,
+            "rmsnorm_vec": norms, "ssd": scans, "ssd_tc": scans}
 
 
-def _lm_inputs(gen, B, S):
-    toks = torch.randint(0, LM.vocab_size, (B, S), generator=gen,
+def _lm_inputs(gen, B, S, cfg=LM):
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device="cuda")
     return toks, torch.arange(S, device="cuda").expand(B, S)
 
 
-def lm_prefill_decode(params, toks, pos) -> dict:
-    """One prefill of ``toks`` and LM_DECODE greedy decode steps from its
-    cache, with the launch counts checked per prefill and per step."""
-    prefill_step, serve_step = make_prefill_step(LM), make_serve_step(LM)
+def lm_prefill_decode(cfg, params, toks, pos, per_prefill: dict,
+                      per_step: dict, s_cache=None) -> dict:
+    """One prefill of ``toks`` into a cache of ``s_cache`` positions (the
+    prompt's length by default) and LM_DECODE greedy decode steps from it,
+    with the launch counts checked per prefill and per step."""
+    prefill_step = make_prefill_step(cfg, s_cache=s_cache)
+    serve_step = make_serve_step(cfg)
     B, S = toks.shape
     with torch.inference_mode():
         t0 = time.perf_counter()
         logits, cache = prefill_step(params, toks, pos)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        if _counts() != _pass_counts(NORMS_PER_PASS, LM.n_layers):
+        if _counts() != per_prefill:
             raise RuntimeError(f"prefill launched {_counts()}")
-        if logits.shape != (B, LM.vocab) or not torch.isfinite(logits).all():
+        if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
             raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
         tok = logits.argmax(-1, keepdim=True).to(torch.int32)
         step_ms = []
@@ -1197,8 +1228,7 @@ def lm_prefill_decode(params, toks, pos) -> dict:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             after = _counts()
-            if {k: after[k] - before[k] for k in after} != \
-                    _pass_counts(NORMS_PER_PASS, 0):
+            if {k: after[k] - before[k] for k in after} != per_step:
                 raise RuntimeError(f"decode step {i}: {before} -> {after}")
         if not torch.isfinite(logits).all():
             raise RuntimeError("non-finite decode logits")
@@ -1209,7 +1239,8 @@ def lm_prefill_decode(params, toks, pos) -> dict:
             "decode_ms_p50": float(np.percentile(ms, 50)),
             "decode_ms_p99": float(np.percentile(ms, 99)),
             "decode_tokens_per_s": B / ms.mean() * 1e3,
-            "state_shape": list(cache["segments"][0]["b0"]["state"].shape)}
+            "cache_shapes": {k: list(v.shape) for k, v in
+                             cache["segments"][0]["b0"].items()}}
 
 
 def check_lm_plain(params, toks) -> None:
@@ -1264,7 +1295,9 @@ def phase_lm() -> dict:
     del lg, cache
 
     _set_counts()                     # the LM's main path
-    res = lm_prefill_decode(params, toks, pos)
+    res = lm_prefill_decode(LM, params, toks, pos,
+                            _pass_counts(NORMS_PER_PASS, LM.n_layers),
+                            _pass_counts(NORMS_PER_PASS, 0))
     launches = _counts()
     line("lm_serve", batch=LM_BATCH, prompt=LM_PROMPT,
          decode_steps=LM_DECODE, launches=launches,
@@ -1304,6 +1337,116 @@ def phase_lm() -> dict:
         raise RuntimeError(f"engine launched {counts}")
     line("engine", **out, launches=counts,
          decode_calls=counts["rmsnorm"] // NORMS_PER_PASS)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------- 4c. TinyLlama-1.1B serving
+def check_dense_plain(params, toks) -> None:
+    """The first LM_PLAIN_LAYERS layers of full-width TinyLlama, same
+    weights, prefill of one LM_PLAIN_PROMPT-token prompt: kernel path on
+    the card against the plain path on the CPU, last-token logits and the
+    KV cache."""
+    cfg = DENSE.replace(n_layers=LM_PLAIN_LAYERS)
+    sub = dict(params, segments=[{"b0": tree_map(
+        lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
+    x = toks[:1, :LM_PLAIN_PROMPT]
+    pos = torch.arange(LM_PLAIN_PROMPT, device="cuda")[None]
+    with torch.inference_mode():
+        _set_counts()
+        lg, cache = transformer.prefill(sub, cfg, x, pos)
+        torch.cuda.synchronize()
+        if _counts() != _pass_counts(2 * LM_PLAIN_LAYERS + 1, 0,
+                                     LM_PLAIN_LAYERS):
+            raise RuntimeError(f"2-layer prefill launched {_counts()}")
+        t0 = time.perf_counter()
+        lg_cpu, cache_cpu = transformer.prefill(
+            tree_map(lambda t: t.cpu(), sub), cfg, x.cpu(), pos.cpu())
+        cpu_s = time.perf_counter() - t0
+    kv, kv_cpu = (c["segments"][0]["b0"] for c in (cache, cache_cpu))
+    line("dense_plain", layers=LM_PLAIN_LAYERS, prompt=LM_PLAIN_PROMPT,
+         logits_max_abs_err=_rel_err(lg, lg_cpu, "logits"),
+         logits_scale=lg_cpu.abs().max().item(),
+         k_max_abs_err=_rel_err(kv["k"], kv_cpu["k"], "K cache"),
+         k_scale=kv_cpu["k"].abs().max().item(),
+         v_max_abs_err=_rel_err(kv["v"], kv_cpu["v"], "V cache"),
+         v_scale=kv_cpu["v"].abs().max().item(), rel_tol=LM_REL_TOL,
+         cpu_plain_s=cpu_s)
+
+
+def phase_dense() -> dict:
+    """TinyLlama-1.1B at its full published width and depth, seeded
+    weights drawn on the card: a 4 x 2048 prefill into a cache of 2048 +
+    32 positions and 32 greedy decode steps (flash 22 a prefill on the
+    tensor cores, none a step; RMSNorm 45 each), the 2-layer check against
+    the CPU, a profiled prefill and decode, then the serve launcher at its
+    defaults. Returns the prefill's and decode steps' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = transformer.init(gen, DENSE)
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    line("dense_init", arch=DENSE.arch_id, layers=DENSE.n_layers,
+         d_model=DENSE.d_model, heads=DENSE.nq, kv_heads=DENSE.nkv,
+         head_dim=DENSE.hd, d_ff=DENSE.d_ff, vocab=DENSE.vocab,
+         params=sum(t.numel() for t in leaves),
+         param_gb=sum(t.numel() * t.element_size() for t in leaves) / 1e9,
+         seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, DENSE)
+    s_cache = LM_PROMPT + LM_DECODE
+    warm = 256
+    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
+        lg, cache = make_prefill_step(DENSE, s_cache=warm + 1)(
+            params, toks[:, :warm], pos[:, :warm])
+        make_serve_step(DENSE)(params, lg.argmax(-1, keepdim=True).to(
+            torch.int32), pos[:, :1] + warm, cache, warm)
+    torch.cuda.synchronize()
+    del lg, cache
+
+    _set_counts()                     # TinyLlama's main path
+    res = lm_prefill_decode(DENSE, params, toks, pos,
+                            _pass_counts(DENSE_NORMS, 0, DENSE.n_layers),
+                            _pass_counts(DENSE_NORMS, 0), s_cache=s_cache)
+    launches = _counts()
+    line("dense_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
+         decode_steps=LM_DECODE, launches=launches,
+         flash_per_prefill=DENSE.n_layers, rmsnorm_per_pass=DENSE_NORMS,
+         **res)
+
+    check_dense_plain(params, toks)
+
+    # one prefill, then 5 decode steps from its cache, each profiled alone
+    prefill_step = make_prefill_step(DENSE, s_cache=s_cache)
+    serve_step = make_serve_step(DENSE)
+    with torch.inference_mode():
+        lg, cache = prefill_step(params, toks, pos)
+    tok0 = lg.argmax(-1, keepdim=True).to(torch.int32)
+
+    def decode(n):
+        with torch.inference_mode():
+            tok, c = tok0, cache
+            for i in range(n):
+                tok, _, c = serve_step(params, tok, pos[:, -1:] + 1 + i, c,
+                                       LM_PROMPT + i)
+    with torch.inference_mode():
+        profile_device("tinyllama prefill",
+                       lambda: prefill_step(params, toks, pos), 1, "prefill",
+                       batch=LM_BATCH, prompt=LM_PROMPT)
+    profile_device("tinyllama decode", lambda: decode(PROFILE_STEPS),
+                   PROFILE_STEPS, "step", batch=LM_BATCH)
+    del params, cache, lg
+    torch.cuda.empty_cache()
+
+    _set_counts()
+    out = serve_launcher.main(["--arch", DENSE.arch_id])
+    counts = _counts()
+    if out["done"] != out["requests"]:
+        raise RuntimeError(f"engine finished {out['done']} of "
+                           f"{out['requests']} requests")
+    n = counts["rmsnorm"] // DENSE_NORMS
+    if not n or counts != _pass_counts(n * DENSE_NORMS, 0):
+        raise RuntimeError(f"engine launched {counts}")
+    line("dense_engine", **out, launches=counts, decode_calls=n)
     torch.cuda.empty_cache()
     return launches
 
@@ -2069,8 +2212,9 @@ def phase_timing(errs: dict, launches: dict) -> list:
     del q, k, v, qt, kt, vt
 
     # flash's streaming form (double-buffered K/V tiles), which sequences
-    # too long for the short form take: on no serving path here, so timed
-    # at a long causal LM shape beside the CUDA-core variant and SDPA
+    # too long for the short form take, at a long causal MHA shape beside
+    # the CUDA-core variant and SDPA (the record of earlier PRs; phase 4c's
+    # TinyLlama prefill runs the same form, timed below at its own shape)
     Bl, Sl, Hl, Dl = 4, 1024, 8, 128
     q, k, v = flash_inputs(gen, Bl, Sl, Sl, Hl, Hl, Dl, torch.bfloat16)
     qt, kt, vt = (t_.transpose(1, 2).contiguous() for t_ in (q, k, v))
@@ -2087,6 +2231,7 @@ def phase_timing(errs: dict, launches: dict) -> list:
          bound_ms=bound_ms(4 * q.numel() * q.element_size(),
                            4 * pairs * Dl)[0])
     del q, k, v, qt, kt, vt
+    line("time", **time_flash_gqa(gen))
 
     # one trunk layer's six projections at E=10, C = 2 actions x 32 lanes x 144
     C, d, f = 2 * LANES * HISTORY, TRUNK.d_model, TRUNK.d_ff
@@ -2204,6 +2349,38 @@ def phase_timing(errs: dict, launches: dict) -> list:
     line("time", **ssd_rec, **extra)
     return [flash_rec, gemm_rec, norm_rec, ssd_rec] + time_backward(
         gen, errs, launches) + time_lm_backward(gen, errs, launches)
+
+
+def time_flash_gqa(gen) -> dict:
+    """Flash at one TinyLlama prefill layer, (4,2048) causal, 32 q heads
+    over 4 kv heads of 64, bf16: the streaming form on phase 4c's path,
+    beside the CUDA-core variant, the plain version and SDPA with
+    ``enable_gqa``. The bound counts k and v at their 4 heads and the
+    causal triangle's products."""
+    B, S, Hq, Hkv, D = LM_BATCH, LM_PROMPT, DENSE.nq, DENSE.nkv, DENSE.hd
+    q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def gqa():
+        return flash_attention(q, k, v, causal=True)
+    ms, variant = timed_variant(flash_attention, gqa)
+    pairs = B * Hq * S * (S + 1) // 2                  # causal triangle
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    bms, by = bound_ms(nbytes, 4 * pairs * D)
+    return dict(
+        name="flash_attention TinyLlama prefill layer",
+        shape=f"q ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, causal",
+        variant=variant, ms=ms,
+        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                         reps=3),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library="F.scaled_dot_product_attention(enable_gqa=True)",
+        simt_ms=time_ms(lambda: flash_launch(
+            q, k, v, "simt", causal=True, window=0, softcap=0.0,
+            scale=D ** -0.5), reps=3),
+        host_us=host_us(gqa), bound_ms=bms, bound_by=by, bytes=nbytes,
+        flops=4 * pairs * D)
 
 
 class _Identity(torch.autograd.Function):
@@ -2608,17 +2785,17 @@ def main() -> int:
     phase("1 build", phase_build)
     errs = phase("2 kernels", phase_kernels)
     trace, cfg, venv = agent_env()
-    launches = phase("3 agent serving", phase_serve, venv)
+    launches = Counter(phase("3 agent serving", phase_serve, venv))
     launches.update(phase("4 Mamba2 serving", phase_lm))
     launches.update(phase("4b agent training", phase_train, trace, cfg, venv))
+    launches.update(phase("4c TinyLlama serving", phase_dense))
     policies, grid = phase("6 grid", phase_grid)
     service = phase("7 service", phase_service, policies)
     del policies
     torch.cuda.empty_cache()
     lm_train = phase("8 Mamba2 training", phase_lm_train)
     for counts in (grid, service, lm_train):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
+        launches.update(counts)
     records = phase("5 timing", phase_timing, errs, launches)
     print(json.dumps({"kernels": records}))
     print(card())

@@ -1,1 +1,2 @@
-"""Model configs of the port: the Mirage agent's foundation trunk."""
+"""Model configs of the port: the Mirage agent's foundation trunk and the
+payload LMs it serves (Mamba2-1.3B, TinyLlama-1.1B)."""

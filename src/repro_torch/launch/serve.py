@@ -8,10 +8,11 @@ JAX package wrote loads too), then serves a stream of synthetic requests
 (6-token prompts) through the slot-based engine until every request is
 done or the wall-clock guard fires.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch tinyllama-1.1b] \
       [--smoke] [--requests 8] [--ckpt-dir checkpoints/svc] [--device cpu]
 
-It runs on CUDA unless ``--device cpu`` is given.
+``--arch`` defaults to TinyLlama-1.1B, as in the reference; Mamba2-1.3B is
+``--arch mamba2-1.3b``. It runs on CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Dict, List, Optional
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)

@@ -1,9 +1,22 @@
-"""Attention (port of ``repro.models.attention``, serving subset).
+"""Attention (port of ``repro.models.attention``: GQA with RoPE and a KV
+cache; MLA, M-RoPE and the sliding-window ring buffer are not ported).
 
 ``attention_core`` dispatches as the reference does: ``flash`` without a
 window or ``kv_len_valid`` goes to the flash-attention kernel; every other
-case computes the reference math (``attention_reference``). The reference's
-chunked scan computes the same function and is not ported.
+case, decode among them, computes the reference math
+(``attention_reference``). The reference's chunked scan computes the same
+function and is not ported.
+
+Two layouts share the projections. The LM's: x (B, S, d), ``wq`` (d, H,
+hd), products by ``torch.matmul`` as the reference's einsums. The agent's:
+x (E, N, S, d) over its expert axis, ``wq`` (E, d, H, hd), products by the
+grouped-GEMM kernel. The parameters' rank tells them apart.
+
+KV caches are (B, S_cache, n_kv, hd) buffers. Prefill and decode return a
+new cache and never write the one they are given. Decode's ``index`` (the
+tokens already in the cache) is a scalar or one per row, (B,): each row
+writes its own slot and masks its own length, which is what the reference
+computes for a row when it ``vmap``s a single-sequence decode over a batch.
 """
 from __future__ import annotations
 
@@ -15,7 +28,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gemm import grouped_gemm
 from .common import ModelConfig
-from .layers import dense_init
+from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -30,8 +43,9 @@ def _mask_bias(q_pos, kv_pos, causal: bool, window: int, kv_len_valid=None):
         ok = ok & (kp <= qp)
     if window:
         ok = ok & (qp - kp < window)
-    if kv_len_valid is not None:
-        ok = ok & (kp < kv_len_valid)
+    if kv_len_valid is not None:    # a scalar, or one length a row: (B,)
+        lim = torch.as_tensor(kv_len_valid, device=kp.device)
+        ok = ok & (kp < lim.reshape(lim.shape + (1,) * (kp.ndim - lim.ndim)))
     return torch.where(ok, 0.0, NEG_INF).float()
 
 
@@ -106,27 +120,100 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig):
-    """x: (E, N, S, d) -> q, k, v of shape (E*N, S, H, hd)."""
-    E, N, S, d = x.shape
-    xc = x.reshape(E, N * S, d)
+def _project_qkv(params, x, cfg: ModelConfig, positions=None):
+    """The LM's x (B, S, d) -> q, k, v (B, S, H, hd), RoPE'd at
+    ``positions`` (B, S) where the config uses it; the agent's x (E, N, S,
+    d) -> (E*N, S, H, hd), one grouped GEMM a projection."""
+    if params["wq"].ndim == 4:
+        E, N, S, d = x.shape
+        xc = x.reshape(E, N * S, d)
+        out = []
+        for name in ("wq", "wk", "wv"):
+            w = params[name].to(cfg.cdtype)
+            y = grouped_gemm(xc, w.reshape(E, d, -1), device=x.device)
+            out.append(y.reshape(E * N, S, w.shape[-2], w.shape[-1]))
+        return tuple(out)
     out = []
     for name in ("wq", "wk", "wv"):
         w = params[name].to(cfg.cdtype)
-        y = grouped_gemm(xc, w.reshape(E, d, -1), device=x.device)
-        out.append(y.reshape(E * N, S, w.shape[-2], w.shape[-1]))
-    return tuple(out)
+        y = x @ w.reshape(w.shape[0], -1)
+        out.append(y.unflatten(-1, w.shape[1:]))
+    q, k, v = out
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(params, out, cfg: ModelConfig):
+    """(B, S, H, hd) -> (B, S, d): the reference's ``...hk,hkd->...d``."""
+    wo = params["wo"].to(cfg.cdtype)
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
 def attn_forward(params, x, cfg: ModelConfig, positions, *, window: int = 0):
-    """Full-sequence attention over the expert axis: x (E, N, S, d),
-    positions (N, S)."""
-    E, N, S, d = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
-    pos = positions.repeat(E, 1)
+    """Full-sequence attention: the LM's x (B, S, d) with positions (B, S),
+    or the agent's x (E, N, S, d) over its expert axis, positions (N, S)."""
+    lm = params["wq"].ndim == 3
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    pos = positions if lm else positions.repeat(x.shape[0], 1)
     out = attention_core(q, k, v, pos, pos, cfg, causal=cfg.causal,
                          window=window, softcap=cfg.attn_logit_softcap)
+    if lm:
+        return _out_proj(params, out, cfg)
+    E, N, S, d = x.shape
     wo = params["wo"].to(cfg.cdtype)
     y = grouped_gemm(out.reshape(E, N * S, -1), wo.reshape(E, -1, d),
                      device=x.device)
     return y.reshape(E, N, S, d)
+
+
+# ==================================================================== KV cache
+def init_kv_cache(cfg: ModelConfig, batch: int, s_cache: int, dtype=None,
+                  device=None):
+    """Zero (batch, s_cache, n_kv, hd) K and V buffers in ``dtype`` (the
+    compute dtype by default)."""
+    shape = (batch, s_cache, cfg.nkv, cfg.hd)
+    dtype = dtype or cfg.cdtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_prefill(params, x, cfg: ModelConfig, positions, cache):
+    """Full attention over the prompt x (B, S, d), and a new cache holding
+    its K/V: the trailing ``size`` positions laid out so position p sits at
+    slot p % size when the prompt fills the cache, else the prompt's K/V in
+    the first S slots and the given cache's after them."""
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    out = attention_core(q, k, v, positions, positions, cfg,
+                         causal=cfg.causal, softcap=cfg.attn_logit_softcap)
+    size, S = cache["k"].shape[1], k.shape[1]
+    new = {}
+    for name, t in (("k", k), ("v", v)):
+        t = t.to(cache[name].dtype)
+        if S >= size:
+            new[name] = torch.roll(t[:, S - size:], S % size, dims=1)
+        else:
+            new[name] = torch.cat([t, cache[name][:, S:]], dim=1)
+    return _out_proj(params, out, cfg), new
+
+
+def attn_decode(params, x, cfg: ModelConfig, positions, cache, index):
+    """One-token decode: x (B, 1, d), positions (B, 1), ``index`` the
+    tokens already in the cache, a scalar or (B,). The token's K/V go to
+    slot min(index, size - 1) of a new cache, and the query attends to its
+    first index + 1 slots."""
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    size = cache["k"].shape[1]
+    index = torch.as_tensor(index, device=x.device)
+    slot = torch.clamp(index, max=size - 1).reshape(-1, 1)   # (B or 1, 1)
+    hit = (torch.arange(size, device=x.device) == slot)[:, :, None, None]
+    cache = {"k": torch.where(hit, k.to(cache["k"].dtype), cache["k"]),
+             "v": torch.where(hit, v.to(cache["v"].dtype), cache["v"])}
+    B = x.shape[0]
+    kv_pos = torch.arange(size, device=x.device).expand(B, size)
+    out = attention_core(q, cache["k"].to(cfg.cdtype),
+                         cache["v"].to(cfg.cdtype), positions, kv_pos, cfg,
+                         causal=True, softcap=cfg.attn_logit_softcap,
+                         kv_len_valid=index + 1)
+    return _out_proj(params, out, cfg), cache

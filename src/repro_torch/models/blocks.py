@@ -1,10 +1,11 @@
 """Block assembly (port of ``repro.models.blocks``, serving subset): dense
-attention + MLP blocks in ``forward`` mode over a leading expert axis (the
-agent), and Mamba2 SSD blocks in all three modes (the LM).
+attention + MLP blocks and Mamba2 SSD blocks, in three modes. The agent
+runs dense blocks in ``forward`` mode over a leading expert axis; the LMs
+run them in every mode.
 
 Modes: ``forward`` (no cache), ``prefill`` (cache fill), ``decode`` (one
-token, cache update). Attention blocks have no KV cache in the port yet,
-so they raise in ``prefill`` and ``decode``.
+token, cache update at ``index``). Local, global, MoE and shared-attention
+blocks, parallel blocks and sandwich norms are not ported.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
 
 
 def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
-                positions, mode: str = "forward", cache: Optional[Dict] = None
-                ) -> Tuple[torch.Tensor, float, Optional[Dict]]:
+                positions, mode: str = "forward", cache: Optional[Dict] = None,
+                index=None) -> Tuple[torch.Tensor, float, Optional[Dict]]:
     """x: (B, S, d) for the LM, (E, N, S, d) for the agent. Returns
     (x_out, aux_loss, cache_out); the aux loss is the MoE router's, 0.0 for
     every ported block, so it stays a Python number and costs no launch."""
@@ -47,19 +48,27 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
         else:
             y = ssm_mod.mamba_forward(params["mamba"], h, cfg)
         return x + y, aux, cache
-    if kind != "dense" or mode != "forward":
-        raise NotImplementedError(f"block {kind!r} in mode {mode!r} is not "
-                                  "ported")
+    if kind != "dense":
+        raise NotImplementedError(f"block kind {kind!r} is not ported")
     h = apply_norm(params["ln1"], x, cfg)
-    x = x + attn_mod.attn_forward(params["attn"], h, cfg, positions)
+    if mode == "decode":
+        a, cache = attn_mod.attn_decode(params["attn"], h, cfg, positions,
+                                        cache, index)
+    elif mode == "prefill":
+        a, cache = attn_mod.attn_prefill(params["attn"], h, cfg, positions,
+                                         cache)
+    else:
+        a = attn_mod.attn_forward(params["attn"], h, cfg, positions)
+    x = x + a
     h = apply_norm(params["ln2"], x, cfg)
-    x = x + apply_mlp(params["ffn"], h, cfg)
-    return x, aux, None
+    return x + apply_mlp(params["ffn"], h, cfg), aux, cache
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, s_cache: int,
                      dtype=None, device=None) -> Dict:
     if kind == "mamba":
         return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-    raise NotImplementedError(f"{kind!r} blocks have no decode cache in the "
-                              "port until attention decode is ported")
+    if kind != "dense":
+        raise NotImplementedError(f"{kind!r} blocks have no decode cache in "
+                                  "the port")
+    return attn_mod.init_kv_cache(cfg, batch, s_cache, dtype, device)

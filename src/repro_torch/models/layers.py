@@ -1,13 +1,14 @@
-"""Normalization, MLP and embedding layers (port of
-``repro.models.layers``, serving subset).
+"""Normalization, rotary embeddings, MLP and embedding layers (port of
+``repro.models.layers``, serving subset; M-RoPE is not ported).
 
 Parameters are nested dicts of tensors whose leading axes (``lead``) stack
 layers and, for the agent, experts; each ``init_*`` draws from an explicit
 ``torch.Generator``, on the generator's device. The agent's MLP products go
-through the grouped-GEMM kernel over the leading expert axis; the RMS
-branch of ``apply_norm`` goes through the RMSNorm kernel. The LM's
-embedding lookup and fp32 logits are plain PyTorch, as the reference left
-them to XLA.
+through the grouped-GEMM kernel over the leading expert axis; the LM's MLP
+(no expert axis) is the reference's einsums as ``torch.matmul``, which no
+TPU kernel computed. The RMS branch of ``apply_norm`` goes through the
+RMSNorm kernel. RoPE, the LM's embedding lookup and fp32 logits are plain
+PyTorch, as the reference left them to XLA.
 """
 from __future__ import annotations
 
@@ -78,6 +79,28 @@ def apply_norm(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             + _expand(params["bias"].float(), x)).to(dtype)
 
 
+# ----------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """(head_dim / 2,) fp32 inverse frequencies, as the reference computes
+    them in fp32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S). The
+    split-halves rotation in fp32, cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs         # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # ------------------------------------------------------------------------ mlp
 def _act(name: str):
     # jax.nn.gelu defaults to the tanh approximation; F.gelu does not
@@ -101,7 +124,11 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 
 def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (E, ..., d) -> (E, ..., d); one grouped GEMM per projection."""
+    """The agent's layout, ``wo`` (E, d_ff, d): x (E, ..., d) -> (E, ...,
+    d), one grouped GEMM per projection. The LM's, ``wo`` (d_ff, d): x
+    (..., d) -> (..., d), one ``torch.matmul`` per projection."""
+    if params["wo"].ndim == 2:
+        return _lm_mlp(params, x, cfg)
     act = _act(cfg.mlp_activation)
     E, din = x.shape[0], x.shape[-1]
     xc = x.reshape(E, -1, din)
@@ -116,6 +143,22 @@ def apply_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "bo" in params:
         out = out + params["bo"].to(cfg.cdtype).unsqueeze(1)
     return out.reshape(x.shape)
+
+
+def _lm_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's einsums: ``wi`` (d, 2, d_ff) gated or (d, d_ff)."""
+    act = _act(cfg.mlp_activation)
+    wi = params["wi"].to(cfg.cdtype)
+    h = x @ wi.reshape(wi.shape[0], -1)
+    if cfg.gated_mlp:
+        h = h.unflatten(-1, (2, -1))
+    if "bi" in params:
+        h = h + params["bi"].to(cfg.cdtype)
+    h = act(h[..., 0, :]) * h[..., 1, :] if cfg.gated_mlp else act(h)
+    out = h @ params["wo"].to(cfg.cdtype)
+    if "bo" in params:
+        out = out + params["bo"].to(cfg.cdtype)
+    return out
 
 
 # ------------------------------------------------------------------ embedding

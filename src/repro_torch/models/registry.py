@@ -12,6 +12,7 @@ from .common import ModelConfig
 _ARCH_MODULES = {
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "mirage-agent": "repro_torch.configs.mirage_agent",
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
 }
 
 

@@ -29,8 +29,8 @@ from .layers import (apply_norm, dense_init, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
 
 # features of ModelConfig that the port does not carry yet
-_UNPORTED = ("use_rope", "qk_norm", "qkv_bias", "use_mla", "parallel_block",
-             "sandwich_norm")
+_UNPORTED = ("qk_norm", "qkv_bias", "use_mla", "mrope_sections",
+             "parallel_block", "sandwich_norm")
 _CACHED_MODES = ("prefill", "decode")
 
 
@@ -116,9 +116,10 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                 index=None, s_cache: Optional[int] = None):
     """x: (B, S, d) for the LM, (E, N, S, d) for the agent, in the compute
     dtype. Returns (x, aux, cache): in ``prefill`` the cache is produced,
-    in ``decode`` ``cache`` is read and a new one returned (the input is
-    not written), otherwise it is None. ``index`` and ``s_cache`` size the
-    attention caches of the reference; Mamba blocks read neither."""
+    sized ``s_cache``, in ``decode`` ``cache`` is read and a new one
+    returned (the input is not written), otherwise it is None. ``index``
+    (decode: the tokens already cached, a scalar or one a row) places the
+    token in the attention caches; Mamba blocks read neither."""
     _check_supported(cfg)
     aux = 0.0
     cache_out = []
@@ -138,7 +139,7 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                 elif mode == "decode":
                     c = _layer(cache["segments"][si][name], r)
                 x, a, new[name] = apply_block(per_layer[name][r], kind, x,
-                                              cfg, positions, mode, c)
+                                              cfg, positions, mode, c, index)
                 aux = aux + a
             layers.append(new)
         if mode in _CACHED_MODES:
@@ -193,6 +194,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int, dtype=None,
                device=None) -> Dict:
     """Zero decode cache, each leaf stacked (L, batch, ...), on ``device``
     (CUDA unless ``device="cpu"``)."""
+    _check_supported(cfg)
     dev = resolve_device(device)
     segs = []
     for seg in layer_plan(cfg):
@@ -219,8 +221,9 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions,
 
 def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                 positions, cache: Dict, index):
-    """One decode step. token: (B, 1) int; index: scalar. Returns
-    (logits (B, V), new cache)."""
+    """One decode step. token: (B, 1) int; positions: (B, 1); index: the
+    tokens already in the cache, a scalar or a (B,) tensor (each row at its
+    own). Returns (logits (B, V), new cache); ``cache`` is not written."""
     x = embed_inputs(params, cfg, token)
     x, _, cache = apply_trunk(params, cfg, x, positions, mode="decode",
                               cache=cache, index=index)

@@ -4,11 +4,12 @@
 Requests occupy slots of a fixed decode batch; finished slots are refilled
 from the queue, and a new slot's prompt is fed through per-slot decode
 steps. The reference vmaps a single-sequence decode over the slots, each at
-its own cache index. The port runs attention-free configs only, where
-``mamba_decode`` reads no index and every row of a batched decode is that
-row's single-sequence decode: so one ``decode_step`` over all slots,
-followed by merging back only the slots that were meant to advance,
-computes what the reference computes.
+its own cache index. The port makes one batched ``decode_step`` with the
+slots' indices as a (batch,) tensor: each row writes its K/V at its own
+slot and masks its own length (``attn_decode``), and ``mamba_decode``
+reads no index, so every row of the batched step is that row's
+single-sequence decode. Merging back only the slots that were meant to
+advance then computes what the reference computes.
 
 This is the long-running inference service Mirage keeps alive across
 chained sub-jobs.
@@ -40,10 +41,6 @@ class ServeEngine:
                  s_max: int = 256, eos_id: Optional[int] = None, device=None):
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.arch_id} is encoder-only")
-        if not cfg.is_attention_free:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: KV-cache decode is not ported until "
-                "attention decode is")
         self.cfg, self.params = cfg, params
         self.batch, self.s_max = batch, s_max
         self.eos_id = eos_id
@@ -55,11 +52,12 @@ class ServeEngine:
         self.queue: List[Request] = []
 
     def _decode(self, toks: np.ndarray, idxs: np.ndarray):
-        """One decode step over every slot: (logits (batch, V), cache)."""
+        """One decode step over every slot, each at its own index:
+        (logits (batch, V), cache)."""
         tok = torch.from_numpy(toks.astype(np.int64)).to(self.device)[:, None]
-        pos = torch.from_numpy(idxs.astype(np.int64)).to(self.device)[:, None]
-        return transformer.decode_step(self.params, self.cfg, tok, pos,
-                                       self.cache, idxs)
+        idx = torch.from_numpy(idxs.astype(np.int64)).to(self.device)
+        return transformer.decode_step(self.params, self.cfg, tok,
+                                       idx[:, None], self.cache, idx)
 
     # ----------------------------------------------------------- requests
     def add_request(self, req: Request) -> None:

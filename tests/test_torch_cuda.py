@@ -7,7 +7,8 @@ test machine) and run on an H100 with
 
 This file imports nothing of JAX, so it runs where JAX is not installed.
 Shapes cover the agent's (S=144, a ragged last tile), GQA with a window and
-softcap at ragged lengths, every supported head dim, and for every kernel
+softcap at ragged lengths, TinyLlama's causal GQA prefill (S=2048, 32 q
+heads over 4 kv heads of 64), every supported head dim, and for every kernel
 both of its variants (flash, the GEMM and the SSD scan: bf16 on the tensor
 cores, fp32 and unaligned views on the CUDA cores; RMSNorm: 16-byte vectors,
 and one element per lane for rows off 16 bytes), each case asserting
@@ -33,7 +34,10 @@ through the counters which variant ran; both variants of each (RMSNorm's
 "vec" and "simt", the scan's "tc" and "simt") are also launched directly
 on the same bf16 inputs, ragged chunks included.
 
-Last, a 6-tenant ``ProvisionService`` over a reduced learner on the card:
+TinyLlama's first 2 layers at full width run a prefill and two decode
+steps on the card against the plain path on the CPU, same weights (2e-2 of
+each output's largest magnitude). Last, a 6-tenant ``ProvisionService``
+over a reduced learner on the card:
 no fallback, the breaker closed, and its ragged batches' flash and GEMM
 launches (batches x layers x 1 and x 6) all on the tensor cores.
 """
@@ -93,6 +97,7 @@ def _launched(kernel, fn):
         (2, 4, 2, 256, 256, 32, BF16, True, 0, 0.0, "tc"),     # short form's largest
         (2, 4, 4, 64, 64, 128, BF16, False, 0, 0.0, "tc"),
         (1, 2, 2, 33, 300, 32, BF16, False, 100, 0.0, "tc"),   # window, Sq < Skv
+        (1, 32, 4, 2048, 2048, 64, BF16, True, 0, 0.0, "tc"),  # TinyLlama prefill
     ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                     causal, window, softcap, variant):
@@ -333,6 +338,52 @@ def test_mamba_smoke_kernel_path(cuda, dtype):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
         else:
             assert (a - b).abs().max() <= 2e-2 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_dense_lm_kernel_path(cuda):
+    """The first 2 layers of TinyLlama-1.1B at its full width (32 q heads
+    over 4 kv heads of 64, bf16 compute): a 2 x 300 prefill into a cache of
+    302 and two decode steps on the card against the plain path on the CPU,
+    same weights. Each prefill launches one flash kernel a layer on the
+    tensor cores, each pass 2 x 2 + 1 vectorised norms; logits and the KV
+    cache hold within 2e-2 of their largest magnitude (a few bf16 ulps of
+    the hidden state, as the Mamba2 case)."""
+    from repro_torch.configs import tinyllama_1_1b
+    from repro_torch.convert import tree_map
+    from repro_torch.models import transformer
+    cfg = tinyllama_1_1b.CONFIG.replace(n_layers=2)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    B, S = 2, 300
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S + 2)))
+    pos = torch.arange(S + 2)[None].expand(B, S + 2)
+    n_flash, n_tc = flash_attention.launches, flash_attention.tc_launches
+    n_norm, n_vec = rmsnorm.launches, rmsnorm.vec_launches
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        with torch.inference_mode():
+            lg, cache = transformer.prefill(p, cfg, toks[:, :S].to(dev),
+                                            pos[:, :S].to(dev), S + 2)
+            lgs = [lg]
+            for i in range(S, S + 2):
+                lg, cache = transformer.decode_step(
+                    p, cfg, toks[:, i:i + 1].to(dev), pos[:, i:i + 1].to(dev),
+                    cache, i)
+                lgs.append(lg)
+        kv = cache["segments"][0]["b0"]
+        outs[dev] = [t.cpu() for t in lgs + [kv["k"], kv["v"]]]
+        del p
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n_flash == \
+        flash_attention.tc_launches - n_tc == cfg.n_layers
+    assert rmsnorm.launches - n_norm == rmsnorm.vec_launches - n_vec == \
+        3 * (2 * cfg.n_layers + 1)
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        assert (a.float() - b.float()).abs().max() <= \
+            2e-2 * b.float().abs().max()
 
 
 @pytest.mark.cuda

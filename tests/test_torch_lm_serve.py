@@ -125,8 +125,8 @@ def test_engine_rejects_unported_configs(model):
     _, tp = model
     with pytest.raises(ValueError):
         ServeEngine(t_agent.CONFIG, tp, device="cpu")          # encoder
-    with pytest.raises(NotImplementedError):
-        ServeEngine(ModelConfig(), tp, device="cpu")           # KV cache
+    with pytest.raises(NotImplementedError, match="qkv_bias"):
+        ServeEngine(ModelConfig(qkv_bias=True), tp, device="cpu")
 
 
 def test_prefill_and_serve_steps_match_jax(model):
@@ -183,8 +183,9 @@ def test_serve_step_takes_any_sample_as_the_reference(model, sample):
 
 
 def test_launcher_on_cpu(capsys):
-    out = t_launch.main(["--smoke", "--device", "cpu", "--requests", "3",
-                         "--max-new", "4", "--s-max", "32"])
+    out = t_launch.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
+                         "cpu", "--requests", "3", "--max-new", "4",
+                         "--s-max", "32"])
     assert out["arch"] == "mamba2-1.3b" and out["device"] == "cpu"
     assert out["done"] == out["requests"] == 3
     assert out["tokens"] == 12
@@ -196,11 +197,11 @@ def test_launcher_refuses_checkpoints(tmp_path):
     leaves is refused, and an empty directory serves fresh weights."""
     save_checkpoint(str(tmp_path), 1, {"other": torch.zeros(2)})
     with pytest.raises(KeyError, match="missing leaf"):
-        t_launch.main(["--smoke", "--device", "cpu", "--ckpt-dir",
-                       str(tmp_path)])
-    out = t_launch.main(["--smoke", "--device", "cpu", "--requests", "1",
-                         "--max-new", "2", "--ckpt-dir",
-                         str(tmp_path / "empty")])
+        t_launch.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
+                       "--ckpt-dir", str(tmp_path)])
+    out = t_launch.main(["--arch", "mamba2-1.3b", "--smoke", "--device",
+                         "cpu", "--requests", "1", "--max-new", "2",
+                         "--ckpt-dir", str(tmp_path / "empty")])
     assert out["done"] == 1
 
 
@@ -210,8 +211,8 @@ def test_launcher_restores_jax_checkpoint(model, tmp_path, capsys):
     gives on the same weights passed directly."""
     jp, tp = model
     jax_save(str(tmp_path), 7, {"params": jp})
-    argv = ["--smoke", "--device", "cpu", "--requests", "3", "--max-new",
-            "4", "--s-max", "32"]
+    argv = ["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
+            "--requests", "3", "--max-new", "4", "--s-max", "32"]
     out = t_launch.main(argv + ["--ckpt-dir", str(tmp_path)])
     assert "restored weights from step 7" in capsys.readouterr().out
     eng = ServeEngine(t_mamba.SMOKE, tp, batch=4, s_max=32, device="cpu")

@@ -374,8 +374,8 @@ def test_train_launcher_asks_for_cuda_and_refuses_unported(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_launch.main(["--smoke", "--steps", "1", "--ckpt-dir",
                        str(tmp_path)])
-    with pytest.raises(KeyError, match="tinyllama"):
-        t_launch.main(["--arch", "tinyllama-1.1b", "--smoke", "--device",
+    with pytest.raises(KeyError, match="qwen1.5-4b"):
+        t_launch.main(["--arch", "qwen1.5-4b", "--smoke", "--device",
                        "cpu", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="dist/"):
         t_launch.main(["--distributed", "--device", "cpu"])
