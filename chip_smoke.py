@@ -13,10 +13,12 @@ exits non-zero:
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at ragged ones, with the tolerance stated; each
    case checks through the launch counters which variant ran (flash, at
-   TinyLlama's causal GQA prefill shape (4,2048,32/4,64) among others, the
-   GEMM and the SSD scan: bf16 on the tensor cores, fp32 and unaligned
-   inputs on the CUDA cores; RMSNorm: 16-byte vectors, and one element per
-   lane for rows off 16 bytes); the backward kernels through autograd:
+   TinyLlama's causal GQA prefill shape (4,2048,32/4,64) and Qwen2-MoE's
+   (4,2048,16/16,128) among others, the GEMM (at the Qwen2-MoE experts'
+   prefill and decode shapes too) and the SSD scan: bf16 on the tensor
+   cores, fp32 and unaligned inputs on the CUDA cores; RMSNorm: 16-byte
+   vectors, and one element per lane for rows off 16 bytes); the backward
+   kernels through autograd:
    flash's (with the forward's row log-sum-exp) and the GEMM's (in bf16 both
    products from one launch of the fused kernel, dW split along C and the
    same bit for bit over repeated calls), and RMSNorm's and the SSD scan's
@@ -70,6 +72,22 @@ exits non-zero:
    torch.profiler; ``repro_torch.launch.serve --arch tinyllama-1.1b`` at
    its defaults (every request done, no flash launch, RMSNorm a multiple
    of 45);
+4d. Qwen1.5-MoE-A2.7B serving at its full published width and depth
+   (24 layers, d 2048, 16 heads of 128, 60 routed experts top-4 + 4 shared
+   of d_ff 1408, vocab 151,936), seeded random weights drawn on the card
+   (fp32, ~14.3 B parameters, bf16 compute) with the QKV biases drawn
+   nonzero: as 4c, a 4 x 2048 prefill into a cache of 2,080 and 32 decode
+   steps, raising unless each prefill launched exactly 48 grouped GEMMs
+   (the routed experts' wi and wo a layer), 24 flash and 49 RMSNorm, every
+   GEMM and flash on the tensor cores and every norm vectorised, and each
+   step 48, 0 and 49; the peak memory; the (token, k) pairs a prefill
+   drops at capacity; the first 2 layers' last-token logits and KV cache
+   against the plain path on the CPU at 1 x 512 (the CPU run takes the card
+   run's experts; every token the CPU's own router would send elsewhere is
+   counted and must be a near-tie); a prefill and a decode step under
+   torch.profiler, by kernel group; the drops again with the QKV biases
+   at the init's zeros; ``repro_torch.launch.serve --arch
+   qwen2-moe-a2.7b`` at its defaults;
 6. the Fig-8 grid on torch learners at the agent's full width, as
    ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
    cluster (V100), single-node chains, the six cells {light, medium, heavy}
@@ -111,7 +129,11 @@ exits non-zero:
    forward and backward, AdamW (profiled alone) and the other elementwise
    work; then ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
    resumed ("resumed at step 3") against an uninterrupted 6-step run, and
-   ``launch.serve --smoke --ckpt-dir`` serving from its checkpoint;
+   ``launch.serve --smoke --ckpt-dir`` serving from its checkpoint; last,
+   ``repro_torch.launch.train`` with no ``--arch`` (TinyLlama-1.1B, the
+   reference's default) at its full-width defaults, 8 x 128, for 3 steps,
+   its checkpoint not written: finite losses, the peak memory, and the
+   flash backward's launches by variant;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -124,7 +146,13 @@ exits non-zero:
    call, and at one TinyLlama prefill layer, (4,2048) causal with 32 q
    heads over 4 kv heads, beside its CUDA-core variant, its plain version
    and SDPA with GQA, with its bound (k and v counted at 4 heads); and
-   RMSNorm at the decode step's 4 rows; and the backward kernels
+   RMSNorm at the decode step's 4 rows; flash at one Qwen2-MoE prefill
+   layer, (4,2048,16/16,128) causal, and the grouped GEMM at its routed
+   experts' shapes (E = 60: a prefill's 684 rows an expert and a decode
+   step's 4, through wi and wo) beside ``torch.bmm``, each with its bound
+   and share; the flash backward at TinyLlama's training shape,
+   (2,2048,32/4,64) causal, beside SDPA's backward with ``enable_gqa``;
+   and the backward kernels
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
@@ -133,11 +161,12 @@ exits non-zero:
    the "simt" one as ``simt_ms``) beside their plain versions and, for
    RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 4c, 6, 7, 8, 5, and each ends with
-a ``[phase]`` line of its wall time. Each kernel's ``launches`` in the JSON
-record sums the counts of every path that runs it (phases 3, 4, 4b, 4c's
-prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c)), each counted
-from 0 just before its path and read just after.
+Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 6, 7, 8, 5, and each ends
+with a ``[phase]`` line of its wall time. Each kernel's ``launches`` in the
+JSON record sums the counts of every path that runs it (phases 3, 4, 4b,
+4c's and 4d's prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c)
+and the launcher at its defaults), each counted from 0 just before its
+path and read just after.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -163,7 +192,7 @@ import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import (mamba2_1_3b, mirage_agent,  # noqa: E402
-                                 tinyllama_1_1b)
+                                 qwen2_moe_a2_7b, tinyllama_1_1b)
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
                               CircuitBreaker, DecisionJournal, DQNConfig,
@@ -201,11 +230,13 @@ from repro_torch.kernels.ssd.ops import (  # noqa: E402
     _launch_bwd as ssd_launch_bwd)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import ProvisionService, ServiceConfig  # noqa: E402
 from repro_torch.sim import (LOAD_LEVELS, PROFILES,  # noqa: E402
                              get_fault_spec, get_scenario, iter_scenarios,
                              make_env, make_vector_env, synthesize_trace)
+from repro_torch.train import chain as train_chain  # noqa: E402
 from repro_torch.train import (OptimizerConfig, adamw_update,  # noqa: E402
                                init_opt_state, make_prefill_step,
                                make_serve_step, make_train_step)
@@ -270,6 +301,10 @@ LM_PLAIN_LAYERS, LM_PLAIN_PROMPT = 2, 512   # the kernel-vs-plain model check
 NORMS_PER_PASS = 2 * LM.n_layers + 1        # block norms, out_norms, final
 DENSE = tinyllama_1_1b.CONFIG                # phase 4c
 DENSE_NORMS = 2 * DENSE.n_layers + 1        # ln1 and ln2 a layer, final
+QWEN = qwen2_moe_a2_7b.CONFIG                # phase 4d
+QWEN_NORMS = 2 * QWEN.n_layers + 1
+QWEN_GEMMS = 2 * QWEN.n_layers              # the routed experts' wi and wo
+QKV_BIAS_STD = 0.5      # the biases drawn nonzero (the reference inits 0)
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
 FP32_BWD_REL_TOL = 1e-4  # the RMSNorm and SSD backward kernels against their
@@ -278,6 +313,7 @@ BF16_BWD_REL_TOL = 2e-2  # plain versions: of each gradient's largest value
 TRAIN_OCFG = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=10**9)
 LM_TRAIN_RUNS = (("a", 8, 128, 5), ("b", 2, 2048, 3))   # batch, seq, steps
 LM_GRAD_SEQ = 512       # the 2-layer gradient check: 1 x 512, two chunks
+TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 
 
@@ -394,6 +430,10 @@ def phase_kernels() -> dict:
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, DENSE.nq,
                              DENSE.nkv, DENSE.hd, torch.bfloat16), "tc",
          BF16_TOL, BF16_TOL),
+        ("flash Qwen2-MoE prefill, causal (4,2048,16/16,128) bf16",
+         dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, QWEN.nq,
+                             QWEN.nkv, QWEN.hd, torch.bfloat16), "tc",
+         BF16_TOL, BF16_TOL),
     ]
     for name, opts, shape, variant, atol, rtol in cases:
         if shape == "fused":
@@ -427,6 +467,12 @@ def phase_kernels() -> dict:
         ("gemm unaligned (1,37,1024)x(1,1024,53) bf16",
          (1, 37, 1024, 53, torch.bfloat16), "simt", BF16_TOL),
     ]
+    # the Qwen2-MoE routed experts: a 4 x 2048 prefill's 684 rows an expert
+    # (C = 171 a row of the batch) through wi and wo, a decode step's 4
+    cases += [(f"gemm Qwen2-MoE {what} ({QWEN.n_experts},{c},{a})x("
+               f"{QWEN.n_experts},{a},{b}) bf16",
+               (QWEN.n_experts, c, a, b, torch.bfloat16), "tc", BF16_TOL)
+              for what, c, a, b in _qwen_gemm_shapes()[:3]]
     for name, shape, variant, tol in cases:
         if shape == "gate":
             x, wi = gemm_inputs(gen, 3, 1000, d, 2 * f, torch.bfloat16)
@@ -1178,21 +1224,26 @@ def _counts():
     return {"flash_attention": flash_attention.launches,
             "flash_tc": flash_attention.tc_launches,
             "rmsnorm": rmsnorm.launches, "rmsnorm_vec": rmsnorm.vec_launches,
-            "ssd": ssd.launches, "ssd_tc": ssd.tc_launches}
+            "ssd": ssd.launches, "ssd_tc": ssd.tc_launches,
+            "grouped_gemm": grouped_gemm.launches,
+            "gemm_tc": grouped_gemm.tc_launches}
 
 
 def _set_counts() -> None:
     flash_attention.launches = flash_attention.tc_launches = 0
     rmsnorm.launches = rmsnorm.vec_launches = 0
     ssd.launches = ssd.tc_launches = 0
+    grouped_gemm.launches = grouped_gemm.tc_launches = 0
 
 
-def _pass_counts(norms: int, scans: int, flash: int = 0) -> dict:
-    """The counts of a pass of ``norms`` RMSNorm, ``scans`` SSD and
-    ``flash`` flash launches, every norm vectorised and every scan and
-    flash on the tensor cores."""
+def _pass_counts(norms: int, scans: int, flash: int = 0,
+                 gemms: int = 0) -> dict:
+    """The counts of a pass of ``norms`` RMSNorm, ``scans`` SSD, ``flash``
+    flash and ``gemms`` grouped GEMM launches, every norm vectorised and
+    every scan, flash and GEMM on the tensor cores."""
     return {"flash_attention": flash, "flash_tc": flash, "rmsnorm": norms,
-            "rmsnorm_vec": norms, "ssd": scans, "ssd_tc": scans}
+            "rmsnorm_vec": norms, "ssd": scans, "ssd_tc": scans,
+            "grouped_gemm": gemms, "gemm_tc": gemms}
 
 
 def _lm_inputs(gen, B, S, cfg=LM):
@@ -1447,6 +1498,270 @@ def phase_dense() -> dict:
     if not n or counts != _pass_counts(n * DENSE_NORMS, 0):
         raise RuntimeError(f"engine launched {counts}")
     line("dense_engine", **out, launches=counts, decode_calls=n)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------ 4d. Qwen1.5-MoE-A2.7B serving
+def _qwen_capacity(S: int) -> int:
+    """The routed experts' capacity a group of S tokens (``topk_moe``)."""
+    return max(1, int(np.ceil(S * QWEN.top_k * QWEN.capacity_factor
+                              / QWEN.n_experts)))
+
+
+def _qwen_gemm_shapes():
+    """(what, rows an expert, d_in, d_out) of the routed experts' two
+    grouped GEMMs at a 4 x 2048 prefill (one capacity group a prompt) and
+    at a decode step (one token a row)."""
+    d, f = QWEN.d_model, QWEN.expert_d_ff
+    pre = LM_BATCH * _qwen_capacity(min(LM_PROMPT, QWEN.moe_group_size))
+    dec = LM_BATCH * _qwen_capacity(1)
+    return [("prefill wi", pre, d, 2 * f), ("prefill wo", pre, f, d),
+            ("decode wi", dec, d, 2 * f), ("decode wo", dec, f, d)]
+
+
+def _draw_qkv_bias(gen, params) -> None:
+    """Nonzero QKV biases, N(0, QKV_BIAS_STD) in place of the init's zeros,
+    so that the run adds them."""
+    attn = params["segments"][0]["b0"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name] = _randn(gen, attn[name].shape, attn[name].dtype,
+                            QKV_BIAS_STD)
+
+
+class _RouteLog:
+    """While entered, records every ``topk_moe`` router call of the port
+    (its probabilities and chosen experts) and counts the (token, k) pairs
+    dropped at capacity; ``force`` replays recorded experts instead of the
+    top-k, each with its gate renormalised from this run's probabilities."""
+
+    def __init__(self, force=None):
+        self.routes, self.force = [], list(force) if force else None
+        self.dropped = None
+
+    def __enter__(self):
+        self._route, self._slots = moe_mod._route, moe_mod._capacity_slots
+
+        def route(params, x, cfg):
+            probs, gates, idx = self._route(params, x, cfg)
+            if self.force is not None:
+                idx = self.force.pop(0).to(idx.device)
+                gates = probs.gather(-1, idx)
+                gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                            min=1e-9)
+            self.routes.append((probs, idx))
+            return probs, gates, idx
+
+        def slots(idx, E, C):
+            out = self._slots(idx, E, C)
+            n = (~out[1]).sum()
+            self.dropped = n if self.dropped is None else self.dropped + n
+            return out
+        moe_mod._route, moe_mod._capacity_slots = route, slots
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod._route, moe_mod._capacity_slots = self._route, self._slots
+
+
+def _route_flips(card_routes, cpu_routes) -> dict:
+    """Tokens whose top-k experts differ between the card's run and the
+    CPU's own choice, layer by layer, and the largest gap (the K-th minus
+    the (K+1)-th of the CPU's probabilities, relative to the K-th) among
+    them; raises where a flipped token's gap exceeds LM_REL_TOL, which is
+    not a near-tie of bf16 roundings."""
+    flips, worst = [], 0.0
+    for (_, idx), (probs, _) in zip(card_routes, cpu_routes):
+        K = idx.shape[-1]
+        own = torch.topk(probs, K + 1, dim=-1)
+        same = (own.indices[..., :K].sort(-1).values
+                == idx.cpu().sort(-1).values).all(-1)
+        gap = (own.values[..., -2] - own.values[..., -1]) / own.values[..., -2]
+        flips.append(int((~same).sum()))
+        if flips[-1]:
+            worst = max(worst, float(gap[~same].max()))
+    if worst > LM_REL_TOL:
+        raise RuntimeError(f"a route flipped at a relative gap of {worst}")
+    return {"route_flips_by_layer": flips, "max_flip_gap_rel": worst}
+
+
+def check_moe_plain(params, toks) -> None:
+    """The first LM_PLAIN_LAYERS layers of full-width Qwen2-MoE, same
+    weights, prefill of one LM_PLAIN_PROMPT-token prompt: kernel path on
+    the card against the plain path on the CPU, last-token logits and the
+    KV cache. The CPU run takes the card run's experts for every token
+    (its own probabilities give the gates): a token whose K-th and
+    (K+1)-th router probabilities lie within bf16 roundings may route the
+    other way on the CPU, and one other expert moves its hidden state far
+    more than the tolerance. Such flips are counted, and each must be a
+    near-tie (``_route_flips``)."""
+    cfg = QWEN.replace(n_layers=LM_PLAIN_LAYERS)
+    sub = dict(params, segments=[{"b0": tree_map(
+        lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
+    x = toks[:1, :LM_PLAIN_PROMPT]
+    pos = torch.arange(LM_PLAIN_PROMPT, device="cuda")[None]
+    with torch.inference_mode():
+        _set_counts()
+        with _RouteLog() as card:
+            lg, cache = transformer.prefill(sub, cfg, x, pos)
+        torch.cuda.synchronize()
+        if _counts() != _pass_counts(2 * LM_PLAIN_LAYERS + 1, 0,
+                                     LM_PLAIN_LAYERS, 2 * LM_PLAIN_LAYERS):
+            raise RuntimeError(f"2-layer prefill launched {_counts()}")
+        t0 = time.perf_counter()
+        with _RouteLog(force=[i for _, i in card.routes]) as cpu:
+            lg_cpu, cache_cpu = transformer.prefill(
+                tree_map(lambda t: t.cpu(), sub), cfg, x.cpu(), pos.cpu())
+        cpu_s = time.perf_counter() - t0
+    kv, kv_cpu = (c["segments"][0]["b0"] for c in (cache, cache_cpu))
+    line("moe_plain", layers=LM_PLAIN_LAYERS, prompt=LM_PLAIN_PROMPT,
+         logits_max_abs_err=_rel_err(lg, lg_cpu, "logits"),
+         logits_scale=lg_cpu.abs().max().item(),
+         k_max_abs_err=_rel_err(kv["k"], kv_cpu["k"], "K cache"),
+         k_scale=kv_cpu["k"].abs().max().item(),
+         v_max_abs_err=_rel_err(kv["v"], kv_cpu["v"], "V cache"),
+         v_scale=kv_cpu["v"].abs().max().item(), rel_tol=LM_REL_TOL,
+         dropped_card=int(card.dropped), dropped_cpu=int(cpu.dropped),
+         **_route_flips(card.routes, cpu.routes), cpu_plain_s=cpu_s)
+
+
+_SERVE_GROUPS = (   # device-time groups of a serving profile
+    ("grouped_gemm", ("grouped_gemm_tc_kernel", "grouped_gemm_kernel")),
+    ("flash", ("flash_fwd",)),
+    ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
+    ("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("routing", ("topk", "TopK", "softmax", "scan", "sort", "radix")),
+    ("copy_cast", ("copy",)),
+    ("index", ("index", "gather", "scatter")),
+)
+
+
+def _serve_groups(rec: dict, unit: str) -> dict:
+    """Device ms a ``unit`` of each _SERVE_GROUPS group in a profile
+    record, the rest as "other"."""
+    out = defaultdict(float)
+    for k in rec["kernels"]:
+        group = next((g for g, keys in _SERVE_GROUPS
+                      if any(key in k["name"] for key in keys)), "other")
+        out[group] += k[f"ms_per_{unit}"]
+    return dict(out)
+
+
+def _moe_drops(prefill_step, params, toks, pos, bias_std: float):
+    """One prefill; prints the routed (token, k) pairs it dropped at
+    capacity over all layers, with the QKV biases' draw. Returns the
+    prefill's (logits, cache)."""
+    with torch.inference_mode(), _RouteLog() as log:
+        out = prefill_step(params, toks, pos)
+    pairs = QWEN.n_layers * LM_BATCH * LM_PROMPT * QWEN.top_k
+    line("moe_drops", what="routed (token, k) pairs dropped at capacity, "
+         "one 4 x 2048 prefill, all layers", qkv_bias_std=bias_std,
+         dropped=int(log.dropped), pairs=pairs,
+         share=int(log.dropped) / pairs,
+         tokens_in_a_group=min(LM_PROMPT, QWEN.moe_group_size),
+         capacity=_qwen_capacity(LM_PROMPT))
+    return out
+
+
+def phase_moe() -> dict:
+    """Qwen1.5-MoE-A2.7B at its full published width and depth, seeded
+    weights drawn on the card with nonzero QKV biases: a 4 x 2048 prefill
+    into a cache of 2048 + 32 positions and 32 greedy decode steps (the
+    routed experts' 2 grouped GEMMs a layer on the tensor cores, flash 24 a
+    prefill on the tensor cores and none a step, RMSNorm 49 each), the
+    tokens the prefill drops at capacity, the 2-layer check against the
+    CPU, a profiled prefill and decode step by kernel group, the drops
+    again with the QKV biases at the init's zeros, then the serve launcher
+    at its defaults. Returns the prefill's and decode steps'
+    launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(gen, QWEN)
+    _draw_qkv_bias(gen, params)
+    torch.cuda.synchronize()
+    sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
+    line("moe_init", arch=QWEN.arch_id, layers=QWEN.n_layers,
+         d_model=QWEN.d_model, heads=QWEN.nq, kv_heads=QWEN.nkv,
+         head_dim=QWEN.hd, experts=QWEN.n_experts, top_k=QWEN.top_k,
+         shared_experts=QWEN.n_shared_experts, expert_d_ff=QWEN.expert_d_ff,
+         vocab=QWEN.vocab, params=sum(n for n, _ in sizes),
+         param_gb=sum(n * b for n, b in sizes) / 1e9,
+         init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         qkv_bias_std=QKV_BIAS_STD, seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, QWEN)
+    s_cache = LM_PROMPT + LM_DECODE
+    warm = 256
+    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
+        lg, cache = make_prefill_step(QWEN, s_cache=warm + 1)(
+            params, toks[:, :warm], pos[:, :warm])
+        make_serve_step(QWEN)(params, lg.argmax(-1, keepdim=True).to(
+            torch.int32), pos[:, :1] + warm, cache, warm)
+    torch.cuda.synchronize()
+    del lg, cache
+    torch.cuda.reset_peak_memory_stats()
+
+    _set_counts()                     # Qwen2-MoE's main path
+    res = lm_prefill_decode(
+        QWEN, params, toks, pos,
+        _pass_counts(QWEN_NORMS, 0, QWEN.n_layers, QWEN_GEMMS),
+        _pass_counts(QWEN_NORMS, 0, 0, QWEN_GEMMS), s_cache=s_cache)
+    launches = _counts()
+    line("moe_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
+         decode_steps=LM_DECODE, launches=launches,
+         gemm_per_pass=QWEN_GEMMS, flash_per_prefill=QWEN.n_layers,
+         rmsnorm_per_pass=QWEN_NORMS,
+         capacity_prefill=_qwen_capacity(LM_PROMPT),
+         capacity_decode=_qwen_capacity(1),
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+
+    prefill_step = make_prefill_step(QWEN, s_cache=s_cache)
+    serve_step = make_serve_step(QWEN)
+    lg, cache = _moe_drops(prefill_step, params, toks, pos, QKV_BIAS_STD)
+
+    check_moe_plain(params, toks)
+
+    # the prefill and one decode step, each profiled alone
+    tok0 = lg.argmax(-1, keepdim=True).to(torch.int32)
+
+    def decode():
+        with torch.inference_mode():
+            serve_step(params, tok0, pos[:, -1:] + 1, cache, LM_PROMPT)
+    with torch.inference_mode():
+        rec = profile_device("qwen2-moe prefill",
+                             lambda: prefill_step(params, toks, pos), 1,
+                             "prefill", batch=LM_BATCH, prompt=LM_PROMPT)
+    line("moe_profile", what="prefill", wall_ms=rec["wall_ms_per_prefill"],
+         device_ms=rec["device_ms_per_prefill"],
+         device_busy_share=rec["device_busy_share"],
+         launches=rec["device_calls_per_prefill"],
+         device_ms_by_group=_serve_groups(rec, "prefill"))
+    rec = profile_device("qwen2-moe decode", decode, 1, "step",
+                         batch=LM_BATCH)
+    line("moe_profile", what="decode step", wall_ms=rec["wall_ms_per_step"],
+         device_ms=rec["device_ms_per_step"],
+         device_busy_share=rec["device_busy_share"],
+         launches=rec["device_calls_per_step"],
+         device_ms_by_group=_serve_groups(rec, "step"))
+    del cache, lg, tok0
+    # the drop share again with the QKV biases at the init's zeros
+    attn = params["segments"][0]["b0"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name].zero_()
+    _moe_drops(prefill_step, params, toks, pos, 0.0)
+    del params
+    torch.cuda.empty_cache()
+
+    _set_counts()
+    out = serve_launcher.main(["--arch", QWEN.arch_id])
+    counts = _counts()
+    if out["done"] != out["requests"]:
+        raise RuntimeError(f"engine finished {out['done']} of "
+                           f"{out['requests']} requests")
+    n = counts["rmsnorm"] // QWEN_NORMS
+    if not n or counts != _pass_counts(n * QWEN_NORMS, 0, 0, n * QWEN_GEMMS):
+        raise RuntimeError(f"engine launched {counts}")
+    line("moe_engine", **out, launches=counts, decode_calls=n)
     torch.cuda.empty_cache()
     return launches
 
@@ -2044,6 +2359,78 @@ def check_train_launcher() -> None:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
+class _NoCheckpoint:
+    """Stands in for the train launcher's checkpointer in the full-width
+    run: it records the steps it is asked to save and writes nothing. A
+    TinyLlama-1.1B state with its AdamW moments is ~13.2 GB, too slow to
+    compress and write inside the script's time limit; the launcher's
+    checkpoint and resume run at ``--smoke`` (``check_train_launcher``)."""
+    saves: list = []
+
+    def __init__(self, directory, keep_last=3):
+        _NoCheckpoint.saves = []
+
+    def save(self, step, state) -> None:
+        _NoCheckpoint.saves.append(step)
+
+    def wait(self) -> None:
+        pass
+
+
+def check_train_launcher_default() -> dict:
+    """``repro_torch.launch.train`` with no ``--arch`` (TinyLlama-1.1B, the
+    reference's default) at its full-width defaults, 8 x 128, for
+    TRAIN_DEFAULT_STEPS steps, its checkpoint not written (``_NoCheckpoint``):
+    finite losses, the peak memory, and exactly one flash forward and
+    backward a layer a step and DENSE_NORMS RMSNorm each way, every flash
+    forward on the tensor cores and every norm vectorised; the flash
+    backward's launches by variant. Returns the launches."""
+    _set_lm_train_counts()
+    flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    real, train_chain.AsyncCheckpointer = (train_chain.AsyncCheckpointer,
+                                           _NoCheckpoint)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            t0 = time.perf_counter()
+            out = train_launcher.main(["--steps", str(TRAIN_DEFAULT_STEPS),
+                                       "--ckpt-dir", str(TRAIN_DIR)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        train_chain.AsyncCheckpointer = real
+    print(buf.getvalue(), end="", flush=True)
+    got = dict(_lm_train_counts(),
+               flash_attention_bwd=flash_attention_bwd.launches,
+               flash_bwd_tc=flash_attention_bwd.tc_launches)
+    passes = TRAIN_DEFAULT_STEPS * DENSE.n_layers
+    norms = TRAIN_DEFAULT_STEPS * DENSE_NORMS
+    keys = ("flash_attention", "flash_tc", "flash_attention_bwd", "rmsnorm",
+            "rmsnorm_vec", "rmsnorm_bwd", "rmsnorm_bwd_vec")
+    want = (passes,) * 3 + (norms,) * 4
+    if out["arch"] != DENSE.arch_id or \
+            out["steps_done"] != TRAIN_DEFAULT_STEPS or \
+            tuple(got[k] for k in keys) != want:
+        raise RuntimeError(f"launch.train at its defaults: {out['arch']}, "
+                           f"{out['steps_done']} steps, launched {got}")
+    line("lm_train", run="launcher defaults, no --arch", arch=out["arch"],
+         params=out["params"], batch=8, seq=128, steps=out["steps_done"],
+         losses=_finite("launcher defaults", out["losses"]), wall_s=wall,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         checkpoint_saves_not_written=_NoCheckpoint.saves,
+         flash_bwd_launches=got["flash_attention_bwd"],
+         flash_bwd_by_variant={"tc": got["flash_bwd_tc"],
+                               "simt": got["flash_attention_bwd"]
+                               - got["flash_bwd_tc"]},
+         launches=got)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return {"flash_attention": got["flash_attention"],
+            "flash_attention_bwd": got["flash_attention_bwd"],
+            "rmsnorm": got["rmsnorm"], "rmsnorm_bwd": got["rmsnorm_bwd"]}
+
+
 def phase_lm_train() -> dict:
     """Mamba2-1.3B training at full width with seeded weights drawn on the
     card: runs (a) and (b), one micro-batched step (c), the 2-layer
@@ -2094,6 +2481,9 @@ def phase_lm_train() -> dict:
     del params, opt
     torch.cuda.empty_cache()
     check_train_launcher()
+    torch.cuda.empty_cache()
+    for k, v in check_train_launcher_default().items():
+        totals[k] += v
     torch.cuda.empty_cache()
     return dict(totals)
 
@@ -2232,6 +2622,9 @@ def phase_timing(errs: dict, launches: dict) -> list:
                            4 * pairs * Dl)[0])
     del q, k, v, qt, kt, vt
     line("time", **time_flash_gqa(gen))
+    line("time", **time_flash_gqa(gen, QWEN, "Qwen2-MoE"))
+    for rec in time_moe_gemms(gen):
+        line("time", **rec)
 
     # one trunk layer's six projections at E=10, C = 2 actions x 32 lanes x 144
     C, d, f = 2 * LANES * HISTORY, TRUNK.d_model, TRUNK.d_ff
@@ -2351,13 +2744,14 @@ def phase_timing(errs: dict, launches: dict) -> list:
         gen, errs, launches) + time_lm_backward(gen, errs, launches)
 
 
-def time_flash_gqa(gen) -> dict:
-    """Flash at one TinyLlama prefill layer, (4,2048) causal, 32 q heads
-    over 4 kv heads of 64, bf16: the streaming form on phase 4c's path,
-    beside the CUDA-core variant, the plain version and SDPA with
-    ``enable_gqa``. The bound counts k and v at their 4 heads and the
-    causal triangle's products."""
-    B, S, Hq, Hkv, D = LM_BATCH, LM_PROMPT, DENSE.nq, DENSE.nkv, DENSE.hd
+def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama") -> dict:
+    """Flash at one prefill layer of ``cfg``, (4,2048) causal, bf16 (for
+    TinyLlama 32 q heads over 4 kv heads of 64, phase 4c's path; for
+    Qwen2-MoE 16 over 16 of 128, phase 4d's): the streaming form beside the
+    CUDA-core variant, the plain version and SDPA with ``enable_gqa``. The
+    bound counts k and v at their own heads and the causal triangle's
+    products."""
+    B, S, Hq, Hkv, D = LM_BATCH, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
@@ -2368,7 +2762,7 @@ def time_flash_gqa(gen) -> dict:
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     bms, by = bound_ms(nbytes, 4 * pairs * D)
     return dict(
-        name="flash_attention TinyLlama prefill layer",
+        name=f"flash_attention {what} prefill layer",
         shape=f"q ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, causal",
         variant=variant, ms=ms,
         plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
@@ -2381,6 +2775,74 @@ def time_flash_gqa(gen) -> dict:
             scale=D ** -0.5), reps=3),
         host_us=host_us(gqa), bound_ms=bms, bound_by=by, bytes=nbytes,
         flops=4 * pairs * D)
+
+
+def time_moe_gemms(gen) -> list:
+    """The Qwen2-MoE routed experts' grouped GEMMs (E = 60, bf16) at a 4 x
+    2048 prefill's 684 rows an expert and a decode step's 4, wi then wo:
+    the kernel beside its plain version and ``torch.bmm``, with the bound
+    (x and w read, out written once; 2 x rows x d x f products an expert)
+    and the kernel's share of it."""
+    recs = []
+    for what, C, din, dout in _qwen_gemm_shapes():
+        x, w = gemm_inputs(gen, QWEN.n_experts, C, din, dout, torch.bfloat16)
+        ms, variant = timed_variant(grouped_gemm, lambda: grouped_gemm(x, w))
+        nbytes = (x.numel() + w.numel() + x.shape[0] * C * dout) * 2
+        flops = 2 * x.shape[0] * C * din * dout
+        bms, by = bound_ms(nbytes, flops)
+        recs.append(dict(
+            name=f"grouped_gemm Qwen2-MoE {what}",
+            shape=f"({QWEN.n_experts},{C},{din})x({QWEN.n_experts},{din},"
+                  f"{dout}) bf16", variant=variant, ms=ms,
+            plain_ms=time_ms(lambda: grouped_gemm_ref(x, w), reps=5),
+            library_ms=time_ms(lambda: torch.bmm(x, w)), library="torch.bmm",
+            host_us=host_us(lambda: grouped_gemm(x, w)), bound_ms=bms,
+            bound_by=by, bound_share=bms / ms, bytes=nbytes, flops=flops))
+        del x, w
+    return recs
+
+
+def time_flash_bwd_gqa(gen) -> dict:
+    """The flash backward at TinyLlama's training shape, (2,2048) causal,
+    32 q heads over 4 kv heads of 64, bf16, from the forward's out and lse
+    (the variant ``_flash_bwd_variant`` picks: "simt", as GQA and S > 256
+    rule the tensor-core one out), beside its plain version and SDPA's
+    backward with ``enable_gqa``. The bound: q, o, dO, dq at 32 heads and
+    k, v, dk, dv at 4 read or written once; five products over the causal
+    triangle (q.k^T again, dP, dV, dQ, dK)."""
+    B, S, Hq, Hkv, D = 2, LM_PROMPT, DENSE.nq, DENSE.nkv, DENSE.hd
+    q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
+    do = _randn(gen, q.shape, torch.bfloat16)
+    o, lse = flash_launch(q, k, v, _flash_variant(q, k, v), causal=True,
+                          window=0, softcap=0.0, scale=D ** -0.5, lse=True)
+
+    def bwd():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    n, n_tc = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
+    ms = time_ms(bwd, reps=10)
+    n, n_tc = (flash_attention_bwd.launches - n,
+               flash_attention_bwd.tc_launches - n_tc)
+    variant = "tc" if n_tc == n else "simt" if not n_tc else "mixed"
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    pairs = B * Hq * S * (S + 1) // 2
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = 5 * 2 * pairs * D
+    bms, by = bound_ms(nbytes, flops)
+    return dict(
+        name="flash_attention_bwd TinyLlama training layer",
+        shape=f"q,o,dO ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, "
+              "causal", variant=variant, ms=ms,
+        plain_ms=time_ms(lambda: flash_attention_bwd_ref(
+            q, k, v, o, lse, do, causal=True), reps=3),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            sdpa, (qt, kt, vt), dot, retain_graph=True)),
+        library="F.scaled_dot_product_attention(enable_gqa=True) backward",
+        host_us=host_us(bwd, reps=10), bound_ms=bms, bound_by=by,
+        bound_share=bms / ms, bytes=nbytes, flops=flops)
 
 
 class _Identity(torch.autograd.Function):
@@ -2580,6 +3042,7 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
         shape="dX and dW of one trunk layer's 6 projections, E=10, C=9216, "
               "bf16, one fused launch a projection", **tot)
     line("time", **gemm_rec, **extra)
+    line("time", **time_flash_bwd_gqa(gen))
     return [flash_rec, gemm_rec]
 
 
@@ -2789,6 +3252,7 @@ def main() -> int:
     launches.update(phase("4 Mamba2 serving", phase_lm))
     launches.update(phase("4b agent training", phase_train, trace, cfg, venv))
     launches.update(phase("4c TinyLlama serving", phase_dense))
+    launches.update(phase("4d Qwen2-MoE serving", phase_moe))
     policies, grid = phase("6 grid", phase_grid)
     service = phase("7 service", phase_service, policies)
     del policies

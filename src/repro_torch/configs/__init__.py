@@ -1,2 +1,2 @@
 """Model configs of the port: the Mirage agent's foundation trunk and the
-payload LMs it serves (Mamba2-1.3B, TinyLlama-1.1B)."""
+payload LMs it serves (Mamba2-1.3B, TinyLlama-1.1B, Qwen1.5-MoE-A2.7B)."""

@@ -5,7 +5,10 @@ Layouts:
 
 * LM tree of ``transformer.init`` (``embed.table``, ``segments[i].b0`` with
   leaves stacked (L, ...), ``final_norm``, ``head``). The port keeps it as
-  it is: no expert axis, every leaf the same shape.
+  it is: no expert axis, every leaf the same shape. That holds for the MoE
+  blocks' leaves too (``ffn.router`` (L, d, E), ``ffn.experts.wi`` (L, E,
+  d, 2, f) and ``.wo``, ``ffn.shared.{wi, wo}``) and the QKV biases
+  (``attn.bq`` (L, nq, hd), ``bk``, ``bv``).
 
 * ``transformer`` kind. JAX leaves have no expert axis, and segment leaves
   are stacked over layers, (L, ...) (``repro/models/transformer.py:50``).

@@ -5,9 +5,10 @@ The loop is the chained-sub-job protocol: resume from the newest
 checkpoint, train until the wall-clock guard (or step budget) fires,
 checkpoint, exit 0 — the successor sub-job (already queued by the
 provisioner) picks it up. It runs on one CUDA card unless ``--device cpu``
-is given; ``--arch`` names an architecture the port carries.
+is given; ``--arch`` names an architecture the port carries and defaults
+to TinyLlama-1.1B, as in the reference.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --steps 100 --wall-limit 3600 --ckpt-dir checkpoints/svc [--smoke] \
       [--device cpu]
 """
@@ -19,7 +20,7 @@ from typing import Dict, List, Optional
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-1.3b")
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--steps", type=int, default=100)

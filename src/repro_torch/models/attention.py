@@ -4,8 +4,11 @@ cache; MLA, M-RoPE and the sliding-window ring buffer are not ported).
 ``attention_core`` dispatches as the reference does: ``flash`` without a
 window or ``kv_len_valid`` goes to the flash-attention kernel; every other
 case, decode among them, computes the reference math
-(``attention_reference``). The reference's chunked scan computes the same
-function and is not ported.
+(``attention_reference``). Padded q heads that do not divide into the kv
+heads reach the kernel with K/V broadcast to the q heads by ``_repeat_kv``
+(a padded head reads the last kv head), since the kernel takes only
+Hq % Hkv == 0. The reference's chunked scan computes the same function and
+is not ported.
 
 Two layouts share the projections. The LM's: x (B, S, d), ``wq`` (d, H,
 hd), products by ``torch.matmul`` as the reference's einsums. The agent's:
@@ -95,6 +98,8 @@ def attention_core(q, k, v, q_pos, kv_pos, cfg: ModelConfig, *, causal,
     if q.shape[1] == 1:
         impl = "reference"       # decode: (B,H,1,S) logits, no kernel
     if impl == "flash" and kv_len_valid is None and window == 0:
+        if q.shape[2] % k.shape[2]:      # padded q heads: Hq = Hkv
+            k, v = _repeat_kv(k, v, q.shape[2])
         return attention_flash(q, k, v, q_pos, kv_pos, causal=causal,
                                softcap=softcap, scale=scale)
     return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
@@ -117,13 +122,19 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
         mask = (torch.arange(nq) < cfg.n_heads).to(p["wq"].dtype)
         p["wq"] = p["wq"] * mask[:, None]
         p["wo"] = p["wo"] * mask[:, None, None]
+    if cfg.qkv_bias:
+        lead = tuple(lead)
+        p["bq"] = torch.zeros(lead + (nq, hd), dtype=cfg.pdtype)
+        p["bk"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype)
+        p["bv"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype)
     return p
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions=None):
-    """The LM's x (B, S, d) -> q, k, v (B, S, H, hd), RoPE'd at
-    ``positions`` (B, S) where the config uses it; the agent's x (E, N, S,
-    d) -> (E*N, S, H, hd), one grouped GEMM a projection."""
+    """The LM's x (B, S, d) -> q, k, v (B, S, H, hd), the QKV biases added
+    in the compute dtype where the config has them, then RoPE'd at
+    ``positions`` (B, S) where it uses it; the agent's x (E, N, S, d) ->
+    (E*N, S, H, hd), one grouped GEMM a projection."""
     if params["wq"].ndim == 4:
         E, N, S, d = x.shape
         xc = x.reshape(E, N * S, d)
@@ -136,8 +147,10 @@ def _project_qkv(params, x, cfg: ModelConfig, positions=None):
     out = []
     for name in ("wq", "wk", "wv"):
         w = params[name].to(cfg.cdtype)
-        y = x @ w.reshape(w.shape[0], -1)
-        out.append(y.unflatten(-1, w.shape[1:]))
+        y = (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+        if cfg.qkv_bias:
+            y = y + params["b" + name[1]].to(cfg.cdtype)
+        out.append(y)
     q, k, v = out
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)

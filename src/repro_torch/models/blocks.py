@@ -1,11 +1,11 @@
 """Block assembly (port of ``repro.models.blocks``, serving subset): dense
-attention + MLP blocks and Mamba2 SSD blocks, in three modes. The agent
-runs dense blocks in ``forward`` mode over a leading expert axis; the LMs
-run them in every mode.
+attention + MLP blocks, MoE blocks (attention + top-k MoE) and Mamba2 SSD
+blocks, in three modes. The agent runs dense blocks in ``forward`` mode over
+a leading expert axis; the LMs run them in every mode.
 
 Modes: ``forward`` (no cache), ``prefill`` (cache fill), ``decode`` (one
-token, cache update at ``index``). Local, global, MoE and shared-attention
-blocks, parallel blocks and sandwich norms are not ported.
+token, cache update at ``index``). Local, global and shared-attention
+blocks, MLA, parallel blocks and sandwich norms are not ported.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from .common import ModelConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
@@ -24,19 +25,29 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
     if kind == "mamba":
         return {"ln": init_norm(cfg, lead=lead),
                 "mamba": ssm_mod.init_mamba(gen, cfg, lead)}
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported")
-    return {"ln1": init_norm(cfg, lead=lead), "ln2": init_norm(cfg, lead=lead),
-            "attn": attn_mod.init_attention(gen, cfg, lead),
-            "ffn": init_mlp(gen, cfg, lead=lead)}
+    p = {"ln1": init_norm(cfg, lead=lead), "ln2": init_norm(cfg, lead=lead),
+         "attn": attn_mod.init_attention(gen, cfg, lead)}
+    if kind == "moe":
+        p["ffn"] = moe_mod.init_moe(gen, cfg, lead)
+    elif cfg.n_experts and cfg.first_k_dense:
+        # deepseek-style leading dense layer uses the wide dense d_ff
+        p["ffn"] = init_mlp(gen, cfg, d_ff=cfg.shared_d_ff or cfg.d_ff,
+                            lead=lead)
+    else:
+        p["ffn"] = init_mlp(gen, cfg, lead=lead)
+    return p
 
 
 def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                 positions, mode: str = "forward", cache: Optional[Dict] = None,
-                index=None) -> Tuple[torch.Tensor, float, Optional[Dict]]:
+                index=None) -> Tuple[torch.Tensor, object, Optional[Dict]]:
     """x: (B, S, d) for the LM, (E, N, S, d) for the agent. Returns
-    (x_out, aux_loss, cache_out); the aux loss is the MoE router's, 0.0 for
-    every ported block, so it stays a Python number and costs no launch."""
+    (x_out, aux_loss, cache_out); the aux loss is the MoE router's, an fp32
+    scalar tensor for ``moe`` blocks in ``forward`` mode, and 0.0 for the
+    rest and in the cached modes, whose callers drop it: there it stays a
+    Python number and costs no launch."""
     aux = 0.0
     if kind == "mamba":
         h = apply_norm(params["ln"], x, cfg)
@@ -48,7 +59,7 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
         else:
             y = ssm_mod.mamba_forward(params["mamba"], h, cfg)
         return x + y, aux, cache
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     h = apply_norm(params["ln1"], x, cfg)
     if mode == "decode":
@@ -61,14 +72,20 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
         a = attn_mod.attn_forward(params["attn"], h, cfg, positions)
     x = x + a
     h = apply_norm(params["ln2"], x, cfg)
-    return x + apply_mlp(params["ffn"], h, cfg), aux, cache
+    if kind == "moe":
+        f, aux = moe_mod.moe_forward(params["ffn"], h, cfg,
+                                     scheme=cfg.moe_scheme,
+                                     with_aux=mode == "forward")
+    else:
+        f = apply_mlp(params["ffn"], h, cfg)
+    return x + f, aux, cache
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, s_cache: int,
                      dtype=None, device=None) -> Dict:
     if kind == "mamba":
         return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"{kind!r} blocks have no decode cache in "
                                   "the port")
     return attn_mod.init_kv_cache(cfg, batch, s_cache, dtype, device)

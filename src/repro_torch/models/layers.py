@@ -32,7 +32,8 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dims, dtype,
     w = torch.empty(tuple(lead) + (in_dim,) + tuple(out_dims),
                     device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    # scaled in place: a stacked expert leaf is tens of GB at full width
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,

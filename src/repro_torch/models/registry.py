@@ -12,6 +12,7 @@ from .common import ModelConfig
 _ARCH_MODULES = {
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "mirage-agent": "repro_torch.configs.mirage_agent",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
 }
 

@@ -29,8 +29,8 @@ from .layers import (apply_norm, dense_init, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
 
 # features of ModelConfig that the port does not carry yet
-_UNPORTED = ("qk_norm", "qkv_bias", "use_mla", "mrope_sections",
-             "parallel_block", "sandwich_norm")
+_UNPORTED = ("qk_norm", "use_mla", "mrope_sections", "parallel_block",
+             "sandwich_norm")
 _CACHED_MODES = ("prefill", "decode")
 
 
@@ -115,11 +115,13 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                 mode: str = "forward", cache: Optional[Dict] = None,
                 index=None, s_cache: Optional[int] = None):
     """x: (B, S, d) for the LM, (E, N, S, d) for the agent, in the compute
-    dtype. Returns (x, aux, cache): in ``prefill`` the cache is produced,
-    sized ``s_cache``, in ``decode`` ``cache`` is read and a new one
-    returned (the input is not written), otherwise it is None. ``index``
-    (decode: the tokens already cached, a scalar or one a row) places the
-    token in the attention caches; Mamba blocks read neither."""
+    dtype. Returns (x, aux, cache): aux is the MoE blocks' router losses
+    summed in ``forward`` mode, 0.0 in the cached modes, whose callers drop
+    it; in ``prefill`` the cache is produced, sized ``s_cache``, in
+    ``decode`` ``cache`` is read and a new one returned (the input is not
+    written), otherwise it is None. ``index`` (decode: the tokens already
+    cached, a scalar or one a row) places the token in the attention
+    caches; Mamba blocks read neither."""
     _check_supported(cfg)
     aux = 0.0
     cache_out = []
@@ -157,7 +159,8 @@ def embed_inputs(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
 
 
 def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions):
-    """Full forward: returns (logits (B,S,V) fp32, aux loss (a float))."""
+    """Full forward: returns (logits (B,S,V) fp32, aux loss: the MoE
+    blocks' router losses summed, a float 0.0 without MoE blocks)."""
     x = embed_inputs(params, cfg, inputs)
     x, aux, _ = apply_trunk(params, cfg, x, positions, mode="forward")
     return lm_logits(params, x, cfg, embed_params=params.get("embed")), aux
@@ -166,8 +169,9 @@ def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions):
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
     """Next-token cross entropy: (loss, {"ce", "aux", "accuracy"}). The
     padded vocab entries are masked out, labels below 0 count as invalid,
-    and ``loss = ce + aux``; the trunk's aux is a Python 0.0 (no MoE block
-    is ported), which adds nothing and launches nothing."""
+    and ``loss = ce + aux``: the MoE blocks' router losses summed, or, for
+    a trunk without MoE blocks, a Python 0.0 that adds nothing and launches
+    nothing."""
     positions = batch.get("positions")
     if positions is None:
         B, S = batch["inputs"].shape[:2]

@@ -49,3 +49,28 @@ def test_checksum_copy_replaces_both_scratch_stores(copies):
     for text in phases.STORES:
         assert text in base and text not in src
     assert src.count("float cs = 0.f;") == base.count("float cs = 0.f;") + 2
+
+
+def test_compare_trees_reads_the_compared_numbers():
+    """``compare_trees.summarize`` picks each phase's wall time, the LM
+    serving lines' step times and the service rates out of a run's log,
+    and passes over every other line."""
+    from repro_torch.analysis import compare_trees
+    log = "\n".join([
+        "NVIDIA H100 80GB HBM3, 700.00 W",
+        '[phase] {"name": "4 Mamba2 serving", "wall_s": 21.5}',
+        '[lm_serve] {"batch": 4, "prefill_ms": 113.9, "decode_ms_mean": 59.0,'
+        ' "decode_ms_p50": 55.0, "launches": {}}',
+        '[dense_serve] {"prefill_ms": 90.0, "decode_ms_mean": 30.0}',
+        '[service] {"what": "co-sim", "tenants": 1024, '
+        '"decisions_per_s": 1280.2}',
+        '[service] {"what": "journal", "decisions": 3}',
+        "[check] not json",
+    ])
+    assert compare_trees.summarize(log) == {
+        "phase_s": {"4 Mamba2 serving": 21.5},
+        "lm_serve": {"prefill_ms": 113.9, "decode_ms_mean": 59.0,
+                     "decode_ms_p50": 55.0},
+        "dense_serve": {"prefill_ms": 90.0, "decode_ms_mean": 30.0},
+        "service co-sim": 1280.2}
+    assert compare_trees.ORDER == ("parent", "change", "change", "parent")

@@ -34,6 +34,11 @@ through the counters which variant ran; both variants of each (RMSNorm's
 "vec" and "simt", the scan's "tc" and "simt") are also launched directly
 on the same bf16 inputs, ragged chunks included.
 
+Qwen2-MoE's MoE layer at ``SMOKE`` runs on the card against the CPU (its
+two grouped GEMMs on the tensor cores in bf16), and the grouped GEMM at the
+full model's expert shapes: a 4 x 2048 prefill's 684 rows an expert and a
+decode step's 4.
+
 TinyLlama's first 2 layers at full width run a prefill and two decode
 steps on the card against the plain path on the CPU, same weights (2e-2 of
 each output's largest magnitude). Last, a 6-tenant ``ProvisionService``
@@ -144,6 +149,9 @@ def test_flash_kernel_strided_views(cuda, layout, variant):
     (3, 1001, 200, 136, BF16, "plain", "tc"),       # C, d and f off the tile
     (1, 37, 1024, 53, BF16, "plain", "simt"),       # f off TMA's 16-byte rule
     (2, 100, 64, 96, BF16, "offset", "simt"),       # x one element off 16 bytes
+    (60, 684, 2048, 2816, BF16, "plain", "tc"),     # Qwen2-MoE prefill, wi
+    (60, 684, 1408, 2048, BF16, "plain", "tc"),     # its wo; C off the tile
+    (60, 4, 2048, 2816, BF16, "plain", "tc"),       # a decode step's 4 rows
 ])
 def test_grouped_gemm_kernel_matches_plain(cuda, E, C, d, f, dtype, layout,
                                            variant):
@@ -384,6 +392,93 @@ def test_dense_lm_kernel_path(cuda):
         assert a.shape == b.shape and torch.isfinite(a.float()).all()
         assert (a.float() - b.float()).abs().max() <= \
             2e-2 * b.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_padded_heads_prefill_kernel_path(cuda):
+    """Padded q heads that do not divide into the kv heads (20 MHA heads of
+    64 padded to 32 q heads over 20 kv heads, at TinyLlama-1.1B's width, 2
+    layers, bf16 compute): the prefill broadcasts K/V to the q heads and
+    launches the flash kernel on the tensor cores, one a layer, and its
+    logits and KV cache, then a decode step's logits, hold within 2e-2 of
+    their largest magnitude against the plain path on the CPU."""
+    from repro_torch.configs import tinyllama_1_1b
+    from repro_torch.convert import tree_map
+    from repro_torch.models import transformer
+    cfg = tinyllama_1_1b.CONFIG.replace(
+        n_layers=2, n_heads=20, n_kv_heads=20, head_dim=64).padded(16)
+    assert (cfg.nq, cfg.nkv, cfg.attn_impl) == (32, 20, "flash")
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    B, S = 2, 256
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S + 1)))
+    pos = torch.arange(S + 1)[None].expand(B, S + 1)
+    n_flash, n_tc = flash_attention.launches, flash_attention.tc_launches
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        with torch.inference_mode():
+            lg, cache = transformer.prefill(p, cfg, toks[:, :S].to(dev),
+                                            pos[:, :S].to(dev), S + 1)
+            lg2, _ = transformer.decode_step(
+                p, cfg, toks[:, S:].to(dev), pos[:, S:].to(dev), cache, S)
+        kv = cache["segments"][0]["b0"]
+        outs[dev] = [t.cpu() for t in (lg, lg2, kv["k"], kv["v"])]
+        del p
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n_flash == \
+        flash_attention.tc_launches - n_tc == cfg.n_layers
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        assert (a.float() - b.float()).abs().max() <= \
+            2e-2 * b.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tc", [(FP32, 0), (BF16, 2)])
+def test_topk_moe_kernel_path(cuda, monkeypatch, dtype, tc):
+    """Qwen2-MoE ``SMOKE``'s MoE layer (8 experts top-2 + 1 shared, d 64) at
+    a capacity factor that drops tokens, on the card against the CPU, same
+    weights: two grouped GEMM launches (tensor cores in bf16), outputs
+    within 1e-4 (fp32) or 2e-2 of their largest magnitude (bf16), the aux
+    loss within 1e-5 relative. The router runs in fp32 on both, on the same
+    x: a token may route differently only where its K-th and (K+1)-th
+    probabilities lie within 1e-5, and the CPU run replays the card's
+    experts, so such a near-tie cannot move the comparison."""
+    from repro_torch.configs import qwen2_moe_a2_7b
+    from repro_torch.convert import tree_map
+    from repro_torch.models import moe
+    cfg = qwen2_moe_a2_7b.SMOKE.replace(compute_dtype=dtype,
+                                        capacity_factor=0.5)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x, = _normal(1, (2, 64, cfg.d_model))
+    x = torch.from_numpy(x).to(TORCH[dtype])
+    p = tree_map(lambda t: t.to(cuda), params)
+    route, card = moe._route, []
+
+    def record(params, x, cfg):
+        out = route(params, x, cfg)
+        card.append(out[2].cpu())
+        return out
+    monkeypatch.setattr(moe, "_route", record)
+    (yc, auxc), counts = _launched(grouped_gemm, lambda: moe.topk_moe(
+        p, x.to(cuda), cfg))
+    assert counts == (2, tc)
+
+    def replay(params, x, cfg):
+        probs, _, idx = route(params, x, cfg)
+        top = torch.topk(probs, cfg.top_k + 1, -1)[0]
+        near = (top[..., -2] - top[..., -1]) < 1e-5
+        same = (idx.sort(-1).values == card[0].sort(-1).values).all(-1)
+        assert bool((same | near).all()), "a route flipped off a near-tie"
+        gates = probs.gather(-1, card[0])
+        return probs, gates / gates.sum(-1, keepdim=True), card[0]
+    monkeypatch.setattr(moe, "_route", replay)
+    y, aux = moe.topk_moe(params, x, cfg)
+    assert yc.dtype == y.dtype and yc.shape == y.shape
+    err = (yc.cpu().float() - y.float()).abs().max()
+    assert err <= (1e-4 if dtype == FP32 else 2e-2 * y.float().abs().max())
+    assert abs(float(auxc) - float(aux)) <= 1e-5 * abs(float(aux))
 
 
 @pytest.mark.cuda
