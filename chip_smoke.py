@@ -19,7 +19,13 @@ exits non-zero:
    cores, fp32 and unaligned inputs on the CUDA cores; RMSNorm: 16-byte
    vectors, and one element per lane for rows off 16 bytes); the backward
    kernels through autograd:
-   flash's (with the forward's row log-sum-exp) and the GEMM's (in bf16 both
+   flash's (with the forward's row log-sum-exp; bf16 on the tensor cores in
+   the short form at the trunk's MHA heads and in the streaming form for
+   GQA, D = 128, long and ragged sequences, TinyLlama's training layer
+   (2,2048,32/4,64) and Qwen2-MoE's heads at (2,1024,16/16,128), each also
+   through the "simt" kernels on the same inputs and held to the same bound,
+   and the same bit for bit over repeated calls; fp32 on the CUDA cores)
+   and the GEMM's (in bf16 both
    products from one launch of the fused kernel, dW split along C and the
    same bit for bit over repeated calls), and RMSNorm's and the SSD scan's
    at phase 8's shapes, ragged rows and chunks, chunks whose length is not
@@ -114,7 +120,7 @@ exits non-zero:
    the decision latency's p50 and p99, rounds, batches and the batch-size
    histogram; then one full 64-lane service batch, and the decision alone
    on its states, under torch.profiler;
-8. Mamba2-1.3B training at its full published width, seeded weights drawn
+8. LM training: Mamba2-1.3B at its full published width, seeded weights drawn
    on the card, ``make_train_step`` at the train launcher's optimizer (lr
    3e-4, warmup 20) on ``data_iterator`` batches: (a) the launcher's
    defaults, 8 x 128, 5 steps; (b) 2 x 2048 (8 chunks of 256), 3 steps; each
@@ -127,13 +133,23 @@ exits non-zero:
    plain path; one (b) step under torch.profiler,
    its device time split into cuBLAS, the scan's and the norms' kernels
    forward and backward, AdamW (profiled alone) and the other elementwise
-   work; then ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
+   work; then TinyLlama-1.1B training at its full published width and
+   depth, seeded fp32 weights drawn on the card, ``make_train_step`` at
+   the same optimizer on 2 x 2048 batches, 3 steps after a warm-up (ms a
+   step, tokens/s, the losses, all finite, and the peak memory), raising
+   unless each step launched exactly 22 flash and 45 RMSNorm kernels
+   forward and as many backward, every flash on the tensor cores both ways
+   and every norm vectorised both ways; its first 2 layers' gradients at 1
+   x 512 held leaf by leaf against the CPU plain path; one step under
+   torch.profiler, its device time split into flash forward and backward,
+   cuBLAS, RMSNorm, AdamW and the other elementwise work; then
+   ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
    resumed ("resumed at step 3") against an uninterrupted 6-step run, and
    ``launch.serve --smoke --ckpt-dir`` serving from its checkpoint; last,
    ``repro_torch.launch.train`` with no ``--arch`` (TinyLlama-1.1B, the
    reference's default) at its full-width defaults, 8 x 128, for 3 steps,
-   its checkpoint not written: finite losses, the peak memory, and the
-   flash backward's launches by variant;
+   its checkpoint not written: finite losses, the peak memory, and 66 flash
+   backwards, all on the tensor cores;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -151,8 +167,11 @@ exits non-zero:
    experts' shapes (E = 60: a prefill's 684 rows an expert and a decode
    step's 4, through wi and wo) beside ``torch.bmm``, each with its bound
    and share; the flash backward at TinyLlama's training shape,
-   (2,2048,32/4,64) causal, beside SDPA's backward with ``enable_gqa``;
-   and the backward kernels
+   (2,2048,32/4,64) causal (the streaming form, also at each split count
+   of a kv head's q heads, 1, 2, 4 and 8), and at Qwen2-MoE's,
+   (2,2048,16/16,128) causal, each beside the "simt" kernels
+   (``simt_ms``), its plain version, SDPA's backward (with ``enable_gqa``
+   where the heads are grouped) and its bound; and the backward kernels
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
@@ -164,9 +183,9 @@ exits non-zero:
 Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 6, 7, 8, 5, and each ends
 with a ``[phase]`` line of its wall time. Each kernel's ``launches`` in the
 JSON record sums the counts of every path that runs it (phases 3, 4, 4b,
-4c's and 4d's prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c)
-and the launcher at its defaults), each counted from 0 just before its
-path and read just after.
+4c's and 4d's prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c),
+TinyLlama's 2 x 2048 run and the launcher at its defaults), each counted
+from 0 just before its path and read just after.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -209,7 +228,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
     flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    _flash_variant, _launch as flash_launch, _launch_bwd as flash_launch_bwd)
+    _flash_variant, _launch as flash_launch, _launch_bwd as flash_launch_bwd,
+    bwd_splits, bwd_tc_form)
 from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
                                           grouped_gemm_bwd_ref,
                                           grouped_gemm_ref)
@@ -312,6 +332,7 @@ BF16_BWD_REL_TOL = 2e-2  # plain versions: of each gradient's largest value
 # Mamba2-1.3B training (phase 8): the launcher's optimizer and defaults
 TRAIN_OCFG = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=10**9)
 LM_TRAIN_RUNS = (("a", 8, 128, 5), ("b", 2, 2048, 3))   # batch, seq, steps
+DENSE_TRAIN_RUN = ("2 x 2048", 2, 2048, 3)               # TinyLlama's
 LM_GRAD_SEQ = 512       # the 2-layer gradient check: 1 x 512, two chunks
 TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
@@ -571,8 +592,13 @@ def check_backward(gen, errs: dict) -> None:
     row's log-sum-exp (held against the plain one), and dq, dk, dv of one
     backward launch of the variant named are held against
     ``flash_attention_bwd_ref`` on the forward's out; the tensor-core
-    variant at every head dim it takes, causal, softcap and ragged, the
-    CUDA-core one for GQA, D = 128, long sequences and fp32. The GEMM: dX
+    variant in its short form at every head dim it takes (the trunk's MHA
+    heads), causal, softcap and ragged, and in its streaming form for GQA,
+    D = 128, long sequences and the LM training layers (TinyLlama's
+    (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128)); each "tc"
+    case also through "simt" on the same inputs, held to the same bound,
+    and twice more through "tc", the same bit for bit; the CUDA-core
+    variant for fp32. The GEMM: dX
     and dW against ``grouped_gemm_bwd_ref``, in bf16 from one launch of the
     fused backward kernel (counted once in ``bwd_fused_calls``; dW split
     along C and the same bit for bit over two more calls), with x or dY
@@ -581,30 +607,34 @@ def check_backward(gen, errs: dict) -> None:
     phase 5 times beside it is held to the same tolerance."""
     B = 2 * LANES * mirage_agent.N_EXPERTS
     bf16 = torch.bfloat16
+    causal, cap, both = (dict(causal=True, softcap=0.0),
+                         dict(causal=False, softcap=30.0),
+                         dict(causal=True, softcap=30.0))
     cases = [
         ("flash bwd agent (640,144,8,32) bf16", dict(causal=False,
                                                      softcap=0.0),
-         (B, HISTORY, HISTORY, 8, 8, 32, bf16), "tc", BF16_TOL, BF16_TOL),
-        ("flash bwd softcap (3,50,4,16) bf16", dict(causal=False,
-                                                   softcap=30.0),
-         (3, 50, 50, 4, 4, 16, bf16), "tc", BF16_TOL, BF16_TOL),
-        ("flash bwd causal softcap (2,97|131,4,64) bf16",
-         dict(causal=True, softcap=30.0), (2, 97, 131, 4, 4, 64, bf16), "tc",
-         BF16_TOL, BF16_TOL),
-        ("flash bwd fused qkv views (2,77,3,4,64) bf16",
-         dict(causal=True, softcap=0.0), "fused", "tc", BF16_TOL, BF16_TOL),
-        ("flash bwd causal GQA ragged (2,1001,8/2,64) bf16",
-         dict(causal=True, softcap=0.0), (2, 1001, 1001, 8, 2, 64, bf16),
-         "simt", BF16_TOL, BF16_TOL),
-        ("flash bwd causal softcap GQA (1,200,4/2,128) bf16",
-         dict(causal=True, softcap=30.0), (1, 200, 200, 4, 2, 128, bf16),
-         "simt", BF16_TOL, BF16_TOL),
-        ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32",
-         dict(causal=True, softcap=30.0), (2, 97, 131, 8, 2, 64,
-                                            torch.float32),
-         "simt", FP32_FLASH_TOL, FP32_FLASH_BWD_RTOL),
+         (B, HISTORY, HISTORY, 8, 8, 32, bf16), "tc"),
+        ("flash bwd softcap (3,50,4,16) bf16", cap, (3, 50, 50, 4, 4, 16, bf16),
+         "tc"),
+        ("flash bwd causal softcap (2,97|131,4,64) bf16", both,
+         (2, 97, 131, 4, 4, 64, bf16), "tc"),
+        ("flash bwd fused qkv views (2,77,3,4,64) bf16", causal, "fused",
+         "tc"),
+        ("flash bwd causal GQA ragged (2,1001,8/2,64) bf16", causal,
+         (2, 1001, 1001, 8, 2, 64, bf16), "tc"),
+        ("flash bwd causal softcap GQA (1,200,4/2,128) bf16", both,
+         (1, 200, 200, 4, 2, 128, bf16), "tc"),
+        ("flash bwd TinyLlama training (2,2048,32/4,64) bf16", causal,
+         (2, LM_PROMPT, LM_PROMPT, DENSE.nq, DENSE.nkv, DENSE.hd, bf16),
+         "tc"),
+        ("flash bwd Qwen2-MoE heads (2,1024,16/16,128) bf16", causal,
+         (2, 1024, 1024, QWEN.nq, QWEN.nkv, QWEN.hd, bf16), "tc"),
+        ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32", both,
+         (2, 97, 131, 8, 2, 64, torch.float32), "simt"),
     ]
-    for name, opts, shape, variant, atol, rtol in cases:
+    for name, opts, shape, variant in cases:
+        atol, rtol = ((BF16_TOL, BF16_TOL) if variant == "tc" else
+                      (FP32_FLASH_TOL, FP32_FLASH_BWD_RTOL))
         if shape == "fused":
             base = _randn(gen, (2, 77, 3, 4, 64), torch.bfloat16)
             base.requires_grad_(True)
@@ -636,8 +666,33 @@ def check_backward(gen, errs: dict) -> None:
                   for n, g, r in zip("qkv", grads, refs))
         errs["flash_attention_bwd"] = max(
             errs.get("flash_attention_bwd", 0.0), err)
+        extra = {}
+        if variant == "tc":
+            Hq, Hkv = q.shape[2], k.shape[2]
+            extra["form"] = bwd_tc_form(q.shape[1], k.shape[1], Hq, Hkv,
+                                        q.shape[3])
+            if extra["form"] == "stream":
+                extra["splits"] = bwd_splits(
+                    q.shape[0], k.shape[1], Hkv, Hq // Hkv,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+            # launches that compare, not counted: "simt" on the same inputs,
+            # and "tc" again, bit for bit
+            run = dict(causal=opts["causal"], softcap=opts["softcap"],
+                       scale=q.shape[3] ** -0.5)
+            dout = do.contiguous()
+            simt = flash_launch_bwd(q, k, v, out, lse, dout, "simt", **run)
+            extra["simt_max_abs_err"] = max(
+                _err(g, r, atol, rtol, f"{name} simt d{n}")
+                for n, g, r in zip("qkv", simt, refs))
+            for _ in range(2):
+                again = flash_launch_bwd(q, k, v, out, lse, dout, "tc", **run)
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise RuntimeError(f"{name}: dq, dk, dv differ between "
+                                       "calls")
+            extra["bit_identical"] = True
+            del simt, again
         line("check", case=name, variant=variant, max_abs_err=err,
-             lse_max_abs_err=lse_err, atol=atol, rtol=rtol)
+             lse_max_abs_err=lse_err, atol=atol, rtol=rtol, **extra)
         del q, k, v, out, grads, refs, leaves, do
     E, C = mirage_agent.N_EXPERTS, 2 * LANES * HISTORY
     d, f = TRUNK.d_model, TRUNK.d_ff
@@ -2109,39 +2164,55 @@ def phase_service(policies) -> dict:
             "grouped_gemm": totals["gemm_launches"]}
 
 
-# -------------------------------------------- 8. Mamba2-1.3B training
+# ------------------------------------------------- 8. LM training
 def _set_lm_train_counts() -> None:
     _set_counts()
     rmsnorm.bwd_launches = rmsnorm.bwd_vec_launches = 0
     ssd.bwd_launches = ssd.bwd_tc_launches = 0
+    flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
 
 
 def _lm_train_counts() -> dict:
     return dict(_counts(), rmsnorm_bwd=rmsnorm.bwd_launches,
                 rmsnorm_bwd_vec=rmsnorm.bwd_vec_launches,
-                ssd_bwd=ssd.bwd_launches, ssd_bwd_tc=ssd.bwd_tc_launches)
+                ssd_bwd=ssd.bwd_launches, ssd_bwd_tc=ssd.bwd_tc_launches,
+                flash_attention_bwd=flash_attention_bwd.launches,
+                flash_bwd_tc=flash_attention_bwd.tc_launches)
 
 
-def _check_lm_train_counts(what: str, passes: int) -> dict:
+def _train_pass_counts(cfg, passes: int, layers=None) -> dict:
+    """The launches of ``passes`` differentiated micro-batch passes of
+    ``cfg`` (``layers`` of its layers, all by default): per layer two
+    RMSNorm and, for Mamba2, an SSD scan, for TinyLlama a flash call, each
+    forward and backward, plus the final norm; every norm vectorised and
+    every scan and flash on the tensor cores, both ways."""
+    layers = cfg.n_layers if layers is None else layers
+    norms = passes * (2 * layers + 1)
+    mixers = passes * layers
+    scans, flash = (mixers, 0) if cfg is LM else (0, mixers)
+    return dict(_pass_counts(norms, scans, flash), rmsnorm_bwd=norms,
+                rmsnorm_bwd_vec=norms, ssd_bwd=scans, ssd_bwd_tc=scans,
+                flash_attention_bwd=flash, flash_bwd_tc=flash)
+
+
+def _check_lm_train_counts(what: str, passes: int, cfg=LM) -> dict:
     """The launches since the counts were zeroed must be those of
-    ``passes`` differentiated micro-batch passes: NORMS_PER_PASS RMSNorm and
-    n_layers SSD launches, forward and backward, every norm vectorised and
-    every scan on the tensor cores, both ways."""
+    ``passes`` differentiated micro-batch passes of ``cfg``
+    (``_train_pass_counts``)."""
     got = _lm_train_counts()
-    norms, scans = passes * NORMS_PER_PASS, passes * LM.n_layers
-    want = dict(_pass_counts(norms, scans), rmsnorm_bwd=norms,
-                rmsnorm_bwd_vec=norms, ssd_bwd=scans, ssd_bwd_tc=scans)
+    want = _train_pass_counts(cfg, passes)
     if not passes or got != want:
         raise RuntimeError(f"{what}: launched {got}, expected {want}")
     return got
 
 
-def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1):
-    """``steps`` train steps of ``make_train_step`` at the launcher's
-    optimizer on ``data_iterator`` batches, after one warm-up step whose
-    result is dropped; host ms per step after ``synchronize``."""
-    step_fn = make_train_step(LM, TRAIN_OCFG, microbatches)
-    data = data_iterator(LM, DataConfig(batch=batch, seq_len=seq),
+def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1,
+                 cfg=LM):
+    """``steps`` train steps of ``make_train_step`` on ``cfg`` at the
+    launcher's optimizer on ``data_iterator`` batches, after one warm-up
+    step whose result is dropped; host ms per step after ``synchronize``."""
+    step_fn = make_train_step(cfg, TRAIN_OCFG, microbatches)
+    data = data_iterator(cfg, DataConfig(batch=batch, seq_len=seq),
                          device="cuda")
     step_fn(params, opt, next(data))
     torch.cuda.synchronize()
@@ -2156,8 +2227,9 @@ def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
-    counts = _check_lm_train_counts(what, steps * microbatches)
-    line("lm_train", run=what, batch=batch, seq=seq, steps=steps,
+    counts = _check_lm_train_counts(what, steps * microbatches, cfg)
+    line("lm_train", arch=cfg.arch_id, run=what, batch=batch, seq=seq,
+         steps=steps,
          microbatches=microbatches, ms_per_step=_ms(ms),
          tokens_per_s=batch * seq / np.mean(ms) * 1e3,
          losses=_finite(what, losses),
@@ -2166,9 +2238,9 @@ def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1):
     return params, opt, counts
 
 
-def _lm_grad_sub(params):
+def _lm_grad_sub(params, cfg=LM):
     """The first LM_PLAIN_LAYERS layers of the model, same weights."""
-    cfg = LM.replace(n_layers=LM_PLAIN_LAYERS)
+    cfg = cfg.replace(n_layers=LM_PLAIN_LAYERS)
     sub = dict(params, segments=[{"b0": tree_map(
         lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
     return cfg, sub
@@ -2201,26 +2273,24 @@ def _cpu_inputs(sub, batch):
             {k: v.cpu() for k, v in batch.items()})
 
 
-def check_lm_train_grads(params) -> None:
-    """The first 2 layers of the full-width model, same weights, one
-    1 x LM_GRAD_SEQ batch (two chunks): ``loss_fn``'s gradient with the
-    kernels on the card against the plain path on the CPU, every leaf
-    within LM_REL_TOL of its largest magnitude."""
-    cfg, sub = _lm_grad_sub(params)
+def check_lm_train_grads(params, full=LM) -> None:
+    """The first 2 layers of the full-width model ``full``, same weights,
+    one 1 x LM_GRAD_SEQ batch (for Mamba2 two chunks): ``loss_fn``'s
+    gradient with the kernels on the card against the plain path on the
+    CPU, every leaf within LM_REL_TOL of its largest magnitude."""
+    cfg, sub = _lm_grad_sub(params, full)
     batch = synth_batch(cfg, DataConfig(batch=1, seq_len=LM_GRAD_SEQ), 0,
                         device="cuda")
     lval, grads, got = _lm_grads(cfg, sub, batch)
-    norms = 2 * LM_PLAIN_LAYERS + 1
-    if (got["rmsnorm_bwd"], got["rmsnorm_bwd_vec"], got["ssd_bwd"],
-            got["ssd_bwd_tc"]) != (norms, norms, LM_PLAIN_LAYERS,
-                                   LM_PLAIN_LAYERS):
+    if got != _train_pass_counts(full, 1, LM_PLAIN_LAYERS):
         raise RuntimeError(f"2-layer gradient launched {got}")
     t0 = time.perf_counter()
     pval, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
     cpu_s = time.perf_counter() - t0
     errs = _grad_errs(grads, pgrads)
     worst = max(errs, key=errs.get)
-    line("lm_train", run="2-layer gradient check", layers=LM_PLAIN_LAYERS,
+    line("lm_train", arch=full.arch_id, run="2-layer gradient check",
+         layers=LM_PLAIN_LAYERS,
          seq=LM_GRAD_SEQ, leaves=len(errs), loss=lval, cpu_loss=pval,
          worst_rel_err=errs[worst], worst_leaf=worst, rel_tol=LM_REL_TOL,
          cpu_plain_s=cpu_s)
@@ -2276,6 +2346,8 @@ _KERNEL_GROUPS = (   # device-time groups of the training step's profile
     ("rmsnorm_bwd", ("rmsnorm_bwd_kernel", "rmsnorm_bwd_vec_kernel",
                      "dw_sum_kernel", "dw_tree_sum_kernel")),
     ("rmsnorm_fwd", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
+    ("flash_bwd", ("flash_bwd",)),
+    ("flash_fwd", ("flash_fwd",)),
     ("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 )
 
@@ -2292,27 +2364,28 @@ def _group_ms(rec: dict) -> dict:
     return dict(out)
 
 
-def profile_lm_train_step(params, opt, batch, seq) -> None:
-    """One train step of run (b) under torch.profiler, its device time
-    split by kernel group; AdamW's device time apart, from a profile of
-    ``adamw_update`` alone on that step's gradients (the rest of "other"
-    is the model's elementwise work and the loss)."""
-    step_fn = make_train_step(LM, TRAIN_OCFG)
-    b = synth_batch(LM, DataConfig(batch=batch, seq_len=seq), 100,
+def profile_lm_train_step(params, opt, batch, seq, cfg=LM) -> None:
+    """One train step of ``cfg`` at batch x seq under torch.profiler, its
+    device time split by kernel group; AdamW's device time apart, from a
+    profile of ``adamw_update`` alone on that step's gradients (the rest of
+    "other" is the model's elementwise work and the loss)."""
+    step_fn = make_train_step(cfg, TRAIN_OCFG)
+    b = synth_batch(cfg, DataConfig(batch=batch, seq_len=seq), 100,
                     device="cuda")
-    rec = profile_device("mamba2 train step (b)",
+    rec = profile_device(f"{cfg.arch_id} train step {batch} x {seq}",
                          lambda: step_fn(params, opt, b), 1, "step",
                          batch=batch, seq=seq)
     groups = _group_ms(rec)
     (_, _), grads = value_and_grad_aux(
-        lambda p, bb: transformer.loss_fn(p, LM, bb), params, b,
+        lambda p, bb: transformer.loss_fn(p, cfg, bb), params, b,
         has_aux=True)
-    adam = profile_device("adamw_update (b)", lambda: adamw_update(
+    adam = profile_device(f"adamw_update {cfg.arch_id}", lambda: adamw_update(
         grads, params, opt, TRAIN_OCFG), 1, "step", warmup=1)
     del grads
     groups["adamw"] = adam["device_ms_per_step"]
     groups["other_elementwise"] = groups.pop("other", 0.0) - groups["adamw"]
-    line("lm_train", run="profile of one (b) step",
+    line("lm_train", arch=cfg.arch_id,
+         run=f"profile of one {batch} x {seq} step",
          device_busy_share=rec["device_busy_share"],
          wall_ms=rec["wall_ms_per_step"],
          device_ms=rec["device_ms_per_step"], device_ms_by_group=groups,
@@ -2383,10 +2456,9 @@ def check_train_launcher_default() -> dict:
     TRAIN_DEFAULT_STEPS steps, its checkpoint not written (``_NoCheckpoint``):
     finite losses, the peak memory, and exactly one flash forward and
     backward a layer a step and DENSE_NORMS RMSNorm each way, every flash
-    forward on the tensor cores and every norm vectorised; the flash
-    backward's launches by variant. Returns the launches."""
+    on the tensor cores both ways and every norm vectorised. Returns the
+    launches."""
     _set_lm_train_counts()
-    flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
     torch.cuda.reset_peak_memory_stats()
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     real, train_chain.AsyncCheckpointer = (train_chain.AsyncCheckpointer,
@@ -2402,17 +2474,10 @@ def check_train_launcher_default() -> dict:
     finally:
         train_chain.AsyncCheckpointer = real
     print(buf.getvalue(), end="", flush=True)
-    got = dict(_lm_train_counts(),
-               flash_attention_bwd=flash_attention_bwd.launches,
-               flash_bwd_tc=flash_attention_bwd.tc_launches)
-    passes = TRAIN_DEFAULT_STEPS * DENSE.n_layers
-    norms = TRAIN_DEFAULT_STEPS * DENSE_NORMS
-    keys = ("flash_attention", "flash_tc", "flash_attention_bwd", "rmsnorm",
-            "rmsnorm_vec", "rmsnorm_bwd", "rmsnorm_bwd_vec")
-    want = (passes,) * 3 + (norms,) * 4
+    got = _lm_train_counts()
     if out["arch"] != DENSE.arch_id or \
             out["steps_done"] != TRAIN_DEFAULT_STEPS or \
-            tuple(got[k] for k in keys) != want:
+            got != _train_pass_counts(DENSE, TRAIN_DEFAULT_STEPS):
         raise RuntimeError(f"launch.train at its defaults: {out['arch']}, "
                            f"{out['steps_done']} steps, launched {got}")
     line("lm_train", run="launcher defaults, no --arch", arch=out["arch"],
@@ -2431,11 +2496,36 @@ def check_train_launcher_default() -> dict:
             "rmsnorm": got["rmsnorm"], "rmsnorm_bwd": got["rmsnorm_bwd"]}
 
 
+def dense_train() -> dict:
+    """TinyLlama-1.1B training at its full published width and depth, seeded
+    fp32 weights drawn on the card: DENSE_TRAIN_RUN's steps after a warm-up
+    (ms a step, tokens/s, losses, peak memory; every step 22 flash and 45
+    RMSNorm launches each way, all "tc" / "vec"), the first 2 layers'
+    gradients at 1 x LM_GRAD_SEQ against the CPU plain path, and one step
+    under torch.profiler by kernel group. Returns the run's launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init(gen, DENSE)
+    opt = init_opt_state(params, TRAIN_OCFG)
+    what, batch, seq, steps = DENSE_TRAIN_RUN
+    params, opt, counts = lm_train_run(params, opt, what, batch, seq, steps,
+                                       cfg=DENSE)
+    check_lm_train_grads(params, DENSE)
+    profile_lm_train_step(params, opt, batch, seq, DENSE)
+    del params, opt
+    torch.cuda.empty_cache()
+    line("lm_train", arch=DENSE.arch_id, run="TinyLlama training, all",
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
 def phase_lm_train() -> dict:
     """Mamba2-1.3B training at full width with seeded weights drawn on the
     card: runs (a) and (b), one micro-batched step (c), the 2-layer
-    gradient check, a profiled step and the launcher at ``--smoke``.
-    Returns the launches of (a), (b) and (c)."""
+    gradient check, a profiled step; then TinyLlama-1.1B's training at 2 x
+    2048 (``dense_train``), the launcher at ``--smoke`` and the launcher
+    at its defaults. Returns the launches of (a), (b), (c), TinyLlama's
+    run and the launcher at its defaults."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = transformer.init(gen, LM)
@@ -2480,6 +2570,8 @@ def phase_lm_train() -> dict:
     profile_lm_train_step(params, opt, *LM_TRAIN_RUNS[1][1:3])
     del params, opt
     torch.cuda.empty_cache()
+    for k, v in dense_train().items():
+        totals[k] += v
     check_train_launcher()
     torch.cuda.empty_cache()
     for k, v in check_train_launcher_default().items():
@@ -2802,15 +2894,18 @@ def time_moe_gemms(gen) -> list:
     return recs
 
 
-def time_flash_bwd_gqa(gen) -> dict:
-    """The flash backward at TinyLlama's training shape, (2,2048) causal,
-    32 q heads over 4 kv heads of 64, bf16, from the forward's out and lse
-    (the variant ``_flash_bwd_variant`` picks: "simt", as GQA and S > 256
-    rule the tensor-core one out), beside its plain version and SDPA's
-    backward with ``enable_gqa``. The bound: q, o, dO, dq at 32 heads and
-    k, v, dk, dv at 4 read or written once; five products over the causal
-    triangle (q.k^T again, dP, dV, dQ, dK)."""
-    B, S, Hq, Hkv, D = 2, LM_PROMPT, DENSE.nq, DENSE.nkv, DENSE.hd
+def time_flash_bwd_lm(gen, cfg, what: str, splits=()) -> dict:
+    """The flash backward at one training layer of ``cfg``, (2,2048)
+    causal, bf16 (TinyLlama: 32 q heads over 4 kv heads of 64; Qwen2-MoE:
+    16 over 16 of 128), from the forward's out and lse: the variant
+    ``_flash_bwd_variant`` picks (the tensor cores' streaming form) beside
+    the "simt" kernels at the same shape, its plain version and SDPA's
+    backward (``enable_gqa`` where the heads are grouped); with
+    ``splits``, the streaming form again at each of those split counts of
+    a kv head's q heads (``splits_ms``). The bound: q, o, dO, dq at the q
+    heads and k, v, dk, dv at the kv heads read or written once; five
+    products over the causal triangle (q.k^T again, dP, dV, dQ, dK)."""
+    B, S, Hq, Hkv, D = 2, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     do = _randn(gen, q.shape, torch.bfloat16)
     o, lse = flash_launch(q, k, v, _flash_variant(q, k, v), causal=True,
@@ -2818,31 +2913,38 @@ def time_flash_bwd_gqa(gen) -> dict:
 
     def bwd():
         return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    n, n_tc = flash_attention_bwd.launches, flash_attention_bwd.tc_launches
-    ms = time_ms(bwd, reps=10)
-    n, n_tc = (flash_attention_bwd.launches - n,
-               flash_attention_bwd.tc_launches - n_tc)
-    variant = "tc" if n_tc == n else "simt" if not n_tc else "mixed"
+    ms, variant = timed_variant(flash_attention_bwd, bwd, reps=10)
+    run = dict(causal=True, softcap=0.0, scale=D ** -0.5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    extra = {"form": bwd_tc_form(S, S, Hq, Hkv, D),
+             "splits": bwd_splits(B, S, Hkv, Hq // Hkv, sms)}
+    if splits:
+        extra["splits_ms"] = {n: time_ms(lambda n=n: flash_launch_bwd(
+            q, k, v, o, lse, do, "tc", splits=n, **run), reps=10)
+            for n in splits}
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                          enable_gqa=True)
+                                          enable_gqa=Hq != Hkv)
     dot = do.transpose(1, 2).contiguous()
     pairs = B * Hq * S * (S + 1) // 2
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     flops = 5 * 2 * pairs * D
     bms, by = bound_ms(nbytes, flops)
     return dict(
-        name="flash_attention_bwd TinyLlama training layer",
+        name=f"flash_attention_bwd {what} training layer",
         shape=f"q,o,dO ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, "
               "causal", variant=variant, ms=ms,
+        simt_ms=time_ms(lambda: flash_launch_bwd(q, k, v, o, lse, do,
+                                                 "simt", **run), reps=3),
         plain_ms=time_ms(lambda: flash_attention_bwd_ref(
             q, k, v, o, lse, do, causal=True), reps=3),
         library_ms=time_ms(lambda: torch.autograd.grad(
             sdpa, (qt, kt, vt), dot, retain_graph=True)),
-        library="F.scaled_dot_product_attention(enable_gqa=True) backward",
+        library="F.scaled_dot_product_attention"
+                + ("(enable_gqa=True)" if Hq != Hkv else "") + " backward",
         host_us=host_us(bwd, reps=10), bound_ms=bms, bound_by=by,
-        bound_share=bms / ms, bytes=nbytes, flops=flops)
+        bound_share=bms / ms, bytes=nbytes, flops=flops, **extra)
 
 
 class _Identity(torch.autograd.Function):
@@ -2948,7 +3050,7 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
     def bwd():
         return flash_attention_bwd(q, k, v, o, lse, do, causal=False)
     ms, variant = timed_variant(flash_attention_bwd, bwd)
-    t = {"ms": ms,
+    t = {"ms": ms, "form": bwd_tc_form(HISTORY, HISTORY, H, H, D),
          "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
              q, k, v, o, lse, do, causal=False), reps=5),
          "simt_ms": time_ms(lambda: flash_launch_bwd(
@@ -3042,7 +3144,9 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
         shape="dX and dW of one trunk layer's 6 projections, E=10, C=9216, "
               "bf16, one fused launch a projection", **tot)
     line("time", **gemm_rec, **extra)
-    line("time", **time_flash_bwd_gqa(gen))
+    line("time", **time_flash_bwd_lm(gen, DENSE, "TinyLlama",
+                                     splits=(1, 2, 4, 8)))
+    line("time", **time_flash_bwd_lm(gen, QWEN, "Qwen2-MoE"))
     return [flash_rec, gemm_rec]
 
 
@@ -3257,7 +3361,7 @@ def main() -> int:
     service = phase("7 service", phase_service, policies)
     del policies
     torch.cuda.empty_cache()
-    lm_train = phase("8 Mamba2 training", phase_lm_train)
+    lm_train = phase("8 LM training", phase_lm_train)
     for counts in (grid, service, lm_train):
         launches.update(counts)
     records = phase("5 timing", phase_timing, errs, launches)

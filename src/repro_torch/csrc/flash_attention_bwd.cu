@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 on the tensor cores
-// for the agent's short sequences, fp32 on the CUDA cores for the rest.
+// Flash-attention backward for Hopper (sm_90a): bf16 on the tensor cores,
+// fp32 and unaligned views on the CUDA cores.
 //
 // The TPU kernel it pairs with (repro/kernels/flash_attention/kernel.py,
 // _fwd_kernel) has no backward: the JAX package differentiates attention
@@ -14,36 +14,65 @@
 //   dQ = scale dS K      dK = dS^T (scale q)
 //
 // GQA by head index (kv head = h / (Hq/Hkv)): dK and dV of a kv head sum
-// over its q heads, the adjoint of the reference's _repeat_kv. Causal
+// over its q heads in a fixed order, the adjoint of the reference's
+// _repeat_kv, with no atomics: two calls give the same bits. Causal
 // masking zeroes the masked probabilities; a window is refused by the
 // wrapper (attention_core never sends one to the flash path).
 //
 // What bounds it on the H100: at the Mirage trunk's shape (640 sequences x
 // 8 heads, S=144, D=32, bf16) it must read q, k, v, o, dO and write dq, dk,
-// dv, ~0.38 GB, ~0.11 ms at 3.35 TB/s; its five S x S x D products are
-// ~34 GFLOP, ~0.03 ms on the bf16 tensor cores but ~0.5 ms in fp32 on the
-// CUDA cores (67 TFLOP/s). So the products go to the tensor cores where
-// the inputs allow it, and every other input keeps a CUDA-core kernel.
-// Two variants, chosen by the wrapper from the inputs before the launch
-// (kernels/flash_attention/ops.py:_flash_bwd_variant):
+// dv, ~0.38 GB, ~0.11 ms at 3.35 TB/s; at TinyLlama's training layer
+// (2 x 2048, 32 q heads over 4 kv heads of 64, causal) its five products
+// over the causal triangle are ~86 GFLOP, ~0.087 ms at the bf16 peak, and
+// ~1.3 ms in fp32 on the CUDA cores (67 TFLOP/s). So every bf16 input goes
+// to the tensor cores, and fp32 keeps a CUDA-core kernel. Two variants,
+// chosen by the wrapper from the inputs before the launch
+// (kernels/flash_attention/ops.py:_flash_bwd_variant), and the tensor-core
+// one in two forms, chosen here from the shapes (mirrored by ops.py's
+// bwd_tc_form):
 //
-// "tc", bf16, one kv head per q head, D <= 64, both sequences <= 256 and
-// 16-byte rows (the trunk's case): one block of 4 warps per (head, batch)
-// copies q, dO, K and V whole into shared memory (cp.async, XOR-swizzled
-// 16-byte chunks, as the forward's short form) and computes delta there.
-// Phase 1: each warp owns 16-row groups of K/V and walks the q rows in
-// chunks of 16 (from the diagonal under the causal mask): S^T = K.q^T and
-// dP^T = V.dO^T on mma.sync.m16n8k16 (bf16 in, fp32 accumulators), P^T and
-// dS^T in fp32 registers, then dV += P^T.dO and dK += dS^T.q with P^T and
-// dS^T rounded to bf16 as A operands straight from the accumulators (as the
-// forward's P); dS^T is also stored to shared memory as bf16. Phase 2,
-// after one barrier: each warp owns 16-row groups of q and computes dQ =
-// dS.K, reading dS with transposed ldmatrix from the dS^T it stored. dK,
-// dV and dQ leave from the accumulators in 4-byte pairs.
+// "tc", bf16 with 16-byte rows (strides multiples of 8, aligned pointers),
+// D in {16, 32, 64, 128}:
+//  - the short form, for MHA heads with D <= 64 and both sequences <= 256
+//    whose q, dO, K, V and dS^T fit one block's shared memory (the agent
+//    trunk's): one block of 4 warps per (head, batch) copies q, dO, K and
+//    V whole into shared memory (cp.async, XOR-swizzled 16-byte chunks, as
+//    the forward's short form) and computes delta there. Phase 1: each
+//    warp owns 16-row groups of K/V and walks the q rows in chunks of 16
+//    (from the diagonal under the causal mask): S^T = K.q^T and dP^T =
+//    V.dO^T on mma.sync.m16n8k16 (bf16 in, fp32 accumulators), P^T and
+//    dS^T in fp32 registers, then dV += P^T.dO and dK += dS^T.q with P^T
+//    and dS^T rounded to bf16 as A operands straight from the accumulators
+//    (as the forward's P); dS^T is also stored to shared memory as bf16.
+//    Phase 2, after one barrier: each warp owns 16-row groups of q and
+//    computes dQ = dS.K, reading dS with transposed ldmatrix from the dS^T
+//    it stored. dK, dV and dQ leave from the accumulators in 4-byte pairs.
+//  - the streaming form, for every other input (GQA, D = 128, long and
+//    ragged sequences): FlashAttention-2's backward as two launches on the
+//    stream, recomputing S and dP in each (7 products where the function
+//    needs 5: the price of no dQ atomics and no fp32 dQ scratch).
+//    The dq kernel: one block per (64-row q tile, q head, batch), 4 warps
+//    of 16 rows, the longest causal rows first. It stores its rows' delta
+//    for the second kernel; K and V stream through a double-buffered
+//    cp.async ring of 64-row tiles that stops at the diagonal; per 32
+//    columns of a tile, S = q.K^T and dP = dO.V^T, P and dS in fp32, then
+//    dQ += dS.K with dS rounded to bf16 as an A operand from the
+//    accumulators. q and dO fragments stay in registers at D <= 64 and are
+//    read from shared memory per product at D = 128 (registers).
+//    The dkdv kernel: one block per (64-row kv tile, kv head, share of the
+//    head's q heads, batch), the first tiles (the most causal rows) first.
+//    K and V stay resident; the block walks its q heads in order and, for
+//    each, the q tiles from the first the causal mask lets see its rows,
+//    with q, dO, lse and delta double-buffered; per 32 q rows, S^T = K.q^T
+//    and dP^T = V.dO^T, then dV += P^T.dO and dK += dS^T.q (the short
+//    form's phase 1 on streamed tiles). dK and dV sum over the q heads in
+//    fp32 registers. Under the causal mask the first kv tiles see ~32x the
+//    rows of the last, so a kv head's q heads may be split over several
+//    blocks (the wrapper's split count): each then writes fp32 partials,
+//    and a last pass sums them in split order and rounds once.
 //
-// "simt", fp32 (TF32 would break the 3e-5 fp32 bound), GQA, D = 128,
-// longer sequences and unaligned views: two kernels on the stream, no
-// atomics:
+// "simt", fp32 (TF32 would break the 3e-5 fp32 bound) and views off 16
+// bytes: two kernels on the stream, no atomics:
 //  - dq: one block per (64-row q tile, q head, batch). A row's TPR = D/16
 //    adjacent threads each own 16 head dims of scale*q, dO and the dQ
 //    accumulator in registers, and reduce dot products with warp shuffles.
@@ -55,7 +84,7 @@
 //    its group and every q tile (from the first row the causal mask lets
 //    see the block's columns), with scale*q, dO, lse and delta staged in
 //    shared memory; each row costs two dot products and two axpys.
-// Both read q, k, v through (batch, sequence, head) strides, so the model's
+// All read q, k, v through (batch, sequence, head) strides, so the model's
 // views need no copy; o, dO and the gradients are contiguous.
 #include <math.h>
 #include <stdint.h>
@@ -331,6 +360,23 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr long long round16(long long x) { return (x + 15) / 16 * 16; }
 
+// P and dS of one (q row, kv column) pair, in place of the raw score s =
+// q.k (unscaled) and dp = dO.v, from the row's lse and delta; ok false
+// masks the pair (P = dS = 0). Both tensor-core forms take their
+// exponents, masks and softcap factor from here.
+__device__ __forceinline__ void prob_ds(float& s, float& dp, float lse, float delta, float scale,
+                                        float softcap, bool ok) {
+  float x = s * scale, fac = 1.f;
+  if (softcap != 0.f) {
+    const float th = tanhf(x / softcap);
+    x = th * softcap;
+    fac = 1.f - th * th;
+  }
+  const float p = ok ? ex2((x - lse) * kLog2e) : 0.f;
+  s = p;
+  dp = p * (dp - delta) * fac;
+}
+
 // q and dO, K and V (bf16), dS^T (kv rows of kMaxS bf16), lse and delta
 __host__ __device__ constexpr long long smem_bytes(int Sq, int Skv, int D) {
   return 4LL * D * (round16(Sq) + round16(Skv)) + round16(Skv) * kMaxS * 2 + 8 * round16(Sq);
@@ -450,16 +496,8 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int j = 16 * jg + g + (e >> 1) * 8;
           const int i = 16 * ic + 8 * t + 2 * t4 + (e & 1);
-          float x = st[t][e] * scale, fac = 1.f;
-          if (softcap != 0.f) {
-            const float th = tanhf(x / softcap);
-            x = th * softcap;
-            fac = 1.f - th * th;
-          }
-          const bool ok = i < Sq && j < Skv && (!causal || j <= i);
-          const float p = ok ? ex2((x - lse_s[i]) * kLog2e) : 0.f;
-          st[t][e] = p;
-          dpt[t][e] = p * (dpt[t][e] - delta_s[i]) * fac;
+          prob_ds(st[t][e], dpt[t][e], lse_s[i], delta_s[i], scale, softcap,
+                  i < Sq && j < Skv && (!causal || j <= i));
         }
         // dS^T to shared memory, rows j, columns i
         *reinterpret_cast<uint32_t*>(dst_ptr + swz<kMaxS>(16 * jg + g, 2 * ic + t) + 4 * t4) =
@@ -539,10 +577,11 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, void* dq, void* dk, void* dv, int B, int H, int Sq, int Skv,
-                   const long long* qs, const long long* ks_, const long long* vs_, int causal,
-                   float softcap, float scale, cudaStream_t stream) {
+cudaError_t launch_short(const void* q, const void* k, const void* v, const void* o,
+                         const void* dout, const float* lse, void* dq, void* dk, void* dv, int B,
+                         int H, int Sq, int Skv, const long long* qs, const long long* ks_,
+                         const long long* vs_, int causal, float softcap, float scale,
+                         cudaStream_t stream) {
   const long long bytes = smem_bytes(Sq, Skv, D);
   // the shared-memory limit is raised once per device
   static bool attr[repro::kMaxDevices] = {};
@@ -563,7 +602,514 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------ tc, the streaming form
+constexpr int BR = 64;   // rows a block owns: q rows (dq) or kv rows (dkdv), 4 warps x 16
+constexpr int BT = 64;   // rows of a streamed tile: kv rows (dq) or q rows (dkdv)
+constexpr int BC = 32;   // a tile's rows a warp takes at once (its columns of S or S^T)
+
+// dq: q and dO (BR rows), K and V x 2 buffers, lse and delta of the BR rows
+template <int D>
+constexpr int dq_smem() { return 2 * BR * D * 2 + 4 * BT * D * 2 + 2 * BR * 4; }
+// dkdv: K and V (BR rows), q and dO x 2 buffers, lse and delta x 2 buffers
+template <int D>
+constexpr int dkdv_smem() { return 2 * BR * D * 2 + 4 * BT * D * 2 + 4 * BT * 4; }
+
+// Rows [r0, r0 + R) of a (rows, D) bf16 operand with row stride rs into a
+// swizzled tile at dst (shared); rows at or past n as zeros.
+template <int D, int R>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* base, long long rs, int r0,
+                                          int n, int tid) {
+  constexpr int CPR = D / 8;
+  for (int i = tid; i < R * CPR; i += THREADS) {
+    const int r = i / CPR, c = i % CPR, p = r0 + r;
+    const bool ok = p < n;
+    cp_async16(dst + swz<D>(r, c), base + (long long)(ok ? p : 0) * rs + c * 8, ok);
+  }
+}
+
+// A fragments (16 rows at r0, the k16 slice kk of D) of a swizzled tile
+template <int D>
+__device__ __forceinline__ void ldsm_a(uint32_t tile, int r0, int kk, int lane, uint32_t (&a)[4]) {
+  ldsm_x4(tile + swz<D>(r0 + (lane % 8) + ((lane / 8) % 2) * 8, 2 * kk + lane / 16), a);
+}
+
+// B fragments of two n8 tiles (rows r0 and r0 + 8 of a tile) for a
+// product over D: element (d, row) of tile^T
+template <int D>
+__device__ __forceinline__ void ldsm_b(uint32_t tile, int r0, int kk, int lane, uint32_t (&b)[4]) {
+  ldsm_x4(tile + swz<D>(r0 + (lane % 8) + (lane / 16) * 8, 2 * kk + (lane / 8) % 2), b);
+}
+
+// B fragments of the n8 tiles 2dd and 2dd + 1 of D for a product over
+// rows [r0, r0 + 16) of a tile: element (row, d)
+template <int D>
+__device__ __forceinline__ void ldsm_bt(uint32_t tile, int r0, int dd, int lane,
+                                        uint32_t (&b)[4]) {
+  ldsm_x4_trans(tile + swz<D>(r0 + (lane % 8) + ((lane / 8) % 2) * 8, 2 * dd + lane / 16), b);
+}
+
+// 16 fp32 rows of a warp's (16 x D) accumulator, times mul, as bf16 rows
+// [r0, r0 + 16) of the swizzled tile at smem (rows only this warp uses),
+// then in 16-byte chunks to dst row p0 + r (row stride rs) while p0 + r < n
+template <int D>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], float mul, uint8_t* smem,
+                                          int r0, bf16* dst, long long rs, int p0, int n,
+                                          int lane) {
+  constexpr int CPR = D / 8;
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    *reinterpret_cast<uint32_t*>(smem + swz<D>(r0 + g, c) + 4 * t4) =
+        pack_bf16(acc[c][0] * mul, acc[c][1] * mul);
+    *reinterpret_cast<uint32_t*>(smem + swz<D>(r0 + g + 8, c) + 4 * t4) =
+        pack_bf16(acc[c][2] * mul, acc[c][3] * mul);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = i % CPR;
+    if (p0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (long long)(p0 + r) * rs + c * 8) =
+          *reinterpret_cast<const uint4*>(smem + swz<D>(r0 + r, c));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dout, const float* __restrict__ lse,
+                       float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Hq, int group, int Sq, int Skv,
+                       long long q_sb, long long q_ss, long long q_sh,
+                       long long k_sb, long long k_ss, long long k_sh,
+                       long long v_sb, long long v_ss, long long v_sh,
+                       int causal, float softcap, float scale) {
+  constexpr int CPR = D / 8;
+  constexpr int TILE = BT * D * 2;
+  constexpr bool kRegA = D <= 64;   // q and dO fragments kept in registers
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t s_q = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t s_do = s_q + BR * D * 2;
+  const uint32_t s_k = s_do + BR * D * 2, s_v = s_k + 2 * TILE;
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * BR * D * 2 + 4 * TILE);
+  float* delta_s = lse_s + BR;
+
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  // under the causal mask the last q tiles see the most columns: they start first
+  const int n_qt = (Sq + BR - 1) / BR;
+  const int q_start = (causal ? n_qt - 1 - (int)blockIdx.z : (int)blockIdx.z) * BR;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const long long o_row = (long long)Hq * D;   // row stride of o, dO, dq
+  const long long orow0 = (long long)b * Sq * o_row + (long long)h * D;
+
+  // kv tiles that hold an unmasked column for some row of this block
+  const int kv_end = causal ? min(Skv, q_start + BR) : Skv;
+  const int n_tiles = (kv_end + BT - 1) / BT;
+  const bf16* kb = k + b * k_sb + hk * k_sh;
+  const bf16* vb = v + b * v_sb + hk * v_sh;
+  auto load_kv = [&](int t, int buf) {
+    load_rows<D, BT>(s_k + buf * TILE, kb, k_ss, t * BT, Skv, tid);
+    load_rows<D, BT>(s_v + buf * TILE, vb, v_ss, t * BT, Skv, tid);
+  };
+  load_rows<D, BR>(s_q, q + b * q_sb + h * q_sh, q_ss, q_start, Sq, tid);
+  load_rows<D, BR>(s_do, dout + orow0, o_row, q_start, Sq, tid);
+  cp_async_commit();
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();   // q and dO have landed
+
+  // delta = rowsum(dO * O), two threads a row, each half of its chunks;
+  // stored for the dkdv kernel
+  {
+    const int r = tid / 2, half = tid % 2, p = q_start + r;
+    float dl = 0.f;
+    if (p < Sq) {
+      const bf16* orow = o + orow0 + (long long)p * o_row;
+      for (int c = half * CPR / 2; c < (half + 1) * CPR / 2; ++c) {
+        const uint4 gv = *reinterpret_cast<const uint4*>(smem + (s_do - s_q) + swz<D>(r, c));
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+        const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w}, ow[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = repro::unpack_bf16(gw[e]), bo = repro::unpack_bf16(ow[e]);
+          dl = fmaf(a.x, bo.x, fmaf(a.y, bo.y, dl));
+        }
+      }
+    }
+    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+    if (half == 0) {
+      const long long lrow = ((long long)b * Hq + h) * Sq + p;
+      delta_s[r] = dl;
+      lse_s[r] = p < Sq ? lse[lrow] : 0.f;
+      if (p < Sq) delta[lrow] = dl;
+    }
+  }
+  __syncthreads();
+
+  const int r0 = warp * 16, p0 = q_start + r0;   // this warp's rows, their first position
+  const bool active = p0 < Sq;
+  const float L0 = lse_s[r0 + g], L1 = lse_s[r0 + g + 8];
+  const float D0 = delta_s[r0 + g], D1 = delta_s[r0 + g + 8];
+  uint32_t qf[kRegA ? D / 16 : 1][4], gf[kRegA ? D / 16 : 1][4];
+  if constexpr (kRegA) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldsm_a<D>(s_q, r0, kk, lane, qf[kk]);
+      ldsm_a<D>(s_do, r0, kk, lane, gf[kk]);
+    }
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile t has landed
+    const uint32_t kt = s_k + buf * TILE, vt = s_v + buf * TILE;
+#pragma unroll 1
+    for (int c = 0; active && c < BT / BC; ++c) {
+      const int c0 = t * BT + c * BC;   // the chunk's first kv column
+      if (c0 >= Skv || (causal && c0 > p0 + 15)) break;   // and every later one masked
+      float s[BC / 8][4], dp[BC / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4], ga[4];
+        if constexpr (kRegA) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qa[e] = qf[kk][e];
+            ga[e] = gf[kk][e];
+          }
+        } else {
+          ldsm_a<D>(s_q, r0, kk, lane, qa);
+          ldsm_a<D>(s_do, r0, kk, lane, ga);
+        }
+#pragma unroll
+        for (int j = 0; j < BC / 16; ++j) {
+          uint32_t kf[4], vf[4];
+          ldsm_b<D>(kt, c * BC + 16 * j, kk, lane, kf);
+          ldsm_b<D>(vt, c * BC + 16 * j, kk, lane, vf);
+          if (kk == 0) {
+            mma16816_zero(s[2 * j], qa, kf[0], kf[1]);
+            mma16816_zero(s[2 * j + 1], qa, kf[2], kf[3]);
+            mma16816_zero(dp[2 * j], ga, vf[0], vf[1]);
+            mma16816_zero(dp[2 * j + 1], ga, vf[2], vf[3]);
+          } else {
+            mma16816(s[2 * j], qa, kf[0], kf[1]);
+            mma16816(s[2 * j + 1], qa, kf[2], kf[3]);
+            mma16816(dp[2 * j], ga, vf[0], vf[1]);
+            mma16816(dp[2 * j + 1], ga, vf[2], vf[3]);
+          }
+        }
+      }
+      // P and dS in fp32: element (n, e) is row p0 + g + 8 (e >> 1), column
+      // c0 + 8n + 2 t4 + (e & 1); masks only where the chunk meets the
+      // diagonal or an edge
+      const bool edge = (causal && c0 + BC - 1 > p0) || c0 + BC > Skv || p0 + 16 > Sq;
+#pragma unroll
+      for (int n = 0; n < BC / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = p0 + g + (e >> 1) * 8, j = c0 + 8 * n + 2 * t4 + (e & 1);
+          prob_ds(s[n][e], dp[n][e], e < 2 ? L0 : L1, e < 2 ? D0 : D1, scale, softcap,
+                  !edge || (i < Sq && j < Skv && (!causal || j <= i)));
+        }
+      }
+      // dQ += dS.K: the dS fragment of columns [16j, 16j + 16) is the A
+      // fragment of the k16 step j
+#pragma unroll
+      for (int j = 0; j < BC / 16; ++j) {
+        const uint32_t a[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
+                               pack_bf16(dp[2 * j][2], dp[2 * j][3]),
+                               pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
+                               pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t kf[4];
+          ldsm_bt<D>(kt, c * BC + 16 * j, dd, lane, kf);
+          mma16816(acc[2 * dd], a, kf[0], kf[1]);
+          mma16816(acc[2 * dd + 1], a, kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with buffer buf before it is refilled
+  }
+  // dQ (times the scale q.k^T carried) through this warp's rows of the q tile
+  if (active) store_acc<D>(acc, scale, smem, r0, dq + orow0, o_row, p0, Sq, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
+                         int Hq, int Hkv, int group, int splits, int Sq, int Skv,
+                         long long q_sb, long long q_ss, long long q_sh,
+                         long long k_sb, long long k_ss, long long k_sh,
+                         long long v_sb, long long v_ss, long long v_sh,
+                         int causal, float softcap, float scale) {
+  constexpr int TILE = BT * D * 2;
+  constexpr bool kRegA = D <= 64;   // K and V fragments kept in registers
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t s_k = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t s_v = s_k + BR * D * 2;
+  const uint32_t s_q = s_v + BR * D * 2, s_do = s_q + 2 * TILE;   // 2 buffers each
+  const uint32_t s_l = s_do + 2 * TILE;                          // lse, delta x 2 buffers
+  const float* lse_s = reinterpret_cast<const float*>(smem + (s_l - s_k));
+  const float* delta_s = lse_s + 2 * BT;
+
+  const int hk = blockIdx.x / splits, split = blockIdx.x % splits, b = blockIdx.y;
+  const int k_start = blockIdx.z * BR;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const long long o_row = (long long)Hq * D;
+
+  // this block's q heads, and the q tiles from the first the causal mask
+  // lets see its rows
+  const int per = group / splits, h0 = hk * group + split * per;
+  const int i_first = causal ? k_start / BT : 0;
+  const int n_qt = max(0, (Sq + BT - 1) / BT - i_first);
+  const int n_it = per * n_qt;
+  load_rows<D, BR>(s_k, k + b * k_sb + hk * k_sh, k_ss, k_start, Skv, tid);
+  load_rows<D, BR>(s_v, v + b * v_sb + hk * v_sh, v_ss, k_start, Skv, tid);
+  cp_async_commit();
+  auto load_q = [&](int it, int buf) {
+    const int h = h0 + it / n_qt, i0 = (i_first + it % n_qt) * BT;
+    load_rows<D, BT>(s_q + buf * TILE, q + b * q_sb + h * q_sh, q_ss, i0, Sq, tid);
+    load_rows<D, BT>(s_do + buf * TILE, dout + (long long)b * Sq * o_row + (long long)h * D,
+                     o_row, i0, Sq, tid);
+    // lse by threads [0, BT), delta by [BT, 2 BT); past Sq as zeros
+    const int r = tid % BT, which = tid / BT, i = i0 + r;
+    const float* src = (which ? delta : lse) + ((long long)b * Hq + h) * Sq;
+    repro::cp_async4(s_l + ((which * 2 + buf) * BT + r) * 4, src + (i < Sq ? i : 0), i < Sq);
+  };
+  if (n_it > 0) load_q(0, 0);
+  cp_async_commit();
+
+  const int r0 = warp * 16, j0 = k_start + r0;   // this warp's kv rows, their first position
+  const bool active = j0 < Skv;
+  uint32_t kf[kRegA ? D / 16 : 1][4], vf[kRegA ? D / 16 : 1][4];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1, i0 = (i_first + it % n_qt) * BT;
+    if (it + 1 < n_it) {
+      load_q(it + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // tile it (and, the first time, K and V) has landed
+    if constexpr (kRegA) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          ldsm_a<D>(s_k, r0, kk, lane, kf[kk]);
+          ldsm_a<D>(s_v, r0, kk, lane, vf[kk]);
+        }
+      }
+    }
+    const uint32_t qt = s_q + buf * TILE, gt = s_do + buf * TILE;
+    const float* ls = lse_s + buf * BT;
+    const float* ds_ = delta_s + buf * BT;
+#pragma unroll 1
+    for (int c = 0; active && c < BT / BC; ++c) {
+      const int c0 = i0 + c * BC;   // the chunk's first q row
+      if (c0 >= Sq) break;
+      if (causal && j0 > c0 + BC - 1) continue;   // every row of the chunk precedes this warp's
+      float st[BC / 8][4], dpt[BC / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        if constexpr (kRegA) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ka[e] = kf[kk][e];
+            va[e] = vf[kk][e];
+          }
+        } else {
+          ldsm_a<D>(s_k, r0, kk, lane, ka);
+          ldsm_a<D>(s_v, r0, kk, lane, va);
+        }
+#pragma unroll
+        for (int j = 0; j < BC / 16; ++j) {
+          uint32_t qb[4], gb[4];
+          ldsm_b<D>(qt, c * BC + 16 * j, kk, lane, qb);
+          ldsm_b<D>(gt, c * BC + 16 * j, kk, lane, gb);
+          if (kk == 0) {
+            mma16816_zero(st[2 * j], ka, qb[0], qb[1]);
+            mma16816_zero(st[2 * j + 1], ka, qb[2], qb[3]);
+            mma16816_zero(dpt[2 * j], va, gb[0], gb[1]);
+            mma16816_zero(dpt[2 * j + 1], va, gb[2], gb[3]);
+          } else {
+            mma16816(st[2 * j], ka, qb[0], qb[1]);
+            mma16816(st[2 * j + 1], ka, qb[2], qb[3]);
+            mma16816(dpt[2 * j], va, gb[0], gb[1]);
+            mma16816(dpt[2 * j + 1], va, gb[2], gb[3]);
+          }
+        }
+      }
+      // P^T and dS^T in fp32: element (n, e) is kv row j0 + g + 8 (e >> 1),
+      // q row c0 + 8n + 2 t4 + (e & 1)
+      const bool edge = (causal && j0 + 15 > c0) || c0 + BC > Sq || j0 + 16 > Skv;
+#pragma unroll
+      for (int n = 0; n < BC / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = c * BC + 8 * n + 2 * t4 + (e & 1);
+          const int i = i0 + r, j = j0 + g + (e >> 1) * 8;
+          prob_ds(st[n][e], dpt[n][e], ls[r], ds_[r], scale, softcap,
+                  !edge || (i < Sq && j < Skv && (!causal || j <= i)));
+        }
+      }
+      // dV += P^T.dO, dK += dS^T.q: dO and q as transposed B operands
+#pragma unroll
+      for (int ic = 0; ic < BC / 16; ++ic) {
+        const uint32_t pA[4] = {pack_bf16(st[2 * ic][0], st[2 * ic][1]),
+                                pack_bf16(st[2 * ic][2], st[2 * ic][3]),
+                                pack_bf16(st[2 * ic + 1][0], st[2 * ic + 1][1]),
+                                pack_bf16(st[2 * ic + 1][2], st[2 * ic + 1][3])};
+        const uint32_t sA[4] = {pack_bf16(dpt[2 * ic][0], dpt[2 * ic][1]),
+                                pack_bf16(dpt[2 * ic][2], dpt[2 * ic][3]),
+                                pack_bf16(dpt[2 * ic + 1][0], dpt[2 * ic + 1][1]),
+                                pack_bf16(dpt[2 * ic + 1][2], dpt[2 * ic + 1][3])};
+#pragma unroll
+        for (int dd = 0; dd < D / 16; ++dd) {
+          uint32_t gb[4], qb[4];
+          ldsm_bt<D>(gt, c * BC + 16 * ic, dd, lane, gb);
+          ldsm_bt<D>(qt, c * BC + 16 * ic, dd, lane, qb);
+          mma16816(dv_acc[2 * dd], pA, gb[0], gb[1]);
+          mma16816(dv_acc[2 * dd + 1], pA, gb[2], gb[3]);
+          mma16816(dk_acc[2 * dd], sA, qb[0], qb[1]);
+          mma16816(dk_acc[2 * dd + 1], sA, qb[2], qb[3]);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with buffer buf before it is refilled
+  }
+  // with no q tile the K and V copies may still be in flight
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+  const long long kv_row = (long long)Hkv * D;
+  const long long off0 = (long long)b * Skv * kv_row + (long long)hk * D;
+  if (splits == 1) {
+    // dK (times the scale q.k^T carried) and dV through this warp's K and V rows
+    store_acc<D>(dk_acc, scale, smem, r0, dk + off0, kv_row, j0, Skv, lane);
+    store_acc<D>(dv_acc, 1.f, smem + BR * D * 2, r0, dv + off0, kv_row, j0, Skv, lane);
+    return;
+  }
+  // fp32 partials: [split][dK, dV][B, Skv, Hkv, D]
+  const long long n = (long long)gridDim.y * Skv * kv_row;
+  float* pk = part + 2 * split * n + off0;
+  float* pv = pk + n;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int j = j0 + g + 8 * half;
+    if (j >= Skv) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const long long at = (long long)j * kv_row + 8 * c + 2 * t4;
+      *reinterpret_cast<float2*>(pk + at) =
+          make_float2(dk_acc[c][2 * half] * scale, dk_acc[c][2 * half + 1] * scale);
+      *reinterpret_cast<float2*>(pv + at) =
+          make_float2(dv_acc[c][2 * half], dv_acc[c][2 * half + 1]);
+    }
+  }
+}
+
+// dK and dV from their fp32 partials, summed in split order and rounded
+// once: 8 elements a thread (n, the elements of dk, a multiple of 8)
+__global__ void __launch_bounds__(256)
+flash_bwd_split_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
+                           bf16* __restrict__ dv, long long n, int splits) {
+  const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (i >= n) return;
+  float sk[8] = {}, sv[8] = {};
+  for (int s = 0; s < splits; ++s) {
+    const float* pk = part + 2 * s * n + i;
+    const float* pv = pk + n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float4 a = *reinterpret_cast<const float4*>(pk + 4 * h);
+      const float4 c = *reinterpret_cast<const float4*>(pv + 4 * h);
+      sk[4 * h] += a.x, sk[4 * h + 1] += a.y, sk[4 * h + 2] += a.z, sk[4 * h + 3] += a.w;
+      sv[4 * h] += c.x, sv[4 * h + 1] += c.y, sv[4 * h + 2] += c.z, sv[4 * h + 3] += c.w;
+    }
+  }
+  *reinterpret_cast<uint4*>(dk + i) = repro::pack16(sk);
+  *reinterpret_cast<uint4*>(dv + i) = repro::pack16(sv);
+}
+
+// the shared-memory limit of kernel fn raised once per device (slot: one
+// per kernel)
+template <typename F>
+cudaError_t raise_smem(F fn, int bytes, bool (&done)[repro::kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = repro::current_device(&dev);
+  if (err != cudaSuccess || done[dev]) return err;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[dev] = true;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_stream(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                          void* dv, float* part, int splits, int B, int Hq, int Hkv, int Sq,
+                          int Skv, const long long* qs, const long long* ks_,
+                          const long long* vs_, int causal, float softcap, float scale,
+                          cudaStream_t stream) {
+  static bool attr_dq[repro::kMaxDevices] = {}, attr_dkdv[repro::kMaxDevices] = {};
+  cudaError_t err = raise_smem(flash_bwd_dq_tc_kernel<D>, dq_smem<D>(), attr_dq);
+  if (err == cudaSuccess)
+    err = raise_smem(flash_bwd_dkdv_tc_kernel<D>, dkdv_smem<D>(), attr_dkdv);
+  if (err != cudaSuccess) return err;
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *gp = static_cast<const bf16*>(dout);
+  const int group = Hq / Hkv;
+  flash_bwd_dq_tc_kernel<D><<<dim3(Hq, B, (Sq + BR - 1) / BR), THREADS, dq_smem<D>(), stream>>>(
+      qp, kp, vp, static_cast<const bf16*>(o), gp, lse, delta, static_cast<bf16*>(dq), Hq,
+      group, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2], vs_[0], vs_[1], vs_[2],
+      causal, softcap, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_tc_kernel<D>
+      <<<dim3(Hkv * splits, B, (Skv + BR - 1) / BR), THREADS, dkdv_smem<D>(), stream>>>(
+          qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, Hq,
+          Hkv, group, splits, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2], vs_[0],
+          vs_[1], vs_[2], causal, softcap, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = (long long)B * Skv * Hkv * D;
+  flash_bwd_split_sum_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, stream>>>(
+      part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
+
+// the short tensor-core form takes the input (else the streaming one)
+bool short_form(int Hq, int Hkv, int Sq, int Skv, int D) {
+  return Hq == Hkv && D <= 64 && Sq <= tc::kMaxS && Skv <= tc::kMaxS &&
+         tc::smem_bytes(Sq, Skv, D) <= tc::kMaxSmem;
+}
 
 }  // namespace
 
@@ -571,17 +1117,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
 // (batch, seq, head) strides in elements. o, dout, dq: contiguous
 // (B, Sq, Hq, D); dk, dv: contiguous (B, Skv, Hkv, D); lse (from the
 // forward) and delta (scratch the first kernel fills): fp32 (B, Hq, Sq).
-// Sq, Skv > 0. dtype: repro::Dtype of q, k, v, o, dout and the gradients.
-// variant 0 runs the CUDA-core kernels (delta is their scratch); variant 1
-// the tensor-core kernel, which takes bfloat16 with Hq == Hkv, D <= 64,
-// Sq, Skv <= 256 within the shared-memory ceiling, strides that are
-// multiples of 8 and 16-byte-aligned pointers, and refuses anything else
-// (the caller chooses; nothing falls back). Returns the CUDA error of the
-// launches (0 on success).
+// part: null, or with splits > 1 fp32 scratch of 2 * splits * B * Skv *
+// Hkv * D for the streaming form's partial dK and dV; splits divides
+// Hq / Hkv. Sq, Skv > 0. dtype: repro::Dtype of q, k, v, o, dout and the
+// gradients. variant 0 runs the CUDA-core kernels; variant 1 the
+// tensor-core ones, which take bfloat16 with D in {16, 32, 64, 128},
+// strides that are multiples of 8 and 16-byte-aligned pointers, and refuse
+// anything else (the caller chooses; nothing falls back): the short form
+// where short_form says so (splits ignored), else the streaming form.
+// Returns the CUDA error of the launches (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype, int variant,
-    int B, int Hq, int Hkv, int Sq, int Skv, int D,
+    const float* lse, float* delta, void* dq, void* dk, void* dv, float* part, int dtype,
+    int variant, int splits, int B, int Hq, int Hkv, int Sq, int Skv, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -592,28 +1140,44 @@ extern "C" int flash_attention_bwd(
   const long long vst[3] = {v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == kTc) {
-    bool ok = dtype == repro::kBFloat16 && Hq == Hkv && D <= 64 && Sq <= tc::kMaxS &&
-              Skv <= tc::kMaxS && tc::smem_bytes(Sq, Skv, D) <= tc::kMaxSmem;
+    bool ok = dtype == repro::kBFloat16;
     for (int i = 0; i < 3; ++i) ok = ok && qs[i] % 8 == 0 && kst[i] % 8 == 0 && vst[i] % 8 == 0;
     for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq),
                           static_cast<const void*>(dk), static_cast<const void*>(dv)})
       ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
     if (!ok) return cudaErrorInvalidValue;
+    if (short_form(Hq, Hkv, Sq, Skv, D)) {
+      switch (D) {
+#define REPRO_FLASH_BWD_SHORT(DD)                                                             \
+  case DD:                                                                                    \
+    return tc::launch_short<DD>(q, k, v, o, dout, lse, dq, dk, dv, B, Hq, Sq, Skv, qs, kst,   \
+                                vst, causal, softcap, scale, s);
+        REPRO_FLASH_BWD_SHORT(16)
+        REPRO_FLASH_BWD_SHORT(32)
+        REPRO_FLASH_BWD_SHORT(64)
+#undef REPRO_FLASH_BWD_SHORT
+        default:
+          return cudaErrorInvalidValue;
+      }
+    }
+    if (delta == nullptr || splits < 1 || (Hq / Hkv) % splits != 0 ||
+        (splits > 1 && part == nullptr))
+      return cudaErrorInvalidValue;
     switch (D) {
-      case 16:
-        return tc::launch<16>(q, k, v, o, dout, lse, dq, dk, dv, B, Hq, Sq, Skv, qs, kst, vst,
-                              causal, softcap, scale, s);
-      case 32:
-        return tc::launch<32>(q, k, v, o, dout, lse, dq, dk, dv, B, Hq, Sq, Skv, qs, kst, vst,
-                              causal, softcap, scale, s);
-      case 64:
-        return tc::launch<64>(q, k, v, o, dout, lse, dq, dk, dv, B, Hq, Sq, Skv, qs, kst, vst,
-                              causal, softcap, scale, s);
+#define REPRO_FLASH_BWD_STREAM(DD)                                                            \
+  case DD:                                                                                    \
+    return tc::launch_stream<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, splits, B,   \
+                                 Hq, Hkv, Sq, Skv, qs, kst, vst, causal, softcap, scale, s);
+      REPRO_FLASH_BWD_STREAM(16)
+      REPRO_FLASH_BWD_STREAM(32)
+      REPRO_FLASH_BWD_STREAM(64)
+      REPRO_FLASH_BWD_STREAM(128)
+#undef REPRO_FLASH_BWD_STREAM
       default:
         return cudaErrorInvalidValue;
     }
   }
-  if (variant != kSimt) return cudaErrorInvalidValue;
+  if (variant != kSimt || delta == nullptr) return cudaErrorInvalidValue;
   switch (dtype) {
     case repro::kFloat32:
       return dispatch_d<float>(D, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv,

@@ -40,7 +40,7 @@ SIGNATURES = {
     "flash_attention": {"flash_attention_fwd":
                         [_P] * 5 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]},
     "flash_attention_bwd": {"flash_attention_bwd":
-                            [_P] * 10 + [_I] * 8 + [_L] * 9
+                            [_P] * 11 + [_I] * 9 + [_L] * 9
                             + [_I, _F, _F, _P]},
     "moe_gemm": {"grouped_gemm": [_P] * 3 + [_I] * 7 + [_L] * 4 + [_P],
                  "grouped_gemm_bwd": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P]},

@@ -10,10 +10,13 @@ fp32 and for unaligned views. The backward kernel,
 ``repro_torch/csrc/flash_attention_bwd.cu``, computes the VJP the JAX
 package writes out for its chunked attention (``flash_bwd``,
 ``repro/models/attention.py:168-204``); the Pallas kernel has none. It has
-two variants too: bf16 on the tensor cores for short MHA sequences whose
-head fits in shared memory (the agent's trunk), and a CUDA-core one for the
-rest. Each source's note says what bounds it on the H100 and how the design
-answers that.
+two variants too: bf16 on the tensor cores, for every input the forward
+sends there, and a CUDA-core one for fp32 and unaligned views. The
+tensor-core one has two forms, chosen by the C entry point from the shapes
+(``bwd_tc_form`` mirrors the rule): a short form for MHA heads that fit one
+block's shared memory whole (the agent's trunk), and a streaming form for
+the rest (GQA, D = 128, long sequences). Each source's note says what
+bounds it on the H100 and how the design answers that.
 
 On CUDA tensors that need a gradient, ``flash_attention`` runs through
 ``_FlashFn``: its forward asks the kernel for each row's log-sum-exp, and
@@ -33,10 +36,15 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
-# the tensor-core backward's limits (csrc/flash_attention_bwd.cu, tc::): the
-# longest sequence its dS^T tile holds, and an H100 block's shared memory
+# the tensor-core backward's short form's limits (csrc/flash_attention_bwd.cu,
+# tc::): the longest sequence its dS^T tile holds, and an H100 block's
+# shared memory
 BWD_TC_MAX_S = 256
 BWD_TC_MAX_SMEM = 232448
+# the streaming form's kv rows a dkdv block, and the blocks an SM its split
+# count aims at
+BWD_KV_ROWS = 64
+BWD_BLOCKS_PER_SM = 4
 
 
 def _mask(Sq, Skv, causal, window, device):
@@ -175,32 +183,56 @@ def _launch(q, k, v, variant: str, *, causal, window, softcap, scale,
 
 
 def bwd_smem_bytes(Sq: int, Skv: int, D: int) -> int:
-    """Shared memory of the tensor-core backward (``tc::smem_bytes``): q,
-    dO, K, V in bf16, dS^T rows of BWD_TC_MAX_S, lse and delta."""
+    """Shared memory of the tensor-core backward's short form
+    (``tc::smem_bytes``): q, dO, K, V in bf16, dS^T rows of BWD_TC_MAX_S,
+    lse and delta."""
     sq16, skv16 = -(-Sq // 16) * 16, -(-Skv // 16) * 16
     return 4 * D * (sq16 + skv16) + skv16 * BWD_TC_MAX_S * 2 + 8 * sq16
+
+
+def bwd_tc_form(Sq: int, Skv: int, Hq: int, Hkv: int, D: int) -> str:
+    """The form of the tensor-core backward the C entry point runs
+    (``short_form`` in csrc/flash_attention_bwd.cu): "short" for MHA heads
+    with D <= 64 whose q, dO, K, V and dS^T fit one block's shared memory
+    (both sequences <= BWD_TC_MAX_S), else "stream"."""
+    if Hq == Hkv and D <= 64 and max(Sq, Skv) <= BWD_TC_MAX_S \
+            and bwd_smem_bytes(Sq, Skv, D) <= BWD_TC_MAX_SMEM:
+        return "short"
+    return "stream"
+
+
+def bwd_splits(B: int, Skv: int, Hkv: int, group: int, sms: int) -> int:
+    """How many dkdv blocks of the streaming form share a kv head's
+    ``group`` q heads: the largest power of two dividing the group that
+    keeps the grid (B * Hkv * ceil(Skv / BWD_KV_ROWS) blocks a share)
+    within BWD_BLOCKS_PER_SM blocks an SM. Under the causal mask the first
+    kv tiles see the most q rows; more, smaller blocks let the card spread
+    them. Above 1 the shares write fp32 partials that a last pass sums."""
+    blocks = B * Hkv * -(-Skv // BWD_KV_ROWS)
+    s = 1
+    while group % (2 * s) == 0 and blocks * 2 * s <= BWD_BLOCKS_PER_SM * sms:
+        s *= 2
+    return s
 
 
 def _flash_bwd_variant(q, k, v, o, do) -> str:
     """The backward kernel a CUDA launch runs, chosen from the inputs alone
     (o and do contiguous): "tc" where the forward takes the tensor cores
-    and, besides, o and do start on 16 bytes, each q head has its own kv
-    head, D <= 64 and both sequences fit the kernel's shared memory whole
-    (the agent's trunk), else "simt"."""
-    Sq, Hq, D = q.shape[1], q.shape[2], q.shape[3]
-    Skv, Hkv = k.shape[1], k.shape[2]
+    and, besides, o and do start on 16 bytes, at any head count, sequence
+    length and head dim the forward takes; else "simt" (fp32 and views off
+    16 bytes)."""
     if _flash_variant(q, k, v) != "tc" or o.data_ptr() % 16 \
-            or do.data_ptr() % 16 or Hq != Hkv or D > 64 \
-            or max(Sq, Skv) > BWD_TC_MAX_S \
-            or bwd_smem_bytes(Sq, Skv, D) > BWD_TC_MAX_SMEM:
+            or do.data_ptr() % 16:
         return "simt"
     return "tc"
 
 
 def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, softcap,
-                scale):
+                scale, splits=None):
     """Run ``variant`` of the backward kernel on CUDA tensors (o and do
-    contiguous) and return (dq, dk, dv); counts nothing."""
+    contiguous) and return (dq, dk, dv); counts nothing. The streaming
+    tensor-core form shares a kv head's q heads among ``splits`` blocks
+    (by default ``bwd_splits``), with fp32 scratch for their partials."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -208,16 +240,22 @@ def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, softcap,
     dv = torch.empty((B, Skv, Hkv, D), dtype=v.dtype, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-             if variant == "simt" else None)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if splits is None:
+        # the short form's MHA heads (a group of 1) always take 1
+        splits = 1 if variant != "tc" else bwd_splits(
+            B, Skv, Hkv, Hq // Hkv,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    part = (torch.empty(2 * splits * dk.numel(), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     fn = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(),
-                 None if delta is None else delta.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 None if part is None else part.data_ptr(),
                  _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[variant],
-                 B, Hq, Hkv, Sq, Skv, D,
+                 splits, B, Hq, Hkv, Sq, Skv, D,
                  *_build.row_strides(q), *_build.row_strides(k),
                  *_build.row_strides(v), int(bool(causal)), float(softcap),
                  float(scale), torch.cuda.current_stream(q.device).cuda_stream)

@@ -53,8 +53,8 @@ def test_checksum_copy_replaces_both_scratch_stores(copies):
 
 def test_compare_trees_reads_the_compared_numbers():
     """``compare_trees.summarize`` picks each phase's wall time, the LM
-    serving lines' step times and the service rates out of a run's log,
-    and passes over every other line."""
+    serving lines' step times, the service rates and the timed kernels'
+    ms out of a run's log, and passes over every other line."""
     from repro_torch.analysis import compare_trees
     log = "\n".join([
         "NVIDIA H100 80GB HBM3, 700.00 W",
@@ -65,6 +65,7 @@ def test_compare_trees_reads_the_compared_numbers():
         '[service] {"what": "co-sim", "tenants": 1024, '
         '"decisions_per_s": 1280.2}',
         '[service] {"what": "journal", "decisions": 3}',
+        '[time] {"name": "flash_attention_bwd", "ms": 0.3660, "plain_ms": 5.5}',
         "[check] not json",
     ])
     assert compare_trees.summarize(log) == {
@@ -72,5 +73,6 @@ def test_compare_trees_reads_the_compared_numbers():
         "lm_serve": {"prefill_ms": 113.9, "decode_ms_mean": 59.0,
                      "decode_ms_p50": 55.0},
         "dense_serve": {"prefill_ms": 90.0, "decode_ms_mean": 30.0},
-        "service co-sim": 1280.2}
+        "service co-sim": 1280.2, "time flash_attention_bwd": 0.3660}
     assert compare_trees.ORDER == ("parent", "change", "change", "parent")
+    assert set(compare_trees.RUNS) == {"serving", "backward"}

@@ -95,6 +95,8 @@ def _normal(seed, *shapes):
     (2, 144, 4, 4, 32, True, 0.0),
     (1, 61, 8, 2, 16, True, 30.0),       # GQA, softcap
     (2, 40, 4, 1, 64, False, 20.0),
+    (1, 130, 8, 1, 64, True, 0.0),       # a q-head group of 8, ragged S
+    (1, 100, 2, 2, 128, False, 30.0),    # D = 128, softcap
 ])
 def test_flash_bwd_ref_matches_jax_vjp(B, Sq, Hq, Hkv, D, causal, softcap):
     q, k, v, do = _normal(Sq + D, (B, Sq, Hq, D), (B, Sq, Hkv, D),

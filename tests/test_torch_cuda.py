@@ -23,7 +23,10 @@ ulp apart).
 The backward kernels (flash's, and the GEMM's two products) run through
 autograd as training runs them, against their plain versions on the same
 inputs: flash fp32 3e-5 absolute and 1e-5 relative, the GEMM fp32 2e-5
-(sums over up to 1001 terms), bf16 2e-2; the GEMM's fused bf16 backward
+(sums over up to 1001 terms), bf16 2e-2; flash's tensor-core backward in
+both forms (the short one at the trunk's MHA heads, the streaming one for
+GQA, D = 128 and long or ragged sequences, at every split count of a
+group) and bit for bit against itself over repeated calls; the GEMM's fused bf16 backward
 also at split-K boundaries, with strided dY, and bit for bit against
 itself over repeated calls; and one reduced DQN step with the kernels
 against the same step on the card's plain path. The RMSNorm and SSD
@@ -517,9 +520,15 @@ def _bwd_counts():
     (2, 4, 4, 100, 100, 16, BF16, False, 30.0, "tc"),
     (2, 4, 4, 97, 131, 64, BF16, True, 30.0, "tc"),    # Sq < Skv, causal
     (1, 2, 2, 131, 97, 64, BF16, False, 0.0, "tc"),    # Sq > Skv
-    (1, 2, 2, 256, 256, 32, BF16, False, 0.0, "tc"),   # the longest tc
-    (2, 8, 2, 1001, 1001, 64, BF16, True, 0.0, "simt"),  # ragged, GQA
-    (1, 4, 2, 130, 130, 128, BF16, True, 30.0, "simt"),
+    (1, 2, 2, 256, 256, 32, BF16, False, 0.0, "tc"),   # the longest short
+    (2, 8, 2, 1001, 1001, 64, BF16, True, 0.0, "tc"),  # streaming: ragged GQA
+    (1, 4, 2, 130, 130, 128, BF16, True, 30.0, "tc"),
+    (2, 8, 2, 2048, 2048, 64, BF16, True, 0.0, "tc"),  # TinyLlama's group
+    (1, 4, 4, 1024, 1024, 128, BF16, True, 30.0, "tc"),
+    (1, 8, 2, 300, 157, 64, BF16, False, 0.0, "tc"),   # GQA, Sq > Skv
+    (1, 8, 2, 157, 300, 64, BF16, False, 0.0, "tc"),   # GQA, Sq < Skv
+    (2, 4, 2, 300, 300, 16, BF16, True, 0.0, "tc"),
+    (2, 4, 4, 300, 300, 32, BF16, False, 20.0, "tc"),
     (2, 8, 2, 97, 131, 64, FP32, True, 30.0, "simt"),
     (3, 4, 4, 24, 24, 16, FP32, False, 0.0, "simt"),
     (1, 2, 1, 131, 97, 128, FP32, False, 0.0, "simt"),
@@ -552,6 +561,52 @@ def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
         assert g.dtype == r.dtype and g.shape == r.shape
         torch.testing.assert_close(g.float(), r.float(), atol=atol,
                                    rtol=rtol, msg=f"d{name}")
+
+
+def _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal, seed=0):
+    """bf16 q, k, v, dO and the forward kernel's out and lse."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in
+                   _normal(seed, (B, S, Hq, D), (B, S, Hkv, D),
+                           (B, S, Hkv, D), (B, S, Hq, D)))
+    o, lse = fa_ops._launch(q, k, v, "tc", causal=causal, window=0,
+                            softcap=0.0, scale=D ** -0.5, lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,form", [
+    (2, 8, 2, 1001, 64, True, "stream"),   # q heads shared among blocks
+    (1, 4, 4, 300, 128, False, "stream"),
+    (4, 8, 8, 144, 32, False, "short"),
+])
+def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, form):
+    """Repeated backward calls on the same inputs give the same bits: dK
+    and dV sum over a kv head's q heads, and over the blocks that share
+    them, in a fixed order, with no atomics."""
+    assert fa_ops.bwd_tc_form(S, S, Hq, Hkv, D) == form
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal)
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for _ in range(2):
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        for name, a, b in zip("qkv", first, again):
+            assert torch.equal(a, b), f"d{name} differs between calls"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_flash_backward_split_counts(cuda, splits):
+    """The streaming form's dkdv blocks at every split count of a group of
+    8 q heads (causal, ragged): dq, dk, dv within 2e-2 of the plain
+    backward whether each block keeps its kv head's whole group or writes
+    fp32 partials that the last pass sums."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, 2, 16, 2, 777, 64, True)
+    grads = fa_ops._launch_bwd(q, k, v, o, lse, do.contiguous(), "tc",
+                               causal=True, softcap=0.0, scale=0.125,
+                               splits=splits)
+    refs = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for name, g, r in zip("qkv", grads, refs):
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2, msg=f"d{name}")
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ launch on the card really ran is asserted by the ``cuda`` tests through the
 Parity tolerance as in tests/test_torch_kernels.py for bf16, 2e-2: both
 sides round once at the output, after sums taken in different orders.
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,10 +27,12 @@ from repro_torch.configs import mirage_agent
 from repro_torch.core import DQNConfig, DQNLearner, FoundationConfig, q_values
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (BWD_TC_MAX_SMEM,
                                                      _flash_bwd_variant,
                                                      _flash_variant,
-                                                     bwd_smem_bytes)
+                                                     bwd_smem_bytes,
+                                                     bwd_splits, bwd_tc_form)
 from repro_torch.kernels.moe_gemm import expert_mlp, grouped_gemm
 from repro_torch.kernels.moe_gemm import ops as gemm_ops
 from repro_torch.kernels.moe_gemm.ops import (_bwd_variant, _gemm_variant,
@@ -336,8 +340,8 @@ def test_flash_variant(name, variant):
 
 
 def _flash_bwd_case(name):
-    """q, k, v, o, dO for the backward: the trunk's shape, and one change
-    each that the tensor-core backward does not take."""
+    """q, k, v, o, dO for the backward: the trunk's shape, one change each
+    away from it, and the LM training layers' shapes."""
     B, S, Hq, Hkv, D = 2, 144, 8, 8, 32
     if name == "gqa":
         Hkv = 2
@@ -345,8 +349,12 @@ def _flash_bwd_case(name):
         D = 128
     elif name == "long":
         S = 257
-    elif name == "d64_s256":                # over the shared-memory ceiling
+    elif name == "d64_s256":                # over the short form's memory
         S, D = 256, 64
+    elif name == "tinyllama_train":         # 32 q heads over 4 kv heads
+        S, Hq, Hkv, D = 2048, 32, 4, 64
+    elif name == "qwen_moe_train":
+        S, Hq, Hkv, D = 2048, 16, 16, 128
     q = torch.zeros(B, S, Hq, D, dtype=BF16)
     k = v = torch.zeros(B, S, Hkv, D, dtype=BF16)
     o = do = torch.zeros_like(q)
@@ -360,19 +368,105 @@ def _flash_bwd_case(name):
 
 
 @pytest.mark.parametrize("name,variant", [
-    ("trunk", "tc"), ("fused_qkv", "tc"), ("fp32", "simt"), ("gqa", "simt"),
-    ("d128", "simt"), ("long", "simt"), ("d64_s256", "simt"),
-    ("do_offset", "simt"),
+    ("trunk", "tc"), ("fused_qkv", "tc"), ("fp32", "simt"), ("gqa", "tc"),
+    ("d128", "tc"), ("long", "tc"), ("d64_s256", "tc"),
+    ("do_offset", "simt"), ("tinyllama_train", "tc"),
+    ("qwen_moe_train", "tc"),
 ])
 def test_flash_bwd_variant(name, variant):
-    """The tensor-core backward takes the trunk's bf16 MHA heads whole in
-    shared memory; GQA, D = 128, sequences past 256 or past the shared
-    memory, fp32 and operands off 16 bytes take the CUDA-core kernels."""
+    """The tensor-core backward takes every bf16 input the forward sends to
+    the tensor cores, MHA or GQA, at any sequence length and head dim;
+    fp32 and operands off 16 bytes take the CUDA-core kernels."""
     assert _flash_bwd_variant(*_flash_bwd_case(name)) == variant
 
 
+@pytest.mark.parametrize("name,form", [
+    ("trunk", "short"), ("fused_qkv", "short"), ("gqa", "stream"),
+    ("d128", "stream"), ("long", "stream"), ("d64_s256", "stream"),
+    ("tinyllama_train", "stream"), ("qwen_moe_train", "stream"),
+])
+def test_flash_bwd_tc_form(name, form):
+    """``bwd_tc_form`` mirrors the C entry point's choice of the
+    tensor-core form: the short form keeps the trunk's MHA heads whole in
+    shared memory; GQA, D = 128 and sequences past 256 or past the short
+    form's shared memory stream their tiles."""
+    q, k = _flash_bwd_case(name)[:2]
+    assert bwd_tc_form(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                       q.shape[3]) == form
+
+
+@pytest.mark.parametrize("B,Skv,Hkv,group,splits", [
+    (2, 2048, 4, 8, 2),      # TinyLlama training, 2 x 2048: 256 blocks a share
+    (8, 128, 4, 8, 8),       # the train launcher's 8 x 128: 64 blocks a share
+    (2, 2048, 16, 1, 1),     # Qwen2-MoE training, MHA: nothing to share
+    (2, 1001, 2, 4, 4),
+    (1, 130, 1, 8, 8),
+    (4, 2048, 4, 8, 1),      # 512 blocks already
+])
+def test_flash_bwd_splits(B, Skv, Hkv, group, splits):
+    """The streaming dkdv kernel shares a kv head's q heads among as many
+    blocks as keep its grid within BWD_BLOCKS_PER_SM blocks an SM of an
+    H100's 132, a power of two that divides the group."""
+    s = bwd_splits(B, Skv, Hkv, group, 132)
+    assert s == splits and group % s == 0
+    blocks = B * Hkv * -(-Skv // fa_ops.BWD_KV_ROWS)
+    assert blocks * s <= fa_ops.BWD_BLOCKS_PER_SM * 132 or s == 1
+    assert group % (2 * s) or \
+        blocks * 2 * s > fa_ops.BWD_BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("name,splits", [("tinyllama_train", 2),
+                                         ("trunk", 1), ("fp32", 1)])
+def test_flash_bwd_launch_arguments(monkeypatch, name, splits):
+    """What ``_launch_bwd`` hands the C entry point, recorded on CPU
+    tensors in place of the call: the operands in place, the fp32 delta
+    scratch (B, Hq, Sq) every variant fills, the streaming form's fp32
+    partials of 2 x splits x dk's elements where a kv head's q heads are
+    shared, the split count (1 for the short form and the CUDA-core
+    kernels), the shapes and the strides."""
+    q, k, v, o, do = _flash_bwd_case(name)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+    variant = _flash_bwd_variant(q, k, v, o, do)
+    seen = {}
+
+    def entry(*args):
+        seen["args"] = args
+        return 0
+    monkeypatch.setattr(fa_ops._build, "load", lambda name: entry)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev:
+                        type("P", (), {"multi_processor_count": 132}))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("S", (), {"cuda_stream": 7}))
+    empty = torch.empty
+    sizes = []
+
+    def record_empty(*shape, **kw):
+        sizes.append((shape[0] if len(shape) == 1 else shape, kw.get("dtype")))
+        return empty(*shape, **kw)
+    monkeypatch.setattr(torch, "empty", record_empty)
+    dq, dk, dv = fa_ops._launch_bwd(q, k, v, o, lse, do, variant,
+                                    causal=True, softcap=0.0, scale=0.125)
+    args = seen["args"]
+    B, S, Hq, D = q.shape
+    assert args[:6] == tuple(t.data_ptr() for t in (q, k, v, o, do, lse))
+    assert ((B, Hq, S), torch.float32) in sizes
+    assert args[7:10] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert (args[10] is None) == (splits == 1)
+    if splits > 1:
+        assert (2 * splits * dk.numel(), torch.float32) in sizes
+    assert args[11:20] == (fa_ops._build.DTYPE_CODES[q.dtype],
+                           fa_ops._build.VARIANT_CODES[variant], splits, B,
+                           Hq, k.shape[2], S, k.shape[1], D)
+    assert args[20:29] == (*fa_ops._build.row_strides(q),
+                           *fa_ops._build.row_strides(k),
+                           *fa_ops._build.row_strides(v))
+    assert args[29:] == (1, 0.0, 0.125, 7)
+
+
 def test_flash_bwd_smem_mirror():
-    """``bwd_smem_bytes`` mirrors the kernel's ``tc::smem_bytes``: q, dO, K,
+    """``bwd_smem_bytes`` mirrors the short form's ``tc::smem_bytes``: q, dO, K,
     V in bf16, 256-column dS^T rows and fp32 lse and delta; the trunk's
     head takes 112 KB, under the 227 KB ceiling."""
     assert bwd_smem_bytes(144, 144, 32) == 4 * 32 * 288 + 144 * 512 + 8 * 144
