@@ -13,12 +13,15 @@ exits non-zero:
 2. each kernel against its plain PyTorch version on the card, at the
    serving paths' shapes and at ragged ones, with the tolerance stated; each
    case checks through the launch counters which variant ran (flash, at
-   TinyLlama's causal GQA prefill shape (4,2048,32/4,64) and Qwen2-MoE's
-   (4,2048,16/16,128) among others, the GEMM (at the Qwen2-MoE experts'
-   prefill and decode shapes too) and the SSD scan: bf16 on the tensor
-   cores, fp32 and unaligned inputs on the CUDA cores; RMSNorm: 16-byte
-   vectors, and one element per lane for rows off 16 bytes); the backward
-   kernels through autograd:
+   TinyLlama's causal GQA prefill shape (4,2048,32/4,64), Qwen2-MoE's
+   (4,2048,16/16,128) and Gemma-3's (4,2048,32/16,128), with its local
+   layers' window of 1024 and without (its global layers), and ragged at
+   (2,1100,32/16,128) with the window, among others, the GEMM (at the
+   Qwen2-MoE experts' prefill and decode shapes too) and the SSD scan:
+   bf16 on the tensor cores, fp32 and unaligned inputs on the CUDA cores;
+   RMSNorm: 16-byte vectors, Gemma-3's (1 + w) at its QK-norm's
+   (262144, 128) and its d_model's (8192, 5376) among them, and one element
+   per lane for rows off 16 bytes); the backward kernels through autograd:
    flash's (with the forward's row log-sum-exp; bf16 on the tensor cores in
    the short form at the trunk's MHA heads and in the streaming form for
    GQA, D = 128, long and ragged sequences, TinyLlama's training layer
@@ -94,6 +97,24 @@ exits non-zero:
    torch.profiler, by kernel group; the drops again with the QKV biases
    at the init's zeros; ``repro_torch.launch.serve --arch
    qwen2-moe-a2.7b`` at its defaults;
+4e. Gemma-3-27B serving at its full published width (d 5376, 32 q heads
+   over 16 kv heads of 128, d_ff 21504, vocab 262,144, QK-norm, sandwich
+   norms, (1 + w) norm scales, a tied table) and 26 of its 62 layers,
+   4 x (5 local + 1 global) + 2 local (fp32 weights of all 62 exceed the
+   card), seeded fp32 weights drawn on the card (~12.1 B parameters, bf16
+   compute) with every norm scale drawn N(0, 0.1) in place of the init's
+   zeros: as 4c, a 4 x 2048 prefill into a cache of 2,080 (1,024-slot
+   rings on the local layers) and 32 decode steps, which wrap every ring,
+   raising unless each prefill launched exactly 26 flash kernels, all on
+   the tensor cores, 22 with the window of 1024 and 4 without, and 157
+   RMSNorm, all vectorised, and each step no flash and 157 RMSNorm; the
+   peak memory; the first local and the first global layer as a 2-layer
+   model, a 1,088-token prefill (past the window) and 4 decode steps,
+   every call's logits and both K/V caches against the plain path on the
+   CPU; a prefill and 5 decode steps under torch.profiler, by kernel
+   group; ``ServeEngine`` at the serve launcher's defaults on the same
+   weights (every request done, no flash launch, RMSNorm a multiple of
+   157);
 6. the Fig-8 grid on torch learners at the agent's full width, as
    ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
    cluster (V100), single-node chains, the six cells {light, medium, heavy}
@@ -163,7 +184,13 @@ exits non-zero:
    heads over 4 kv heads, beside its CUDA-core variant, its plain version
    and SDPA with GQA, with its bound (k and v counted at 4 heads); and
    RMSNorm at the decode step's 4 rows; flash at one Qwen2-MoE prefill
-   layer, (4,2048,16/16,128) causal, and the grouped GEMM at its routed
+   layer, (4,2048,16/16,128) causal; flash at Gemma-3's local prefill
+   layer, (4,2048,32/16,128) causal with the window of 1024, beside one
+   SDPA call with the band as its mask and ``enable_gqa``, and at its
+   global one, causal, beside SDPA with ``enable_gqa``, each with its
+   bound (the visible (q, k) pairs' products); RMSNorm as Gemma-3's
+   QK-norm runs it, (262144, 128) bf16 with (1 + w), beside ``F.rms_norm``
+   with the weight 1 + w; the grouped GEMM at its routed
    experts' shapes (E = 60: a prefill's 684 rows an expert and a decode
    step's 4, through wi and wo) beside ``torch.bmm``, each with its bound
    and share; the flash backward at TinyLlama's training shape,
@@ -180,10 +207,11 @@ exits non-zero:
    the "simt" one as ``simt_ms``) beside their plain versions and, for
    RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 6, 7, 8, 5, and each ends
-with a ``[phase]`` line of its wall time. Each kernel's ``launches`` in the
-JSON record sums the counts of every path that runs it (phases 3, 4, 4b,
-4c's and 4d's prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c),
+Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 6, 7, 8, 5, and each
+ends with a ``[phase]`` line of its wall time. Each kernel's ``launches`` in
+the JSON record sums the counts of every path that runs it (phases 3, 4,
+4b, 4c's, 4d's and 4e's prefill and decode steps, 6, 7 and 8: runs (a), (b)
+and (c),
 TinyLlama's 2 x 2048 run and the launcher at its defaults), each counted
 from 0 just before its path and read just after.
 
@@ -210,8 +238,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import (mamba2_1_3b, mirage_agent,  # noqa: E402
-                                 qwen2_moe_a2_7b, tinyllama_1_1b)
+from repro_torch.configs import (gemma3_27b, mamba2_1_3b,  # noqa: E402
+                                 mirage_agent, qwen2_moe_a2_7b,
+                                 tinyllama_1_1b)
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
                               CircuitBreaker, DecisionJournal, DQNConfig,
@@ -250,9 +279,12 @@ from repro_torch.kernels.ssd.ops import (  # noqa: E402
     _launch_bwd as ssd_launch_bwd)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.serve import ProvisionService, ServiceConfig  # noqa: E402
+from repro_torch.models.common import layer_plan  # noqa: E402
+from repro_torch.serve import (ProvisionService, Request,  # noqa: E402
+                               ServeEngine, ServiceConfig)
 from repro_torch.sim import (LOAD_LEVELS, PROFILES,  # noqa: E402
                              get_fault_spec, get_scenario, iter_scenarios,
                              make_env, make_vector_env, synthesize_trace)
@@ -325,6 +357,18 @@ QWEN = qwen2_moe_a2_7b.CONFIG                # phase 4d
 QWEN_NORMS = 2 * QWEN.n_layers + 1
 QWEN_GEMMS = 2 * QWEN.n_layers              # the routed experts' wi and wo
 QKV_BIAS_STD = 0.5      # the biases drawn nonzero (the reference inits 0)
+# phase 4e: Gemma-3-27B at its published width, cut from 62 to 26 layers
+# (fp32 weights of all 62, 108 GB, exceed the card's 80): 4 x (5 local +
+# 1 global) + 2 local, the published plan's two segments
+GEMMA = gemma3_27b.CONFIG.replace(n_layers=26)
+GEMMA_LOCAL = sum(seg.n_repeat * seg.pattern.count("local")
+                  for seg in layer_plan(GEMMA))
+GEMMA_NORMS = 6 * GEMMA.n_layers + 1    # ln1, post_ln1, ln2, post_ln2,
+                                        # q_norm, k_norm a layer, final
+GEMMA_NORM_STD = 0.1    # the gemma norm scales drawn nonzero (the
+                        # reference inits them 0, so (1 + w) would be 1)
+GEMMA_PLAIN_PROMPT = 1088   # past the window: the local mask and the
+GEMMA_PLAIN_DECODE = 4      # rolled ring bite in the check against the CPU
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
 FP32_BWD_REL_TOL = 1e-4  # the RMSNorm and SSD backward kernels against their
@@ -455,6 +499,25 @@ def phase_kernels() -> dict:
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, QWEN.nq,
                              QWEN.nkv, QWEN.hd, torch.bfloat16), "tc",
          BF16_TOL, BF16_TOL),
+        ("flash Gemma-3 local prefill, causal GQA window 1024 "
+         "(4,2048,32/16,128) bf16",
+         dict(causal=True, window=GEMMA.sliding_window),
+         (LM_BATCH, LM_PROMPT, LM_PROMPT, GEMMA.nq, GEMMA.nkv, GEMMA.hd,
+          torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
+        ("flash Gemma-3 global prefill, causal GQA (4,2048,32/16,128) bf16",
+         dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, GEMMA.nq,
+                             GEMMA.nkv, GEMMA.hd, torch.bfloat16), "tc",
+         BF16_TOL, BF16_TOL),
+        ("flash Gemma-3 ragged, causal GQA window 1024 (2,1100,32/16,128) "
+         "bf16", dict(causal=True, window=GEMMA.sliding_window),
+         (2, 1100, 1100, GEMMA.nq, GEMMA.nkv, GEMMA.hd, torch.bfloat16),
+         "tc", BF16_TOL, BF16_TOL),
+        # rows whose block's first kv tiles are all outside the window, at
+        # a scale whose rounding once made their exponents inf
+        ("flash causal GQA window 1024 (1,2048,8/4,64) bf16",
+         dict(causal=True, window=GEMMA.sliding_window),
+         (1, 2048, 2048, 8, 4, 64, torch.bfloat16), "tc", BF16_TOL,
+         BF16_TOL),
     ]
     for name, opts, shape, variant, atol, rtol in cases:
         if shape == "fused":
@@ -530,6 +593,14 @@ def phase_kernels() -> dict:
          False, "offset", "simt", BF16_TOL),
         ("rmsnorm offset view (300,2048) fp32 gemma",
          (300, 2048, torch.float32), True, "offset", "simt", FP32_NORM_TOL),
+        # Gemma-3's (1 + w): QK-norm over a 4 x 2048 prefill's 32 q heads
+        # of 128, and its d_model (672 vectors a row)
+        ("rmsnorm Gemma-3 QK-norm (262144,128) bf16 gemma",
+         (LM_BATCH * LM_PROMPT * GEMMA.nq, GEMMA.hd, torch.bfloat16), True,
+         "plain", "vec", BF16_TOL),
+        ("rmsnorm Gemma-3 (8192,5376) bf16 gemma",
+         (LM_BATCH * LM_PROMPT, GEMMA.d_model, torch.bfloat16), True,
+         "plain", "vec", BF16_TOL),
     ]
     for name, (rows, dim, dtype), gemma, layout, variant, tol in cases:
         x = _randn(gen, (rows, dim), dtype, 3.0)
@@ -1691,13 +1762,14 @@ _SERVE_GROUPS = (   # device-time groups of a serving profile
 )
 
 
-def _serve_groups(rec: dict, unit: str) -> dict:
-    """Device ms a ``unit`` of each _SERVE_GROUPS group in a profile
-    record, the rest as "other"."""
+def _serve_groups(rec: dict, unit: str, groups=_SERVE_GROUPS,
+                  rest: str = "other") -> dict:
+    """Device ms a ``unit`` of each group of ``groups`` in a profile
+    record, the rest as ``rest``."""
     out = defaultdict(float)
     for k in rec["kernels"]:
-        group = next((g for g, keys in _SERVE_GROUPS
-                      if any(key in k["name"] for key in keys)), "other")
+        group = next((g for g, keys in groups
+                      if any(key in k["name"] for key in keys)), rest)
         out[group] += k[f"ms_per_{unit}"]
     return dict(out)
 
@@ -1817,6 +1889,222 @@ def phase_moe() -> dict:
     if not n or counts != _pass_counts(n * QWEN_NORMS, 0, 0, n * QWEN_GEMMS):
         raise RuntimeError(f"engine launched {counts}")
     line("moe_engine", **out, launches=counts, decode_calls=n)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------- 4e. Gemma-3-27B serving
+_GEMMA_GROUPS = (   # device-time groups of a Gemma-3 serving profile
+    ("flash", ("flash_fwd",)),
+    ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
+    ("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("casts", ("copy",)),
+)
+
+
+def _draw_gemma_norms(gen, params) -> None:
+    """Every norm scale (the blocks' four, QK-norm's two, the final one)
+    drawn N(0, GEMMA_NORM_STD) in place of the init's zeros, so that
+    (1 + w) differs from 1 and a swapped or missing norm shows."""
+    for path, t in _items(params):
+        if path.endswith("/scale"):
+            t.copy_(_randn(gen, t.shape, t.dtype, GEMMA_NORM_STD))
+
+
+class _WindowLog:
+    """While entered, records the window of every call the attention
+    module makes to the flash wrapper (the wrapper still launches; this
+    counts nothing of the kernel's)."""
+
+    def __enter__(self):
+        self.windows = Counter()
+        self._flash = attn_mod.flash_attention
+
+        def flash(q, k, v, **kw):
+            self.windows[kw.get("window", 0)] += 1
+            return self._flash(q, k, v, **kw)
+        attn_mod.flash_attention = flash
+        return self
+
+    def __exit__(self, *exc):
+        attn_mod.flash_attention = self._flash
+
+
+def check_gemma_plain(params, toks) -> None:
+    """Gemma-3's first local and first global layer at full width, same
+    weights (segment 0's ``b0`` and ``b5``, as a plan of one (local,
+    global) segment): a GEMMA_PLAIN_PROMPT-token prefill, past the window,
+    and GEMMA_PLAIN_DECODE decode steps of the prompt's next tokens, on
+    the card against the plain path on the CPU: every call's logits and
+    both layers' K/V caches at the end (the local one a rolled ring)."""
+    cfg = GEMMA.replace(n_layers=2, local_global_period=2)
+    seg = params["segments"][0]
+    sub = dict(params, segments=[{
+        "b0": tree_map(lambda t: t[:1], seg["b0"]),
+        "b1": tree_map(lambda t: t[:1], seg["b5"])}])
+    P, n = GEMMA_PLAIN_PROMPT, GEMMA_PLAIN_DECODE
+    x = toks[:1, :P + n]
+    pos = torch.arange(P + n, device="cuda")[None]
+
+    def run(p, x, pos):
+        lg, cache = transformer.prefill(p, cfg, x[:, :P], pos[:, :P], P + n)
+        lgs = [lg]
+        for i in range(P, P + n):
+            lg, cache = transformer.decode_step(p, cfg, x[:, i:i + 1],
+                                                pos[:, i:i + 1], cache, i)
+            lgs.append(lg)
+        return lgs, cache["segments"][0]
+    with torch.inference_mode():
+        _set_counts()
+        with _WindowLog() as log:
+            lgs, kv = run(sub, x, pos)
+        torch.cuda.synchronize()
+        norms = (1 + n) * (6 * 2 + 1)
+        if _counts() != _pass_counts(norms, 0, 2) or \
+                log.windows != Counter({GEMMA.sliding_window: 1, 0: 1}):
+            raise RuntimeError(f"2-layer run launched {_counts()}, flash "
+                               f"windows {dict(log.windows)}")
+        t0 = time.perf_counter()
+        lgs_cpu, kv_cpu = run(tree_map(lambda t: t.cpu(), sub), x.cpu(),
+                              pos.cpu())
+        cpu_s = time.perf_counter() - t0
+    errs = {}
+    for name, blk in (("local", "b0"), ("global", "b1")):
+        for t in ("k", "v"):
+            errs[f"{name}_{t}_max_abs_err"] = _rel_err(
+                kv[blk][t], kv_cpu[blk][t], f"{name} {t.upper()} cache")
+            errs[f"{name}_{t}_scale"] = kv_cpu[blk][t].abs().max().item()
+    line("gemma_plain", layers=["local", "global"], prompt=P,
+         decode_steps=n, window=GEMMA.sliding_window,
+         cache_slots={"local": kv["b0"]["k"].shape[2],
+                      "global": kv["b1"]["k"].shape[2]},
+         logits_max_abs_err=[_rel_err(a, b, f"logits {i}") for i, (a, b)
+                             in enumerate(zip(lgs, lgs_cpu))],
+         logits_scale=max(b.abs().max().item() for b in lgs_cpu),
+         **errs, rel_tol=LM_REL_TOL, cpu_plain_s=cpu_s)
+
+
+def phase_gemma() -> dict:
+    """Gemma-3-27B at its full published width and 26 of its 62 layers
+    (4 x (5 local + 1 global) + 2 local), seeded fp32 weights drawn on the
+    card with the norm scales drawn nonzero: a 4 x 2048 prefill into a
+    cache of 2048 + 32 positions (the local layers' rings hold 1024) and 32
+    greedy decode steps, which wrap every local ring (flash 26 a prefill
+    on the tensor cores, 22 of them with the window, none a step; RMSNorm
+    157 each, vectorised), the first local and global layer against the
+    CPU, a profiled prefill and decode by kernel group, then
+    ``ServeEngine`` at the serve launcher's defaults on the same weights.
+    Returns the prefill's and decode steps' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(gen, GEMMA)
+    _draw_gemma_norms(gen, params)
+    torch.cuda.synchronize()
+    sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
+    line("gemma_init", arch=GEMMA.arch_id, layers=GEMMA.n_layers,
+         published_layers=gemma3_27b.CONFIG.n_layers,
+         plan=[[seg.n_repeat, list(seg.pattern)]
+               for seg in layer_plan(GEMMA)],
+         d_model=GEMMA.d_model, heads=GEMMA.nq, kv_heads=GEMMA.nkv,
+         head_dim=GEMMA.hd, d_ff=GEMMA.d_ff, vocab=GEMMA.vocab,
+         window=GEMMA.sliding_window, params=sum(n for n, _ in sizes),
+         param_gb=sum(n * b for n, b in sizes) / 1e9,
+         init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         norm_scale_std=GEMMA_NORM_STD, seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, GEMMA)
+    s_cache = LM_PROMPT + LM_DECODE
+    warm = 256
+    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
+        lg, cache = make_prefill_step(GEMMA, s_cache=warm + 1)(
+            params, toks[:, :warm], pos[:, :warm])
+        make_serve_step(GEMMA)(params, lg.argmax(-1, keepdim=True).to(
+            torch.int32), pos[:, :1] + warm, cache, warm)
+    torch.cuda.synchronize()
+    del lg, cache
+    torch.cuda.reset_peak_memory_stats()
+
+    _set_counts()                     # Gemma-3's main path
+    with _WindowLog() as log:
+        res = lm_prefill_decode(GEMMA, params, toks, pos,
+                                _pass_counts(GEMMA_NORMS, 0, GEMMA.n_layers),
+                                _pass_counts(GEMMA_NORMS, 0), s_cache=s_cache)
+    launches = _counts()
+    want = Counter({GEMMA.sliding_window: GEMMA_LOCAL,
+                    0: GEMMA.n_layers - GEMMA_LOCAL})
+    if log.windows != want:
+        raise RuntimeError(f"flash windows {dict(log.windows)}, not {want}")
+    line("gemma_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
+         decode_steps=LM_DECODE, launches=launches,
+         flash_per_prefill=GEMMA.n_layers,
+         flash_windows={str(k): v for k, v in log.windows.items()},
+         rmsnorm_per_pass=GEMMA_NORMS,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+
+    check_gemma_plain(params, toks)
+
+    # one prefill, then 5 decode steps from its cache, each profiled alone
+    prefill_step = make_prefill_step(GEMMA, s_cache=s_cache)
+    serve_step = make_serve_step(GEMMA)
+    with torch.inference_mode():
+        lg, cache = prefill_step(params, toks, pos)
+    tok0 = lg.argmax(-1, keepdim=True).to(torch.int32)
+
+    def decode(n):
+        with torch.inference_mode():
+            tok, c = tok0, cache
+            for i in range(n):
+                tok, _, c = serve_step(params, tok, pos[:, -1:] + 1 + i, c,
+                                       LM_PROMPT + i)
+    with torch.inference_mode():
+        rec = profile_device("gemma3 prefill",
+                             lambda: prefill_step(params, toks, pos), 1,
+                             "prefill", batch=LM_BATCH, prompt=LM_PROMPT)
+    line("gemma_profile", what="prefill",
+         wall_ms=rec["wall_ms_per_prefill"],
+         device_ms=rec["device_ms_per_prefill"],
+         device_busy_share=rec["device_busy_share"],
+         launches=rec["device_calls_per_prefill"],
+         device_ms_by_group=_serve_groups(rec, "prefill", _GEMMA_GROUPS,
+                                          "other_elementwise"))
+    rec = profile_device("gemma3 decode", lambda: decode(PROFILE_STEPS),
+                         PROFILE_STEPS, "step", batch=LM_BATCH)
+    line("gemma_profile", what="decode step", wall_ms=rec["wall_ms_per_step"],
+         device_ms=rec["device_ms_per_step"],
+         device_busy_share=rec["device_busy_share"],
+         launches=rec["device_calls_per_step"],
+         device_ms_by_group=_serve_groups(rec, "step", _GEMMA_GROUPS,
+                                          "other_elementwise"))
+    del cache, lg, tok0
+    torch.cuda.empty_cache()
+
+    # the engine at the serve launcher's defaults (batch 4, s_max 128, 8
+    # requests of 6-token prompts, 16 new tokens each) on these weights:
+    # the launcher itself would draw all 62 layers
+    _set_counts()
+    eng = ServeEngine(GEMMA, params, batch=4, s_max=128)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        0, GEMMA.vocab_size, 6)], max_new=16) for i in range(8)]
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    tokens = sum(len(r.out) for r in reqs)
+    if len(done) != len(reqs) or not all(r.done for r in reqs):
+        raise RuntimeError(f"engine finished {len(done)} of {len(reqs)} "
+                           "requests")
+    n = counts["rmsnorm"] // GEMMA_NORMS
+    if not n or counts != _pass_counts(n * GEMMA_NORMS, 0):
+        raise RuntimeError(f"engine launched {counts}")
+    line("gemma_engine", batch=4, s_max=128, requests=len(reqs),
+         done=len(done), tokens=tokens, seconds=dt,
+         tokens_per_s=tokens / dt, launches=counts, decode_calls=n)
+    del eng, params
     torch.cuda.empty_cache()
     return launches
 
@@ -2715,6 +3003,10 @@ def phase_timing(errs: dict, launches: dict) -> list:
     del q, k, v, qt, kt, vt
     line("time", **time_flash_gqa(gen))
     line("time", **time_flash_gqa(gen, QWEN, "Qwen2-MoE"))
+    line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 local",
+                                  GEMMA.sliding_window))
+    line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 global"))
+    line("time", **time_qk_norm(gen))
     for rec in time_moe_gemms(gen):
         line("time", **rec)
 
@@ -2836,37 +3128,86 @@ def phase_timing(errs: dict, launches: dict) -> list:
         gen, errs, launches) + time_lm_backward(gen, errs, launches)
 
 
-def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama") -> dict:
+def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
     """Flash at one prefill layer of ``cfg``, (4,2048) causal, bf16 (for
     TinyLlama 32 q heads over 4 kv heads of 64, phase 4c's path; for
-    Qwen2-MoE 16 over 16 of 128, phase 4d's): the streaming form beside the
-    CUDA-core variant, the plain version and SDPA with ``enable_gqa``. The
-    bound counts k and v at their own heads and the causal triangle's
-    products."""
+    Qwen2-MoE 16 over 16 of 128, phase 4d's; for Gemma-3 32 over 16 of 128,
+    phase 4e's, its local layers with ``window``): the streaming form beside
+    the CUDA-core variant, the plain version and SDPA with ``enable_gqa``
+    (with a window, one SDPA call with the band as its boolean
+    ``attn_mask``). The bound counts k and v at their own heads and the
+    products of the (q, k) pairs the masks leave visible."""
     B, S, Hq, Hkv, D = LM_BATCH, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def gqa():
-        return flash_attention(q, k, v, causal=True)
+        return flash_attention(q, k, v, causal=True, window=window)
     ms, variant = timed_variant(flash_attention, gqa)
-    pairs = B * Hq * S * (S + 1) // 2                  # causal triangle
+    # visible keys of query p: p + 1, at most the window
+    seen = torch.arange(1, S + 1)
+    if window:
+        seen = seen.clamp(max=window)
+    pairs = B * Hq * int(seen.sum())
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     bms, by = bound_ms(nbytes, 4 * pairs * D)
+    if window:
+        qp = torch.arange(S, device="cuda")[:, None]
+        kp = torch.arange(S, device="cuda")[None, :]
+        band = (kp <= qp) & (qp - kp < window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, enable_gqa=True)
+        lib = "F.scaled_dot_product_attention(attn_mask=band, enable_gqa=True)"
+    else:
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib = "F.scaled_dot_product_attention(enable_gqa=True)"
+    lib_ms = time_ms(library)
     return dict(
         name=f"flash_attention {what} prefill layer",
-        shape=f"q ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, causal",
+        shape=f"q ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, causal"
+              + (f", window {window}" if window else ""),
         variant=variant, ms=ms,
-        plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
-                         reps=3),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        library="F.scaled_dot_product_attention(enable_gqa=True)",
+        plain_ms=time_ms(lambda: flash_attention_ref(
+            q, k, v, causal=True, window=window), reps=3),
+        library_ms=lib_ms, library=lib, library_factor=ms / lib_ms,
         simt_ms=time_ms(lambda: flash_launch(
-            q, k, v, "simt", causal=True, window=0, softcap=0.0,
+            q, k, v, "simt", causal=True, window=window, softcap=0.0,
             scale=D ** -0.5), reps=3),
-        host_us=host_us(gqa), bound_ms=bms, bound_by=by, bytes=nbytes,
-        flops=4 * pairs * D)
+        host_us=host_us(gqa), bound_ms=bms, bound_by=by,
+        bound_share=bms / ms, bytes=nbytes, flops=4 * pairs * D,
+        visible_pairs_a_head=pairs // (B * Hq))
+
+
+def time_qk_norm(gen) -> dict:
+    """RMSNorm as Gemma-3's QK-norm runs it at a 4 x 2048 prefill: the 32
+    q heads' rows of 128, (262144, 128) bf16, gemma (1 + w), w fp32;
+    beside "simt", the plain version and ``F.rms_norm`` with the weight
+    1 + w in bf16. The bound: x read and y written once."""
+    rows, dim = LM_BATCH * LM_PROMPT * GEMMA.nq, GEMMA.hd
+    x = _randn(gen, (rows, dim), torch.bfloat16, 3.0)
+    w = _randn(gen, (dim,), torch.float32, GEMMA_NORM_STD)
+    w1 = (1.0 + w).to(torch.bfloat16)
+
+    def norm():
+        return rmsnorm(x, w, eps=GEMMA.norm_eps, gemma=True)
+    ms, variant = timed_variant(rmsnorm, norm)
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    bms, by = bound_ms(nbytes, 4 * x.numel(), FP32_FLOP_PER_S)
+    lib_ms = time_ms(lambda: F.rms_norm(x, (dim,), w1, GEMMA.norm_eps))
+    return dict(
+        name="rmsnorm Gemma-3 QK-norm",
+        shape=f"({rows},{dim}) bf16, w fp32, gemma", variant=variant, ms=ms,
+        simt_ms=time_ms(lambda: norm_launch(x, w, "simt", eps=GEMMA.norm_eps,
+                                            gemma=True)),
+        plain_ms=time_ms(lambda: rmsnorm_ref(x, w, eps=GEMMA.norm_eps,
+                                             gemma=True), reps=5),
+        library_ms=lib_ms, library="F.rms_norm(weight=1 + w)",
+        library_factor=ms / lib_ms, host_us=host_us(norm), bound_ms=bms,
+        bound_by=by, bound_share=bms / ms, bytes=nbytes)
 
 
 def time_moe_gemms(gen) -> list:
@@ -3357,6 +3698,7 @@ def main() -> int:
     launches.update(phase("4b agent training", phase_train, trace, cfg, venv))
     launches.update(phase("4c TinyLlama serving", phase_dense))
     launches.update(phase("4d Qwen2-MoE serving", phase_moe))
+    launches.update(phase("4e Gemma-3 serving", phase_gemma))
     policies, grid = phase("6 grid", phase_grid)
     service = phase("7 service", phase_service, policies)
     del policies

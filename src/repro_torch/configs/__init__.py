@@ -1,2 +1,3 @@
 """Model configs of the port: the Mirage agent's foundation trunk and the
-payload LMs it serves (Mamba2-1.3B, TinyLlama-1.1B, Qwen1.5-MoE-A2.7B)."""
+payload LMs it serves (Mamba2-1.3B, TinyLlama-1.1B, Qwen1.5-MoE-A2.7B,
+Gemma-3-27B)."""

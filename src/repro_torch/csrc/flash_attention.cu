@@ -56,7 +56,11 @@
 // Both variants apply the masks in registers with no padded copies of q, k
 // or v, skip the kv tiles that the causal or window mask empties for the
 // whole block, and take strides for batch, sequence and head, so the
-// model's (B, S, H, D) views need no copy.
+// model's (B, S, H, D) views need no copy. Under a window a block's first
+// tiles may hold no visible column for its last rows; their exponents are
+// zero in "tc" (a zero offset while the row max is still the mask value)
+// and cancelled in "simt" (its exp(s - max) is finite, and the correction
+// factor of the first visible column is 0).
 //
 // Training: with a non-null lse pointer each row's log-sum-exp of its
 // masked logits, lse = max + ln(sum), is written as fp32 (B, Hq, Sq), the
@@ -341,7 +345,13 @@ __device__ __forceinline__ void attend_groups(Rows<D>& st, uint32_t kt, uint32_t
   const float c0 = ex2((st.m0 - mn0) * sc.mul), c1 = ex2((st.m1 - mn1) * sc.mul);
   st.m0 = mn0;
   st.m1 = mn1;
-  const float b0 = mn0 * sc.mul, b1 = mn1 * sc.mul;
+  // A row that has seen only masked columns so far (a window's first
+  // tiles) keeps the max kNegInf: its exponents must come out 0, and
+  // fmaf(kNegInf, mul, -round(kNegInf * mul)) is the product's rounding
+  // error, ~1e22 of either sign, whose ex2 may be inf (then inf * 0 = NaN
+  // once a visible column arrives). A zero offset sends them to ex2(-huge).
+  const float b0 = mn0 == kNegInf ? 0.f : mn0 * sc.mul;
+  const float b1 = mn1 == kNegInf ? 0.f : mn1 * sc.mul;
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
   for (int j = 0; j < NS; ++j) {

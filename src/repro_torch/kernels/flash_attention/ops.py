@@ -20,10 +20,12 @@ bounds it on the H100 and how the design answers that.
 
 On CUDA tensors that need a gradient, ``flash_attention`` runs through
 ``_FlashFn``: its forward asks the kernel for each row's log-sum-exp, and
-its backward launches the backward kernel (``flash_attention_bwd``). With
-no gradient to track (serving, ``inference_mode``) the forward kernel is
-launched directly, as before. CPU tensors run the plain versions, which
-autograd differentiates.
+its backward launches the backward kernel (``flash_attention_bwd``), which
+has no window mask: a windowed call that needs a gradient raises there.
+With no gradient to track (serving, ``inference_mode``) the forward kernel
+is launched directly, with or without a window (Gemma-3's local layers
+take its window mask). CPU tensors run the plain versions, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -269,7 +271,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, softcap=0.0,
     log-sum-exp ``lse`` (fp32 (B, Hq, Sq)) and the out's gradient ``do``:
     (dq, dk, dv) in the inputs' dtypes and shapes. CUDA tensors launch the
     backward kernel variant that ``_flash_bwd_variant`` names (no window:
-    the flash path never takes one); CPU tensors, with ``device="cpu"``,
+    the kernel has no window mask yet); CPU tensors, with ``device="cpu"``,
     run ``flash_attention_bwd_ref``."""
     dev = resolve_device(device)
     check_on(dev, q, k, v, o, lse, do)
@@ -340,9 +342,9 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, scale):
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if window:
-            raise NotImplementedError("flash attention has no backward "
-                                      "with a window; attention_core sends "
-                                      "windows to the reference math")
+            raise NotImplementedError("the flash backward has no window "
+                                      "mask: a windowed forward that needs "
+                                      "a gradient does not run on the card")
         return _FlashFn.apply(q, k, v, causal, softcap, scale)
     variant = _flash_variant(q, k, v)
     out = _launch(q, k, v, variant, causal=causal, window=window,

@@ -54,7 +54,8 @@ def rmsnorm_bwd_ref(x, w, dy, *, eps: float = 1e-6, gemma: bool = False):
     return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
 
 
-MAX_VECS = 512                      # 16-byte vectors in a row of the vec kernel
+MAX_VECS = 768                      # 16-byte vectors in a row of the vec kernel
+BWD_MAX_VECS = 512                  # ... and of the vec backward kernel
 
 
 def _rmsnorm_variant(x, w) -> str:
@@ -120,11 +121,12 @@ def bwd_vec_partition(rows: int):
 def _rmsnorm_bwd_variant(x, w, dy) -> str:
     """The backward kernel a CUDA launch over the rows of x (..., d) runs,
     chosen from the inputs alone: "vec" (one warp a row, 16-byte loads and
-    stores) where the forward's "vec" conditions hold for x and w (at most
-    MAX_VECS vectors a row) and dy is contiguous and 16-byte-aligned, else
-    "simt"."""
+    stores) where the forward's "vec" conditions hold for x and w with at
+    most BWD_MAX_VECS vectors a row, and dy is contiguous and
+    16-byte-aligned, else "simt"."""
     d = x.shape[-1]
-    if _rmsnorm_variant(x, w) != "vec":
+    if _rmsnorm_variant(x, w) != "vec" or \
+            d // (16 // x.element_size()) > BWD_MAX_VECS:
         return "simt"
     fdy = dy.reshape(-1, d)
     if fdy.stride(-1) != 1 or fdy.data_ptr() % 16 or \

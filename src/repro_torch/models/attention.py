@@ -1,24 +1,29 @@
-"""Attention (port of ``repro.models.attention``: GQA with RoPE and a KV
-cache; MLA, M-RoPE and the sliding-window ring buffer are not ported).
+"""Attention (port of ``repro.models.attention``: GQA with RoPE, QK-norm
+and a KV cache, full or a sliding-window ring buffer; MLA and M-RoPE are
+not ported).
 
-``attention_core`` dispatches as the reference does: ``flash`` without a
-window or ``kv_len_valid`` goes to the flash-attention kernel; every other
-case, decode among them, computes the reference math
-(``attention_reference``). Padded q heads that do not divide into the kv
-heads reach the kernel with K/V broadcast to the q heads by ``_repeat_kv``
-(a padded head reads the last kv head), since the kernel takes only
-Hq % Hkv == 0. The reference's chunked scan computes the same function and
-is not ported.
+``attention_core`` dispatches as the reference does, with one deliberate
+divergence: ``flash`` with no ``kv_len_valid`` and more than one query goes
+to the flash-attention kernel, with or without a window. The reference
+sends a window to its chunked scan (``attention_chunked``), a flash-style
+jnp loop that computes the same function; the port has no such scan, and
+the kernel's window mask takes its place. Every other case, decode among
+them, computes the reference math (``attention_reference``). Padded q
+heads that do not divide into the kv heads reach the kernel with K/V
+broadcast to the q heads by ``_repeat_kv`` (a padded head reads the last kv
+head), since the kernel takes only Hq % Hkv == 0.
 
 Two layouts share the projections. The LM's: x (B, S, d), ``wq`` (d, H,
 hd), products by ``torch.matmul`` as the reference's einsums. The agent's:
 x (E, N, S, d) over its expert axis, ``wq`` (E, d, H, hd), products by the
 grouped-GEMM kernel. The parameters' rank tells them apart.
 
-KV caches are (B, S_cache, n_kv, hd) buffers. Prefill and decode return a
-new cache and never write the one they are given. Decode's ``index`` (the
-tokens already in the cache) is a scalar or one per row, (B,): each row
-writes its own slot and masks its own length, which is what the reference
+KV caches are (B, S_cache, n_kv, hd) buffers; a layer with a window holds
+only min(window, S_cache) slots and writes position p to slot p % size.
+Prefill and decode return a new cache and never write the one they are
+given. Decode's ``index`` (the tokens already in the cache) is a scalar or
+one per row, (B,): each row writes its own slot and masks by its own
+length, or by its own ring's positions, which is what the reference
 computes for a row when it ``vmap``s a single-sequence decode over a batch.
 """
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gemm import grouped_gemm
 from .common import ModelConfig
-from .layers import apply_rope, dense_init
+from .layers import apply_norm, apply_rope, dense_init, init_norm
 
 NEG_INF = -1e30
 
@@ -97,11 +102,12 @@ def attention_core(q, k, v, q_pos, kv_pos, cfg: ModelConfig, *, causal,
     impl = cfg.attn_impl
     if q.shape[1] == 1:
         impl = "reference"       # decode: (B,H,1,S) logits, no kernel
-    if impl == "flash" and kv_len_valid is None and window == 0:
+    if impl == "flash" and kv_len_valid is None:
+        # a window too: the reference's chunked scan computes this function
         if q.shape[2] % k.shape[2]:      # padded q heads: Hq = Hkv
             k, v = _repeat_kv(k, v, q.shape[2])
         return attention_flash(q, k, v, q_pos, kv_pos, causal=causal,
-                               softcap=softcap, scale=scale)
+                               window=window, softcap=softcap, scale=scale)
     return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
                                window=window, softcap=softcap, scale=scale,
                                kv_len_valid=kv_len_valid)
@@ -127,14 +133,19 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
         p["bq"] = torch.zeros(lead + (nq, hd), dtype=cfg.pdtype)
         p["bk"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype)
         p["bv"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype)
+    if cfg.qk_norm:
+        p["q_norm"] = init_norm(cfg, hd, lead)
+        p["k_norm"] = init_norm(cfg, hd, lead)
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig, positions=None):
+def _project_qkv(params, x, cfg: ModelConfig, positions=None, theta=None):
     """The LM's x (B, S, d) -> q, k, v (B, S, H, hd), the QKV biases added
-    in the compute dtype where the config has them, then RoPE'd at
-    ``positions`` (B, S) where it uses it; the agent's x (E, N, S, d) ->
-    (E*N, S, H, hd), one grouped GEMM a projection."""
+    in the compute dtype where the config has them, q and k RMS-normed
+    over hd where it has QK-norm, then RoPE'd at ``positions`` (B, S) with
+    ``theta`` (the config's ``rope_theta`` by default) where it uses RoPE;
+    the agent's x (E, N, S, d) -> (E*N, S, H, hd), one grouped GEMM a
+    projection."""
     if params["wq"].ndim == 4:
         E, N, S, d = x.shape
         xc = x.reshape(E, N * S, d)
@@ -152,9 +163,13 @@ def _project_qkv(params, x, cfg: ModelConfig, positions=None):
             y = y + params["b" + name[1]].to(cfg.cdtype)
         out.append(y)
     q, k, v = out
+    if cfg.qk_norm:
+        q = apply_norm(params["q_norm"], q, cfg)
+        k = apply_norm(params["k_norm"], k, cfg)
     if cfg.use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        theta = theta or cfg.rope_theta
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
     return q, k, v
 
 
@@ -164,11 +179,13 @@ def _out_proj(params, out, cfg: ModelConfig):
     return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
 
 
-def attn_forward(params, x, cfg: ModelConfig, positions, *, window: int = 0):
+def attn_forward(params, x, cfg: ModelConfig, positions, *, window: int = 0,
+                 theta=None):
     """Full-sequence attention: the LM's x (B, S, d) with positions (B, S),
-    or the agent's x (E, N, S, d) over its expert axis, positions (N, S)."""
+    or the agent's x (E, N, S, d) over its expert axis, positions (N, S);
+    ``window`` > 0 masks keys more than window - 1 positions back."""
     lm = params["wq"].ndim == 3
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, positions, theta)
     pos = positions if lm else positions.repeat(x.shape[0], 1)
     out = attention_core(q, k, v, pos, pos, cfg, causal=cfg.causal,
                          window=window, softcap=cfg.attn_logit_softcap)
@@ -182,24 +199,29 @@ def attn_forward(params, x, cfg: ModelConfig, positions, *, window: int = 0):
 
 
 # ==================================================================== KV cache
-def init_kv_cache(cfg: ModelConfig, batch: int, s_cache: int, dtype=None,
-                  device=None):
-    """Zero (batch, s_cache, n_kv, hd) K and V buffers in ``dtype`` (the
-    compute dtype by default)."""
-    shape = (batch, s_cache, cfg.nkv, cfg.hd)
+def init_kv_cache(cfg: ModelConfig, batch: int, s_cache: int, window: int = 0,
+                  dtype=None, device=None):
+    """Zero (batch, size, n_kv, hd) K and V buffers in ``dtype`` (the
+    compute dtype by default): size = s_cache, or min(window, s_cache) for
+    a layer with a window (its ring buffer)."""
+    size = min(window, s_cache) if window else s_cache
+    shape = (batch, size, cfg.nkv, cfg.hd)
     dtype = dtype or cfg.cdtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attn_prefill(params, x, cfg: ModelConfig, positions, cache):
-    """Full attention over the prompt x (B, S, d), and a new cache holding
-    its K/V: the trailing ``size`` positions laid out so position p sits at
-    slot p % size when the prompt fills the cache, else the prompt's K/V in
-    the first S slots and the given cache's after them."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
+def attn_prefill(params, x, cfg: ModelConfig, positions, cache, *,
+                 window: int = 0, theta=None):
+    """Attention over the prompt x (B, S, d), full or within ``window``,
+    and a new cache holding its K/V: the trailing ``size`` positions laid
+    out so position p sits at slot p % size when the prompt fills the
+    cache (a window's ring buffer fills so), else the prompt's K/V in the
+    first S slots and the given cache's after them."""
+    q, k, v = _project_qkv(params, x, cfg, positions, theta)
     out = attention_core(q, k, v, positions, positions, cfg,
-                         causal=cfg.causal, softcap=cfg.attn_logit_softcap)
+                         causal=cfg.causal, window=window,
+                         softcap=cfg.attn_logit_softcap)
     size, S = cache["k"].shape[1], k.shape[1]
     new = {}
     for name, t in (("k", k), ("v", v)):
@@ -211,22 +233,35 @@ def attn_prefill(params, x, cfg: ModelConfig, positions, cache):
     return _out_proj(params, out, cfg), new
 
 
-def attn_decode(params, x, cfg: ModelConfig, positions, cache, index):
+def attn_decode(params, x, cfg: ModelConfig, positions, cache, index, *,
+                window: int = 0, theta=None):
     """One-token decode: x (B, 1, d), positions (B, 1), ``index`` the
-    tokens already in the cache, a scalar or (B,). The token's K/V go to
-    slot min(index, size - 1) of a new cache, and the query attends to its
-    first index + 1 slots."""
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    tokens already in the cache, a scalar or (B,). Without a window the
+    token's K/V go to slot min(index, size - 1) of a new cache and the
+    query attends to its first index + 1 slots. With one the cache is a
+    ring: the token goes to slot index % size, slot j holds position j +
+    (index // size) * size up to that slot and one ring earlier after it
+    (negative: never written, masked), and the query attends to the
+    positions within the window."""
+    q, k, v = _project_qkv(params, x, cfg, positions, theta)
     size = cache["k"].shape[1]
     index = torch.as_tensor(index, device=x.device)
-    slot = torch.clamp(index, max=size - 1).reshape(-1, 1)   # (B or 1, 1)
-    hit = (torch.arange(size, device=x.device) == slot)[:, :, None, None]
+    col = index.reshape(-1, 1)                               # (B or 1, 1)
+    slot = col % size if window else torch.clamp(col, max=size - 1)
+    j = torch.arange(size, device=x.device)
+    hit = (j == slot)[:, :, None, None]
     cache = {"k": torch.where(hit, k.to(cache["k"].dtype), cache["k"]),
              "v": torch.where(hit, v.to(cache["v"].dtype), cache["v"])}
     B = x.shape[0]
-    kv_pos = torch.arange(size, device=x.device).expand(B, size)
-    out = attention_core(q, cache["k"].to(cfg.cdtype),
-                         cache["v"].to(cfg.cdtype), positions, kv_pos, cfg,
-                         causal=True, softcap=cfg.attn_logit_softcap,
-                         kv_len_valid=index + 1)
+    kc, vc = cache["k"].to(cfg.cdtype), cache["v"].to(cfg.cdtype)
+    if window:
+        base = col // size * size
+        kv_pos = torch.where(j <= slot, j + base, j + base - size)
+        out = attention_core(q, kc, vc, positions, kv_pos.expand(B, size),
+                             cfg, causal=True, window=window,
+                             softcap=cfg.attn_logit_softcap)
+    else:
+        out = attention_core(q, kc, vc, positions, j.expand(B, size), cfg,
+                             causal=True, softcap=cfg.attn_logit_softcap,
+                             kv_len_valid=index + 1)
     return _out_proj(params, out, cfg), cache

@@ -1,11 +1,14 @@
 """Block assembly (port of ``repro.models.blocks``, serving subset): dense
-attention + MLP blocks, MoE blocks (attention + top-k MoE) and Mamba2 SSD
-blocks, in three modes. The agent runs dense blocks in ``forward`` mode over
-a leading expert axis; the LMs run them in every mode.
+attention + MLP blocks, Gemma-3's local (sliding-window attention, the
+local RoPE theta) and global (full attention) blocks, MoE blocks
+(attention + top-k MoE) and Mamba2 SSD blocks, in three modes, with the
+sandwich (post-attention, post-FFN) norms where the config has them. The
+agent runs dense blocks in ``forward`` mode over a leading expert axis; the
+LMs run them in every mode.
 
 Modes: ``forward`` (no cache), ``prefill`` (cache fill), ``decode`` (one
-token, cache update at ``index``). Local, global and shared-attention
-blocks, MLA, parallel blocks and sandwich norms are not ported.
+token, cache update at ``index``). Shared-attention (``attn``) blocks, MLA
+and parallel blocks are not ported.
 """
 from __future__ import annotations
 
@@ -19,24 +22,37 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
+_ATTN_KINDS = ("dense", "local", "global", "moe")
+
+
+def _attn_opts(kind: str, cfg: ModelConfig) -> Dict:
+    """The attention window and RoPE theta of a block kind."""
+    if kind == "local":
+        return dict(window=cfg.sliding_window,
+                    theta=cfg.rope_theta_local or cfg.rope_theta)
+    return dict(window=0, theta=cfg.rope_theta)
+
 
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                lead: Sequence[int] = ()) -> Dict:
     if kind == "mamba":
         return {"ln": init_norm(cfg, lead=lead),
                 "mamba": ssm_mod.init_mamba(gen, cfg, lead)}
-    if kind not in ("dense", "moe"):
+    if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     p = {"ln1": init_norm(cfg, lead=lead), "ln2": init_norm(cfg, lead=lead),
          "attn": attn_mod.init_attention(gen, cfg, lead)}
     if kind == "moe":
         p["ffn"] = moe_mod.init_moe(gen, cfg, lead)
-    elif cfg.n_experts and cfg.first_k_dense:
+    elif kind == "dense" and cfg.n_experts and cfg.first_k_dense:
         # deepseek-style leading dense layer uses the wide dense d_ff
         p["ffn"] = init_mlp(gen, cfg, d_ff=cfg.shared_d_ff or cfg.d_ff,
                             lead=lead)
     else:
         p["ffn"] = init_mlp(gen, cfg, lead=lead)
+    if cfg.sandwich_norm:
+        p["post_ln1"] = init_norm(cfg, lead=lead)
+        p["post_ln2"] = init_norm(cfg, lead=lead)
     return p
 
 
@@ -59,17 +75,20 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
         else:
             y = ssm_mod.mamba_forward(params["mamba"], h, cfg)
         return x + y, aux, cache
-    if kind not in ("dense", "moe"):
+    if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
+    opts = _attn_opts(kind, cfg)
     h = apply_norm(params["ln1"], x, cfg)
     if mode == "decode":
         a, cache = attn_mod.attn_decode(params["attn"], h, cfg, positions,
-                                        cache, index)
+                                        cache, index, **opts)
     elif mode == "prefill":
         a, cache = attn_mod.attn_prefill(params["attn"], h, cfg, positions,
-                                         cache)
+                                         cache, **opts)
     else:
-        a = attn_mod.attn_forward(params["attn"], h, cfg, positions)
+        a = attn_mod.attn_forward(params["attn"], h, cfg, positions, **opts)
+    if cfg.sandwich_norm:
+        a = apply_norm(params["post_ln1"], a, cfg)
     x = x + a
     h = apply_norm(params["ln2"], x, cfg)
     if kind == "moe":
@@ -78,6 +97,8 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                                      with_aux=mode == "forward")
     else:
         f = apply_mlp(params["ffn"], h, cfg)
+    if cfg.sandwich_norm:
+        f = apply_norm(params["post_ln2"], f, cfg)
     return x + f, aux, cache
 
 
@@ -85,7 +106,8 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, s_cache: int,
                      dtype=None, device=None) -> Dict:
     if kind == "mamba":
         return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-    if kind not in ("dense", "moe"):
+    if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"{kind!r} blocks have no decode cache in "
                                   "the port")
-    return attn_mod.init_kv_cache(cfg, batch, s_cache, dtype, device)
+    window = cfg.sliding_window if kind == "local" else 0
+    return attn_mod.init_kv_cache(cfg, batch, s_cache, window, dtype, device)

@@ -10,6 +10,7 @@ from typing import Tuple
 from .common import ModelConfig
 
 _ARCH_MODULES = {
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "mirage-agent": "repro_torch.configs.mirage_agent",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",

@@ -44,7 +44,11 @@ decode step's 4.
 
 TinyLlama's first 2 layers at full width run a prefill and two decode
 steps on the card against the plain path on the CPU, same weights (2e-2 of
-each output's largest magnitude). Last, a 6-tenant ``ProvisionService``
+each output's largest magnitude). Gemma-3's window mask runs at its local
+layers' heads (32 over 16 of 128, window 1024, ragged at 1100) and its
+norms at d = 128 and d = 5376 with ``gemma``; its SMOKE model runs a
+prefill and 40 decode steps, across the local rings' wrap, on the card
+against the CPU. Last, a 6-tenant ``ProvisionService``
 over a reduced learner on the card:
 no fallback, the breaker closed, and its ragged batches' flash and GEMM
 launches (batches x layers x 1 and x 6) all on the tensor cores.
@@ -106,6 +110,8 @@ def _launched(kernel, fn):
         (2, 4, 4, 64, 64, 128, BF16, False, 0, 0.0, "tc"),
         (1, 2, 2, 33, 300, 32, BF16, False, 100, 0.0, "tc"),   # window, Sq < Skv
         (1, 32, 4, 2048, 2048, 64, BF16, True, 0, 0.0, "tc"),  # TinyLlama prefill
+        (2, 32, 16, 1100, 1100, 128, BF16, True, 1024, 0.0, "tc"),  # Gemma-3 local
+        (1, 8, 4, 2048, 2048, 64, BF16, True, 1024, 0.0, "tc"),
     ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                     causal, window, softcap, variant):
@@ -215,6 +221,9 @@ def _counted(kernel, counter, fn):
     (37, 64, FP32, BF16, False, "offset", "simt"),     # x one element off
     (64, 4096, BF16, BF16, False, "offset", "simt"),
     (64, 1024, BF16, FP32, False, "rows", "vec"),      # strided rows
+    (4096, 128, BF16, FP32, True, "plain", "vec"),     # Gemma-3 QK-norm
+    (8192, 5376, BF16, FP32, True, "plain", "vec"),    # its d_model, 672 vectors
+    (3, 5376, FP32, FP32, True, "plain", "simt"),      # 1344 vectors: too many
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, w_dtype, gemma,
                                       layout, variant):
@@ -395,6 +404,76 @@ def test_dense_lm_kernel_path(cuda):
         assert a.shape == b.shape and torch.isfinite(a.float()).all()
         assert (a.float() - b.float()).abs().max() <= \
             2e-2 * b.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+def test_gemma3_smoke_kernel_path(cuda, dtype):
+    """Gemma-3 SMOKE (2 x (local, global), window 32, QK-norm, sandwich
+    norms, tied table) under ``attn_impl="flash"``, its norm scales drawn
+    N(0, 0.1) in place of the init's zeros: a 40-token prefill (past the
+    window) into a cache of 80 and 40 decode steps of the same tokens on
+    the card against the plain path on the CPU, same weights. The local
+    rings (32 slots) wrap at index 64. Each prefill launches 4 flash
+    kernels (2 with the window), each pass 4 x 6 + 1 vectorised norms, and
+    a decode step no flash; logits and every cache hold within 1e-4 in
+    fp32 and 2e-2 of their largest magnitude in bf16."""
+    from repro_torch.configs import gemma3_27b
+    from repro_torch.convert import tree_map
+    from repro_torch.models import transformer
+    cfg = gemma3_27b.SMOKE.replace(compute_dtype=dtype, attn_impl="flash")
+    gen = torch.Generator().manual_seed(0)
+    params = transformer.init(gen, cfg)
+    params = {k: (tree_map(lambda t: t + 0.1 * torch.randn(
+        t.shape, generator=gen), v) if k == "final_norm" else v)
+        for k, v in params.items()}
+    for seg in params["segments"]:
+        for blk in seg.values():
+            for name in ("ln1", "ln2", "post_ln1", "post_ln2"):
+                blk[name]["scale"] += 0.1 * torch.randn(
+                    blk[name]["scale"].shape, generator=gen)
+            for name in ("q_norm", "k_norm"):
+                blk["attn"][name]["scale"] += 0.1 * torch.randn(
+                    blk["attn"][name]["scale"].shape, generator=gen)
+    B, P, steps = 2, 40, 40
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, P + steps)))
+    pos = torch.arange(P + steps)[None].expand(B, P + steps)
+    counts = {}
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        n = (flash_attention.launches, flash_attention.tc_launches,
+             rmsnorm.launches, rmsnorm.vec_launches)
+        with torch.inference_mode():
+            lg, cache = transformer.prefill(p, cfg, toks[:, :P].to(dev),
+                                            pos[:, :P].to(dev), P + steps)
+            lgs = [lg]
+            for i in range(P, P + steps):
+                lg, cache = transformer.decode_step(
+                    p, cfg, toks[:, i:i + 1].to(dev), pos[:, i:i + 1].to(dev),
+                    cache, i)
+                lgs.append(lg)
+        torch.cuda.synchronize()
+        counts[dev] = (flash_attention.launches - n[0],
+                       flash_attention.tc_launches - n[1],
+                       rmsnorm.launches - n[2], rmsnorm.vec_launches - n[3])
+        leaves = [t for seg in cache["segments"] for blk in seg.values()
+                  for t in blk.values()]
+        outs[dev] = [t.cpu() for t in lgs + leaves]
+    L = cfg.n_layers
+    assert counts["cpu"] == (0, 0, 0, 0)
+    assert counts["cuda"] == (L, L if dtype == BF16 else 0,
+                              (1 + steps) * (6 * L + 1),
+                              (1 + steps) * (6 * L + 1))
+    assert outs["cuda"][-4].shape[2] == cfg.sliding_window   # a local ring
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        if dtype == FP32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            assert (a.float() - b.float()).abs().max() <= \
+                2e-2 * b.float().abs().max()
 
 
 @pytest.mark.cuda

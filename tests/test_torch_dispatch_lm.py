@@ -7,7 +7,8 @@ cores ("tc"), and a CUDA-core one ("simt") for fp32 and for inputs the
 16-byte copies cannot address. The choice is a pure function of dtype,
 shape, strides and alignment, made before the launch; these tests pin it on
 CPU tensors, which is where the functions can run here, down to the tensors
-the Mamba2 model hands the kernels at its full serving widths. Which variant
+the Mamba2 and Gemma-3 models hand the kernels at their full serving
+widths. Which variant
 a launch on the card really ran is asserted by the ``cuda`` tests and by
 ``chip_smoke.py`` through the ``vec_launches`` and ``tc_launches`` counters.
 """
@@ -16,12 +17,13 @@ import contextlib
 import pytest
 import torch
 
-from repro_torch.configs import mamba2_1_3b
+from repro_torch.configs import gemma3_27b, mamba2_1_3b
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.rmsnorm.ops import (BWD_MAX_BLOCKS,
                                              BWD_VEC_MAX_BLOCKS,
-                                             BWD_VEC_WARPS, MAX_VECS,
+                                             BWD_MAX_VECS, BWD_VEC_WARPS,
+                                             MAX_VECS,
                                              _rmsnorm_bwd_variant,
                                              _rmsnorm_variant, bwd_blocks,
                                              bwd_vec_partition)
@@ -35,6 +37,7 @@ from repro_torch.models import layers, ssm, transformer
 
 BF16, FP32 = torch.bfloat16, torch.float32
 LM = mamba2_1_3b.CONFIG
+GEMMA = gemma3_27b.CONFIG
 
 
 def _offset(t):
@@ -89,6 +92,31 @@ def test_rmsnorm_variant(name, variant):
 def test_rmsnorm_serving_shapes_are_vectorised(rows, d):
     x = torch.empty(rows, d, dtype=BF16)
     assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
+
+
+@pytest.mark.parametrize("rows,d", [
+    (4 * 2048, GEMMA.d_model), (4 * 2048 * GEMMA.nq, GEMMA.hd),  # prefill
+    (4, GEMMA.d_model), (4 * GEMMA.nkv, GEMMA.hd),               # decode
+])
+def test_rmsnorm_gemma3_serving_shapes_are_vectorised(rows, d):
+    """Gemma-3's block norms over d_model (672 vectors a row, past the 512
+    that the backward's vec kernel holds) and its QK-norm over head_dim."""
+    x = torch.empty(rows, d, dtype=BF16)
+    assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
+
+
+def test_rmsnorm_backward_takes_fewer_vectors_than_the_forward():
+    """A row of Gemma-3's d_model: the forward's vec kernel holds its 672
+    vectors, the vec backward at most BWD_MAX_VECS, so it runs simt."""
+    d = GEMMA.d_model
+    assert BWD_MAX_VECS < d // 8 <= MAX_VECS
+    x = torch.empty(8, d, dtype=BF16)
+    assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
+    assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
+        "simt"
+    x = torch.empty(8, 8 * BWD_MAX_VECS, dtype=BF16)
+    assert _rmsnorm_bwd_variant(x, torch.empty(x.shape[1]),
+                                torch.empty_like(x)) == "vec"
 
 
 # ---------------------------------------------------------------- SSD variant
