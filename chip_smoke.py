@@ -25,12 +25,17 @@ exits non-zero:
    flash's (with the forward's row log-sum-exp; bf16 on the tensor cores in
    the short form at the trunk's MHA heads and in the streaming form for
    GQA, D = 128, long and ragged sequences, TinyLlama's training layer
-   (2,2048,32/4,64) and Qwen2-MoE's heads at (2,1024,16/16,128), each also
-   through the "simt" kernels on the same inputs and held to the same bound,
-   and the same bit for bit over repeated calls; fp32 on the CUDA cores)
-   and the GEMM's (in bf16 both
+   (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128) and Gemma-3's
+   local and global training layers at (2,2048,32/16,128); with the
+   window mask in every form: 1024 at S 2048, 1000 at a ragged S of 2050,
+   48 (under one tile), the short form at S 144; each "tc" case also
+   through the "simt" kernels on the same inputs and held to the same
+   bound, and every case the same bit for bit over repeated calls; fp32 on
+   the CUDA cores) and the GEMM's (in bf16 both
    products from one launch of the fused kernel, dW split along C and the
-   same bit for bit over repeated calls), and RMSNorm's and the SSD scan's
+   same bit for bit over repeated calls, at Qwen2-MoE's training shapes
+   too), and RMSNorm's (Gemma-3's block norms at (4096,5376) with gemma
+   among them) and the SSD scan's
    at phase 8's shapes, ragged rows and chunks, chunks whose length is not
    a multiple of the scan backward's tiles (100, and the smoke config's
    16), d off 8, gemma, G = 2, P = 128, an initial state and the final
@@ -164,6 +169,21 @@ exits non-zero:
    x 512 held leaf by leaf against the CPU plain path; one step under
    torch.profiler, its device time split into flash forward and backward,
    cuBLAS, RMSNorm, AdamW and the other elementwise work; then
+   Gemma-3-27B's training at its full published width on 2 of its 62
+   layers, one local and one global (AdamW's new trees take ~28 bytes a
+   parameter: 2 layers and the tied table are ~63 GB, one plan segment of
+   6 would be ~109 GB), every norm scale drawn N(0, 0.1), 3 steps at 2 x
+   2048 after a warm-up, raising unless each step launched 2 flash (1 with
+   the window of 1024) and 13 RMSNorm each way, all tc / vec; its 2
+   layers' gradients at 1 x 2048, past the window, against the CPU; a
+   profiled step; then Qwen1.5-MoE-A2.7B's at its full width on 3 of its
+   24 layers (the deepest cut under ~75 GB), QKV biases drawn nonzero, 3
+   steps at 2 x 2048, raising unless each step launched a flash each way
+   a layer, the routed experts' 2 grouped GEMMs a layer forward and one
+   fused backward call each, all on the tensor cores, and 7 RMSNorm each
+   way; the (token, k) pairs dropped at capacity; its first 2 layers'
+   gradients at 1 x 512 against the CPU, the CPU taking the card's
+   experts, with the router's near-ties counted; a profiled step; then
    ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
    resumed ("resumed at step 3") against an uninterrupted 6-step run, and
    ``launch.serve --smoke --ckpt-dir`` serving from its checkpoint; last,
@@ -195,10 +215,17 @@ exits non-zero:
    step's 4, through wi and wo) beside ``torch.bmm``, each with its bound
    and share; the flash backward at TinyLlama's training shape,
    (2,2048,32/4,64) causal (the streaming form, also at each split count
-   of a kv head's q heads, 1, 2, 4 and 8), and at Qwen2-MoE's,
-   (2,2048,16/16,128) causal, each beside the "simt" kernels
+   of a kv head's q heads, 1, 2, 4 and 8), at Qwen2-MoE's,
+   (2,2048,16/16,128) causal, and at Gemma-3's local and global training
+   layers, (2,2048,32/16,128) causal with and without the window of 1024
+   (the local one at 1 and 2 shares), each beside the "simt" kernels
    (``simt_ms``), its plain version, SDPA's backward (with ``enable_gqa``
-   where the heads are grouped) and its bound; and the backward kernels
+   where the heads are grouped; with the band as its ``attn_mask`` under
+   the window) and its bound; TinyLlama's heads under that window at 1,
+   2, 4 and 8 shares (the split rule's measurement); the GEMM backward at
+   Qwen2-MoE's training wi and wo shapes beside two ``torch.bmm``;
+   RMSNorm's backward over a Gemma-3 layer's 4 block norms beside
+   autograd through ``F.rms_norm``; and the backward kernels
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
@@ -211,8 +238,8 @@ Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 6, 7, 8, 5, and each
 ends with a ``[phase]`` line of its wall time. Each kernel's ``launches`` in
 the JSON record sums the counts of every path that runs it (phases 3, 4,
 4b, 4c's, 4d's and 4e's prefill and decode steps, 6, 7 and 8: runs (a), (b)
-and (c),
-TinyLlama's 2 x 2048 run and the launcher at its defaults), each counted
+and (c), the 2 x 2048 runs of TinyLlama, Gemma-3 and Qwen2-MoE and the
+launcher at its defaults), each counted
 from 0 just before its path and read just after.
 
 The last two lines are the kernels' JSON record and
@@ -369,6 +396,7 @@ GEMMA_NORM_STD = 0.1    # the gemma norm scales drawn nonzero (the
                         # reference inits them 0, so (1 + w) would be 1)
 GEMMA_PLAIN_PROMPT = 1088   # past the window: the local mask and the
 GEMMA_PLAIN_DECODE = 4      # rolled ring bite in the check against the CPU
+NEAR_TIE = 1e-5         # a router's K-th and (K+1)-th probabilities this close
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
 FP32_BWD_REL_TOL = 1e-4  # the RMSNorm and SSD backward kernels against their
@@ -378,6 +406,15 @@ TRAIN_OCFG = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=10**9)
 LM_TRAIN_RUNS = (("a", 8, 128, 5), ("b", 2, 2048, 3))   # batch, seq, steps
 DENSE_TRAIN_RUN = ("2 x 2048", 2, 2048, 3)               # TinyLlama's
 LM_GRAD_SEQ = 512       # the 2-layer gradient check: 1 x 512, two chunks
+# Gemma-3-27B training (phase 8): 2 of its 62 layers, one local and one
+# global. AdamW returns new trees, ~28 bytes a parameter at the update: the
+# tied table (1.409 B) and 2 layers (0.413 B each) are 2.235 B, ~63 GB;
+# one plan segment (6 layers, 3.89 B, ~109 GB) exceeds the card's 80
+GEMMA_TRAIN = gemma3_27b.CONFIG.replace(n_layers=2, local_global_period=2)
+GEMMA_GRAD_SEQ = 2048   # its gradient check runs past the window of 1024
+# Qwen1.5-MoE-A2.7B training (phase 8): the deepest cut under ~75 GB at the
+# update, 0.622 B for the embedding and head and 0.571 B a layer
+QWEN_TRAIN = qwen2_moe_a2_7b.CONFIG.replace(n_layers=3)
 TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 
@@ -401,7 +438,22 @@ def phase_build() -> None:
     usage = {n: [ln.strip() for ln in log.splitlines() if "Used" in ln]
              for n, log in logs.items()}
     line("build", seconds=time.perf_counter() - t0, built=sorted(logs),
-         ptxas=usage)
+         ptxas=usage, spills=_spills(logs))
+
+
+def _spills(logs: dict) -> dict:
+    """The kernels whose ``-Xptxas=-v`` report shows spill stores or loads,
+    by library: {library: {function: the report's line}}."""
+    out = defaultdict(dict)
+    for name, log in logs.items():
+        fn = None
+        for ln in log.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for", 1)[1].strip()
+            elif "spill" in ln and fn and \
+                    "0 bytes spill stores, 0 bytes spill loads" not in ln:
+                out[name][fn] = ln.strip()
+    return dict(out)
 
 
 # ------------------------------------------------------ 2. kernel checks
@@ -666,21 +718,30 @@ def check_backward(gen, errs: dict) -> None:
     variant in its short form at every head dim it takes (the trunk's MHA
     heads), causal, softcap and ragged, and in its streaming form for GQA,
     D = 128, long sequences and the LM training layers (TinyLlama's
-    (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128)); each "tc"
-    case also through "simt" on the same inputs, held to the same bound,
-    and twice more through "tc", the same bit for bit; the CUDA-core
-    variant for fp32. The GEMM: dX
+    (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128), Gemma-3's
+    local and global ones at (2,2048,32/16,128)); with a window in every
+    form: 1024 at S 2048, 1000 (no multiple of 64) at a ragged S of 2050,
+    48 (under one tile), GQA 32/16 and 8/4, D 64 and 128, the short form at
+    S 144 with 64, fp32 on the CUDA cores; each "tc" case also through
+    "simt" on the same inputs, held to the same bound; every case twice
+    more through its variant, the same bit for bit; the CUDA-core variant
+    for fp32. The GEMM: dX
     and dW against ``grouped_gemm_bwd_ref``, in bf16 from one launch of the
     fused backward kernel (counted once in ``bwd_fused_calls``; dW split
     along C and the same bit for bit over two more calls), with x or dY
-    strided as the trunk stores its activations; in fp32 from two launches
-    of the CUDA-core kernel. At each bf16 case the two-launch route that
-    phase 5 times beside it is held to the same tolerance."""
+    strided as the trunk stores its activations, and at Qwen2-MoE's
+    training shapes (E = 60, 342 rows an expert at 2 x 2048 tokens, wi and
+    wo); in fp32 from two launches of the CUDA-core kernel. At each bf16
+    case the two-launch route that phase 5 times beside it is held to the
+    same tolerance."""
     B = 2 * LANES * mirage_agent.N_EXPERTS
     bf16 = torch.bfloat16
     causal, cap, both = (dict(causal=True, softcap=0.0),
                          dict(causal=False, softcap=30.0),
                          dict(causal=True, softcap=30.0))
+
+    def band(window):
+        return dict(causal=True, softcap=0.0, window=window)
     cases = [
         ("flash bwd agent (640,144,8,32) bf16", dict(causal=False,
                                                      softcap=0.0),
@@ -702,8 +763,24 @@ def check_backward(gen, errs: dict) -> None:
          (2, 1024, 1024, QWEN.nq, QWEN.nkv, QWEN.hd, bf16), "tc"),
         ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32", both,
          (2, 97, 131, 8, 2, 64, torch.float32), "simt"),
+        ("flash bwd Gemma-3 global training (2,2048,32/16,128) bf16", causal,
+         (2, LM_PROMPT, LM_PROMPT, GEMMA.nq, GEMMA.nkv, GEMMA.hd, bf16), "tc"),
+        ("flash bwd Gemma-3 local training (2,2048,32/16,128) window 1024 "
+         "bf16", band(GEMMA.sliding_window),
+         (2, LM_PROMPT, LM_PROMPT, GEMMA.nq, GEMMA.nkv, GEMMA.hd, bf16), "tc"),
+        ("flash bwd GQA 8/4 (1,2048,8/4,64) window 1024 bf16", band(1024),
+         (1, 2048, 2048, 8, 4, 64, bf16), "tc"),
+        ("flash bwd ragged (1,2050,8/4,64) window 1000 bf16", band(1000),
+         (1, 2050, 2050, 8, 4, 64, bf16), "tc"),
+        ("flash bwd (1,300,4/2,128) window 48, under a tile, bf16", band(48),
+         (1, 300, 300, 4, 2, 128, bf16), "tc"),
+        ("flash bwd short form (2,144,4/4,64) window 64 bf16", band(64),
+         (2, 144, 144, 4, 4, 64, bf16), "tc"),
+        ("flash bwd (1,300,4/2,64) window 100 fp32", band(100),
+         (1, 300, 300, 4, 2, 64, torch.float32), "simt"),
     ]
     for name, opts, shape, variant in cases:
+        opts = dict(opts, window=opts.get("window", 0))
         atol, rtol = ((BF16_TOL, BF16_TOL) if variant == "tc" else
                       (FP32_FLASH_TOL, FP32_FLASH_BWD_RTOL))
         if shape == "fused":
@@ -728,7 +805,7 @@ def check_backward(gen, errs: dict) -> None:
         q, k, v, out = (t.detach() for t in (q, k, v, out))
         if shape == "fused":
             grads = grads[0].unbind(2)
-        _, lse = flash_launch(q, k, v, _flash_variant(q, k, v), window=0,
+        _, lse = flash_launch(q, k, v, _flash_variant(q, k, v),
                               scale=q.shape[3] ** -0.5, lse=True, **opts)
         lse_err = _err(lse, flash_attention_lse_ref(q, k, **opts), LSE_ATOL,
                        1e-5, name + " lse")
@@ -737,7 +814,17 @@ def check_backward(gen, errs: dict) -> None:
                   for n, g, r in zip("qkv", grads, refs))
         errs["flash_attention_bwd"] = max(
             errs.get("flash_attention_bwd", 0.0), err)
-        extra = {}
+        extra = {"window": opts["window"]}
+        # launches that compare, not counted: the variant again, bit for
+        # bit, and for "tc" the "simt" kernels on the same inputs
+        run = dict(opts, scale=q.shape[3] ** -0.5)
+        dout = do.contiguous()
+        for _ in range(2):
+            again = flash_launch_bwd(q, k, v, out, lse, dout, variant, **run)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise RuntimeError(f"{name}: dq, dk, dv differ between calls")
+        extra["bit_identical"] = True
+        del again
         if variant == "tc":
             Hq, Hkv = q.shape[2], k.shape[2]
             extra["form"] = bwd_tc_form(q.shape[1], k.shape[1], Hq, Hkv,
@@ -746,22 +833,11 @@ def check_backward(gen, errs: dict) -> None:
                 extra["splits"] = bwd_splits(
                     q.shape[0], k.shape[1], Hkv, Hq // Hkv,
                     torch.cuda.get_device_properties(0).multi_processor_count)
-            # launches that compare, not counted: "simt" on the same inputs,
-            # and "tc" again, bit for bit
-            run = dict(causal=opts["causal"], softcap=opts["softcap"],
-                       scale=q.shape[3] ** -0.5)
-            dout = do.contiguous()
             simt = flash_launch_bwd(q, k, v, out, lse, dout, "simt", **run)
             extra["simt_max_abs_err"] = max(
                 _err(g, r, atol, rtol, f"{name} simt d{n}")
                 for n, g, r in zip("qkv", simt, refs))
-            for _ in range(2):
-                again = flash_launch_bwd(q, k, v, out, lse, dout, "tc", **run)
-                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                    raise RuntimeError(f"{name}: dq, dk, dv differ between "
-                                       "calls")
-            extra["bit_identical"] = True
-            del simt, again
+            del simt
         line("check", case=name, variant=variant, max_abs_err=err,
              lse_max_abs_err=lse_err, atol=atol, rtol=rtol, **extra)
         del q, k, v, out, grads, refs, leaves, do
@@ -775,8 +851,15 @@ def check_backward(gen, errs: dict) -> None:
               (f"gemm bwd dY stored (2000,{E},{d}) bf16",
                (E, 2000, d, d, bf16), "dy_rows", BF16_TOL),
               ("gemm bwd ragged (3,1001,200)x(3,200,136) bf16",
-               (3, 1001, 200, 136, bf16), "plain", BF16_TOL),
-              ("gemm bwd ragged (3,1001,200)x(3,200,136) fp32",
+               (3, 1001, 200, 136, bf16), "plain", BF16_TOL)]
+    # Qwen2-MoE's routed experts at a 2 x 2048 training batch: wi and wo
+    E60, C60 = QWEN.n_experts, 2 * _qwen_capacity(LM_PROMPT)
+    cases += [(f"gemm bwd Qwen2-MoE training {what} ({E60},{C60},{a})x"
+               f"({E60},{a},{b}) bf16", (E60, C60, a, b, bf16), "plain",
+               BF16_TOL)
+              for what, a, b in (("wi", QWEN.d_model, 2 * QWEN.expert_d_ff),
+                                 ("wo", QWEN.expert_d_ff, QWEN.d_model))]
+    cases += [("gemm bwd ragged (3,1001,200)x(3,200,136) fp32",
                (3, 1001, 200, 136, torch.float32), "plain",
                FP32_GEMM_BWD_TOL)]
     for name, shape, layout, tol in cases:
@@ -839,8 +922,9 @@ def _rel_err(out, ref, what, tol=LM_REL_TOL) -> float:
 
 def check_lm_backward(gen, errs: dict) -> None:
     """The RMSNorm and SSD backward kernels through autograd, as Mamba2
-    training runs them, against their plain versions on the same inputs
-    (fp32 1e-4, bf16 2e-2 of each gradient's largest value): one forward
+    training runs them (RMSNorm also at Gemma-3's block norms, 672
+    vectors a row with gemma), against their plain versions on the same
+    inputs (fp32 1e-4, bf16 2e-2 of each gradient's largest value): one forward
     and one backward launch each, of the variant the case names (counted:
     "vec" / "tc" for bf16 rows and chunks they can address), and the
     reductions (RMSNorm's dw; the scan's dA, dB, dC, dD) the same bit for
@@ -852,6 +936,8 @@ def check_lm_backward(gen, errs: dict) -> None:
              for r, c in ((8 * 128, d), (2 * 2048, d), (2 * 2048, din))]
     cases += [("rmsnorm bwd (4096,2048) bf16 gemma", 4096, d, bf16, True,
                "vec"),
+              ("rmsnorm bwd Gemma-3's block norms (4096,5376) bf16 gemma, "
+               "672 vectors", 4096, GEMMA.d_model, bf16, True, "vec"),
               ("rmsnorm bwd (4096,4096) fp32, past the vectors", 4096, din,
                f32, False, "simt"),
               ("rmsnorm bwd ragged (37,2048) fp32 gemma", 37, d, f32, True,
@@ -1675,7 +1761,7 @@ class _RouteLog:
                 gates = probs.gather(-1, idx)
                 gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
                                             min=1e-9)
-            self.routes.append((probs, idx))
+            self.routes.append((probs.detach(), idx))
             return probs, gates, idx
 
         def slots(idx, E, C):
@@ -2458,6 +2544,8 @@ def _set_lm_train_counts() -> None:
     rmsnorm.bwd_launches = rmsnorm.bwd_vec_launches = 0
     ssd.bwd_launches = ssd.bwd_tc_launches = 0
     flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
+    grouped_gemm.bwd_launches = grouped_gemm.bwd_tc_launches = 0
+    grouped_gemm.bwd_fused_calls = 0
 
 
 def _lm_train_counts() -> dict:
@@ -2465,22 +2553,32 @@ def _lm_train_counts() -> dict:
                 rmsnorm_bwd_vec=rmsnorm.bwd_vec_launches,
                 ssd_bwd=ssd.bwd_launches, ssd_bwd_tc=ssd.bwd_tc_launches,
                 flash_attention_bwd=flash_attention_bwd.launches,
-                flash_bwd_tc=flash_attention_bwd.tc_launches)
+                flash_bwd_tc=flash_attention_bwd.tc_launches,
+                grouped_gemm_bwd=grouped_gemm.bwd_fused_calls,
+                grouped_gemm_bwd_products=grouped_gemm.bwd_launches,
+                gemm_bwd_tc=grouped_gemm.bwd_tc_launches)
 
 
 def _train_pass_counts(cfg, passes: int, layers=None) -> dict:
     """The launches of ``passes`` differentiated micro-batch passes of
-    ``cfg`` (``layers`` of its layers, all by default): per layer two
-    RMSNorm and, for Mamba2, an SSD scan, for TinyLlama a flash call, each
-    forward and backward, plus the final norm; every norm vectorised and
-    every scan and flash on the tensor cores, both ways."""
+    ``cfg`` (``layers`` of its layers, all by default), each forward and
+    backward: per layer two RMSNorm (Gemma-3 six: its post-norms and
+    QK-norm too) and, for Mamba2, an SSD scan, else a flash call, and for
+    Qwen2-MoE the routed experts' two grouped GEMMs (the backward one
+    fused call a projection, dX and dW); plus the final norm; every norm
+    vectorised and every scan, flash and GEMM on the tensor cores, both
+    ways."""
     layers = cfg.n_layers if layers is None else layers
-    norms = passes * (2 * layers + 1)
+    per_layer = 2 + 2 * cfg.sandwich_norm + 2 * cfg.qk_norm
+    norms = passes * (per_layer * layers + 1)
     mixers = passes * layers
     scans, flash = (mixers, 0) if cfg is LM else (0, mixers)
-    return dict(_pass_counts(norms, scans, flash), rmsnorm_bwd=norms,
+    gemms = 2 * mixers if cfg.family == "moe" else 0
+    return dict(_pass_counts(norms, scans, flash, gemms), rmsnorm_bwd=norms,
                 rmsnorm_bwd_vec=norms, ssd_bwd=scans, ssd_bwd_tc=scans,
-                flash_attention_bwd=flash, flash_bwd_tc=flash)
+                flash_attention_bwd=flash, flash_bwd_tc=flash,
+                grouped_gemm_bwd=gemms, grouped_gemm_bwd_products=2 * gemms,
+                gemm_bwd_tc=2 * gemms)
 
 
 def _check_lm_train_counts(what: str, passes: int, cfg=LM) -> dict:
@@ -2494,15 +2592,29 @@ def _check_lm_train_counts(what: str, passes: int, cfg=LM) -> dict:
     return got
 
 
-def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1,
-                 cfg=LM):
+def _train_state(cfg, draw=None) -> list:
+    """[params, opt]: seeded fp32 weights of ``cfg`` drawn on the card
+    (``draw`` then redraws some of them) and AdamW's zero state, in a list
+    that ``lm_train_run`` updates in place, so that no caller holds the
+    trees a step replaces: a step's peak is one state and its successor."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = [transformer.init(gen, cfg), None]
+    if draw is not None:
+        draw(gen, state[0])
+    state[1] = init_opt_state(state[0], TRAIN_OCFG)
+    return state
+
+
+def lm_train_run(state, what, batch, seq, steps, microbatches=1, cfg=LM):
     """``steps`` train steps of ``make_train_step`` on ``cfg`` at the
-    launcher's optimizer on ``data_iterator`` batches, after one warm-up
-    step whose result is dropped; host ms per step after ``synchronize``."""
+    launcher's optimizer on ``data_iterator`` batches from ``state``
+    ([params, opt], updated in place), after one warm-up step whose result
+    is dropped; host ms per step after ``synchronize``. Returns the
+    launches."""
     step_fn = make_train_step(cfg, TRAIN_OCFG, microbatches)
     data = data_iterator(cfg, DataConfig(batch=batch, seq_len=seq),
                          device="cuda")
-    step_fn(params, opt, next(data))
+    step_fn(*state, next(data))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _set_lm_train_counts()
@@ -2511,23 +2623,26 @@ def lm_train_run(params, opt, what, batch, seq, steps, microbatches=1,
         b = next(data)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, metrics = step_fn(params, opt, b)
+        state[0], state[1], metrics = step_fn(*state, b)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
     counts = _check_lm_train_counts(what, steps * microbatches, cfg)
-    line("lm_train", arch=cfg.arch_id, run=what, batch=batch, seq=seq,
-         steps=steps,
+    line("lm_train", arch=cfg.arch_id, layers=cfg.n_layers, run=what,
+         batch=batch, seq=seq, steps=steps,
          microbatches=microbatches, ms_per_step=_ms(ms),
          tokens_per_s=batch * seq / np.mean(ms) * 1e3,
          losses=_finite(what, losses),
          grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
-    return params, opt, counts
+    return counts
 
 
 def _lm_grad_sub(params, cfg=LM):
-    """The first LM_PLAIN_LAYERS layers of the model, same weights."""
+    """The first LM_PLAIN_LAYERS layers of the model, same weights (the
+    model itself if it has no more)."""
+    if cfg.n_layers <= LM_PLAIN_LAYERS:
+        return cfg, params
     cfg = cfg.replace(n_layers=LM_PLAIN_LAYERS)
     sub = dict(params, segments=[{"b0": tree_map(
         lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
@@ -2561,27 +2676,48 @@ def _cpu_inputs(sub, batch):
             {k: v.cpu() for k, v in batch.items()})
 
 
-def check_lm_train_grads(params, full=LM) -> None:
+def _near_ties(routes) -> int:
+    """Tokens whose K-th and (K+1)-th router probabilities lie within
+    NEAR_TIE of each other, over the routes ``_RouteLog`` recorded."""
+    n = 0
+    for probs, idx in routes:
+        top = torch.topk(probs, idx.shape[-1] + 1, dim=-1).values
+        n += int(((top[..., -2] - top[..., -1]) < NEAR_TIE).sum())
+    return n
+
+
+def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ) -> None:
     """The first 2 layers of the full-width model ``full``, same weights,
-    one 1 x LM_GRAD_SEQ batch (for Mamba2 two chunks): ``loss_fn``'s
-    gradient with the kernels on the card against the plain path on the
-    CPU, every leaf within LM_REL_TOL of its largest magnitude."""
+    one 1 x ``seq`` batch (for Mamba2 two chunks): ``loss_fn``'s gradient
+    with the kernels on the card against the plain path on the CPU, every
+    leaf within LM_REL_TOL of its largest magnitude. For a MoE model the
+    CPU takes the card run's experts (as ``check_moe_plain``), its own
+    probabilities giving the gates; the tokens its own router would send
+    elsewhere are counted, each must be a near-tie, and the near-ties
+    (NEAR_TIE) of both runs are counted."""
     cfg, sub = _lm_grad_sub(params, full)
-    batch = synth_batch(cfg, DataConfig(batch=1, seq_len=LM_GRAD_SEQ), 0,
+    batch = synth_batch(cfg, DataConfig(batch=1, seq_len=seq), 0,
                         device="cuda")
-    lval, grads, got = _lm_grads(cfg, sub, batch)
+    with _RouteLog() as card:
+        lval, grads, got = _lm_grads(cfg, sub, batch)
     if got != _train_pass_counts(full, 1, LM_PLAIN_LAYERS):
         raise RuntimeError(f"2-layer gradient launched {got}")
     t0 = time.perf_counter()
-    pval, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
+    with _RouteLog(force=[i for _, i in card.routes]) as cpu:
+        pval, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
     cpu_s = time.perf_counter() - t0
     errs = _grad_errs(grads, pgrads)
     worst = max(errs, key=errs.get)
+    routing = {}
+    if card.routes:
+        routing = dict(_route_flips(card.routes, cpu.routes),
+                       near_ties_card=_near_ties(card.routes),
+                       near_ties_cpu=_near_ties(cpu.routes),
+                       near_tie=NEAR_TIE)
     line("lm_train", arch=full.arch_id, run="2-layer gradient check",
-         layers=LM_PLAIN_LAYERS,
-         seq=LM_GRAD_SEQ, leaves=len(errs), loss=lval, cpu_loss=pval,
-         worst_rel_err=errs[worst], worst_leaf=worst, rel_tol=LM_REL_TOL,
-         cpu_plain_s=cpu_s)
+         layers=LM_PLAIN_LAYERS, seq=seq, leaves=len(errs), loss=lval,
+         cpu_loss=pval, worst_rel_err=errs[worst], worst_leaf=worst,
+         rel_tol=LM_REL_TOL, cpu_plain_s=cpu_s, **routing)
 
 
 def lm_grad_rounding(params, seeds=(0, 1, 2)) -> None:
@@ -2626,6 +2762,8 @@ def lm_grad_rounding(params, seeds=(0, 1, 2)) -> None:
 
 
 _KERNEL_GROUPS = (   # device-time groups of the training step's profile
+    ("gemm_bwd", ("grouped_gemm_bwd",)),
+    ("gemm_fwd", ("grouped_gemm_tc_kernel", "grouped_gemm_kernel")),
     ("ssd_bwd", ("chunk_state_kernel", "chunk_state_tc_kernel",
                  "state_scan_kernel", "chunk_grad_kernel",
                  "chunk_grad_tc_kernel", "group_sum_kernel",
@@ -2784,46 +2922,106 @@ def check_train_launcher_default() -> dict:
             "rmsnorm": got["rmsnorm"], "rmsnorm_bwd": got["rmsnorm_bwd"]}
 
 
-def dense_train() -> dict:
-    """TinyLlama-1.1B training at its full published width and depth, seeded
-    fp32 weights drawn on the card: DENSE_TRAIN_RUN's steps after a warm-up
-    (ms a step, tokens/s, losses, peak memory; every step 22 flash and 45
-    RMSNorm launches each way, all "tc" / "vec"), the first 2 layers'
-    gradients at 1 x LM_GRAD_SEQ against the CPU plain path, and one step
-    under torch.profiler by kernel group. Returns the run's launches."""
+def lm_cut_train(cfg, run: str, draw=None, log=None, grad_seq=LM_GRAD_SEQ,
+                 report=None) -> dict:
+    """Training of ``cfg`` with seeded fp32 weights drawn on the card
+    (``draw`` then redraws some of them): DENSE_TRAIN_RUN's steps after a
+    warm-up through ``lm_train_run`` (ms a step, tokens/s, losses, peak
+    memory, the launches a step checked), with ``log`` (a recorder class)
+    entered around them and ``report(log, steps)`` giving the fields of a
+    line on the cut (or raising); then the first 2 layers' gradients at 1 x
+    ``grad_seq`` against the CPU plain path, and one step under
+    torch.profiler by kernel group. Returns the run's launches."""
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = transformer.init(gen, DENSE)
-    opt = init_opt_state(params, TRAIN_OCFG)
+    state = _train_state(cfg, draw)
+    n = sum(t.numel() for t in _leaves(state[0]))
     what, batch, seq, steps = DENSE_TRAIN_RUN
-    params, opt, counts = lm_train_run(params, opt, what, batch, seq, steps,
-                                       cfg=DENSE)
-    check_lm_train_grads(params, DENSE)
-    profile_lm_train_step(params, opt, batch, seq, DENSE)
+    with (log() if log else contextlib.nullcontext()) as seen:
+        counts = lm_train_run(state, what, batch, seq, steps, cfg=cfg)
+    params, opt = state
+    del state
+    if report is not None:
+        line("lm_train", arch=cfg.arch_id, run=f"{run} cut",
+             layers=cfg.n_layers, params=n, **report(seen, steps))
+    del seen
+    check_lm_train_grads(params, cfg, grad_seq)
+    profile_lm_train_step(params, opt, batch, seq, cfg)
     del params, opt
     torch.cuda.empty_cache()
-    line("lm_train", arch=DENSE.arch_id, run="TinyLlama training, all",
+    line("lm_train", arch=cfg.arch_id, run=f"{run} training, all",
          wall_s=time.perf_counter() - t0)
     return counts
+
+
+def dense_train() -> dict:
+    """TinyLlama-1.1B training at its full published width and depth
+    (``lm_cut_train``; every step 22 flash and 45 RMSNorm launches each
+    way, all "tc" / "vec")."""
+    return lm_cut_train(DENSE, "TinyLlama")
+
+
+def gemma_train() -> dict:
+    """Gemma-3-27B training at its full published width on GEMMA_TRAIN's 2
+    layers, one local and one global (the cut's reason beside it), every
+    norm scale drawn N(0, GEMMA_NORM_STD) (``lm_cut_train``; every step 2
+    flash and 13 RMSNorm launches each way, all "tc" / "vec", one flash
+    call of each with the window of 1024), the gradients checked at 1 x
+    GEMMA_GRAD_SEQ, past the window."""
+    def report(log, steps):
+        # the warm-up step, then the timed ones: one local and one global
+        want = Counter({GEMMA.sliding_window: steps + 1, 0: steps + 1})
+        if log.windows != want:
+            raise RuntimeError(f"flash windows {dict(log.windows)}, "
+                               f"not {want}")
+        return dict(published_layers=gemma3_27b.CONFIG.n_layers,
+                    plan=[[sg.n_repeat, list(sg.pattern)]
+                          for sg in layer_plan(GEMMA_TRAIN)],
+                    flash_windows_a_step={str(k): v // (steps + 1)
+                                          for k, v in log.windows.items()})
+    return lm_cut_train(GEMMA_TRAIN, "Gemma-3", _draw_gemma_norms,
+                        _WindowLog, GEMMA_GRAD_SEQ, report)
+
+
+def moe_train() -> dict:
+    """Qwen1.5-MoE-A2.7B training at its full published width on
+    QWEN_TRAIN's 3 of its 24 layers (the cut's reason beside it), the QKV
+    biases drawn nonzero (``lm_cut_train``; every step a flash launch each
+    way a layer, the routed experts' 2 grouped GEMMs a layer forward and
+    one fused backward call each, all on the tensor cores, and 7 RMSNorm
+    each way, vectorised), with the (token, k) pairs dropped at capacity
+    and the router's near-ties."""
+    _, batch, seq, _ = DENSE_TRAIN_RUN
+
+    def report(log, steps):
+        pairs = (steps + 1) * QWEN_TRAIN.n_layers * batch * seq * QWEN.top_k
+        return dict(published_layers=QWEN.n_layers,
+                    dropped=int(log.dropped), pairs=pairs,
+                    dropped_share=int(log.dropped) / pairs,
+                    capacity=_qwen_capacity(seq),
+                    rows_an_expert=batch * _qwen_capacity(seq),
+                    near_ties=_near_ties(log.routes),
+                    qkv_bias_std=QKV_BIAS_STD)
+    return lm_cut_train(QWEN_TRAIN, "Qwen2-MoE", _draw_qkv_bias, _RouteLog,
+                        report=report)
 
 
 def phase_lm_train() -> dict:
     """Mamba2-1.3B training at full width with seeded weights drawn on the
     card: runs (a) and (b), one micro-batched step (c), the 2-layer
     gradient check, a profiled step; then TinyLlama-1.1B's training at 2 x
-    2048 (``dense_train``), the launcher at ``--smoke`` and the launcher
-    at its defaults. Returns the launches of (a), (b), (c), TinyLlama's
-    run and the launcher at its defaults."""
+    2048 (``dense_train``), Gemma-3-27B's (``gemma_train``) and
+    Qwen1.5-MoE-A2.7B's (``moe_train``) on cuts of their depth, the
+    launcher at ``--smoke`` and the launcher at its defaults. Returns the
+    launches of (a), (b), (c), the three 2 x 2048 runs and the launcher at
+    its defaults."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = transformer.init(gen, LM)
-    opt = init_opt_state(params, TRAIN_OCFG)
+    state = _train_state(LM)
     totals = defaultdict(int)
     for what, batch, seq, steps in LM_TRAIN_RUNS:
-        params, opt, counts = lm_train_run(params, opt, what, batch, seq,
-                                           steps)
-        for k, v in counts.items():
+        for k, v in lm_train_run(state, what, batch, seq, steps).items():
             totals[k] += v
+    params, opt = state
+    del state
     # (c): one step of (a) in two micro-batches, against the same step in one
     b = synth_batch(LM, DataConfig(batch=8, seq_len=128), 50, device="cuda")
     one = make_train_step(LM, TRAIN_OCFG)(params, opt, b)[2]
@@ -2858,8 +3056,9 @@ def phase_lm_train() -> dict:
     profile_lm_train_step(params, opt, *LM_TRAIN_RUNS[1][1:3])
     del params, opt
     torch.cuda.empty_cache()
-    for k, v in dense_train().items():
-        totals[k] += v
+    for train in (dense_train, gemma_train, moe_train):
+        for k, v in train().items():
+            totals[k] += v
     check_train_launcher()
     torch.cuda.empty_cache()
     for k, v in check_train_launcher_default().items():
@@ -3235,27 +3434,31 @@ def time_moe_gemms(gen) -> list:
     return recs
 
 
-def time_flash_bwd_lm(gen, cfg, what: str, splits=()) -> dict:
+def time_flash_bwd_lm(gen, cfg, what: str, splits=(), window=0) -> dict:
     """The flash backward at one training layer of ``cfg``, (2,2048)
     causal, bf16 (TinyLlama: 32 q heads over 4 kv heads of 64; Qwen2-MoE:
-    16 over 16 of 128), from the forward's out and lse: the variant
+    16 over 16 of 128; Gemma-3: 32 over 16 of 128, its local layers with
+    ``window``), from the forward's out and lse: the variant
     ``_flash_bwd_variant`` picks (the tensor cores' streaming form) beside
     the "simt" kernels at the same shape, its plain version and SDPA's
-    backward (``enable_gqa`` where the heads are grouped); with
-    ``splits``, the streaming form again at each of those split counts of
-    a kv head's q heads (``splits_ms``). The bound: q, o, dO, dq at the q
-    heads and k, v, dk, dv at the kv heads read or written once; five
-    products over the causal triangle (q.k^T again, dP, dV, dQ, dK)."""
+    backward (``enable_gqa`` where the heads are grouped; with a window,
+    the band as its boolean ``attn_mask``); with ``splits``, the streaming
+    form again at each of those split counts of a kv head's q heads
+    (``splits_ms``). The bound: q, o, dO, dq at the q heads and k, v, dk,
+    dv at the kv heads read or written once; five products (q.k^T again,
+    dP, dV, dQ, dK) over the (q, k) pairs the masks leave visible."""
     B, S, Hq, Hkv, D = 2, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     do = _randn(gen, q.shape, torch.bfloat16)
     o, lse = flash_launch(q, k, v, _flash_variant(q, k, v), causal=True,
-                          window=0, softcap=0.0, scale=D ** -0.5, lse=True)
+                          window=window, softcap=0.0, scale=D ** -0.5,
+                          lse=True)
 
     def bwd():
-        return flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                   window=window)
     ms, variant = timed_variant(flash_attention_bwd, bwd, reps=10)
-    run = dict(causal=True, softcap=0.0, scale=D ** -0.5)
+    run = dict(causal=True, window=window, softcap=0.0, scale=D ** -0.5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     extra = {"form": bwd_tc_form(S, S, Hq, Hkv, D),
              "splits": bwd_splits(B, S, Hkv, Hq // Hkv, sms)}
@@ -3265,27 +3468,88 @@ def time_flash_bwd_lm(gen, cfg, what: str, splits=()) -> dict:
             for n in splits}
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                          enable_gqa=Hq != Hkv)
+    if window:
+        qp = torch.arange(S, device="cuda")[:, None]
+        kp = torch.arange(S, device="cuda")[None, :]
+        sdpa = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=(kp <= qp) & (qp - kp < window),
+            enable_gqa=Hq != Hkv)
+        lib = "(attn_mask=band, enable_gqa=True)"
+    else:
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=Hq != Hkv)
+        lib = "(enable_gqa=True)" if Hq != Hkv else ""
     dot = do.transpose(1, 2).contiguous()
-    pairs = B * Hq * S * (S + 1) // 2
+    # visible keys of query p: p + 1, at most the window
+    seen = torch.arange(1, S + 1)
+    if window:
+        seen = seen.clamp(max=window)
+    pairs = B * Hq * int(seen.sum())
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size()
     flops = 5 * 2 * pairs * D
     bms, by = bound_ms(nbytes, flops)
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        sdpa, (qt, kt, vt), dot, retain_graph=True))
     return dict(
         name=f"flash_attention_bwd {what} training layer",
         shape=f"q,o,dO ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, "
-              "causal", variant=variant, ms=ms,
+              "causal" + (f", window {window}" if window else ""),
+        variant=variant, ms=ms,
         simt_ms=time_ms(lambda: flash_launch_bwd(q, k, v, o, lse, do,
                                                  "simt", **run), reps=3),
         plain_ms=time_ms(lambda: flash_attention_bwd_ref(
-            q, k, v, o, lse, do, causal=True), reps=3),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            sdpa, (qt, kt, vt), dot, retain_graph=True)),
-        library="F.scaled_dot_product_attention"
-                + ("(enable_gqa=True)" if Hq != Hkv else "") + " backward",
-        host_us=host_us(bwd, reps=10), bound_ms=bms, bound_by=by,
-        bound_share=bms / ms, bytes=nbytes, flops=flops, **extra)
+            q, k, v, o, lse, do, causal=True, window=window), reps=3),
+        library_ms=lib_ms,
+        library=f"F.scaled_dot_product_attention{lib} backward",
+        library_factor=ms / lib_ms, host_us=host_us(bwd, reps=10),
+        bound_ms=bms, bound_by=by, bound_share=bms / ms, bytes=nbytes,
+        flops=flops, visible_pairs_a_head=pairs // (B * Hq), **extra)
+
+
+def time_gemm_bwd_lm(gen) -> list:
+    """The grouped GEMM backward at Qwen2-MoE's training shapes, E = 60 and
+    a 2 x 2048 batch's 342 rows an expert, wi then wo: dX and dW through
+    autograd (one fused launch a projection) beside the two-launch route
+    (``old_ms``), the plain version and two ``torch.bmm`` on transposed
+    views, with the bound (x, w, dy read and dx, dw written once; 2 x 2 x
+    rows x d x f products an expert)."""
+    recs = []
+    E, C = QWEN.n_experts, 2 * _qwen_capacity(LM_PROMPT)
+    for what, din, dout in (("wi", QWEN.d_model, 2 * QWEN.expert_d_ff),
+                            ("wo", QWEN.expert_d_ff, QWEN.d_model)):
+        x, w = (t_.requires_grad_(True) for t_ in gemm_inputs(
+            gen, E, C, din, dout, torch.bfloat16))
+        dy = _randn(gen, (E, C, dout), torch.bfloat16)
+        out = grouped_gemm(x, w)
+
+        def bwd():
+            return torch.autograd.grad(out, (x, w), dy, retain_graph=True)
+        n, calls = grouped_gemm.bwd_tc_launches, grouped_gemm.bwd_fused_calls
+        ms = time_ms(bwd)
+        n, calls = (grouped_gemm.bwd_tc_launches - n,
+                    grouped_gemm.bwd_fused_calls - calls)
+        xd, wd = x.detach(), w.detach()
+        lib_ms = time_ms(lambda: (torch.bmm(dy, wd.transpose(1, 2)),
+                                  torch.bmm(xd.transpose(1, 2), dy)))
+        nbytes = 2 * (2 * x.numel() + 2 * w.numel() + dy.numel())
+        flops = 2 * 2 * E * C * din * dout
+        bms, by = bound_ms(nbytes, flops)
+        recs.append(dict(
+            name=f"grouped_gemm_bwd Qwen2-MoE training {what}",
+            shape=f"dX, dW of ({E},{C},{din})x({E},{din},{dout}) bf16",
+            variant="tc" if n == 2 * calls and calls else "mixed", ms=ms,
+            old_ms=time_ms(lambda: gemm_ops._backward_two_launches(
+                xd, wd, dy, True, True)),
+            plain_ms=time_ms(lambda: grouped_gemm_bwd_ref(xd, wd, dy),
+                             reps=3),
+            library_ms=lib_ms, library="two torch.bmm",
+            library_factor=ms / lib_ms, splits=gemm_ops.split_count(
+                E, din, dout, C,
+                torch.cuda.get_device_properties(0).multi_processor_count),
+            bound_ms=bms, bound_by=by, bound_share=bms / ms, bytes=nbytes,
+            flops=flops))
+        del x, w, dy, out, xd, wd
+    return recs
 
 
 class _Identity(torch.autograd.Function):
@@ -3488,6 +3752,12 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
     line("time", **time_flash_bwd_lm(gen, DENSE, "TinyLlama",
                                      splits=(1, 2, 4, 8)))
     line("time", **time_flash_bwd_lm(gen, QWEN, "Qwen2-MoE"))
+    line("time", **time_flash_bwd_lm(gen, GEMMA, "Gemma-3 local",
+                                     splits=(1, 2),
+                                     window=GEMMA.sliding_window))
+    line("time", **time_flash_bwd_lm(gen, GEMMA, "Gemma-3 global"))
+    for rec in time_gemm_bwd_lm(gen):
+        line("time", **rec)
     return [flash_rec, gemm_rec]
 
 
@@ -3582,6 +3852,54 @@ def _bwd_variant(counter, n_fast, n_all, fast: str) -> str:
     return fast if ran_fast == ran else "simt" if not ran_fast else "mixed"
 
 
+def time_gemma_norm_bwd(gen, rows: int) -> dict:
+    """RMSNorm's backward over a Gemma-3 training layer's four block norms
+    (ln1, post_ln1, ln2, post_ln2) at a 2 x 2048 batch, each (4096, 5376)
+    bf16 with gemma (1 + w), w fp32, 672 vectors a row: the vec kernel
+    beside "simt", the plain version and autograd through ``F.rms_norm``
+    with the weight 1 + w in bf16. The bound: x and dy read and dx
+    written once a norm."""
+    dim = GEMMA.d_model
+    xs = [_randn(gen, (rows, dim), torch.bfloat16, 3.0) for _ in range(4)]
+    ws = [_randn(gen, (dim,), torch.float32, GEMMA_NORM_STD)
+          for _ in range(4)]
+    dys = [_randn(gen, (rows, dim), torch.bfloat16) for _ in range(4)]
+    args = list(zip(xs, ws, dys))
+
+    def bwd():
+        return [rmsnorm_bwd(x, w, dy, eps=GEMMA.norm_eps, gemma=True)
+                for x, w, dy in args]
+    n_all, n_fast = rmsnorm.bwd_launches, rmsnorm.bwd_vec_launches
+    ms = time_ms(bwd)
+    variant = _bwd_variant(lambda: (rmsnorm.bwd_launches,
+                                    rmsnorm.bwd_vec_launches),
+                           n_fast, n_all, "vec")
+    libs = []
+    for x, w, dy in args:
+        xl = x.clone().requires_grad_(True)
+        wl = (1.0 + w).to(torch.bfloat16).requires_grad_(True)
+        libs.append((F.rms_norm(xl, (dim,), wl, GEMMA.norm_eps), xl, wl, dy))
+    lib_ms = time_ms(lambda: [torch.autograd.grad(y, (xl, wl), dy,
+                                                  retain_graph=True)
+                              for y, xl, wl, dy in libs])
+    nbytes = 4 * (3 * xs[0].numel() * 2 + 2 * dim * 4)
+    flops = 4 * 10 * xs[0].numel()
+    bms, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
+    return dict(
+        name="rmsnorm_bwd Gemma-3 block norms",
+        shape=f"4 x ({rows},{dim}) bf16, w fp32, gemma: one training "
+              "layer's ln1, post_ln1, ln2, post_ln2", variant=variant, ms=ms,
+        simt_ms=time_ms(lambda: [norm_launch_bwd(
+            x, w, dy, "simt", eps=GEMMA.norm_eps, gemma=True)
+            for x, w, dy in args]),
+        plain_ms=time_ms(lambda: [rmsnorm_bwd_ref(
+            x, w, dy, eps=GEMMA.norm_eps, gemma=True) for x, w, dy in args],
+            reps=3),
+        library_ms=lib_ms, library="autograd through F.rms_norm(weight=1 + w)",
+        library_factor=ms / lib_ms, bound_ms=bms, bound_by=by,
+        bound_share=bms / ms, bytes=nbytes, flops=flops)
+
+
 def time_lm_backward(gen, errs: dict, launches: dict) -> list:
     """The RMSNorm and SSD backward kernels at phase 8's (b) shapes: one
     Mamba2 layer's two norm backwards, (4096,2048) and (4096,4096) bf16 with
@@ -3641,6 +3959,7 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
         shape=f"one Mamba2 layer's two norm backwards, ({rows},2048) and "
               f"({rows},4096) bf16, w fp32", **tot)
     line("time", **norm_rec, **extra)
+    line("time", **time_gemma_norm_bwd(gen, rows))
 
     Bz, S = LM_TRAIN_RUNS[1][1:3]
     shape = (Bz, S, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,

@@ -15,9 +15,21 @@
 //
 // GQA by head index (kv head = h / (Hq/Hkv)): dK and dV of a kv head sum
 // over its q heads in a fixed order, the adjoint of the reference's
-// _repeat_kv, with no atomics: two calls give the same bits. Causal
-// masking zeroes the masked probabilities; a window is refused by the
-// wrapper (attention_core never sends one to the flash path).
+// _repeat_kv, with no atomics: two calls give the same bits. The masks are
+// the forward's: column j is visible from row i iff j <= i (causal) and
+// i - j < window (a window > 0: Gemma-3's local layers). A masked pair's P
+// and dS are 0 through the predicate, never through exp of the mask value,
+// and every form skips the tiles and chunks that the causal band and the
+// window's band empty (a window leaves a kv tile at most window + 63 rows).
+// Each tensor-core kernel is compiled twice, with the window (kWindow, the
+// entry's choice for a window > 0) and without, where the window is never
+// read: on an H100 the runtime tests in the inner loops cost the
+// unwindowed streaming and short forms 30-40% of their time (chip_smoke.py
+// phase 5). The window is their last parameter, so that the others keep
+// the offsets they had before it came: a moved pair of parameters is
+// loaded differently and the whole kernel scheduled anew (analysis/
+// sass_diff.py). The CUDA-core kernels, which no bf16 training path runs,
+// test it at run time.
 //
 // What bounds it on the H100: at the Mirage trunk's shape (640 sequences x
 // 8 heads, S=144, D=32, bf16) it must read q, k, v, o, dO and write dq, dk,
@@ -152,7 +164,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
-                    int causal, float softcap, float scale) {
+                    int causal, int window, float softcap, float scale) {
   constexpr int TPR = Shape<D>::TPR, THREADS = Shape<D>::THREADS, TILE = Shape<D>::TILE;
   __shared__ __align__(16) float ks[TILE][D];
   __shared__ __align__(16) float vs[TILE][D];
@@ -179,11 +191,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float L = lse[lrow];
   if (i < Sq && threadIdx.x % TPR == 0) delta[lrow] = dl;
 
-  // the causal mask lets this block's rows see no column past its last row
+  // the causal mask lets this block's rows see no column past its last
+  // row, a window none at or before its first row's position - window
   const int kv_end = causal ? min(Skv, q_start + kRows) : Skv;
+  const int kv_begin = window ? max(0, q_start - window + 1) / TILE * TILE : 0;
   const T* kb = k + b * k_sb + hk * k_sh;
   const T* vb = v + b * v_sb + hk * v_sh;
-  for (int k0 = 0; k0 < kv_end; k0 += TILE) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += TILE) {
     __syncthreads();   // every thread is done with the previous tile
     stage<T, D, TILE, THREADS>(ks, kb, k_ss, k0, Skv, 1.f);
     stage<T, D, TILE, THREADS>(vs, vb, v_ss, k0, Skv, 1.f);
@@ -201,7 +215,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
       s = row_sum<TPR>(s);
       dp = row_sum<TPR>(dp);
-      const float ds = (!causal || k0 + jj <= i) ? prob_grad(s, dp, L, dl, softcap).y : 0.f;
+      const int j = k0 + jj;
+      const bool ok = (!causal || j <= i) && (!window || i - j < window);
+      const float ds = ok ? prob_grad(s, dp, L, dl, softcap).y : 0.f;
 #pragma unroll
       for (int e = 0; e < kDPT; ++e) acc[e] = fmaf(ds, kr[e], acc[e]);
     }
@@ -221,7 +237,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       long long q_sb, long long q_ss, long long q_sh,
                       long long k_sb, long long k_ss, long long k_sh,
                       long long v_sb, long long v_ss, long long v_sh,
-                      int causal, float softcap, float scale) {
+                      int causal, int window, float softcap, float scale) {
   constexpr int TPR = Shape<D>::TPR, THREADS = Shape<D>::THREADS, TILE = Shape<D>::TILE;
   __shared__ __align__(16) float qs[TILE][D];
   __shared__ __align__(16) float gs[TILE][D];
@@ -246,14 +262,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     }
   }
 
-  // causal: rows before the block's first column see none of its columns
+  // causal: rows before the block's first column see none of its columns;
+  // a window: nor rows past its last column's position + window - 1
   const int i_begin = causal ? k_start / TILE * TILE : 0;
+  const int i_end = window ? min(Sq, min(Skv, k_start + kRows) - 1 + window) : Sq;
   for (int h = hk * group; h < (hk + 1) * group; ++h) {
     const T* qb = q + b * q_sb + h * q_sh;
     const T* gb = dout + (long long)b * Sq * Hq * D + (long long)h * D;
     const float* lb = lse + ((long long)b * Hq + h) * Sq;
     const float* db = delta + ((long long)b * Hq + h) * Sq;
-    for (int i0 = i_begin; i0 < Sq; i0 += TILE) {
+    for (int i0 = i_begin; i0 < i_end; i0 += TILE) {
       __syncthreads();   // every thread is done with the previous tile
       stage<T, D, TILE, THREADS>(qs, qb, q_ss, i0, Sq, scale);
       stage<T, D, TILE, THREADS>(gs, gb, (long long)Hq * D, i0, Sq, 1.f);
@@ -262,7 +280,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
         dls[r] = i0 + r < Sq ? db[i0 + r] : 0.f;
       }
       __syncthreads();
-      const int in = min(TILE, Sq - i0);   // the same for every thread
+      const int in = min(TILE, i_end - i0);   // the same for every thread
 #pragma unroll 2
       for (int ii = 0; ii < in; ++ii) {
         const float* qrow = &qs[ii][d0];
@@ -276,7 +294,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
         s = row_sum<TPR>(s);
         dp = row_sum<TPR>(dp);
         float2 pg = make_float2(0.f, 0.f);
-        if (live && (!causal || j <= i0 + ii)) pg = prob_grad(s, dp, ls[ii], dls[ii], softcap);
+        const int i = i0 + ii;
+        if (live && (!causal || j <= i) && (!window || i - j < window))
+          pg = prob_grad(s, dp, ls[ii], dls[ii], softcap);
 #pragma unroll
         for (int e = 0; e < kDPT; ++e) {
           dva[e] = fmaf(pg.x, grow[e], dva[e]);
@@ -299,7 +319,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Hq,
                    int Hkv, int Sq, int Skv, const long long* qs, const long long* ks_,
-                   const long long* vs_, int causal, float softcap, float scale,
+                   const long long* vs_, int causal, int window, float softcap, float scale,
                    cudaStream_t stream) {
   constexpr int THREADS = Shape<D>::THREADS;
   const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
@@ -307,13 +327,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   flash_bwd_dq_kernel<T, D><<<dim3((Sq + kRows - 1) / kRows, Hq, B), THREADS, 0, stream>>>(
       qp, kp, vp, static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2],
-      vs_[0], vs_[1], vs_[2], causal, softcap, scale);
+      vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<T, D><<<dim3((Skv + kRows - 1) / kRows, Hkv, B), THREADS, 0, stream>>>(
       qp, kp, vp, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), Hq, Hkv, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1],
-      ks_[2], vs_[0], vs_[1], vs_[2], causal, softcap, scale);
+      ks_[2], vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -321,13 +341,13 @@ template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, int B, int Hq, int Hkv, int Sq, int Skv, const long long* qs,
-                       const long long* ks_, const long long* vs_, int causal, float softcap,
-                       float scale, cudaStream_t stream) {
+                       const long long* ks_, const long long* vs_, int causal, int window,
+                       float softcap, float scale, cudaStream_t stream) {
   switch (D) {
 #define REPRO_FLASH_BWD_D(DD)                                                                  \
   case DD:                                                                                     \
     return launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, qs,    \
-                         ks_, vs_, causal, softcap, scale, stream);
+                         ks_, vs_, causal, window, softcap, scale, stream);
     REPRO_FLASH_BWD_D(16)
     REPRO_FLASH_BWD_D(32)
     REPRO_FLASH_BWD_D(64)
@@ -382,7 +402,7 @@ __host__ __device__ constexpr long long smem_bytes(int Sq, int Skv, int D) {
   return 4LL * D * (round16(Sq) + round16(Skv)) + round16(Skv) * kMaxS * 2 + 8 * round16(Sq);
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -392,7 +412,7 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
-                    int causal, float softcap, float scale) {
+                    int causal, float softcap, float scale, int window) {
   constexpr int CPR = D / 8;            // 16-byte chunks per row
   const int sq16 = (int)round16(Sq), skv16 = (int)round16(Skv);
   extern __shared__ __align__(128) uint8_t smem[];
@@ -468,7 +488,10 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
-    for (int ic = causal ? jg : 0; ic < sq16 / 16; ++ic) {
+    // q chunks from the diagonal (causal) to the last row the window lets
+    // see this group's last column, 16 jg + 15 + window - 1
+    const int ic_end = kWindow ? min(sq16 / 16, (16 * jg + 14 + window) / 16 + 1) : sq16 / 16;
+    for (int ic = causal ? jg : 0; ic < ic_end; ++ic) {
       float st[2][4], dpt[2][4];
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -497,7 +520,7 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int j = 16 * jg + g + (e >> 1) * 8;
           const int i = 16 * ic + 8 * t + 2 * t4 + (e & 1);
           prob_ds(st[t][e], dpt[t][e], lse_s[i], delta_s[i], scale, softcap,
-                  i < Sq && j < Skv && (!causal || j <= i));
+                  i < Sq && j < Skv && (!causal || j <= i) && (!kWindow || i - j < window));
         }
         // dS^T to shared memory, rows j, columns i
         *reinterpret_cast<uint32_t*>(dst_ptr + swz<kMaxS>(16 * jg + g, 2 * ic + t) + 4 * t4) =
@@ -547,8 +570,11 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+    // the kv chunks phase 1 stored for these rows: from the first the
+    // window lets see row 16 ig to the diagonal (causal)
+    const int jc_begin = kWindow ? max(0, 16 * ig - window + 1) / 16 : 0;
     const int jc_end = causal ? min(ig + 1, skv16 / 16) : skv16 / 16;
-    for (int jc = 0; jc < jc_end; ++jc) {
+    for (int jc = jc_begin; jc < jc_end; ++jc) {
       uint32_t sA[4];
       ldsm_x4_trans(s_dst + swz<kMaxS>(16 * jc + (lane % 8) + (lane / 16) * 8,
                                        2 * ig + (lane / 8) % 2),
@@ -576,12 +602,12 @@ flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 cudaError_t launch_short(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, void* dq, void* dk, void* dv, int B,
                          int H, int Sq, int Skv, const long long* qs, const long long* ks_,
-                         const long long* vs_, int causal, float softcap, float scale,
-                         cudaStream_t stream) {
+                         const long long* vs_, int causal, int window, float softcap,
+                         float scale, cudaStream_t stream) {
   const long long bytes = smem_bytes(Sq, Skv, D);
   // the shared-memory limit is raised once per device
   static bool attr[repro::kMaxDevices] = {};
@@ -589,16 +615,16 @@ cudaError_t launch_short(const void* q, const void* k, const void* v, const void
   cudaError_t err = repro::current_device(&dev);
   if (err != cudaSuccess) return err;
   if (!attr[dev]) {
-    err = cudaFuncSetAttribute(flash_bwd_tc_kernel<D>,
+    err = cudaFuncSetAttribute(flash_bwd_tc_kernel<D, kWindow>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
     if (err != cudaSuccess) return err;
     attr[dev] = true;
   }
-  flash_bwd_tc_kernel<D><<<dim3(1, H, B), THREADS, (int)bytes, stream>>>(
+  flash_bwd_tc_kernel<D, kWindow><<<dim3(1, H, B), THREADS, (int)bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Skv, qs[0], qs[1], qs[2], ks_[0],
-      ks_[1], ks_[2], vs_[0], vs_[1], vs_[2], causal, softcap, scale);
+      ks_[1], ks_[2], vs_[0], vs_[1], vs_[2], causal, softcap, scale, window);
   return cudaGetLastError();
 }
 
@@ -674,7 +700,7 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 8][4], float mu
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -684,7 +710,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        long long q_sb, long long q_ss, long long q_sh,
                        long long k_sb, long long k_ss, long long k_sh,
                        long long v_sb, long long v_ss, long long v_sh,
-                       int causal, float softcap, float scale) {
+                       int causal, float softcap, float scale, int window) {
   constexpr int CPR = D / 8;
   constexpr int TILE = BT * D * 2;
   constexpr bool kRegA = D <= 64;   // q and dO fragments kept in registers
@@ -704,8 +730,11 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long o_row = (long long)Hq * D;   // row stride of o, dO, dq
   const long long orow0 = (long long)b * Sq * o_row + (long long)h * D;
 
-  // kv tiles that hold an unmasked column for some row of this block
+  // kv tiles that hold an unmasked column for some row of this block:
+  // causal keeps columns <= its last row, a window columns > its first
+  // row's position - window
   const int kv_end = causal ? min(Skv, q_start + BR) : Skv;
+  const int t_begin = kWindow ? max(0, q_start - window + 1) / BT : 0;
   const int n_tiles = (kv_end + BT - 1) / BT;
   const bf16* kb = k + b * k_sb + hk * k_sh;
   const bf16* vb = v + b * v_sb + hk * v_sh;
@@ -716,7 +745,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_rows<D, BR>(s_q, q + b * q_sb + h * q_sh, q_ss, q_start, Sq, tid);
   load_rows<D, BR>(s_do, dout + orow0, o_row, q_start, Sq, tid);
   cp_async_commit();
-  load_kv(0, 0);
+  if (!kWindow || t_begin < n_tiles) load_kv(t_begin, t_begin & 1);   // a band past Skv: none
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();   // q and dO have landed
@@ -765,7 +794,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_begin; t < n_tiles; ++t) {
     const int buf = t & 1;
     if (t + 1 < n_tiles) {
       load_kv(t + 1, buf ^ 1);
@@ -780,6 +809,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = 0; active && c < BT / BC; ++c) {
       const int c0 = t * BT + c * BC;   // the chunk's first kv column
       if (c0 >= Skv || (causal && c0 > p0 + 15)) break;   // and every later one masked
+      if (kWindow && p0 - (c0 + BC - 1) >= window) continue;   // before every row's band
       float s[BC / 8][4], dp[BC / 8][4];
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -814,15 +844,18 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       // P and dS in fp32: element (n, e) is row p0 + g + 8 (e >> 1), column
       // c0 + 8n + 2 t4 + (e & 1); masks only where the chunk meets the
-      // diagonal or an edge
-      const bool edge = (causal && c0 + BC - 1 > p0) || c0 + BC > Skv || p0 + 16 > Sq;
+      // diagonal, the window's lower edge (some row's band starts past the
+      // chunk's first column) or an edge of the operands
+      const bool edge = (causal && c0 + BC - 1 > p0) || (kWindow && p0 + 15 - c0 >= window) ||
+                        c0 + BC > Skv || p0 + 16 > Sq;
 #pragma unroll
       for (int n = 0; n < BC / 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = p0 + g + (e >> 1) * 8, j = c0 + 8 * n + 2 * t4 + (e & 1);
           prob_ds(s[n][e], dp[n][e], e < 2 ? L0 : L1, e < 2 ? D0 : D1, scale, softcap,
-                  !edge || (i < Sq && j < Skv && (!causal || j <= i)));
+                  !edge || (i < Sq && j < Skv && (!causal || j <= i) &&
+                            (!kWindow || i - j < window)));
         }
       }
       // dQ += dS.K: the dS fragment of columns [16j, 16j + 16) is the A
@@ -848,7 +881,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (active) store_acc<D>(acc, scale, smem, r0, dq + orow0, o_row, p0, Sq, lane);
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -858,7 +891,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          long long q_sb, long long q_ss, long long q_sh,
                          long long k_sb, long long k_ss, long long k_sh,
                          long long v_sb, long long v_ss, long long v_sh,
-                         int causal, float softcap, float scale) {
+                         int causal, float softcap, float scale, int window) {
   constexpr int TILE = BT * D * 2;
   constexpr bool kRegA = D <= 64;   // K and V fragments kept in registers
   extern __shared__ __align__(128) uint8_t smem[];
@@ -876,10 +909,12 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long o_row = (long long)Hq * D;
 
   // this block's q heads, and the q tiles from the first the causal mask
-  // lets see its rows
+  // lets see its rows to the last a window lets see them (rows past its
+  // last column's position + window - 1 see none)
   const int per = group / splits, h0 = hk * group + split * per;
   const int i_first = causal ? k_start / BT : 0;
-  const int n_qt = max(0, (Sq + BT - 1) / BT - i_first);
+  const int i_end = kWindow ? min(Sq, min(Skv, k_start + BR) - 1 + window) : Sq;
+  const int n_qt = max(0, (i_end + BT - 1) / BT - i_first);
   const int n_it = per * n_qt;
   load_rows<D, BR>(s_k, k + b * k_sb + hk * k_sh, k_ss, k_start, Skv, tid);
   load_rows<D, BR>(s_v, v + b * v_sb + hk * v_sh, v_ss, k_start, Skv, tid);
@@ -933,6 +968,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int c0 = i0 + c * BC;   // the chunk's first q row
       if (c0 >= Sq) break;
       if (causal && j0 > c0 + BC - 1) continue;   // every row of the chunk precedes this warp's
+      if (kWindow && c0 - (j0 + 15) >= window) continue;   // every row past this warp's band
       float st[BC / 8][4], dpt[BC / 8][4];
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -967,7 +1003,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       // P^T and dS^T in fp32: element (n, e) is kv row j0 + g + 8 (e >> 1),
       // q row c0 + 8n + 2 t4 + (e & 1)
-      const bool edge = (causal && j0 + 15 > c0) || c0 + BC > Sq || j0 + 16 > Skv;
+      const bool edge = (causal && j0 + 15 > c0) || (kWindow && c0 + BC - 1 - j0 >= window) ||
+                        c0 + BC > Sq || j0 + 16 > Skv;
 #pragma unroll
       for (int n = 0; n < BC / 8; ++n) {
 #pragma unroll
@@ -975,7 +1012,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int r = c * BC + 8 * n + 2 * t4 + (e & 1);
           const int i = i0 + r, j = j0 + g + (e >> 1) * 8;
           prob_ds(st[n][e], dpt[n][e], ls[r], ds_[r], scale, softcap,
-                  !edge || (i < Sq && j < Skv && (!causal || j <= i)));
+                  !edge || (i < Sq && j < Skv && (!causal || j <= i) &&
+                            (!kWindow || i - j < window)));
         }
       }
       // dV += P^T.dO, dK += dS^T.q: dO and q as transposed B operands
@@ -1069,32 +1107,33 @@ cudaError_t raise_smem(F fn, int bytes, bool (&done)[repro::kMaxDevices]) {
   return err;
 }
 
-template <int D>
+template <int D, bool kWindow>
 cudaError_t launch_stream(const void* q, const void* k, const void* v, const void* o,
                           const void* dout, const float* lse, float* delta, void* dq, void* dk,
                           void* dv, float* part, int splits, int B, int Hq, int Hkv, int Sq,
                           int Skv, const long long* qs, const long long* ks_,
-                          const long long* vs_, int causal, float softcap, float scale,
-                          cudaStream_t stream) {
+                          const long long* vs_, int causal, int window, float softcap,
+                          float scale, cudaStream_t stream) {
   static bool attr_dq[repro::kMaxDevices] = {}, attr_dkdv[repro::kMaxDevices] = {};
-  cudaError_t err = raise_smem(flash_bwd_dq_tc_kernel<D>, dq_smem<D>(), attr_dq);
+  cudaError_t err = raise_smem(flash_bwd_dq_tc_kernel<D, kWindow>, dq_smem<D>(), attr_dq);
   if (err == cudaSuccess)
-    err = raise_smem(flash_bwd_dkdv_tc_kernel<D>, dkdv_smem<D>(), attr_dkdv);
+    err = raise_smem(flash_bwd_dkdv_tc_kernel<D, kWindow>, dkdv_smem<D>(), attr_dkdv);
   if (err != cudaSuccess) return err;
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
              *vp = static_cast<const bf16*>(v), *gp = static_cast<const bf16*>(dout);
   const int group = Hq / Hkv;
-  flash_bwd_dq_tc_kernel<D><<<dim3(Hq, B, (Sq + BR - 1) / BR), THREADS, dq_smem<D>(), stream>>>(
+  flash_bwd_dq_tc_kernel<D, kWindow>
+      <<<dim3(Hq, B, (Sq + BR - 1) / BR), THREADS, dq_smem<D>(), stream>>>(
       qp, kp, vp, static_cast<const bf16*>(o), gp, lse, delta, static_cast<bf16*>(dq), Hq,
       group, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2], vs_[0], vs_[1], vs_[2],
-      causal, softcap, scale);
+      causal, softcap, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_tc_kernel<D>
+  flash_bwd_dkdv_tc_kernel<D, kWindow>
       <<<dim3(Hkv * splits, B, (Skv + BR - 1) / BR), THREADS, dkdv_smem<D>(), stream>>>(
           qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, Hq,
           Hkv, group, splits, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2], vs_[0],
-          vs_[1], vs_[2], causal, softcap, scale);
+          vs_[1], vs_[2], causal, softcap, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long n = (long long)B * Skv * Hkv * D;
@@ -1119,7 +1158,9 @@ bool short_form(int Hq, int Hkv, int Sq, int Skv, int D) {
 // forward) and delta (scratch the first kernel fills): fp32 (B, Hq, Sq).
 // part: null, or with splits > 1 fp32 scratch of 2 * splits * B * Skv *
 // Hkv * D for the streaming form's partial dK and dV; splits divides
-// Hq / Hkv. Sq, Skv > 0. dtype: repro::Dtype of q, k, v, o, dout and the
+// Hq / Hkv (the wrapper's bwd_splits: blocks an SM up to 4, with or
+// without a window). causal and window (0: none) are the forward's masks.
+// Sq, Skv > 0, window >= 0. dtype: repro::Dtype of q, k, v, o, dout and the
 // gradients. variant 0 runs the CUDA-core kernels; variant 1 the
 // tensor-core ones, which take bfloat16 with D in {16, 32, 64, 128},
 // strides that are multiples of 8 and 16-byte-aligned pointers, and refuse
@@ -1133,8 +1174,9 @@ extern "C" int flash_attention_bwd(
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, float softcap, float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0) return cudaErrorInvalidValue;
+    int causal, int window, float softcap, float scale, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || window < 0)
+    return cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_ss, q_sh};
   const long long kst[3] = {k_sb, k_ss, k_sh};
   const long long vst[3] = {v_sb, v_ss, v_sh};
@@ -1150,8 +1192,12 @@ extern "C" int flash_attention_bwd(
       switch (D) {
 #define REPRO_FLASH_BWD_SHORT(DD)                                                             \
   case DD:                                                                                    \
-    return tc::launch_short<DD>(q, k, v, o, dout, lse, dq, dk, dv, B, Hq, Sq, Skv, qs, kst,   \
-                                vst, causal, softcap, scale, s);
+    return window ? tc::launch_short<DD, true>(q, k, v, o, dout, lse, dq, dk, dv, B, Hq, Sq,  \
+                                               Skv, qs, kst, vst, causal, window, softcap,   \
+                                               scale, s)                                     \
+                  : tc::launch_short<DD, false>(q, k, v, o, dout, lse, dq, dk, dv, B, Hq, Sq, \
+                                                Skv, qs, kst, vst, causal, 0, softcap,       \
+                                                scale, s);
         REPRO_FLASH_BWD_SHORT(16)
         REPRO_FLASH_BWD_SHORT(32)
         REPRO_FLASH_BWD_SHORT(64)
@@ -1166,8 +1212,12 @@ extern "C" int flash_attention_bwd(
     switch (D) {
 #define REPRO_FLASH_BWD_STREAM(DD)                                                            \
   case DD:                                                                                    \
-    return tc::launch_stream<DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, part, splits, B,   \
-                                 Hq, Hkv, Sq, Skv, qs, kst, vst, causal, softcap, scale, s);
+    return window ? tc::launch_stream<DD, true>(q, k, v, o, dout, lse, delta, dq, dk, dv,     \
+                                                part, splits, B, Hq, Hkv, Sq, Skv, qs, kst,  \
+                                                vst, causal, window, softcap, scale, s)      \
+                  : tc::launch_stream<DD, false>(q, k, v, o, dout, lse, delta, dq, dk, dv,    \
+                                                 part, splits, B, Hq, Hkv, Sq, Skv, qs, kst, \
+                                                 vst, causal, 0, softcap, scale, s);
       REPRO_FLASH_BWD_STREAM(16)
       REPRO_FLASH_BWD_STREAM(32)
       REPRO_FLASH_BWD_STREAM(64)
@@ -1181,10 +1231,11 @@ extern "C" int flash_attention_bwd(
   switch (dtype) {
     case repro::kFloat32:
       return dispatch_d<float>(D, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv,
-                               qs, kst, vst, causal, softcap, scale, s);
+                               qs, kst, vst, causal, window, softcap, scale, s);
     case repro::kBFloat16:
       return dispatch_d<__nv_bfloat16>(D, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv,
-                                       Sq, Skv, qs, kst, vst, causal, softcap, scale, s);
+                                       Sq, Skv, qs, kst, vst, causal, window, softcap, scale,
+                                       s);
     default:
       return cudaErrorInvalidValue;
   }

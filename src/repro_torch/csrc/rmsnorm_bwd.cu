@@ -20,10 +20,13 @@
 // is the same bit for bit from run to run:
 //
 // "vec", rows that start on 16-byte boundaries and a d that is a multiple of
-// 8 (bf16) or 4 (fp32), at most 16 vectors a lane: one warp per row, laid
-// out like the forward's rmsnorm_vec_kernel. A lane issues every 16-byte
-// load of its share of x and dy before it uses any, holds them in registers
-// (VPL vectors each, a template argument: 16 at d = 4096 in bf16), reduces
+// 8 (bf16) or 4 (fp32), at most 24 vectors a lane (768 a row, the
+// forward's limit): one warp per row, laid out like the forward's
+// rmsnorm_vec_kernel. A lane issues every 16-byte load of its share of x
+// and dy before it uses any, holds them in registers (VPL vectors each, a
+// template argument: 16 at d = 4096 in bf16, 24 at Gemma-3's d = 5376,
+// whose 672 vectors leave 21 a lane; x and dy then hold 192 registers, and
+// the 4 warps' fp32 dw rows 86 KB of shared memory), reduces
 // the two row sums by shuffles alone (no block barrier) and writes dx as
 // 16-byte stores: x and dy are read once. Warps take contiguous row ranges,
 // a fixed function of the row count (ops.py:bwd_vec_partition); each lane
@@ -153,7 +156,7 @@ cudaError_t launch_simt(const void* x, const void* w, const void* dy, void* dx, 
 // ------------------------------------------------------------- vec variant
 constexpr int kVecWarps = 4;                  // warps a block, a row range each
 constexpr int kVecThreads = 32 * kVecWarps;
-constexpr int kMaxVecs = 16;                  // 16-byte vectors a lane holds, at most
+constexpr int kMaxVecs = 24;                  // 16-byte vectors a lane holds, at most
 constexpr int kSumCols = 32;                  // columns a block of the partials' sum
 constexpr int kSumWarps = 8;                  // warps of that block
 
@@ -304,6 +307,7 @@ cudaError_t launch_vec(const void* x, const void* w, const void* dy, void* dx, v
   REPRO_NORM_BWD_VPL(4)
   REPRO_NORM_BWD_VPL(8)
   REPRO_NORM_BWD_VPL(16)
+  REPRO_NORM_BWD_VPL(24)
   return cudaErrorInvalidValue;
 #undef REPRO_NORM_BWD_VPL
   if (err != cudaSuccess) return err;
@@ -348,7 +352,7 @@ cudaError_t dispatch_w(int w_dtype, int variant, const void* x, const void* w, c
 // takes rows [b * per, ...), so blocks * per must cover rows. variant 1 the
 // vectorised one: warp q of block b takes rows [(4 b + q) * per, ...), so
 // 4 * blocks * per must cover rows; it takes a d that is a multiple of 16
-// bytes' worth of x's elements (at most 512 vectors), x_sr a multiple of the
+// bytes' worth of x's elements (at most 768 vectors), x_sr a multiple of the
 // same unless rows == 1, and 16-byte-aligned x, w, dy, dx and part, and
 // refuses anything else (the caller chooses; nothing falls back). Returns
 // the CUDA error of the launches (0 on success).

@@ -41,7 +41,7 @@ SIGNATURES = {
                         [_P] * 5 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]},
     "flash_attention_bwd": {"flash_attention_bwd":
                             [_P] * 11 + [_I] * 9 + [_L] * 9
-                            + [_I, _F, _F, _P]},
+                            + [_I, _I, _F, _F, _P]},
     "moe_gemm": {"grouped_gemm": [_P] * 3 + [_I] * 7 + [_L] * 4 + [_P],
                  "grouped_gemm_bwd": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P]},
     "rmsnorm": {"rmsnorm_fwd":

@@ -20,12 +20,11 @@ bounds it on the H100 and how the design answers that.
 
 On CUDA tensors that need a gradient, ``flash_attention`` runs through
 ``_FlashFn``: its forward asks the kernel for each row's log-sum-exp, and
-its backward launches the backward kernel (``flash_attention_bwd``), which
-has no window mask: a windowed call that needs a gradient raises there.
-With no gradient to track (serving, ``inference_mode``) the forward kernel
-is launched directly, with or without a window (Gemma-3's local layers
-take its window mask). CPU tensors run the plain versions, which autograd
-differentiates.
+its backward launches the backward kernel (``flash_attention_bwd``), both
+with the call's masks, the window included (Gemma-3's local layers train
+through it). With no gradient to track (serving, ``inference_mode``) the
+forward kernel is launched directly. CPU tensors run the plain versions,
+which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -84,21 +83,23 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
-def flash_attention_lse_ref(q, k, *, causal=True, softcap=0.0, scale=None):
+def flash_attention_lse_ref(q, k, *, causal=True, window=0, softcap=0.0,
+                            scale=None):
     """Plain version of the forward's second output: each row's
     log-sum-exp of its masked logits, fp32 (B, Hq, Sq)."""
     scale = scale or 1.0 / math.sqrt(q.shape[3])
-    return torch.logsumexp(_logits_ref(q, k, causal=causal, window=0,
+    return torch.logsumexp(_logits_ref(q, k, causal=causal, window=window,
                                        softcap=softcap, scale=scale), dim=-1)
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
                             softcap=0.0, scale=None):
     """Plain version of the backward kernel, step by step as the JAX
     package's ``flash_bwd`` (``repro/models/attention.py:168-204``): the
-    probabilities recomputed from ``lse``, fp32 throughout, GQA's dk and dv
-    summed over each kv head's q heads. Returns (dq, dk, dv) in the inputs'
-    dtypes and shapes."""
+    probabilities recomputed from ``lse`` under the forward's masks (the
+    window as its position bias), fp32 throughout, GQA's dk and dv summed
+    over each kv head's q heads. Returns (dq, dk, dv) in the inputs' dtypes
+    and shapes."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = Hq // Hkv
@@ -111,7 +112,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
     delta = (go * oo).sum(-1)                                # (B,H,Sq)
     raw = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
     capped = torch.tanh(raw / softcap) * softcap if softcap else raw
-    bias = torch.where(_mask(Sq, Skv, causal, 0, q.device), 0.0, NEG_INF)
+    bias = torch.where(_mask(Sq, Skv, causal, window, q.device), 0.0,
+                       NEG_INF)
     p = torch.exp(capped + bias - lse[..., None].float())    # (B,H,Sq,Skv)
     dv = torch.einsum("bhqk,bhqd->bkhd", p, go)
     dp = torch.einsum("bhqd,bkhd->bhqk", go, vf)
@@ -209,7 +211,10 @@ def bwd_splits(B: int, Skv: int, Hkv: int, group: int, sms: int) -> int:
     keeps the grid (B * Hkv * ceil(Skv / BWD_KV_ROWS) blocks a share)
     within BWD_BLOCKS_PER_SM blocks an SM. Under the causal mask the first
     kv tiles see the most q rows; more, smaller blocks let the card spread
-    them. Above 1 the shares write fp32 partials that a last pass sums."""
+    them. A window takes the same rule: at Gemma-3's local training layer
+    it picks 1 share, the faster of 1 and 2 (chip_smoke.py phase 5's
+    splits_ms on an H100). Above 1 the shares write fp32 partials that a
+    last pass sums in split order."""
     blocks = B * Hkv * -(-Skv // BWD_KV_ROWS)
     s = 1
     while group % (2 * s) == 0 and blocks * 2 * s <= BWD_BLOCKS_PER_SM * sms:
@@ -229,8 +234,8 @@ def _flash_bwd_variant(q, k, v, o, do) -> str:
     return "tc"
 
 
-def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, softcap,
-                scale, splits=None):
+def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, window=0,
+                softcap, scale, splits=None):
     """Run ``variant`` of the backward kernel on CUDA tensors (o and do
     contiguous) and return (dq, dk, dv); counts nothing. The streaming
     tensor-core form shares a kv head's q heads among ``splits`` blocks
@@ -259,20 +264,21 @@ def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, softcap,
                  _build.DTYPE_CODES[q.dtype], _build.VARIANT_CODES[variant],
                  splits, B, Hq, Hkv, Sq, Skv, D,
                  *_build.row_strides(q), *_build.row_strides(k),
-                 *_build.row_strides(v), int(bool(causal)), float(softcap),
-                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+                 *_build.row_strides(v), int(bool(causal)), int(window),
+                 float(softcap), float(scale),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check_launch("flash_attention_bwd", err)
     return dq, dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, softcap=0.0,
-                        scale=None, device=None):
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
+                        softcap=0.0, scale=None, device=None):
     """The backward of ``flash_attention`` from its out ``o`` and row
-    log-sum-exp ``lse`` (fp32 (B, Hq, Sq)) and the out's gradient ``do``:
-    (dq, dk, dv) in the inputs' dtypes and shapes. CUDA tensors launch the
-    backward kernel variant that ``_flash_bwd_variant`` names (no window:
-    the kernel has no window mask yet); CPU tensors, with ``device="cpu"``,
-    run ``flash_attention_bwd_ref``."""
+    log-sum-exp ``lse`` (fp32 (B, Hq, Sq)) and the out's gradient ``do``,
+    under the forward's masks (``causal``, ``window``): (dq, dk, dv) in
+    the inputs' dtypes and shapes. CUDA tensors launch the backward kernel
+    variant that ``_flash_bwd_variant`` names; CPU tensors, with
+    ``device="cpu"``, run ``flash_attention_bwd_ref``."""
     dev = resolve_device(device)
     check_on(dev, q, k, v, o, lse, do)
     _check(q, k, v)
@@ -286,8 +292,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, softcap=0.0,
     scale = scale or 1.0 / math.sqrt(q.shape[3])
     if dev.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                       softcap=softcap, scale=scale)
-    return _flash_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                       window=window, softcap=softcap,
+                                       scale=scale)
+    return _flash_bwd_cuda(q, k, v, o, lse, do, causal=causal, window=window,
                            softcap=softcap, scale=scale)
 
 
@@ -295,13 +302,14 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.tc_launches = 0
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, softcap, scale):
+def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, window, softcap, scale):
     """The card's route of ``flash_attention_bwd`` (inputs checked): one
     counted launch of the variant ``_flash_bwd_variant`` names."""
     o, do = o.contiguous(), do.contiguous()
     variant = _flash_bwd_variant(q, k, v, o, do)
     grads = _launch_bwd(q, k, v, o, lse.contiguous(), do, variant,
-                        causal=causal, softcap=softcap, scale=scale)
+                        causal=causal, window=window, softcap=softcap,
+                        scale=scale)
     if q.numel() and k.numel():         # an empty problem launches nothing
         flash_attention_bwd.launches += 1
         flash_attention_bwd.tc_launches += variant == "tc"
@@ -310,23 +318,24 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, softcap, scale):
 
 class _FlashFn(torch.autograd.Function):
     """The forward kernel with the row log-sum-exp kept, and the backward
-    kernel as its gradient."""
+    kernel as its gradient, both under the call's masks."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, softcap, scale):
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
         variant = _flash_variant(q, k, v)
-        out, lse = _launch(q, k, v, variant, causal=causal, window=0,
+        out, lse = _launch(q, k, v, variant, causal=causal, window=window,
                            softcap=softcap, scale=scale, lse=True)
         _count(out, variant)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = dict(causal=causal, softcap=softcap, scale=scale)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_cuda(q, k, v, out, lse, do, **ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def _count(out, variant: str) -> None:
@@ -341,11 +350,7 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, scale):
     launch of the forward kernel."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if window:
-            raise NotImplementedError("the flash backward has no window "
-                                      "mask: a windowed forward that needs "
-                                      "a gradient does not run on the card")
-        return _FlashFn.apply(q, k, v, causal, softcap, scale)
+        return _FlashFn.apply(q, k, v, causal, window, softcap, scale)
     variant = _flash_variant(q, k, v)
     out = _launch(q, k, v, variant, causal=causal, window=window,
                   softcap=softcap, scale=scale)

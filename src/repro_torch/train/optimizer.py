@@ -16,7 +16,12 @@ not ``torch.optim.AdamW``:
 * m and v are kept in ``state_dtype``, or in each parameter's dtype.
 
 ``adamw_update`` runs under ``torch.no_grad()`` and returns new trees, as
-the reference does; the inputs are not written.
+the reference does; the inputs are not written. A leaf of more than
+UPDATE_SLICE elements is updated in slices of that many, into its new
+tensors: the update is elementwise, so the bits are the same, and its fp32
+temporaries stay ~0.27 GB each where a whole leaf as large as Gemma-3's
+tied table (1.41 B elements) or Qwen2-MoE's stacked experts (1.04 B at 3
+layers) would add several of 4-6 GB to the step's peak.
 """
 from __future__ import annotations
 
@@ -42,6 +47,9 @@ class OptimizerConfig:
     total_steps: int = 10_000
     min_lr_ratio: float = 0.1
     state_dtype: Optional[str] = None   # None -> match param dtype
+
+
+UPDATE_SLICE = 1 << 26     # elements of a leaf updated at once
 
 
 def lr_schedule(ocfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
@@ -80,6 +88,21 @@ def global_norm(tree) -> torch.Tensor:
         [torch.sum(torch.square(x.float())) for x in _leaves(tree)]).sum())
 
 
+def _update(p, g, m, v, *, decay: bool, clip, lr, bc1, bc2,
+            ocfg: OptimizerConfig):
+    """The AdamW update of one leaf, or of one slice of it: new (p, m,
+    v)."""
+    b1, b2 = ocfg.beta1, ocfg.beta2
+    g = g.float() * clip
+    m_new = b1 * m.float() + (1 - b1) * g
+    v_new = b2 * v.float() + (1 - b2) * torch.square(g)
+    delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + ocfg.eps)
+    if decay:
+        delta = delta + ocfg.weight_decay * p.float()
+    return ((p.float() - lr * delta).to(p.dtype), m_new.to(m.dtype),
+            v_new.to(v.dtype))
+
+
 @torch.no_grad()
 def adamw_update(grads, params, opt_state, ocfg: OptimizerConfig
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
@@ -106,15 +129,22 @@ def adamw_update(grads, params, opt_state, ocfg: OptimizerConfig
     matrix = 2 + widened(params)        # the rank of a decayed leaf
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(ps, gs, ms, vs):
-        g = g.float() * clip
-        m_new = b1 * m.float() + (1 - b1) * g
-        v_new = b2 * v.float() + (1 - b2) * torch.square(g)
-        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + ocfg.eps)
-        if p.ndim >= matrix and ocfg.weight_decay:     # decay matrices only
-            delta = delta + ocfg.weight_decay * p.float()
-        new_p.append((p.float() - lr * delta).to(p.dtype))
-        new_m.append(m_new.to(m.dtype))
-        new_v.append(v_new.to(v.dtype))
+        # decay matrices only
+        kw = dict(decay=bool(p.ndim >= matrix and ocfg.weight_decay),
+                  clip=clip, lr=lr, bc1=bc1, bc2=bc2, ocfg=ocfg)
+        flat = [t.reshape(-1) for t in (p, g, m, v)]
+        out = ([torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                for t in (p, m, v)] if p.numel() > UPDATE_SLICE else None)
+        for i in range(0, max(p.numel(), 1), UPDATE_SLICE):
+            part = _update(*(t[i:i + UPDATE_SLICE] for t in flat), **kw)
+            if out is None:             # one slice is the whole leaf
+                out = [n.view(t.shape) for n, t in zip(part, (p, m, v))]
+            else:
+                for o, n in zip(out, part):
+                    o.view(-1)[i:i + UPDATE_SLICE] = n
+        new_p.append(out[0])
+        new_m.append(out[1])
+        new_v.append(out[2])
 
     def rebuild(values):
         it = iter(values)

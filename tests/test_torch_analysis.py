@@ -76,3 +76,47 @@ def test_compare_trees_reads_the_compared_numbers():
         "service co-sim": 1280.2, "time flash_attention_bwd": 0.3660}
     assert compare_trees.ORDER == ("parent", "change", "change", "parent")
     assert set(compare_trees.RUNS) == {"serving", "backward"}
+
+
+def test_sass_diff_blanks_what_a_new_parameter_moves():
+    """``sass_diff`` splits ``cuobjdump -sass``'s listing by kernel, blanks
+    addresses, encodings, jump targets and parameter offsets (so a kernel
+    that only gained a parameter reads the same) and keeps every other
+    operand; it reads registers and spills from ``-Xptxas=-v``."""
+    from repro_torch.analysis import sass_diff
+    dump = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _Z1kILi32EEvPfi",
+        '\t.headerflags\t@"EF_CUDA_SM90"',
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;"
+        "          /* 0x00000a00ff017b82 */",
+        "                                                      "
+        "          /* 0x000fe40000000800 */",
+        "        /*0010*/              @!P0 BRA 0x130 ;",
+        "        /*0020*/                   IADD3 R2, R0, 0x10, RZ ;",
+        "        .L_x_0:",
+        "\t\tFunction : _Z1kILi32ELb0EEvPfii",
+        "        /*0000*/                   LDC R1, c[0x0][0x2c] ;",
+        "        /*0010*/              @!P0 BRA 0x150 ;",
+        "        /*0020*/                   IADD3 R2, R0, 0x20, RZ ;",
+    ])
+    funcs = sass_diff.split_functions(dump)
+    assert set(funcs) == {"_Z1kILi32EEvPfi", "_Z1kILi32ELb0EEvPfii"}
+    old = sass_diff.normalise(funcs["_Z1kILi32EEvPfi"])
+    new = sass_diff.normalise(funcs["_Z1kILi32ELb0EEvPfii"])
+    assert old == ["LDC R1, c[0x0][param] ;", "@!P0 BRA addr ;",
+                   "IADD3 R2, R0, 0x10, RZ ;"]
+    assert new[:2] == old[:2] and new[2] == "IADD3 R2, R0, 0x20, RZ ;"
+    assert sass_diff.find(funcs, "ILi32ELb0EE") == "_Z1kILi32ELb0EEvPfii"
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z1kILi32EEvPfi' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z1kILi32EEvPfi",
+        "    16 bytes stack frame, 16 bytes spill stores, 28 bytes spill "
+        "loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 16 bytes "
+        "cumulative stack size",
+    ])
+    assert sass_diff.usage(log) == {"_Z1kILi32EEvPfi": {
+        "stack": 16, "spill_stores": 16, "spill_loads": 28,
+        "registers": 255}}

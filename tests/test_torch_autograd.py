@@ -5,8 +5,11 @@ wiring of the flash and grouped-GEMM wrappers, on the CPU.
   against ``jax.vjp`` of the JAX package's ``attention_chunked``, whose VJP
   is the ``flash_bwd`` it is written after, and against torch autograd of
   ``flash_attention_ref``: causal and not, GQA, softcap, the trunk's ragged
-  S=144. fp32, 3e-5 absolute plus 1e-5 relative: the repo's fp32 attention
-  bound (tests/test_kernels.py), sums over 144 terms in other orders.
+  S=144; and with a window (Gemma-3's local layers), causal and not, GQA
+  groups of 1 and 2, S past the window and ragged, D 64 and 128, with
+  ``flash_attention_lse_ref`` under the same window. fp32, 3e-5 absolute
+  plus 1e-5 relative: the repo's fp32 attention bound
+  (tests/test_kernels.py), sums over 144 terms in other orders.
 * ``grouped_gemm_bwd_ref`` against ``jax.vjp`` of the einsum the Pallas
   kernel computes (the Pallas call itself has no VJP: ``jax.vjp`` of
   ``moe_grouped_gemm`` raises), and against the Pallas kernel in interpret
@@ -30,8 +33,9 @@ wiring of the flash and grouped-GEMM wrappers, on the CPU.
   launch replaced by its plain version, and check that every parameter leaf
   gets the gradient autograd gives the plain path, with the backward
   launches counted, and that serving (no_grad, inference_mode) never enters
-  the Functions. A wrapper whose output had no ``grad_fn`` would leave the
-  weights upstream of it without gradient and fail here.
+  the Functions; the flash Function hands a window to both its launches. A
+  wrapper whose output had no ``grad_fn`` would leave the weights upstream
+  of it without gradient and fail here.
 """
 import dataclasses
 import math
@@ -131,6 +135,47 @@ def test_flash_bwd_ref_matches_jax_vjp(B, Sq, Hq, Hkv, D, causal, softcap):
                                    msg=f"d{name}")
 
 
+@pytest.mark.parametrize("B,Sq,Hq,Hkv,D,causal,window,softcap", [
+    (2, 100, 4, 4, 64, True, 32, 0.0),     # MHA, S past the window, ragged
+    (1, 130, 8, 4, 128, True, 48, 0.0),    # GQA groups of 2, D = 128
+    (1, 97, 4, 2, 64, True, 64, 30.0),     # a window of one tile, softcap
+    (2, 70, 4, 4, 128, True, 200, 0.0),    # a window past S: causal alone
+    (1, 80, 4, 2, 64, False, 16, 0.0),     # no causal mask: the band only
+])
+def test_flash_bwd_ref_with_a_window_matches_jax_vjp(B, Sq, Hq, Hkv, D,
+                                                     causal, window, softcap):
+    """The window as the JAX package's position bias: out, and dq, dk, dv
+    from ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref`` under
+    the same window, against ``jax.vjp`` of ``attention_chunked``."""
+    q, k, v, do = _normal(Sq + D + window, (B, Sq, Hq, D), (B, Sq, Hkv, D),
+                          (B, Sq, Hkv, D), (B, Sq, Hq, D))
+    pos = jnp.broadcast_to(jnp.arange(Sq)[None], (B, Sq))
+    # chunks of 32 cut the band inside a chunk; the padded keys need the
+    # causal mask, so the non-causal case takes one chunk
+    chunk = 32 if causal else Sq
+    out, vjp = jax.vjp(lambda a, b, c: attention_chunked(
+        a, b, c, pos, pos, causal=causal, window=window, softcap=softcap,
+        chunk=chunk), jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    o = flash_attention_ref(tq, tk, tv, **opts)
+    np.testing.assert_allclose(o.numpy(), np.asarray(out), atol=FLASH_ATOL,
+                               rtol=FLASH_RTOL)
+    lse = flash_attention_lse_ref(tq, tk, **opts)
+    grads = flash_attention_bwd(tq, tk, tv, o, lse, tdo, device="cpu",
+                                **opts)
+    for name, g, jg in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg),
+                                   atol=FLASH_ATOL, rtol=FLASH_RTOL,
+                                   err_msg=f"d{name}")
+    # the window changes the answer wherever it cuts
+    if window < Sq:
+        plain = flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo,
+                                        causal=causal, softcap=softcap)
+        assert not torch.allclose(plain[0], grads[0], atol=1e-3)
+
+
 def test_flash_bwd_ref_bf16_dtypes_and_shapes():
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _normal(
         1, (2, 30, 4, 32), (2, 30, 2, 32), (2, 30, 2, 32), (2, 30, 4, 32)))
@@ -225,8 +270,8 @@ def _flash_launch(q, k, v, variant, *, causal, window, softcap, scale,
                               softcap=softcap, scale=scale)
     if not lse:
         return out
-    return out, flash_attention_lse_ref(q, k, causal=causal, softcap=softcap,
-                                        scale=scale)
+    return out, flash_attention_lse_ref(q, k, causal=causal, window=window,
+                                        softcap=softcap, scale=scale)
 
 
 def _gemm_launch_bwd(x, w, dy, need_dx, need_dw):
@@ -365,12 +410,38 @@ def test_serving_never_enters_the_functions(card_route, monkeypatch):
     assert fa_ops.flash_attention_bwd.launches == 0
 
 
-def test_flash_function_refuses_a_window(card_route):
-    q = torch.zeros(1, 8, 2, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="window"):
-        _flash_route(q, q, q, window=4)
+def test_flash_function_refuses_a_window(card_route, monkeypatch):
+    """A windowed forward that needs a gradient no longer raises (the test
+    is named for the refusal it replaced): the Function hands the window
+    to the forward's launch (with lse) and to the backward's, and its
+    gradients are autograd's of the plain windowed attention. Without a
+    gradient the forward launches alone."""
+    seen = []
+
+    def launch(q, k, v, variant, **kw):
+        seen.append(("fwd", kw["window"], kw.get("lse", False)))
+        return _flash_launch(q, k, v, variant, **kw)
+
+    def launch_bwd(q, k, v, o, lse, do, variant, **kw):
+        seen.append(("bwd", kw["window"]))
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    monkeypatch.setattr(fa_ops, "_launch", launch)
+    monkeypatch.setattr(fa_ops, "_launch_bwd", launch_bwd)
+    q, k, v, do = (torch.from_numpy(a) for a in _normal(
+        5, (1, 40, 4, 16), (1, 40, 2, 16), (1, 40, 2, 16), (1, 40, 4, 16)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(_flash_route(*leaves, window=12), leaves, do)
+    assert seen == [("fwd", 12, True), ("bwd", 12)]
+    assert fa_ops.flash_attention_bwd.launches == 1
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention_ref(*leaves, window=12),
+                               leaves, do)
+    for name, g, ag in zip("qkv", grads, auto):
+        torch.testing.assert_close(g, ag, atol=FLASH_ATOL, rtol=FLASH_RTOL,
+                                   msg=f"d{name}")
     with torch.no_grad():
-        assert _flash_route(q, q, q, window=4).shape == q.shape
+        assert _flash_route(*leaves, window=12).shape == q.shape
+    assert seen[2:] == [("fwd", 12, False)]
 
 
 # ------------------------------------------------------ RMSNorm backward

@@ -26,16 +26,21 @@ inputs: flash fp32 3e-5 absolute and 1e-5 relative, the GEMM fp32 2e-5
 (sums over up to 1001 terms), bf16 2e-2; flash's tensor-core backward in
 both forms (the short one at the trunk's MHA heads, the streaming one for
 GQA, D = 128 and long or ragged sequences, at every split count of a
-group) and bit for bit against itself over repeated calls; the GEMM's fused bf16 backward
-also at split-K boundaries, with strided dY, and bit for bit against
-itself over repeated calls; and one reduced DQN step with the kernels
+group) and bit for bit against itself over repeated calls, all of it with
+a window too (Gemma-3's local training layer, a window of 1000 at a ragged
+S of 2050, one under a tile, the short form, fp32); the GEMM's fused bf16
+backward also at split-K boundaries, with strided dY, at Qwen2-MoE's
+training shapes (E = 60, 342 rows an expert, wi and wo), and bit for bit
+against itself over repeated calls; and one reduced DQN step with the kernels
 against the same step on the card's plain path. The RMSNorm and SSD
 backward kernels run through autograd against their plain versions, fp32
 1e-4 and bf16 2e-2 of each gradient's scale, their reductions (dw; dA, dB,
 dC, dD) the same bit for bit over repeated calls, each case asserting
 through the counters which variant ran; both variants of each (RMSNorm's
 "vec" and "simt", the scan's "tc" and "simt") are also launched directly
-on the same bf16 inputs, ragged chunks included.
+on the same bf16 inputs, ragged chunks included; RMSNorm's vec backward
+also at Gemma-3's d_model (5376 in bf16, 672 vectors, gemma) and at the
+768-vector limit.
 
 Qwen2-MoE's MoE layer at ``SMOKE`` runs on the card against the CPU (its
 two grouped GEMMs on the tensor cores in bf16), and the grouped GEMM at the
@@ -593,35 +598,47 @@ def _bwd_counts():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,dtype,causal,softcap,variant", [
-    (4, 8, 8, 144, 144, 32, BF16, False, 0.0, "tc"),   # the trunk's
-    (2, 4, 4, 144, 144, 32, BF16, True, 0.0, "tc"),
-    (2, 4, 4, 100, 100, 16, BF16, False, 30.0, "tc"),
-    (2, 4, 4, 97, 131, 64, BF16, True, 30.0, "tc"),    # Sq < Skv, causal
-    (1, 2, 2, 131, 97, 64, BF16, False, 0.0, "tc"),    # Sq > Skv
-    (1, 2, 2, 256, 256, 32, BF16, False, 0.0, "tc"),   # the longest short
-    (2, 8, 2, 1001, 1001, 64, BF16, True, 0.0, "tc"),  # streaming: ragged GQA
-    (1, 4, 2, 130, 130, 128, BF16, True, 30.0, "tc"),
-    (2, 8, 2, 2048, 2048, 64, BF16, True, 0.0, "tc"),  # TinyLlama's group
-    (1, 4, 4, 1024, 1024, 128, BF16, True, 30.0, "tc"),
-    (1, 8, 2, 300, 157, 64, BF16, False, 0.0, "tc"),   # GQA, Sq > Skv
-    (1, 8, 2, 157, 300, 64, BF16, False, 0.0, "tc"),   # GQA, Sq < Skv
-    (2, 4, 2, 300, 300, 16, BF16, True, 0.0, "tc"),
-    (2, 4, 4, 300, 300, 32, BF16, False, 20.0, "tc"),
-    (2, 8, 2, 97, 131, 64, FP32, True, 30.0, "simt"),
-    (3, 4, 4, 24, 24, 16, FP32, False, 0.0, "simt"),
-    (1, 2, 1, 131, 97, 128, FP32, False, 0.0, "simt"),
-])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Skv,D,dtype,causal,window,softcap,variant", [
+        (4, 8, 8, 144, 144, 32, BF16, False, 0, 0.0, "tc"),   # the trunk's
+        (2, 4, 4, 144, 144, 32, BF16, True, 0, 0.0, "tc"),
+        (2, 4, 4, 100, 100, 16, BF16, False, 0, 30.0, "tc"),
+        (2, 4, 4, 97, 131, 64, BF16, True, 0, 30.0, "tc"),    # Sq < Skv
+        (1, 2, 2, 131, 97, 64, BF16, False, 0, 0.0, "tc"),    # Sq > Skv
+        (1, 2, 2, 256, 256, 32, BF16, False, 0, 0.0, "tc"),   # longest short
+        (2, 8, 2, 1001, 1001, 64, BF16, True, 0, 0.0, "tc"),  # ragged GQA
+        (1, 4, 2, 130, 130, 128, BF16, True, 0, 30.0, "tc"),
+        (2, 8, 2, 2048, 2048, 64, BF16, True, 0, 0.0, "tc"),  # TinyLlama's
+        (1, 4, 4, 1024, 1024, 128, BF16, True, 0, 30.0, "tc"),
+        (1, 8, 2, 300, 157, 64, BF16, False, 0, 0.0, "tc"),   # GQA, Sq > Skv
+        (1, 8, 2, 157, 300, 64, BF16, False, 0, 0.0, "tc"),   # GQA, Sq < Skv
+        (2, 4, 2, 300, 300, 16, BF16, True, 0, 0.0, "tc"),
+        (2, 4, 4, 300, 300, 32, BF16, False, 0, 20.0, "tc"),
+        (2, 8, 2, 97, 131, 64, FP32, True, 0, 30.0, "simt"),
+        (3, 4, 4, 24, 24, 16, FP32, False, 0, 0.0, "simt"),
+        (1, 2, 1, 131, 97, 128, FP32, False, 0, 0.0, "simt"),
+        # Gemma-3's local training layer: streaming, GQA 32/16, D = 128
+        (1, 32, 16, 2048, 2048, 128, BF16, True, 1024, 0.0, "tc"),
+        # a window no multiple of 64 at a ragged S, GQA 8/4, D = 64
+        (2, 8, 4, 2050, 2050, 64, BF16, True, 1000, 0.0, "tc"),
+        # a window under one tile: the band's edge inside every tile
+        (1, 4, 2, 300, 300, 128, BF16, True, 48, 0.0, "tc"),
+        (1, 8, 2, 300, 300, 64, BF16, False, 70, 0.0, "tc"),  # the band only
+        (2, 4, 4, 144, 144, 64, BF16, True, 64, 0.0, "tc"),   # short form
+        (2, 4, 4, 144, 144, 32, BF16, False, 40, 30.0, "tc"),
+        (1, 4, 2, 300, 300, 64, FP32, True, 100, 0.0, "simt"),
+        (1, 2, 2, 200, 200, 128, FP32, True, 48, 30.0, "simt"),
+    ])
 def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
-                                      causal, softcap, variant):
+                                      causal, window, softcap, variant):
     """Through autograd: the forward kernel keeps each row's log-sum-exp
     (checked against the plain one), and the backward kernel's dq, dk, dv
     match ``flash_attention_bwd_ref`` on the forward's out, one backward
-    launch per call, of the variant named."""
+    launch per call, of the variant named; with a window in every form."""
     q, k, v, do = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in
                    _normal(Sq + D, (B, Sq, Hq, D), (B, Skv, Hkv, D),
                            (B, Skv, Hkv, D), (B, Sq, Hq, D)))
-    opts = dict(causal=causal, softcap=softcap)
+    opts = dict(causal=causal, window=window, softcap=softcap)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = _bwd_counts()
     out = flash_attention(*leaves, **opts)
@@ -630,7 +647,7 @@ def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
     after = _bwd_counts()
     assert (after[0] - before[0], after[3] - before[3]) == \
         (1, int(variant == "tc"))
-    lse = fa_ops._launch(q, k, v, fa_ops._flash_variant(q, k, v), window=0,
+    lse = fa_ops._launch(q, k, v, fa_ops._flash_variant(q, k, v),
                          scale=D ** -0.5, lse=True, **opts)[1]
     torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **opts),
                                atol=1e-4, rtol=1e-5)
@@ -642,31 +659,37 @@ def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                    rtol=rtol, msg=f"d{name}")
 
 
-def _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal, seed=0):
+def _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal, seed=0, window=0):
     """bf16 q, k, v, dO and the forward kernel's out and lse."""
     q, k, v, do = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in
                    _normal(seed, (B, S, Hq, D), (B, S, Hkv, D),
                            (B, S, Hkv, D), (B, S, Hq, D)))
-    o, lse = fa_ops._launch(q, k, v, "tc", causal=causal, window=0,
+    o, lse = fa_ops._launch(q, k, v, "tc", causal=causal, window=window,
                             softcap=0.0, scale=D ** -0.5, lse=True)
     return q, k, v, o, lse, do
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,form", [
-    (2, 8, 2, 1001, 64, True, "stream"),   # q heads shared among blocks
-    (1, 4, 4, 300, 128, False, "stream"),
-    (4, 8, 8, 144, 32, False, "short"),
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window,form", [
+    (2, 8, 2, 1001, 64, True, 0, "stream"),   # q heads shared among blocks
+    (1, 4, 4, 300, 128, False, 0, "stream"),
+    (4, 8, 8, 144, 32, False, 0, "short"),
+    (2, 32, 16, 2048, 128, True, 1024, "stream"),   # Gemma-3's local layer
+    (1, 16, 2, 777, 64, True, 100, "stream"),       # windowed, 8 shares
+    (4, 8, 8, 144, 32, True, 48, "short"),
 ])
-def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, form):
+def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, window,
+                                      form):
     """Repeated backward calls on the same inputs give the same bits: dK
     and dV sum over a kv head's q heads, and over the blocks that share
-    them, in a fixed order, with no atomics."""
+    them, in a fixed order, with no atomics; with a window too."""
     assert fa_ops.bwd_tc_form(S, S, Hq, Hkv, D) == form
-    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal)
-    first = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal,
+                                            window=window)
+    opts = dict(causal=causal, window=window)
+    first = flash_attention_bwd(q, k, v, o, lse, do, **opts)
     for _ in range(2):
-        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **opts)
         for name, a, b in zip("qkv", first, again):
             assert torch.equal(a, b), f"d{name} differs between calls"
 
@@ -683,6 +706,24 @@ def test_flash_backward_split_counts(cuda, splits):
                                causal=True, softcap=0.0, scale=0.125,
                                splits=splits)
     refs = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for name, g, r in zip("qkv", grads, refs):
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_flash_backward_split_counts_with_a_window(cuda, splits):
+    """The streaming form's dkdv blocks at every split count of a group of
+    8 q heads under a window of 100 (its band's edges inside the tiles):
+    dq, dk, dv within 2e-2 of the plain backward."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, 1, 16, 2, 777, 64, True,
+                                            window=100)
+    grads = fa_ops._launch_bwd(q, k, v, o, lse, do.contiguous(), "tc",
+                               causal=True, window=100, softcap=0.0,
+                               scale=0.125, splits=splits)
+    refs = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                   window=100)
     for name, g, r in zip("qkv", grads, refs):
         torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
                                    rtol=2e-2, msg=f"d{name}")
@@ -749,6 +790,8 @@ def test_grouped_gemm_backward_matches_plain(cuda, E, C, d, f, dtype, layout):
     (10, 2000, 256, 256, "dy_rows"),  # dY stored (C, E, f)
     (10, 2000, 256, 256, "rows"),     # x stored (C, E, d)
     (2, 300, 64, 96, "plain"),        # too short to split
+    (60, 342, 2048, 2816, "plain"),   # Qwen2-MoE's wi at 2 x 2048 tokens
+    (60, 342, 1408, 2048, "plain"),   # its wo
 ])
 def test_grouped_gemm_fused_backward(cuda, E, C, d, f, layout):
     """The fused backward kernel: one call a bf16 projection through
@@ -838,7 +881,8 @@ def _within(got, ref, tol, what):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d,dtype,gemma", [
     (1024, 2048, BF16, False), (4096, 4096, BF16, True), (37, 2048, FP32, True),
-    (33, 300, BF16, False), (37, 300, FP32, False)])
+    (33, 300, BF16, False), (37, 300, FP32, False),
+    (4096, 5376, BF16, True)])       # Gemma-3's block norms: 672 vectors
 def test_rmsnorm_backward_through_autograd(cuda, rows, d, dtype, gemma):
     """The RMSNorm Function's backward kernel against ``rmsnorm_bwd_ref``
     (fp32 1e-4, bf16 2e-2 of each gradient's scale; one rounding after sums
@@ -920,7 +964,7 @@ def test_ssd_backward_through_autograd(cuda, shape, chunk, dtype, init):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d,gemma", [
     (4096, 2048, False), (4096, 4096, True), (37, 2048, False),
-    (1, 4096, True)])
+    (1, 4096, True), (4096, 5376, True), (37, 6144, False)])
 @pytest.mark.parametrize("variant", ["vec", "simt"])
 def test_rmsnorm_backward_variants(cuda, rows, d, gemma, variant):
     """Each variant of the RMSNorm backward launched directly on bf16 rows

@@ -3,6 +3,10 @@ the CPU path of both at the agent trunk's widths against the Pallas kernels
 (the RMSNorm and SSD choices are pinned in tests/test_torch_dispatch_lm.py;
 the test that no CPU call counts a launch covers all four kernels).
 
+The flash backward's choices hold with a window too: its variant, form
+and split count (the window changes none of them) and the window among the
+C entry point's arguments.
+
 Each kernel has two variants on the card: bf16 on the tensor cores ("tc")
 and a CUDA-core one ("simt") for fp32 and for inputs the tensor-core
 kernel's loads cannot address. The choice is a pure function of dtype,
@@ -355,6 +359,8 @@ def _flash_bwd_case(name):
         S, Hq, Hkv, D = 2048, 32, 4, 64
     elif name == "qwen_moe_train":
         S, Hq, Hkv, D = 2048, 16, 16, 128
+    elif name == "gemma_train":             # 32 q heads over 16 kv heads
+        S, Hq, Hkv, D = 2048, 32, 16, 128
     q = torch.zeros(B, S, Hq, D, dtype=BF16)
     k = v = torch.zeros(B, S, Hkv, D, dtype=BF16)
     o = do = torch.zeros_like(q)
@@ -415,16 +421,11 @@ def test_flash_bwd_splits(B, Skv, Hkv, group, splits):
         blocks * 2 * s > fa_ops.BWD_BLOCKS_PER_SM * 132
 
 
-@pytest.mark.parametrize("name,splits", [("tinyllama_train", 2),
-                                         ("trunk", 1), ("fp32", 1)])
-def test_flash_bwd_launch_arguments(monkeypatch, name, splits):
-    """What ``_launch_bwd`` hands the C entry point, recorded on CPU
-    tensors in place of the call: the operands in place, the fp32 delta
-    scratch (B, Hq, Sq) every variant fills, the streaming form's fp32
-    partials of 2 x splits x dk's elements where a kv head's q heads are
-    shared, the split count (1 for the short form and the CUDA-core
-    kernels), the shapes and the strides."""
-    q, k, v, o, do = _flash_bwd_case(name)
+def _record_bwd_launch(monkeypatch, q, k, v, o, do, **opts):
+    """Run ``_launch_bwd`` on CPU tensors with the C entry point, the
+    card's properties (132 SMs) and ``torch.empty`` replaced by recorders:
+    the entry's arguments, the (shape, dtype) of each scratch allocated,
+    and the gradients handed out."""
     lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
     variant = _flash_bwd_variant(q, k, v, o, do)
     seen = {}
@@ -446,9 +447,23 @@ def test_flash_bwd_launch_arguments(monkeypatch, name, splits):
         sizes.append((shape[0] if len(shape) == 1 else shape, kw.get("dtype")))
         return empty(*shape, **kw)
     monkeypatch.setattr(torch, "empty", record_empty)
-    dq, dk, dv = fa_ops._launch_bwd(q, k, v, o, lse, do, variant,
-                                    causal=True, softcap=0.0, scale=0.125)
-    args = seen["args"]
+    grads = fa_ops._launch_bwd(q, k, v, o, lse, do, variant, causal=True,
+                               softcap=0.0, scale=0.125, **opts)
+    return seen["args"], sizes, (lse, variant, grads)
+
+
+@pytest.mark.parametrize("name,splits", [("tinyllama_train", 2),
+                                         ("trunk", 1), ("fp32", 1)])
+def test_flash_bwd_launch_arguments(monkeypatch, name, splits):
+    """What ``_launch_bwd`` hands the C entry point, recorded on CPU
+    tensors in place of the call: the operands in place, the fp32 delta
+    scratch (B, Hq, Sq) every variant fills, the streaming form's fp32
+    partials of 2 x splits x dk's elements where a kv head's q heads are
+    shared, the split count (1 for the short form and the CUDA-core
+    kernels), the shapes and the strides."""
+    q, k, v, o, do = _flash_bwd_case(name)
+    args, sizes, (lse, variant, (dq, dk, dv)) = _record_bwd_launch(
+        monkeypatch, q, k, v, o, do)
     B, S, Hq, D = q.shape
     assert args[:6] == tuple(t.data_ptr() for t in (q, k, v, o, do, lse))
     assert ((B, Hq, S), torch.float32) in sizes
@@ -462,7 +477,62 @@ def test_flash_bwd_launch_arguments(monkeypatch, name, splits):
     assert args[20:29] == (*fa_ops._build.row_strides(q),
                            *fa_ops._build.row_strides(k),
                            *fa_ops._build.row_strides(v))
-    assert args[29:] == (1, 0.0, 0.125, 7)
+    assert args[29:] == (1, 0, 0.0, 0.125, 7)
+
+
+@pytest.mark.parametrize("name,form", [
+    ("gemma_train", "stream"),    # Gemma-3's training layers, local and global
+    ("trunk", "short"),           # a window in the short form
+    ("long", "stream"),           # a window under one tile, ragged S
+])
+def test_flash_bwd_windowed_form(name, form):
+    """A window changes neither the variant nor the form (neither rule
+    reads it): the tensor-core backward takes the mask in both forms, so
+    Gemma-3's training layers run the streaming form on the tensor cores
+    with and without their window."""
+    q, k, v, o, do = _flash_bwd_case(name)
+    assert _flash_bwd_variant(q, k, v, o, do) == "tc"
+    assert bwd_tc_form(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                       q.shape[3]) == form
+
+
+@pytest.mark.parametrize("B,Skv,Hkv,group,window,splits", [
+    (2, 2048, 16, 2, 1024, 1),   # Gemma-3's local training layer: 1024 blocks
+    (1, 2048, 16, 2, 1024, 1),   # its 2-layer gradient check: 512 blocks
+    (2, 2048, 4, 8, 1024, 2),    # a group of 8: 256 blocks a share
+    (1, 512, 2, 8, 100, 8),      # 16 blocks
+    (2, 2048, 4, 8, 2048, 2),    # a window as long as the sequence
+    (2, 2048, 4, 8, 4096, 2),
+])
+def test_flash_bwd_windowed_splits(monkeypatch, B, Skv, Hkv, group, window,
+                                   splits):
+    """A window leaves the split count to the causal rule: the launch with
+    the window hands the C entry point ``bwd_splits``'s count, the same as
+    without one (at Gemma-3's local training layer 1 share, the faster of
+    the two measured)."""
+    q = torch.zeros(B, Skv, Hkv * group, 16, dtype=BF16)
+    k = torch.zeros(B, Skv, Hkv, 16, dtype=BF16)
+    args = _record_bwd_launch(monkeypatch, q, k, k, q, q,
+                              window=window)[0]
+    assert args[13] == splits == bwd_splits(B, Skv, Hkv, group, 132)
+    assert args[30] == window
+    assert args[13] == _record_bwd_launch(monkeypatch, q, k, k, q, q)[0][13]
+
+
+@pytest.mark.parametrize("name,window,splits", [
+    ("gemma_train", 1024, 1), ("tinyllama_train", 1024, 2),
+    ("trunk", 64, 1), ("fp32", 100, 1)])
+def test_flash_bwd_launch_arguments_with_a_window(monkeypatch, name, window,
+                                                  splits):
+    """The window reaches the C entry point after the causal flag, with
+    the delta scratch and the split count as without one."""
+    q, k, v, o, do = _flash_bwd_case(name)
+    args, sizes, _ = _record_bwd_launch(monkeypatch, q, k, v, o, do,
+                                        window=window)
+    B, S, Hq, D = q.shape
+    assert ((B, Hq, S), torch.float32) in sizes
+    assert (args[10] is None) == (splits == 1) and args[13] == splits
+    assert args[29:] == (1, window, 0.0, 0.125, 7)
 
 
 def test_flash_bwd_smem_mirror():

@@ -22,8 +22,7 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.rmsnorm.ops import (BWD_MAX_BLOCKS,
                                              BWD_VEC_MAX_BLOCKS,
-                                             BWD_MAX_VECS, BWD_VEC_WARPS,
-                                             MAX_VECS,
+                                             BWD_VEC_WARPS, MAX_VECS,
                                              _rmsnorm_bwd_variant,
                                              _rmsnorm_variant, bwd_blocks,
                                              bwd_vec_partition)
@@ -99,24 +98,35 @@ def test_rmsnorm_serving_shapes_are_vectorised(rows, d):
     (4, GEMMA.d_model), (4 * GEMMA.nkv, GEMMA.hd),               # decode
 ])
 def test_rmsnorm_gemma3_serving_shapes_are_vectorised(rows, d):
-    """Gemma-3's block norms over d_model (672 vectors a row, past the 512
-    that the backward's vec kernel holds) and its QK-norm over head_dim."""
+    """Gemma-3's block norms over d_model (672 vectors a row) and its
+    QK-norm over head_dim."""
     x = torch.empty(rows, d, dtype=BF16)
     assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
 
 
 def test_rmsnorm_backward_takes_fewer_vectors_than_the_forward():
-    """A row of Gemma-3's d_model: the forward's vec kernel holds its 672
-    vectors, the vec backward at most BWD_MAX_VECS, so it runs simt."""
+    """A row of Gemma-3's d_model, 672 vectors in bf16: the vec backward
+    holds as many vectors a row as the forward (MAX_VECS), so Gemma-3's
+    block norms, (2 x 2048, 5376) in training, run "vec" both ways."""
     d = GEMMA.d_model
-    assert BWD_MAX_VECS < d // 8 <= MAX_VECS
-    x = torch.empty(8, d, dtype=BF16)
+    assert 512 < d // 8 <= MAX_VECS
+    x = torch.empty(2 * 2048, d, dtype=BF16)
     assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
     assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
-        "simt"
-    x = torch.empty(8, 8 * BWD_MAX_VECS, dtype=BF16)
-    assert _rmsnorm_bwd_variant(x, torch.empty(x.shape[1]),
-                                torch.empty_like(x)) == "vec"
+        "vec"
+
+
+@pytest.mark.parametrize("vecs,variant", [(MAX_VECS, "vec"),
+                                          (MAX_VECS + 1, "simt")])
+@pytest.mark.parametrize("dtype", [BF16, FP32])
+def test_rmsnorm_vector_limit_is_the_same_both_ways(vecs, variant, dtype):
+    """At the limit's edge, 768 and 769 vectors a row, the forward and the
+    backward choose alike."""
+    d = vecs * (16 // torch.empty(0, dtype=dtype).element_size())
+    x = torch.empty(4, d, dtype=dtype)
+    assert _rmsnorm_variant(x, torch.empty(d)) == variant
+    assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
+        variant
 
 
 # ---------------------------------------------------------------- SSD variant

@@ -22,6 +22,12 @@ package's, on the CPU.
   (slots past the window), and the serve launcher.
 * A 5-layer plan, 2 x (local, global) then a remainder segment of 1 local
   layer, through ``forward`` and prefill + decode.
+* One ``make_train_step`` step of ``SMOKE`` at ``attn_impl="flash"`` on 48
+  tokens, past the window, against JAX's train step: the metrics, AdamW's
+  m and v and the updated parameters (tests/test_torch_lm_train.py's
+  tolerances), on the plain path and on the card's route (the flash and
+  RMSNorm autograd Functions with their launches' plain versions: the
+  windowed backward's wiring).
 
 The reference initialises the gemma norm scales to zero, so (1 + w) is 1
 and a missing, swapped or misplaced norm would not show: every test first
@@ -48,16 +54,24 @@ from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro.train import make_prefill_step as j_make_prefill_step
 from repro.train import make_serve_step as j_make_serve_step
+from repro.train.optimizer import OptimizerConfig as JOptimizerConfig
+from repro.train.optimizer import init_opt_state as j_init_opt_state
+from repro.train.step import make_train_step as j_make_train_step
 from repro_torch import convert
 from repro_torch.configs import gemma3_27b as t_gemma
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.launch import serve as t_launch
 from repro_torch.models import attention as t_attn
 from repro_torch.models import blocks as t_blocks
+from repro_torch.models import layers as t_layers
 from repro_torch.models import registry
 from repro_torch.models import transformer as tt
 from repro_torch.models.common import layer_plan
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.train import make_prefill_step, make_serve_step
+from repro_torch.train import (OptimizerConfig, init_opt_state,
+                               make_prefill_step, make_serve_step,
+                               make_train_step)
 from repro_torch.train.step import value_and_grad
 
 TOL = 1e-4
@@ -514,3 +528,108 @@ def test_launcher_serves_gemma3(capsys):
     assert out["arch"] == "gemma3-27b" and out["device"] == "cpu"
     assert out["done"] == out["requests"] == 2 and out["tokens"] == 8
     assert "2/2 requests done" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------------ training
+OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
+
+
+def _card_route(monkeypatch):
+    """The model's flash and RMSNorm calls take the card's route (their
+    autograd Functions, with counters), each kernel launch replaced by its
+    plain version on the CPU tensors."""
+    def flash(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
+              device=None):
+        fa_ops._check(q, k, v)
+        return fa_ops._flash_cuda(q, k, v, causal=causal, window=window,
+                                  softcap=softcap,
+                                  scale=scale or q.shape[3] ** -0.5)
+
+    def launch(q, k, v, variant, *, lse=False, **kw):
+        out = fa_ops.flash_attention_ref(q, k, v, **kw)
+        return (out, fa_ops.flash_attention_lse_ref(q, k, **kw)) if lse \
+            else out
+
+    def norm(x, w, *, eps=1e-6, gemma=False, device=None):
+        return norm_ops._rmsnorm_cuda(x, w, eps=eps, gemma=gemma)
+    monkeypatch.setattr(fa_ops, "_launch", launch)
+    monkeypatch.setattr(fa_ops, "_launch_bwd",
+                        lambda q, k, v, o, lse, do, variant, **kw:
+                        fa_ops.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                       **kw))
+    monkeypatch.setattr(norm_ops, "_launch", lambda flat, w, variant, **kw:
+                        norm_ops.rmsnorm_ref(flat, w, **kw))
+    monkeypatch.setattr(norm_ops, "_launch_bwd",
+                        lambda flat, w, dy, variant, **kw:
+                        norm_ops.rmsnorm_bwd_ref(flat, w, dy, **kw))
+    monkeypatch.setattr(t_attn, "flash_attention", flash)
+    monkeypatch.setattr(t_layers, "rmsnorm", norm)
+    for kern in (fa_ops.flash_attention, fa_ops.flash_attention_bwd):
+        monkeypatch.setattr(kern, "launches", 0)
+        monkeypatch.setattr(kern, "tc_launches", 0)
+    for name in ("launches", "vec_launches", "bwd_launches",
+                 "bwd_vec_launches"):
+        monkeypatch.setattr(norm_ops.rmsnorm, name, 0)
+
+
+def _close_tree(ours, theirs, tol, what, base=None, step_tol=2e-2):
+    """Every leaf within ``tol`` of its JAX leaf's scale (paths equal);
+    with ``base``, plus ``step_tol`` of the leaf's largest update
+    (tests/test_torch_lm_train.py's rule for parameters after AdamW)."""
+    ours = jax.tree_util.tree_flatten_with_path(convert.tree_map(_np, ours))[0]
+    theirs = jax.tree_util.tree_flatten_with_path(theirs)[0]
+    bases = [None] * len(theirs) if base is None else jax.tree.leaves(base)
+    assert len(ours) == len(theirs) == len(bases), what
+    for (pa, a), (pb, b), b0 in zip(ours, theirs, bases):
+        assert pa == pb, what
+        b = np.asarray(b, np.float32)
+        bound = tol * max(np.abs(b).max(), 1e-30)
+        if b0 is not None:
+            bound += step_tol * np.abs(b - np.asarray(b0, np.float32)).max()
+        assert np.abs(a - b).max() <= bound, \
+            f"{what} {jax.tree_util.keystr(pa)}"
+
+
+@pytest.mark.parametrize("route", ["plain", "card"])
+def test_train_step_matches_jax(model, monkeypatch, route):
+    """One ``make_train_step`` step of Gemma-3 ``SMOKE`` at
+    ``attn_impl="flash"`` on 48 tokens, past the local layers' window of
+    32, against JAX's train step: the metrics, the updated parameters and
+    AdamW's m (the clipped gradient's tenth) and v. JAX trains at
+    ``"chunked"``: its ``"flash"`` sends the local layers to that scan
+    already, and its Pallas kernel on the global layers has no VJP. The
+    port's "card" route runs the flash and RMSNorm autograd Functions with
+    their launches' plain versions: each step launches 4 flash backwards,
+    2 with the window, and 4 x 6 + 1 RMSNorm backwards. Tolerances of
+    tests/test_torch_lm_train.py: metrics 1e-5 relative, m and v 1e-4 of
+    each leaf's scale, parameters that plus 2e-2 of the leaf's update."""
+    jcfg = j_gemma.SMOKE.replace(attn_impl="chunked")
+    tcfg = t_gemma.SMOKE.replace(attn_impl="flash")
+    jp, tp = model
+    toks = _tokens(jcfg, 2, 49, seed=9)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    jstate = j_init_opt_state(jp, JOptimizerConfig(**OPT))
+    jp1, js1, jm = j_make_train_step(jcfg, JOptimizerConfig(**OPT))(
+        jp, jstate, jax.tree.map(jnp.asarray, batch))
+    if route == "card":
+        _card_route(monkeypatch)
+    windows = []
+    inner = t_attn.flash_attention
+
+    def record(q, k, v, **kw):
+        windows.append(kw["window"])
+        return inner(q, k, v, **kw)
+    monkeypatch.setattr(t_attn, "flash_attention", record)
+    tstate = init_opt_state(tp, OptimizerConfig(**OPT))
+    tp1, ts1, tm = make_train_step(tcfg, OptimizerConfig(**OPT))(
+        tp, tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert windows == [WINDOW, 0, WINDOW, 0]
+    if route == "card":
+        assert fa_ops.flash_attention_bwd.launches == 4
+        assert norm_ops.rmsnorm.bwd_launches == 4 * 6 + 1
+    for name in ("ce", "loss", "lr", "grad_norm"):
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                   rtol=1e-5, err_msg=name)
+    _close_tree(ts1["m"], js1["m"], TOL, "m")
+    _close_tree(ts1["v"], js1["v"], TOL, "v")
+    _close_tree(tp1, jp1, TOL, "params", base=jp)

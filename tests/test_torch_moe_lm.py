@@ -19,6 +19,12 @@ CPU.
   reference math maps them and calls the flash kernel's wrapper, and its
   forward equals JAX's.
 * A leading dense layer (``first_k_dense`` 1) before the MoE ones.
+* One ``make_train_step`` step of ``SMOKE`` at ``attn_impl="flash"``
+  against JAX's train step: the metrics (the aux loss among them), AdamW's
+  m and v and the updated parameters (tests/test_torch_lm_train.py's
+  tolerances), on the plain path and on the card's route (the flash,
+  RMSNorm and grouped-GEMM autograd Functions with their launches' plain
+  versions).
 * The train launcher's default ``--arch`` is the reference's.
 
 The reference initialises the QKV biases to zero, so every test that covers
@@ -51,16 +57,24 @@ from repro.models import transformer as jt
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro.train import make_serve_step as j_make_serve_step
+from repro.train.optimizer import OptimizerConfig as JOptimizerConfig
+from repro.train.optimizer import init_opt_state as j_init_opt_state
+from repro.train.step import make_train_step as j_make_train_step
 from repro_torch import convert
 from repro_torch.configs import qwen2_moe_a2_7b as t_qwen
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe_gemm import ops as gemm_ops
+from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.launch import serve as t_serve_launch
 from repro_torch.launch import train as t_train_launch
 from repro_torch.models import attention as t_attn
+from repro_torch.models import layers as t_layers
 from repro_torch.models import moe as t_moe
 from repro_torch.models import registry
 from repro_torch.models import transformer as tt
 from repro_torch.serve import Request, ServeEngine
-from repro_torch.train import make_serve_step
+from repro_torch.train import (OptimizerConfig, init_opt_state,
+                               make_serve_step, make_train_step)
 from repro_torch.train.step import value_and_grad
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -582,3 +596,114 @@ def test_train_launcher_defaults_to_the_reference_arch(tmp_path):
                                "--ckpt-dir", str(tmp_path)])
     assert out["arch"] == ref.group(1) == "tinyllama-1.1b"
     assert out["steps_done"] == 1 and np.isfinite(out["losses"]).all()
+
+
+# ------------------------------------------------------------------ training
+OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
+
+
+def _card_route(monkeypatch):
+    """The model's flash, RMSNorm and grouped-GEMM calls take the card's
+    route (their autograd Functions, with counters), each kernel launch
+    replaced by its plain version on the CPU tensors."""
+    def flash(q, k, v, *, causal=True, window=0, softcap=0.0, scale=None,
+              device=None):
+        fa_ops._check(q, k, v)
+        return fa_ops._flash_cuda(q, k, v, causal=causal, window=window,
+                                  softcap=softcap,
+                                  scale=scale or q.shape[3] ** -0.5)
+
+    def launch(q, k, v, variant, *, lse=False, **kw):
+        out = fa_ops.flash_attention_ref(q, k, v, **kw)
+        return (out, fa_ops.flash_attention_lse_ref(q, k, **kw)) if lse \
+            else out
+
+    def norm(x, w, *, eps=1e-6, gemma=False, device=None):
+        return norm_ops._rmsnorm_cuda(x, w, eps=eps, gemma=gemma)
+    monkeypatch.setattr(fa_ops, "_launch", launch)
+    monkeypatch.setattr(fa_ops, "_launch_bwd",
+                        lambda q, k, v, o, lse, do, variant, **kw:
+                        fa_ops.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                       **kw))
+    monkeypatch.setattr(norm_ops, "_launch", lambda flat, w, variant, **kw:
+                        norm_ops.rmsnorm_ref(flat, w, **kw))
+    monkeypatch.setattr(norm_ops, "_launch_bwd",
+                        lambda flat, w, dy, variant, **kw:
+                        norm_ops.rmsnorm_bwd_ref(flat, w, dy, **kw))
+    monkeypatch.setattr(gemm_ops, "_launch",
+                        lambda x, w, variant, trans_x=False:
+                        gemm_ops.grouped_gemm_ref(
+                            x.transpose(1, 2) if trans_x else x, w))
+    monkeypatch.setattr(t_attn, "flash_attention", flash)
+    monkeypatch.setattr(t_layers, "rmsnorm", norm)
+    monkeypatch.setattr(t_moe, "grouped_gemm",
+                        lambda x, w, device=None: gemm_ops._gemm_cuda(x, w))
+    for kern in (fa_ops.flash_attention, fa_ops.flash_attention_bwd,
+                 gemm_ops.grouped_gemm):
+        monkeypatch.setattr(kern, "launches", 0)
+        monkeypatch.setattr(kern, "tc_launches", 0)
+    for name in ("bwd_launches", "bwd_tc_launches", "bwd_fused_calls"):
+        monkeypatch.setattr(gemm_ops.grouped_gemm, name, 0)
+    for name in ("launches", "vec_launches", "bwd_launches",
+                 "bwd_vec_launches"):
+        monkeypatch.setattr(norm_ops.rmsnorm, name, 0)
+
+
+def _close_tree(ours, theirs, tol, what, base=None, step_tol=2e-2):
+    """Every leaf within ``tol`` of its JAX leaf's scale (paths equal);
+    with ``base``, plus ``step_tol`` of the leaf's largest update
+    (tests/test_torch_lm_train.py's rule for parameters after AdamW)."""
+    ours = jax.tree_util.tree_flatten_with_path(convert.tree_map(_np, ours))[0]
+    theirs = jax.tree_util.tree_flatten_with_path(theirs)[0]
+    bases = [None] * len(theirs) if base is None else jax.tree.leaves(base)
+    assert len(ours) == len(theirs) == len(bases), what
+    for (pa, a), (pb, b), b0 in zip(ours, theirs, bases):
+        assert pa == pb, what
+        b = np.asarray(b, np.float32)
+        bound = tol * max(np.abs(b).max(), 1e-30)
+        if b0 is not None:
+            bound += step_tol * np.abs(b - np.asarray(b0, np.float32)).max()
+        assert np.abs(a - b).max() <= bound, \
+            f"{what} {jax.tree_util.keystr(pa)}"
+
+
+@pytest.mark.parametrize("route", ["plain", "card"])
+def test_train_step_matches_jax(model, monkeypatch, route):
+    """One ``make_train_step`` step of Qwen2-MoE ``SMOKE`` (nonzero QKV
+    biases) at ``attn_impl="flash"`` against JAX's train step at
+    ``"reference"`` (its Pallas kernel has no VJP): the metrics, the
+    updated parameters and AdamW's m (the clipped gradient's tenth) and v,
+    the router's through the aux loss and the gates; no router near-tie.
+    The "card" route runs the flash, RMSNorm and grouped-GEMM autograd
+    Functions with their launches' plain versions: each step launches 2
+    flash backwards, 2 x 2 + 1 RMSNorm backwards and the experts' 2 grouped
+    GEMMs a layer, each with dX and dW (fp32: two launches a projection).
+    Tolerances of tests/test_torch_lm_train.py: metrics 1e-5 relative, m
+    and v 1e-4 of each leaf's scale, parameters that plus 2e-2 of the
+    leaf's update."""
+    jcfg, _ = _configs()
+    tcfg = t_qwen.SMOKE.replace(attn_impl="flash")
+    jp, tp = model
+    toks = _tokens(jcfg, 2, 25, seed=11)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    jstate = j_init_opt_state(jp, JOptimizerConfig(**OPT))
+    jp1, js1, jm = j_make_train_step(jcfg, JOptimizerConfig(**OPT))(
+        jp, jstate, jax.tree.map(jnp.asarray, batch))
+    if route == "card":
+        _card_route(monkeypatch)
+    tstate = init_opt_state(tp, OptimizerConfig(**OPT))
+    with _route_gaps() as gaps:
+        tp1, ts1, tm = make_train_step(tcfg, OptimizerConfig(**OPT))(
+            tp, tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _no_near_ties(gaps)
+    if route == "card":
+        assert fa_ops.flash_attention_bwd.launches == 2
+        assert norm_ops.rmsnorm.bwd_launches == 2 * 2 + 1
+        assert gemm_ops.grouped_gemm.launches == 2 * 2
+        assert gemm_ops.grouped_gemm.bwd_launches == 2 * 2 * 2
+    for name in ("ce", "aux", "loss", "lr", "grad_norm"):
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                   rtol=1e-5, err_msg=name)
+    _close_tree(ts1["m"], js1["m"], TOL, "m")
+    _close_tree(ts1["v"], js1["v"], TOL, "v")
+    _close_tree(tp1, jp1, TOL, "params", base=jp)

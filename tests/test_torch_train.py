@@ -139,6 +139,36 @@ def test_adamw_decay_on_converted_agent_params_matches_jax(kind):
                                        atol=1e-6)
 
 
+@pytest.mark.parametrize("state_dtype", [None, "bfloat16"])
+def test_adamw_in_slices_gives_the_same_bits(monkeypatch, state_dtype):
+    """A leaf past UPDATE_SLICE elements is updated slice by slice into its
+    new tensors: the same bits as the whole leaf at once, decay decided
+    by the leaf's rank, not the slice's."""
+    rng = np.random.default_rng(1)
+    shapes = {"bias": (7,), "mat": (9, 13), "stack": (3, 5, 11)}
+    params = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              for k, s in shapes.items()}
+    grads = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32) * 3)
+             for k, s in shapes.items()}
+    cfg = topt.OptimizerConfig(lr=1e-2, weight_decay=0.1, grad_clip=0.5,
+                               warmup_steps=3, state_dtype=state_dtype)
+    state = topt.init_opt_state(params, cfg)
+    runs = []
+    for size in (topt.UPDATE_SLICE, 10):
+        monkeypatch.setattr(topt, "UPDATE_SLICE", size)
+        p, s = params, state
+        for _ in range(3):
+            p, s, _ = topt.adamw_update(grads, p, s, cfg)
+        runs.append((p, s))
+    (p1, s1), (p2, s2) = runs
+    for k in shapes:
+        assert torch.equal(p1[k], p2[k]), k
+        assert torch.equal(s1["m"][k], s2["m"][k]), k
+        assert torch.equal(s1["v"][k], s2["v"][k]), k
+        assert p2[k].shape == p1[k].shape and p2[k].dtype == p1[k].dtype
+        assert s2["m"][k].dtype == s1["m"][k].dtype
+
+
 def test_adamw_does_not_write_its_inputs():
     p = {"w": torch.ones(3, 2)}
     cfg = topt.OptimizerConfig()
