@@ -19,9 +19,12 @@ exits non-zero:
    (2,1100,32/16,128) with the window, among others, the GEMM (at the
    Qwen2-MoE experts' prefill and decode shapes too) and the SSD scan:
    bf16 on the tensor cores, fp32 and unaligned inputs on the CUDA cores;
-   RMSNorm: 16-byte vectors, Gemma-3's (1 + w) at its QK-norm's
-   (262144, 128) and its d_model's (8192, 5376) among them, and one element
-   per lane for rows off 16 bytes); the backward kernels through autograd:
+   the GEMM also at DeepSeek-V2's 160 experts, a prefill's 384 rows an
+   expert and a decode step's 4, through wi and wo; RMSNorm: 16-byte
+   vectors, Gemma-3's (1 + w) at its QK-norm's (262144, 128) and its
+   d_model's (8192, 5376) and DeepSeek-V2's q and kv ranks, (8192, 1536)
+   and (8192, 512), among them, and one element per lane for rows off 16
+   bytes); the backward kernels through autograd:
    flash's (with the forward's row log-sum-exp; bf16 on the tensor cores in
    the short form at the trunk's MHA heads and in the streaming form for
    GQA, D = 128, long and ragged sequences, TinyLlama's training layer
@@ -120,6 +123,27 @@ exits non-zero:
    group; ``ServeEngine`` at the serve launcher's defaults on the same
    weights (every request done, no flash launch, RMSNorm a multiple of
    157);
+4f. DeepSeek-V2-236B serving at its full published width (d 5120, 128
+   heads with MLA: q rank 1,536, kv rank 512, nope 128 + rope 64, v 128;
+   160 routed experts top-6 + 2 shared of d_ff 1,536; vocab 102,400) and 4
+   of its 60 layers, the dense first layer and 3 MoE layers (fp32 weights
+   of all 60 are ~940 GB by their shapes), seeded fp32 weights drawn on the card (~13.1 B
+   parameters, bf16 compute) with every norm scale drawn N(1, 0.3): as 4c,
+   a 4 x 2048 prefill (MLA's latent-chunked attention) into a latent cache
+   of 2,080 and 32 decode steps (the absorbed decode), raising unless each
+   prefill and each step launched exactly 6 grouped GEMMs, all on the
+   tensor cores, 17 RMSNorm, all vectorised, and no flash kernel; the
+   peak memory; the (token, k) pairs dropped at the prefill and at the
+   decode steps, and the tokens whose router is within a near-tie; the
+   dense first layer and the first MoE layer as a 2-layer model, a 1 x 512
+   prefill and 4 decode steps, every call's logits and both latent caches
+   against the plain path on the CPU (the CPU run takes the card run's
+   experts; every token the CPU's own router would send elsewhere is
+   counted and must be a near-tie); the absorbed decode of a 512-token
+   prompt's last position against ``mla_forward``'s expanded output for
+   it, at 128 heads and kv rank 512; a prefill and 5 decode steps under
+   torch.profiler, by kernel group; ``ServeEngine`` at the serve
+   launcher's defaults on the same weights;
 6. the Fig-8 grid on torch learners at the agent's full width, as
    ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
    cluster (V100), single-node chains, the six cells {light, medium, heavy}
@@ -210,10 +234,12 @@ exits non-zero:
    global one, causal, beside SDPA with ``enable_gqa``, each with its
    bound (the visible (q, k) pairs' products); RMSNorm as Gemma-3's
    QK-norm runs it, (262144, 128) bf16 with (1 + w), beside ``F.rms_norm``
-   with the weight 1 + w; the grouped GEMM at its routed
-   experts' shapes (E = 60: a prefill's 684 rows an expert and a decode
-   step's 4, through wi and wo) beside ``torch.bmm``, each with its bound
-   and share; the flash backward at TinyLlama's training shape,
+   with the weight 1 + w; RMSNorm at DeepSeek-V2's q and kv ranks,
+   (8192, 1536) and (8192, 512) bf16, beside ``F.rms_norm``; the grouped
+   GEMM at Qwen2-MoE's routed experts' shapes (E = 60: a prefill's 684
+   rows an expert and a decode step's 4, through wi and wo) and at
+   DeepSeek-V2's (E = 160: 384 rows and 4) beside ``torch.bmm``, each with
+   its bound and share; the flash backward at TinyLlama's training shape,
    (2,2048,32/4,64) causal (the streaming form, also at each split count
    of a kv head's q heads, 1, 2, 4 and 8), at Qwen2-MoE's,
    (2,2048,16/16,128) causal, and at Gemma-3's local and global training
@@ -234,10 +260,10 @@ exits non-zero:
    the "simt" one as ``simt_ms``) beside their plain versions and, for
    RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 6, 7, 8, 5, and each
-ends with a ``[phase]`` line of its wall time. Each kernel's ``launches`` in
-the JSON record sums the counts of every path that runs it (phases 3, 4,
-4b, 4c's, 4d's and 4e's prefill and decode steps, 6, 7 and 8: runs (a), (b)
+Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 6, 7, 8, 5, and
+each ends with a ``[phase]`` line of its wall time. Each kernel's
+``launches`` in the JSON record sums the counts of every path that runs it
+(phases 3, 4, 4b, 4c's, 4d's, 4e's and 4f's prefill and decode steps, 6, 7 and 8: runs (a), (b)
 and (c), the 2 x 2048 runs of TinyLlama, Gemma-3 and Qwen2-MoE and the
 launcher at its defaults), each counted
 from 0 just before its path and read just after.
@@ -265,8 +291,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import (gemma3_27b, mamba2_1_3b,  # noqa: E402
-                                 mirage_agent, qwen2_moe_a2_7b,
+from repro_torch.configs import (deepseek_v2_236b, gemma3_27b,  # noqa: E402
+                                 mamba2_1_3b, mirage_agent, qwen2_moe_a2_7b,
                                  tinyllama_1_1b)
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
@@ -396,6 +422,17 @@ GEMMA_NORM_STD = 0.1    # the gemma norm scales drawn nonzero (the
                         # reference inits them 0, so (1 + w) would be 1)
 GEMMA_PLAIN_PROMPT = 1088   # past the window: the local mask and the
 GEMMA_PLAIN_DECODE = 4      # rolled ring bite in the check against the CPU
+# phase 4f: DeepSeek-V2-236B at its published width, cut from 60 to 4
+# layers, the dense first layer and 3 MoE layers: by their shapes the fp32
+# weights of all 60 are ~940 GB and of these 4 (13.14 B parameters) 52.55 GB;
+# the prefill's measured peak is in PERF.md §5
+DEEPSEEK = deepseek_v2_236b.CONFIG.replace(n_layers=4)
+DEEPSEEK_NORMS = 4 * DEEPSEEK.n_layers + 1  # ln1, ln2, q_norm, kv_norm a
+                                            # layer, final
+DEEPSEEK_GEMMS = 2 * (DEEPSEEK.n_layers - DEEPSEEK.first_k_dense)
+DEEPSEEK_NORM_STD = 0.3     # the norm scales drawn N(1, .): the reference
+                            # inits them 1, where a swapped q/kv norm hides
+DEEPSEEK_PLAIN_PROMPT, DEEPSEEK_PLAIN_DECODE = 512, 4
 NEAR_TIE = 1e-5         # a router's K-th and (K+1)-th probabilities this close
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
@@ -608,7 +645,13 @@ def phase_kernels() -> dict:
     cases += [(f"gemm Qwen2-MoE {what} ({QWEN.n_experts},{c},{a})x("
                f"{QWEN.n_experts},{a},{b}) bf16",
                (QWEN.n_experts, c, a, b, torch.bfloat16), "tc", BF16_TOL)
-              for what, c, a, b in _qwen_gemm_shapes()[:3]]
+              for what, c, a, b in _moe_gemm_shapes()[:3]]
+    # DeepSeek-V2's: 160 experts, a prefill's 384 rows an expert (C = 96 a
+    # row of the batch) and a decode step's 4, through wi and wo
+    cases += [(f"gemm DeepSeek-V2 {what} ({DEEPSEEK.n_experts},{c},{a})x("
+               f"{DEEPSEEK.n_experts},{a},{b}) bf16",
+               (DEEPSEEK.n_experts, c, a, b, torch.bfloat16), "tc", BF16_TOL)
+              for what, c, a, b in _moe_gemm_shapes(DEEPSEEK)]
     for name, shape, variant, tol in cases:
         if shape == "gate":
             x, wi = gemm_inputs(gen, 3, 1000, d, 2 * f, torch.bfloat16)
@@ -653,6 +696,13 @@ def phase_kernels() -> dict:
         ("rmsnorm Gemma-3 (8192,5376) bf16 gemma",
          (LM_BATCH * LM_PROMPT, GEMMA.d_model, torch.bfloat16), True,
          "plain", "vec", BF16_TOL),
+        # DeepSeek-V2's q_norm and kv_norm over a 4 x 2048 prefill
+        ("rmsnorm DeepSeek-V2 q_norm (8192,1536) bf16",
+         (LM_BATCH * LM_PROMPT, DEEPSEEK.q_lora_rank, torch.bfloat16), False,
+         "plain", "vec", BF16_TOL),
+        ("rmsnorm DeepSeek-V2 kv_norm (8192,512) bf16",
+         (LM_BATCH * LM_PROMPT, DEEPSEEK.kv_lora_rank, torch.bfloat16),
+         False, "plain", "vec", BF16_TOL),
     ]
     for name, (rows, dim, dtype), gemma, layout, variant, tol in cases:
         x = _randn(gen, (rows, dim), dtype, 3.0)
@@ -853,7 +903,7 @@ def check_backward(gen, errs: dict) -> None:
               ("gemm bwd ragged (3,1001,200)x(3,200,136) bf16",
                (3, 1001, 200, 136, bf16), "plain", BF16_TOL)]
     # Qwen2-MoE's routed experts at a 2 x 2048 training batch: wi and wo
-    E60, C60 = QWEN.n_experts, 2 * _qwen_capacity(LM_PROMPT)
+    E60, C60 = QWEN.n_experts, 2 * _moe_capacity(LM_PROMPT)
     cases += [(f"gemm bwd Qwen2-MoE training {what} ({E60},{C60},{a})x"
                f"({E60},{a},{b}) bf16", (E60, C60, a, b, bf16), "plain",
                BF16_TOL)
@@ -1715,19 +1765,19 @@ def phase_dense() -> dict:
 
 
 # ------------------------------------------ 4d. Qwen1.5-MoE-A2.7B serving
-def _qwen_capacity(S: int) -> int:
+def _moe_capacity(S: int, cfg=QWEN) -> int:
     """The routed experts' capacity a group of S tokens (``topk_moe``)."""
-    return max(1, int(np.ceil(S * QWEN.top_k * QWEN.capacity_factor
-                              / QWEN.n_experts)))
+    return max(1, int(np.ceil(S * cfg.top_k * cfg.capacity_factor
+                              / cfg.n_experts)))
 
 
-def _qwen_gemm_shapes():
+def _moe_gemm_shapes(cfg=QWEN):
     """(what, rows an expert, d_in, d_out) of the routed experts' two
     grouped GEMMs at a 4 x 2048 prefill (one capacity group a prompt) and
     at a decode step (one token a row)."""
-    d, f = QWEN.d_model, QWEN.expert_d_ff
-    pre = LM_BATCH * _qwen_capacity(min(LM_PROMPT, QWEN.moe_group_size))
-    dec = LM_BATCH * _qwen_capacity(1)
+    d, f = cfg.d_model, cfg.expert_d_ff
+    pre = LM_BATCH * _moe_capacity(min(LM_PROMPT, cfg.moe_group_size), cfg)
+    dec = LM_BATCH * _moe_capacity(1, cfg)
     return [("prefill wi", pre, d, 2 * f), ("prefill wo", pre, f, d),
             ("decode wi", dec, d, 2 * f), ("decode wo", dec, f, d)]
 
@@ -1872,7 +1922,7 @@ def _moe_drops(prefill_step, params, toks, pos, bias_std: float):
          dropped=int(log.dropped), pairs=pairs,
          share=int(log.dropped) / pairs,
          tokens_in_a_group=min(LM_PROMPT, QWEN.moe_group_size),
-         capacity=_qwen_capacity(LM_PROMPT))
+         capacity=_moe_capacity(LM_PROMPT))
     return out
 
 
@@ -1924,8 +1974,8 @@ def phase_moe() -> dict:
          decode_steps=LM_DECODE, launches=launches,
          gemm_per_pass=QWEN_GEMMS, flash_per_prefill=QWEN.n_layers,
          rmsnorm_per_pass=QWEN_NORMS,
-         capacity_prefill=_qwen_capacity(LM_PROMPT),
-         capacity_decode=_qwen_capacity(1),
+         capacity_prefill=_moe_capacity(LM_PROMPT),
+         capacity_decode=_moe_capacity(1),
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
 
     prefill_step = make_prefill_step(QWEN, s_cache=s_cache)
@@ -1977,6 +2027,76 @@ def phase_moe() -> dict:
     line("moe_engine", **out, launches=counts, decode_calls=n)
     torch.cuda.empty_cache()
     return launches
+
+
+def profile_serving(tag: str, cfg, params, toks, pos, s_cache: int,
+                    groups=_SERVE_GROUPS, rest: str = "other") -> None:
+    """One prefill, then PROFILE_STEPS decode steps from its cache, each
+    profiled alone; prints a ``[tag]`` line for each, its device time by
+    kernel group."""
+    prefill_step = make_prefill_step(cfg, s_cache=s_cache)
+    serve_step = make_serve_step(cfg)
+    with torch.inference_mode():
+        lg, cache = prefill_step(params, toks, pos)
+    tok0 = lg.argmax(-1, keepdim=True).to(torch.int32)
+    S = toks.shape[1]
+
+    def decode(n):
+        with torch.inference_mode():
+            tok, c = tok0, cache
+            for i in range(n):
+                tok, _, c = serve_step(params, tok, pos[:, -1:] + 1 + i, c,
+                                       S + i)
+    with torch.inference_mode():
+        rec = profile_device(f"{cfg.arch_id} prefill",
+                             lambda: prefill_step(params, toks, pos), 1,
+                             "prefill", batch=toks.shape[0], prompt=S)
+    line(tag, what="prefill", wall_ms=rec["wall_ms_per_prefill"],
+         device_ms=rec["device_ms_per_prefill"],
+         device_busy_share=rec["device_busy_share"],
+         launches=rec["device_calls_per_prefill"],
+         device_ms_by_group=_serve_groups(rec, "prefill", groups, rest))
+    rec = profile_device(f"{cfg.arch_id} decode",
+                         lambda: decode(PROFILE_STEPS), PROFILE_STEPS,
+                         "step", batch=toks.shape[0])
+    line(tag, what="decode step", wall_ms=rec["wall_ms_per_step"],
+         device_ms=rec["device_ms_per_step"],
+         device_busy_share=rec["device_busy_share"],
+         launches=rec["device_calls_per_step"],
+         device_ms_by_group=_serve_groups(rec, "step", groups, rest))
+    del cache, lg, tok0
+    torch.cuda.empty_cache()
+
+
+def engine_at_defaults(tag: str, cfg, params, per_call: dict) -> None:
+    """``ServeEngine`` at the serve launcher's defaults (batch 4, s_max
+    128, 8 requests of 6-token prompts, 16 new tokens each) on ``params``
+    (the launcher itself would draw the model's full depth): raises unless
+    every request finished and the run launched a whole number of decode
+    calls' ``per_call`` counts; prints a ``[tag]`` line."""
+    _set_counts()
+    eng = ServeEngine(cfg, params, batch=4, s_max=128)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab_size, 6)], max_new=16) for i in range(8)]
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _counts()
+    tokens = sum(len(r.out) for r in reqs)
+    if len(done) != len(reqs) or not all(r.done for r in reqs):
+        raise RuntimeError(f"engine finished {len(done)} of {len(reqs)} "
+                           "requests")
+    n = counts["rmsnorm"] // per_call["rmsnorm"]
+    if not n or counts != {k: n * v for k, v in per_call.items()}:
+        raise RuntimeError(f"engine launched {counts}")
+    line(tag, batch=4, s_max=128, requests=len(reqs), done=len(done),
+         tokens=tokens, seconds=dt, tokens_per_s=tokens / dt,
+         launches=counts, decode_calls=n)
 
 
 # ---------------------------------------------- 4e. Gemma-3-27B serving
@@ -2128,69 +2248,199 @@ def phase_gemma() -> dict:
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
 
     check_gemma_plain(params, toks)
-
-    # one prefill, then 5 decode steps from its cache, each profiled alone
-    prefill_step = make_prefill_step(GEMMA, s_cache=s_cache)
-    serve_step = make_serve_step(GEMMA)
-    with torch.inference_mode():
-        lg, cache = prefill_step(params, toks, pos)
-    tok0 = lg.argmax(-1, keepdim=True).to(torch.int32)
-
-    def decode(n):
-        with torch.inference_mode():
-            tok, c = tok0, cache
-            for i in range(n):
-                tok, _, c = serve_step(params, tok, pos[:, -1:] + 1 + i, c,
-                                       LM_PROMPT + i)
-    with torch.inference_mode():
-        rec = profile_device("gemma3 prefill",
-                             lambda: prefill_step(params, toks, pos), 1,
-                             "prefill", batch=LM_BATCH, prompt=LM_PROMPT)
-    line("gemma_profile", what="prefill",
-         wall_ms=rec["wall_ms_per_prefill"],
-         device_ms=rec["device_ms_per_prefill"],
-         device_busy_share=rec["device_busy_share"],
-         launches=rec["device_calls_per_prefill"],
-         device_ms_by_group=_serve_groups(rec, "prefill", _GEMMA_GROUPS,
-                                          "other_elementwise"))
-    rec = profile_device("gemma3 decode", lambda: decode(PROFILE_STEPS),
-                         PROFILE_STEPS, "step", batch=LM_BATCH)
-    line("gemma_profile", what="decode step", wall_ms=rec["wall_ms_per_step"],
-         device_ms=rec["device_ms_per_step"],
-         device_busy_share=rec["device_busy_share"],
-         launches=rec["device_calls_per_step"],
-         device_ms_by_group=_serve_groups(rec, "step", _GEMMA_GROUPS,
-                                          "other_elementwise"))
-    del cache, lg, tok0
+    profile_serving("gemma_profile", GEMMA, params, toks, pos, s_cache,
+                    _GEMMA_GROUPS, "other_elementwise")
+    engine_at_defaults("gemma_engine", GEMMA, params,
+                       _pass_counts(GEMMA_NORMS, 0))
+    del params
     torch.cuda.empty_cache()
+    return launches
 
-    # the engine at the serve launcher's defaults (batch 4, s_max 128, 8
-    # requests of 6-token prompts, 16 new tokens each) on these weights:
-    # the launcher itself would draw all 62 layers
-    _set_counts()
-    eng = ServeEngine(GEMMA, params, batch=4, s_max=128)
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
-        0, GEMMA.vocab_size, 6)], max_new=16) for i in range(8)]
-    for r in reqs:
-        eng.add_request(r)
-    torch.cuda.synchronize()
+
+# ---------------------------------------- 4f. DeepSeek-V2-236B serving
+def _draw_deepseek_norms(gen, params) -> None:
+    """Every norm scale (ln1, ln2, MLA's q_norm and kv_norm, the final one)
+    drawn N(1, DEEPSEEK_NORM_STD) in place of the init's ones."""
+    for path, t in _items(params):
+        if path.endswith("/scale"):
+            t.copy_(1.0 + _randn(gen, t.shape, t.dtype, DEEPSEEK_NORM_STD))
+
+
+def _near_ties(routes) -> int:
+    """Tokens whose K-th and (K+1)-th router probabilities lie within
+    NEAR_TIE, over the recorded router calls."""
+    n = 0
+    for probs, idx in routes:
+        top = torch.topk(probs, idx.shape[-1] + 1, dim=-1).values
+        n += int(((top[..., -2] - top[..., -1]) < NEAR_TIE).sum())
+    return n
+
+
+def check_deepseek_plain(params, toks) -> None:
+    """DeepSeek-V2's dense first layer and first MoE layer at full width,
+    same weights (segment 0's layer and segment 1's first, as a 2-layer
+    model): a DEEPSEEK_PLAIN_PROMPT-token prefill and
+    DEEPSEEK_PLAIN_DECODE decode steps of the prompt's next tokens, on the
+    card against the plain path on the CPU (the host holds the MoE layer's
+    15.9 GB of fp32 weights): every call's logits and both layers' latent
+    caches at the end. The CPU run takes the card run's experts for every token (its own
+    probabilities give the gates); tokens its own router would send
+    elsewhere are counted, and each must be a near-tie (``_route_flips``)."""
+    cfg = DEEPSEEK.replace(n_layers=2)
+    segs = params["segments"]
+    sub = dict(params, segments=[segs[0], {"b0": tree_map(
+        lambda t: t[:1], segs[1]["b0"])}])
+    P, n = DEEPSEEK_PLAIN_PROMPT, DEEPSEEK_PLAIN_DECODE
+    x = toks[:1, :P + n]
+    pos = torch.arange(P + n, device="cuda")[None]
+
+    def run(p, x, pos):
+        lg, cache = transformer.prefill(p, cfg, x[:, :P], pos[:, :P], P + n)
+        lgs = [lg]
+        for i in range(P, P + n):
+            lg, cache = transformer.decode_step(p, cfg, x[:, i:i + 1],
+                                                pos[:, i:i + 1], cache, i)
+            lgs.append(lg)
+        return lgs, [seg["b0"] for seg in cache["segments"]]
+    with torch.inference_mode():
+        _set_counts()
+        with _RouteLog() as card:
+            lgs, kv = run(sub, x, pos)
+        torch.cuda.synchronize()
+        if _counts() != _pass_counts((1 + n) * (4 * 2 + 1), 0, 0,
+                                     (1 + n) * 2):
+            raise RuntimeError(f"2-layer run launched {_counts()}")
+        t0 = time.perf_counter()
+        host = tree_map(lambda t: t.cpu(), sub)
+        copy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with _RouteLog(force=[i for _, i in card.routes]) as cpu:
+            lgs_cpu, kv_cpu = run(host, x.cpu(), pos.cpu())
+        cpu_s = time.perf_counter() - t0
+        del host
+    errs = {}
+    for name, a, b in (("dense", kv[0], kv_cpu[0]), ("moe", kv[1], kv_cpu[1])):
+        for t in ("ckv", "kr"):
+            errs[f"{name}_{t}_max_abs_err"] = _rel_err(
+                a[t], b[t], f"{name} {t} cache")
+            errs[f"{name}_{t}_scale"] = b[t].abs().max().item()
+    line("deepseek_plain", layers=["dense", "moe"], prompt=P,
+         decode_steps=n, plain_on="cpu",
+         logits_max_abs_err=[_rel_err(a, b, f"logits {i}") for i, (a, b)
+                             in enumerate(zip(lgs, lgs_cpu))],
+         logits_scale=max(b.abs().max().item() for b in lgs_cpu),
+         **errs, rel_tol=LM_REL_TOL, dropped_card=int(card.dropped),
+         dropped_cpu=int(cpu.dropped), near_ties_card=_near_ties(card.routes),
+         **_route_flips(card.routes, cpu.routes), host_copy_s=copy_s,
+         cpu_plain_s=cpu_s)
+
+
+def check_mla_absorbed(params, gen) -> None:
+    """At full width (128 heads, kv rank 512), the dense layer's MLA: the
+    absorbed decode of a DEEPSEEK_PLAIN_PROMPT-token input's last position,
+    from the latent cache of the positions before it, against
+    ``mla_forward``'s expanded output for that position (one function
+    computed two ways; bf16 compute, LM_REL_TOL of its scale)."""
+    attn = tree_map(lambda t: t[0], params["segments"][0]["b0"]["attn"])
+    P = DEEPSEEK_PLAIN_PROMPT
+    x = _randn(gen, (1, P, DEEPSEEK.d_model), torch.bfloat16)
+    pos = torch.arange(P, device="cuda")[None]
+    with torch.inference_mode():
+        full = attn_mod.mla_forward(attn, x, DEEPSEEK, pos)[:, -1]
+        cache = attn_mod.init_mla_cache(DEEPSEEK, 1, P, device="cuda")
+        _, cache = attn_mod.mla_prefill(attn, x[:, :-1], DEEPSEEK,
+                                        pos[:, :-1], cache)
+        y, _ = attn_mod.mla_decode(attn, x[:, -1:], DEEPSEEK, pos[:, -1:],
+                                   cache, P - 1)
+    line("deepseek_absorbed", what="absorbed decode vs mla_forward, last "
+         "position", prompt=P, heads=DEEPSEEK.nq,
+         kv_lora_rank=DEEPSEEK.kv_lora_rank,
+         max_abs_err=_rel_err(y[:, 0], full, "absorbed decode"),
+         scale=full.abs().max().item(), rel_tol=LM_REL_TOL)
+
+
+def phase_deepseek() -> dict:
+    """DeepSeek-V2-236B at its full published width and 4 of its 60
+    layers (the dense first layer and 3 MoE layers), seeded fp32 weights
+    drawn on the card with the norm scales drawn N(1, 0.3): a 4 x 2048
+    prefill into a latent cache of 2048 + 32 positions and 32 greedy decode
+    steps (the routed experts' 2 grouped GEMMs a MoE layer on the tensor
+    cores, RMSNorm 17 a pass, vectorised, no flash), the drops at the
+    prefill and the steps, the first dense and MoE layer against the CPU,
+    the absorbed decode against the expanded forward, a profiled prefill
+    and decode by kernel group, then ``ServeEngine`` at the serve
+    launcher's defaults on the same weights. Returns the prefill's and
+    decode steps' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    done = eng.run()
+    params = transformer.init(gen, DEEPSEEK)
+    _draw_deepseek_norms(gen, params)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = _counts()
-    tokens = sum(len(r.out) for r in reqs)
-    if len(done) != len(reqs) or not all(r.done for r in reqs):
-        raise RuntimeError(f"engine finished {len(done)} of {len(reqs)} "
-                           "requests")
-    n = counts["rmsnorm"] // GEMMA_NORMS
-    if not n or counts != _pass_counts(n * GEMMA_NORMS, 0):
-        raise RuntimeError(f"engine launched {counts}")
-    line("gemma_engine", batch=4, s_max=128, requests=len(reqs),
-         done=len(done), tokens=tokens, seconds=dt,
-         tokens_per_s=tokens / dt, launches=counts, decode_calls=n)
-    del eng, params
+    sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
+    line("deepseek_init", arch=DEEPSEEK.arch_id, layers=DEEPSEEK.n_layers,
+         published_layers=deepseek_v2_236b.CONFIG.n_layers,
+         plan=[[seg.n_repeat, list(seg.pattern)]
+               for seg in layer_plan(DEEPSEEK)],
+         d_model=DEEPSEEK.d_model, heads=DEEPSEEK.nq,
+         q_lora_rank=DEEPSEEK.q_lora_rank,
+         kv_lora_rank=DEEPSEEK.kv_lora_rank,
+         qk_head_dim=DEEPSEEK.qk_nope_head_dim + DEEPSEEK.qk_rope_head_dim,
+         v_head_dim=DEEPSEEK.v_head_dim, experts=DEEPSEEK.n_experts,
+         top_k=DEEPSEEK.top_k, shared_experts=DEEPSEEK.n_shared_experts,
+         expert_d_ff=DEEPSEEK.expert_d_ff,
+         dense_d_ff=DEEPSEEK.shared_d_ff or DEEPSEEK.d_ff,
+         vocab=DEEPSEEK.vocab, params=sum(n for n, _ in sizes),
+         param_gb=sum(n * b for n, b in sizes) / 1e9,
+         init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         norm_scale_std=DEEPSEEK_NORM_STD, seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, DEEPSEEK)
+    s_cache = LM_PROMPT + LM_DECODE
+    warm = 256
+    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
+        lg, cache = make_prefill_step(DEEPSEEK, s_cache=warm + 1)(
+            params, toks[:, :warm], pos[:, :warm])
+        make_serve_step(DEEPSEEK)(params, lg.argmax(-1, keepdim=True).to(
+            torch.int32), pos[:, :1] + warm, cache, warm)
+    torch.cuda.synchronize()
+    del lg, cache
+    torch.cuda.reset_peak_memory_stats()
+
+    per_pass = _pass_counts(DEEPSEEK_NORMS, 0, 0, DEEPSEEK_GEMMS)
+    _set_counts()                     # DeepSeek-V2's main path
+    with _RouteLog() as log:
+        res = lm_prefill_decode(DEEPSEEK, params, toks, pos, per_pass,
+                                per_pass, s_cache=s_cache)
+    launches = _counts()
+    fallbacks = (launches["grouped_gemm"] - launches["gemm_tc"]
+                 + launches["rmsnorm"] - launches["rmsnorm_vec"])
+    line("deepseek_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
+         decode_steps=LM_DECODE, launches=launches,
+         gemm_per_pass=DEEPSEEK_GEMMS, flash_per_prefill=0,
+         rmsnorm_per_pass=DEEPSEEK_NORMS, fallbacks=fallbacks,
+         capacity_prefill=_moe_capacity(LM_PROMPT, DEEPSEEK),
+         capacity_decode=_moe_capacity(1, DEEPSEEK),
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+    moe_layers = DEEPSEEK.n_layers - DEEPSEEK.first_k_dense
+    prefill_calls = log.routes[:moe_layers]
+    with torch.inference_mode(), _RouteLog() as pre:
+        make_prefill_step(DEEPSEEK, s_cache=s_cache)(params, toks, pos)
+    pairs = moe_layers * LM_BATCH * LM_PROMPT * DEEPSEEK.top_k
+    line("deepseek_drops", what="routed (token, k) pairs dropped at "
+         "capacity, all MoE layers", prefill_dropped=int(pre.dropped),
+         prefill_pairs=pairs, prefill_share=int(pre.dropped) / pairs,
+         decode_dropped=int(log.dropped) - int(pre.dropped),
+         decode_pairs=moe_layers * LM_BATCH * LM_DECODE * DEEPSEEK.top_k,
+         near_ties_prefill=_near_ties(prefill_calls),
+         near_ties_decode=_near_ties(log.routes[moe_layers:]),
+         tokens_routed=moe_layers * LM_BATCH * (LM_PROMPT + LM_DECODE))
+    del log, pre, prefill_calls
+
+    check_deepseek_plain(params, toks)
+    check_mla_absorbed(params, gen)
+    profile_serving("deepseek_profile", DEEPSEEK, params, toks, pos, s_cache)
+    engine_at_defaults("deepseek_engine", DEEPSEEK, params, per_pass)
+    del params
     torch.cuda.empty_cache()
     return launches
 
@@ -2997,8 +3247,8 @@ def moe_train() -> dict:
         return dict(published_layers=QWEN.n_layers,
                     dropped=int(log.dropped), pairs=pairs,
                     dropped_share=int(log.dropped) / pairs,
-                    capacity=_qwen_capacity(seq),
-                    rows_an_expert=batch * _qwen_capacity(seq),
+                    capacity=_moe_capacity(seq),
+                    rows_an_expert=batch * _moe_capacity(seq),
                     near_ties=_near_ties(log.routes),
                     qkv_bias_std=QKV_BIAS_STD)
     return lm_cut_train(QWEN_TRAIN, "Qwen2-MoE", _draw_qkv_bias, _RouteLog,
@@ -3205,8 +3455,19 @@ def phase_timing(errs: dict, launches: dict) -> list:
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 local",
                                   GEMMA.sliding_window))
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 global"))
-    line("time", **time_qk_norm(gen))
-    for rec in time_moe_gemms(gen):
+    # RMSNorm as Gemma-3's QK-norm (its 32 q heads' rows of 128) and as
+    # DeepSeek-V2's q_norm and kv_norm run at a 4 x 2048 prefill
+    rows = LM_BATCH * LM_PROMPT
+    line("time", **time_norm(gen, "rmsnorm Gemma-3 QK-norm",
+                             rows * GEMMA.nq, GEMMA.hd, True,
+                             GEMMA.norm_eps, GEMMA_NORM_STD))
+    for what, dim in (("q_norm", DEEPSEEK.q_lora_rank),
+                      ("kv_norm", DEEPSEEK.kv_lora_rank)):
+        line("time", **time_norm(gen, f"rmsnorm DeepSeek-V2 {what}", rows,
+                                 dim, False, DEEPSEEK.norm_eps,
+                                 DEEPSEEK_NORM_STD))
+    for rec in (time_moe_gemms(gen)
+                + time_moe_gemms(gen, DEEPSEEK, "DeepSeek-V2")):
         line("time", **rec)
 
     # one trunk layer's six projections at E=10, C = 2 actions x 32 lanes x 144
@@ -3381,51 +3642,57 @@ def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
         visible_pairs_a_head=pairs // (B * Hq))
 
 
-def time_qk_norm(gen) -> dict:
-    """RMSNorm as Gemma-3's QK-norm runs it at a 4 x 2048 prefill: the 32
-    q heads' rows of 128, (262144, 128) bf16, gemma (1 + w), w fp32;
-    beside "simt", the plain version and ``F.rms_norm`` with the weight
-    1 + w in bf16. The bound: x read and y written once."""
-    rows, dim = LM_BATCH * LM_PROMPT * GEMMA.nq, GEMMA.hd
+def time_norm(gen, name: str, rows: int, dim: int, gemma: bool,
+              eps: float, w_std: float) -> dict:
+    """RMSNorm at (rows, dim) bf16, w fp32 (drawn N(0, w_std), or N(1,
+    w_std) without ``gemma``), as a prefill runs it: beside "simt", the
+    plain version and ``F.rms_norm`` with the weight it applies (1 + w
+    with ``gemma``) in bf16, the library's fused path. The bound: x read
+    and y written once."""
     x = _randn(gen, (rows, dim), torch.bfloat16, 3.0)
-    w = _randn(gen, (dim,), torch.float32, GEMMA_NORM_STD)
-    w1 = (1.0 + w).to(torch.bfloat16)
+    w = _randn(gen, (dim,), torch.float32, w_std)
+    if not gemma:
+        w += 1.0
+    w_lib = ((1.0 + w) if gemma else w).to(torch.bfloat16)
 
     def norm():
-        return rmsnorm(x, w, eps=GEMMA.norm_eps, gemma=True)
+        return rmsnorm(x, w, eps=eps, gemma=gemma)
     ms, variant = timed_variant(rmsnorm, norm)
     nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
     bms, by = bound_ms(nbytes, 4 * x.numel(), FP32_FLOP_PER_S)
-    lib_ms = time_ms(lambda: F.rms_norm(x, (dim,), w1, GEMMA.norm_eps))
+    lib_ms = time_ms(lambda: F.rms_norm(x, (dim,), w_lib, eps))
     return dict(
-        name="rmsnorm Gemma-3 QK-norm",
-        shape=f"({rows},{dim}) bf16, w fp32, gemma", variant=variant, ms=ms,
-        simt_ms=time_ms(lambda: norm_launch(x, w, "simt", eps=GEMMA.norm_eps,
-                                            gemma=True)),
-        plain_ms=time_ms(lambda: rmsnorm_ref(x, w, eps=GEMMA.norm_eps,
-                                             gemma=True), reps=5),
-        library_ms=lib_ms, library="F.rms_norm(weight=1 + w)",
+        name=name, shape=f"({rows},{dim}) bf16, w fp32"
+        + (", gemma" if gemma else ""), variant=variant, ms=ms,
+        simt_ms=time_ms(lambda: norm_launch(x, w, "simt", eps=eps,
+                                            gemma=gemma)),
+        plain_ms=time_ms(lambda: rmsnorm_ref(x, w, eps=eps, gemma=gemma),
+                         reps=5),
+        library_ms=lib_ms,
+        library="F.rms_norm(weight=1 + w)" if gemma else "F.rms_norm",
         library_factor=ms / lib_ms, host_us=host_us(norm), bound_ms=bms,
         bound_by=by, bound_share=bms / ms, bytes=nbytes)
 
 
-def time_moe_gemms(gen) -> list:
-    """The Qwen2-MoE routed experts' grouped GEMMs (E = 60, bf16) at a 4 x
-    2048 prefill's 684 rows an expert and a decode step's 4, wi then wo:
-    the kernel beside its plain version and ``torch.bmm``, with the bound
-    (x and w read, out written once; 2 x rows x d x f products an expert)
-    and the kernel's share of it."""
+def time_moe_gemms(gen, cfg=QWEN, model="Qwen2-MoE") -> list:
+    """The routed experts' grouped GEMMs of ``cfg`` (Qwen2-MoE: E = 60, a
+    4 x 2048 prefill's 684 rows an expert; DeepSeek-V2: E = 160, 384 rows)
+    and at a decode step's 4, bf16, wi then wo: the kernel beside its plain
+    version and ``torch.bmm``, with the bound (x and w read, out written
+    once; 2 x rows x d x f products an expert) and the kernel's share of
+    it."""
     recs = []
-    for what, C, din, dout in _qwen_gemm_shapes():
-        x, w = gemm_inputs(gen, QWEN.n_experts, C, din, dout, torch.bfloat16)
+    E = cfg.n_experts
+    for what, C, din, dout in _moe_gemm_shapes(cfg):
+        x, w = gemm_inputs(gen, E, C, din, dout, torch.bfloat16)
         ms, variant = timed_variant(grouped_gemm, lambda: grouped_gemm(x, w))
         nbytes = (x.numel() + w.numel() + x.shape[0] * C * dout) * 2
         flops = 2 * x.shape[0] * C * din * dout
         bms, by = bound_ms(nbytes, flops)
         recs.append(dict(
-            name=f"grouped_gemm Qwen2-MoE {what}",
-            shape=f"({QWEN.n_experts},{C},{din})x({QWEN.n_experts},{din},"
-                  f"{dout}) bf16", variant=variant, ms=ms,
+            name=f"grouped_gemm {model} {what}",
+            shape=f"({E},{C},{din})x({E},{din},{dout}) bf16",
+            variant=variant, ms=ms,
             plain_ms=time_ms(lambda: grouped_gemm_ref(x, w), reps=5),
             library_ms=time_ms(lambda: torch.bmm(x, w)), library="torch.bmm",
             host_us=host_us(lambda: grouped_gemm(x, w)), bound_ms=bms,
@@ -3514,7 +3781,7 @@ def time_gemm_bwd_lm(gen) -> list:
     views, with the bound (x, w, dy read and dx, dw written once; 2 x 2 x
     rows x d x f products an expert)."""
     recs = []
-    E, C = QWEN.n_experts, 2 * _qwen_capacity(LM_PROMPT)
+    E, C = QWEN.n_experts, 2 * _moe_capacity(LM_PROMPT)
     for what, din, dout in (("wi", QWEN.d_model, 2 * QWEN.expert_d_ff),
                             ("wo", QWEN.expert_d_ff, QWEN.d_model)):
         x, w = (t_.requires_grad_(True) for t_ in gemm_inputs(
@@ -4018,6 +4285,7 @@ def main() -> int:
     launches.update(phase("4c TinyLlama serving", phase_dense))
     launches.update(phase("4d Qwen2-MoE serving", phase_moe))
     launches.update(phase("4e Gemma-3 serving", phase_gemma))
+    launches.update(phase("4f DeepSeek-V2 serving", phase_deepseek))
     policies, grid = phase("6 grid", phase_grid)
     service = phase("7 service", phase_service, policies)
     del policies

@@ -7,8 +7,11 @@ Layouts:
   leaves stacked (L, ...), ``final_norm``, ``head``). The port keeps it as
   it is: no expert axis, every leaf the same shape. That holds for the MoE
   blocks' leaves too (``ffn.router`` (L, d, E), ``ffn.experts.wi`` (L, E,
-  d, 2, f) and ``.wo``, ``ffn.shared.{wi, wo}``) and the QKV biases
-  (``attn.bq`` (L, nq, hd), ``bk``, ``bv``).
+  d, 2, f) and ``.wo``, ``ffn.shared.{wi, wo}``), the QKV biases
+  (``attn.bq`` (L, nq, hd), ``bk``, ``bv``) and MLA's (``attn.w_dq`` (L, d,
+  q_lora), ``q_norm``, ``w_uq`` (L, q_lora, H, nope + rope), ``w_dkv``,
+  ``kv_norm``, ``w_kr``, ``w_uk`` (L, kv_lora, H, nope), ``w_uv`` and
+  ``wo`` (L, H, v, d)).
 
 * ``transformer`` kind. JAX leaves have no expert axis, and segment leaves
   are stacked over layers, (L, ...) (``repro/models/transformer.py:50``).

@@ -12,7 +12,10 @@ done or the wall-clock guard fires.
       [--smoke] [--requests 8] [--ckpt-dir checkpoints/svc] [--device cpu]
 
 ``--arch`` defaults to TinyLlama-1.1B, as in the reference; Mamba2-1.3B is
-``--arch mamba2-1.3b``. It runs on CUDA unless ``--device cpu`` is given.
+``--arch mamba2-1.3b`` and DeepSeek-V2 (MLA, 160 experts top-6) ``--arch
+deepseek-v2-236b``, whose full depth does not fit one card (``--smoke``
+serves its reduced config). It runs on CUDA unless ``--device cpu`` is
+given.
 """
 from __future__ import annotations
 

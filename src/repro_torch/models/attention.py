@@ -1,6 +1,7 @@
 """Attention (port of ``repro.models.attention``: GQA with RoPE, QK-norm
-and a KV cache, full or a sliding-window ring buffer; MLA and M-RoPE are
-not ported).
+and a KV cache, full or a sliding-window ring buffer; DeepSeek-V2's
+Multi-head Latent Attention (MLA) with its latent cache; M-RoPE is not
+ported).
 
 ``attention_core`` dispatches as the reference does, with one deliberate
 divergence: ``flash`` with no ``kv_len_valid`` and more than one query goes
@@ -25,13 +26,28 @@ given. Decode's ``index`` (the tokens already in the cache) is a scalar or
 one per row, (B,): each row writes its own slot and masks by its own
 length, or by its own ring's positions, which is what the reference
 computes for a row when it ``vmap``s a single-sequence decode over a batch.
+
+MLA caches each position's compressed latent (``ckv``, kv_lora wide) and
+its one RoPE key (``kr``, shared by every head) instead of K and V. The
+training forward expands them to per-head K/V and runs the reference math
+(q.k is nope + rope wide, v only v_head_dim: ``attention_reference``
+takes that; the flash kernel does not, and the config keeps
+``attn_impl="reference"``). Prefill runs ``mla_latent_chunked``, the
+reference's scan: it expands the latent one kv chunk at a time inside an
+fp32 online softmax, so the full expanded K/V never exists. The reference
+states it in jnp (a ``jax.lax.scan`` that no ``pallas_call`` computes),
+and so it stays plain PyTorch here, with the reference's chunks in its
+order; the port only runs the heads in groups (``MLA_LOGITS_BYTES``),
+which changes no value. Decode absorbs W_uk into the query and W_uv after
+the latent-space combine, in fp32, over the whole latent cache.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gemm import grouped_gemm
@@ -265,3 +281,193 @@ def attn_decode(params, x, cfg: ModelConfig, positions, cache, index, *,
                              causal=True, softcap=cfg.attn_logit_softcap,
                              kv_len_valid=index + 1)
     return _out_proj(params, out, cfg), cache
+
+
+# ========================================================================= MLA
+# the fp32 logits of one kv chunk that ``mla_latent_chunked`` holds at once,
+# at most: by its shape a 4 x 2048 prefill's chunk of 1024 over
+# DeepSeek-V2's 128 heads is 4.3 GB, a group of 32 heads 1.07 GB
+MLA_LOGITS_BYTES = 1 << 30
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig,
+             lead: Sequence[int] = ()) -> Dict:
+    """The reference's MLA leaves: the q down- and up-projections around
+    ``q_norm``, the kv down-projection and ``kv_norm``, the shared RoPE key
+    ``w_kr``, the per-head key and value up-projections ``w_uk``/``w_uv``
+    and ``wo`` (H, v_head_dim, d)."""
+    d, H = cfg.d_model, cfg.nq
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, d, cfg.q_lora_rank, cfg.pdtype, lead),
+        "q_norm": init_norm(cfg, cfg.q_lora_rank, lead),
+        "w_uq": dense_init(gen, cfg.q_lora_rank, (H, qk), cfg.pdtype, lead),
+        "w_dkv": dense_init(gen, d, cfg.kv_lora_rank, cfg.pdtype, lead),
+        "kv_norm": init_norm(cfg, cfg.kv_lora_rank, lead),
+        "w_kr": dense_init(gen, d, cfg.qk_rope_head_dim, cfg.pdtype, lead),
+        "w_uk": dense_init(gen, cfg.kv_lora_rank, (H, cfg.qk_nope_head_dim),
+                           cfg.pdtype, lead),
+        "w_uv": dense_init(gen, cfg.kv_lora_rank, (H, cfg.v_head_dim),
+                           cfg.pdtype, lead),
+        "wo": dense_init(gen, H * cfg.v_head_dim, d, cfg.pdtype,
+                         lead).unflatten(-2, (H, cfg.v_head_dim)),
+    }
+
+
+def _up(x, w, cfg: ModelConfig):
+    """x (..., r) through a (r, H, k) up-projection: (..., H, k), the
+    reference's ``...r,rhk->...hk`` in the compute dtype."""
+    w = w.to(cfg.cdtype)
+    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _mla_q(params, x, cfg: ModelConfig, positions):
+    """x (B, S, d) -> (q_nope (B, S, H, nope), q_rope (B, S, H, rope)),
+    the rope part RoPE'd at ``positions`` (B, S)."""
+    cq = apply_norm(params["q_norm"], x @ params["w_dq"].to(cfg.cdtype), cfg)
+    q = _up(cq, params["w_uq"], cfg)
+    qn, qr = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    return qn, apply_rope(qr, positions, cfg.rope_theta)
+
+
+def _mla_latent(params, x, cfg: ModelConfig, positions):
+    """x (B, S, d) -> (the normed latent ckv (B, S, kv_lora), the RoPE key
+    kr (B, S, rope)): kr is one key for every head, RoPE'd through a head
+    axis of 1."""
+    ckv = apply_norm(params["kv_norm"],
+                     x @ params["w_dkv"].to(cfg.cdtype), cfg)
+    kr = x @ params["w_kr"].to(cfg.cdtype)
+    kr = apply_rope(kr[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return ckv, kr
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(nope + rope): q.k's width, not v's."""
+    return 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def mla_forward(params, x, cfg: ModelConfig, positions):
+    """Training / prefill-compute MLA: expand K/V per head (the RoPE key
+    broadcast to every head) and run causal attention at ``_mla_scale``."""
+    qn, qr = _mla_q(params, x, cfg, positions)
+    ckv, kr = _mla_latent(params, x, cfg, positions)
+    kn = _up(ckv, params["w_uk"], cfg)
+    v = _up(ckv, params["w_uv"], cfg)
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, kr[..., None, :].expand(
+        kn.shape[:-1] + (cfg.qk_rope_head_dim,))], dim=-1)
+    out = attention_core(q, k, v, positions, positions, cfg, causal=True,
+                         scale=_mla_scale(cfg))
+    return _out_proj(params, out, cfg)
+
+
+def mla_latent_chunked(qn, qr, ckv, kr, w_uk, w_uv, wo, cfg: ModelConfig,
+                       chunk: int = 1024):
+    """Prefill attention over the latent: the kv positions in chunks of
+    ``chunk`` (the tail padded and masked past S), each chunk's latent
+    expanded to its keys and values in fp32 inside an fp32 online softmax,
+    queries at positions 0..Sq-1 attending causally. Heads run in groups
+    whose chunk logits fit ``MLA_LOGITS_BYTES``, each group over every
+    chunk in order: a head's arithmetic is the reference's."""
+    B, Sq, H, Dn = qn.shape
+    Dr, R, Dv = qr.shape[-1], ckv.shape[-1], cfg.v_head_dim
+    S = ckv.shape[1]
+    chunk = min(chunk, S)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        ckv = F.pad(ckv, (0, 0, 0, pad))
+        kr = F.pad(kr, (0, 0, 0, pad))
+    dev = qn.device
+    scale = _mla_scale(cfg)
+    qnf = (qn.float() * scale).transpose(1, 2)              # (B, H, Sq, Dn)
+    qrf = (qr.float() * scale).transpose(1, 2)              # (B, H, Sq, Dr)
+    q_pos = torch.arange(Sq, device=dev)[None]
+    group = max(1, min(H, MLA_LOGITS_BYTES // (4 * B * Sq * chunk)))
+    out = torch.empty((B, Sq, H, Dv), dtype=cfg.cdtype, device=dev)
+    for h0 in range(0, H, group):
+        hs = slice(h0, min(H, h0 + group))
+        g = hs.stop - h0
+        w_k = w_uk[:, hs].float().reshape(R, g * Dn)
+        w_v = w_uv[:, hs].float().reshape(R, g * Dv)
+        m = torch.full((B, g, Sq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, g, Sq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, g, Sq, Dv), dtype=torch.float32, device=dev)
+        for ci in range(n):
+            c = slice(ci * chunk, (ci + 1) * chunk)
+            ckv_i = ckv[:, c].float()                          # (B, k, R)
+            kn_i = (ckv_i @ w_k).unflatten(-1, (g, Dn)).permute(0, 2, 3, 1)
+            v_i = (ckv_i @ w_v).unflatten(-1, (g, Dv)).transpose(1, 2)
+            logits = qnf[:, hs] @ kn_i                         # (B,g,Sq,k)
+            logits += qrf[:, hs] @ kr[:, c].float().transpose(1, 2)[:, None]
+            kv_pos = ci * chunk + torch.arange(chunk, device=dev)[None]
+            logits += _mask_bias(q_pos, kv_pos, True, 0, S)[:, None]
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = logits.sub_(m_new[..., None]).exp_()
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + p @ v_i
+            m = m_new
+            del logits, p
+        out[:, :, hs] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(
+            cfg.cdtype).transpose(1, 2)
+    wo = wo.to(cfg.cdtype)
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, s_cache: int, dtype=None,
+                   device=None):
+    """Zero latent caches in ``dtype`` (the compute dtype by default):
+    ``ckv`` (batch, s_cache, kv_lora) and ``kr`` (batch, s_cache, rope)."""
+    dtype = dtype or cfg.cdtype
+    return {"ckv": torch.zeros((batch, s_cache, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, s_cache, cfg.qk_rope_head_dim),
+                              dtype=dtype, device=device)}
+
+
+def mla_prefill(params, x, cfg: ModelConfig, positions, cache):
+    """Latent-chunked attention over the prompt x (B, S, d), in kv chunks
+    of ``cfg.attn_chunk``, and a new cache holding the prompt's latents in
+    its first S slots and the given cache's after them."""
+    qn, qr = _mla_q(params, x, cfg, positions)
+    ckv, kr = _mla_latent(params, x, cfg, positions)
+    y = mla_latent_chunked(qn, qr, ckv, kr, params["w_uk"], params["w_uv"],
+                           params["wo"], cfg, chunk=cfg.attn_chunk)
+    S = x.shape[1]
+    if S > cache["ckv"].shape[1]:
+        raise ValueError(f"a prompt of {S} exceeds the cache's "
+                         f"{cache['ckv'].shape[1]} slots")
+    new = {name: torch.cat([t.to(cache[name].dtype), cache[name][:, S:]],
+                           dim=1)
+           for name, t in (("ckv", ckv), ("kr", kr))}
+    return y, new
+
+
+def mla_decode(params, x, cfg: ModelConfig, positions, cache, index):
+    """Absorbed-weight MLA decode of x (B, 1, d) at ``positions`` (B, 1):
+    the token's latents go to slot min(index, size - 1) of a new cache
+    (``index`` a scalar or (B,)), the query scores against the latent
+    cache in fp32 with W_uk folded into it, masked to slots <= index, and
+    the latent context goes back through W_uv before ``wo``."""
+    qn, qr = _mla_q(params, x, cfg, positions)           # (B,1,H,nope/rope)
+    ckv_t, kr_t = _mla_latent(params, x, cfg, positions)
+    size = cache["ckv"].shape[1]
+    index = torch.as_tensor(index, device=x.device)
+    col = index.reshape(-1, 1)                            # (B or 1, 1)
+    j = torch.arange(size, device=x.device)
+    hit = (j == torch.clamp(col, max=size - 1))[:, :, None]
+    cache = {"ckv": torch.where(hit, ckv_t.to(cache["ckv"].dtype),
+                                cache["ckv"]),
+             "kr": torch.where(hit, kr_t.to(cache["kr"].dtype), cache["kr"])}
+    ckv, kr = cache["ckv"].float(), cache["kr"].float()
+    q_lat = torch.einsum("bqhn,rhn->bqhr", qn.float(),
+                         params["w_uk"].float())           # (B,1,H,R)
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+              + torch.einsum("bqhk,bsk->bhqs", qr.float(), kr)
+              ) * _mla_scale(cfg)
+    valid = (j <= col)[:, None, None, :]
+    probs = torch.softmax(torch.where(valid, logits, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs, ckv)        # (B,1,H,R)
+    v = torch.einsum("bqhr,rhk->bqhk", ctx, params["w_uv"].float())
+    return _out_proj(params, v.to(cfg.cdtype), cfg), cache

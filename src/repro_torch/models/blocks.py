@@ -2,13 +2,14 @@
 attention + MLP blocks, Gemma-3's local (sliding-window attention, the
 local RoPE theta) and global (full attention) blocks, MoE blocks
 (attention + top-k MoE) and Mamba2 SSD blocks, in three modes, with the
-sandwich (post-attention, post-FFN) norms where the config has them. The
+sandwich (post-attention, post-FFN) norms where the config has them and
+MLA in place of GQA in dense and MoE blocks where it has ``use_mla``. The
 agent runs dense blocks in ``forward`` mode over a leading expert axis; the
 LMs run them in every mode.
 
 Modes: ``forward`` (no cache), ``prefill`` (cache fill), ``decode`` (one
-token, cache update at ``index``). Shared-attention (``attn``) blocks, MLA
-and parallel blocks are not ported.
+token, cache update at ``index``). Shared-attention (``attn``) blocks and
+parallel blocks are not ported.
 """
 from __future__ import annotations
 
@@ -33,6 +34,11 @@ def _attn_opts(kind: str, cfg: ModelConfig) -> Dict:
     return dict(window=0, theta=cfg.rope_theta)
 
 
+def _mla(kind: str, cfg: ModelConfig) -> bool:
+    """Whether a block of ``kind`` attends by MLA."""
+    return cfg.use_mla and kind in ("dense", "moe")
+
+
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                lead: Sequence[int] = ()) -> Dict:
     if kind == "mamba":
@@ -40,8 +46,10 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                 "mamba": ssm_mod.init_mamba(gen, cfg, lead)}
     if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
+    init_attn = attn_mod.init_mla if _mla(kind, cfg) else \
+        attn_mod.init_attention
     p = {"ln1": init_norm(cfg, lead=lead), "ln2": init_norm(cfg, lead=lead),
-         "attn": attn_mod.init_attention(gen, cfg, lead)}
+         "attn": init_attn(gen, cfg, lead)}
     if kind == "moe":
         p["ffn"] = moe_mod.init_moe(gen, cfg, lead)
     elif kind == "dense" and cfg.n_experts and cfg.first_k_dense:
@@ -79,7 +87,16 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     opts = _attn_opts(kind, cfg)
     h = apply_norm(params["ln1"], x, cfg)
-    if mode == "decode":
+    if _mla(kind, cfg):
+        if mode == "decode":
+            a, cache = attn_mod.mla_decode(params["attn"], h, cfg, positions,
+                                           cache, index)
+        elif mode == "prefill":
+            a, cache = attn_mod.mla_prefill(params["attn"], h, cfg,
+                                            positions, cache)
+        else:
+            a = attn_mod.mla_forward(params["attn"], h, cfg, positions)
+    elif mode == "decode":
         a, cache = attn_mod.attn_decode(params["attn"], h, cfg, positions,
                                         cache, index, **opts)
     elif mode == "prefill":
@@ -109,5 +126,7 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, s_cache: int,
     if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"{kind!r} blocks have no decode cache in "
                                   "the port")
+    if _mla(kind, cfg):
+        return attn_mod.init_mla_cache(cfg, batch, s_cache, dtype, device)
     window = cfg.sliding_window if kind == "local" else 0
     return attn_mod.init_kv_cache(cfg, batch, s_cache, window, dtype, device)

@@ -10,6 +10,7 @@ from typing import Tuple
 from .common import ModelConfig
 
 _ARCH_MODULES = {
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "mirage-agent": "repro_torch.configs.mirage_agent",

@@ -29,7 +29,7 @@ from .layers import (apply_norm, dense_init, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
 
 # features of ModelConfig that the port does not carry yet
-_UNPORTED = ("use_mla", "mrope_sections", "parallel_block")
+_UNPORTED = ("mrope_sections", "parallel_block")
 _CACHED_MODES = ("prefill", "decode")
 
 

@@ -5,10 +5,10 @@ Requests occupy slots of a fixed decode batch; finished slots are refilled
 from the queue, and a new slot's prompt is fed through per-slot decode
 steps. The reference vmaps a single-sequence decode over the slots, each at
 its own cache index. The port makes one batched ``decode_step`` with the
-slots' indices as a (batch,) tensor: each row writes its K/V at its own
-slot and masks its own length (``attn_decode``), and ``mamba_decode``
-reads no index, so every row of the batched step is that row's
-single-sequence decode. Merging back only the slots that were meant to
+slots' indices as a (batch,) tensor: each row writes its K/V, or MLA's
+latents, at its own slot and masks its own length (``attn_decode``,
+``mla_decode``), and ``mamba_decode`` reads no index, so every row of the
+batched step is that row's single-sequence decode. Merging back only the slots that were meant to
 advance then computes what the reference computes.
 
 This is the long-running inference service Mirage keeps alive across

@@ -45,7 +45,11 @@ also at Gemma-3's d_model (5376 in bf16, 672 vectors, gemma) and at the
 Qwen2-MoE's MoE layer at ``SMOKE`` runs on the card against the CPU (its
 two grouped GEMMs on the tensor cores in bf16), and the grouped GEMM at the
 full model's expert shapes: a 4 x 2048 prefill's 684 rows an expert and a
-decode step's 4.
+decode step's 4. DeepSeek-V2's: the grouped GEMM at its 160 experts (a 4 x
+2048 prefill's 384 rows an expert and a decode step's 4, experts with 0, 1
+and ragged counts of rows), RMSNorm at its q and kv ranks (1536, 512), and
+its SMOKE model with 16 experts top-6 (a prefill and 10 decode steps
+through MLA's latent cache, fp32) against the CPU.
 
 TinyLlama's first 2 layers at full width run a prefill and two decode
 steps on the card against the plain path on the CPU, same weights (2e-2 of
@@ -204,6 +208,33 @@ def test_expert_mlp_kernel_path(cuda, dtype, tc):
                                rtol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,d,f", [
+    (384, 5120, 3072),      # DeepSeek-V2's 4 x 2048 prefill, wi
+    (384, 1536, 5120),      # its wo
+    (4, 5120, 3072),        # a decode step's 4 rows, wi
+    (4, 1536, 5120),        # and wo
+    (97, 512, 136),         # C and f off the tile
+])
+def test_grouped_gemm_at_160_experts(cuda, C, d, f):
+    """DeepSeek-V2's routed experts (E = 160) in bf16 on the tensor cores,
+    laid out as the capacity dispatch fills them: each expert's first n_e
+    rows hold tokens and the rest zeros, n_e ragged, some experts with 0
+    rows and some with 1 (a full C where C = 4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    E = 160
+    x, w = (torch.from_numpy(a).to(cuda, torch.bfloat16) for a in _normal(
+        C + d, (E, C, d), (E, d, f), scale=d ** -0.25))
+    n = torch.from_numpy(np.random.default_rng(C).integers(0, C + 1, E))
+    n[:8], n[8:16] = 0, 1
+    x *= (torch.arange(C)[None] < n[:, None]).to(cuda, x.dtype)[..., None]
+    out, counts = _launched(grouped_gemm, lambda: grouped_gemm(x, w))
+    assert counts == (1, 1) and out.shape == (E, C, f)
+    assert not out[:8].any() and out[8:16, 1:].abs().max() == 0
+    torch.testing.assert_close(out.float(), grouped_gemm_ref(x, w).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
 def _counted(kernel, counter, fn):
     """Run ``fn`` and return the (launches, ``counter``) it added."""
     n, n_fast = kernel.launches, getattr(kernel, counter)
@@ -229,6 +260,12 @@ def _counted(kernel, counter, fn):
     (4096, 128, BF16, FP32, True, "plain", "vec"),     # Gemma-3 QK-norm
     (8192, 5376, BF16, FP32, True, "plain", "vec"),    # its d_model, 672 vectors
     (3, 5376, FP32, FP32, True, "plain", "simt"),      # 1344 vectors: too many
+    (8192, 1536, BF16, FP32, False, "plain", "vec"),   # DeepSeek-V2 q_norm
+    (8192, 512, BF16, FP32, False, "plain", "vec"),    # its kv_norm
+    (8192, 1536, FP32, FP32, False, "plain", "vec"),
+    (8192, 512, FP32, FP32, False, "plain", "vec"),
+    (4, 1536, BF16, FP32, False, "plain", "vec"),      # a decode step's
+    (4, 512, BF16, FP32, False, "plain", "vec"),
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, w_dtype, gemma,
                                       layout, variant):
@@ -479,6 +516,68 @@ def test_gemma3_smoke_kernel_path(cuda, dtype):
         else:
             assert (a.float() - b.float()).abs().max() <= \
                 2e-2 * b.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_deepseek_v2_smoke_kernel_path(cuda):
+    """DeepSeek-V2 SMOKE with 16 experts top-6 over a dense layer and 2 MoE
+    layers, in fp32, every norm scale drawn N(1, 0.3) in place of the
+    init's ones: a 40-token prefill (MLA's latent chunks of 16) into a cache
+    of 50 and 10 decode steps of the same tokens on the card against the
+    plain path on the CPU, same weights. Each pass launches 2 grouped GEMMs
+    a MoE layer and 4 RMSNorm a layer (the block norms, q_norm, kv_norm)
+    plus the final one, and no flash kernel; logits and the latent caches
+    hold within 1e-4. The router runs in fp32 on the same x on both."""
+    from repro_torch.configs import deepseek_v2_236b
+    from repro_torch.convert import tree_map
+    from repro_torch.models import transformer
+    cfg = deepseek_v2_236b.SMOKE.replace(compute_dtype=FP32, n_experts=16,
+                                         top_k=6, n_layers=3, attn_chunk=16)
+    gen = torch.Generator().manual_seed(0)
+    params = transformer.init(gen, cfg)
+
+    def bump(path, t):
+        return t + 0.3 * torch.randn(t.shape, generator=gen) \
+            if "scale" in path else t
+
+    def walk(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + "/" + k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path) for v in tree]
+        return bump(path, tree)
+    params = walk(params)
+    B, P, steps = 2, 40, 10
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, P + steps)))
+    pos = torch.arange(P + steps)[None].expand(B, P + steps)
+    counts, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        n = (flash_attention.launches, grouped_gemm.launches,
+             rmsnorm.launches)
+        with torch.inference_mode():
+            lg, cache = transformer.prefill(p, cfg, toks[:, :P].to(dev),
+                                            pos[:, :P].to(dev), P + steps)
+            lgs = [lg]
+            for i in range(P, P + steps):
+                lg, cache = transformer.decode_step(
+                    p, cfg, toks[:, i:i + 1].to(dev), pos[:, i:i + 1].to(dev),
+                    cache, i)
+                lgs.append(lg)
+        torch.cuda.synchronize()
+        counts[dev] = (flash_attention.launches - n[0],
+                       grouped_gemm.launches - n[1], rmsnorm.launches - n[2])
+        leaves = [t for seg in cache["segments"] for blk in seg.values()
+                  for t in blk.values()]
+        outs[dev] = [t.cpu() for t in lgs + leaves]
+    L = cfg.n_layers
+    assert counts["cpu"] == (0, 0, 0)
+    assert counts["cuda"] == (0, (1 + steps) * 2 * (L - 1),
+                              (1 + steps) * (4 * L + 1))
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert a.shape == b.shape and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda

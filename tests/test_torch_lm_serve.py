@@ -125,8 +125,8 @@ def test_engine_rejects_unported_configs(model):
     _, tp = model
     with pytest.raises(ValueError):
         ServeEngine(t_agent.CONFIG, tp, device="cpu")          # encoder
-    with pytest.raises(NotImplementedError, match="use_mla"):
-        ServeEngine(ModelConfig(use_mla=True), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="parallel_block"):
+        ServeEngine(ModelConfig(parallel_block=True), tp, device="cpu")
 
 
 def test_prefill_and_serve_steps_match_jax(model):

@@ -20,9 +20,10 @@ CPU.
   forward equals JAX's.
 * A leading dense layer (``first_k_dense`` 1) before the MoE ones.
 * One ``make_train_step`` step of ``SMOKE`` at ``attn_impl="flash"``
-  against JAX's train step: the metrics (the aux loss among them), AdamW's
-  m and v and the updated parameters (tests/test_torch_lm_train.py's
-  tolerances), on the plain path and on the card's route (the flash,
+  against JAX's train step: the metrics (the aux loss among them) and
+  AdamW's m and v, then the updated parameters against JAX's AdamW update
+  fed the port's own clipped gradient (1e-4 of each leaf's scale), on the
+  plain path and on the card's route (the flash,
   RMSNorm and grouped-GEMM autograd Functions with their launches' plain
   versions).
 * The train launcher's default ``--arch`` is the reference's.
@@ -58,6 +59,7 @@ from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro.train import make_serve_step as j_make_serve_step
 from repro.train.optimizer import OptimizerConfig as JOptimizerConfig
+from repro.train.optimizer import adamw_update as j_adamw_update
 from repro.train.optimizer import init_opt_state as j_init_opt_state
 from repro.train.step import make_train_step as j_make_train_step
 from repro_torch import convert
@@ -649,45 +651,56 @@ def _card_route(monkeypatch):
         monkeypatch.setattr(norm_ops.rmsnorm, name, 0)
 
 
-def _close_tree(ours, theirs, tol, what, base=None, step_tol=2e-2):
-    """Every leaf within ``tol`` of its JAX leaf's scale (paths equal);
-    with ``base``, plus ``step_tol`` of the leaf's largest update
-    (tests/test_torch_lm_train.py's rule for parameters after AdamW)."""
+def _close_tree(ours, theirs, tol, what):
+    """Every leaf within ``tol`` of its JAX leaf's scale (paths equal)."""
     ours = jax.tree_util.tree_flatten_with_path(convert.tree_map(_np, ours))[0]
     theirs = jax.tree_util.tree_flatten_with_path(theirs)[0]
-    bases = [None] * len(theirs) if base is None else jax.tree.leaves(base)
-    assert len(ours) == len(theirs) == len(bases), what
-    for (pa, a), (pb, b), b0 in zip(ours, theirs, bases):
+    assert len(ours) == len(theirs), what
+    for (pa, a), (pb, b) in zip(ours, theirs):
         assert pa == pb, what
         b = np.asarray(b, np.float32)
         bound = tol * max(np.abs(b).max(), 1e-30)
-        if b0 is not None:
-            bound += step_tol * np.abs(b - np.asarray(b0, np.float32)).max()
         assert np.abs(a - b).max() <= bound, \
             f"{what} {jax.tree_util.keystr(pa)}"
+
+
+def _jax_update_of(ts1, jp, jstate):
+    """JAX's AdamW update past its clipping, fed the port's own clipped
+    gradient with the same parameters and state: the first step's m is
+    (1 - b1) times it, from m = 0. The parameters then compare at a
+    well-conditioned point: an element whose |g| is near eps moves by lr *
+    g / (|g| + eps), which a rounding-size change in g moves by a large
+    share of lr, so the updates of two gradients that agree to rounding
+    need not agree there."""
+    jocfg = JOptimizerConfig(**OPT, grad_clip=0.0)
+    one_minus_b1 = np.float32(1 - jocfg.beta1)
+    grads = jax.tree.map(lambda m: jnp.asarray(m / one_minus_b1),
+                         convert.to_jax(ts1["m"]))
+    return j_adamw_update(grads, jp, jstate, jocfg)[0]
 
 
 @pytest.mark.parametrize("route", ["plain", "card"])
 def test_train_step_matches_jax(model, monkeypatch, route):
     """One ``make_train_step`` step of Qwen2-MoE ``SMOKE`` (nonzero QKV
     biases) at ``attn_impl="flash"`` against JAX's train step at
-    ``"reference"`` (its Pallas kernel has no VJP): the metrics, the
-    updated parameters and AdamW's m (the clipped gradient's tenth) and v,
-    the router's through the aux loss and the gates; no router near-tie.
+    ``"reference"`` (its Pallas kernel has no VJP): the metrics and AdamW's
+    m (the clipped gradient's tenth) and v, the router's through the aux
+    loss and the gates; no router near-tie. Then the updated parameters
+    against JAX's AdamW update fed the port's own clipped gradient
+    (``_jax_update_of``).
     The "card" route runs the flash, RMSNorm and grouped-GEMM autograd
     Functions with their launches' plain versions: each step launches 2
     flash backwards, 2 x 2 + 1 RMSNorm backwards and the experts' 2 grouped
     GEMMs a layer, each with dX and dW (fp32: two launches a projection).
-    Tolerances of tests/test_torch_lm_train.py: metrics 1e-5 relative, m
-    and v 1e-4 of each leaf's scale, parameters that plus 2e-2 of the
-    leaf's update."""
+    Tolerances: metrics 1e-5 relative, m, v and the parameters 1e-4 of
+    each leaf's scale."""
     jcfg, _ = _configs()
     tcfg = t_qwen.SMOKE.replace(attn_impl="flash")
     jp, tp = model
     toks = _tokens(jcfg, 2, 25, seed=11)
     batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
     jstate = j_init_opt_state(jp, JOptimizerConfig(**OPT))
-    jp1, js1, jm = j_make_train_step(jcfg, JOptimizerConfig(**OPT))(
+    _, js1, jm = j_make_train_step(jcfg, JOptimizerConfig(**OPT))(
         jp, jstate, jax.tree.map(jnp.asarray, batch))
     if route == "card":
         _card_route(monkeypatch)
@@ -706,4 +719,4 @@ def test_train_step_matches_jax(model, monkeypatch, route):
                                    rtol=1e-5, err_msg=name)
     _close_tree(ts1["m"], js1["m"], TOL, "m")
     _close_tree(ts1["v"], js1["v"], TOL, "v")
-    _close_tree(tp1, jp1, TOL, "params", base=jp)
+    _close_tree(tp1, _jax_update_of(ts1, jp, jstate), TOL, "params")
