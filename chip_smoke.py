@@ -14,7 +14,8 @@ exits non-zero:
    serving paths' shapes and at ragged ones, with the tolerance stated; each
    case checks through the launch counters which variant ran (flash, at
    TinyLlama's causal GQA prefill shape (4,2048,32/4,64), Qwen2-MoE's
-   (4,2048,16/16,128) and Gemma-3's (4,2048,32/16,128), with its local
+   (4,2048,16/16,128), Qwen1.5-4B's (4,2048,20/20,128) and Gemma-3's
+   (4,2048,32/16,128), with its local
    layers' window of 1024 and without (its global layers), and ragged at
    (2,1100,32/16,128) with the window, among others, the GEMM (at the
    Qwen2-MoE experts' prefill and decode shapes too) and the SSD scan:
@@ -28,7 +29,8 @@ exits non-zero:
    flash's (with the forward's row log-sum-exp; bf16 on the tensor cores in
    the short form at the trunk's MHA heads and in the streaming form for
    GQA, D = 128, long and ragged sequences, TinyLlama's training layer
-   (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128) and Gemma-3's
+   (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128), Qwen1.5-4B's
+   training layer (2,2048,20/20,128) and Gemma-3's
    local and global training layers at (2,2048,32/16,128); with the
    window mask in every form: 1024 at S 2048, 1000 at a ragged S of 2050,
    48 (under one tile), the short form at S 144; each "tc" case also
@@ -37,8 +39,10 @@ exits non-zero:
    the CUDA cores) and the GEMM's (in bf16 both
    products from one launch of the fused kernel, dW split along C and the
    same bit for bit over repeated calls, at Qwen2-MoE's training shapes
-   too), and RMSNorm's (Gemma-3's block norms at (4096,5376) with gemma
-   among them) and the SSD scan's
+   and DeepSeek-V2's, 160 experts of 96 rows, too), and RMSNorm's
+   (Gemma-3's block norms at (4096,5376) with gemma and DeepSeek-V2's q
+   and kv norms at (2048,1536) and (2048,512) among them) and the SSD
+   scan's
    at phase 8's shapes, ragged rows and chunks, chunks whose length is not
    a multiple of the scan backward's tiles (100, and the smoke config's
    16), d off 8, gemma, G = 2, P = 128, an initial state and the final
@@ -144,6 +148,15 @@ exits non-zero:
    it, at 128 heads and kv rank 512; a prefill and 5 decode steps under
    torch.profiler, by kernel group; ``ServeEngine`` at the serve
    launcher's defaults on the same weights;
+4g. Qwen1.5-4B serving at its full published width and depth (40 layers,
+   d 2560, 20 heads of 128 over as many kv heads, d_ff 6912, vocab
+   151,936, QKV bias, RoPE theta 5e6), seeded fp32 weights drawn on the
+   card (3.95 B parameters) with the QKV biases drawn nonzero: as 4c, a 4
+   x 2048 prefill into a cache of 2,080 and 32 decode steps, raising
+   unless each prefill launched exactly 40 flash kernels (tc) and 81
+   RMSNorm (vec) and each step 0 and 81; the peak memory; its first 2
+   layers' last-token logits and KV cache against the plain path on the
+   CPU at 1 x 512;
 6. the Fig-8 grid on torch learners at the agent's full width, as
    ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
    cluster (V100), single-node chains, the six cells {light, medium, heavy}
@@ -214,7 +227,28 @@ exits non-zero:
    ``repro_torch.launch.train`` with no ``--arch`` (TinyLlama-1.1B, the
    reference's default) at its full-width defaults, 8 x 128, for 3 steps,
    its checkpoint not written: finite losses, the peak memory, and 66 flash
-   backwards, all on the tensor cores;
+   backwards, all on the tensor cores; before the launchers, the donated
+   step (``make_train_step(..., donate=True)``, the one ``ChainedTrainer``
+   runs, as the reference jits its step with donated params and optimizer
+   state): TinyLlama's first 2 layers at full width, one 2 x 2048 step
+   functional and donated from the same state, raising unless every leaf
+   holds the same bits and every donated leaf kept its storage; then three
+   runs through ``ChainedTrainer``'s donated step, each a warm-up and 3
+   steps with ms a step, tokens/s, losses, the peak memory and the
+   launches checked, its checkpoints not written: Qwen1.5-4B at full
+   width on 32 of 40 layers, fp32 m and v, QKV biases drawn nonzero, 2 x
+   2048 (a flash launch a layer each way, tc; 65 RMSNorm each way, vec);
+   HuBERT X-Large at full width and depth (48 layers, heads of 80,
+   LayerNorm, bidirectional) on 4 x 1000 frames, after a timed
+   ``forward`` and ``loss_fn`` on the same batch (no kernel launch on its
+   path), and its first 2 layers' gradients against the CPU; DeepSeek-V2
+   at full width on 2 of 60 layers (the dense first layer and one MoE
+   layer, 5.19 B parameters), bf16 m and v, every norm scale drawn N(1,
+   0.3), 1 x 2048 (the routed experts' 2 grouped GEMMs forward and 2
+   fused backward calls a step, all tc; 9 RMSNorm each way, vec; no
+   flash), the pairs dropped at capacity, its 2 layers' gradients at 1 x
+   128 against the CPU with the host's peak memory, and one donated step
+   under torch.profiler;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -249,9 +283,12 @@ exits non-zero:
    where the heads are grouped; with the band as its ``attn_mask`` under
    the window) and its bound; TinyLlama's heads under that window at 1,
    2, 4 and 8 shares (the split rule's measurement); the GEMM backward at
-   Qwen2-MoE's training wi and wo shapes beside two ``torch.bmm``;
-   RMSNorm's backward over a Gemma-3 layer's 4 block norms beside
-   autograd through ``F.rms_norm``; and the backward kernels
+   Qwen2-MoE's training wi and wo shapes and at DeepSeek-V2's (E = 160,
+   96 rows an expert) beside two ``torch.bmm``; flash forward and backward
+   at Qwen1.5-4B's layer, (4,2048,20/20,128) and (2,2048,20/20,128)
+   causal, beside SDPA; RMSNorm's backward over a Gemma-3 layer's 4 block
+   norms and at DeepSeek-V2's q and kv norms, (2048,1536) and (2048,512),
+   beside autograd through ``F.rms_norm``; and the backward kernels
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
@@ -260,12 +297,14 @@ exits non-zero:
    the "simt" one as ``simt_ms``) beside their plain versions and, for
    RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 6, 7, 8, 5, and
+Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g, 6, 7, 8, 5, and
 each ends with a ``[phase]`` line of its wall time. Each kernel's
 ``launches`` in the JSON record sums the counts of every path that runs it
-(phases 3, 4, 4b, 4c's, 4d's, 4e's and 4f's prefill and decode steps, 6, 7 and 8: runs (a), (b)
-and (c), the 2 x 2048 runs of TinyLlama, Gemma-3 and Qwen2-MoE and the
-launcher at its defaults), each counted
+(phases 3, 4, 4b, 4c's, 4d's, 4e's, 4f's and 4g's prefill and decode
+steps, 6, 7 and 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
+Gemma-3 and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
+Qwen1.5-4B, HuBERT and DeepSeek-V2 and the launcher at its defaults), each
+counted
 from 0 just before its path and read just after.
 
 The last two lines are the kernels' JSON record and
@@ -275,8 +314,10 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
+import resource
 import shutil
 import subprocess
 import sys
@@ -292,8 +333,8 @@ import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import (deepseek_v2_236b, gemma3_27b,  # noqa: E402
-                                 mamba2_1_3b, mirage_agent, qwen2_moe_a2_7b,
-                                 tinyllama_1_1b)
+                                 hubert_xlarge, mamba2_1_3b, mirage_agent,
+                                 qwen1_5_4b, qwen2_moe_a2_7b, tinyllama_1_1b)
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
                               CircuitBreaker, DecisionJournal, DQNConfig,
@@ -452,6 +493,27 @@ GEMMA_GRAD_SEQ = 2048   # its gradient check runs past the window of 1024
 # Qwen1.5-MoE-A2.7B training (phase 8): the deepest cut under ~75 GB at the
 # update, 0.622 B for the embedding and head and 0.571 B a layer
 QWEN_TRAIN = qwen2_moe_a2_7b.CONFIG.replace(n_layers=3)
+# phase 4g: Qwen1.5-4B at its published width and depth (40 layers, 3.95 B
+# parameters, 15.8 GB fp32)
+QWEN4B = qwen1_5_4b.CONFIG
+QWEN4B_NORMS = 2 * QWEN4B.n_layers + 1
+# its training (phase 8) through ChainedTrainer's donated step, fp32 m and
+# v, 16 bytes a parameter with the gradient: the deepest cut whose
+# predicted peak at 2 x 2048 stays under ~70 GB (PERF.md §4)
+QWEN4B_TRAIN = qwen1_5_4b.CONFIG.replace(n_layers=32)
+# HuBERT X-Large (phase 8) at its published width and depth: forward, loss
+# and training on 4 x 1000 frames (20 s of audio at 50 frames/s)
+HUBERT = hubert_xlarge.CONFIG
+HUBERT_BATCH, HUBERT_FRAMES = 4, 1000
+# DeepSeek-V2-236B training (phase 8): its published width on 2 of 60
+# layers, the dense first layer and one MoE layer (5.19 B parameters),
+# through ChainedTrainer's donated step with bf16 m and v, as the
+# reference's dry run trains it (``BF16_OPT_STATE``): 12 bytes a parameter
+# with the fp32 gradient, ~62.3 GB
+DEEPSEEK_TRAIN = deepseek_v2_236b.CONFIG.replace(n_layers=2)
+DEEPSEEK_TRAIN_OCFG = dataclasses.replace(TRAIN_OCFG, state_dtype="bfloat16")
+DEEPSEEK_TRAIN_RUN = ("1 x 2048", 1, 2048, 3)
+DEEPSEEK_GRAD_SEQ = 128   # its 2-layer check: the host holds ~42 GB
 TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 
@@ -527,6 +589,14 @@ def ssd_inputs(gen, Bz, S, H, P, N, G, dtype, init):
 
 
 def _err(out, ref, atol, rtol, what):
+    """max|out - ref|, raising where an element is off by more than atol +
+    rtol |ref| (``torch.testing.assert_close``); a tensor over 2^28
+    elements is compared in slices of its leading axis, since the check's
+    fp32 temporaries are several times its size."""
+    if out.numel() > 1 << 28 and out.shape[0] > 1:
+        step = max(1, out.shape[0] * (1 << 28) // out.numel())
+        return max(_err(out[i:i + step], ref[i:i + step], atol, rtol, what)
+                   for i in range(0, out.shape[0], step))
     out, ref = out.float(), ref.float()
     err = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, atol=atol, rtol=rtol, msg=lambda m:
@@ -587,6 +657,10 @@ def phase_kernels() -> dict:
         ("flash Qwen2-MoE prefill, causal (4,2048,16/16,128) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, QWEN.nq,
                              QWEN.nkv, QWEN.hd, torch.bfloat16), "tc",
+         BF16_TOL, BF16_TOL),
+        ("flash Qwen1.5-4B prefill, causal (4,2048,20/20,128) bf16",
+         dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, QWEN4B.nq,
+                             QWEN4B.nkv, QWEN4B.hd, torch.bfloat16), "tc",
          BF16_TOL, BF16_TOL),
         ("flash Gemma-3 local prefill, causal GQA window 1024 "
          "(4,2048,32/16,128) bf16",
@@ -811,6 +885,9 @@ def check_backward(gen, errs: dict) -> None:
          "tc"),
         ("flash bwd Qwen2-MoE heads (2,1024,16/16,128) bf16", causal,
          (2, 1024, 1024, QWEN.nq, QWEN.nkv, QWEN.hd, bf16), "tc"),
+        ("flash bwd Qwen1.5-4B training (2,2048,20/20,128) bf16", causal,
+         (2, LM_PROMPT, LM_PROMPT, QWEN4B.nq, QWEN4B.nkv, QWEN4B.hd, bf16),
+         "tc"),
         ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32", both,
          (2, 97, 131, 8, 2, 64, torch.float32), "simt"),
         ("flash bwd Gemma-3 global training (2,2048,32/16,128) bf16", causal,
@@ -902,13 +979,13 @@ def check_backward(gen, errs: dict) -> None:
                (E, 2000, d, d, bf16), "dy_rows", BF16_TOL),
               ("gemm bwd ragged (3,1001,200)x(3,200,136) bf16",
                (3, 1001, 200, 136, bf16), "plain", BF16_TOL)]
-    # Qwen2-MoE's routed experts at a 2 x 2048 training batch: wi and wo
-    E60, C60 = QWEN.n_experts, 2 * _moe_capacity(LM_PROMPT)
-    cases += [(f"gemm bwd Qwen2-MoE training {what} ({E60},{C60},{a})x"
-               f"({E60},{a},{b}) bf16", (E60, C60, a, b, bf16), "plain",
-               BF16_TOL)
-              for what, a, b in (("wi", QWEN.d_model, 2 * QWEN.expert_d_ff),
-                                 ("wo", QWEN.expert_d_ff, QWEN.d_model))]
+    # the routed experts' wi and wo at Qwen2-MoE's 2 x 2048 training batch
+    # and DeepSeek-V2's 1 x 2048 (96 rows an expert, a k-tail of 32 in dW's
+    # contraction)
+    cases += [(f"gemm bwd {model} training {what} ({E},{C},{a})x"
+               f"({E},{a},{b}) bf16", (E, C, a, b, bf16), "plain", BF16_TOL)
+              for model, cfg, batch in MOE_TRAIN_GEMMS
+              for what, E, C, a, b in _moe_train_gemms(cfg, batch)]
     cases += [("gemm bwd ragged (3,1001,200)x(3,200,136) fp32",
                (3, 1001, 200, 136, torch.float32), "plain",
                FP32_GEMM_BWD_TOL)]
@@ -988,6 +1065,11 @@ def check_lm_backward(gen, errs: dict) -> None:
                "vec"),
               ("rmsnorm bwd Gemma-3's block norms (4096,5376) bf16 gemma, "
                "672 vectors", 4096, GEMMA.d_model, bf16, True, "vec"),
+              ("rmsnorm bwd DeepSeek-V2 q_norm (2048,1536) bf16, 192 "
+               "vectors", LM_PROMPT, DEEPSEEK.q_lora_rank, bf16, False,
+               "vec"),
+              ("rmsnorm bwd DeepSeek-V2 kv_norm (2048,512) bf16, 64 vectors",
+               LM_PROMPT, DEEPSEEK.kv_lora_rank, bf16, False, "vec"),
               ("rmsnorm bwd (4096,4096) fp32, past the vectors", 4096, din,
                f32, False, "simt"),
               ("rmsnorm bwd ragged (37,2048) fp32 gemma", 37, d, f32, True,
@@ -1514,6 +1596,17 @@ def _lm_inputs(gen, B, S, cfg=LM):
     return toks, torch.arange(S, device="cuda").expand(B, S)
 
 
+def _serve_warm_up(cfg, params, toks, pos, warm: int = 256) -> None:
+    """A prefill of the prompts' first ``warm`` tokens and one decode step,
+    untimed and uncounted: cuBLAS handles and the libraries load here."""
+    with torch.inference_mode():
+        lg, cache = make_prefill_step(cfg, s_cache=warm + 1)(
+            params, toks[:, :warm], pos[:, :warm])
+        make_serve_step(cfg)(params, lg.argmax(-1, keepdim=True).to(
+            torch.int32), pos[:, :1] + warm, cache, warm)
+    torch.cuda.synchronize()
+
+
 def lm_prefill_decode(cfg, params, toks, pos, per_prefill: dict,
                       per_step: dict, s_cache=None) -> dict:
     """One prefill of ``toks`` into a cache of ``s_cache`` positions (the
@@ -1655,12 +1748,12 @@ def phase_lm() -> dict:
 
 
 # ------------------------------------------- 4c. TinyLlama-1.1B serving
-def check_dense_plain(params, toks) -> None:
-    """The first LM_PLAIN_LAYERS layers of full-width TinyLlama, same
-    weights, prefill of one LM_PLAIN_PROMPT-token prompt: kernel path on
-    the card against the plain path on the CPU, last-token logits and the
-    KV cache."""
-    cfg = DENSE.replace(n_layers=LM_PLAIN_LAYERS)
+def check_dense_plain(params, toks, full=DENSE, tag="dense_plain") -> None:
+    """The first LM_PLAIN_LAYERS layers of the full-width dense model
+    ``full`` (TinyLlama; Qwen1.5-4B), same weights, prefill of one
+    LM_PLAIN_PROMPT-token prompt: kernel path on the card against the plain
+    path on the CPU, last-token logits and the KV cache."""
+    cfg = full.replace(n_layers=LM_PLAIN_LAYERS)
     sub = dict(params, segments=[{"b0": tree_map(
         lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
     x = toks[:1, :LM_PLAIN_PROMPT]
@@ -1677,7 +1770,7 @@ def check_dense_plain(params, toks) -> None:
             tree_map(lambda t: t.cpu(), sub), cfg, x.cpu(), pos.cpu())
         cpu_s = time.perf_counter() - t0
     kv, kv_cpu = (c["segments"][0]["b0"] for c in (cache, cache_cpu))
-    line("dense_plain", layers=LM_PLAIN_LAYERS, prompt=LM_PLAIN_PROMPT,
+    line(tag, layers=LM_PLAIN_LAYERS, prompt=LM_PLAIN_PROMPT,
          logits_max_abs_err=_rel_err(lg, lg_cpu, "logits"),
          logits_scale=lg_cpu.abs().max().item(),
          k_max_abs_err=_rel_err(kv["k"], kv_cpu["k"], "K cache"),
@@ -1707,14 +1800,7 @@ def phase_dense() -> dict:
          seconds=time.perf_counter() - t0)
     toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, DENSE)
     s_cache = LM_PROMPT + LM_DECODE
-    warm = 256
-    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
-        lg, cache = make_prefill_step(DENSE, s_cache=warm + 1)(
-            params, toks[:, :warm], pos[:, :warm])
-        make_serve_step(DENSE)(params, lg.argmax(-1, keepdim=True).to(
-            torch.int32), pos[:, :1] + warm, cache, warm)
-    torch.cuda.synchronize()
-    del lg, cache
+    _serve_warm_up(DENSE, params, toks, pos)
 
     _set_counts()                     # TinyLlama's main path
     res = lm_prefill_decode(DENSE, params, toks, pos,
@@ -1780,6 +1866,21 @@ def _moe_gemm_shapes(cfg=QWEN):
     dec = LM_BATCH * _moe_capacity(1, cfg)
     return [("prefill wi", pre, d, 2 * f), ("prefill wo", pre, f, d),
             ("decode wi", dec, d, 2 * f), ("decode wo", dec, f, d)]
+
+
+def _moe_train_gemms(cfg, batch: int):
+    """(what, E, rows an expert, d_in, d_out) of an MoE model's routed
+    experts' two grouped GEMMs at a batch x 2048 training batch, one
+    capacity group a sequence: Qwen2-MoE's 2 x 2048 gives 342 rows an
+    expert at E = 60, DeepSeek-V2's 1 x 2048 gives 96 at E = 160."""
+    d, f = cfg.d_model, cfg.expert_d_ff
+    E, C = cfg.n_experts, batch * _moe_capacity(LM_PROMPT, cfg)
+    return [("wi", E, C, d, 2 * f), ("wo", E, C, f, d)]
+
+
+# (model, config, batch) of the MoE training runs whose grouped GEMM
+# backward phases 2 and 5 check and time
+MOE_TRAIN_GEMMS = (("Qwen2-MoE", QWEN, 2), ("DeepSeek-V2", DEEPSEEK, 1))
 
 
 def _draw_qkv_bias(gen, params) -> None:
@@ -1954,14 +2055,7 @@ def phase_moe() -> dict:
          qkv_bias_std=QKV_BIAS_STD, seconds=time.perf_counter() - t0)
     toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, QWEN)
     s_cache = LM_PROMPT + LM_DECODE
-    warm = 256
-    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
-        lg, cache = make_prefill_step(QWEN, s_cache=warm + 1)(
-            params, toks[:, :warm], pos[:, :warm])
-        make_serve_step(QWEN)(params, lg.argmax(-1, keepdim=True).to(
-            torch.int32), pos[:, :1] + warm, cache, warm)
-    torch.cuda.synchronize()
-    del lg, cache
+    _serve_warm_up(QWEN, params, toks, pos)
     torch.cuda.reset_peak_memory_stats()
 
     _set_counts()                     # Qwen2-MoE's main path
@@ -2220,14 +2314,7 @@ def phase_gemma() -> dict:
          norm_scale_std=GEMMA_NORM_STD, seconds=time.perf_counter() - t0)
     toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, GEMMA)
     s_cache = LM_PROMPT + LM_DECODE
-    warm = 256
-    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
-        lg, cache = make_prefill_step(GEMMA, s_cache=warm + 1)(
-            params, toks[:, :warm], pos[:, :warm])
-        make_serve_step(GEMMA)(params, lg.argmax(-1, keepdim=True).to(
-            torch.int32), pos[:, :1] + warm, cache, warm)
-    torch.cuda.synchronize()
-    del lg, cache
+    _serve_warm_up(GEMMA, params, toks, pos)
     torch.cuda.reset_peak_memory_stats()
 
     _set_counts()                     # Gemma-3's main path
@@ -2396,14 +2483,7 @@ def phase_deepseek() -> dict:
          norm_scale_std=DEEPSEEK_NORM_STD, seconds=time.perf_counter() - t0)
     toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, DEEPSEEK)
     s_cache = LM_PROMPT + LM_DECODE
-    warm = 256
-    with torch.inference_mode():      # warm-up: cuBLAS handles, libraries
-        lg, cache = make_prefill_step(DEEPSEEK, s_cache=warm + 1)(
-            params, toks[:, :warm], pos[:, :warm])
-        make_serve_step(DEEPSEEK)(params, lg.argmax(-1, keepdim=True).to(
-            torch.int32), pos[:, :1] + warm, cache, warm)
-    torch.cuda.synchronize()
-    del lg, cache
+    _serve_warm_up(DEEPSEEK, params, toks, pos)
     torch.cuda.reset_peak_memory_stats()
 
     per_pass = _pass_counts(DEEPSEEK_NORMS, 0, 0, DEEPSEEK_GEMMS)
@@ -2440,6 +2520,50 @@ def phase_deepseek() -> dict:
     check_mla_absorbed(params, gen)
     profile_serving("deepseek_profile", DEEPSEEK, params, toks, pos, s_cache)
     engine_at_defaults("deepseek_engine", DEEPSEEK, params, per_pass)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------- 4g. Qwen1.5-4B serving
+def phase_qwen4b() -> dict:
+    """Qwen1.5-4B at its full published width and depth (40 layers, d 2560,
+    20 heads of 128 over as many kv heads, d_ff 6912, vocab 151,936, QKV
+    bias), seeded fp32 weights drawn on the card with the QKV biases drawn
+    N(0, QKV_BIAS_STD): a 4 x 2048 prefill into a cache of 2048 + 32
+    positions and 32 greedy decode steps (flash 40 a prefill on the tensor
+    cores, none a step; RMSNorm 81 each, vectorised), the peak memory, and
+    the first 2 layers against the CPU. Returns the prefill's and decode
+    steps' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(gen, QWEN4B)
+    _draw_qkv_bias(gen, params)
+    torch.cuda.synchronize()
+    sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
+    line("qwen4b_init", arch=QWEN4B.arch_id, layers=QWEN4B.n_layers,
+         d_model=QWEN4B.d_model, heads=QWEN4B.nq, kv_heads=QWEN4B.nkv,
+         head_dim=QWEN4B.hd, d_ff=QWEN4B.d_ff, vocab=QWEN4B.vocab,
+         rope_theta=QWEN4B.rope_theta, qkv_bias_std=QKV_BIAS_STD,
+         params=sum(n for n, _ in sizes),
+         param_gb=sum(n * b for n, b in sizes) / 1e9,
+         seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, QWEN4B)
+    s_cache = LM_PROMPT + LM_DECODE
+    _serve_warm_up(QWEN4B, params, toks, pos)
+    torch.cuda.reset_peak_memory_stats()
+
+    _set_counts()                     # Qwen1.5-4B's main path
+    res = lm_prefill_decode(QWEN4B, params, toks, pos,
+                            _pass_counts(QWEN4B_NORMS, 0, QWEN4B.n_layers),
+                            _pass_counts(QWEN4B_NORMS, 0), s_cache=s_cache)
+    launches = _counts()
+    line("qwen4b_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
+         decode_steps=LM_DECODE, launches=launches,
+         flash_per_prefill=QWEN4B.n_layers, rmsnorm_per_pass=QWEN4B_NORMS,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+    check_dense_plain(params, toks, QWEN4B, "qwen4b_plain")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2813,17 +2937,22 @@ def _train_pass_counts(cfg, passes: int, layers=None) -> dict:
     """The launches of ``passes`` differentiated micro-batch passes of
     ``cfg`` (``layers`` of its layers, all by default), each forward and
     backward: per layer two RMSNorm (Gemma-3 six: its post-norms and
-    QK-norm too) and, for Mamba2, an SSD scan, else a flash call, and for
-    Qwen2-MoE the routed experts' two grouped GEMMs (the backward one
-    fused call a projection, dX and dW); plus the final norm; every norm
-    vectorised and every scan, flash and GEMM on the tensor cores, both
-    ways."""
+    QK-norm too; DeepSeek-V2 four: MLA's q_norm and kv_norm) and, for
+    Mamba2, an SSD scan, for a config at ``attn_impl="flash"`` a flash
+    call, and for each MoE layer the routed experts' two grouped GEMMs (the
+    backward one fused call a projection, dX and dW); plus the final norm;
+    none for LayerNorm (HuBERT, whose attention takes the reference math
+    too); every norm vectorised and every scan, flash and GEMM on the
+    tensor cores, both ways."""
     layers = cfg.n_layers if layers is None else layers
-    per_layer = 2 + 2 * cfg.sandwich_norm + 2 * cfg.qk_norm
-    norms = passes * (per_layer * layers + 1)
+    per_layer = 2 + 2 * cfg.sandwich_norm + 2 * cfg.qk_norm + 2 * cfg.use_mla
+    norms = passes * (per_layer * layers + 1) if cfg.norm_style == "rms" \
+        else 0
     mixers = passes * layers
-    scans, flash = (mixers, 0) if cfg is LM else (0, mixers)
-    gemms = 2 * mixers if cfg.family == "moe" else 0
+    scans = mixers if cfg.family == "ssm" else 0
+    flash = mixers if cfg.attn_impl == "flash" else 0
+    moe_layers = layers - cfg.first_k_dense if cfg.family == "moe" else 0
+    gemms = 2 * passes * moe_layers
     return dict(_pass_counts(norms, scans, flash, gemms), rmsnorm_bwd=norms,
                 rmsnorm_bwd_vec=norms, ssd_bwd=scans, ssd_bwd_tc=scans,
                 flash_attention_bwd=flash, flash_bwd_tc=flash,
@@ -2914,26 +3043,15 @@ def _grad_errs(grads, pgrads) -> dict:
     magnitude, every leaf within LM_REL_TOL of it."""
     errs = {}
     for (path, g), pg in zip(_items(grads), _leaves(pgrads)):
-        _rel_err(g, pg, f"gradient {path} {tuple(g.shape)}")
+        err = _rel_err(g, pg, f"gradient {path} {tuple(g.shape)}")
         scale = float(pg.abs().max())
-        errs[path] = (float((g.float().cpu() - pg.float()).abs().max())
-                      / scale if scale else 0.0)
+        errs[path] = err / scale if scale else 0.0
     return errs
 
 
 def _cpu_inputs(sub, batch):
     return (tree_map(lambda t: t.cpu(), sub),
             {k: v.cpu() for k, v in batch.items()})
-
-
-def _near_ties(routes) -> int:
-    """Tokens whose K-th and (K+1)-th router probabilities lie within
-    NEAR_TIE of each other, over the routes ``_RouteLog`` recorded."""
-    n = 0
-    for probs, idx in routes:
-        top = torch.topk(probs, idx.shape[-1] + 1, dim=-1).values
-        n += int(((top[..., -2] - top[..., -1]) < NEAR_TIE).sum())
-    return n
 
 
 def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ) -> None:
@@ -3040,12 +3158,15 @@ def _group_ms(rec: dict) -> dict:
     return dict(out)
 
 
-def profile_lm_train_step(params, opt, batch, seq, cfg=LM) -> None:
+def profile_lm_train_step(params, opt, batch, seq, cfg=LM, ocfg=TRAIN_OCFG,
+                          donate=False) -> None:
     """One train step of ``cfg`` at batch x seq under torch.profiler, its
     device time split by kernel group; AdamW's device time apart, from a
     profile of ``adamw_update`` alone on that step's gradients (the rest of
-    "other" is the model's elementwise work and the loss)."""
-    step_fn = make_train_step(cfg, TRAIN_OCFG)
+    "other" is the model's elementwise work and the loss). With ``donate``
+    both write ``params`` and ``opt`` in place, as ``ChainedTrainer``'s
+    step does: the profiled steps train them on."""
+    step_fn = make_train_step(cfg, ocfg, donate=donate)
     b = synth_batch(cfg, DataConfig(batch=batch, seq_len=seq), 100,
                     device="cuda")
     rec = profile_device(f"{cfg.arch_id} train step {batch} x {seq}",
@@ -3055,8 +3176,11 @@ def profile_lm_train_step(params, opt, batch, seq, cfg=LM) -> None:
     (_, _), grads = value_and_grad_aux(
         lambda p, bb: transformer.loss_fn(p, cfg, bb), params, b,
         has_aux=True)
+    # a donated update empties the tree it is given: each call gets its
+    # own containers of the same gradients
     adam = profile_device(f"adamw_update {cfg.arch_id}", lambda: adamw_update(
-        grads, params, opt, TRAIN_OCFG), 1, "step", warmup=1)
+        tree_map(lambda g: g, grads), params, opt, ocfg, donate=donate), 1,
+        "step", warmup=1)
     del grads
     groups["adamw"] = adam["device_ms_per_step"]
     groups["other_elementwise"] = groups.pop("other", 0.0) - groups["adamw"]
@@ -3255,15 +3379,261 @@ def moe_train() -> dict:
                         report=report)
 
 
+def check_donation() -> dict:
+    """The donated step on the card: TinyLlama-1.1B's first 2 layers at
+    full width, seeded fp32 weights drawn on the card, one
+    ``make_train_step`` step at 2 x 2048 run functional and donated from
+    the same state: the same bits in every parameter, m and v leaf, the
+    step counter and the metrics; the donated step returns the trees it
+    was given, every leaf in its own storage (``data_ptr``). Returns the
+    donated step's launches (one pass, checked)."""
+    cfg = DENSE.replace(n_layers=LM_PLAIN_LAYERS)
+    state = _train_state(cfg)
+    mine = tree_map(torch.clone, state)
+    ptrs = [t.data_ptr() for t in _leaves(mine)]
+    _, batch, seq, _ = DENSE_TRAIN_RUN
+    b = synth_batch(cfg, DataConfig(batch=batch, seq_len=seq), 7,
+                    device="cuda")
+    fp, fo, fm = make_train_step(cfg, TRAIN_OCFG)(*state, b)
+    _set_lm_train_counts()
+    dp, do, dm = make_train_step(cfg, TRAIN_OCFG, donate=True)(*mine, b)
+    torch.cuda.synchronize()
+    counts = _check_lm_train_counts("donated step", 1, cfg)
+    if dp is not mine[0] or do is not mine[1] or \
+            [t.data_ptr() for t in _leaves([dp, do])] != ptrs:
+        raise RuntimeError("the donated step did not keep its leaves")
+    unequal = [path for (path, a), d in zip(_items([fp, fo]),
+                                            _leaves([dp, do]))
+               if a.dtype != d.dtype or not torch.equal(a, d)]
+    metrics = {k: (float(fm[k]), float(dm[k])) for k in fm}
+    if unequal or any(a != d for a, d in metrics.values()):
+        raise RuntimeError(f"donated step differs from the functional one: "
+                           f"{unequal[:5]}, {metrics}")
+    line("lm_train", arch=cfg.arch_id, run="donated step against the "
+         "functional one", layers=cfg.n_layers, batch=batch, seq=seq,
+         leaves=len(ptrs), bit_identical=True, data_ptr_kept=True,
+         loss=metrics["loss"][0], grad_norm=metrics["grad_norm"][0],
+         launches=counts)
+    del state, mine, fp, fo, dp, do
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _chained_trainer(cfg, ocfg, batch: int, seq: int, draw=None):
+    """``ChainedTrainer`` of ``cfg`` on the card (its own seeded draw;
+    ``draw`` then redraws some leaves) on ``data_iterator`` batches of
+    batch x seq, its checkpoints not written (``_NoCheckpoint``)."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    real, train_chain.AsyncCheckpointer = (train_chain.AsyncCheckpointer,
+                                           _NoCheckpoint)
+    try:
+        tr = train_chain.ChainedTrainer(
+            cfg, ocfg, train_chain.ChainConfig(ckpt_dir=str(TRAIN_DIR),
+                                               ckpt_every=10**9),
+            data_iterator(cfg, DataConfig(batch=batch, seq_len=seq),
+                          device="cuda"), seed=0, device="cuda")
+    finally:
+        train_chain.AsyncCheckpointer = real
+    if draw is not None:
+        draw(torch.Generator(device="cuda").manual_seed(1), tr.params)
+    torch.cuda.synchronize()
+    return tr
+
+
+def chained_run(tr, what: str, batch: int, seq: int, steps: int) -> dict:
+    """``steps`` steps of the donated ``ChainedTrainer`` ``tr``, one
+    ``run_subjob(1)`` each, after a warm-up step: host ms a step after
+    ``synchronize``, tokens (frames) a second, the losses, the peak memory;
+    raising unless the launches are ``steps`` passes' (``_train_pass_counts``)
+    and every parameter and optimizer leaf kept its storage. Returns the
+    launches."""
+    cfg = tr.cfg
+    tr.run_subjob(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ptrs = [t.data_ptr() for t in _leaves([tr.params, tr.opt_state])]
+    stats = torch.cuda.memory_stats()
+    _set_lm_train_counts()
+    ms, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += tr.run_subjob(1)["losses"]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _check_lm_train_counts(what, steps, cfg)
+    if [t.data_ptr() for t in _leaves([tr.params, tr.opt_state])] != ptrs:
+        raise RuntimeError(f"{what}: a donated leaf moved")
+    after = torch.cuda.memory_stats()
+    line("lm_train", arch=cfg.arch_id, layers=cfg.n_layers, run=what,
+         trainer="ChainedTrainer, donated", batch=batch, seq=seq,
+         steps=steps, state_dtype=tr.ocfg.state_dtype or "float32",
+         ms_per_step=_ms(ms), tokens_per_s=batch * seq / np.mean(ms) * 1e3,
+         losses=_finite(what, losses), step=tr.step,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+         allocator={k: after.get(k, 0) - stats.get(k, 0) for k in (
+             "num_alloc_retries", "num_device_alloc", "num_device_free")},
+         launches=counts)
+    return counts
+
+
+def _tree_gb(tree) -> float:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)) / 1e9
+
+
+def qwen4b_train() -> dict:
+    """Qwen1.5-4B training at its full published width on QWEN4B_TRAIN's
+    cut of its 40 layers through ``ChainedTrainer``'s donated step, fp32
+    m and v, the QKV biases drawn nonzero: DENSE_TRAIN_RUN's 3 steps at 2 x
+    2048 (``chained_run``; every step a flash launch each way a layer, on
+    the tensor cores, 20 q heads over 20 kv heads of 128, and 2 RMSNorm
+    a layer + 1 each way, vectorised). Returns the launches."""
+    t0 = time.perf_counter()
+    tr = _chained_trainer(QWEN4B_TRAIN, TRAIN_OCFG, 2, LM_PROMPT,
+                          _draw_qkv_bias)
+    line("lm_train", arch=QWEN4B.arch_id, run="Qwen1.5-4B cut",
+         layers=QWEN4B_TRAIN.n_layers, published_layers=QWEN4B.n_layers,
+         params=sum(t.numel() for t in _leaves(tr.params)),
+         param_gb=_tree_gb(tr.params), opt_state_gb=_tree_gb(tr.opt_state),
+         qkv_bias_std=QKV_BIAS_STD)
+    what, batch, seq, steps = DENSE_TRAIN_RUN
+    counts = chained_run(tr, what, batch, seq, steps)
+    del tr
+    torch.cuda.empty_cache()
+    line("lm_train", arch=QWEN4B.arch_id, run="Qwen1.5-4B training, all",
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
+def hubert_run() -> dict:
+    """HuBERT X-Large at its full published width and depth (48 layers, d
+    1280, 16 heads of 80, LayerNorm, bidirectional, frames in), the
+    weights ``ChainedTrainer`` draws on the card: ``forward`` and
+    ``loss_fn`` on HUBERT_BATCH x HUBERT_FRAMES frames (timed after a
+    warm-up; finite logits of the expected shape; no kernel launch, as its
+    path runs none: LayerNorm, and head dim 80 keeps the reference
+    attention), 3 donated training steps at that batch, and its first 2
+    layers' gradients against the CPU. Returns the steps' launches."""
+    t0 = time.perf_counter()
+    tr = _chained_trainer(HUBERT, TRAIN_OCFG, HUBERT_BATCH, HUBERT_FRAMES)
+    b = synth_batch(HUBERT, DataConfig(batch=HUBERT_BATCH,
+                                       seq_len=HUBERT_FRAMES), 100,
+                    device="cuda")
+    with torch.inference_mode():
+        transformer.loss_fn(tr.params, HUBERT, b)
+        torch.cuda.synchronize()
+        _set_lm_train_counts()
+        t1 = time.perf_counter()
+        logits, _ = transformer.forward(tr.params, HUBERT, b["inputs"],
+                                        b["positions"])
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        loss, metrics = transformer.loss_fn(tr.params, HUBERT, b)
+        torch.cuda.synchronize()
+        loss_ms = (time.perf_counter() - t1) * 1e3
+    counts = _lm_train_counts()
+    if any(counts.values()):
+        raise RuntimeError(f"HuBERT's forward launched {counts}")
+    want = (HUBERT_BATCH, HUBERT_FRAMES, HUBERT.vocab)
+    if tuple(logits.shape) != want or not torch.isfinite(logits).all():
+        raise RuntimeError(f"HuBERT logits {tuple(logits.shape)}, not {want}")
+    line("hubert", arch=HUBERT.arch_id, run="forward and loss_fn",
+         layers=HUBERT.n_layers, d_model=HUBERT.d_model, heads=HUBERT.nq,
+         head_dim=HUBERT.hd, params=sum(t.numel() for t in _leaves(
+             tr.params)), batch=HUBERT_BATCH, frames=HUBERT_FRAMES,
+         logits_shape=list(logits.shape), forward_ms=fwd_ms,
+         loss_fn_ms=loss_ms,
+         frames_per_s=HUBERT_BATCH * HUBERT_FRAMES / fwd_ms * 1e3,
+         loss=_finite("HuBERT loss", [float(loss)])[0],
+         accuracy=float(metrics["accuracy"]), launches=counts)
+    del logits
+    counts = chained_run(tr, f"{HUBERT_BATCH} x {HUBERT_FRAMES} frames",
+                         HUBERT_BATCH, HUBERT_FRAMES, DENSE_TRAIN_RUN[3])
+    check_lm_train_grads(tr.params, HUBERT, HUBERT_FRAMES)
+    del tr
+    torch.cuda.empty_cache()
+    line("hubert", arch=HUBERT.arch_id, run="HuBERT, all",
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
+def _host_memory() -> dict:
+    """This process's peak resident set and the host's memory, in GB."""
+    with open("/proc/meminfo") as f:
+        total = next(int(ln.split()[1]) for ln in f
+                     if ln.startswith("MemTotal:"))
+    return {"host_peak_rss_gb": resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6, "host_mem_total_gb": total / 1e6}
+
+
+def deepseek_train() -> dict:
+    """DeepSeek-V2-236B training at its full published width on
+    DEEPSEEK_TRAIN's 2 of its 60 layers (the dense first layer and one MoE
+    layer), through ``ChainedTrainer``'s donated step with bf16 m and v,
+    every norm scale drawn N(1, DEEPSEEK_NORM_STD): DEEPSEEK_TRAIN_RUN's 3
+    steps at 1 x 2048 (``chained_run``; every step the routed experts' 2
+    grouped GEMMs forward and 2 fused backward calls, all on the tensor
+    cores, 9 RMSNorm each way, vectorised, no flash), the (token, k) pairs
+    dropped at capacity; the 2 layers' gradients at 1 x DEEPSEEK_GRAD_SEQ
+    against the CPU with the host's peak memory; one donated step under
+    torch.profiler. Returns the run's launches."""
+    t0 = time.perf_counter()
+    tr = _chained_trainer(DEEPSEEK_TRAIN, DEEPSEEK_TRAIN_OCFG, 1,
+                          LM_PROMPT, _draw_deepseek_norms)
+    line("lm_train", arch=DEEPSEEK_TRAIN.arch_id, run="DeepSeek-V2 cut",
+         layers=DEEPSEEK_TRAIN.n_layers,
+         published_layers=deepseek_v2_236b.CONFIG.n_layers,
+         plan=[[sg.n_repeat, list(sg.pattern)]
+               for sg in layer_plan(DEEPSEEK_TRAIN)],
+         params=sum(t.numel() for t in _leaves(tr.params)),
+         param_gb=_tree_gb(tr.params),
+         opt_state_gb=_tree_gb(tr.opt_state),
+         state_dtype=DEEPSEEK_TRAIN_OCFG.state_dtype,
+         norm_scale_std=DEEPSEEK_NORM_STD, init_s=time.perf_counter() - t0)
+    what, batch, seq, steps = DEEPSEEK_TRAIN_RUN
+    with _RouteLog() as log:
+        counts = chained_run(tr, what, batch, seq, steps)
+    moe_layers = DEEPSEEK_TRAIN.n_layers - DEEPSEEK_TRAIN.first_k_dense
+    pairs = (steps + 1) * moe_layers * batch * seq * DEEPSEEK.top_k
+    line("lm_train", arch=DEEPSEEK_TRAIN.arch_id,
+         run="DeepSeek-V2 routing", dropped=int(log.dropped), pairs=pairs,
+         dropped_share=int(log.dropped) / pairs,
+         capacity=_moe_capacity(seq, DEEPSEEK), rows_an_expert=batch
+         * _moe_capacity(seq, DEEPSEEK), near_ties=_near_ties(log.routes),
+         gemm_bwd_by_variant={
+             "tc": counts["gemm_bwd_tc"],
+             "simt": counts["grouped_gemm_bwd_products"]
+             - counts["gemm_bwd_tc"]})
+    del log
+    t1 = time.perf_counter()
+    check_lm_train_grads(tr.params, DEEPSEEK_TRAIN, DEEPSEEK_GRAD_SEQ)
+    line("lm_train", arch=DEEPSEEK_TRAIN.arch_id,
+         run="2-layer gradient check, host memory",
+         wall_s=time.perf_counter() - t1, **_host_memory())
+    profile_lm_train_step(tr.params, tr.opt_state, batch, seq,
+                          DEEPSEEK_TRAIN, DEEPSEEK_TRAIN_OCFG,
+                          donate=True)
+    del tr
+    line("lm_train", arch=DEEPSEEK_TRAIN.arch_id,
+         run="DeepSeek-V2 training, all", wall_s=time.perf_counter() - t0)
+    return counts
+
+
 def phase_lm_train() -> dict:
     """Mamba2-1.3B training at full width with seeded weights drawn on the
     card: runs (a) and (b), one micro-batched step (c), the 2-layer
     gradient check, a profiled step; then TinyLlama-1.1B's training at 2 x
     2048 (``dense_train``), Gemma-3-27B's (``gemma_train``) and
     Qwen1.5-MoE-A2.7B's (``moe_train``) on cuts of their depth, the
-    launcher at ``--smoke`` and the launcher at its defaults. Returns the
-    launches of (a), (b), (c), the three 2 x 2048 runs and the launcher at
-    its defaults."""
+    donated step against the functional one (``check_donation``),
+    ``ChainedTrainer``'s donated runs of Qwen1.5-4B (``qwen4b_train``),
+    HuBERT X-Large (``hubert_run``) and DeepSeek-V2-236B
+    (``deepseek_train``), the launcher at ``--smoke`` and the launcher at
+    its defaults. Returns the launches of (a), (b), (c), the 2 x 2048 runs,
+    the donated step, the ``ChainedTrainer`` runs and the launcher at its
+    defaults."""
     torch.backends.cuda.matmul.allow_tf32 = False
     state = _train_state(LM)
     totals = defaultdict(int)
@@ -3306,7 +3676,8 @@ def phase_lm_train() -> dict:
     profile_lm_train_step(params, opt, *LM_TRAIN_RUNS[1][1:3])
     del params, opt
     torch.cuda.empty_cache()
-    for train in (dense_train, gemma_train, moe_train):
+    for train in (dense_train, gemma_train, moe_train, check_donation,
+                  qwen4b_train, hubert_run, deepseek_train):
         for k, v in train().items():
             totals[k] += v
     check_train_launcher()
@@ -3452,6 +3823,7 @@ def phase_timing(errs: dict, launches: dict) -> list:
     del q, k, v, qt, kt, vt
     line("time", **time_flash_gqa(gen))
     line("time", **time_flash_gqa(gen, QWEN, "Qwen2-MoE"))
+    line("time", **time_flash_gqa(gen, QWEN4B, "Qwen1.5-4B"))
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 local",
                                   GEMMA.sliding_window))
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 global"))
@@ -3773,17 +4145,16 @@ def time_flash_bwd_lm(gen, cfg, what: str, splits=(), window=0) -> dict:
         flops=flops, visible_pairs_a_head=pairs // (B * Hq), **extra)
 
 
-def time_gemm_bwd_lm(gen) -> list:
-    """The grouped GEMM backward at Qwen2-MoE's training shapes, E = 60 and
-    a 2 x 2048 batch's 342 rows an expert, wi then wo: dX and dW through
-    autograd (one fused launch a projection) beside the two-launch route
-    (``old_ms``), the plain version and two ``torch.bmm`` on transposed
-    views, with the bound (x, w, dy read and dx, dw written once; 2 x 2 x
-    rows x d x f products an expert)."""
+def time_gemm_bwd_lm(gen, shapes, model) -> list:
+    """The grouped GEMM backward at an MoE model's training shapes, wi then
+    wo (``shapes``: ``_moe_train_gemms``'s (what, E, rows an expert, d_in,
+    d_out)): dX and dW
+    through autograd (one fused launch a projection) beside the two-launch
+    route (``old_ms``), the plain version and two ``torch.bmm`` on
+    transposed views, with the bound (x, w, dy read and dx, dw written
+    once; 2 x 2 x rows x d x f products an expert)."""
     recs = []
-    E, C = QWEN.n_experts, 2 * _moe_capacity(LM_PROMPT)
-    for what, din, dout in (("wi", QWEN.d_model, 2 * QWEN.expert_d_ff),
-                            ("wo", QWEN.expert_d_ff, QWEN.d_model)):
+    for what, E, C, din, dout in shapes:
         x, w = (t_.requires_grad_(True) for t_ in gemm_inputs(
             gen, E, C, din, dout, torch.bfloat16))
         dy = _randn(gen, (E, C, dout), torch.bfloat16)
@@ -3802,7 +4173,7 @@ def time_gemm_bwd_lm(gen) -> list:
         flops = 2 * 2 * E * C * din * dout
         bms, by = bound_ms(nbytes, flops)
         recs.append(dict(
-            name=f"grouped_gemm_bwd Qwen2-MoE training {what}",
+            name=f"grouped_gemm_bwd {model} training {what}",
             shape=f"dX, dW of ({E},{C},{din})x({E},{din},{dout}) bf16",
             variant="tc" if n == 2 * calls and calls else "mixed", ms=ms,
             old_ms=time_ms(lambda: gemm_ops._backward_two_launches(
@@ -4019,12 +4390,15 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
     line("time", **time_flash_bwd_lm(gen, DENSE, "TinyLlama",
                                      splits=(1, 2, 4, 8)))
     line("time", **time_flash_bwd_lm(gen, QWEN, "Qwen2-MoE"))
+    line("time", **time_flash_bwd_lm(gen, QWEN4B, "Qwen1.5-4B"))
     line("time", **time_flash_bwd_lm(gen, GEMMA, "Gemma-3 local",
                                      splits=(1, 2),
                                      window=GEMMA.sliding_window))
     line("time", **time_flash_bwd_lm(gen, GEMMA, "Gemma-3 global"))
-    for rec in time_gemm_bwd_lm(gen):
-        line("time", **rec)
+    for model, cfg, batch in MOE_TRAIN_GEMMS:
+        for rec in time_gemm_bwd_lm(gen, _moe_train_gemms(cfg, batch),
+                                    model):
+            line("time", **rec)
     return [flash_rec, gemm_rec]
 
 
@@ -4119,22 +4493,24 @@ def _bwd_variant(counter, n_fast, n_all, fast: str) -> str:
     return fast if ran_fast == ran else "simt" if not ran_fast else "mixed"
 
 
-def time_gemma_norm_bwd(gen, rows: int) -> dict:
-    """RMSNorm's backward over a Gemma-3 training layer's four block norms
-    (ln1, post_ln1, ln2, post_ln2) at a 2 x 2048 batch, each (4096, 5376)
-    bf16 with gemma (1 + w), w fp32, 672 vectors a row: the vec kernel
-    beside "simt", the plain version and autograd through ``F.rms_norm``
-    with the weight 1 + w in bf16. The bound: x and dy read and dx
-    written once a norm."""
-    dim = GEMMA.d_model
-    xs = [_randn(gen, (rows, dim), torch.bfloat16, 3.0) for _ in range(4)]
-    ws = [_randn(gen, (dim,), torch.float32, GEMMA_NORM_STD)
-          for _ in range(4)]
-    dys = [_randn(gen, (rows, dim), torch.bfloat16) for _ in range(4)]
-    args = list(zip(xs, ws, dys))
+def time_norm_bwd(gen, name: str, shape: str, rows: int, dim: int,
+                  norms: int, gemma: bool, eps: float, w_std: float) -> dict:
+    """RMSNorm's backward over ``norms`` norms of (rows, dim) bf16, w fp32
+    drawn N(0, w_std) with ``gemma`` (the weight applied is 1 + w), else
+    N(1, w_std), as a training step runs them (Gemma-3: a layer's four block
+    norms at 2 x 2048, 672 vectors a row; DeepSeek-V2: its q_norm or
+    kv_norm at 1 x 2048): the vec kernel beside "simt", the plain version
+    and autograd through ``F.rms_norm`` with the applied weight in bf16.
+    The bound: x and dy read and dx written once a norm, dw's fp32 sums."""
+    args = []
+    for _ in range(norms):
+        w = _randn(gen, (dim,), torch.float32, w_std)
+        args.append((_randn(gen, (rows, dim), torch.bfloat16, 3.0),
+                     w if gemma else 1.0 + w,
+                     _randn(gen, (rows, dim), torch.bfloat16)))
 
     def bwd():
-        return [rmsnorm_bwd(x, w, dy, eps=GEMMA.norm_eps, gemma=True)
+        return [rmsnorm_bwd(x, w, dy, eps=eps, gemma=gemma)
                 for x, w, dy in args]
     n_all, n_fast = rmsnorm.bwd_launches, rmsnorm.bwd_vec_launches
     ms = time_ms(bwd)
@@ -4144,27 +4520,25 @@ def time_gemma_norm_bwd(gen, rows: int) -> dict:
     libs = []
     for x, w, dy in args:
         xl = x.clone().requires_grad_(True)
-        wl = (1.0 + w).to(torch.bfloat16).requires_grad_(True)
-        libs.append((F.rms_norm(xl, (dim,), wl, GEMMA.norm_eps), xl, wl, dy))
+        wl = ((1.0 + w) if gemma else w).to(torch.bfloat16).requires_grad_(
+            True)
+        libs.append((F.rms_norm(xl, (dim,), wl, eps), xl, wl, dy))
     lib_ms = time_ms(lambda: [torch.autograd.grad(y, (xl, wl), dy,
                                                   retain_graph=True)
                               for y, xl, wl, dy in libs])
-    nbytes = 4 * (3 * xs[0].numel() * 2 + 2 * dim * 4)
-    flops = 4 * 10 * xs[0].numel()
+    nbytes = norms * (3 * rows * dim * 2 + 2 * dim * 4)
+    flops = norms * 10 * rows * dim
     bms, by = bound_ms(nbytes, flops, FP32_FLOP_PER_S)
     return dict(
-        name="rmsnorm_bwd Gemma-3 block norms",
-        shape=f"4 x ({rows},{dim}) bf16, w fp32, gemma: one training "
-              "layer's ln1, post_ln1, ln2, post_ln2", variant=variant, ms=ms,
+        name=name, shape=shape, variant=variant, ms=ms,
         simt_ms=time_ms(lambda: [norm_launch_bwd(
-            x, w, dy, "simt", eps=GEMMA.norm_eps, gemma=True)
-            for x, w, dy in args]),
+            x, w, dy, "simt", eps=eps, gemma=gemma) for x, w, dy in args]),
         plain_ms=time_ms(lambda: [rmsnorm_bwd_ref(
-            x, w, dy, eps=GEMMA.norm_eps, gemma=True) for x, w, dy in args],
-            reps=3),
-        library_ms=lib_ms, library="autograd through F.rms_norm(weight=1 + w)",
-        library_factor=ms / lib_ms, bound_ms=bms, bound_by=by,
-        bound_share=bms / ms, bytes=nbytes, flops=flops)
+            x, w, dy, eps=eps, gemma=gemma) for x, w, dy in args], reps=3),
+        library_ms=lib_ms, library="autograd through F.rms_norm"
+        + ("(weight=1 + w)" if gemma else ""),
+        library_factor=ms / lib_ms, host_us=host_us(bwd), bound_ms=bms,
+        bound_by=by, bound_share=bms / ms, bytes=nbytes, flops=flops)
 
 
 def time_lm_backward(gen, errs: dict, launches: dict) -> list:
@@ -4226,7 +4600,17 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
         shape=f"one Mamba2 layer's two norm backwards, ({rows},2048) and "
               f"({rows},4096) bf16, w fp32", **tot)
     line("time", **norm_rec, **extra)
-    line("time", **time_gemma_norm_bwd(gen, rows))
+    line("time", **time_norm_bwd(
+        gen, "rmsnorm_bwd Gemma-3 block norms",
+        f"4 x ({rows},{GEMMA.d_model}) bf16, w fp32, gemma: one training "
+        "layer's ln1, post_ln1, ln2, post_ln2", rows, GEMMA.d_model, 4, True,
+        GEMMA.norm_eps, GEMMA_NORM_STD))
+    for what, dim in (("q_norm", DEEPSEEK.q_lora_rank),
+                      ("kv_norm", DEEPSEEK.kv_lora_rank)):
+        line("time", **time_norm_bwd(
+            gen, f"rmsnorm_bwd DeepSeek-V2 {what}",
+            f"({LM_PROMPT},{dim}) bf16, w fp32, {dim // 8} vectors a row",
+            LM_PROMPT, dim, 1, False, DEEPSEEK.norm_eps, DEEPSEEK_NORM_STD))
 
     Bz, S = LM_TRAIN_RUNS[1][1:3]
     shape = (Bz, S, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
@@ -4286,6 +4670,7 @@ def main() -> int:
     launches.update(phase("4d Qwen2-MoE serving", phase_moe))
     launches.update(phase("4e Gemma-3 serving", phase_gemma))
     launches.update(phase("4f DeepSeek-V2 serving", phase_deepseek))
+    launches.update(phase("4g Qwen1.5-4B serving", phase_qwen4b))
     policies, grid = phase("6 grid", phase_grid)
     service = phase("7 service", phase_service, policies)
     del policies

@@ -14,8 +14,9 @@ done or the wall-clock guard fires.
 ``--arch`` defaults to TinyLlama-1.1B, as in the reference; Mamba2-1.3B is
 ``--arch mamba2-1.3b`` and DeepSeek-V2 (MLA, 160 experts top-6) ``--arch
 deepseek-v2-236b``, whose full depth does not fit one card (``--smoke``
-serves its reduced config). It runs on CUDA unless ``--device cpu`` is
-given.
+serves its reduced config). ``--arch hubert-xlarge`` is refused: the engine
+serves no encoder, as the reference's does not. It runs on CUDA unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 

@@ -12,8 +12,10 @@ from .common import ModelConfig
 _ARCH_MODULES = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "mirage-agent": "repro_torch.configs.mirage_agent",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
 }

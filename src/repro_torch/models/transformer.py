@@ -96,11 +96,14 @@ def _layers(tree, n: int) -> List:
     """The ``n`` per-layer trees of a tree of (n, ...) leaves, each leaf cut
     by one ``unbind``: its backward writes the leaf's gradient once, where
     indexing layer by layer would add a zero-padded gradient of the whole
-    stacked leaf for every layer."""
+    stacked leaf for every layer. A segment of one layer takes a view
+    (``squeeze``), whose backward is a view of the layer's gradient: the
+    stack ``unbind``'s backward builds would copy it, a transient as large
+    as the layer's gradient (10 GB for a DeepSeek-V2 MoE layer's experts)."""
     if isinstance(tree, dict):
         per = {k: _layers(v, n) for k, v in tree.items()}
         return [{k: v[r] for k, v in per.items()} for r in range(n)]
-    return tree.unbind(0)
+    return [tree.squeeze(0)] if n == 1 else tree.unbind(0)
 
 
 def _stack(trees: List):

@@ -11,8 +11,12 @@ service.
 The weights are drawn from a ``torch.Generator`` seeded with ``seed`` on
 ``device`` (CUDA unless ``device="cpu"``), so they differ from the
 reference's ``jax.random`` draw; a checkpoint written by either package
-resumes in the other. Steps run eagerly and return new trees (see
-``train.step``).
+resumes in the other. Steps run eagerly. As the reference jits its step
+with ``donate_argnums=(0, 1)``, the trainer's step owns ``params`` and
+``opt_state`` (``make_train_step(..., donate=True)``): each leaf's new p,
+m and v are written into its own storage, the bits of the functional
+update. A checkpoint's host snapshot is taken when ``save`` is called,
+before the next step writes.
 """
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ class ChainedTrainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = transformer.init(gen, cfg)
         self.opt_state = init_opt_state(self.params, ocfg)
-        self.step_fn = make_train_step(cfg, ocfg, num_microbatches)
+        self.step_fn = make_train_step(cfg, ocfg, num_microbatches,
+                                       donate=True)
         self.ckpt = AsyncCheckpointer(chain.ckpt_dir)
         self.stragglers = StragglerMonitor()
         self.step = 0

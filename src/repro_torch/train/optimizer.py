@@ -15,13 +15,20 @@ not ``torch.optim.AdamW``:
   ``ndim >= 3``, exactly where its JAX original does;
 * m and v are kept in ``state_dtype``, or in each parameter's dtype.
 
-``adamw_update`` runs under ``torch.no_grad()`` and returns new trees, as
-the reference does; the inputs are not written. A leaf of more than
-UPDATE_SLICE elements is updated in slices of that many, into its new
-tensors: the update is elementwise, so the bits are the same, and its fp32
-temporaries stay ~0.27 GB each where a whole leaf as large as Gemma-3's
-tied table (1.41 B elements) or Qwen2-MoE's stacked experts (1.04 B at 3
-layers) would add several of 4-6 GB to the step's peak.
+``adamw_update`` runs under ``torch.no_grad()``. By default it returns
+new trees, as the reference's update does, and writes none of its inputs.
+With ``donate=True`` it takes ownership of its inputs, as the reference's
+``ChainedTrainer`` step does when ``jax.jit`` donates its params and
+optimizer state: each leaf's new p, m and v are written into that leaf's
+own storage and the same trees come back; the gradient tree is emptied and
+each gradient dropped once its leaf is updated. The arithmetic is
+``_update``'s either way, so the two give the same bits. A leaf of more
+than UPDATE_SLICE elements is updated in slices of that many, into its new
+tensors or, donated, into its own: the update is elementwise, so the bits
+are the same, and its fp32 temporaries stay ~0.27 GB each where a whole
+leaf as large as Gemma-3's tied table (1.41 B elements) or DeepSeek-V2's
+stacked experts (2.52 B a MoE layer) would add several of 4-10 GB to the
+step's peak. ``global_norm`` squares such a leaf a slice at a time too.
 """
 from __future__ import annotations
 
@@ -83,9 +90,21 @@ def init_opt_state(params, ocfg: OptimizerConfig) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 sum of ``x``'s squares; a leaf of more than UPDATE_SLICE
+    elements is squared a slice at a time, so no fp32 square of the whole
+    leaf is made (10 GB for DeepSeek-V2's stacked experts)."""
+    if x.numel() <= UPDATE_SLICE:
+        return torch.sum(torch.square(x.float()))
+    flat = x.reshape(-1)
+    return torch.stack([torch.sum(torch.square(flat[j:j + UPDATE_SLICE]
+                                               .float()))
+                        for j in range(0, flat.numel(), UPDATE_SLICE)]).sum()
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in _leaves(tree)]).sum())
+    return torch.sqrt(torch.stack([_square_sum(x)
+                                   for x in _leaves(tree)]).sum())
 
 
 def _update(p, g, m, v, *, decay: bool, clip, lr, bc1, bc2,
@@ -103,10 +122,38 @@ def _update(p, g, m, v, *, decay: bool, clip, lr, bc1, bc2,
             v_new.to(v.dtype))
 
 
+def _empty(tree) -> None:
+    """Clear every dict and list of ``tree`` in place: its leaves are then
+    held only where the caller took them out."""
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            _empty(v)
+        tree.clear()
+
+
+def _check_donatable(leaves) -> None:
+    """Donated leaves are written through flat views of their storage: each
+    must be contiguous and share its storage with no other leaf."""
+    seen = set()
+    for t in leaves:
+        if not t.is_contiguous():
+            raise ValueError(f"a donated leaf {tuple(t.shape)} is not "
+                             "contiguous")
+        key = (t.device, t.untyped_storage().data_ptr())
+        if t.numel() and key in seen:
+            raise ValueError("two donated leaves share one storage")
+        seen.add(key)
+
+
 @torch.no_grad()
-def adamw_update(grads, params, opt_state, ocfg: OptimizerConfig
+def adamw_update(grads, params, opt_state, ocfg: OptimizerConfig,
+                 donate: bool = False
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step: (new params, new state, {"lr", "grad_norm"})."""
+    """One AdamW step: (new params, new state, {"lr", "grad_norm"}).
+
+    ``donate``: write the new values into the leaves of ``params`` and
+    ``opt_state`` (the step counter too) and return those trees; ``grads``
+    is emptied and each gradient dropped once used (module docstring)."""
     step = opt_state["step"] + 1
     lr = lr_schedule(ocfg, step)
     gnorm = global_norm(grads)
@@ -126,25 +173,39 @@ def adamw_update(grads, params, opt_state, ocfg: OptimizerConfig
     if not len(ps) == len(gs) == len(ms) == len(vs):
         raise ValueError("params, grads and optimizer state differ in "
                          "their trees")
+    if donate:
+        _check_donatable(ps + ms + vs)
+        _empty(grads)
     matrix = 2 + widened(params)        # the rank of a decayed leaf
     new_p, new_m, new_v = [], [], []
-    for p, g, m, v in zip(ps, gs, ms, vs):
+    for i, (p, m, v) in enumerate(zip(ps, ms, vs)):
+        g, gs[i] = gs[i], None
         # decay matrices only
         kw = dict(decay=bool(p.ndim >= matrix and ocfg.weight_decay),
                   clip=clip, lr=lr, bc1=bc1, bc2=bc2, ocfg=ocfg)
         flat = [t.reshape(-1) for t in (p, g, m, v)]
-        out = ([torch.empty(t.shape, dtype=t.dtype, device=t.device)
-                for t in (p, m, v)] if p.numel() > UPDATE_SLICE else None)
-        for i in range(0, max(p.numel(), 1), UPDATE_SLICE):
-            part = _update(*(t[i:i + UPDATE_SLICE] for t in flat), **kw)
+        if donate:                      # into the leaf's own storage
+            out = [p, m, v]
+        elif p.numel() > UPDATE_SLICE:
+            out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                   for t in (p, m, v)]
+        else:
+            out = None
+        for j in range(0, max(p.numel(), 1), UPDATE_SLICE):
+            part = _update(*(t[j:j + UPDATE_SLICE] for t in flat), **kw)
             if out is None:             # one slice is the whole leaf
                 out = [n.view(t.shape) for n, t in zip(part, (p, m, v))]
             else:
                 for o, n in zip(out, part):
-                    o.view(-1)[i:i + UPDATE_SLICE] = n
+                    o.view(-1)[j:j + UPDATE_SLICE] = n
+        del g, flat, part
         new_p.append(out[0])
         new_m.append(out[1])
         new_v.append(out[2])
+
+    if donate:
+        opt_state["step"].copy_(step)
+        return params, opt_state, {"lr": lr, "grad_norm": gnorm}
 
     def rebuild(values):
         it = iter(values)

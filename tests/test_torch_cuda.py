@@ -49,7 +49,11 @@ decode step's 4. DeepSeek-V2's: the grouped GEMM at its 160 experts (a 4 x
 2048 prefill's 384 rows an expert and a decode step's 4, experts with 0, 1
 and ragged counts of rows), RMSNorm at its q and kv ranks (1536, 512), and
 its SMOKE model with 16 experts top-6 (a prefill and 10 decode steps
-through MLA's latent cache, fp32) against the CPU.
+through MLA's latent cache, fp32) against the CPU; its training shapes,
+the fused GEMM backward at 160 experts of 96 rows (1 x 2048 tokens, a
+k-tail of 32 in dW's contraction) through wi and wo, and RMSNorm's
+backward at its q and kv ranks. Qwen1.5-4B's layer, 20 q heads over 20 kv
+heads of 128 at S = 2048, through flash forward and backward.
 
 TinyLlama's first 2 layers at full width run a prefill and two decode
 steps on the card against the plain path on the CPU, same weights (2e-2 of
@@ -121,6 +125,7 @@ def _launched(kernel, fn):
         (1, 32, 4, 2048, 2048, 64, BF16, True, 0, 0.0, "tc"),  # TinyLlama prefill
         (2, 32, 16, 1100, 1100, 128, BF16, True, 1024, 0.0, "tc"),  # Gemma-3 local
         (1, 8, 4, 2048, 2048, 64, BF16, True, 1024, 0.0, "tc"),
+        (4, 20, 20, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),  # Qwen1.5-4B
     ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                     causal, window, softcap, variant):
@@ -727,6 +732,8 @@ def _bwd_counts():
         (2, 4, 4, 144, 144, 32, BF16, False, 40, 30.0, "tc"),
         (1, 4, 2, 300, 300, 64, FP32, True, 100, 0.0, "simt"),
         (1, 2, 2, 200, 200, 128, FP32, True, 48, 30.0, "simt"),
+        # Qwen1.5-4B's training layer: streaming, MHA 20/20, D = 128
+        (2, 20, 20, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),
     ])
 def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                       causal, window, softcap, variant):
@@ -891,6 +898,10 @@ def test_grouped_gemm_backward_matches_plain(cuda, E, C, d, f, dtype, layout):
     (2, 300, 64, 96, "plain"),        # too short to split
     (60, 342, 2048, 2816, "plain"),   # Qwen2-MoE's wi at 2 x 2048 tokens
     (60, 342, 1408, 2048, "plain"),   # its wo
+    # DeepSeek-V2's wi and wo at 1 x 2048 tokens: 96 rows an expert, a
+    # k-tail of 32 in dW's contraction
+    (160, 96, 5120, 3072, "plain"),
+    (160, 96, 1536, 5120, "plain"),
 ])
 def test_grouped_gemm_fused_backward(cuda, E, C, d, f, layout):
     """The fused backward kernel: one call a bf16 projection through
@@ -915,8 +926,13 @@ def test_grouped_gemm_fused_backward(cuda, E, C, d, f, layout):
     assert grouped_gemm.bwd_fused_calls - calls == 1
     assert (after[1] - before[1], after[2] - before[2]) == (2, 2)
     rdx, rdw = grouped_gemm_bwd_ref(x, w, dy)
-    torch.testing.assert_close(dx.float(), rdx.float(), atol=2e-2, rtol=2e-2)
-    torch.testing.assert_close(dw.float(), rdw.float(), atol=2e-2, rtol=2e-2)
+    # by groups of experts: at E = 160 one fp32 copy of dW is 10 GB
+    for e in range(0, E, 16):
+        for got, ref in ((dx, rdx), (dw, rdw)):
+            torch.testing.assert_close(got[e:e + 16].float(),
+                                       ref[e:e + 16].float(), atol=2e-2,
+                                       rtol=2e-2)
+    del rdx, rdw
     for _ in range(2):
         again = ops._launch_bwd(x, w, dy, True, True)
         torch.cuda.synchronize()
@@ -981,7 +997,9 @@ def _within(got, ref, tol, what):
 @pytest.mark.parametrize("rows,d,dtype,gemma", [
     (1024, 2048, BF16, False), (4096, 4096, BF16, True), (37, 2048, FP32, True),
     (33, 300, BF16, False), (37, 300, FP32, False),
-    (4096, 5376, BF16, True)])       # Gemma-3's block norms: 672 vectors
+    (4096, 5376, BF16, True),        # Gemma-3's block norms: 672 vectors
+    (2048, 1536, BF16, False),       # DeepSeek-V2's q_norm: 192 vectors
+    (2048, 512, BF16, False)])       # its kv_norm: 64 vectors
 def test_rmsnorm_backward_through_autograd(cuda, rows, d, dtype, gemma):
     """The RMSNorm Function's backward kernel against ``rmsnorm_bwd_ref``
     (fp32 1e-4, bf16 2e-2 of each gradient's scale; one rounding after sums

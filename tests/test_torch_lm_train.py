@@ -102,12 +102,16 @@ def _close_trees(got, ref, tol, what):
 @contextlib.contextmanager
 def _updates():
     """Record every AdamW update the port's train step makes: (gradient,
-    parameters, state, new parameters)."""
+    parameters, state, new parameters). A donated update writes its
+    inputs, so they are recorded as copies taken before it."""
     calls, inner = [], t_step.adamw_update
 
-    def update(grads, params, state, ocfg):
-        out = inner(grads, params, state, ocfg)
-        calls.append((grads, params, state, out[0]))
+    def update(grads, params, state, ocfg, donate=False):
+        keep = (lambda t: tree_map(torch.clone, t)) if donate else (
+            lambda t: t)
+        seen = keep((grads, params, state))
+        out = inner(grads, params, state, ocfg, donate=donate)
+        calls.append((*seen, keep(out[0])))
         return out
     t_step.adamw_update = update
     try:
@@ -411,8 +415,8 @@ def test_train_launcher_asks_for_cuda_and_refuses_unported(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_launch.main(["--smoke", "--steps", "1", "--ckpt-dir",
                        str(tmp_path)])
-    with pytest.raises(KeyError, match="qwen1.5-4b"):
-        t_launch.main(["--arch", "qwen1.5-4b", "--smoke", "--device",
+    with pytest.raises(KeyError, match="zamba2-7b"):
+        t_launch.main(["--arch", "zamba2-7b", "--smoke", "--device",
                        "cpu", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="dist/"):
         t_launch.main(["--distributed", "--device", "cpu"])
