@@ -14,8 +14,8 @@ exits non-zero:
    serving paths' shapes and at ragged ones, with the tolerance stated; each
    case checks through the launch counters which variant ran (flash, at
    TinyLlama's causal GQA prefill shape (4,2048,32/4,64), Qwen2-MoE's
-   (4,2048,16/16,128), Qwen1.5-4B's (4,2048,20/20,128) and Gemma-3's
-   (4,2048,32/16,128), with its local
+   (4,2048,16/16,128), Qwen1.5-4B's (4,2048,20/20,128), Command-R's
+   (4,2048,64/8,128) and Gemma-3's (4,2048,32/16,128), with its local
    layers' window of 1024 and without (its global layers), and ragged at
    (2,1100,32/16,128) with the window, among others, the GEMM (at the
    Qwen2-MoE experts' prefill and decode shapes too) and the SSD scan:
@@ -24,8 +24,11 @@ exits non-zero:
    expert and a decode step's 4, through wi and wo; RMSNorm: 16-byte
    vectors, Gemma-3's (1 + w) at its QK-norm's (262144, 128) and its
    d_model's (8192, 5376) and DeepSeek-V2's q and kv ranks, (8192, 1536)
-   and (8192, 512), among them, and one element per lane for rows off 16
-   bytes); the backward kernels through autograd:
+   and (8192, 512), and Zamba2-7B's d_model and d_inner, (8192, 3584) and
+   (8192, 7168), the vec form's limit of 896 vectors, among them, and one
+   element per lane for rows off 16 bytes and for 897 vectors; the scan
+   also at Zamba2-7B's 112 heads of 64 with N = 64, at its prefill and
+   ragged with an initial state); the backward kernels through autograd:
    flash's (with the forward's row log-sum-exp; bf16 on the tensor cores in
    the short form at the trunk's MHA heads and in the streaming form for
    GQA, D = 128, long and ragged sequences, TinyLlama's training layer
@@ -157,6 +160,35 @@ exits non-zero:
    RMSNorm (vec) and each step 0 and 81; the peak memory; its first 2
    layers' last-token logits and KV cache against the plain path on the
    CPU at 1 x 512;
+4h. Zamba2-7B serving at its full published width and depth (81 layers:
+   11 x (6 Mamba2 blocks + one attention + MLP block whose weights are
+   tied across the 11 applications) + 4 Mamba2 blocks; d 3584, d_inner
+   7168, 112 SSD heads of 64, state 64, one group; the shared block's 32
+   heads of 112, d_ff 14,336; vocab 32,000), seeded fp32 weights drawn on
+   the card (5,893,372,128 parameters, the reference's count, or it
+   raises) with every norm scale drawn N(1, 0.3): as 4c, a 4 x 2048
+   prefill into a cache of 2,080 and 32 decode steps, raising unless each
+   prefill launched exactly 70 scans, all on the tensor cores, and 163
+   RMSNorm (140 on Mamba blocks, the out_norms at 896 vectors a row among
+   them, 22 on the shared block's applications, the final one), all
+   vectorised, and each step no scan and 163 RMSNorm; the peak memory; its
+   first 14 layers (the shared block applied twice) at a 1 x 320 prefill,
+   a chunk of 256 and a ragged one, against the plain path on the CPU:
+   the last-token logits, both applications' K/V and every final SSM
+   state; a prefill and 5 decode steps under torch.profiler, by kernel
+   group; ``ServeEngine`` at the serve launcher's defaults on the same
+   weights, 8 requests on 4 slots, so 4 slots are refilled (each cleared
+   first);
+4i. Command-R 35B serving at its full published width (d 8192, 64 q heads
+   over 8 kv heads of 128, d_ff 22,528, vocab 256,000, LayerNorm, the
+   parallel block, a tied table) and 20 of its 40 layers (the deepest cut
+   whose predicted peak stays under ~70 GB), seeded fp32 weights drawn on
+   the card with the LayerNorm scales and biases drawn: as 4c, a 4 x 2048
+   prefill into a cache of 2,080 and 32 decode steps, raising unless each
+   prefill launched exactly 20 flash kernels, all on the tensor cores
+   (causal, 64 q heads over 8 kv heads of 128), and no other kernel, and
+   each step none; the peak memory; its first 2 layers against the CPU at
+   1 x 512; a prefill and 5 decode steps under torch.profiler;
 6. the Fig-8 grid on torch learners at the agent's full width, as
    ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
    cluster (V100), single-node chains, the six cells {light, medium, heavy}
@@ -269,7 +301,11 @@ exits non-zero:
    bound (the visible (q, k) pairs' products); RMSNorm as Gemma-3's
    QK-norm runs it, (262144, 128) bf16 with (1 + w), beside ``F.rms_norm``
    with the weight 1 + w; RMSNorm at DeepSeek-V2's q and kv ranks,
-   (8192, 1536) and (8192, 512) bf16, beside ``F.rms_norm``; the grouped
+   (8192, 1536) and (8192, 512) bf16, beside ``F.rms_norm``; RMSNorm at
+   Zamba2-7B's d_model and out_norm, (8192, 3584) and (8192, 7168) bf16,
+   and the scan at one of its prefill layers, (4,2048,112,64) with N = 64;
+   flash at Command-R's prefill layer, (4,2048,64/8,128) causal, beside
+   SDPA with ``enable_gqa``; the grouped
    GEMM at Qwen2-MoE's routed experts' shapes (E = 60: a prefill's 684
    rows an expert and a decode step's 4, through wi and wo) and at
    DeepSeek-V2's (E = 160: 384 rows and 4) beside ``torch.bmm``, each with
@@ -297,11 +333,10 @@ exits non-zero:
    the "simt" one as ``simt_ms``) beside their plain versions and, for
    RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g, 6, 7, 8, 5, and
-each ends with a ``[phase]`` line of its wall time. Each kernel's
-``launches`` in the JSON record sums the counts of every path that runs it
-(phases 3, 4, 4b, 4c's, 4d's, 4e's, 4f's and 4g's prefill and decode
-steps, 6, 7 and 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
+Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 6, 7,
+8, 5, and each ends with a ``[phase]`` line of its wall time. Each
+kernel's ``launches`` in the JSON record sums the counts of every path
+that runs it (phases 3, 4, 4b, 4c's to 4i's prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
 Gemma-3 and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
 Qwen1.5-4B, HuBERT and DeepSeek-V2 and the launcher at its defaults), each
 counted
@@ -332,9 +367,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import (deepseek_v2_236b, gemma3_27b,  # noqa: E402
+from repro_torch.configs import (command_r_35b,  # noqa: E402
+                                 deepseek_v2_236b, gemma3_27b,
                                  hubert_xlarge, mamba2_1_3b, mirage_agent,
-                                 qwen1_5_4b, qwen2_moe_a2_7b, tinyllama_1_1b)
+                                 qwen1_5_4b, qwen2_moe_a2_7b, tinyllama_1_1b,
+                                 zamba2_7b)
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
                               CircuitBreaker, DecisionJournal, DQNConfig,
@@ -376,6 +413,9 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.blocks import (apply_block,  # noqa: E402
+                                       init_block_cache)
+from repro_torch.models.layers import apply_norm, lm_logits  # noqa: E402
 from repro_torch.models.common import layer_plan  # noqa: E402
 from repro_torch.serve import (ProvisionService, Request,  # noqa: E402
                                ServeEngine, ServiceConfig)
@@ -409,6 +449,8 @@ BF16_TOL = 2e-2      # bf16 rounds once at the output; two summation orders
 FP32_FLASH_TOL = 3e-5   # the repo's bound for the Pallas kernel in fp32
 FP32_GEMM_TOL = 1e-5    # fp32 sums of 41 terms in two orders
 PROFILE_STEPS = 5       # decision batches under torch.profiler
+PROFILE_TRIES = 3       # profiler sessions before a profile with no device
+                        # event fails (CUPTI once handed back none)
 FP32_NORM_TOL = 1e-5    # the repo's bounds for the Pallas kernels in fp32
 FP32_SSD_TOL = 5e-5
 FP32_FLASH_BWD_RTOL = 1e-5  # dq, dk, dv sum up to 1001 terms in two orders
@@ -477,6 +519,7 @@ DEEPSEEK_PLAIN_PROMPT, DEEPSEEK_PLAIN_DECODE = 512, 4
 NEAR_TIE = 1e-5         # a router's K-th and (K+1)-th probabilities this close
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
+FP32_LM_REL_TOL = 1e-4  # fp32 model outputs (the CPU tests' fp32 bound)
 FP32_BWD_REL_TOL = 1e-4  # the RMSNorm and SSD backward kernels against their
 BF16_BWD_REL_TOL = 2e-2  # plain versions: of each gradient's largest value
 # Mamba2-1.3B training (phase 8): the launcher's optimizer and defaults
@@ -497,6 +540,28 @@ QWEN_TRAIN = qwen2_moe_a2_7b.CONFIG.replace(n_layers=3)
 # parameters, 15.8 GB fp32)
 QWEN4B = qwen1_5_4b.CONFIG
 QWEN4B_NORMS = 2 * QWEN4B.n_layers + 1
+# phase 4h: Zamba2-7B at its published width and depth, 11 x (6 mamba + the
+# shared attention block) + 4 mamba: 70 Mamba blocks, 11 applications of
+# one tied block, 5.89 B parameters (23.6 GB fp32)
+ZAMBA = zamba2_7b.CONFIG
+ZAMBA_PARAMS = 5_893_372_128        # the reference's tree, by its shapes
+ZAMBA_MAMBA = sum(seg.n_repeat * seg.pattern.count("mamba")
+                  for seg in layer_plan(ZAMBA))
+ZAMBA_ATTN = sum(seg.n_repeat * seg.pattern.count("attn")
+                 for seg in layer_plan(ZAMBA))
+ZAMBA_NORMS = 2 * ZAMBA_MAMBA + 2 * ZAMBA_ATTN + 1  # ln and out_norm a
+                    # Mamba block, ln1 and ln2 an application, the final
+ZAMBA_NORM_STD = 0.3    # the norm scales drawn N(1, .) in place of ones
+ZAMBA_PLAIN_GROUPS = 2  # its check against the CPU: 14 of 81 layers, the
+ZAMBA_PLAIN_PROMPT = 320    # shared block twice; chunks of 256 and 64
+# phase 4i: Command-R 35B at its published width, cut from 40 to 20 layers:
+# the deepest cut whose predicted prefill peak stays under ~70 GB (fp32:
+# the tied table 8.39 GB and 2.82 GB a layer; PERF.md §4)
+CMDR = command_r_35b.CONFIG.replace(n_layers=20)
+CMDR_LAYER_PARAMS = 704_675_840     # one layer's, by the reference's shapes
+CMDR_PARAMS = 30_284_201_984 - (command_r_35b.CONFIG.n_layers
+                                - CMDR.n_layers) * CMDR_LAYER_PARAMS
+CMDR_NORM_STD = 0.3     # LayerNorm scales N(1, .) and biases N(0, .)
 # its training (phase 8) through ChainedTrainer's donated step, fp32 m and
 # v, 16 bytes a parameter with the gradient: the deepest cut whose
 # predicted peak at 2 x 2048 stays under ~70 GB (PERF.md §4)
@@ -675,6 +740,10 @@ def phase_kernels() -> dict:
          "bf16", dict(causal=True, window=GEMMA.sliding_window),
          (2, 1100, 1100, GEMMA.nq, GEMMA.nkv, GEMMA.hd, torch.bfloat16),
          "tc", BF16_TOL, BF16_TOL),
+        ("flash Command-R prefill, causal GQA (4,2048,64/8,128) bf16",
+         dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, CMDR.nq,
+                             CMDR.nkv, CMDR.hd, torch.bfloat16), "tc",
+         BF16_TOL, BF16_TOL),
         # rows whose block's first kv tiles are all outside the window, at
         # a scale whose rounding once made their exponents inf
         ("flash causal GQA window 1024 (1,2048,8/4,64) bf16",
@@ -777,6 +846,21 @@ def phase_kernels() -> dict:
         ("rmsnorm DeepSeek-V2 kv_norm (8192,512) bf16",
          (LM_BATCH * LM_PROMPT, DEEPSEEK.kv_lora_rank, torch.bfloat16),
          False, "plain", "vec", BF16_TOL),
+        # Zamba2-7B's d_model and its out_norm's d_inner, 896 vectors a row
+        # (the vec forward's limit), at a prefill and a decode step; one
+        # vector more runs simt
+        ("rmsnorm Zamba2-7B (8192,3584) bf16",
+         (LM_BATCH * LM_PROMPT, ZAMBA.d_model, torch.bfloat16), False,
+         "plain", "vec", BF16_TOL),
+        ("rmsnorm Zamba2-7B out_norm (8192,7168) bf16",
+         (LM_BATCH * LM_PROMPT, ZAMBA.d_inner, torch.bfloat16), False,
+         "plain", "vec", BF16_TOL),
+        ("rmsnorm Zamba2-7B out_norm decode (4,7168) bf16",
+         (LM_BATCH, ZAMBA.d_inner, torch.bfloat16), False, "plain", "vec",
+         BF16_TOL),
+        ("rmsnorm (33,7176) bf16, 897 vectors",
+         (33, ZAMBA.d_inner + 8, torch.bfloat16), False, "plain", "simt",
+         BF16_TOL),
     ]
     for name, (rows, dim, dtype), gemma, layout, variant, tol in cases:
         x = _randn(gen, (rows, dim), dtype, 3.0)
@@ -805,6 +889,13 @@ def phase_kernels() -> dict:
         ("ssd (1,517,2,128) N=128 chunk 256 bf16, initial state",
          (1, 517, 2, 128, 128, 1, torch.bfloat16, True), 256, "tc", BF16_TOL,
          BF16_TOL),
+        ("ssd Zamba2-7B prefill (4,2048,112,64) N=64 G=1 chunk 256 bf16",
+         (LM_BATCH, LM_PROMPT, ZAMBA.ssm_nheads, ZAMBA.ssm_headdim,
+          ZAMBA.ssm_state, ZAMBA.ssm_ngroups, torch.bfloat16, False),
+         ZAMBA.ssm_chunk, "tc", BF16_TOL, BF16_TOL),
+        ("ssd ragged (1,1100,112,64) N=64 chunk 256 bf16, initial state",
+         (1, 1100, ZAMBA.ssm_nheads, ZAMBA.ssm_headdim, ZAMBA.ssm_state, 1,
+          torch.bfloat16, True), ZAMBA.ssm_chunk, "tc", BF16_TOL, BF16_TOL),
         ("ssd (2,300,4,32) N=64 G=2 chunk 64 bf16",
          (2, 300, 4, 32, 64, 2, torch.bfloat16, False), 64, "tc", BF16_TOL,
          BF16_TOL),
@@ -1269,14 +1360,9 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def profile_device(what: str, fn, units: int, unit: str, warmup: int = 1,
-                   **meta) -> dict:
-    """``fn()`` under torch.profiler, after ``warmup`` calls: host wall
-    time per ``unit`` (``fn`` does ``units`` of them), the share of the
-    wall the card was busy (the union of kernel intervals), and device time
-    per kernel name, largest first."""
-    for _ in range(warmup):
-        fn()
+def _profiled(fn) -> tuple:
+    """One call of ``fn()`` under torch.profiler: its host wall in us and
+    the profiler's device (CUDA) events."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1284,18 +1370,36 @@ def profile_device(what: str, fn, units: int, unit: str, warmup: int = 1,
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return wall_us, [e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_device(what: str, fn, units: int, unit: str, warmup: int = 1,
+                   **meta) -> dict:
+    """``fn()`` under torch.profiler, after ``warmup`` calls: host wall
+    time per ``unit`` (``fn`` does ``units`` of them), the share of the
+    wall the card was busy (the union of kernel intervals), and device time
+    per kernel name, largest first. A session in which CUPTI handed back no
+    device event at all is run again, up to PROFILE_TRIES sessions."""
+    for _ in range(warmup):
+        fn()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        wall_us, events = _profiled(fn)
+        if events:
+            break
+        line("profile_retry", what=what, attempt=attempt,
+             reason="the profiler recorded no device activity")
+    else:
+        raise RuntimeError(f"the profiler recorded no device activity in "
+                           f"{PROFILE_TRIES} sessions of {what}")
     per_name, intervals = defaultdict(lambda: [0, 0.0]), []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in events:
         t_start, t_end = e.time_range.start, e.time_range.end
         intervals.append((t_start, t_end))
         per_name[e.name][0] += 1
         per_name[e.name][1] += t_end - t_start
-    if not intervals:
-        raise RuntimeError("the profiler recorded no device activity")
     kernels = sorted(per_name.items(), key=lambda kv: -kv[1][1])
-    rec = {"what": what, **meta, f"{unit}s": units,
+    rec = {"what": what, **meta, f"{unit}s": units, "sessions": attempt,
            f"wall_ms_per_{unit}": wall_us / units / 1e3,
            "device_busy_share": _union_us(intervals) / wall_us,
            f"device_ms_per_{unit}": sum(us for _, us in per_name.values())
@@ -1748,9 +1852,11 @@ def phase_lm() -> dict:
 
 
 # ------------------------------------------- 4c. TinyLlama-1.1B serving
-def check_dense_plain(params, toks, full=DENSE, tag="dense_plain") -> None:
+def check_dense_plain(params, toks, full=DENSE, tag="dense_plain",
+                      norms=2 * LM_PLAIN_LAYERS + 1) -> None:
     """The first LM_PLAIN_LAYERS layers of the full-width dense model
-    ``full`` (TinyLlama; Qwen1.5-4B), same weights, prefill of one
+    ``full`` (TinyLlama; Qwen1.5-4B; Command-R, whose LayerNorms launch no
+    kernel: ``norms`` RMSNorm launches), same weights, prefill of one
     LM_PLAIN_PROMPT-token prompt: kernel path on the card against the plain
     path on the CPU, last-token logits and the KV cache."""
     cfg = full.replace(n_layers=LM_PLAIN_LAYERS)
@@ -1762,8 +1868,7 @@ def check_dense_plain(params, toks, full=DENSE, tag="dense_plain") -> None:
         _set_counts()
         lg, cache = transformer.prefill(sub, cfg, x, pos)
         torch.cuda.synchronize()
-        if _counts() != _pass_counts(2 * LM_PLAIN_LAYERS + 1, 0,
-                                     LM_PLAIN_LAYERS):
+        if _counts() != _pass_counts(norms, 0, LM_PLAIN_LAYERS):
             raise RuntimeError(f"2-layer prefill launched {_counts()}")
         t0 = time.perf_counter()
         lg_cpu, cache_cpu = transformer.prefill(
@@ -2162,14 +2267,26 @@ def profile_serving(tag: str, cfg, params, toks, pos, s_cache: int,
     torch.cuda.empty_cache()
 
 
+class _AdmissionCounter(ServeEngine):
+    """``ServeEngine`` counting the requests it admits to slots."""
+
+    admitted = 0
+
+    def _admit(self):
+        slots = super()._admit()
+        self.admitted += len(slots)
+        return slots
+
+
 def engine_at_defaults(tag: str, cfg, params, per_call: dict) -> None:
     """``ServeEngine`` at the serve launcher's defaults (batch 4, s_max
     128, 8 requests of 6-token prompts, 16 new tokens each) on ``params``
     (the launcher itself would draw the model's full depth): raises unless
     every request finished and the run launched a whole number of decode
-    calls' ``per_call`` counts; prints a ``[tag]`` line."""
+    calls' ``per_call`` counts; prints a ``[tag]`` line with the slots
+    refilled (admissions past the first 4), each cleared first."""
     _set_counts()
-    eng = ServeEngine(cfg, params, batch=4, s_max=128)
+    eng = _AdmissionCounter(cfg, params, batch=4, s_max=128)
     rng = np.random.default_rng(0)
     reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
         0, cfg.vocab_size, 6)], max_new=16) for i in range(8)]
@@ -2189,8 +2306,8 @@ def engine_at_defaults(tag: str, cfg, params, per_call: dict) -> None:
     if not n or counts != {k: n * v for k, v in per_call.items()}:
         raise RuntimeError(f"engine launched {counts}")
     line(tag, batch=4, s_max=128, requests=len(reqs), done=len(done),
-         tokens=tokens, seconds=dt, tokens_per_s=tokens / dt,
-         launches=counts, decode_calls=n)
+         refilled_slots=eng.admitted - 4, tokens=tokens, seconds=dt,
+         tokens_per_s=tokens / dt, launches=counts, decode_calls=n)
 
 
 # ---------------------------------------------- 4e. Gemma-3-27B serving
@@ -2345,12 +2462,18 @@ def phase_gemma() -> dict:
 
 
 # ---------------------------------------- 4f. DeepSeek-V2-236B serving
+def _draw_unit_norms(gen, params, std: float) -> None:
+    """Every norm scale drawn N(1, std) in place of the init's ones, so
+    that a swapped or missing norm shows."""
+    for path, t in _items(params):
+        if path.endswith("/scale"):
+            t.copy_(1.0 + _randn(gen, t.shape, t.dtype, std))
+
+
 def _draw_deepseek_norms(gen, params) -> None:
     """Every norm scale (ln1, ln2, MLA's q_norm and kv_norm, the final one)
     drawn N(1, DEEPSEEK_NORM_STD) in place of the init's ones."""
-    for path, t in _items(params):
-        if path.endswith("/scale"):
-            t.copy_(1.0 + _randn(gen, t.shape, t.dtype, DEEPSEEK_NORM_STD))
+    _draw_unit_norms(gen, params, DEEPSEEK_NORM_STD)
 
 
 def _near_ties(routes) -> int:
@@ -2564,6 +2687,223 @@ def phase_qwen4b() -> dict:
          flash_per_prefill=QWEN4B.n_layers, rmsnorm_per_pass=QWEN4B_NORMS,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
     check_dense_plain(params, toks, QWEN4B, "qwen4b_plain")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------- 4h. Zamba2-7B serving
+_ZAMBA_GROUPS = (   # device-time groups of a Zamba2 serving profile
+    ("ssd", ("ssd_kernel", "ssd_tc_kernel")),
+    ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
+    ("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("softmax", ("softmax",)),
+    ("casts", ("copy",)),
+)
+
+
+def _zamba_applications(seg, groups: int):
+    """(name, kind, params) of each block application of the first
+    ``groups`` groups of Zamba2's first segment ``seg``, in order: a
+    stacked position's layer, the tied position's one tree."""
+    plan = layer_plan(ZAMBA)[0]
+    for r in range(groups):
+        for j, (kind, tied) in enumerate(zip(plan.pattern, plan.shared)):
+            p = seg[f"b{j}"]
+            yield (f"{r}/b{j}", kind,
+                   p if tied else tree_map(lambda t, r=r: t[r], p))
+
+
+def check_zamba_plain(params, toks) -> None:
+    """Zamba2's first ZAMBA_PLAIN_GROUPS groups at full width, same weights
+    (14 of 81 layers: 12 Mamba blocks, the shared block applied twice), a
+    1 x ZAMBA_PLAIN_PROMPT prompt (a chunk of 256 and a ragged one), on
+    the card against the plain path on the CPU. At this depth bf16's own
+    rounding moves the logits by more than LM_REL_TOL (the CPU's bf16 path
+    against its fp32 one: ``cpu_bf16_vs_fp32``), so the check is made
+    three ways: (1) block by block, each card block fed the CPU block's
+    input, in bf16 through the main path's kernels: every block's output,
+    both applications' K/V, every Mamba block's final SSM state and the
+    last-token logits within LM_REL_TOL; (2) the whole prefill in fp32 on
+    both sides within FP32_LM_REL_TOL (the tied block's two applications
+    and every layer's wiring); (3) the whole bf16 prefill on the card, its
+    launches counted, against the CPU's fp32 one: no further off than the
+    CPU's own bf16 path plus LM_REL_TOL."""
+    n = ZAMBA_PLAIN_GROUPS
+    cfg = ZAMBA.replace(n_layers=n * ZAMBA.attn_every)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    seg = params["segments"][0]
+    sub = dict(params, segments=[{
+        f"b{j}": seg[f"b{j}"] if tied else tree_map(lambda t: t[:n],
+                                                     seg[f"b{j}"])
+        for j, tied in enumerate(layer_plan(ZAMBA)[0].shared)}])
+    cpu = tree_map(lambda t: t.cpu(), sub)
+    mamba = n * (ZAMBA.attn_every - 1)
+    P = ZAMBA_PLAIN_PROMPT
+    x = toks[:1, :P]
+    pos = torch.arange(P, device="cuda")[None]
+
+    def last_logits(tree, h):
+        h = apply_norm(tree["final_norm"], h[:, -1:], cfg)
+        return lm_logits(tree, h, cfg, embed_params=tree.get("embed"))[:, 0]
+    errs = defaultdict(float)
+    with torch.inference_mode():
+        _set_counts()
+        lg, _ = transformer.prefill(sub, cfg, x, pos)
+        torch.cuda.synchronize()
+        if _counts() != _pass_counts(2 * mamba + 2 * n + 1, mamba):
+            raise RuntimeError(f"{cfg.n_layers}-layer prefill launched "
+                               f"{_counts()}")
+        lg32, _ = transformer.prefill(sub, cfg32, x, pos)
+        t0 = time.perf_counter()
+        lc32, _ = transformer.prefill(cpu, cfg32, x.cpu(), pos.cpu())
+        h = transformer.embed_inputs(cpu, cfg, x.cpu())
+        for (name, kind, p), (_, _, pc) in zip(
+                _zamba_applications(seg, n),
+                _zamba_applications(cpu["segments"][0], n)):
+            hg, _, cg = apply_block(p, kind, h.cuda(), cfg, pos, "prefill",
+                                    init_block_cache(kind, cfg, 1, P,
+                                                     device="cuda"))
+            h, _, cc = apply_block(pc, kind, h, cfg, pos.cpu(), "prefill",
+                                   init_block_cache(kind, cfg, 1, P,
+                                                    device="cpu"))
+            errs["hidden"] = max(errs["hidden"],
+                                 _rel_err(hg, h, f"block {name}"))
+            for k in ("k", "v") if kind == "attn" else ("state",):
+                errs[k] = max(errs[k], _rel_err(cg[k], cc[k],
+                                                f"block {name} {k}"))
+        lc = last_logits(cpu, h)
+        cpu_s = time.perf_counter() - t0
+        errs["logits"] = _rel_err(last_logits(sub, h.cuda()), lc, "logits")
+    scale = lc32.abs().max().item()
+    card_vs_fp32 = (lg.cpu() - lc32).abs().max().item() / scale
+    cpu_vs_fp32 = (lc - lc32).abs().max().item() / scale
+    if card_vs_fp32 > cpu_vs_fp32 + LM_REL_TOL:
+        raise RuntimeError(f"the card's bf16 logits are {card_vs_fp32} of "
+                           f"scale off fp32, the CPU's {cpu_vs_fp32}")
+    line("zamba_plain", layers=cfg.n_layers, mamba_blocks=mamba,
+         shared_applications=n, prompt=P, rel_tol=LM_REL_TOL,
+         block_by_block={f"{k}_max_abs_err": v for k, v in errs.items()},
+         logits_scale=lc.abs().max().item(),
+         fp32_logits_max_abs_err=_rel_err(lg32, lc32, "fp32 logits",
+                                          FP32_LM_REL_TOL),
+         fp32_rel_tol=FP32_LM_REL_TOL, card_bf16_vs_fp32=card_vs_fp32,
+         cpu_bf16_vs_fp32=cpu_vs_fp32,
+         card_vs_cpu_bf16=(lg.cpu() - lc).abs().max().item()
+         / lc.abs().max().item(), cpu_plain_s=cpu_s)
+
+
+def phase_zamba() -> dict:
+    """Zamba2-7B at its full published width and depth (81 layers: 70
+    Mamba blocks, d 3584, d_inner 7168, 112 SSD heads of 64, state 64;
+    the one shared attention + MLP block, 32 heads of 112 and d_ff 14,336,
+    applied 11 times; vocab 32,000), seeded fp32 weights drawn on the card
+    with every norm scale drawn N(1, ZAMBA_NORM_STD): a 4 x 2048 prefill
+    into a cache of 2048 + 32 positions and 32 greedy decode steps (70
+    scans a prefill on the tensor cores, 163 RMSNorm a pass vectorised,
+    the out_norms at 896 vectors a row among them), the peak memory, 14
+    layers against the CPU, a profiled prefill and decode step, and
+    ``ServeEngine`` at the launcher's defaults, its slots refilled. Returns
+    the prefill's and decode steps' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(gen, ZAMBA)
+    _draw_unit_norms(gen, params, ZAMBA_NORM_STD)
+    torch.cuda.synchronize()
+    sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
+    n_params = sum(n for n, _ in sizes)
+    if n_params != ZAMBA_PARAMS:
+        raise RuntimeError(f"Zamba2-7B has {n_params} parameters, not "
+                           f"the reference's {ZAMBA_PARAMS}")
+    line("zamba_init", arch=ZAMBA.arch_id, layers=ZAMBA.n_layers,
+         mamba_blocks=ZAMBA_MAMBA, shared_applications=ZAMBA_ATTN,
+         d_model=ZAMBA.d_model, d_inner=ZAMBA.d_inner,
+         ssm_heads=ZAMBA.ssm_nheads, ssm_headdim=ZAMBA.ssm_headdim,
+         ssm_state=ZAMBA.ssm_state, heads=ZAMBA.nq, head_dim=ZAMBA.hd,
+         d_ff=ZAMBA.d_ff, vocab=ZAMBA.vocab, norm_std=ZAMBA_NORM_STD,
+         params=n_params, param_gb=sum(n * b for n, b in sizes) / 1e9,
+         seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, ZAMBA)
+    s_cache = LM_PROMPT + LM_DECODE
+    _serve_warm_up(ZAMBA, params, toks, pos)
+    torch.cuda.reset_peak_memory_stats()
+
+    _set_counts()                     # Zamba2-7B's main path
+    res = lm_prefill_decode(ZAMBA, params, toks, pos,
+                            _pass_counts(ZAMBA_NORMS, ZAMBA_MAMBA),
+                            _pass_counts(ZAMBA_NORMS, 0), s_cache=s_cache)
+    launches = _counts()
+    line("zamba_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
+         decode_steps=LM_DECODE, launches=launches,
+         ssd_per_prefill=ZAMBA_MAMBA, rmsnorm_per_pass=ZAMBA_NORMS,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+    check_zamba_plain(params, toks)
+    profile_serving("zamba_profile", ZAMBA, params, toks, pos, s_cache,
+                    _ZAMBA_GROUPS, "other_elementwise")
+    engine_at_defaults("zamba_engine", ZAMBA, params,
+                       _pass_counts(ZAMBA_NORMS, 0))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------- 4i. Command-R 35B serving
+def _draw_layer_norms(gen, params, std: float) -> None:
+    """Every LayerNorm scale drawn N(1, std) and bias N(0, std) in place
+    of the init's ones and zeros."""
+    for path, t in _items(params):
+        if path.endswith("/scale") or path.endswith("/bias"):
+            t.copy_(_randn(gen, t.shape, t.dtype, std)
+                    + path.endswith("/scale"))
+
+
+def phase_cmdr() -> dict:
+    """Command-R 35B at its full published width (d 8192, 64 q heads over
+    8 kv heads of 128, d_ff 22,528, vocab 256,000, LayerNorm, the parallel
+    block, a tied table) and CMDR.n_layers of its 40 layers, seeded fp32
+    weights drawn on the card with the LayerNorm parameters drawn: a 4 x
+    2048 prefill into a cache of 2048 + 32 positions and 32 greedy decode
+    steps (flash one a layer in a prefill, causal GQA on the tensor cores;
+    no RMSNorm: LayerNorm is plain PyTorch, as in the reference), the peak
+    memory, the first 2 layers against the CPU, and a profiled prefill and
+    decode step. Returns the prefill's and decode steps' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(gen, CMDR)
+    _draw_layer_norms(gen, params, CMDR_NORM_STD)
+    torch.cuda.synchronize()
+    sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
+    n_params = sum(n for n, _ in sizes)
+    if n_params != CMDR_PARAMS:
+        raise RuntimeError(f"Command-R at {CMDR.n_layers} layers has "
+                           f"{n_params} parameters, not {CMDR_PARAMS}")
+    line("cmdr_init", arch=CMDR.arch_id, layers=CMDR.n_layers,
+         published_layers=command_r_35b.CONFIG.n_layers,
+         d_model=CMDR.d_model, heads=CMDR.nq, kv_heads=CMDR.nkv,
+         head_dim=CMDR.hd, d_ff=CMDR.d_ff, vocab=CMDR.vocab,
+         parallel_block=CMDR.parallel_block, norm_std=CMDR_NORM_STD,
+         params=n_params, param_gb=sum(n * b for n, b in sizes) / 1e9,
+         init_peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, CMDR)
+    s_cache = LM_PROMPT + LM_DECODE
+    _serve_warm_up(CMDR, params, toks, pos)
+    torch.cuda.reset_peak_memory_stats()
+
+    _set_counts()                     # Command-R's main path
+    res = lm_prefill_decode(CMDR, params, toks, pos,
+                            _pass_counts(0, 0, CMDR.n_layers),
+                            _pass_counts(0, 0), s_cache=s_cache)
+    launches = _counts()
+    line("cmdr_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
+         decode_steps=LM_DECODE, launches=launches,
+         flash_per_prefill=CMDR.n_layers,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+    check_dense_plain(params, toks, CMDR, "cmdr_plain", norms=0)
+    profile_serving("cmdr_profile", CMDR, params, toks, pos, s_cache,
+                    _GEMMA_GROUPS, "other_elementwise")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -3766,7 +4106,8 @@ def ssd_work(Bz, S, H, P, N, G, chunk, itemsize):
     return nbytes, flops
 
 
-def phase_timing(errs: dict, launches: dict) -> list:
+def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
+    """Phase 5; ``paths``: the launches of phases 4h and 4i, by model."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     B = 2 * LANES * mirage_agent.N_EXPERTS
     H, D = TRUNK.n_heads, TRUNK.hd
@@ -3827,6 +4168,9 @@ def phase_timing(errs: dict, launches: dict) -> list:
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 local",
                                   GEMMA.sliding_window))
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 global"))
+    line("time", **time_flash_gqa(gen, CMDR, "Command-R"),
+         launches_a_prefill=CMDR.n_layers,
+         launches=paths["cmdr"]["flash_attention"])
     # RMSNorm as Gemma-3's QK-norm (its 32 q heads' rows of 128) and as
     # DeepSeek-V2's q_norm and kv_norm run at a 4 x 2048 prefill
     rows = LM_BATCH * LM_PROMPT
@@ -3838,6 +4182,16 @@ def phase_timing(errs: dict, launches: dict) -> list:
         line("time", **time_norm(gen, f"rmsnorm DeepSeek-V2 {what}", rows,
                                  dim, False, DEEPSEEK.norm_eps,
                                  DEEPSEEK_NORM_STD))
+    # RMSNorm at Zamba2-7B's d_model (its Mamba blocks' ln, the shared
+    # block's ln1 and ln2, the final norm) and its out_norms' d_inner, and
+    # the scan at one of its prefill layers (phase 4h)
+    for what, dim, n in (("d_model", ZAMBA.d_model, ZAMBA_NORMS - ZAMBA_MAMBA),
+                         ("out_norm", ZAMBA.d_inner, ZAMBA_MAMBA)):
+        line("time", **time_norm(gen, f"rmsnorm Zamba2-7B {what}", rows, dim,
+                                 False, ZAMBA.norm_eps, ZAMBA_NORM_STD),
+             launches_a_prefill=n, launches=paths["zamba"]["rmsnorm"])
+    line("time", **time_ssd(gen, ZAMBA, "Zamba2-7B"),
+         launches_a_prefill=ZAMBA_MAMBA, launches=paths["zamba"]["ssd"])
     for rec in (time_moe_gemms(gen)
                 + time_moe_gemms(gen, DEEPSEEK, "DeepSeek-V2")):
         line("time", **rec)
@@ -4044,6 +4398,31 @@ def time_norm(gen, name: str, rows: int, dim: int, gemma: bool,
         library="F.rms_norm(weight=1 + w)" if gemma else "F.rms_norm",
         library_factor=ms / lib_ms, host_us=host_us(norm), bound_ms=bms,
         bound_by=by, bound_share=bms / ms, bytes=nbytes)
+
+
+def time_ssd(gen, cfg, what: str) -> dict:
+    """The scan of one prefill layer of ``cfg`` (4 x 2048, bf16) beside
+    its "simt" variant and plain version, with its bound (no one PyTorch
+    call scans)."""
+    shape = (LM_BATCH, LM_PROMPT, cfg.ssm_nheads, cfg.ssm_headdim,
+             cfg.ssm_state, cfg.ssm_ngroups)
+    args = ssd_inputs(gen, *shape, torch.bfloat16, False)[:6]
+
+    def scan():
+        return ssd(*args, cfg.ssm_chunk)
+    ms, variant = timed_variant(ssd, scan)
+    bms, by = bound_ms(*ssd_work(*shape, cfg.ssm_chunk, 2))
+    return dict(
+        name=f"ssd {what} prefill layer",
+        shape=f"x ({LM_BATCH},{LM_PROMPT},{cfg.ssm_nheads},"
+              f"{cfg.ssm_headdim}) bf16, B/C ({LM_BATCH},{LM_PROMPT},"
+              f"{cfg.ssm_ngroups},{cfg.ssm_state}) bf16, chunk "
+              f"{cfg.ssm_chunk}", variant=variant, ms=ms,
+        simt_ms=time_ms(lambda: ssd_launch(*args, cfg.ssm_chunk, None,
+                                           "simt"), reps=5),
+        plain_ms=time_ms(lambda: ssd_ref(*args, cfg.ssm_chunk), reps=5),
+        library_ms=None, host_us=host_us(scan), bound_ms=bms, bound_by=by,
+        bound_share=bms / ms)
 
 
 def time_moe_gemms(gen, cfg=QWEN, model="Qwen2-MoE") -> list:
@@ -4671,6 +5050,10 @@ def main() -> int:
     launches.update(phase("4e Gemma-3 serving", phase_gemma))
     launches.update(phase("4f DeepSeek-V2 serving", phase_deepseek))
     launches.update(phase("4g Qwen1.5-4B serving", phase_qwen4b))
+    paths = {"zamba": phase("4h Zamba2-7B serving", phase_zamba),
+             "cmdr": phase("4i Command-R serving", phase_cmdr)}
+    for counts in paths.values():
+        launches.update(counts)
     policies, grid = phase("6 grid", phase_grid)
     service = phase("7 service", phase_service, policies)
     del policies
@@ -4678,7 +5061,7 @@ def main() -> int:
     lm_train = phase("8 LM training", phase_lm_train)
     for counts in (grid, service, lm_train):
         launches.update(counts)
-    records = phase("5 timing", phase_timing, errs, launches)
+    records = phase("5 timing", phase_timing, errs, launches, paths)
     print(json.dumps({"kernels": records}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -17,10 +17,11 @@
 // (kernels/rmsnorm/ops.py:_rmsnorm_variant):
 //
 // "vec", rows that start on 16-byte boundaries and a d that is a multiple
-// of 8 (bf16) or 4 (fp32), up to 768 such vectors: one warp per row, 4 rows
+// of 8 (bf16) or 4 (fp32), up to 896 such vectors: one warp per row, 4 rows
 // per block. Every access is 16 bytes a lane. A lane issues all of its
 // loads of x (VPL vectors, a template argument: 16 at d = 4096 in bf16, 24
-// at Gemma-3's d = 5376, whose 672 vectors leave 21 a lane) before the
+// at Gemma-3's d = 5376, whose 672 vectors leave 21 a lane, 28 at
+// Zamba2-7B's d_inner = 7168, 896 vectors, its gated out_norm) before the
 // shuffle reduction, so a warp keeps its whole row in flight (8 KB at
 // d = 4096) and the bytes cover the memory latency; the row stays
 // in registers between the sum of squares and the scale, so x is read
@@ -86,7 +87,7 @@ cudaError_t launch_simt(const void* x, const void* w, void* y, int rows, int d,
 // ------------------------------------------------------------- vec variant
 constexpr int kVecRows = 4;
 constexpr int kVecThreads = 32 * kVecRows;
-constexpr int kMaxVecs = 24;      // 16-byte vectors a lane holds, at most
+constexpr int kMaxVecs = 28;      // 16-byte vectors a lane holds, at most
 
 template <typename T, typename W, int VPL>
 __global__ void __launch_bounds__(kVecThreads)
@@ -153,6 +154,7 @@ cudaError_t launch_vec(const void* x, const void* w, void* y, int rows, int d, l
   REPRO_NORM_VPL(8)
   REPRO_NORM_VPL(16)
   REPRO_NORM_VPL(24)
+  REPRO_NORM_VPL(28)
 #undef REPRO_NORM_VPL
   return cudaErrorInvalidValue;
 }
@@ -184,7 +186,7 @@ cudaError_t dispatch_w(int w_dtype, int variant, const void* x, const void* w, v
 // x: (rows, d) with row stride x_sr and unit stride on d; w: contiguous (d,)
 // in its own dtype; y: contiguous (rows, d) in x's dtype. variant 0 runs the
 // one-element-per-lane kernel; variant 1 the vectorised one, which takes a
-// d that is a multiple of 16 bytes' worth of x's elements (at most 768
+// d that is a multiple of 16 bytes' worth of x's elements (at most 896
 // vectors), x_sr a multiple of the same unless rows == 1, and 16-byte-
 // aligned x, w and y, and refuses anything else (the caller chooses;
 // nothing falls back). Returns the CUDA error of the launch (0 on success).

@@ -20,8 +20,8 @@
 // is the same bit for bit from run to run:
 //
 // "vec", rows that start on 16-byte boundaries and a d that is a multiple of
-// 8 (bf16) or 4 (fp32), at most 24 vectors a lane (768 a row, the
-// forward's limit): one warp per row, laid out like the forward's
+// 8 (bf16) or 4 (fp32), at most 24 vectors a lane (768 a row; the
+// forward takes 896): one warp per row, laid out like the forward's
 // rmsnorm_vec_kernel. A lane issues every 16-byte load of its share of x
 // and dy before it uses any, holds them in registers (VPL vectors each, a
 // template argument: 16 at d = 4096 in bf16, 24 at Gemma-3's d = 5376,

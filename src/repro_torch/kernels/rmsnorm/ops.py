@@ -54,7 +54,8 @@ def rmsnorm_bwd_ref(x, w, dy, *, eps: float = 1e-6, gemma: bool = False):
     return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
 
 
-MAX_VECS = 768          # 16-byte vectors in a row of either vec kernel
+MAX_VECS = 896          # 16-byte vectors in a row of the vec forward
+BWD_MAX_VECS = 768      # and of the vec backward
 
 
 def _rmsnorm_variant(x, w) -> str:
@@ -120,12 +121,13 @@ def bwd_vec_partition(rows: int):
 def _rmsnorm_bwd_variant(x, w, dy) -> str:
     """The backward kernel a CUDA launch over the rows of x (..., d) runs,
     chosen from the inputs alone: "vec" (one warp a row, 16-byte loads and
-    stores) where the forward's "vec" conditions hold for x and w (up to
-    MAX_VECS vectors a row: Gemma-3's d_model of 5376 in bf16, 672, runs
-    "vec" both ways), and dy is contiguous and 16-byte-aligned, else
-    "simt"."""
+    stores) where the forward's "vec" conditions hold for x and w with at
+    most BWD_MAX_VECS vectors a row (Gemma-3's d_model of 5376 in bf16,
+    672, runs "vec" both ways; Zamba2-7B's d_inner of 7168, 896, only
+    forward), and dy is contiguous and 16-byte-aligned, else "simt"."""
     d = x.shape[-1]
-    if _rmsnorm_variant(x, w) != "vec":
+    if _rmsnorm_variant(x, w) != "vec" or \
+            d // (16 // x.element_size()) > BWD_MAX_VECS:
         return "simt"
     fdy = dy.reshape(-1, d)
     if fdy.stride(-1) != 1 or fdy.data_ptr() % 16 or \

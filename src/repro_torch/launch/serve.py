@@ -12,11 +12,13 @@ done or the wall-clock guard fires.
       [--smoke] [--requests 8] [--ckpt-dir checkpoints/svc] [--device cpu]
 
 ``--arch`` defaults to TinyLlama-1.1B, as in the reference; Mamba2-1.3B is
-``--arch mamba2-1.3b`` and DeepSeek-V2 (MLA, 160 experts top-6) ``--arch
-deepseek-v2-236b``, whose full depth does not fit one card (``--smoke``
-serves its reduced config). ``--arch hubert-xlarge`` is refused: the engine
-serves no encoder, as the reference's does not. It runs on CUDA unless
-``--device cpu`` is given.
+``--arch mamba2-1.3b``, the hybrid Zamba2-7B (its shared attention block
+tied across 11 applications) ``--arch zamba2-7b``, and DeepSeek-V2 (MLA,
+160 experts top-6) ``--arch deepseek-v2-236b`` and Command-R 35B ``--arch
+command-r-35b``, whose full depths do not fit one card in fp32 (``--smoke``
+serves their reduced configs). ``--arch hubert-xlarge`` is refused: the
+engine serves no encoder, as the reference's does not. It runs on CUDA
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

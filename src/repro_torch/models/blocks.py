@@ -1,15 +1,17 @@
-"""Block assembly (port of ``repro.models.blocks``, serving subset): dense
-attention + MLP blocks, Gemma-3's local (sliding-window attention, the
-local RoPE theta) and global (full attention) blocks, MoE blocks
-(attention + top-k MoE) and Mamba2 SSD blocks, in three modes, with the
-sandwich (post-attention, post-FFN) norms where the config has them and
-MLA in place of GQA in dense and MoE blocks where it has ``use_mla``. The
-agent runs dense blocks in ``forward`` mode over a leading expert axis; the
-LMs run them in every mode.
+"""Block assembly (port of ``repro.models.blocks``): dense attention + MLP
+blocks, Gemma-3's local (sliding-window attention, the local RoPE theta)
+and global (full attention) blocks, MoE blocks (attention + top-k MoE),
+the attention + MLP blocks of a hybrid stack (``attn``: Zamba2's shared
+block, full attention at ``rope_theta``) and Mamba2 SSD blocks, in three
+modes, with the sandwich (post-attention, post-FFN) norms where the config
+has them, MLA in place of GQA in dense and MoE blocks where it has
+``use_mla``, and the parallel block (one norm feeding attention and the
+FFN, ``x + (a + f)``) where it has ``parallel_block``. The agent runs dense
+blocks in ``forward`` mode over a leading expert axis; the LMs run them in
+every mode.
 
 Modes: ``forward`` (no cache), ``prefill`` (cache fill), ``decode`` (one
-token, cache update at ``index``). Shared-attention (``attn``) blocks and
-parallel blocks are not ported.
+token, cache update at ``index``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
-_ATTN_KINDS = ("dense", "local", "global", "moe")
+_ATTN_KINDS = ("dense", "local", "global", "moe", "attn")
 
 
 def _attn_opts(kind: str, cfg: ModelConfig) -> Dict:
@@ -32,6 +34,11 @@ def _attn_opts(kind: str, cfg: ModelConfig) -> Dict:
         return dict(window=cfg.sliding_window,
                     theta=cfg.rope_theta_local or cfg.rope_theta)
     return dict(window=0, theta=cfg.rope_theta)
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in _ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _mla(kind: str, cfg: ModelConfig) -> bool:
@@ -44,8 +51,7 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
     if kind == "mamba":
         return {"ln": init_norm(cfg, lead=lead),
                 "mamba": ssm_mod.init_mamba(gen, cfg, lead)}
-    if kind not in _ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+    _check_kind(kind)
     init_attn = attn_mod.init_mla if _mla(kind, cfg) else \
         attn_mod.init_attention
     p = {"ln1": init_norm(cfg, lead=lead), "ln2": init_norm(cfg, lead=lead),
@@ -83,10 +89,29 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
         else:
             y = ssm_mod.mamba_forward(params["mamba"], h, cfg)
         return x + y, aux, cache
-    if kind not in _ATTN_KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
-    opts = _attn_opts(kind, cfg)
+    _check_kind(kind)
     h = apply_norm(params["ln1"], x, cfg)
+    a, cache = _attn_part(params, kind, h, cfg, positions, mode, cache,
+                          index)
+    if cfg.parallel_block:
+        # one norm feeds both branches; the tree keeps the reference's
+        # unused ln2, whose gradient is zero
+        f, aux = _ffn_part(params, kind, h, cfg, mode)
+        return x + (a + f), aux, cache
+    if cfg.sandwich_norm:
+        a = apply_norm(params["post_ln1"], a, cfg)
+    x = x + a
+    h = apply_norm(params["ln2"], x, cfg)
+    f, aux = _ffn_part(params, kind, h, cfg, mode)
+    if cfg.sandwich_norm:
+        f = apply_norm(params["post_ln2"], f, cfg)
+    return x + f, aux, cache
+
+
+def _attn_part(params: Dict, kind: str, h: torch.Tensor, cfg: ModelConfig,
+               positions, mode: str, cache, index):
+    """The attention branch on the normed h: (a, cache)."""
+    opts = _attn_opts(kind, cfg)
     if _mla(kind, cfg):
         if mode == "decode":
             a, cache = attn_mod.mla_decode(params["attn"], h, cfg, positions,
@@ -104,28 +129,25 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
                                          cache, **opts)
     else:
         a = attn_mod.attn_forward(params["attn"], h, cfg, positions, **opts)
-    if cfg.sandwich_norm:
-        a = apply_norm(params["post_ln1"], a, cfg)
-    x = x + a
-    h = apply_norm(params["ln2"], x, cfg)
+    return a, cache
+
+
+def _ffn_part(params: Dict, kind: str, h: torch.Tensor, cfg: ModelConfig,
+              mode: str):
+    """The FFN branch on the normed h: (f, aux), aux the MoE router's loss
+    in ``forward`` mode, else 0.0."""
     if kind == "moe":
-        f, aux = moe_mod.moe_forward(params["ffn"], h, cfg,
-                                     scheme=cfg.moe_scheme,
-                                     with_aux=mode == "forward")
-    else:
-        f = apply_mlp(params["ffn"], h, cfg)
-    if cfg.sandwich_norm:
-        f = apply_norm(params["post_ln2"], f, cfg)
-    return x + f, aux, cache
+        return moe_mod.moe_forward(params["ffn"], h, cfg,
+                                   scheme=cfg.moe_scheme,
+                                   with_aux=mode == "forward")
+    return apply_mlp(params["ffn"], h, cfg), 0.0
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, s_cache: int,
                      dtype=None, device=None) -> Dict:
     if kind == "mamba":
         return ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
-    if kind not in _ATTN_KINDS:
-        raise NotImplementedError(f"{kind!r} blocks have no decode cache in "
-                                  "the port")
+    _check_kind(kind)
     if _mla(kind, cfg):
         return attn_mod.init_mla_cache(cfg, batch, s_cache, dtype, device)
     window = cfg.sliding_window if kind == "local" else 0

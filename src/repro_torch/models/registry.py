@@ -10,6 +10,7 @@ from typing import Tuple
 from .common import ModelConfig
 
 _ARCH_MODULES = {
+    "command-r-35b": "repro_torch.configs.command_r_35b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "gemma3-27b": "repro_torch.configs.gemma3_27b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
@@ -18,6 +19,7 @@ _ARCH_MODULES = {
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 

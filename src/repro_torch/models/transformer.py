@@ -3,7 +3,10 @@ forward and its next-token loss for training, prefill and decode for
 serving.
 
 The reference scans each segment over its stacked layer axis; here the
-layers run as a Python loop over the stacked (L, ...) leaves. One trunk
+layers run as a Python loop over the stacked (L, ...) leaves. A tied
+position (Zamba2's shared attention block) keeps one unstacked tree, which
+every application of the segment reads, as the reference's scan closes
+over it; its caches stay stacked, one entry an application. One trunk
 serves two layouts:
 
 * the LM (``init(gen, cfg)``): the reference's tree as it is, with token
@@ -29,7 +32,7 @@ from .layers import (apply_norm, dense_init, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
 
 # features of ModelConfig that the port does not carry yet
-_UNPORTED = ("mrope_sections", "parallel_block")
+_UNPORTED = ("mrope_sections",)
 _CACHED_MODES = ("prefill", "decode")
 
 
@@ -43,8 +46,9 @@ def _check_supported(cfg: ModelConfig) -> None:
 def init(gen: torch.Generator, cfg: ModelConfig,
          n_experts: Optional[int] = None) -> Dict:
     """Parameters drawn from ``gen``. Without ``n_experts``: the LM tree of
-    the reference (``embed``, ``segments``, ``final_norm``, ``head``), every
-    leaf on ``gen``'s device. With it: ``n_experts`` stacked agent trunks
+    the reference (``embed``, ``segments``, ``final_norm``, ``head``; a tied
+    position one unstacked block tree), every leaf on ``gen``'s device.
+    With it: ``n_experts`` stacked agent trunks
     (drawn leaves on ``gen``'s device, constant ones on the CPU, as
     ``init_foundation`` moves them); the unused ``head`` leaf of the
     reference's tree is kept so the trees convert one to one."""
@@ -75,11 +79,9 @@ def _init_lm(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         params["embed"] = init_embedding(gen, cfg)
     segs = []
     for seg in layer_plan(cfg):
-        if any(seg.shared):
-            raise NotImplementedError(f"{cfg.arch_id}: tied blocks are not "
-                                      "ported")
-        segs.append({f"b{j}": init_block(gen, kind, cfg, lead=(seg.n_repeat,))
-                     for j, kind in enumerate(seg.pattern)})
+        segs.append({f"b{j}": init_block(
+            gen, kind, cfg, lead=() if shared else (seg.n_repeat,))
+            for j, (kind, shared) in enumerate(zip(seg.pattern, seg.shared))})
     params["segments"] = segs
     params["final_norm"] = init_norm(cfg)
     params.update(init_lm_head(gen, cfg))
@@ -130,8 +132,12 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
     for si, (seg, seg_params) in enumerate(zip(layer_plan(cfg),
                                                params["segments"])):
         layers = []
-        per_layer = {name: _layers(p, seg.n_repeat)
-                     for name, p in seg_params.items()}
+        # a tied position hands its one tree to every application
+        per_layer = {}
+        for j, shared in enumerate(seg.shared):
+            p = seg_params[f"b{j}"]
+            per_layer[f"b{j}"] = ([p] * seg.n_repeat if shared
+                                  else _layers(p, seg.n_repeat))
         for r in range(seg.n_repeat):
             new = {}
             for j, kind in enumerate(seg.pattern):

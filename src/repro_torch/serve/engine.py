@@ -11,6 +11,14 @@ latents, at its own slot and masks its own length (``attn_decode``,
 batched step is that row's single-sequence decode. Merging back only the slots that were meant to
 advance then computes what the reference computes.
 
+One deliberate divergence: a slot refilled from the queue has every row of
+its cache cleared before its prompt is fed. The reference only resets the
+slot's length, which masks stale attention rows but not a Mamba block's
+SSM state and conv taps: there the next request would start from the
+previous request's state. Attention-only models give the reference's
+tokens either way; Mamba2 and Zamba2 give, in a reused slot, the tokens of
+the request served alone.
+
 This is the long-running inference service Mirage keeps alive across
 chained sub-jobs.
 """
@@ -22,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.convert import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
@@ -70,6 +79,9 @@ class ServeEngine:
                 req = self.queue.pop(0)
                 self.slot_req[slot] = req
                 self.lengths[slot] = 0
+                # every cache starts at zeros (init_cache): zero the
+                # slot's row of each leaf (axis 1, after the layer axis)
+                tree_map(lambda t: t[:, slot].zero_(), self.cache)
                 self._prefill_slot(slot, req)
                 admitted.append(slot)
         return admitted

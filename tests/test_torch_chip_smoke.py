@@ -1,0 +1,68 @@
+"""``chip_smoke.py``'s profile helper on the CPU: a profiler session in
+which CUPTI hands back no device event is run again, a bounded number of
+times, and the profile fails if none of them recorded any."""
+import importlib.util
+import json
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _event(name, start, end):
+    return SimpleNamespace(name=name,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+@pytest.mark.parametrize("empty", [0, 1, 2, 3])
+def test_profile_device_runs_again_when_no_device_event(smoke, monkeypatch,
+                                                        capsys, empty):
+    """The first ``empty`` sessions record nothing on the device; the
+    profile comes from the first session that does, and fails after
+    PROFILE_TRIES empty ones."""
+    assert smoke.PROFILE_TRIES == 3
+    calls = {"fn": 0, "sessions": 0}
+
+    def fn():
+        calls["fn"] += 1
+
+    def profiled(f):
+        f()
+        calls["sessions"] += 1
+        if calls["sessions"] <= empty:
+            return 1000.0, []
+        return 1000.0, [_event("k_a", 0.0, 300.0), _event("k_b", 200.0, 500.0),
+                        _event("k_a", 600.0, 700.0)]
+
+    monkeypatch.setattr(smoke, "_profiled", profiled)
+    if empty >= smoke.PROFILE_TRIES:
+        with pytest.raises(RuntimeError, match="no device activity"):
+            smoke.profile_device("x", fn, 2, "step", warmup=1)
+        assert calls == {"fn": 1 + smoke.PROFILE_TRIES,
+                         "sessions": smoke.PROFILE_TRIES}
+        return
+    rec = smoke.profile_device("x", fn, 2, "step", warmup=1, batch=4)
+    assert calls == {"fn": 2 + empty, "sessions": 1 + empty}
+    assert rec["sessions"] == 1 + empty and rec["batch"] == 4
+    assert rec["wall_ms_per_step"] == pytest.approx(0.5)
+    assert rec["device_busy_share"] == pytest.approx(0.6)    # 0-500, 600-700
+    assert rec["device_ms_per_step"] == pytest.approx(0.35)
+    assert rec["device_calls_per_step"] == 1.5
+    assert [k["name"] for k in rec["kernels"]] == ["k_a", "k_b"]
+    assert rec["kernels"][0]["calls_per_step"] == 1.0
+    out = capsys.readouterr().out.splitlines()
+    retries = [json.loads(s.split(" ", 1)[1]) for s in out
+               if s.startswith("[profile_retry]")]
+    assert [r["attempt"] for r in retries] == list(range(1, empty + 1))
+    assert sum(s.startswith("[profile] ") for s in out) == 1

@@ -53,7 +53,12 @@ through MLA's latent cache, fp32) against the CPU; its training shapes,
 the fused GEMM backward at 160 experts of 96 rows (1 x 2048 tokens, a
 k-tail of 32 in dW's contraction) through wi and wo, and RMSNorm's
 backward at its q and kv ranks. Qwen1.5-4B's layer, 20 q heads over 20 kv
-heads of 128 at S = 2048, through flash forward and backward.
+heads of 128 at S = 2048, through flash forward and backward. Zamba2-7B's
+kernels: RMSNorm at its d_model (3584) and its out_norm's d_inner (7168 in
+bf16, 896 vectors, the vec forward's limit; 897 runs simt), the SSD scan at
+112 heads of 64 with N = 64 and one group, at a 4 x 2048 prefill and a
+ragged S with an initial state; Command-R's flash layer, 64 q heads over 8
+kv heads of 128, causal at S = 2048 and a ragged 1100.
 
 TinyLlama's first 2 layers at full width run a prefill and two decode
 steps on the card against the plain path on the CPU, same weights (2e-2 of
@@ -126,6 +131,8 @@ def _launched(kernel, fn):
         (2, 32, 16, 1100, 1100, 128, BF16, True, 1024, 0.0, "tc"),  # Gemma-3 local
         (1, 8, 4, 2048, 2048, 64, BF16, True, 1024, 0.0, "tc"),
         (4, 20, 20, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),  # Qwen1.5-4B
+        (4, 64, 8, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),  # Command-R
+        (1, 64, 8, 1100, 1100, 128, BF16, True, 0, 0.0, "tc"),  # ragged
     ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                     causal, window, softcap, variant):
@@ -271,6 +278,11 @@ def _counted(kernel, counter, fn):
     (8192, 512, FP32, FP32, False, "plain", "vec"),
     (4, 1536, BF16, FP32, False, "plain", "vec"),      # a decode step's
     (4, 512, BF16, FP32, False, "plain", "vec"),
+    (8192, 3584, BF16, FP32, False, "plain", "vec"),   # Zamba2-7B d_model
+    (8192, 7168, BF16, FP32, False, "plain", "vec"),   # its out_norm: 896
+    (4, 7168, BF16, FP32, False, "plain", "vec"),      # a decode step's
+    (33, 7176, BF16, FP32, False, "plain", "simt"),    # 897: one too many
+    (37, 3584, FP32, FP32, False, "plain", "vec"),     # fp32's 896
 ])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, w_dtype, gemma,
                                       layout, variant):
@@ -323,6 +335,8 @@ def _ssd_inputs(device, Bz, S, H, P, N, G, dtype, init):
     (1, 300, 3, 64, 128, 1, 128, BF16, True, "tc"),    # 3 heads a group: one
     (1, 130, 4, 64, 16, 1, 64, BF16, True, "tc"),
     (1, 6, 8, 32, 32, 1, 256, BF16, False, "tc"),       # one short chunk
+    (4, 2048, 112, 64, 64, 1, 256, BF16, False, "tc"),  # Zamba2-7B prefill
+    (1, 1100, 112, 64, 64, 1, 256, BF16, True, "tc"),   # ragged, a state
     (2, 200, 4, 64, 8, 1, 64, BF16, False, "simt"),     # N off the tc kernel
     (2, 1000, 8, 64, 128, 2, 256, FP32, True, "simt"),
     (2, 50, 4, 16, 8, 2, 16, FP32, True, "simt"),

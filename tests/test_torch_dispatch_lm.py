@@ -22,7 +22,8 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.rmsnorm.ops import (BWD_MAX_BLOCKS,
                                              BWD_VEC_MAX_BLOCKS,
-                                             BWD_VEC_WARPS, MAX_VECS,
+                                             BWD_MAX_VECS, BWD_VEC_WARPS,
+                                             MAX_VECS,
                                              _rmsnorm_bwd_variant,
                                              _rmsnorm_variant, bwd_blocks,
                                              bwd_vec_partition)
@@ -106,27 +107,38 @@ def test_rmsnorm_gemma3_serving_shapes_are_vectorised(rows, d):
 
 def test_rmsnorm_backward_takes_fewer_vectors_than_the_forward():
     """A row of Gemma-3's d_model, 672 vectors in bf16: the vec backward
-    holds as many vectors a row as the forward (MAX_VECS), so Gemma-3's
-    block norms, (2 x 2048, 5376) in training, run "vec" both ways."""
+    holds up to BWD_MAX_VECS vectors a row (the forward MAX_VECS), so
+    Gemma-3's block norms, (2 x 2048, 5376) in training, run "vec" both
+    ways."""
     d = GEMMA.d_model
-    assert 512 < d // 8 <= MAX_VECS
+    assert 512 < d // 8 <= BWD_MAX_VECS < MAX_VECS
     x = torch.empty(2 * 2048, d, dtype=BF16)
     assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
     assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
         "vec"
 
 
-@pytest.mark.parametrize("vecs,variant", [(MAX_VECS, "vec"),
-                                          (MAX_VECS + 1, "simt")])
+@pytest.mark.parametrize("over,variant", [(0, "vec"), (1, "simt")])
 @pytest.mark.parametrize("dtype", [BF16, FP32])
-def test_rmsnorm_vector_limit_is_the_same_both_ways(vecs, variant, dtype):
-    """At the limit's edge, 768 and 769 vectors a row, the forward and the
-    backward choose alike."""
-    d = vecs * (16 // torch.empty(0, dtype=dtype).element_size())
+def test_rmsnorm_vector_limit_is_the_same_both_ways(over, variant, dtype):
+    """Each way at its own limit's edge, the same rule: the forward at
+    MAX_VECS (896, Zamba2-7B's d_inner in bf16) and one more, the backward
+    at BWD_MAX_VECS (768) and one more; a row between the two runs the vec
+    forward and the simt backward (the two limits were one, 768, when this
+    test was named)."""
+    per = 16 // torch.empty(0, dtype=dtype).element_size()
+    d = (MAX_VECS + over) * per
     x = torch.empty(4, d, dtype=dtype)
     assert _rmsnorm_variant(x, torch.empty(d)) == variant
+    d = (BWD_MAX_VECS + over) * per
+    x = torch.empty(4, d, dtype=dtype)
     assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
         variant
+    x = torch.empty(4, (BWD_MAX_VECS + 1) * per, dtype=dtype)
+    w = torch.empty(x.shape[-1])
+    assert (_rmsnorm_variant(x, w),
+            _rmsnorm_bwd_variant(x, w, torch.empty_like(x))) == ("vec",
+                                                                 "simt")
 
 
 # ---------------------------------------------------------------- SSD variant

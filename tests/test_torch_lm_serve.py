@@ -8,6 +8,13 @@ it: within it either side's argmax may legitimately flip, and the tokens
 after a flip differ by design, so the comparison stops at the first such
 near-tie. With the seeds here none occurs, and every request's tokens must
 be equal.
+
+The port's engine clears a refilled slot's cache rows before feeding its
+prompt, where the reference's only resets the slot's length (its Mamba
+state and conv taps carry over into the next request). Engine runs that
+refill slots are held to the JAX engine with the same repair
+(``RepairedJServeEngine``); ``test_reused_slot_starts_clear`` pins the
+repair on both engines and the reference's fault on the unchanged one.
 """
 import jax
 import jax.numpy as jnp
@@ -16,6 +23,8 @@ import pytest
 import torch
 
 from repro.configs import mamba2_1_3b as j_mamba
+from repro.configs import tinyllama_1_1b as j_llama
+from repro.configs import zamba2_7b as j_zamba
 from repro.models import transformer as jt
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
@@ -24,6 +33,8 @@ from repro.train import make_serve_step as j_make_serve_step
 from repro.train.checkpoint import save_checkpoint as jax_save
 from repro_torch import convert
 from repro_torch.configs import mamba2_1_3b as t_mamba
+from repro_torch.configs import tinyllama_1_1b as t_llama
+from repro_torch.configs import zamba2_7b as t_zamba
 from repro_torch.configs import mirage_agent as t_agent
 from repro_torch.launch import serve as t_launch
 from repro_torch.models import ModelConfig
@@ -39,6 +50,15 @@ TOL = 1e-4
 def model():
     jp = jt.init(jax.random.PRNGKey(0), j_mamba.SMOKE)
     return jp, convert.from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+class RepairedJServeEngine(JServeEngine):
+    """The JAX engine with the port's slot repair: a refilled slot's rows
+    of every cache leaf are zeroed before its prompt is fed."""
+
+    def _prefill_slot(self, slot, req):
+        self.cache = jax.tree.map(lambda c: c.at[:, slot].set(0), self.cache)
+        super()._prefill_slot(slot, req)
 
 
 def _prompts(n, seed=0):
@@ -59,8 +79,10 @@ def _record(eng, log):
 
 
 def test_engine_tokens_match_jax(model):
+    """Five requests on 3 slots, so two slots are refilled: against the JAX
+    engine with the port's slot repair."""
     jp, tp = model
-    jeng = JServeEngine(j_mamba.SMOKE, jp, batch=3, s_max=32)
+    jeng = RepairedJServeEngine(j_mamba.SMOKE, jp, batch=3, s_max=32)
     teng = ServeEngine(t_mamba.SMOKE, tp, batch=3, s_max=32, device="cpu")
     jlog, tlog = [], []
     _record(jeng, jlog)
@@ -125,8 +147,53 @@ def test_engine_rejects_unported_configs(model):
     _, tp = model
     with pytest.raises(ValueError):
         ServeEngine(t_agent.CONFIG, tp, device="cpu")          # encoder
-    with pytest.raises(NotImplementedError, match="parallel_block"):
-        ServeEngine(ModelConfig(parallel_block=True), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="mrope_sections"):
+        ServeEngine(ModelConfig(mrope_sections=(4, 2, 2)), tp, device="cpu")
+
+
+def _serve(engine, cfg, params, prompts, **kw):
+    """Served one after another in a 1-slot engine: the last prompt's tokens
+    and the logits of its decode calls (its prompt's and its own tokens')."""
+    eng = engine(cfg, params, batch=1, s_max=32, **kw)
+    make = Request if engine is ServeEngine else JRequest
+    reqs = [make(rid=i, prompt=p, max_new=6) for i, p in enumerate(prompts)]
+    log = []
+    _record(eng, log)
+    for r in reqs:
+        eng.add_request(r)
+    with torch.inference_mode():
+        eng.run()
+    calls = len(prompts[-1]) - 1 + 6
+    return reqs[-1].out, np.stack(log[-calls:])
+
+
+@pytest.mark.parametrize("name", ["mamba2", "zamba2", "tinyllama"])
+def test_reused_slot_starts_clear(name):
+    """B served after A in a 1-slot engine against B served alone. The
+    port's engine clears the slot, so B's logits (within 1e-4) and tokens
+    are its own; the JAX engine with the same repair agrees. The unchanged
+    JAX engine carries A's Mamba state and conv taps into B (Mamba2,
+    Zamba2): B's logits move by over 1e-2. An attention-only model
+    (TinyLlama) masks A's stale K/V by the length, so there B is B on
+    every engine."""
+    jcfg, tcfg = {"mamba2": (j_mamba.SMOKE, t_mamba.SMOKE),
+                  "zamba2": (j_zamba.SMOKE, t_zamba.SMOKE),
+                  "tinyllama": (j_llama.SMOKE, t_llama.SMOKE)}[name]
+    jp = jt.init(jax.random.PRNGKey(3), jcfg)
+    tp = convert.from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    rng = np.random.default_rng(7)
+    a, b = ([int(t) for t in rng.integers(0, jcfg.vocab, 6)] for _ in "ab")
+    out, logits = _serve(ServeEngine, tcfg, tp, [b], device="cpu")
+    for engine, cfg, params, prompts, kw in (
+            (ServeEngine, tcfg, tp, [a, b], {"device": "cpu"}),
+            (RepairedJServeEngine, jcfg, jp, [a, b], {}),
+            (JServeEngine, jcfg, jp, [b], {})):
+        o, lg = _serve(engine, cfg, params, prompts, **kw)
+        np.testing.assert_allclose(lg, logits, atol=TOL)
+        assert o == out
+    _, stale = _serve(JServeEngine, jcfg, jp, [a, b])
+    moved = float(np.abs(stale - logits).max())
+    assert moved > 1e2 * TOL if name != "tinyllama" else moved < TOL
 
 
 def test_prefill_and_serve_steps_match_jax(model):

@@ -415,8 +415,8 @@ def test_train_launcher_asks_for_cuda_and_refuses_unported(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_launch.main(["--smoke", "--steps", "1", "--ckpt-dir",
                        str(tmp_path)])
-    with pytest.raises(KeyError, match="zamba2-7b"):
-        t_launch.main(["--arch", "zamba2-7b", "--smoke", "--device",
+    with pytest.raises(KeyError, match="qwen2-vl-7b"):
+        t_launch.main(["--arch", "qwen2-vl-7b", "--smoke", "--device",
                        "cpu", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="dist/"):
         t_launch.main(["--distributed", "--device", "cpu"])
