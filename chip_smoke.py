@@ -15,7 +15,8 @@ exits non-zero:
    case checks through the launch counters which variant ran (flash, at
    TinyLlama's causal GQA prefill shape (4,2048,32/4,64), Qwen2-MoE's
    (4,2048,16/16,128), Qwen1.5-4B's (4,2048,20/20,128), Command-R's
-   (4,2048,64/8,128) and Gemma-3's (4,2048,32/16,128), with its local
+   (4,2048,64/8,128), Qwen2-VL's (4,2048,28/4,128), a group of 7, and
+   Gemma-3's (4,2048,32/16,128), with its local
    layers' window of 1024 and without (its global layers), and ragged at
    (2,1100,32/16,128) with the window, among others, the GEMM (at the
    Qwen2-MoE experts' prefill and decode shapes too) and the SSD scan:
@@ -33,7 +34,8 @@ exits non-zero:
    the short form at the trunk's MHA heads and in the streaming form for
    GQA, D = 128, long and ragged sequences, TinyLlama's training layer
    (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128), Qwen1.5-4B's
-   training layer (2,2048,20/20,128) and Gemma-3's
+   training layer (2,2048,20/20,128), Qwen2-VL's (2,2048,28/4,128), one
+   share of its group of 7, and Gemma-3's
    local and global training layers at (2,2048,32/16,128); with the
    window mask in every form: 1024 at S 2048, 1000 at a ragged S of 2050,
    48 (under one tile), the short form at S 144; each "tc" case also
@@ -43,8 +45,9 @@ exits non-zero:
    products from one launch of the fused kernel, dW split along C and the
    same bit for bit over repeated calls, at Qwen2-MoE's training shapes
    and DeepSeek-V2's, 160 experts of 96 rows, too), and RMSNorm's
-   (Gemma-3's block norms at (4096,5376) with gemma and DeepSeek-V2's q
-   and kv norms at (2048,1536) and (2048,512) among them) and the SSD
+   (Gemma-3's block norms at (4096,5376) with gemma, DeepSeek-V2's q
+   and kv norms at (2048,1536) and (2048,512) and Qwen2-VL's block norms
+   at (4096,3584) among them) and the SSD
    scan's
    at phase 8's shapes, ragged rows and chunks, chunks whose length is not
    a multiple of the scan backward's tiles (100, and the smoke config's
@@ -160,18 +163,20 @@ exits non-zero:
    RMSNorm (vec) and each step 0 and 81; the peak memory; its first 2
    layers' last-token logits and KV cache against the plain path on the
    CPU at 1 x 512;
-4h. Zamba2-7B serving at its full published width and depth (81 layers:
-   11 x (6 Mamba2 blocks + one attention + MLP block whose weights are
-   tied across the 11 applications) + 4 Mamba2 blocks; d 3584, d_inner
-   7168, 112 SSD heads of 64, state 64, one group; the shared block's 32
-   heads of 112, d_ff 14,336; vocab 32,000), seeded fp32 weights drawn on
-   the card (5,893,372,128 parameters, the reference's count, or it
-   raises) with every norm scale drawn N(1, 0.3): as 4c, a 4 x 2048
-   prefill into a cache of 2,080 and 32 decode steps, raising unless each
-   prefill launched exactly 70 scans, all on the tensor cores, and 163
-   RMSNorm (140 on Mamba blocks, the out_norms at 896 vectors a row among
-   them, 22 on the shared block's applications, the final one), all
-   vectorised, and each step no scan and 163 RMSNorm; the peak memory; its
+4h. Zamba2-7B serving at its full published width (d 3584, d_inner 7168,
+   112 SSD heads of 64, state 64, one group; the shared block's 32 heads
+   of 112, d_ff 14,336; vocab 32,000) and 32 of its 81 layers, 4 x (6
+   Mamba2 blocks + one attention + MLP block whose weights are tied across
+   the 4 applications) + 4 Mamba2 blocks, the published plan's two
+   segments (all 81 fit the card, but the cut keeps the script's time),
+   seeded fp32 weights drawn on the card (2,618,293,440 parameters, the
+   reference's count at that depth, or it raises) with every norm scale
+   drawn N(1, 0.3): as 4c, a 4 x 2048 prefill into a cache of 2,080 and 32
+   decode steps, raising unless each prefill launched exactly 28 scans,
+   all on the tensor cores, and 65 RMSNorm (56 on Mamba blocks, the
+   out_norms at 896 vectors a row among them, 8 on the shared block's
+   applications, the final one), all vectorised, and each step no scan
+   and 65 RMSNorm; the peak memory; its
    first 14 layers (the shared block applied twice) at a 1 x 320 prefill,
    a chunk of 256 and a ragged one, against the plain path on the CPU:
    the last-token logits, both applications' K/V and every final SSM
@@ -189,6 +194,22 @@ exits non-zero:
    (causal, 64 q heads over 8 kv heads of 128), and no other kernel, and
    each step none; the peak memory; its first 2 layers against the CPU at
    1 x 512; a prefill and 5 decode steps under torch.profiler;
+4j. Qwen2-VL-7B serving at its full published width and depth (28 layers,
+   d 3584, 28 q heads over 4 kv heads of 128, d_ff 18,944, vocab 152,064,
+   QKV bias, M-RoPE with (t, h, w) sections (16, 24, 24) at theta 1e6),
+   seeded fp32 weights drawn on the card (7,615,616,512 parameters, the
+   reference's count, or it raises) with the QKV biases drawn nonzero: as
+   4c, a 4 x 2048 text prefill into a cache of 2,080 and 32 decode steps,
+   then the same prompts with a 1,024-token image each (a 32 x 32 merged
+   grid at tokens 64-1087, its (t, h, w) positions built here as Qwen2-VL
+   builds them, patch embeddings drawn on the card: the vision encoder is
+   a stub, as in the reference) and 32 steps after it, raising unless each
+   prefill launched exactly 28 flash kernels, all on the tensor cores, and
+   57 RMSNorm, all vectorised, and each step no flash and 57 RMSNorm, and
+   unless the image moved the last-token logits; the peak memory; its
+   first 2 layers with a 64-token image against the CPU at 1 x 512; a
+   prefill and 5 decode steps under torch.profiler; ``ServeEngine`` at the
+   serve launcher's defaults on the same weights;
 6. the Fig-8 grid on torch learners at the agent's full width, as
    ``benchmarks/bench_interruption.py`` runs it at its QUICK counts: one
    cluster (V100), single-node chains, the six cells {light, medium, heavy}
@@ -280,7 +301,12 @@ exits non-zero:
    fused backward calls a step, all tc; 9 RMSNorm each way, vec; no
    flash), the pairs dropped at capacity, its 2 layers' gradients at 1 x
    128 against the CPU with the host's peak memory, and one donated step
-   under torch.profiler;
+   under torch.profiler; Qwen2-VL-7B at full width on 10 of 28 layers,
+   fp32 m and v, QKV biases drawn nonzero, 2 x 2048 with a 1,024-token
+   image a row (a flash launch a layer each way, tc, the backward's
+   streaming form at one share of the group of 7; 21 RMSNorm each way,
+   vec), its 2 layers' gradients at 1 x 512 with a 64-token image against
+   the CPU;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -304,14 +330,16 @@ exits non-zero:
    (8192, 1536) and (8192, 512) bf16, beside ``F.rms_norm``; RMSNorm at
    Zamba2-7B's d_model and out_norm, (8192, 3584) and (8192, 7168) bf16,
    and the scan at one of its prefill layers, (4,2048,112,64) with N = 64;
-   flash at Command-R's prefill layer, (4,2048,64/8,128) causal, beside
-   SDPA with ``enable_gqa``; the grouped
+   flash at Command-R's prefill layer, (4,2048,64/8,128) causal, and at
+   Qwen2-VL's, (4,2048,28/4,128), beside SDPA with ``enable_gqa``; the
+   grouped
    GEMM at Qwen2-MoE's routed experts' shapes (E = 60: a prefill's 684
    rows an expert and a decode step's 4, through wi and wo) and at
    DeepSeek-V2's (E = 160: 384 rows and 4) beside ``torch.bmm``, each with
    its bound and share; the flash backward at TinyLlama's training shape,
    (2,2048,32/4,64) causal (the streaming form, also at each split count
-   of a kv head's q heads, 1, 2, 4 and 8), at Qwen2-MoE's,
+   of a kv head's q heads, 1, 2, 4 and 8), at Qwen2-VL's (2,2048,28/4,128)
+   (one share: no power of two above 1 divides 7), at Qwen2-MoE's,
    (2,2048,16/16,128) causal, and at Gemma-3's local and global training
    layers, (2,2048,32/16,128) causal with and without the window of 1024
    (the local one at 1 and 2 shares), each beside the "simt" kernels
@@ -323,8 +351,9 @@ exits non-zero:
    96 rows an expert) beside two ``torch.bmm``; flash forward and backward
    at Qwen1.5-4B's layer, (4,2048,20/20,128) and (2,2048,20/20,128)
    causal, beside SDPA; RMSNorm's backward over a Gemma-3 layer's 4 block
-   norms and at DeepSeek-V2's q and kv norms, (2048,1536) and (2048,512),
-   beside autograd through ``F.rms_norm``; and the backward kernels
+   norms, at DeepSeek-V2's q and kv norms, (2048,1536) and (2048,512), and
+   over a Qwen2-VL layer's 2 block norms, 2 x (4096,3584), beside autograd
+   through ``F.rms_norm``; and the backward kernels
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
@@ -333,14 +362,14 @@ exits non-zero:
    the "simt" one as ``simt_ms``) beside their plain versions and, for
    RMSNorm, autograd through ``F.rms_norm``.
 
-Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 6, 7,
-8, 5, and each ends with a ``[phase]`` line of its wall time. Each
+Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j,
+6, 7, 8, 5, and each ends with a ``[phase]`` line of its wall time. Each
 kernel's ``launches`` in the JSON record sums the counts of every path
-that runs it (phases 3, 4, 4b, 4c's to 4i's prefill and decode steps, 6, 7 and 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
-Gemma-3 and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
-Qwen1.5-4B, HuBERT and DeepSeek-V2 and the launcher at its defaults), each
-counted
-from 0 just before its path and read just after.
+that runs it (phases 3, 4, 4b, 4c's to 4j's prefill and decode steps, 6,
+7 and 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama, Gemma-3
+and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
+Qwen1.5-4B, HuBERT, DeepSeek-V2 and Qwen2-VL and the launcher at its
+defaults), each counted from 0 just before its path and read just after.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -370,8 +399,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import (command_r_35b,  # noqa: E402
                                  deepseek_v2_236b, gemma3_27b,
                                  hubert_xlarge, mamba2_1_3b, mirage_agent,
-                                 qwen1_5_4b, qwen2_moe_a2_7b, tinyllama_1_1b,
-                                 zamba2_7b)
+                                 qwen1_5_4b, qwen2_moe_a2_7b, qwen2_vl_7b,
+                                 tinyllama_1_1b, zamba2_7b)
 from repro_torch.convert import tree_map  # noqa: E402
 from repro_torch.core import (ALL_METHODS, ChainDriver,  # noqa: E402
                               CircuitBreaker, DecisionJournal, DQNConfig,
@@ -540,19 +569,23 @@ QWEN_TRAIN = qwen2_moe_a2_7b.CONFIG.replace(n_layers=3)
 # parameters, 15.8 GB fp32)
 QWEN4B = qwen1_5_4b.CONFIG
 QWEN4B_NORMS = 2 * QWEN4B.n_layers + 1
-# phase 4h: Zamba2-7B at its published width and depth, 11 x (6 mamba + the
-# shared attention block) + 4 mamba: 70 Mamba blocks, 11 applications of
-# one tied block, 5.89 B parameters (23.6 GB fp32)
-ZAMBA = zamba2_7b.CONFIG
-ZAMBA_PARAMS = 5_893_372_128        # the reference's tree, by its shapes
+# phase 4h: Zamba2-7B at its published width, cut from 81 to 32 layers, 4 x
+# (6 mamba + the shared attention block) + 4 mamba: 28 Mamba blocks, 4
+# applications of one tied block. All 81 layers (5.89 B parameters, 23.6 GB
+# fp32) fit the card and ran in 4h before; the cut keeps the script's time
+# (PERF.md §5)
+ZAMBA = zamba2_7b.CONFIG.replace(n_layers=32)
 ZAMBA_MAMBA = sum(seg.n_repeat * seg.pattern.count("mamba")
                   for seg in layer_plan(ZAMBA))
+ZAMBA_FULL_PARAMS = 5_893_372_128   # the reference's tree at 81 layers and
+ZAMBA_MAMBA_PARAMS = 77_978_064     # one Mamba block's, by their shapes
+ZAMBA_PARAMS = ZAMBA_FULL_PARAMS - (70 - ZAMBA_MAMBA) * ZAMBA_MAMBA_PARAMS
 ZAMBA_ATTN = sum(seg.n_repeat * seg.pattern.count("attn")
                  for seg in layer_plan(ZAMBA))
 ZAMBA_NORMS = 2 * ZAMBA_MAMBA + 2 * ZAMBA_ATTN + 1  # ln and out_norm a
                     # Mamba block, ln1 and ln2 an application, the final
 ZAMBA_NORM_STD = 0.3    # the norm scales drawn N(1, .) in place of ones
-ZAMBA_PLAIN_GROUPS = 2  # its check against the CPU: 14 of 81 layers, the
+ZAMBA_PLAIN_GROUPS = 2  # its check against the CPU: 14 of the layers, the
 ZAMBA_PLAIN_PROMPT = 320    # shared block twice; chunks of 256 and 64
 # phase 4i: Command-R 35B at its published width, cut from 40 to 20 layers:
 # the deepest cut whose predicted prefill peak stays under ~70 GB (fp32:
@@ -579,6 +612,20 @@ DEEPSEEK_TRAIN = deepseek_v2_236b.CONFIG.replace(n_layers=2)
 DEEPSEEK_TRAIN_OCFG = dataclasses.replace(TRAIN_OCFG, state_dtype="bfloat16")
 DEEPSEEK_TRAIN_RUN = ("1 x 2048", 1, 2048, 3)
 DEEPSEEK_GRAD_SEQ = 128   # its 2-layer check: the host holds ~42 GB
+# phase 4j: Qwen2-VL-7B at its published width and depth (28 layers, d
+# 3584, 28 q heads over 4 kv heads of 128, M-RoPE; 7.62 B parameters, 30.5
+# GB fp32)
+VL = qwen2_vl_7b.CONFIG
+VL_PARAMS = 7_615_616_512       # the reference's tree, by its shapes
+VL_NORMS = 2 * VL.n_layers + 1  # ln1 and ln2 a layer, the final
+VL_IMAGE = (64, 32, 32)         # a 2048-token prompt's image: its first
+                                # token, merged grid rows and columns
+VL_PLAIN_IMAGE = (64, 8, 8)     # the 1 x 512 checks' image, 64 tokens
+# its training (phase 8) through ChainedTrainer's donated step, fp32 m and
+# v, 16 bytes a parameter with the gradient: the deepest cut whose
+# predicted peak at 2 x 2048 stays under ~70 GB (the two tables 17.4 GB, a
+# layer 3.73 GB, fp32 logits and their gradient ~7.5 GB; PERF.md §4)
+VL_TRAIN = VL.replace(n_layers=10)
 TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 
@@ -743,6 +790,10 @@ def phase_kernels() -> dict:
         ("flash Command-R prefill, causal GQA (4,2048,64/8,128) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, CMDR.nq,
                              CMDR.nkv, CMDR.hd, torch.bfloat16), "tc",
+         BF16_TOL, BF16_TOL),
+        ("flash Qwen2-VL prefill, causal GQA (4,2048,28/4,128) bf16",
+         dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, VL.nq,
+                             VL.nkv, VL.hd, torch.bfloat16), "tc",
          BF16_TOL, BF16_TOL),
         # rows whose block's first kv tiles are all outside the window, at
         # a scale whose rounding once made their exponents inf
@@ -979,6 +1030,8 @@ def check_backward(gen, errs: dict) -> None:
         ("flash bwd Qwen1.5-4B training (2,2048,20/20,128) bf16", causal,
          (2, LM_PROMPT, LM_PROMPT, QWEN4B.nq, QWEN4B.nkv, QWEN4B.hd, bf16),
          "tc"),
+        ("flash bwd Qwen2-VL training (2,2048,28/4,128) bf16, a group of 7",
+         causal, (2, LM_PROMPT, LM_PROMPT, VL.nq, VL.nkv, VL.hd, bf16), "tc"),
         ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32", both,
          (2, 97, 131, 8, 2, 64, torch.float32), "simt"),
         ("flash bwd Gemma-3 global training (2,2048,32/16,128) bf16", causal,
@@ -1161,6 +1214,8 @@ def check_lm_backward(gen, errs: dict) -> None:
                "vec"),
               ("rmsnorm bwd DeepSeek-V2 kv_norm (2048,512) bf16, 64 vectors",
                LM_PROMPT, DEEPSEEK.kv_lora_rank, bf16, False, "vec"),
+              ("rmsnorm bwd Qwen2-VL's block norms (4096,3584) bf16, 448 "
+               "vectors", 2 * LM_PROMPT, VL.d_model, bf16, False, "vec"),
               ("rmsnorm bwd (4096,4096) fp32, past the vectors", 4096, din,
                f32, False, "simt"),
               ("rmsnorm bwd ragged (37,2048) fp32 gemma", 37, d, f32, True,
@@ -1702,39 +1757,48 @@ def _lm_inputs(gen, B, S, cfg=LM):
 
 def _serve_warm_up(cfg, params, toks, pos, warm: int = 256) -> None:
     """A prefill of the prompts' first ``warm`` tokens and one decode step,
-    untimed and uncounted: cuBLAS handles and the libraries load here."""
+    untimed and uncounted: cuBLAS handles and the libraries load here.
+    ``pos`` (B, S), or M-RoPE's (3, B, S)."""
     with torch.inference_mode():
         lg, cache = make_prefill_step(cfg, s_cache=warm + 1)(
-            params, toks[:, :warm], pos[:, :warm])
+            params, toks[:, :warm], pos[..., :warm])
         make_serve_step(cfg)(params, lg.argmax(-1, keepdim=True).to(
-            torch.int32), pos[:, :1] + warm, cache, warm)
+            torch.int32), pos[..., :1] + warm, cache, warm)
     torch.cuda.synchronize()
 
 
 def lm_prefill_decode(cfg, params, toks, pos, per_prefill: dict,
-                      per_step: dict, s_cache=None) -> dict:
-    """One prefill of ``toks`` into a cache of ``s_cache`` positions (the
-    prompt's length by default) and LM_DECODE greedy decode steps from it,
-    with the launch counts checked per prefill and per step."""
+                      per_step: dict, s_cache=None, vision=None,
+                      prefill_logits=None) -> dict:
+    """One prefill of ``toks`` at ``pos`` ((B, S), or M-RoPE's (3, B, S))
+    into a cache of ``s_cache`` positions (the prompt's length by default),
+    with ``vision`` (``vision_embeds`` and ``vision_mask``) merged where
+    given, and LM_DECODE greedy decode steps from it, each at the positions
+    after the prompt's last, with the launch counts checked per prefill and
+    per step. The prefill's last-token logits are appended to
+    ``prefill_logits`` where it is given."""
     prefill_step = make_prefill_step(cfg, s_cache=s_cache)
     serve_step = make_serve_step(cfg)
     B, S = toks.shape
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = prefill_step(params, toks, pos)
+        logits, cache = prefill_step(params, toks, pos, **(vision or {}))
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         if _counts() != per_prefill:
             raise RuntimeError(f"prefill launched {_counts()}")
         if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
             raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
+        if prefill_logits is not None:
+            prefill_logits.append(logits)
         tok = logits.argmax(-1, keepdim=True).to(torch.int32)
         step_ms = []
         for i in range(LM_DECODE):
             before = _counts()
             t0 = time.perf_counter()
-            tok, logits, cache = serve_step(params, tok, pos[:, -1:] + 1 + i,
-                                            cache, S + i)
+            tok, logits, cache = serve_step(params, tok,
+                                            pos[..., -1:] + 1 + i, cache,
+                                            S + i)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             after = _counts()
@@ -1853,10 +1917,12 @@ def phase_lm() -> dict:
 
 # ------------------------------------------- 4c. TinyLlama-1.1B serving
 def check_dense_plain(params, toks, full=DENSE, tag="dense_plain",
-                      norms=2 * LM_PLAIN_LAYERS + 1) -> None:
+                      norms=2 * LM_PLAIN_LAYERS + 1, image=None) -> None:
     """The first LM_PLAIN_LAYERS layers of the full-width dense model
     ``full`` (TinyLlama; Qwen1.5-4B; Command-R, whose LayerNorms launch no
-    kernel: ``norms`` RMSNorm launches), same weights, prefill of one
+    kernel: ``norms`` RMSNorm launches; Qwen2-VL with ``image``, which
+    gives a 1 x LM_PLAIN_PROMPT prompt's M-RoPE positions and its vision
+    inputs on the card), same weights, prefill of one
     LM_PLAIN_PROMPT-token prompt: kernel path on the card against the plain
     path on the CPU, last-token logits and the KV cache."""
     cfg = full.replace(n_layers=LM_PLAIN_LAYERS)
@@ -1864,18 +1930,23 @@ def check_dense_plain(params, toks, full=DENSE, tag="dense_plain",
         lambda t: t[:LM_PLAIN_LAYERS], params["segments"][0]["b0"])}])
     x = toks[:1, :LM_PLAIN_PROMPT]
     pos = torch.arange(LM_PLAIN_PROMPT, device="cuda")[None]
+    vision = {}
+    if image is not None:
+        pos, vision = image(1, LM_PLAIN_PROMPT)
     with torch.inference_mode():
         _set_counts()
-        lg, cache = transformer.prefill(sub, cfg, x, pos)
+        lg, cache = transformer.prefill(sub, cfg, x, pos, **vision)
         torch.cuda.synchronize()
         if _counts() != _pass_counts(norms, 0, LM_PLAIN_LAYERS):
             raise RuntimeError(f"2-layer prefill launched {_counts()}")
         t0 = time.perf_counter()
         lg_cpu, cache_cpu = transformer.prefill(
-            tree_map(lambda t: t.cpu(), sub), cfg, x.cpu(), pos.cpu())
+            tree_map(lambda t: t.cpu(), sub), cfg, x.cpu(), pos.cpu(),
+            **{k: v.cpu() for k, v in vision.items()})
         cpu_s = time.perf_counter() - t0
     kv, kv_cpu = (c["segments"][0]["b0"] for c in (cache, cache_cpu))
     line(tag, layers=LM_PLAIN_LAYERS, prompt=LM_PLAIN_PROMPT,
+         image_tokens=int(vision["vision_mask"].sum()) if vision else 0,
          logits_max_abs_err=_rel_err(lg, lg_cpu, "logits"),
          logits_scale=lg_cpu.abs().max().item(),
          k_max_abs_err=_rel_err(kv["k"], kv_cpu["k"], "K cache"),
@@ -2244,7 +2315,7 @@ def profile_serving(tag: str, cfg, params, toks, pos, s_cache: int,
         with torch.inference_mode():
             tok, c = tok0, cache
             for i in range(n):
-                tok, _, c = serve_step(params, tok, pos[:, -1:] + 1 + i, c,
+                tok, _, c = serve_step(params, tok, pos[..., -1:] + 1 + i, c,
                                        S + i)
     with torch.inference_mode():
         rec = profile_device(f"{cfg.arch_id} prefill",
@@ -2716,7 +2787,7 @@ def _zamba_applications(seg, groups: int):
 
 def check_zamba_plain(params, toks) -> None:
     """Zamba2's first ZAMBA_PLAIN_GROUPS groups at full width, same weights
-    (14 of 81 layers: 12 Mamba blocks, the shared block applied twice), a
+    (14 of its layers: 12 Mamba blocks, the shared block applied twice), a
     1 x ZAMBA_PLAIN_PROMPT prompt (a chunk of 256 and a ragged one), on
     the card against the plain path on the CPU. At this depth bf16's own
     rounding moves the logits by more than LM_REL_TOL (the CPU's bf16 path
@@ -2794,14 +2865,15 @@ def check_zamba_plain(params, toks) -> None:
 
 
 def phase_zamba() -> dict:
-    """Zamba2-7B at its full published width and depth (81 layers: 70
-    Mamba blocks, d 3584, d_inner 7168, 112 SSD heads of 64, state 64;
-    the one shared attention + MLP block, 32 heads of 112 and d_ff 14,336,
-    applied 11 times; vocab 32,000), seeded fp32 weights drawn on the card
-    with every norm scale drawn N(1, ZAMBA_NORM_STD): a 4 x 2048 prefill
-    into a cache of 2048 + 32 positions and 32 greedy decode steps (70
-    scans a prefill on the tensor cores, 163 RMSNorm a pass vectorised,
-    the out_norms at 896 vectors a row among them), the peak memory, 14
+    """Zamba2-7B at its full published width (d 3584, d_inner 7168, 112
+    SSD heads of 64, state 64; the one shared attention + MLP block, 32
+    heads of 112 and d_ff 14,336; vocab 32,000) and ZAMBA's 32 of its 81
+    layers (28 Mamba blocks, the shared block applied 4 times), seeded
+    fp32 weights drawn on the card with every norm scale drawn N(1,
+    ZAMBA_NORM_STD): a 4 x 2048 prefill into a cache of 2048 + 32
+    positions and 32 greedy decode steps (28 scans a prefill on the tensor
+    cores, 65 RMSNorm a pass vectorised, the out_norms at 896 vectors a
+    row among them), the peak memory, 14
     layers against the CPU, a profiled prefill and decode step, and
     ``ServeEngine`` at the launcher's defaults, its slots refilled. Returns
     the prefill's and decode steps' launches."""
@@ -2814,9 +2886,11 @@ def phase_zamba() -> dict:
     sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
     n_params = sum(n for n, _ in sizes)
     if n_params != ZAMBA_PARAMS:
-        raise RuntimeError(f"Zamba2-7B has {n_params} parameters, not "
-                           f"the reference's {ZAMBA_PARAMS}")
+        raise RuntimeError(f"Zamba2-7B at {ZAMBA.n_layers} layers has "
+                           f"{n_params} parameters, not the reference's "
+                           f"{ZAMBA_PARAMS}")
     line("zamba_init", arch=ZAMBA.arch_id, layers=ZAMBA.n_layers,
+         published_layers=zamba2_7b.CONFIG.n_layers,
          mamba_blocks=ZAMBA_MAMBA, shared_applications=ZAMBA_ATTN,
          d_model=ZAMBA.d_model, d_inner=ZAMBA.d_inner,
          ssm_heads=ZAMBA.ssm_nheads, ssm_headdim=ZAMBA.ssm_headdim,
@@ -2907,6 +2981,111 @@ def phase_cmdr() -> dict:
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------- 4j. Qwen2-VL-7B serving
+def vl_image(start: int, rows: int, cols: int):
+    """A function of (B, S) giving, for B prompts of S tokens each holding
+    one image of one frame, a ``rows`` x ``cols`` merged grid at tokens
+    ``start``.., Qwen2-VL's (3, B, S) (t, h, w) positions (the text before
+    it at 0..start-1 on every stream, the grid at t = start, h = start +
+    row, w = start + col, the text after it from start + max(rows, cols)
+    on) and its vision inputs: the (B, S) mask and N(0, 1) patch embeddings
+    drawn on the card (the vision encoder is a stub, as in the
+    reference)."""
+    def build(B: int, S: int):
+        n = rows * cols
+        cell = torch.arange(n, device="cuda")
+        pos = torch.arange(S, device="cuda").repeat(3, 1)
+        pos[0, start:start + n] = start
+        pos[1, start:start + n] = start + cell // cols
+        pos[2, start:start + n] = start + cell % cols
+        pos[:, start + n:] = start + max(rows, cols) + torch.arange(
+            S - start - n, device="cuda")
+        mask = torch.zeros(S, dtype=torch.bool, device="cuda")
+        mask[start:start + n] = True
+        gen = torch.Generator(device="cuda").manual_seed(start + n)
+        embeds = torch.randn(B, S, VL.d_model, generator=gen, device="cuda")
+        return pos[:, None].expand(3, B, S), {
+            "vision_embeds": embeds, "vision_mask": mask.expand(B, S)}
+    return build
+
+
+def phase_vl() -> dict:
+    """Qwen2-VL-7B at its full published width and depth (28 layers, d
+    3584, 28 q heads over 4 kv heads of 128, d_ff 18,944, vocab 152,064,
+    QKV bias, M-RoPE (16, 24, 24) at theta 1e6), seeded fp32 weights drawn
+    on the card with the QKV biases drawn N(0, QKV_BIAS_STD): a 4 x 2048
+    text prefill into a cache of 2048 + 32 positions and 32 greedy decode
+    steps, then the same prompts with a 1,024-token image (a 32 x 32 merged
+    grid at tokens 64-1087, Qwen2-VL's (t, h, w) positions, patch
+    embeddings drawn on the card) and 32 steps after it (flash 28 a prefill
+    on the tensor cores, 28 q heads over 4 kv heads of 128, none a step;
+    RMSNorm 57 each, vectorised), the image's logits against the text's
+    (they must differ), the peak memory, the first 2 layers with a 64-token
+    image against the CPU, a profiled prefill and decode step, and
+    ``ServeEngine`` at the launcher's defaults. Returns the prefills' and
+    decode steps' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init(gen, VL)
+    _draw_qkv_bias(gen, params)
+    torch.cuda.synchronize()
+    sizes = [(t.numel(), t.element_size()) for t in _leaves(params)]
+    n_params = sum(n for n, _ in sizes)
+    if n_params != VL_PARAMS:
+        raise RuntimeError(f"Qwen2-VL-7B has {n_params} parameters, not "
+                           f"the reference's {VL_PARAMS}")
+    line("vl_init", arch=VL.arch_id, layers=VL.n_layers, d_model=VL.d_model,
+         heads=VL.nq, kv_heads=VL.nkv, head_dim=VL.hd, d_ff=VL.d_ff,
+         vocab=VL.vocab, mrope_sections=list(VL.mrope_sections),
+         rope_theta=VL.rope_theta, qkv_bias_std=QKV_BIAS_STD,
+         params=n_params, param_gb=sum(n * b for n, b in sizes) / 1e9,
+         seconds=time.perf_counter() - t0)
+    toks, pos = _lm_inputs(gen, LM_BATCH, LM_PROMPT, VL)
+    pos = pos.expand(3, LM_BATCH, LM_PROMPT)    # text: the streams equal
+    ipos, vision = vl_image(*VL_IMAGE)(LM_BATCH, LM_PROMPT)
+    s_cache = LM_PROMPT + LM_DECODE
+    _serve_warm_up(VL, params, toks, pos)
+    torch.cuda.reset_peak_memory_stats()
+    per_step = _pass_counts(VL_NORMS, 0)
+    launches, last = Counter(), []
+    for what, p, v in (("text", pos, None), ("image", ipos, vision)):
+        _set_counts()                 # Qwen2-VL's main path, each prompt
+        res = lm_prefill_decode(VL, params, toks, p,
+                                _pass_counts(VL_NORMS, 0, VL.n_layers),
+                                per_step, s_cache=s_cache, vision=v,
+                                prefill_logits=last)
+        counts = _counts()
+        launches.update(counts)
+        line("vl_serve", prompt=what, batch=LM_BATCH, prompt_tokens=LM_PROMPT,
+             s_cache=s_cache, decode_steps=LM_DECODE, launches=counts,
+             flash_per_prefill=VL.n_layers, rmsnorm_per_pass=VL_NORMS,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
+    start, rows, cols = VL_IMAGE
+    scale = last[0].abs().max().item()
+    change = (last[1] - last[0]).abs().max().item() / scale
+    if not change > LM_REL_TOL:
+        raise RuntimeError(f"the image moved the last-token logits by "
+                           f"{change} of their scale")
+    n = rows * cols
+    line("vl_image", first_token=start, grid=[rows, cols], image_tokens=n,
+         positions_at_image={k: [int(ipos[i, 0, start]),
+                                 int(ipos[i, 0, start + n - 1])]
+                             for i, k in enumerate("thw")},
+         last_position=int(ipos[0, 0, -1]),
+         logits_rel_change=change, text_logits_scale=scale,
+         must_exceed=LM_REL_TOL)
+    del last, ipos, vision
+    check_dense_plain(params, toks, VL, "vl_plain", image=vl_image(
+        *VL_PLAIN_IMAGE))
+    profile_serving("vl_profile", VL, params, toks, pos, s_cache,
+                    _GEMMA_GROUPS, "other_elementwise")
+    engine_at_defaults("vl_engine", VL, params, per_step)
+    del params
+    torch.cuda.empty_cache()
+    return dict(launches)
 
 
 # ------------------------------------------- 6. the Fig-8 grid on the card
@@ -3394,9 +3573,11 @@ def _cpu_inputs(sub, batch):
             {k: v.cpu() for k, v in batch.items()})
 
 
-def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ) -> None:
+def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ,
+                         image=None) -> None:
     """The first 2 layers of the full-width model ``full``, same weights,
-    one 1 x ``seq`` batch (for Mamba2 two chunks): ``loss_fn``'s gradient
+    one 1 x ``seq`` batch (for Mamba2 two chunks; for Qwen2-VL with
+    ``image``'s M-RoPE positions and vision inputs): ``loss_fn``'s gradient
     with the kernels on the card against the plain path on the CPU, every
     leaf within LM_REL_TOL of its largest magnitude. For a MoE model the
     CPU takes the card run's experts (as ``check_moe_plain``), its own
@@ -3406,6 +3587,9 @@ def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ) -> None:
     cfg, sub = _lm_grad_sub(params, full)
     batch = synth_batch(cfg, DataConfig(batch=1, seq_len=seq), 0,
                         device="cuda")
+    if image is not None:
+        batch["positions"], vision = image(1, seq)
+        batch.update(vision)
     with _RouteLog() as card:
         lval, grads, got = _lm_grads(cfg, sub, batch)
     if got != _train_pass_counts(full, 1, LM_PLAIN_LAYERS):
@@ -3423,7 +3607,9 @@ def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ) -> None:
                        near_ties_cpu=_near_ties(cpu.routes),
                        near_tie=NEAR_TIE)
     line("lm_train", arch=full.arch_id, run="2-layer gradient check",
-         layers=LM_PLAIN_LAYERS, seq=seq, leaves=len(errs), loss=lval,
+         layers=LM_PLAIN_LAYERS, seq=seq, image_tokens=int(
+             batch["vision_mask"].sum()) if image is not None else 0,
+         leaves=len(errs), loss=lval,
          cpu_loss=pval, worst_rel_err=errs[worst], worst_leaf=worst,
          rel_tol=LM_REL_TOL, cpu_plain_s=cpu_s, **routing)
 
@@ -3961,6 +4147,48 @@ def deepseek_train() -> dict:
     return counts
 
 
+def _with_image(data, image):
+    """``data``'s batches, each with ``image``'s M-RoPE positions and
+    vision inputs (``vl_image``) at its batch and length."""
+    for b in data:
+        b["positions"], vision = image(*b["inputs"].shape)
+        b.update(vision)
+        yield b
+
+
+def vl_train() -> dict:
+    """Qwen2-VL-7B training at its full published width on VL_TRAIN's cut
+    of its 28 layers through ``ChainedTrainer``'s donated step, fp32 m and
+    v, the QKV biases drawn nonzero, each 2 x 2048 batch with a 1,024-token
+    image a row (VL_IMAGE): DENSE_TRAIN_RUN's 3 steps (``chained_run``;
+    every step a flash launch each way a layer, on the tensor cores, 28 q
+    heads over 4 kv heads of 128, its backward one share of the group of 7,
+    and 2 RMSNorm a layer + 1 each way, vectorised); its first 2 layers'
+    gradients at 1 x 512 with a 64-token image against the CPU. Returns the
+    launches."""
+    t0 = time.perf_counter()
+    tr = _chained_trainer(VL_TRAIN, TRAIN_OCFG, 2, LM_PROMPT, _draw_qkv_bias)
+    tr.data_iter = _with_image(tr.data_iter, vl_image(*VL_IMAGE))
+    what, batch, seq, steps = DENSE_TRAIN_RUN
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    line("lm_train", arch=VL.arch_id, run="Qwen2-VL cut",
+         layers=VL_TRAIN.n_layers, published_layers=VL.n_layers,
+         params=sum(t.numel() for t in _leaves(tr.params)),
+         param_gb=_tree_gb(tr.params), opt_state_gb=_tree_gb(tr.opt_state),
+         qkv_bias_std=QKV_BIAS_STD, image=list(VL_IMAGE),
+         flash_bwd_form=bwd_tc_form(seq, seq, VL.nq, VL.nkv, VL.hd),
+         flash_bwd_splits=bwd_splits(batch, seq, VL.nkv, VL.nq // VL.nkv,
+                                     sms))
+    counts = chained_run(tr, what, batch, seq, steps)
+    check_lm_train_grads(tr.params, VL_TRAIN, LM_GRAD_SEQ,
+                         vl_image(*VL_PLAIN_IMAGE))
+    del tr
+    torch.cuda.empty_cache()
+    line("lm_train", arch=VL.arch_id, run="Qwen2-VL training, all",
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
 def phase_lm_train() -> dict:
     """Mamba2-1.3B training at full width with seeded weights drawn on the
     card: runs (a) and (b), one micro-batched step (c), the 2-layer
@@ -3969,8 +4197,9 @@ def phase_lm_train() -> dict:
     Qwen1.5-MoE-A2.7B's (``moe_train``) on cuts of their depth, the
     donated step against the functional one (``check_donation``),
     ``ChainedTrainer``'s donated runs of Qwen1.5-4B (``qwen4b_train``),
-    HuBERT X-Large (``hubert_run``) and DeepSeek-V2-236B
-    (``deepseek_train``), the launcher at ``--smoke`` and the launcher at
+    HuBERT X-Large (``hubert_run``), DeepSeek-V2-236B (``deepseek_train``)
+    and Qwen2-VL-7B (``vl_train``), the launcher at ``--smoke`` and the
+    launcher at
     its defaults. Returns the launches of (a), (b), (c), the 2 x 2048 runs,
     the donated step, the ``ChainedTrainer`` runs and the launcher at its
     defaults."""
@@ -4017,7 +4246,7 @@ def phase_lm_train() -> dict:
     del params, opt
     torch.cuda.empty_cache()
     for train in (dense_train, gemma_train, moe_train, check_donation,
-                  qwen4b_train, hubert_run, deepseek_train):
+                  qwen4b_train, hubert_run, deepseek_train, vl_train):
         for k, v in train().items():
             totals[k] += v
     check_train_launcher()
@@ -4107,7 +4336,8 @@ def ssd_work(Bz, S, H, P, N, G, chunk, itemsize):
 
 
 def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
-    """Phase 5; ``paths``: the launches of phases 4h and 4i, by model."""
+    """Phase 5; ``paths``: the launches of phases 4h, 4i and 4j, by
+    model."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     B = 2 * LANES * mirage_agent.N_EXPERTS
     H, D = TRUNK.n_heads, TRUNK.hd
@@ -4171,6 +4401,9 @@ def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
     line("time", **time_flash_gqa(gen, CMDR, "Command-R"),
          launches_a_prefill=CMDR.n_layers,
          launches=paths["cmdr"]["flash_attention"])
+    line("time", **time_flash_gqa(gen, VL, "Qwen2-VL"),
+         launches_a_prefill=VL.n_layers,
+         launches=paths["vl"]["flash_attention"])
     # RMSNorm as Gemma-3's QK-norm (its 32 q heads' rows of 128) and as
     # DeepSeek-V2's q_norm and kv_norm run at a 4 x 2048 prefill
     rows = LM_BATCH * LM_PROMPT
@@ -4770,6 +5003,8 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
                                      splits=(1, 2, 4, 8)))
     line("time", **time_flash_bwd_lm(gen, QWEN, "Qwen2-MoE"))
     line("time", **time_flash_bwd_lm(gen, QWEN4B, "Qwen1.5-4B"))
+    line("time", **time_flash_bwd_lm(gen, VL, "Qwen2-VL"),
+         launches_a_step=VL_TRAIN.n_layers)
     line("time", **time_flash_bwd_lm(gen, GEMMA, "Gemma-3 local",
                                      splits=(1, 2),
                                      window=GEMMA.sliding_window))
@@ -4990,6 +5225,11 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
             gen, f"rmsnorm_bwd DeepSeek-V2 {what}",
             f"({LM_PROMPT},{dim}) bf16, w fp32, {dim // 8} vectors a row",
             LM_PROMPT, dim, 1, False, DEEPSEEK.norm_eps, DEEPSEEK_NORM_STD))
+    line("time", **time_norm_bwd(
+        gen, "rmsnorm_bwd Qwen2-VL block norms",
+        f"2 x ({rows},{VL.d_model}) bf16, w fp32, {VL.d_model // 8} vectors "
+        "a row: one training layer's ln1 and ln2", rows, VL.d_model, 2,
+        False, VL.norm_eps, 0.1), launches_a_step=2 * VL_TRAIN.n_layers + 1)
 
     Bz, S = LM_TRAIN_RUNS[1][1:3]
     shape = (Bz, S, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
@@ -5051,7 +5291,8 @@ def main() -> int:
     launches.update(phase("4f DeepSeek-V2 serving", phase_deepseek))
     launches.update(phase("4g Qwen1.5-4B serving", phase_qwen4b))
     paths = {"zamba": phase("4h Zamba2-7B serving", phase_zamba),
-             "cmdr": phase("4i Command-R serving", phase_cmdr)}
+             "cmdr": phase("4i Command-R serving", phase_cmdr),
+             "vl": phase("4j Qwen2-VL serving", phase_vl)}
     for counts in paths.values():
         launches.update(counts)
     policies, grid = phase("6 grid", phase_grid)

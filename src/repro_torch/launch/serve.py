@@ -16,7 +16,8 @@ done or the wall-clock guard fires.
 tied across 11 applications) ``--arch zamba2-7b``, and DeepSeek-V2 (MLA,
 160 experts top-6) ``--arch deepseek-v2-236b`` and Command-R 35B ``--arch
 command-r-35b``, whose full depths do not fit one card in fp32 (``--smoke``
-serves their reduced configs). ``--arch hubert-xlarge`` is refused: the
+serves their reduced configs); Qwen2-VL-7B ``--arch qwen2-vl-7b`` serves
+its text requests under M-RoPE, the three position streams equal. ``--arch hubert-xlarge`` is refused: the
 engine serves no encoder, as the reference's does not. It runs on CUDA
 unless ``--device cpu`` is given.
 """

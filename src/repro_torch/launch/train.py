@@ -6,7 +6,8 @@ checkpoint, train until the wall-clock guard (or step budget) fires,
 checkpoint, exit 0 — the successor sub-job (already queued by the
 provisioner) picks it up. It runs on one CUDA card unless ``--device cpu``
 is given; ``--arch`` names an architecture the port carries and defaults
-to TinyLlama-1.1B, as in the reference.
+to TinyLlama-1.1B, as in the reference (``--arch qwen2-vl-7b`` trains on
+text batches with M-RoPE's (3, B, S) positions).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --steps 100 --wall-limit 3600 --ckpt-dir checkpoints/svc [--smoke] \

@@ -1,7 +1,13 @@
-"""Attention (port of ``repro.models.attention``: GQA with RoPE, QK-norm
-and a KV cache, full or a sliding-window ring buffer; DeepSeek-V2's
-Multi-head Latent Attention (MLA) with its latent cache; M-RoPE is not
-ported).
+"""Attention (port of ``repro.models.attention``: GQA with RoPE or
+Qwen2-VL's M-RoPE, QK-norm and a KV cache, full or a sliding-window ring
+buffer; DeepSeek-V2's Multi-head Latent Attention (MLA) with its latent
+cache).
+
+Positions are (B, S), or (3, B, S) under M-RoPE: the (t, h, w) streams
+rotate q and k, and the masks read the temporal stream (``_pos1d``), as
+the reference's do. The flash kernel masks by sequence index instead, in
+both packages, so with an image's repeated temporal positions
+``"flash"`` and ``"reference"`` compute different functions.
 
 ``attention_core`` dispatches as the reference does, with one deliberate
 divergence: ``flash`` with no ``kv_len_valid`` and more than one query goes
@@ -52,7 +58,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gemm import grouped_gemm
 from .common import ModelConfig
-from .layers import apply_norm, apply_rope, dense_init, init_norm
+from .layers import apply_mrope, apply_norm, apply_rope, dense_init, init_norm
 
 NEG_INF = -1e30
 
@@ -161,7 +167,9 @@ def _project_qkv(params, x, cfg: ModelConfig, positions=None, theta=None):
     over hd where it has QK-norm, then RoPE'd at ``positions`` (B, S) with
     ``theta`` (the config's ``rope_theta`` by default) where it uses RoPE;
     the agent's x (E, N, S, d) -> (E*N, S, H, hd), one grouped GEMM a
-    projection."""
+    projection. Under M-RoPE ``positions`` are (3, B, S) and rotate by
+    ``apply_mrope``; otherwise 3-D positions rotate by their temporal
+    stream."""
     if params["wq"].ndim == 4:
         E, N, S, d = x.shape
         xc = x.reshape(E, N * S, d)
@@ -184,9 +192,19 @@ def _project_qkv(params, x, cfg: ModelConfig, positions=None, theta=None):
         k = apply_norm(params["k_norm"], k, cfg)
     if cfg.use_rope:
         theta = theta or cfg.rope_theta
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+        if cfg.mrope_sections:
+            q = apply_mrope(q, positions, theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, _pos1d(positions), theta)
+            k = apply_rope(k, _pos1d(positions), theta)
     return q, k, v
+
+
+def _pos1d(positions):
+    """(B, S) positions as they are; M-RoPE's (3, B, S): the temporal
+    stream, which the masks read."""
+    return positions if positions.ndim <= 2 else positions[0]
 
 
 def _out_proj(params, out, cfg: ModelConfig):
@@ -198,11 +216,12 @@ def _out_proj(params, out, cfg: ModelConfig):
 def attn_forward(params, x, cfg: ModelConfig, positions, *, window: int = 0,
                  theta=None):
     """Full-sequence attention: the LM's x (B, S, d) with positions (B, S),
-    or the agent's x (E, N, S, d) over its expert axis, positions (N, S);
-    ``window`` > 0 masks keys more than window - 1 positions back."""
+    or (3, B, S) under M-RoPE, or the agent's x (E, N, S, d) over its
+    expert axis, positions (N, S); ``window`` > 0 masks keys more than
+    window - 1 positions back."""
     lm = params["wq"].ndim == 3
     q, k, v = _project_qkv(params, x, cfg, positions, theta)
-    pos = positions if lm else positions.repeat(x.shape[0], 1)
+    pos = _pos1d(positions) if lm else positions.repeat(x.shape[0], 1)
     out = attention_core(q, k, v, pos, pos, cfg, causal=cfg.causal,
                          window=window, softcap=cfg.attn_logit_softcap)
     if lm:
@@ -235,9 +254,9 @@ def attn_prefill(params, x, cfg: ModelConfig, positions, cache, *,
     cache (a window's ring buffer fills so), else the prompt's K/V in the
     first S slots and the given cache's after them."""
     q, k, v = _project_qkv(params, x, cfg, positions, theta)
-    out = attention_core(q, k, v, positions, positions, cfg,
-                         causal=cfg.causal, window=window,
-                         softcap=cfg.attn_logit_softcap)
+    pos = _pos1d(positions)
+    out = attention_core(q, k, v, pos, pos, cfg, causal=cfg.causal,
+                         window=window, softcap=cfg.attn_logit_softcap)
     size, S = cache["k"].shape[1], k.shape[1]
     new = {}
     for name, t in (("k", k), ("v", v)):
@@ -251,8 +270,8 @@ def attn_prefill(params, x, cfg: ModelConfig, positions, cache, *,
 
 def attn_decode(params, x, cfg: ModelConfig, positions, cache, index, *,
                 window: int = 0, theta=None):
-    """One-token decode: x (B, 1, d), positions (B, 1), ``index`` the
-    tokens already in the cache, a scalar or (B,). Without a window the
+    """One-token decode: x (B, 1, d), positions (B, 1) or (3, B, 1) under
+    M-RoPE, ``index`` the tokens already in the cache, a scalar or (B,). Without a window the
     token's K/V go to slot min(index, size - 1) of a new cache and the
     query attends to its first index + 1 slots. With one the cache is a
     ring: the token goes to slot index % size, slot j holds position j +
@@ -270,14 +289,15 @@ def attn_decode(params, x, cfg: ModelConfig, positions, cache, index, *,
              "v": torch.where(hit, v.to(cache["v"].dtype), cache["v"])}
     B = x.shape[0]
     kc, vc = cache["k"].to(cfg.cdtype), cache["v"].to(cfg.cdtype)
+    q_pos = _pos1d(positions)
     if window:
         base = col // size * size
         kv_pos = torch.where(j <= slot, j + base, j + base - size)
-        out = attention_core(q, kc, vc, positions, kv_pos.expand(B, size),
+        out = attention_core(q, kc, vc, q_pos, kv_pos.expand(B, size),
                              cfg, causal=True, window=window,
                              softcap=cfg.attn_logit_softcap)
     else:
-        out = attention_core(q, kc, vc, positions, j.expand(B, size), cfg,
+        out = attention_core(q, kc, vc, q_pos, j.expand(B, size), cfg,
                              causal=True, softcap=cfg.attn_logit_softcap,
                              kv_len_valid=index + 1)
     return _out_proj(params, out, cfg), cache

@@ -1,5 +1,5 @@
-"""Normalization, rotary embeddings, MLP and embedding layers (port of
-``repro.models.layers``, serving subset; M-RoPE is not ported).
+"""Normalization, rotary embeddings (RoPE and Qwen2-VL's M-RoPE), MLP and
+embedding layers (port of ``repro.models.layers``).
 
 Parameters are nested dicts of tensors whose leading axes (``lead``) stack
 layers and, for the agent, experts; each ``init_*`` draws from an explicit
@@ -89,17 +89,39 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S). The
-    split-halves rotation in fp32, cast back to x's dtype."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., None].float() * freqs         # (..., S, D/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) rotated by angles (..., S, D/2): the split-halves
+    rotation in fp32, cast back to x's dtype."""
     cos = torch.cos(angles)[..., None, :]                 # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. x: (B, S, H, D); positions: (3, B, S),
+    the temporal, height and width streams; ``sections`` the rotary
+    half-dims each stream takes, in order (they sum to D / 2). Each
+    half-dim's angle is its stream's position times its frequency. Equal
+    streams (text) give ``apply_rope``'s rotation."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (tuple(sections), half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs         # (3, B, S, D/2)
+    stream = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))          # (D/2,)
+    return _rotate(x, angles.movedim(0, -1)[
+        ..., torch.arange(half, device=x.device), stream])
 
 
 # ------------------------------------------------------------------------ mlp

@@ -18,6 +18,7 @@ _ARCH_MODULES = {
     "mirage-agent": "repro_torch.configs.mirage_agent",
     "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }

@@ -31,16 +31,7 @@ from .attention import NEG_INF
 from .layers import (apply_norm, dense_init, embed_tokens, init_embedding,
                      init_lm_head, init_norm, lm_logits)
 
-# features of ModelConfig that the port does not carry yet
-_UNPORTED = ("mrope_sections",)
 _CACHED_MODES = ("prefill", "decode")
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    on = [name for name in _UNPORTED if getattr(cfg, name)]
-    if on:
-        raise NotImplementedError(f"{cfg.arch_id}: {', '.join(on)} not "
-                                  "ported")
 
 
 def init(gen: torch.Generator, cfg: ModelConfig,
@@ -52,7 +43,6 @@ def init(gen: torch.Generator, cfg: ModelConfig,
     (drawn leaves on ``gen``'s device, constant ones on the CPU, as
     ``init_foundation`` moves them); the unused ``head`` leaf of the
     reference's tree is kept so the trees convert one to one."""
-    _check_supported(cfg)
     if n_experts is None:
         return _init_lm(gen, cfg)
     segs = []
@@ -126,7 +116,6 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
     written), otherwise it is None. ``index`` (decode: the tokens already
     cached, a scalar or one a row) places the token in the attention
     caches; Mamba blocks read neither."""
-    _check_supported(cfg)
     aux = 0.0
     cache_out = []
     for si, (seg, seg_params) in enumerate(zip(layer_plan(cfg),
@@ -159,23 +148,35 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                     else None)
 
 
-def embed_inputs(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
-                 ) -> torch.Tensor:
+def embed_inputs(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
+                 vision_embeds: Optional[torch.Tensor] = None,
+                 vision_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (or frames) in the compute dtype; with
+    ``vision_embeds`` (B, S, d), the rows where ``vision_mask`` (B, S) is
+    set are the vision encoder's patch embeddings instead (the encoder is
+    a stub, as in the reference: its output is an input here)."""
     if cfg.embed_inputs:
-        return embed_tokens(params["embed"], inputs, cfg)
-    return inputs.to(cfg.cdtype)
+        x = embed_tokens(params["embed"], inputs, cfg)
+    else:
+        x = inputs.to(cfg.cdtype)
+    if vision_embeds is not None:
+        x = torch.where(vision_mask[..., None], vision_embeds.to(x.dtype), x)
+    return x
 
 
-def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions):
+def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions,
+            vision_embeds=None, vision_mask=None):
     """Full forward: returns (logits (B,S,V) fp32, aux loss: the MoE
-    blocks' router losses summed, a float 0.0 without MoE blocks)."""
-    x = embed_inputs(params, cfg, inputs)
+    blocks' router losses summed, a float 0.0 without MoE blocks).
+    ``positions`` (B, S), or (3, B, S) under M-RoPE."""
+    x = embed_inputs(params, cfg, inputs, vision_embeds, vision_mask)
     x, aux, _ = apply_trunk(params, cfg, x, positions, mode="forward")
     return lm_logits(params, x, cfg, embed_params=params.get("embed")), aux
 
 
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
-    """Next-token cross entropy: (loss, {"ce", "aux", "accuracy"}). The
+    """Next-token cross entropy: (loss, {"ce", "aux", "accuracy"}), the
+    batch's ``vision_embeds``/``vision_mask`` merged where it has them. The
     padded vocab entries are masked out, labels below 0 count as invalid,
     and ``loss = ce + aux``: the MoE blocks' router losses summed, or, for
     a trunk without MoE blocks, a Python 0.0 that adds nothing and launches
@@ -185,7 +186,8 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
         B, S = batch["inputs"].shape[:2]
         positions = torch.arange(S, device=batch["inputs"].device).expand(
             B, S)
-    logits, aux = forward(params, cfg, batch["inputs"], positions)
+    logits, aux = forward(params, cfg, batch["inputs"], positions,
+                          batch.get("vision_embeds"), batch.get("vision_mask"))
     labels = batch["labels"]
     if cfg.vocab != cfg.vocab_size:     # the sharding-padded vocab entries
         pad = torch.arange(cfg.vocab, device=logits.device) >= cfg.vocab_size
@@ -206,7 +208,6 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int, dtype=None,
                device=None) -> Dict:
     """Zero decode cache, each leaf stacked (L, batch, ...), on ``device``
     (CUDA unless ``device="cpu"``)."""
-    _check_supported(cfg)
     dev = resolve_device(device)
     segs = []
     for seg in layer_plan(cfg):
@@ -219,11 +220,13 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int, dtype=None,
 
 
 def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions,
-            s_cache: Optional[int] = None):
-    """Process a prompt, producing the decode cache (sized ``s_cache``,
-    default = prompt length). Returns (last-token logits, cache)."""
+            s_cache: Optional[int] = None, vision_embeds=None,
+            vision_mask=None):
+    """Process a prompt, its vision embeddings merged where given,
+    producing the decode cache (sized ``s_cache``, default = prompt
+    length). Returns (last-token logits, cache)."""
     s_cache = s_cache or inputs.shape[1]
-    x = embed_inputs(params, cfg, inputs)
+    x = embed_inputs(params, cfg, inputs, vision_embeds, vision_mask)
     x, _, cache = apply_trunk(params, cfg, x, positions, mode="prefill",
                               s_cache=s_cache)
     logits = lm_logits(params, x[:, -1:, :], cfg,
@@ -233,9 +236,10 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions,
 
 def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                 positions, cache: Dict, index):
-    """One decode step. token: (B, 1) int; positions: (B, 1); index: the
-    tokens already in the cache, a scalar or a (B,) tensor (each row at its
-    own). Returns (logits (B, V), new cache); ``cache`` is not written."""
+    """One decode step. token: (B, 1) int; positions: (B, 1), or (3, B, 1)
+    under M-RoPE; index: the tokens already in the cache, a scalar or a
+    (B,) tensor (each row at its own). Returns (logits (B, V), new cache);
+    ``cache`` is not written."""
     x = embed_inputs(params, cfg, token)
     x, _, cache = apply_trunk(params, cfg, x, positions, mode="decode",
                               cache=cache, index=index)

@@ -65,8 +65,11 @@ class ServeEngine:
         (logits (batch, V), cache)."""
         tok = torch.from_numpy(toks.astype(np.int64)).to(self.device)[:, None]
         idx = torch.from_numpy(idxs.astype(np.int64)).to(self.device)
-        return transformer.decode_step(self.params, self.cfg, tok,
-                                       idx[:, None], self.cache, idx)
+        pos = idx[:, None]
+        if self.cfg.mrope_sections:     # text: the three streams equal
+            pos = pos.expand(3, -1, -1)
+        return transformer.decode_step(self.params, self.cfg, tok, pos,
+                                       self.cache, idx)
 
     # ----------------------------------------------------------- requests
     def add_request(self, req: Request) -> None:

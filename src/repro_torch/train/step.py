@@ -116,8 +116,13 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, s_cache: Optional[int] = None):
-    def prefill_step(params, inputs, positions):
-        return transformer.prefill(params, cfg, inputs, positions, s_cache)
+    """prefill_step(params, inputs, positions) -> (last-token logits,
+    cache); a vision-language model's also takes ``vision_embeds`` and
+    ``vision_mask``, merged at the image tokens."""
+    def prefill_step(params, inputs, positions, vision_embeds=None,
+                     vision_mask=None):
+        return transformer.prefill(params, cfg, inputs, positions, s_cache,
+                                   vision_embeds, vision_mask)
     return prefill_step
 
 

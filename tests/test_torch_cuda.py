@@ -58,7 +58,10 @@ kernels: RMSNorm at its d_model (3584) and its out_norm's d_inner (7168 in
 bf16, 896 vectors, the vec forward's limit; 897 runs simt), the SSD scan at
 112 heads of 64 with N = 64 and one group, at a 4 x 2048 prefill and a
 ragged S with an initial state; Command-R's flash layer, 64 q heads over 8
-kv heads of 128, causal at S = 2048 and a ragged 1100.
+kv heads of 128, causal at S = 2048 and a ragged 1100. Qwen2-VL-7B's flash
+layer, 28 q heads over 4 kv heads of 128 (a group of 7), causal at S =
+2048 and ragged, forward and backward (the backward's streaming form at
+one share a kv head), the backward also bit for bit over repeated calls.
 
 TinyLlama's first 2 layers at full width run a prefill and two decode
 steps on the card against the plain path on the CPU, same weights (2e-2 of
@@ -133,6 +136,8 @@ def _launched(kernel, fn):
         (4, 20, 20, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),  # Qwen1.5-4B
         (4, 64, 8, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),  # Command-R
         (1, 64, 8, 1100, 1100, 128, BF16, True, 0, 0.0, "tc"),  # ragged
+        (4, 28, 4, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),  # Qwen2-VL
+        (1, 28, 4, 1100, 1100, 128, BF16, True, 0, 0.0, "tc"),  # ragged
     ])
 def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                     causal, window, softcap, variant):
@@ -748,6 +753,10 @@ def _bwd_counts():
         (1, 2, 2, 200, 200, 128, FP32, True, 48, 30.0, "simt"),
         # Qwen1.5-4B's training layer: streaming, MHA 20/20, D = 128
         (2, 20, 20, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),
+        # Qwen2-VL's training layer: streaming, GQA 28/4 (a group of 7, one
+        # share a kv head), D = 128; ragged
+        (2, 28, 4, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),
+        (1, 28, 4, 1001, 1001, 128, BF16, True, 0, 0.0, "tc"),
     ])
 def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                       causal, window, softcap, variant):
@@ -797,6 +806,7 @@ def _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal, seed=0, window=0):
     (2, 32, 16, 2048, 128, True, 1024, "stream"),   # Gemma-3's local layer
     (1, 16, 2, 777, 64, True, 100, "stream"),       # windowed, 8 shares
     (4, 8, 8, 144, 32, True, 48, "short"),
+    (2, 28, 4, 2048, 128, True, 0, "stream"),       # Qwen2-VL's, group 7
 ])
 def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, window,
                                       form):

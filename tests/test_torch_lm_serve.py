@@ -36,8 +36,8 @@ from repro_torch.configs import mamba2_1_3b as t_mamba
 from repro_torch.configs import tinyllama_1_1b as t_llama
 from repro_torch.configs import zamba2_7b as t_zamba
 from repro_torch.configs import mirage_agent as t_agent
+from repro_torch.configs import qwen2_vl_7b as t_qwen2_vl
 from repro_torch.launch import serve as t_launch
-from repro_torch.models import ModelConfig
 from repro_torch.models import transformer as tt
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.train import (make_prefill_step, make_serve_step,
@@ -147,8 +147,15 @@ def test_engine_rejects_unported_configs(model):
     _, tp = model
     with pytest.raises(ValueError):
         ServeEngine(t_agent.CONFIG, tp, device="cpu")          # encoder
-    with pytest.raises(NotImplementedError, match="mrope_sections"):
-        ServeEngine(ModelConfig(mrope_sections=(4, 2, 2)), tp, device="cpu")
+    # M-RoPE, once refused, now serves: Qwen2-VL's SMOKE
+    cfg = t_qwen2_vl.SMOKE
+    assert cfg.mrope_sections == (4, 2, 2)
+    eng = ServeEngine(cfg, tt.init(torch.Generator().manual_seed(0), cfg),
+                      batch=2, s_max=16, device="cpu")
+    eng.add_request(Request(rid=0, prompt=[1, 2, 3], max_new=4))
+    with torch.inference_mode():
+        done = eng.run()
+    assert len(done) == 1 and len(done[0].out) == 4
 
 
 def _serve(engine, cfg, params, prompts, **kw):

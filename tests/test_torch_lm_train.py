@@ -415,8 +415,14 @@ def test_train_launcher_asks_for_cuda_and_refuses_unported(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_launch.main(["--smoke", "--steps", "1", "--ckpt-dir",
                        str(tmp_path)])
-    with pytest.raises(KeyError, match="qwen2-vl-7b"):
-        t_launch.main(["--arch", "qwen2-vl-7b", "--smoke", "--device",
+    # Qwen2-VL-7B, once refused, now trains; an unknown arch is refused
+    out = t_launch.main(["--arch", "qwen2-vl-7b", "--smoke", "--device",
+                         "cpu", "--steps", "1", "--batch", "2", "--seq", "8",
+                         "--ckpt-dir", str(tmp_path)])
+    assert out["arch"] == "qwen2-vl-7b" and out["steps_done"] == 1
+    assert np.isfinite(out["losses"]).all()
+    with pytest.raises(KeyError, match="qwen2-vl-72b"):
+        t_launch.main(["--arch", "qwen2-vl-72b", "--smoke", "--device",
                        "cpu", "--ckpt-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="dist/"):
         t_launch.main(["--distributed", "--device", "cpu"])
