@@ -46,9 +46,11 @@ exits non-zero:
    same bit for bit over repeated calls, at Qwen2-MoE's training shapes
    and DeepSeek-V2's, 160 experts of 96 rows, too), and RMSNorm's
    (Gemma-3's block norms at (4096,5376) with gemma, DeepSeek-V2's q
-   and kv norms at (2048,1536) and (2048,512) and Qwen2-VL's block norms
-   at (4096,3584) among them) and the SSD
-   scan's
+   and kv norms at (2048,1536) and (2048,512), Qwen2-VL's block norms at
+   (4096,3584) and Zamba2-7B's out_norm at (4096,7168), 896 vectors a row
+   on two warps, plain and gemma, and 897 vectors on "simt", among them)
+   and the SSD scan's (Zamba2-7B's training layer, x (2,2048,112,64) with
+   N = 64, and ragged at its 112 heads among them)
    at phase 8's shapes, ragged rows and chunks, chunks whose length is not
    a multiple of the scan backward's tiles (100, and the smoke config's
    16), d off 8, gemma, G = 2, P = 128, an initial state and the final
@@ -145,11 +147,11 @@ exits non-zero:
    tensor cores, 17 RMSNorm, all vectorised, and no flash kernel; the
    peak memory; the (token, k) pairs dropped at the prefill and at the
    decode steps, and the tokens whose router is within a near-tie; the
-   dense first layer and the first MoE layer as a 2-layer model, a 1 x 512
-   prefill and 4 decode steps, every call's logits and both latent caches
+   dense first layer and the first MoE layer as a 2-layer model, a 1 x 256
+   prefill and a decode step, every call's logits and both latent caches
    against the plain path on the CPU (the CPU run takes the card run's
    experts; every token the CPU's own router would send elsewhere is
-   counted and must be a near-tie); the absorbed decode of a 512-token
+   counted and must be a near-tie); the absorbed decode of a 256-token
    prompt's last position against ``mla_forward``'s expanded output for
    it, at 128 heads and kv rank 512; a prefill and 5 decode steps under
    torch.profiler, by kernel group; ``ServeEngine`` at the serve
@@ -265,14 +267,14 @@ exits non-zero:
    6 would be ~109 GB), every norm scale drawn N(0, 0.1), 3 steps at 2 x
    2048 after a warm-up, raising unless each step launched 2 flash (1 with
    the window of 1024) and 13 RMSNorm each way, all tc / vec; its 2
-   layers' gradients at 1 x 2048, past the window, against the CPU; a
+   layers' gradients at 1 x 1088, past the window, against the CPU; a
    profiled step; then Qwen1.5-MoE-A2.7B's at its full width on 3 of its
    24 layers (the deepest cut under ~75 GB), QKV biases drawn nonzero, 3
    steps at 2 x 2048, raising unless each step launched a flash each way
    a layer, the routed experts' 2 grouped GEMMs a layer forward and one
    fused backward call each, all on the tensor cores, and 7 RMSNorm each
    way; the (token, k) pairs dropped at capacity; its first 2 layers'
-   gradients at 1 x 512 against the CPU, the CPU taking the card's
+   gradients at 1 x 256 against the CPU, the CPU taking the card's
    experts, with the router's near-ties counted; a profiled step; then
    ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
    resumed ("resumed at step 3") against an uninterrupted 6-step run, and
@@ -306,7 +308,22 @@ exits non-zero:
    image a row (a flash launch a layer each way, tc, the backward's
    streaming form at one share of the group of 7; 21 RMSNorm each way,
    vec), its 2 layers' gradients at 1 x 512 with a 64-token image against
-   the CPU;
+   the CPU; Zamba2-7B at full width on 25 of 81 layers (3 x (6 Mamba2 +
+   the tied shared block) + 4 Mamba2), fp32 m and v, every norm scale
+   drawn N(1, 0.3), 2 x 2048, raising unless each step launched 22 SSD
+   scans each way (tc) and 51 RMSNorm each way (vec, the out_norms' 22
+   backwards at 896 vectors a row on two warps) and no flash, with the
+   peak memory; a sub-model of 2 Mamba2 blocks each followed by the shared
+   block, its gradients at 1 x 512 against the CPU (the tied leaves' the
+   sum over both applications); one donated step under torch.profiler by
+   kernel group;
+8b. the port's four examples (``repro_torch.examples``) on the card at
+   the reference examples' defaults: quickstart; train_lm twice on one
+   checkpoint directory, raising unless its loss falls both times and the
+   second resumes at the first one's step; serve_decode, raising unless
+   all 6 requests finish; provision_service (a moe+dqn learner, 3 sub-jobs
+   of real payload training chained through checkpoints, a 6-lane sweep),
+   raising unless no payload step is lost and the summaries are finite;
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -352,8 +369,13 @@ exits non-zero:
    at Qwen1.5-4B's layer, (4,2048,20/20,128) and (2,2048,20/20,128)
    causal, beside SDPA; RMSNorm's backward over a Gemma-3 layer's 4 block
    norms, at DeepSeek-V2's q and kv norms, (2048,1536) and (2048,512), and
-   over a Qwen2-VL layer's 2 block norms, 2 x (4096,3584), beside autograd
-   through ``F.rms_norm``; and the backward kernels
+   over a Qwen2-VL layer's 2 block norms, 2 x (4096,3584), and at
+   Zamba2-7B's out_norm, (4096,7168), 896 vectors a row, beside the
+   "simt" kernel and autograd through ``F.rms_norm``; the SSD backward at
+   Zamba2-7B's training layer, x (2,2048,112,64) with N = 64, beside
+   "simt" and its plain version (these two Zamba2-7B rows are records of
+   their own in the JSON line, their ``launches`` those of the Zamba2-7B
+   training run); and the backward kernels
    at the trunk's shapes (flash's at one layer; the GEMM's fused backward
    of one layer's 6 projections beside the earlier two-launch route of the
    same products) beside SDPA's backward and ``torch.bmm``, with the GEMM
@@ -363,13 +385,14 @@ exits non-zero:
    RMSNorm, autograd through ``F.rms_norm``.
 
 Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j,
-6, 7, 8, 5, and each ends with a ``[phase]`` line of its wall time. Each
-kernel's ``launches`` in the JSON record sums the counts of every path
-that runs it (phases 3, 4, 4b, 4c's to 4j's prefill and decode steps, 6,
-7 and 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama, Gemma-3
-and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
-Qwen1.5-4B, HuBERT, DeepSeek-V2 and Qwen2-VL and the launcher at its
-defaults), each counted from 0 just before its path and read just after.
+6, 7, 8, 8b, 5, and each ends with a ``[phase]`` line of its wall time.
+Each kernel's ``launches`` in the JSON record sums the counts of every
+path that runs it (phases 3, 4, 4b, 4c's to 4j's prefill and decode
+steps, 6, 7, 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
+Gemma-3 and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
+Qwen1.5-4B, HuBERT, DeepSeek-V2, Qwen2-VL and Zamba2-7B and the launcher
+at its defaults, and 8b), each counted from 0 just before its path and
+read just after.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -426,6 +449,9 @@ from repro_torch.kernels.moe_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.moe_gemm.ops import (  # noqa: E402
     _launch as gemm_launch)
 from repro_torch.data import DataConfig, data_iterator, synth_batch  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    provision_service as ex_provision, quickstart as ex_quickstart,
+    serve_decode as ex_serve_decode, train_lm as ex_train_lm)
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,  # noqa: E402
                                          rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.kernels.rmsnorm import ops as norm_ops  # noqa: E402
@@ -544,7 +570,9 @@ DEEPSEEK_NORMS = 4 * DEEPSEEK.n_layers + 1  # ln1, ln2, q_norm, kv_norm a
 DEEPSEEK_GEMMS = 2 * (DEEPSEEK.n_layers - DEEPSEEK.first_k_dense)
 DEEPSEEK_NORM_STD = 0.3     # the norm scales drawn N(1, .): the reference
                             # inits them 1, where a swapped q/kv norm hides
-DEEPSEEK_PLAIN_PROMPT, DEEPSEEK_PLAIN_DECODE = 512, 4
+DEEPSEEK_PLAIN_PROMPT, DEEPSEEK_PLAIN_DECODE = 256, 4  # within one
+                        # latent chunk of 1,024, as 512 was; a prompt of
+                        # 256 (not 512) for the script's time
 NEAR_TIE = 1e-5         # a router's K-th and (K+1)-th probabilities this close
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
@@ -561,7 +589,8 @@ LM_GRAD_SEQ = 512       # the 2-layer gradient check: 1 x 512, two chunks
 # tied table (1.409 B) and 2 layers (0.413 B each) are 2.235 B, ~63 GB;
 # one plan segment (6 layers, 3.89 B, ~109 GB) exceeds the card's 80
 GEMMA_TRAIN = gemma3_27b.CONFIG.replace(n_layers=2, local_global_period=2)
-GEMMA_GRAD_SEQ = 2048   # its gradient check runs past the window of 1024
+GEMMA_GRAD_SEQ = 1088   # its gradient check runs past the window of 1024
+                        # (1,088, not 2,048, for the script's time)
 # Qwen1.5-MoE-A2.7B training (phase 8): the deepest cut under ~75 GB at the
 # update, 0.622 B for the embedding and head and 0.571 B a layer
 QWEN_TRAIN = qwen2_moe_a2_7b.CONFIG.replace(n_layers=3)
@@ -626,8 +655,22 @@ VL_PLAIN_IMAGE = (64, 8, 8)     # the 1 x 512 checks' image, 64 tokens
 # predicted peak at 2 x 2048 stays under ~70 GB (the two tables 17.4 GB, a
 # layer 3.73 GB, fp32 logits and their gradient ~7.5 GB; PERF.md §4)
 VL_TRAIN = VL.replace(n_layers=10)
+# Zamba2-7B's training (phase 8) through ChainedTrainer's donated step, fp32
+# m and v, 16 bytes a parameter with the gradient: whole groups of (6 Mamba2
+# + the shared block) and the 4-block remainder, 3 groups + 4 = 25 layers,
+# 22 Mamba blocks (2.15 B parameters, 34.4 GB), predicted ~63 GB with the
+# activations (~0.9 GB a Mamba block at d_inner 7168, ~3 GB an application
+# of the reference attention's fp32 scores); 4 groups would pass 75 GB
+ZAMBA_TRAIN = zamba2_7b.CONFIG.replace(n_layers=25)
+ZAMBA_TRAIN_MAMBA = sum(seg.n_repeat * seg.pattern.count("mamba")
+                        for seg in layer_plan(ZAMBA_TRAIN))
+ZAMBA_TRAIN_PARAMS = ZAMBA_FULL_PARAMS - (70 - ZAMBA_TRAIN_MAMBA) \
+    * ZAMBA_MAMBA_PARAMS
+ZAMBA_GRAD_MAMBA = 2    # its gradient check: 2 Mamba blocks, each followed
+                        # by the shared block, so 2 applications of it
 TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+EXAMPLES_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_examples"
 
 
 def line(tag: str, **kw) -> None:
@@ -1194,13 +1237,17 @@ def _rel_err(out, ref, what, tol=LM_REL_TOL) -> float:
 def check_lm_backward(gen, errs: dict) -> None:
     """The RMSNorm and SSD backward kernels through autograd, as Mamba2
     training runs them (RMSNorm also at Gemma-3's block norms, 672
-    vectors a row with gemma), against their plain versions on the same
+    vectors a row with gemma, and at Zamba2-7B's out_norm, 896 vectors, two
+    warps a row, with an fp32 or a bf16 w, and at its d_model in fp32, 896
+    vectors of 4, and 897, "simt"; the scan also at Zamba2-7B's 112 heads of
+    64 with N = 64), against their plain versions on the same
     inputs (fp32 1e-4, bf16 2e-2 of each gradient's largest value): one forward
     and one backward launch each, of the variant the case names (counted:
     "vec" / "tc" for bf16 rows and chunks they can address), and the
     reductions (RMSNorm's dw; the scan's dA, dB, dC, dD) the same bit for
-    bit over two more calls; where that variant is the fast one, the other
-    ("simt") on the same inputs, held to the same bound."""
+    bit over two more calls (RMSNorm's dx too); where that variant is the
+    fast one, the other ("simt") on the same inputs, held to the same
+    bound."""
     bf16, f32 = torch.bfloat16, torch.float32
     d, din = LM.d_model, LM.d_inner
     cases = [(f"rmsnorm bwd ({r},{c}) bf16, w fp32", r, c, bf16, False, "vec")
@@ -1216,6 +1263,19 @@ def check_lm_backward(gen, errs: dict) -> None:
                LM_PROMPT, DEEPSEEK.kv_lora_rank, bf16, False, "vec"),
               ("rmsnorm bwd Qwen2-VL's block norms (4096,3584) bf16, 448 "
                "vectors", 2 * LM_PROMPT, VL.d_model, bf16, False, "vec"),
+              ("rmsnorm bwd Zamba2's out_norm (4096,7168) bf16, 896 "
+               "vectors, two warps a row", 2 * LM_PROMPT, ZAMBA.d_inner, bf16,
+               False, "vec"),
+              ("rmsnorm bwd (4096,7168) bf16 gemma, 896 vectors", 2 * LM_PROMPT,
+               ZAMBA.d_inner, bf16, True, "vec"),
+              ("rmsnorm bwd ragged (37,7168) bf16, 896 vectors", 37,
+               ZAMBA.d_inner, bf16, False, "vec"),
+              ("rmsnorm bwd (4096,7168) bf16, w bf16, 896 vectors",
+               2 * LM_PROMPT, ZAMBA.d_inner, bf16, False, "vec", bf16),
+              ("rmsnorm bwd (4096,3584) fp32, 896 vectors, two warps a row",
+               2 * LM_PROMPT, ZAMBA.d_model, f32, False, "vec"),
+              ("rmsnorm bwd (37,7176) bf16, 897 vectors: past the vec form",
+               37, ZAMBA.d_inner + 8, bf16, False, "simt"),
               ("rmsnorm bwd (4096,4096) fp32, past the vectors", 4096, din,
                f32, False, "simt"),
               ("rmsnorm bwd ragged (37,2048) fp32 gemma", 37, d, f32, True,
@@ -1223,9 +1283,10 @@ def check_lm_backward(gen, errs: dict) -> None:
               ("rmsnorm bwd (37,300) bf16, d off 8", 37, 300, bf16, False,
                "simt"),
               ("rmsnorm bwd (33,300) fp32 gemma", 33, 300, f32, True, "vec")]
-    for name, rows, dim, dtype, gemma, variant in cases:
+    for name, rows, dim, dtype, gemma, variant, *w_dtype in cases:
         x = _randn(gen, (rows, dim), dtype, 3.0).requires_grad_(True)
-        w = (1.0 + 0.1 * _randn(gen, (dim,), f32)).requires_grad_(True)
+        w = (1.0 + 0.1 * _randn(gen, (dim,), f32)).to(*w_dtype or [f32])
+        w.requires_grad_(True)
         dy = _randn(gen, (rows, dim), dtype)
         n, nb, nv = (rmsnorm.launches, rmsnorm.bwd_launches,
                      rmsnorm.bwd_vec_launches)
@@ -1243,10 +1304,10 @@ def check_lm_backward(gen, errs: dict) -> None:
         err = max(_rel_err(dx, rdx, name + " dx", tol),
                   _rel_err(dw, rdw, name + " dw", tol))
         for _ in range(2):
-            if not torch.equal(norm_launch_bwd(xd, wd, dy, variant,
-                                               eps=LM.norm_eps,
-                                               gemma=gemma)[1], dw):
-                raise RuntimeError(f"{name}: dw differs between calls")
+            again = norm_launch_bwd(xd, wd, dy, variant, eps=LM.norm_eps,
+                                    gemma=gemma)
+            if not (torch.equal(again[0], dx) and torch.equal(again[1], dw)):
+                raise RuntimeError(f"{name}: dx or dw differs between calls")
         extra = {}
         if variant == "vec":
             sdx, sdw = norm_launch_bwd(xd, wd, dy, "simt", eps=LM.norm_eps,
@@ -1258,7 +1319,7 @@ def check_lm_backward(gen, errs: dict) -> None:
         errs["rmsnorm_bwd"] = max(errs.get("rmsnorm_bwd", 0.0), err)
         line("check", case=name, variant=variant, max_abs_err=err,
              rel_tol=tol, dw_bit_identical=True, **extra)
-        del x, w, dy, dx, dw, rdx, rdw, xd, wd
+        del x, w, dy, dx, dw, rdx, rdw, xd, wd, again
     H, P, N = LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state
     cases = [
         ("ssd bwd (2,2048,64,64) N=128 G=1 chunk 256 bf16",
@@ -1287,6 +1348,12 @@ def check_lm_backward(gen, errs: dict) -> None:
          "d_final", (2, 40, 8, 16, 16, 1, bf16, True), 16, True),
         ("ssd bwd P = 128 (1,97,2,128) N=128 chunk 64 bf16, initial state",
          (1, 97, 2, 128, 128, 1, bf16, True), 64, False),
+        ("ssd bwd Zamba2's training layer (2,2048,112,64) N=64 G=1 chunk 256 "
+         "bf16", (2, 2048, ZAMBA.ssm_nheads, P, ZAMBA.ssm_state, 1, bf16,
+                  False), 256, False),
+        ("ssd bwd ragged (1,300,112,64) N=64 G=1 chunk 256 bf16, initial "
+         "state and d_final", (1, 300, ZAMBA.ssm_nheads, P, ZAMBA.ssm_state,
+                               1, bf16, True), 256, True),
     ]
     for name, shape, chunk, dfin in cases:
         variant = "tc" if shape[6] == bf16 else "simt"
@@ -3452,24 +3519,26 @@ def _lm_train_counts() -> dict:
                 gemm_bwd_tc=grouped_gemm.bwd_tc_launches)
 
 
-def _train_pass_counts(cfg, passes: int, layers=None) -> dict:
+def _train_pass_counts(cfg, passes: int) -> dict:
     """The launches of ``passes`` differentiated micro-batch passes of
-    ``cfg`` (``layers`` of its layers, all by default), each forward and
-    backward: per layer two RMSNorm (Gemma-3 six: its post-norms and
-    QK-norm too; DeepSeek-V2 four: MLA's q_norm and kv_norm) and, for
-    Mamba2, an SSD scan, for a config at ``attn_impl="flash"`` a flash
-    call, and for each MoE layer the routed experts' two grouped GEMMs (the
-    backward one fused call a projection, dX and dW); plus the final norm;
-    none for LayerNorm (HuBERT, whose attention takes the reference math
-    too); every norm vectorised and every scan, flash and GEMM on the
-    tensor cores, both ways."""
-    layers = cfg.n_layers if layers is None else layers
+    ``cfg``, each forward and backward: per layer two RMSNorm (Gemma-3 six:
+    its post-norms and QK-norm too; DeepSeek-V2 four: MLA's q_norm and
+    kv_norm; Zamba2 two a Mamba block, ln and the gated out_norm, and two an
+    application of the shared block) and, for each Mamba block, an SSD
+    scan, for each attention layer of a config at ``attn_impl="flash"`` a
+    flash call, and for each MoE layer the routed experts' two grouped
+    GEMMs (the backward one fused call a projection, dX and dW); plus the
+    final norm; none for LayerNorm (HuBERT, whose attention takes the
+    reference math too); every norm vectorised and every scan, flash and
+    GEMM on the tensor cores, both ways."""
+    layers = cfg.n_layers
     per_layer = 2 + 2 * cfg.sandwich_norm + 2 * cfg.qk_norm + 2 * cfg.use_mla
     norms = passes * (per_layer * layers + 1) if cfg.norm_style == "rms" \
         else 0
-    mixers = passes * layers
-    scans = mixers if cfg.family == "ssm" else 0
-    flash = mixers if cfg.attn_impl == "flash" else 0
+    mamba = sum(seg.n_repeat * seg.pattern.count("mamba")
+                for seg in layer_plan(cfg))
+    scans = passes * mamba
+    flash = passes * (layers - mamba) if cfg.attn_impl == "flash" else 0
     moe_layers = layers - cfg.first_k_dense if cfg.family == "moe" else 0
     gemms = 2 * passes * moe_layers
     return dict(_pass_counts(norms, scans, flash, gemms), rmsnorm_bwd=norms,
@@ -3537,8 +3606,8 @@ def lm_train_run(state, what, batch, seq, steps, microbatches=1, cfg=LM):
 
 
 def _lm_grad_sub(params, cfg=LM):
-    """The first LM_PLAIN_LAYERS layers of the model, same weights (the
-    model itself if it has no more)."""
+    """(config, tree) of the first LM_PLAIN_LAYERS layers of the model,
+    same weights (the model itself if it has no more)."""
     if cfg.n_layers <= LM_PLAIN_LAYERS:
         return cfg, params
     cfg = cfg.replace(n_layers=LM_PLAIN_LAYERS)
@@ -3574,17 +3643,19 @@ def _cpu_inputs(sub, batch):
 
 
 def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ,
-                         image=None) -> None:
-    """The first 2 layers of the full-width model ``full``, same weights,
-    one 1 x ``seq`` batch (for Mamba2 two chunks; for Qwen2-VL with
-    ``image``'s M-RoPE positions and vision inputs): ``loss_fn``'s gradient
-    with the kernels on the card against the plain path on the CPU, every
-    leaf within LM_REL_TOL of its largest magnitude. For a MoE model the
-    CPU takes the card run's experts (as ``check_moe_plain``), its own
-    probabilities giving the gates; the tokens its own router would send
-    elsewhere are counted, each must be a near-tie, and the near-ties
-    (NEAR_TIE) of both runs are counted."""
-    cfg, sub = _lm_grad_sub(params, full)
+                         image=None, cut=_lm_grad_sub,
+                         run="2-layer gradient check") -> None:
+    """A sub-model of the full-width model ``full``, same weights (``cut``:
+    by default its first 2 layers), one 1 x ``seq`` batch (for Mamba2 two
+    chunks; for Qwen2-VL with ``image``'s M-RoPE positions and vision
+    inputs): ``loss_fn``'s gradient with the kernels on the card, its
+    launches checked, against the plain path on the CPU, every leaf within
+    LM_REL_TOL of its largest magnitude. For a MoE model the CPU takes the
+    card run's experts (as ``check_moe_plain``), its own probabilities
+    giving the gates; the tokens its own router would send elsewhere are
+    counted, each must be a near-tie, and the near-ties (NEAR_TIE) of both
+    runs are counted."""
+    cfg, sub = cut(params, full)
     batch = synth_batch(cfg, DataConfig(batch=1, seq_len=seq), 0,
                         device="cuda")
     if image is not None:
@@ -3592,8 +3663,8 @@ def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ,
         batch.update(vision)
     with _RouteLog() as card:
         lval, grads, got = _lm_grads(cfg, sub, batch)
-    if got != _train_pass_counts(full, 1, LM_PLAIN_LAYERS):
-        raise RuntimeError(f"2-layer gradient launched {got}")
+    if got != _train_pass_counts(cfg, 1):
+        raise RuntimeError(f"{run}: the gradient launched {got}")
     t0 = time.perf_counter()
     with _RouteLog(force=[i for _, i in card.routes]) as cpu:
         pval, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
@@ -3606,15 +3677,15 @@ def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ,
                        near_ties_card=_near_ties(card.routes),
                        near_ties_cpu=_near_ties(cpu.routes),
                        near_tie=NEAR_TIE)
-    line("lm_train", arch=full.arch_id, run="2-layer gradient check",
-         layers=LM_PLAIN_LAYERS, seq=seq, image_tokens=int(
+    line("lm_train", arch=full.arch_id, run=run, layers=cfg.n_layers,
+         seq=seq, launches=got, image_tokens=int(
              batch["vision_mask"].sum()) if image is not None else 0,
          leaves=len(errs), loss=lval,
          cpu_loss=pval, worst_rel_err=errs[worst], worst_leaf=worst,
          rel_tol=LM_REL_TOL, cpu_plain_s=cpu_s, **routing)
 
 
-def lm_grad_rounding(params, seeds=(0, 1, 2)) -> None:
+def lm_grad_rounding(params, seeds=(0,)) -> None:
     """What the tensor-core SSD backward's bf16 roundings do to the 2-layer
     gradient check: for each batch seed, the check's leaf errors against
     one CPU reference with the scan's backward on "tc" (as training runs
@@ -3970,24 +4041,25 @@ def chained_run(tr, what: str, batch: int, seq: int, steps: int) -> dict:
     """``steps`` steps of the donated ``ChainedTrainer`` ``tr``, one
     ``run_subjob(1)`` each, after a warm-up step: host ms a step after
     ``synchronize``, tokens (frames) a second, the losses, the peak memory;
-    raising unless the launches are ``steps`` passes' (``_train_pass_counts``)
-    and every parameter and optimizer leaf kept its storage. Returns the
-    launches."""
+    raising unless each step's launches are one pass's
+    (``_train_pass_counts``) and every parameter and optimizer leaf kept its
+    storage. Returns the launches of the ``steps`` steps."""
     cfg = tr.cfg
     tr.run_subjob(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ptrs = [t.data_ptr() for t in _leaves([tr.params, tr.opt_state])]
     stats = torch.cuda.memory_stats()
-    _set_lm_train_counts()
-    ms, losses = [], []
-    for _ in range(steps):
+    ms, losses, counts = [], [], Counter()
+    for i in range(steps):
+        _set_lm_train_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses += tr.run_subjob(1)["losses"]
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    counts = _check_lm_train_counts(what, steps, cfg)
+        counts.update(_check_lm_train_counts(f"{what}, step {i}", 1, cfg))
+    counts = dict(counts)
     if [t.data_ptr() for t in _leaves([tr.params, tr.opt_state])] != ptrs:
         raise RuntimeError(f"{what}: a donated leaf moved")
     after = torch.cuda.memory_stats()
@@ -4189,7 +4261,72 @@ def vl_train() -> dict:
     return counts
 
 
-def phase_lm_train() -> dict:
+def _zamba_grad_sub(params, full=ZAMBA_TRAIN):
+    """(config, tree) of Zamba2's first ZAMBA_GRAD_MAMBA Mamba blocks, each
+    followed by the tied shared block (``attn_every`` 2: the block applied
+    ZAMBA_GRAD_MAMBA times, its gradient the sum over the applications),
+    same weights."""
+    n = ZAMBA_GRAD_MAMBA
+    cfg = full.replace(n_layers=2 * n, attn_every=2)
+    seg = params["segments"][0]
+    shared = layer_plan(full)[0].shared.index(True)
+    return cfg, dict(params, segments=[{
+        "b0": tree_map(lambda t: t[:n], seg["b0"]), "b1": seg[f"b{shared}"]}])
+
+
+def zamba_train() -> dict:
+    """Zamba2-7B training at its full published width on ZAMBA_TRAIN's cut
+    of its 81 layers (3 groups of 6 Mamba2 blocks and the tied shared
+    attention block, then 4 Mamba2 blocks) through ``ChainedTrainer``'s
+    donated step, fp32 m and v, every norm scale drawn N(1,
+    ZAMBA_NORM_STD): DENSE_TRAIN_RUN's 3 steps at 2 x 2048 (``chained_run``;
+    every step 22 SSD scans each way, on the tensor cores, and 51 RMSNorm
+    each way, vectorised, the out_norms' 22 backwards at 896 vectors a row
+    among them; no flash: the shared block's head dim of 112 keeps the
+    reference attention); a sub-model of 2 Mamba blocks each followed by
+    the shared block, its gradients at 1 x 512 against the CPU (the tied
+    leaves' the sum over both applications); one donated step under
+    torch.profiler by kernel group. Returns the launches."""
+    t0 = time.perf_counter()
+    tr = _chained_trainer(ZAMBA_TRAIN, TRAIN_OCFG, 2, LM_PROMPT,
+                          lambda gen, p: _draw_unit_norms(gen, p,
+                                                          ZAMBA_NORM_STD))
+    n = sum(t.numel() for t in _leaves(tr.params))
+    if n != ZAMBA_TRAIN_PARAMS:
+        raise RuntimeError(f"Zamba2-7B at {ZAMBA_TRAIN.n_layers} layers has "
+                           f"{n} parameters, not the reference's "
+                           f"{ZAMBA_TRAIN_PARAMS}")
+    line("lm_train", arch=ZAMBA_TRAIN.arch_id, run="Zamba2 cut",
+         layers=ZAMBA_TRAIN.n_layers,
+         published_layers=zamba2_7b.CONFIG.n_layers,
+         plan=[[sg.n_repeat, list(sg.pattern)]
+               for sg in layer_plan(ZAMBA_TRAIN)],
+         mamba_blocks=ZAMBA_TRAIN_MAMBA,
+         shared_applications=ZAMBA_TRAIN.n_layers - ZAMBA_TRAIN_MAMBA,
+         params=n, param_gb=_tree_gb(tr.params),
+         opt_state_gb=_tree_gb(tr.opt_state), norm_scale_std=ZAMBA_NORM_STD,
+         out_norm_bwd_warps_a_row=norm_ops.bwd_vec_split(
+             ZAMBA_TRAIN.d_inner // 8),
+         ssd_bwd_smem_bytes=ssd_ops.bwd_smem_bytes(
+             ZAMBA_TRAIN.ssm_headdim, ZAMBA_TRAIN.ssm_state,
+             ZAMBA_TRAIN.ssm_chunk, "tc"),
+         init_s=time.perf_counter() - t0)
+    what, batch, seq, steps = DENSE_TRAIN_RUN
+    counts = chained_run(tr, what, batch, seq, steps)
+    check_lm_train_grads(tr.params, ZAMBA_TRAIN, LM_GRAD_SEQ,
+                         cut=_zamba_grad_sub,
+                         run=f"{ZAMBA_GRAD_MAMBA} x (Mamba2 + the shared "
+                             "block) gradient check")
+    profile_lm_train_step(tr.params, tr.opt_state, batch, seq, ZAMBA_TRAIN,
+                          donate=True)
+    del tr
+    torch.cuda.empty_cache()
+    line("lm_train", arch=ZAMBA_TRAIN.arch_id, run="Zamba2 training, all",
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
+def phase_lm_train() -> tuple:
     """Mamba2-1.3B training at full width with seeded weights drawn on the
     card: runs (a) and (b), one micro-batched step (c), the 2-layer
     gradient check, a profiled step; then TinyLlama-1.1B's training at 2 x
@@ -4197,12 +4334,12 @@ def phase_lm_train() -> dict:
     Qwen1.5-MoE-A2.7B's (``moe_train``) on cuts of their depth, the
     donated step against the functional one (``check_donation``),
     ``ChainedTrainer``'s donated runs of Qwen1.5-4B (``qwen4b_train``),
-    HuBERT X-Large (``hubert_run``), DeepSeek-V2-236B (``deepseek_train``)
-    and Qwen2-VL-7B (``vl_train``), the launcher at ``--smoke`` and the
-    launcher at
-    its defaults. Returns the launches of (a), (b), (c), the 2 x 2048 runs,
-    the donated step, the ``ChainedTrainer`` runs and the launcher at its
-    defaults."""
+    HuBERT X-Large (``hubert_run``), DeepSeek-V2-236B (``deepseek_train``),
+    Qwen2-VL-7B (``vl_train``) and Zamba2-7B (``zamba_train``), the
+    launcher at ``--smoke`` and the launcher at its defaults. Returns the
+    launches of (a), (b), (c), the 2 x 2048 runs, the donated step, the
+    ``ChainedTrainer`` runs and the launcher at its defaults, and each
+    model run's own by its function's name."""
     torch.backends.cuda.matmul.allow_tf32 = False
     state = _train_state(LM)
     totals = defaultdict(int)
@@ -4245,16 +4382,89 @@ def phase_lm_train() -> dict:
     profile_lm_train_step(params, opt, *LM_TRAIN_RUNS[1][1:3])
     del params, opt
     torch.cuda.empty_cache()
+    runs = {}
     for train in (dense_train, gemma_train, moe_train, check_donation,
-                  qwen4b_train, hubert_run, deepseek_train, vl_train):
-        for k, v in train().items():
+                  qwen4b_train, hubert_run, deepseek_train, vl_train,
+                  zamba_train):
+        runs[train.__name__] = train()
+        for k, v in runs[train.__name__].items():
             totals[k] += v
     check_train_launcher()
     torch.cuda.empty_cache()
     for k, v in check_train_launcher_default().items():
         totals[k] += v
     torch.cuda.empty_cache()
-    return dict(totals)
+    return dict(totals), runs
+
+
+# -------------------------------------------------------- 8b. examples
+def _example(name: str, fn, *args) -> dict:
+    """Run one example's ``main`` and print a line of its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    line("example", name=name, wall_s=time.perf_counter() - t0)
+    return out
+
+
+def phase_examples() -> dict:
+    """The port's four examples (``repro_torch.examples``) on the card at
+    the reference examples' defaults, each printing its own lines:
+    quickstart (the control plane's two policies, then 20 training steps of
+    TinyLlama's reduced config); train_lm twice on one checkpoint directory
+    (the scaled config, 200 steps each), raising unless the loss falls in
+    both and the second resumes at the first one's last step; serve_decode,
+    raising unless all 6 requests finish; provision_service (a moe+dqn
+    learner trained on the V100 heavy scenario, 3 sub-jobs of 10 payload
+    steps through ``ChainedTrainer`` with a real checkpoint, the closing
+    6-lane sweep), raising unless no payload step is lost across the
+    sub-jobs and both sweeps' summaries are finite. Returns the phase's
+    kernel launches, counted from 0 just before it."""
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    _set_lm_train_counts()
+    quick = _example("quickstart", ex_quickstart.main, [])
+    losses = quick["data_plane"]["losses"]
+    if len(losses) != 20 or not np.isfinite(losses).all():
+        raise RuntimeError(f"quickstart's data plane: losses {losses}")
+    args = ["--ckpt-dir", str(EXAMPLES_DIR / "train_lm")]
+    first = _example("train_lm", ex_train_lm.main, args)
+    second = _example("train_lm, resumed", ex_train_lm.main, args)
+    if first["resumed"] or not second["resumed"] or \
+            second["start_step"] != first["steps_done"] or \
+            second["steps_done"] != 2 * first["steps_done"]:
+        raise RuntimeError(f"train_lm: steps {first['steps_done']} then "
+                           f"{second['start_step']}-{second['steps_done']}")
+    for run in (first, second):
+        if not np.isfinite(run["losses"]).all() or \
+                run["last10"] >= run["first10"]:
+            raise RuntimeError(f"train_lm: loss {run['first10']} -> "
+                               f"{run['last10']}")
+    served = _example("serve_decode", ex_serve_decode.main, [])
+    if served["done"] != served["requests"] or served["requests"] != 6:
+        raise RuntimeError(f"serve_decode: {served['done']} of "
+                           f"{served['requests']} requests done")
+    svc = _example("provision_service", ex_provision.main, [])
+    summaries = (svc["summary"], svc["reactive_summary"])
+    if svc["lost_steps"] or svc["total_steps"] != 10 * len(svc["subjobs"]) \
+            or not all(np.isfinite(float(v)) for sm in summaries
+                       for v in sm.values()):
+        raise RuntimeError(f"provision_service: {svc['lost_steps']} payload "
+                           f"steps lost of {svc['total_steps']}, summaries "
+                           f"{summaries}")
+    torch.cuda.synchronize()
+    counts = _lm_train_counts()
+    line("examples", quickstart_losses=losses,
+         quickstart_summaries=quick["control_plane"]["summaries"],
+         train_lm=[{k: run[k] for k in ("start_step", "steps_done",
+                                        "first10", "last10", "tokens_per_s")}
+                   for run in (first, second)],
+         serve_decode={k: served[k] for k in ("requests", "done", "tokens",
+                                              "seconds")},
+         provision_service={k: svc[k] for k in (
+             "method", "total_steps", "lost_steps", "summary",
+             "reactive_summary", "reduction_pct")}, launches=counts)
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ------------------------------------------------------------ 5. timing
@@ -4337,7 +4547,7 @@ def ssd_work(Bz, S, H, P, N, G, chunk, itemsize):
 
 def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
     """Phase 5; ``paths``: the launches of phases 4h, 4i and 4j, by
-    model."""
+    model, and of phase 8's runs, by function."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     B = 2 * LANES * mirage_agent.N_EXPERTS
     H, D = TRUNK.n_heads, TRUNK.hd
@@ -4544,7 +4754,7 @@ def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
         "chunk 256: one Mamba2 layer's prefill scan", **t)
     line("time", **ssd_rec, **extra)
     return [flash_rec, gemm_rec, norm_rec, ssd_rec] + time_backward(
-        gen, errs, launches) + time_lm_backward(gen, errs, launches)
+        gen, errs, launches) + time_lm_backward(gen, errs, launches, paths)
 
 
 def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
@@ -5155,14 +5365,18 @@ def time_norm_bwd(gen, name: str, shape: str, rows: int, dim: int,
         bound_by=by, bound_share=bms / ms, bytes=nbytes, flops=flops)
 
 
-def time_lm_backward(gen, errs: dict, launches: dict) -> list:
+def time_lm_backward(gen, errs: dict, launches: dict, paths: dict) -> list:
     """The RMSNorm and SSD backward kernels at phase 8's (b) shapes: one
     Mamba2 layer's two norm backwards, (4096,2048) and (4096,4096) bf16 with
     an fp32 w, and its scan's backward, x (2,2048,64,64) bf16, N=128,
     chunk 256; the variant the wrapper picks (``ms``) beside the other one
     at the same shapes (``simt_ms``: the strided-column norm backward, the
     CUDA-core scan backward), their plain versions, the library's
-    (autograd through ``F.rms_norm``; none for the scan) and the bound."""
+    (autograd through ``F.rms_norm``; none for the scan) and the bound;
+    then the norm backward at Gemma-3's, DeepSeek-V2's, Qwen2-VL's and
+    Zamba2-7B's training shapes (its out_norm, (4096,7168), 896 vectors a
+    row) and the scan's backward at Zamba2-7B's training layer, x
+    (2,2048,112,64), N = 64 (``paths``: the launches of phase 8's runs)."""
     rows = LM_TRAIN_RUNS[1][1] * LM_TRAIN_RUNS[1][2]
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     extra = {"simt_ms": 0.0, "ms_no_lead": 0.0, "host_us": 0.0}
@@ -5231,30 +5445,21 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
         "a row: one training layer's ln1 and ln2", rows, VL.d_model, 2,
         False, VL.norm_eps, 0.1), launches_a_step=2 * VL_TRAIN.n_layers + 1)
 
+    zamba_norm_rec = dict(
+        time_norm_bwd(
+            gen, "rmsnorm_bwd Zamba2-7B out_norm",
+            f"({rows},{ZAMBA_TRAIN.d_inner}) bf16, w fp32, "
+            f"{ZAMBA_TRAIN.d_inner // 8} vectors a row, two warps a row: one "
+            "Mamba block's gated out_norm", rows, ZAMBA_TRAIN.d_inner, 1,
+            False, ZAMBA_TRAIN.norm_eps, ZAMBA_NORM_STD),
+        route="cuda", source="src/repro_torch/csrc/rmsnorm_bwd.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:17",
+        launches=paths["zamba_train"]["rmsnorm_bwd"],
+        launches_a_step=ZAMBA_TRAIN_MAMBA, max_abs_err=errs["rmsnorm_bwd"])
+    line("time", **zamba_norm_rec)
+
     Bz, S = LM_TRAIN_RUNS[1][1:3]
-    shape = (Bz, S, LM.ssm_nheads, LM.ssm_headdim, LM.ssm_state,
-             LM.ssm_ngroups)
-    args = ssd_inputs(gen, *shape, torch.bfloat16, False)[:6]
-    dy = _randn(gen, args[0].shape, torch.bfloat16)
-
-    def bwd():
-        return ssd_bwd(*args, LM.ssm_chunk, dy)
-
-    def ssd_counts():
-        return ssd.bwd_launches, ssd.bwd_tc_launches
-    n_all, n_fast = ssd_counts()
-    t = {"ms": time_ms(bwd, reps=10)}
-    variant = _bwd_variant(ssd_counts, n_fast, n_all, "tc")
-    t.update(plain_ms=time_ms(lambda: ssd_bwd_ref(*args, LM.ssm_chunk, dy),
-                              reps=3),
-             library_ms=None)                 # no one PyTorch call does it
-    Q = min(LM.ssm_chunk, S)
-    extra = {"simt_ms": time_ms(lambda: ssd_launch_bwd(
-                 *args, Q, dy, None, None, "simt"), reps=5),
-             "ms_no_lead": time_ms(bwd, reps=10, lead=False),
-             "host_us": host_us(bwd, reps=10),
-             "host": ssd_bwd_host(args, dy, Q)}
-    bms, by = bound_ms(*ssd_bwd_work(*shape, LM.ssm_chunk, 2))
+    t, extra, variant, bms, by = time_ssd_bwd(gen, LM, host=True)
     ssd_rec = dict(
         name="ssd_bwd", route="cuda", source="src/repro_torch/csrc/ssd_bwd.cu",
         replaces="src/repro/kernels/ssd/kernel.py:31",
@@ -5263,7 +5468,55 @@ def time_lm_backward(gen, errs: dict, launches: dict) -> list:
         shape=f"x, dy ({Bz},{S},64,64) bf16, B/C ({Bz},{S},1,128) bf16, "
               "chunk 256: one Mamba2 layer's scan backward", **t)
     line("time", **ssd_rec, **extra)
-    return [norm_rec, ssd_rec]
+    t, extra, variant, bms, by = time_ssd_bwd(gen, ZAMBA_TRAIN)
+    H, N = ZAMBA_TRAIN.ssm_nheads, ZAMBA_TRAIN.ssm_state
+    zamba_ssd_rec = dict(
+        name="ssd_bwd Zamba2-7B", route="cuda",
+        source="src/repro_torch/csrc/ssd_bwd.cu",
+        replaces="src/repro/kernels/ssd/kernel.py:31",
+        launches=paths["zamba_train"]["ssd_bwd"],
+        launches_a_step=ZAMBA_TRAIN_MAMBA, max_abs_err=errs["ssd_bwd"],
+        bound_ms=bms, bound_by=by, bound_share=bms / t["ms"],
+        variant=variant, simt_ms=extra.pop("simt_ms"),
+        shape=f"x, dy ({Bz},{S},{H},64) bf16, B/C ({Bz},{S},1,{N}) bf16, "
+              "chunk 256: one Zamba2-7B training layer's scan backward", **t)
+    line("time", **zamba_ssd_rec, **extra)
+    return [norm_rec, ssd_rec, zamba_norm_rec, zamba_ssd_rec]
+
+
+def time_ssd_bwd(gen, cfg, host=False) -> tuple:
+    """The scan's backward at one of ``cfg``'s training layers, x and dy
+    (2,2048,H,P) bf16, B and C (2,2048,G,N), its chunk: ``ms`` of the
+    variant the wrapper picks beside its plain version (no one PyTorch call
+    computes it) and, apart, the "simt" kernels' time, the time without
+    the card's lead, the wrapper's host time and, with ``host``, its split
+    into parts. Returns (times, extra, variant, bound ms, bound by)."""
+    Bz, S = LM_TRAIN_RUNS[1][1:3]
+    shape = (Bz, S, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+             cfg.ssm_ngroups)
+    args = ssd_inputs(gen, *shape, torch.bfloat16, False)[:6]
+    dy = _randn(gen, args[0].shape, torch.bfloat16)
+
+    def bwd():
+        return ssd_bwd(*args, cfg.ssm_chunk, dy)
+
+    def ssd_counts():
+        return ssd.bwd_launches, ssd.bwd_tc_launches
+    n_all, n_fast = ssd_counts()
+    t = {"ms": time_ms(bwd, reps=10)}
+    variant = _bwd_variant(ssd_counts, n_fast, n_all, "tc")
+    t.update(plain_ms=time_ms(lambda: ssd_bwd_ref(*args, cfg.ssm_chunk, dy),
+                              reps=3),
+             library_ms=None)                 # no one PyTorch call does it
+    Q = min(cfg.ssm_chunk, S)
+    extra = {"simt_ms": time_ms(lambda: ssd_launch_bwd(
+                 *args, Q, dy, None, None, "simt"), reps=5),
+             "ms_no_lead": time_ms(bwd, reps=10, lead=False),
+             "host_us": host_us(bwd, reps=10)}
+    if host:
+        extra["host"] = ssd_bwd_host(args, dy, Q)
+    return (t, extra, variant) + bound_ms(*ssd_bwd_work(*shape,
+                                                        cfg.ssm_chunk, 2))
 
 
 def phase(name: str, fn, *args):
@@ -5299,8 +5552,10 @@ def main() -> int:
     service = phase("7 service", phase_service, policies)
     del policies
     torch.cuda.empty_cache()
-    lm_train = phase("8 LM training", phase_lm_train)
-    for counts in (grid, service, lm_train):
+    lm_train, runs = phase("8 LM training", phase_lm_train)
+    paths.update(runs)
+    examples = phase("8b examples", phase_examples)
+    for counts in (grid, service, lm_train, examples):
         launches.update(counts)
     records = phase("5 timing", phase_timing, errs, launches, paths)
     print(json.dumps({"kernels": records}))

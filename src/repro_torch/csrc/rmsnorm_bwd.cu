@@ -20,21 +20,34 @@
 // is the same bit for bit from run to run:
 //
 // "vec", rows that start on 16-byte boundaries and a d that is a multiple of
-// 8 (bf16) or 4 (fp32), at most 24 vectors a lane (768 a row; the
-// forward takes 896): one warp per row, laid out like the forward's
-// rmsnorm_vec_kernel. A lane issues every 16-byte load of its share of x
-// and dy before it uses any, holds them in registers (VPL vectors each, a
-// template argument: 16 at d = 4096 in bf16, 24 at Gemma-3's d = 5376,
-// whose 672 vectors leave 21 a lane; x and dy then hold 192 registers, and
-// the 4 warps' fp32 dw rows 86 KB of shared memory), reduces
-// the two row sums by shuffles alone (no block barrier) and writes dx as
-// 16-byte stores: x and dy are read once. Warps take contiguous row ranges,
-// a fixed function of the row count (ops.py:bwd_vec_partition); each lane
-// owns fixed columns of its warp's fp32 dw row in shared memory and adds dy
-// x r to them row by row in order. At the end the block sums its 4 warps'
-// rows in warp order into one partial row; a second kernel sums the
-// partials over the blocks, each column's blocks split over 8 warps in a
-// fixed interleave and the 8 sums added in a fixed tree, 32 columns a block.
+// 8 (bf16) or 4 (fp32), at most 896 vectors a row, the forward's limit:
+// warps laid out like the forward's rmsnorm_vec_kernel. A lane issues every
+// 16-byte load of its share of x and dy before it uses any, holds them in
+// registers (VPL vectors each, a template argument: 16 at d = 4096 in bf16,
+// 24 at Gemma-3's d = 5376, whose 672 vectors leave 21 a lane; x and dy then
+// hold 192 registers), reduces the two row sums by shuffles and writes dx as
+// 16-byte stores: x and dy are read once. Up to 768 vectors (24 a lane) one
+// warp takes a row and needs no block barrier. Past that a warp would hold
+// too much: Zamba2-7B's gated out_norm at d_inner = 7168 in bf16 is 896
+// vectors, 28 a lane, and x and dy would take 224 of a thread's 255
+// registers and spill; the 4 warps' fp32 dw rows would take 114,688 bytes
+// of shared memory, one block an SM. So there SPLIT = 2 warps share a row
+// (a template argument; the wrapper chooses it, ops.py:bwd_vec_split, and
+// passes it last, 1 below 769 vectors): each holds 14 vectors a lane
+// of x and dy (112 registers), the row's 32-vector stripes interleaved
+// between them, and the two warps' row sums are swapped through shared
+// memory under a named barrier of the pair's 64 threads, in two slots that
+// alternate by row so that one barrier a row suffices; both warps add the
+// pair's sums in warp order, so they hold the same bits. The pair shares
+// one fp32 dw row (each owns its own columns): 2 rows a block, 57 KB, so
+// several blocks fit an SM. Row groups (a warp, or a pair) take contiguous
+// row ranges, a fixed function of the row count and SPLIT
+// (ops.py:bwd_vec_partition); each lane owns fixed columns of its group's
+// dw row in shared memory and adds dy x r to them row by row in order. At
+// the end the block sums its groups' rows in group order into one partial
+// row; a second kernel sums the partials over the blocks, each column's
+// blocks split over 8 warps in a fixed interleave and the 8 sums added in a
+// fixed tree, 32 columns a block.
 // What holds it near half its bound (chip_smoke.py phase 5 on an H100,
 // inputs flushed from L2: ~0.10 ms for a layer's two norms, ~0.7x autograd
 // through F.rms_norm): each warp has one row's loads in flight at a time,
@@ -154,35 +167,40 @@ cudaError_t launch_simt(const void* x, const void* w, const void* dy, void* dx, 
 }
 
 // ------------------------------------------------------------- vec variant
-constexpr int kVecWarps = 4;                  // warps a block, a row range each
+constexpr int kVecWarps = 4;                  // warps a block
 constexpr int kVecThreads = 32 * kVecWarps;
-constexpr int kMaxVecs = 24;                  // 16-byte vectors a lane holds, at most
+constexpr int kMaxRowVecs = 896;              // vectors a row, at most (two warps a row)
 constexpr int kSumCols = 32;                  // columns a block of the partials' sum
 constexpr int kSumWarps = 8;                  // warps of that block
 
-template <typename T, typename W, int VPL>
+template <typename T, typename W, int VPL, int SPLIT>
 __global__ void __launch_bounds__(kVecThreads)
 rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const W* __restrict__ w,
                        const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ part,
                        int rows, int d, long long x_sr, int rows_per_warp, float eps,
                        int gemma) {
   constexpr int E = 16 / sizeof(T);   // elements per vector
-  extern __shared__ __align__(16) float smem[];   // (kVecWarps, d): the warps' dw rows
+  constexpr int kGroups = kVecWarps / SPLIT;   // row groups a block
+  // (kGroups, d): the groups' dw rows; with SPLIT > 1, then two slots of
+  // (2, kVecWarps) row sums
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int grp = warp / SPLIT, half = warp % SPLIT;
   const int nv = d / E;
   const float one = gemma ? 1.f : 0.f;
-  float* dwp = smem + warp * d;
-  // a lane owns the columns of its vectors i = lane + 32 k, in every row
+  float* dwp = smem + grp * d;
+  // a lane owns the columns of its vectors i = lane + 32 (SPLIT k + half),
+  // in every row
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
-    const int i = lane + 32 * k;
+    const int i = lane + 32 * (SPLIT * k + half);
     if (i < nv) {
 #pragma unroll
       for (int e = 0; e < E; e += 4)
         *reinterpret_cast<float4*>(dwp + i * E + e) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  const int r0 = (blockIdx.x * kVecWarps + warp) * rows_per_warp;
+  const int r0 = (blockIdx.x * kGroups + grp) * rows_per_warp;
   const int r1 = min(rows, r0 + rows_per_warp);
   for (int row = r0; row < r1; ++row) {
     const uint4* xr = reinterpret_cast<const uint4*>(x + row * x_sr);
@@ -190,14 +208,14 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const W* __restrict__ w,
     uint4 xv[VPL], dv[VPL];
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {   // every load issued before any is used
-      const int i = lane + 32 * k;
+      const int i = lane + 32 * (SPLIT * k + half);
       xv[k] = i < nv ? __ldcs(xr + i) : make_uint4(0u, 0u, 0u, 0u);
       dv[k] = i < nv ? __ldcs(dyr + i) : make_uint4(0u, 0u, 0u, 0u);
     }
     float ss = 0.f, gx = 0.f;
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {
-      const int i = lane + 32 * k;
+      const int i = lane + 32 * (SPLIT * k + half);
       if (i < nv) {
         float f[E], g[E], wv[E];
         unpack16(xv[k], f);
@@ -215,12 +233,30 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const W* __restrict__ w,
       ss += __shfl_xor_sync(0xffffffffu, ss, off);
       gx += __shfl_xor_sync(0xffffffffu, gx, off);
     }
+    if constexpr (SPLIT > 1) {
+      // the pair's sums through a slot that alternates by row: a warp
+      // rewrites a slot only after the barrier of the row between, which
+      // its partner passes after reading it
+      float* xs = smem + kGroups * d + ((row - r0) & 1) * 2 * kVecWarps;
+      if (lane == 0) {
+        xs[warp] = ss;
+        xs[kVecWarps + warp] = gx;
+      }
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(32 * SPLIT) : "memory");
+      ss = 0.f;
+      gx = 0.f;
+#pragma unroll
+      for (int q = 0; q < SPLIT; ++q) {   // both warps sum in warp order
+        ss += xs[grp * SPLIT + q];
+        gx += xs[kVecWarps + grp * SPLIT + q];
+      }
+    }
     const float r = rsqrtf(ss / d + eps);
     const float kx = r * r * r * (gx / d);
     uint4* dxr = reinterpret_cast<uint4*>(dx + (long long)row * d);
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {
-      const int i = lane + 32 * k;
+      const int i = lane + 32 * (SPLIT * k + half);
       if (i < nv) {
         float f[E], g[E], wv[E], o[E];
         unpack16(xv[k], f);
@@ -243,12 +279,12 @@ rmsnorm_bwd_vec_kernel(const T* __restrict__ x, const W* __restrict__ w,
     }
   }
   __syncthreads();
-  // the block's partial: its warps' rows summed in warp order
+  // the block's partial: its groups' rows summed in group order
   float* pr = part + (long long)blockIdx.x * d;
   for (int c = threadIdx.x * 4; c < d; c += kVecThreads * 4) {
     float4 s = *reinterpret_cast<const float4*>(smem + c);
 #pragma unroll
-    for (int q = 1; q < kVecWarps; ++q) {
+    for (int q = 1; q < kGroups; ++q) {
       const float4 v = *reinterpret_cast<const float4*>(smem + q * d + c);
       s.x += v.x;
       s.y += v.y;
@@ -282,32 +318,34 @@ dw_tree_sum_kernel(const float* __restrict__ part, W* __restrict__ dw, int block
 template <typename T, typename W>
 cudaError_t launch_vec(const void* x, const void* w, const void* dy, void* dx, void* part,
                        void* dw, int rows, int d, long long x_sr, int blocks, int rows_per_warp,
-                       float eps, int gemma, cudaStream_t stream) {
+                       float eps, int gemma, cudaStream_t stream, int split) {
   constexpr int E = 16 / sizeof(T);
   const int nv = d / E;
-  if (d % E || nv > 32 * kMaxVecs) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kVecWarps * (size_t)d;
+  if (d % E || nv > kMaxRowVecs) return cudaErrorInvalidValue;
   const T* xp = static_cast<const T*>(x);
   const W* wp = static_cast<const W*>(w);
   const T* dyp = static_cast<const T*>(dy);
   T* dxp = static_cast<T*>(dx);
   float* pp = static_cast<float*>(part);
   cudaError_t err = cudaErrorInvalidValue;
-#define REPRO_NORM_BWD_VPL(V)                                                              \
-  if (nv <= 32 * V) {                                                                      \
-    err = cudaFuncSetAttribute(rmsnorm_bwd_vec_kernel<T, W, V>,                            \
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
-    if (err != cudaSuccess) return err;                                                    \
-    rmsnorm_bwd_vec_kernel<T, W, V><<<blocks, kVecThreads, smem, stream>>>(               \
-        xp, wp, dyp, dxp, pp, rows, d, x_sr, rows_per_warp, eps, gemma);                   \
-    err = cudaGetLastError();                                                              \
+#define REPRO_NORM_BWD_VPL(V, S)                                                            \
+  if (split == S && nv <= 32 * V * S) {                                                     \
+    const size_t smem =                                                                     \
+        sizeof(float) * ((kVecWarps / S) * (size_t)d + (S > 1 ? 4 * kVecWarps : 0));        \
+    err = cudaFuncSetAttribute(rmsnorm_bwd_vec_kernel<T, W, V, S>,                          \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);     \
+    if (err != cudaSuccess) return err;                                                     \
+    rmsnorm_bwd_vec_kernel<T, W, V, S><<<blocks, kVecThreads, smem, stream>>>(             \
+        xp, wp, dyp, dxp, pp, rows, d, x_sr, rows_per_warp, eps, gemma);                    \
+    err = cudaGetLastError();                                                               \
   } else
-  REPRO_NORM_BWD_VPL(1)
-  REPRO_NORM_BWD_VPL(2)
-  REPRO_NORM_BWD_VPL(4)
-  REPRO_NORM_BWD_VPL(8)
-  REPRO_NORM_BWD_VPL(16)
-  REPRO_NORM_BWD_VPL(24)
+  REPRO_NORM_BWD_VPL(1, 1)
+  REPRO_NORM_BWD_VPL(2, 1)
+  REPRO_NORM_BWD_VPL(4, 1)
+  REPRO_NORM_BWD_VPL(8, 1)
+  REPRO_NORM_BWD_VPL(16, 1)
+  REPRO_NORM_BWD_VPL(24, 1)
+  REPRO_NORM_BWD_VPL(14, 2)
   return cudaErrorInvalidValue;
 #undef REPRO_NORM_BWD_VPL
   if (err != cudaSuccess) return err;
@@ -320,10 +358,10 @@ cudaError_t launch_vec(const void* x, const void* w, const void* dy, void* dx, v
 template <typename T, typename W>
 cudaError_t launch(int variant, const void* x, const void* w, const void* dy, void* dx,
                    void* part, void* dw, int rows, int d, long long x_sr, int blocks, int per,
-                   float eps, int gemma, cudaStream_t stream) {
+                   float eps, int gemma, cudaStream_t stream, int split) {
   if (variant == 1)
     return launch_vec<T, W>(x, w, dy, dx, part, dw, rows, d, x_sr, blocks, per, eps, gemma,
-                            stream);
+                            stream, split);
   return launch_simt<T, W>(x, w, dy, dx, part, dw, rows, d, x_sr, blocks, per, eps, gemma,
                            stream);
 }
@@ -331,14 +369,14 @@ cudaError_t launch(int variant, const void* x, const void* w, const void* dy, vo
 template <typename T>
 cudaError_t dispatch_w(int w_dtype, int variant, const void* x, const void* w, const void* dy,
                        void* dx, void* part, void* dw, int rows, int d, long long x_sr,
-                       int blocks, int per, float eps, int gemma, cudaStream_t s) {
+                       int blocks, int per, float eps, int gemma, cudaStream_t s, int split) {
   switch (w_dtype) {
     case repro::kFloat32:
       return launch<T, float>(variant, x, w, dy, dx, part, dw, rows, d, x_sr, blocks, per, eps,
-                              gemma, s);
+                              gemma, s, split);
     case repro::kBFloat16:
       return launch<T, __nv_bfloat16>(variant, x, w, dy, dx, part, dw, rows, d, x_sr, blocks,
-                                      per, eps, gemma, s);
+                                      per, eps, gemma, s, split);
     default:
       return cudaErrorInvalidValue;
   }
@@ -350,22 +388,26 @@ cudaError_t dispatch_w(int w_dtype, int variant, const void* x, const void* w, c
 // dy, dx: contiguous (rows, d) in x's dtype; part: fp32 (blocks, d) scratch;
 // dw: (d,) in w's dtype. variant 0 runs the strided-column kernel: block b
 // takes rows [b * per, ...), so blocks * per must cover rows. variant 1 the
-// vectorised one: warp q of block b takes rows [(4 b + q) * per, ...), so
-// 4 * blocks * per must cover rows; it takes a d that is a multiple of 16
-// bytes' worth of x's elements (at most 768 vectors), x_sr a multiple of the
-// same unless rows == 1, and 16-byte-aligned x, w, dy, dx and part, and
-// refuses anything else (the caller chooses; nothing falls back). Returns
-// the CUDA error of the launches (0 on success).
+// vectorised one, its row groups split warps each (the caller's choice,
+// ops.py:bwd_vec_split: 1, or 2 past 768 vectors a row): row group q of
+// block b takes rows [(g b + q) * per, ...), g = 4 / split groups a block, so
+// g * blocks * per must cover rows; it takes a d that is a multiple of 16
+// bytes' worth of x's elements (at most 24 vectors a lane of the split's
+// warps, 896 a row), x_sr a multiple of the same unless rows == 1, and
+// 16-byte-aligned x, w, dy, dx and part, and refuses anything else (the
+// caller chooses; nothing falls back). Returns the CUDA error of the
+// launches (0 on success).
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* part,
                            void* dw, int x_dtype, int w_dtype, int variant, int rows, int d,
                            long long x_sr, int blocks, int per, float eps, int gemma,
-                           void* stream) {
-  if (rows < 1 || d < 1 || blocks < 1 || per < 1 || (variant != 0 && variant != 1))
+                           void* stream, int split) {
+  if (rows < 1 || d < 1 || blocks < 1 || per < 1 || (variant != 0 && variant != 1) ||
+      (variant == 1 && split != 1 && split != 2))
     return cudaErrorInvalidValue;
-  const long long covered = (long long)blocks * per * (variant == 1 ? kVecWarps : 1);
-  if (covered < rows) return cudaErrorInvalidValue;
+  const int e = x_dtype == repro::kFloat32 ? 4 : 8;
+  const long long groups = variant == 1 ? kVecWarps / split : 1;
+  if ((long long)blocks * per * groups < rows) return cudaErrorInvalidValue;
   if (variant == 1) {
-    const int e = x_dtype == repro::kFloat32 ? 4 : 8;
     bool ok = d % e == 0 && (rows == 1 || x_sr % e == 0);
     for (const void* p : {x, w, dy, static_cast<const void*>(dx), static_cast<const void*>(part)})
       ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -375,10 +417,10 @@ extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* d
   switch (x_dtype) {
     case repro::kFloat32:
       return dispatch_w<float>(w_dtype, variant, x, w, dy, dx, part, dw, rows, d, x_sr, blocks,
-                               per, eps, gemma, s);
+                               per, eps, gemma, s, split);
     case repro::kBFloat16:
       return dispatch_w<__nv_bfloat16>(w_dtype, variant, x, w, dy, dx, part, dw, rows, d, x_sr,
-                                       blocks, per, eps, gemma, s);
+                                       blocks, per, eps, gemma, s, split);
     default:
       return cudaErrorInvalidValue;
   }

@@ -47,7 +47,7 @@ SIGNATURES = {
     "rmsnorm": {"rmsnorm_fwd":
                 [_P, _P, _P, _I, _I, _I, _I, _I, _L, _F, _I, _P]},
     "rmsnorm_bwd": {"rmsnorm_bwd":
-                    [_P] * 6 + [_I] * 5 + [_L, _I, _I, _F, _I, _P]},
+                    [_P] * 6 + [_I] * 5 + [_L, _I, _I, _F, _I, _P, _I]},
     "ssd": {"ssd_fwd": [_P] * 9 + [_I] * 9 + [_L] * 12 + [_P]},
     "ssd_bwd": {"ssd_bwd": [_P] * 23 + [_I] * 9 + [_L] * 12 + [_P]},
 }

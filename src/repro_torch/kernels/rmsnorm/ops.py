@@ -9,7 +9,8 @@ those accesses cannot address ("simt"). The backward kernel,
 ``repro_torch/csrc/rmsnorm_bwd.cu``, computes the VJP that JAX's autodiff
 gives the package's jnp RMSNorm (``apply_norm``,
 ``repro/models/layers.py:41``); the Pallas kernel has none. It has the same
-two variants, "vec" (a warp a row, the row in registers) and "simt". Each
+two variants, "vec" (a warp a row, two past 768 vectors, the row in
+registers) and "simt". Each
 source's note says what bounds it on the H100 and how the design answers
 that.
 
@@ -54,8 +55,7 @@ def rmsnorm_bwd_ref(x, w, dy, *, eps: float = 1e-6, gemma: bool = False):
     return dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype)
 
 
-MAX_VECS = 896          # 16-byte vectors in a row of the vec forward
-BWD_MAX_VECS = 768      # and of the vec backward
+MAX_VECS = 896          # 16-byte vectors in a row of the vec kernels
 
 
 def _rmsnorm_variant(x, w) -> str:
@@ -99,6 +99,7 @@ def _launch(flat, w, variant: str, *, eps, gemma):
 BWD_MAX_BLOCKS = 256    # row ranges of the simt backward kernel, at most
 BWD_VEC_WARPS = 4       # warps a block of the vec backward kernel
 BWD_VEC_MAX_BLOCKS = 256  # blocks of the vec backward kernel, at most
+BWD_WARP_VECS = 768     # vectors a row one warp of it takes; past that, two
 
 
 def bwd_blocks(rows: int):
@@ -109,25 +110,35 @@ def bwd_blocks(rows: int):
     return -(-rows // per), per
 
 
-def bwd_vec_partition(rows: int):
-    """(blocks, rows a warp) of the vec backward kernel: warp q of block b
-    takes the contiguous rows [(BWD_VEC_WARPS b + q) per, ...), a function
-    of the row count alone, so dw's fixed-order sums are the same on every
-    card and every call."""
-    per = -(-rows // (BWD_VEC_WARPS * BWD_VEC_MAX_BLOCKS))
-    return -(-rows // (BWD_VEC_WARPS * per)), per
+def bwd_vec_split(vecs: int) -> int:
+    """Warps of the vec backward kernel that share a row of ``vecs``
+    16-byte vectors: the one place this is decided, handed to the C entry
+    as its last argument (which launches the instantiation for it, or
+    refuses)."""
+    return 2 if vecs > BWD_WARP_VECS else 1
+
+
+def bwd_vec_partition(rows: int, split: int = 1):
+    """(blocks, rows a group) of the vec backward kernel, whose row groups
+    are ``split`` warps each: group q of block b takes the contiguous rows
+    [(g b + q) per, ...), g = BWD_VEC_WARPS / split, a function of the row
+    count and the row's width alone, so dw's fixed-order sums are the same
+    on every card and every call."""
+    groups = BWD_VEC_WARPS // split
+    per = -(-rows // (groups * BWD_VEC_MAX_BLOCKS))
+    return -(-rows // (groups * per)), per
 
 
 def _rmsnorm_bwd_variant(x, w, dy) -> str:
     """The backward kernel a CUDA launch over the rows of x (..., d) runs,
-    chosen from the inputs alone: "vec" (one warp a row, 16-byte loads and
-    stores) where the forward's "vec" conditions hold for x and w with at
-    most BWD_MAX_VECS vectors a row (Gemma-3's d_model of 5376 in bf16,
-    672, runs "vec" both ways; Zamba2-7B's d_inner of 7168, 896, only
-    forward), and dy is contiguous and 16-byte-aligned, else "simt"."""
+    chosen from the inputs alone: "vec" (16-byte loads and stores, one warp
+    a row up to BWD_WARP_VECS vectors, two past it) where the forward's
+    "vec" conditions hold for x and w, at most MAX_VECS vectors a row both
+    ways (Gemma-3's d_model of 5376 in bf16, 672, one warp a row;
+    Zamba2-7B's d_inner of 7168, 896, two), and dy is contiguous and
+    16-byte-aligned, else "simt"."""
     d = x.shape[-1]
-    if _rmsnorm_variant(x, w) != "vec" or \
-            d // (16 // x.element_size()) > BWD_MAX_VECS:
+    if _rmsnorm_variant(x, w) != "vec":
         return "simt"
     fdy = dy.reshape(-1, d)
     if fdy.stride(-1) != 1 or fdy.data_ptr() % 16 or \
@@ -145,7 +156,8 @@ def _launch_bwd(flat, w, dy, variant: str, *, eps, gemma):
     dw = torch.empty((d,), dtype=w.dtype, device=flat.device)
     if rows == 0 or d == 0:
         return dx, dw.zero_()
-    blocks, per = (bwd_vec_partition(rows) if variant == "vec" else
+    split = bwd_vec_split(d // (16 // flat.element_size()))
+    blocks, per = (bwd_vec_partition(rows, split) if variant == "vec" else
                    bwd_blocks(rows))
     part = torch.empty((blocks, d), dtype=torch.float32, device=flat.device)
     fn = _build.load("rmsnorm_bwd")
@@ -156,7 +168,7 @@ def _launch_bwd(flat, w, dy, variant: str, *, eps, gemma):
                  _build.VARIANT_CODES[variant],
                  rows, d, flat.stride(0), blocks, per, float(eps),
                  int(bool(gemma)),
-                 torch.cuda.current_stream(flat.device).cuda_stream)
+                 torch.cuda.current_stream(flat.device).cuda_stream, split)
     _build.check_launch("rmsnorm_bwd", err)
     return dx, dw
 

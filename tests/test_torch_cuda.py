@@ -39,8 +39,15 @@ dC, dD) the same bit for bit over repeated calls, each case asserting
 through the counters which variant ran; both variants of each (RMSNorm's
 "vec" and "simt", the scan's "tc" and "simt") are also launched directly
 on the same bf16 inputs, ragged chunks included; RMSNorm's vec backward
-also at Gemma-3's d_model (5376 in bf16, 672 vectors, gemma) and at the
-768-vector limit.
+also at Gemma-3's d_model (5376 in bf16, 672 vectors, gemma), at the
+768 vectors one warp takes, at Zamba2-7B's out_norm in training
+((4096, 7168) bf16, 896 vectors, two warps a row, plain and gemma, with
+an fp32 or a bf16 w), in fp32 at 896 vectors of 4 (d 3584), at 769
+vectors (the fewest two warps take) in both dtypes, and at 897 vectors
+("simt"); the SSD backward also at Zamba2-7B's training layer,
+x (2,2048,112,64) with N = 64 and one group, and ragged at its 112 heads
+with an initial state; every backward case the same bit for bit over a
+repeated call.
 
 Qwen2-MoE's MoE layer at ``SMOKE`` runs on the card against the CPU (its
 two grouped GEMMs on the tensor cores in bf16), and the grouped GEMM at the
@@ -1023,12 +1030,19 @@ def _within(got, ref, tol, what):
     (33, 300, BF16, False), (37, 300, FP32, False),
     (4096, 5376, BF16, True),        # Gemma-3's block norms: 672 vectors
     (2048, 1536, BF16, False),       # DeepSeek-V2's q_norm: 192 vectors
-    (2048, 512, BF16, False)])       # its kv_norm: 64 vectors
+    (2048, 512, BF16, False),        # its kv_norm: 64 vectors
+    (4096, 7168, BF16, False),       # Zamba2-7B's out_norm: 896 vectors,
+    (4096, 7168, BF16, True),        # two warps a row
+    (37, 7176, BF16, False),         # 897 vectors: past the vec kernels
+    (37, 3584, FP32, False),         # fp32 at Zamba2-7B's d_model: 896
+    (4096, 3584, FP32, False),       # vectors of 4, two warps a row
+    (37, 3076, FP32, True),          # 769 vectors, the fewest for two
+    (37, 6152, BF16, False)])        # warps, in fp32 and in bf16
 def test_rmsnorm_backward_through_autograd(cuda, rows, d, dtype, gemma):
     """The RMSNorm Function's backward kernel against ``rmsnorm_bwd_ref``
     (fp32 1e-4, bf16 2e-2 of each gradient's scale; one rounding after sums
     in other orders), with one forward and one backward launch counted and
-    dw the same bit for bit over a second call."""
+    dx and dw the same bit for bit over a second call."""
     x, w, dy = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in _normal(
         rows + d, (rows, d), (d,), (rows, d)))
     w = w.float()
@@ -1039,16 +1053,45 @@ def test_rmsnorm_backward_through_autograd(cuda, rows, d, dtype, gemma):
     dx, dw = torch.autograd.grad(rmsnorm(x, w, gemma=gemma), (x, w), dy)
     torch.cuda.synchronize()
     assert (rmsnorm.launches - n, rmsnorm.bwd_launches - nb) == (1, 1)
-    # vec wherever d is a multiple of 16 bytes of x's elements
-    vec = d % (16 // x.element_size()) == 0
+    # vec wherever d is a multiple of 16 bytes of x's elements, up to
+    # MAX_VECS of them
+    per = 16 // x.element_size()
+    vec = d % per == 0 and d // per <= norm_ops.MAX_VECS
     assert rmsnorm.bwd_vec_launches - nv == int(vec)
     assert dx.dtype == x.dtype and dw.dtype == w.dtype
     rdx, rdw = rmsnorm_bwd_ref(x.detach(), w.detach(), dy, gemma=gemma)
     tol = 1e-4 if dtype == FP32 else 2e-2
     _within(dx, rdx, tol, "dx")
     _within(dw, rdw, tol, "dw")
-    again = rmsnorm_bwd(x.detach(), w.detach(), dy, gemma=gemma)[1]
-    assert torch.equal(again, dw)
+    again = rmsnorm_bwd(x.detach(), w.detach(), dy, gemma=gemma)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,gemma", [
+    (4096, 7168, False), (4096, 7168, True),   # 896 vectors: two warps
+    (37, 7168, False), (4096, 4096, False)])   # and 512, one warp
+def test_rmsnorm_backward_bf16_weight(cuda, rows, d, gemma):
+    """The vec backward on bf16 rows with a bf16 w (dw rounded to bf16
+    once), against ``rmsnorm_bwd_ref`` (2e-2 of each gradient's scale),
+    one vec backward launch counted, and dx and dw the same bit for bit
+    over a second call."""
+    x, w, dy = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+                for a in _normal(rows + d + 1, (rows, d), (d,), (rows, d)))
+    w = (1.0 + 0.1 * w.float()).to(torch.bfloat16)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    nb, nv = rmsnorm.bwd_launches, rmsnorm.bwd_vec_launches
+    dx, dw = torch.autograd.grad(rmsnorm(x, w, gemma=gemma), (x, w), dy)
+    torch.cuda.synchronize()
+    assert (rmsnorm.bwd_launches - nb, rmsnorm.bwd_vec_launches - nv) == (
+        1, 1)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    rdx, rdw = rmsnorm_bwd_ref(x.detach(), w.detach(), dy, gemma=gemma)
+    _within(dx, rdx, 2e-2, "dx")
+    _within(dw, rdw, 2e-2, "dw")
+    again = rmsnorm_bwd(x.detach(), w.detach(), dy, gemma=gemma)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
 
 
 @pytest.mark.cuda
@@ -1061,6 +1104,8 @@ def test_rmsnorm_backward_through_autograd(cuda, rows, d, dtype, gemma):
     ((1, 100, 2, 64, 128, 1), 256, FP32, True),    # one chunk of 100, off 32
     ((1, 250, 4, 64, 128, 2), 100, BF16, True),    # chunks of 100, then 50
     ((2, 40, 8, 16, 16, 1), 16, FP32, True),       # the smoke config's scan
+    ((2, 2048, 112, 64, 64, 1), 256, BF16, False),  # Zamba2-7B's layer
+    ((1, 300, 112, 64, 64, 1), 256, BF16, True),    # ragged, 112 heads
 ])
 def test_ssd_backward_through_autograd(cuda, shape, chunk, dtype, init):
     """The SSD Function's backward kernel against ``ssd_bwd_ref`` on the
@@ -1105,12 +1150,14 @@ def test_ssd_backward_through_autograd(cuda, shape, chunk, dtype, init):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,d,gemma", [
     (4096, 2048, False), (4096, 4096, True), (37, 2048, False),
-    (1, 4096, True), (4096, 5376, True), (37, 6144, False)])
+    (1, 4096, True), (4096, 5376, True), (37, 6144, False),
+    (4096, 7168, False), (4096, 7168, True), (37, 7168, False)])
 @pytest.mark.parametrize("variant", ["vec", "simt"])
 def test_rmsnorm_backward_variants(cuda, rows, d, gemma, variant):
     """Each variant of the RMSNorm backward launched directly on bf16 rows
     with an fp32 w, against ``rmsnorm_bwd_ref`` (2e-2 of each gradient's
-    scale), dw the same bit for bit over a second call."""
+    scale), dx and dw the same bit for bit over a second call (7168, 896
+    vectors, is Zamba2-7B's out_norm: two warps a row in "vec")."""
     x, w, dy = (torch.from_numpy(a).to(cuda) for a in _normal(
         rows * d, (rows, d), (d,), (rows, d)))
     x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
@@ -1120,7 +1167,7 @@ def test_rmsnorm_backward_variants(cuda, rows, d, gemma, variant):
     _within(dx, rdx, 2e-2, "dx")
     _within(dw, rdw, 2e-2, "dw")
     again = norm_ops._launch_bwd(x, w, dy, variant, eps=1e-5, gemma=gemma)
-    assert torch.equal(again[1], dw)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
 
 
 @pytest.mark.cuda
@@ -1131,6 +1178,8 @@ def test_rmsnorm_backward_variants(cuda, rows, d, gemma, variant):
     ((1, 250, 4, 64, 128, 2), 100, True),     # chunks of 100, then 50
     ((2, 40, 8, 16, 16, 1), 16, True),        # P = N = chunk = 16
     ((1, 97, 2, 128, 128, 1), 64, True),      # P = 128
+    ((2, 2048, 112, 64, 64, 1), 256, False),  # Zamba2-7B's training layer
+    ((1, 300, 112, 64, 64, 1), 256, True),    # ragged at its 112 heads
 ])
 @pytest.mark.parametrize("variant", ["tc", "simt"])
 def test_ssd_backward_variants(cuda, shape, chunk, init, variant):

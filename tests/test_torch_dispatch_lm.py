@@ -22,11 +22,12 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.rmsnorm.ops import (BWD_MAX_BLOCKS,
                                              BWD_VEC_MAX_BLOCKS,
-                                             BWD_MAX_VECS, BWD_VEC_WARPS,
+                                             BWD_VEC_WARPS, BWD_WARP_VECS,
                                              MAX_VECS,
                                              _rmsnorm_bwd_variant,
                                              _rmsnorm_variant, bwd_blocks,
-                                             bwd_vec_partition)
+                                             bwd_vec_partition,
+                                             bwd_vec_split)
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.ssd.ops import (MAX_SMEM_BYTES, _ssd_bwd_variant,
@@ -106,39 +107,39 @@ def test_rmsnorm_gemma3_serving_shapes_are_vectorised(rows, d):
 
 
 def test_rmsnorm_backward_takes_fewer_vectors_than_the_forward():
-    """A row of Gemma-3's d_model, 672 vectors in bf16: the vec backward
-    holds up to BWD_MAX_VECS vectors a row (the forward MAX_VECS), so
-    Gemma-3's block norms, (2 x 2048, 5376) in training, run "vec" both
-    ways."""
-    d = GEMMA.d_model
-    assert 512 < d // 8 <= BWD_MAX_VECS < MAX_VECS
-    x = torch.empty(2 * 2048, d, dtype=BF16)
-    assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
-    assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
-        "vec"
+    """Named for when the vec backward stopped at 768 vectors a row and the
+    forward at 896; the two limits are now one, MAX_VECS. A row of Gemma-3's
+    d_model, 672 vectors in bf16, takes one warp of the vec backward; a row
+    of Zamba2-7B's d_inner, 896, two (BWD_WARP_VECS is one warp's most);
+    both run "vec" both ways, as Gemma-3's block norms and Zamba2's gated
+    out_norms do in training."""
+    assert 512 < GEMMA.d_model // 8 <= BWD_WARP_VECS < 7168 // 8 == MAX_VECS
+    for d, split in ((GEMMA.d_model, 1), (7168, 2)):
+        x = torch.empty(2 * 2048, d, dtype=BF16)
+        assert _rmsnorm_variant(x, torch.empty(d)) == "vec"
+        assert _rmsnorm_bwd_variant(x, torch.empty(d),
+                                    torch.empty_like(x)) == "vec"
+        assert bwd_vec_split(d // 8) == split
 
 
 @pytest.mark.parametrize("over,variant", [(0, "vec"), (1, "simt")])
 @pytest.mark.parametrize("dtype", [BF16, FP32])
 def test_rmsnorm_vector_limit_is_the_same_both_ways(over, variant, dtype):
-    """Each way at its own limit's edge, the same rule: the forward at
-    MAX_VECS (896, Zamba2-7B's d_inner in bf16) and one more, the backward
-    at BWD_MAX_VECS (768) and one more; a row between the two runs the vec
-    forward and the simt backward (the two limits were one, 768, when this
-    test was named)."""
+    """One rule at the one limit's edge: MAX_VECS (896, Zamba2-7B's d_inner
+    in bf16) vectors run "vec" both ways, one more "simt" both ways; on
+    either side of one warp's most in the backward (BWD_WARP_VECS, 768) the
+    row runs "vec", one warp a row at it and two past it."""
     per = 16 // torch.empty(0, dtype=dtype).element_size()
     d = (MAX_VECS + over) * per
     x = torch.empty(4, d, dtype=dtype)
-    assert _rmsnorm_variant(x, torch.empty(d)) == variant
-    d = (BWD_MAX_VECS + over) * per
-    x = torch.empty(4, d, dtype=dtype)
-    assert _rmsnorm_bwd_variant(x, torch.empty(d), torch.empty_like(x)) == \
-        variant
-    x = torch.empty(4, (BWD_MAX_VECS + 1) * per, dtype=dtype)
-    w = torch.empty(x.shape[-1])
+    w = torch.empty(d)
     assert (_rmsnorm_variant(x, w),
-            _rmsnorm_bwd_variant(x, w, torch.empty_like(x))) == ("vec",
-                                                                 "simt")
+            _rmsnorm_bwd_variant(x, w, torch.empty_like(x))) == (variant,
+                                                                 variant)
+    x = torch.empty(4, (BWD_WARP_VECS + over) * per, dtype=dtype)
+    w = torch.empty(x.shape[-1])
+    assert _rmsnorm_bwd_variant(x, w, torch.empty_like(x)) == "vec"
+    assert bwd_vec_split(BWD_WARP_VECS + over) == 1 + over
 
 
 # ---------------------------------------------------------------- SSD variant
@@ -313,6 +314,23 @@ def test_rmsnorm_vec_backward_warps_cover_every_row_once(rows):
     assert (blocks - 1) * BWD_VEC_WARPS * per < rows
 
 
+@pytest.mark.parametrize("rows", [1, 37, 1023, 1024, 1025, 4096, 8193,
+                                  100_000])
+def test_rmsnorm_vec_backward_pairs_cover_every_row_once(rows):
+    """Past BWD_WARP_VECS vectors a row two warps share a row: the pairs
+    take contiguous row ranges, BWD_VEC_WARPS / 2 a block, at most
+    BWD_VEC_MAX_BLOCKS blocks, every row in exactly one pair's range and no
+    block without rows."""
+    groups = BWD_VEC_WARPS // 2
+    blocks, per = bwd_vec_partition(rows, bwd_vec_split(896))
+    assert 1 <= blocks <= BWD_VEC_MAX_BLOCKS
+    taken = []
+    for pair in range(blocks * groups):
+        taken += range(min(rows, pair * per), min(rows, (pair + 1) * per))
+    assert taken == list(range(rows))
+    assert (blocks - 1) * groups * per < rows
+
+
 @contextlib.contextmanager
 def _recorded_launch(monkeypatch, module):
     """Replace ``module``'s C entry and the CUDA stream and device calls so
@@ -351,7 +369,22 @@ def test_rmsnorm_bwd_launch_arguments(monkeypatch, variant):
     assert args[5] == dw.data_ptr() and dw.dtype == w.dtype
     assert args[6:9] == (1, 0, 1 if variant == "vec" else 0)
     assert args[9:14] == (rows, d, d, blocks, per)
-    assert args[14:] == (pytest.approx(1e-5), 1, 7)
+    assert args[14:] == (pytest.approx(1e-5), 1, 7, 1)
+
+
+def test_rmsnorm_bwd_launch_arguments_two_warps_a_row(monkeypatch):
+    """At Zamba2-7B's out_norm in training, (2 x 2048, 7168) bf16, 896
+    vectors a row: the vec backward's pairs of warps, 2 a block, so 256
+    blocks of 8 rows a pair, an fp32 partial row for each block, and the
+    split of 2 warps a row handed over last."""
+    rows, d = 4096, 7168
+    x = torch.zeros(rows, d, dtype=BF16)
+    w, dy = torch.zeros(d), torch.zeros(rows, d, dtype=BF16)
+    assert _rmsnorm_bwd_variant(x, w, dy) == "vec"
+    with _recorded_launch(monkeypatch, norm_ops) as seen:
+        norm_ops._launch_bwd(x, w, dy, "vec", eps=1e-5, gemma=False)
+    assert seen["args"][8:14] == (1, rows, d, d, 256, 8)
+    assert seen["args"][-1] == 2
 
 
 def _ssd_bwd_case(name):
@@ -384,6 +417,9 @@ def _ssd_bwd_case(name):
         x = dy = torch.zeros(2, 40, 8, 16, dtype=BF16)
         B = C = torch.zeros(2, 40, 1, 16, dtype=BF16)
         Q = 16
+    elif name == "zamba2_training":        # 112 heads of 64, N = 64
+        x = dy = torch.zeros(2, 2048, 112, 64, dtype=BF16)
+        B = C = torch.zeros(2, 2048, 1, 64, dtype=BF16)
     return x, B, C, dy, Q
 
 
@@ -391,7 +427,7 @@ def _ssd_bwd_case(name):
     ("contiguous", "tc"), ("fp32", "simt"), ("x_offset", "simt"),
     ("dy_offset", "simt"), ("state_48", "simt"), ("p128_chunk256", "simt"),
     ("p128_chunk128", "tc"), ("one_chunk", "tc"),
-    ("fused_projection", "tc"), ("smoke", "tc"),
+    ("fused_projection", "tc"), ("smoke", "tc"), ("zamba2_training", "tc"),
 ])
 def test_ssd_bwd_variant(name, variant):
     """The backward takes the tensor cores where the forward would, dy is
@@ -402,16 +438,19 @@ def test_ssd_bwd_variant(name, variant):
 
 @pytest.mark.parametrize("P,N,Q", [(64, 128, 256), (64, 128, 128),
                                    (128, 128, 128), (16, 16, 16),
-                                   (32, 64, 64), (64, 128, 100)])
+                                   (32, 64, 64), (64, 128, 100),
+                                   (64, 64, 256)])
 def test_ssd_tc_backward_fits_shared_memory(P, N, Q):
     """The tc backward's kernels fit a block's shared memory at the model's
-    training shapes, at P = 128 up to chunk 128 and at the smoke config's;
-    its chunk kernel holds the whole chunk's x, dy, B and C."""
+    training shapes (Mamba2's N = 128 and Zamba2-7B's N = 64), at P = 128
+    up to chunk 128 and at the smoke config's; its chunk kernel holds the
+    whole chunk's x, dy, B and C."""
     tc = bwd_smem_bytes(P, N, Q, "tc")
     assert tc <= MAX_SMEM_BYTES
     q16 = -(-Q // 16) * 16
     assert tc >= q16 * (4 * P + 4 * N)
     assert bwd_smem_bytes(64, 128, 256, "tc") == 222_244
+    assert bwd_smem_bytes(64, 64, 256, "tc") == 148_516
     assert bwd_smem_bytes(128, 128, 256, "tc") > MAX_SMEM_BYTES
 
 

@@ -68,6 +68,8 @@ def _entry_points():
     from repro_torch.kernels.ssd import ssd, ssd_bwd
     from repro_torch.configs import mamba2_1_3b
     from repro_torch.data import DataConfig, data_iterator, synth_batch
+    from repro_torch.examples import (provision_service, quickstart,
+                                      serve_decode, train_lm)
     from repro_torch.launch import provision, serve, train
     from repro_torch.models import transformer
     from repro_torch.serve import ServeEngine
@@ -109,6 +111,10 @@ def _entry_points():
                                          torch.zeros(1, 8, 8)),
         "from_jax": lambda: from_jax({"gate": torch.zeros(1).numpy(),
                                       "experts": {}}),
+        "examples.quickstart": lambda: quickstart.main([]),
+        "examples.train_lm": lambda: train_lm.main([]),
+        "examples.serve_decode": lambda: serve_decode.main([]),
+        "examples.provision_service": lambda: provision_service.main([]),
     }
 
 
@@ -121,7 +127,10 @@ def _entry_points():
                                   "launch.serve", "launch.provision",
                                   "restore_checkpoint", "rmsnorm_bwd",
                                   "ssd_bwd", "synth_batch", "data_iterator",
-                                  "ChainedTrainer", "launch.train"])
+                                  "ChainedTrainer", "launch.train",
+                                  "examples.quickstart", "examples.train_lm",
+                                  "examples.serve_decode",
+                                  "examples.provision_service"])
 def test_entry_points_default_to_cuda(name):
     """Without ``device=`` an entry point asks for CUDA: where there is no
     card it raises rather than running on the CPU."""

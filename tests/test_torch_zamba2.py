@@ -14,12 +14,17 @@ published head dim that ``SMOKE``'s 16 hides.
 
 Checked: the tree (one unstacked shared tree, converted both ways),
 ``forward``, ``loss_fn`` and every leaf's gradient (the shared leaves'
-the sum over their applications, as JAX's scan closure gives it), a
-prefill and 8 decode steps with both caches, ``ServeEngine``'s tokens
-against JAX's engine with the port's slot repair, the kernels' variants at
-the full widths, and both launchers.
+the sum over their applications, as JAX's scan closure gives it), one
+``make_train_step`` step, plain and through the card's route (the RMSNorm
+and SSD autograd Functions with their launches' plain versions), against
+JAX's train step, ``ChainedTrainer``'s donated step against the functional
+one, a prefill and 8 decode steps with both caches, ``ServeEngine``'s
+tokens against JAX's engine with the port's slot repair, the kernels'
+variants at the full widths both ways, and both launchers.
 
-Tolerances: fp32 1e-4 (the model tests' bound). Greedy tokens are compared
+Tolerances: fp32 1e-4 (the model tests' bound); the train step's metrics
+1e-5 relative, m, v and the parameters 1e-4 of each leaf's scale
+(tests/test_torch_lm_train.py's). Greedy tokens are compared
 while every decode call's logits agree within 1e-4 and no row's top-2 gap
 falls under it (tests/test_torch_lm_serve.py's rule).
 """
@@ -36,22 +41,33 @@ from repro.models import transformer as jt
 from repro.models.common import layer_plan
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
+from repro.train.optimizer import OptimizerConfig as JOptimizerConfig
+from repro.train.optimizer import adamw_update as j_adamw_update
+from repro.train.optimizer import init_opt_state as j_init_opt_state
+from repro.train.step import make_train_step as j_make_train_step
 from repro_torch import convert
 from repro_torch.configs import zamba2_7b as t_zamba
+from repro_torch.data import DataConfig, data_iterator
+from repro_torch.kernels.rmsnorm import ops as norm_ops
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.rmsnorm.ops import (_rmsnorm_bwd_variant,
-                                             _rmsnorm_variant)
+                                             _rmsnorm_variant, bwd_vec_split)
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd
-from repro_torch.kernels.ssd.ops import (MAX_SMEM_BYTES, _ssd_variant,
+from repro_torch.kernels.ssd.ops import (MAX_SMEM_BYTES, _ssd_bwd_variant,
+                                         _ssd_variant, bwd_smem_bytes,
                                          smem_bytes)
 from repro_torch.launch import serve as t_serve_launch
 from repro_torch.launch import train as t_train_launch
 from repro_torch.models import layers, registry, ssm
 from repro_torch.models import transformer as tt
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.train import (ChainConfig, ChainedTrainer, OptimizerConfig,
+                               init_opt_state, make_train_step)
 from repro_torch.train.step import value_and_grad
 
 TOL = 1e-4
+OPT = dict(lr=3e-3, warmup_steps=2, total_steps=10)
 DECODE_STEPS = 8
 NORM_STD = 0.3
 BF16 = torch.bfloat16
@@ -212,6 +228,148 @@ def test_loss_and_grads_match_jax(model):
     assert float(wq.abs().max()) > 1e2 * TOL
 
 
+def _card_route(monkeypatch):
+    """The model's RMSNorm and SSD calls take the card's route (their
+    autograd Functions, with counters from 0), each kernel launch replaced
+    by its plain version on the CPU tensors."""
+    def norm(x, w, *, eps=1e-6, gemma=False, device=None):
+        norm_ops._check(x, w)
+        return norm_ops._rmsnorm_cuda(x, w, eps=eps, gemma=gemma)
+
+    def scan(x, dt, A, B, C, D, chunk, initial_state=None, *, device=None):
+        ssd_ops._check(x, dt, A, B, C, D, chunk, initial_state)
+        return ssd_ops._ssd_cuda(x, dt, A, B, C, D, chunk, initial_state)
+    monkeypatch.setattr(norm_ops, "_launch", lambda flat, w, variant, **kw:
+                        norm_ops.rmsnorm_ref(flat, w, **kw))
+    monkeypatch.setattr(norm_ops, "_launch_bwd",
+                        lambda flat, w, dy, variant, **kw:
+                        norm_ops.rmsnorm_bwd_ref(flat, w, dy, **kw))
+    monkeypatch.setattr(ssd_ops, "_launch",
+                        lambda x, dt, A, B, C, D, Q, init, variant:
+                        ssd_ops.ssd_ref(x, dt, A, B, C, D, Q, init))
+    monkeypatch.setattr(ssd_ops, "_launch_bwd",
+                        lambda x, dt, A, B, C, D, Q, dy, init, d_final,
+                        variant: ssd_ops.ssd_bwd_ref(x, dt, A, B, C, D, Q,
+                                                     dy, init, d_final))
+    monkeypatch.setattr(layers, "rmsnorm", norm)
+    monkeypatch.setattr(ssm, "ssd", scan)
+    for name in ("launches", "vec_launches", "bwd_launches",
+                 "bwd_vec_launches"):
+        monkeypatch.setattr(norm_ops.rmsnorm, name, 0)
+    for name in ("launches", "tc_launches", "bwd_launches",
+                 "bwd_tc_launches"):
+        monkeypatch.setattr(ssd, name, 0)
+
+
+def _close_tree(ours, theirs, tol, what):
+    """Every leaf within ``tol`` of its JAX leaf's scale (paths equal)."""
+    ours = jax.tree_util.tree_flatten_with_path(convert.tree_map(_np, ours))[0]
+    theirs = jax.tree_util.tree_flatten_with_path(theirs)[0]
+    assert len(ours) == len(theirs), what
+    for (pa, a), (pb, b) in zip(ours, theirs):
+        assert pa == pb, what
+        b = np.asarray(b, np.float32)
+        bound = tol * max(np.abs(b).max(), 1e-30)
+        assert np.abs(a - b).max() <= bound, \
+            f"{what} {jax.tree_util.keystr(pa)}"
+
+
+def _jax_update_of(ts1, jp, jstate):
+    """JAX's AdamW update past its clipping, fed the port's own clipped
+    gradient with the same parameters and state (the first step's m is
+    (1 - b1) times it, from m = 0): the parameters compare at a
+    well-conditioned point, since an element whose |g| is near eps moves
+    by a large share of lr under a rounding-size change in g."""
+    jocfg = JOptimizerConfig(**OPT, grad_clip=0.0)
+    one_minus_b1 = np.float32(1 - jocfg.beta1)
+    grads = jax.tree.map(lambda m: jnp.asarray(m / one_minus_b1),
+                         convert.to_jax(ts1["m"]))
+    return j_adamw_update(grads, jp, jstate, jocfg)[0]
+
+
+@pytest.mark.parametrize("route", ["plain", "card"])
+def test_train_step_matches_jax(model, monkeypatch, route):
+    """One ``make_train_step`` step on 36 positions (chunks of 16, 16 and
+    4) against JAX's train step: the metrics and AdamW's m and v, the tied
+    block's leaves the sum over its two applications, then the updated
+    parameters against JAX's AdamW update fed the port's own clipped
+    gradient. The "card" route runs the RMSNorm and SSD autograd Functions
+    with their launches' plain versions: a step launches 5 scans and 15
+    norms (2 a Mamba block, 2 a shared-block application, the final) each
+    way."""
+    jcfg, tcfg, jp, tp = model
+    toks = _tokens(jcfg, 2, 37, seed=9)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    jstate = j_init_opt_state(jp, JOptimizerConfig(**OPT))
+    _, js1, jm = j_make_train_step(jcfg, JOptimizerConfig(**OPT))(
+        jp, jstate, jax.tree.map(jnp.asarray, batch))
+    if route == "card":
+        _card_route(monkeypatch)
+    tstate = init_opt_state(tp, OptimizerConfig(**OPT))
+    tp1, ts1, tm = make_train_step(tcfg, OptimizerConfig(**OPT))(
+        tp, tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
+    if route == "card":
+        mamba = sum(seg.n_repeat * seg.pattern.count("mamba")
+                    for seg in layer_plan(tcfg))
+        apps = tcfg.n_layers - mamba
+        assert (mamba, apps) == (5, 2)
+        norms = 2 * mamba + 2 * apps + 1
+        assert (ssd.launches, ssd.bwd_launches) == (mamba, mamba)
+        assert (norm_ops.rmsnorm.launches,
+                norm_ops.rmsnorm.bwd_launches) == (norms, norms) == (15, 15)
+        assert norm_ops.rmsnorm.bwd_vec_launches == norms
+    for name in ("ce", "loss", "lr", "grad_norm"):
+        np.testing.assert_allclose(float(tm[name]), float(jm[name]),
+                                   rtol=1e-5, err_msg=name)
+    _close_tree(ts1["m"], js1["m"], TOL, "m")
+    _close_tree(ts1["v"], js1["v"], TOL, "v")
+    _close_tree(tp1, _jax_update_of(ts1, jp, jstate), TOL, "params")
+
+
+def _leaves(tree):
+    out = []
+    convert.tree_map(out.append, tree)
+    return out
+
+
+def test_chained_trainer_donates_the_functional_bits(tmp_path):
+    """``ChainedTrainer``'s donated step on ``SMOKE``, 3 steps, against
+    ``make_train_step``'s functional step from the same state on the same
+    batches: the same losses, every parameter, m and v leaf the same bits,
+    and every leaf in its own storage, the tied block's one tree (updated by
+    the sum over its two applications) among them."""
+    cfg = t_zamba.SMOKE
+    ocfg = OptimizerConfig(**OPT)
+    dc = DataConfig(batch=2, seq_len=24, seed=1)
+    tr = ChainedTrainer(cfg, ocfg, ChainConfig(ckpt_dir=str(tmp_path),
+                                               ckpt_every=100),
+                        data_iterator(cfg, dc, device="cpu"), seed=0,
+                        device="cpu")
+    params, opt = convert.tree_map(torch.clone, (tr.params, tr.opt_state))
+    params_0 = convert.tree_map(torch.clone, params)
+    tied = tr.params["segments"][0]["b2"]
+    assert tied["attn"]["wq"].shape == (cfg.d_model, cfg.nq, cfg.hd)
+    before = [t.data_ptr() for t in _leaves((tr.params, tr.opt_state))]
+    tied_before = [t.data_ptr() for t in _leaves(tied)]
+    info = tr.run_subjob(3)
+    step = make_train_step(cfg, ocfg)
+    data = data_iterator(cfg, dc, device="cpu")
+    losses = []
+    for _ in range(3):
+        params, opt, metrics = step(params, opt, next(data))
+        losses.append(float(metrics["loss"]))
+    assert info["losses"] == losses and np.isfinite(losses).all()
+    assert [t.data_ptr() for t in _leaves((tr.params, tr.opt_state))] == \
+        before
+    assert tr.params["segments"][0]["b2"] is tied
+    assert [t.data_ptr() for t in _leaves(tied)] == tied_before
+    assert not torch.equal(tied["attn"]["wq"],
+                           params_0["segments"][0]["b2"]["attn"]["wq"])
+    for a, b in zip(_leaves((tr.params, tr.opt_state)),
+                    _leaves((params, opt))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
 def test_prefill_and_decode_match_jax(model):
     """A 21-token prefill (a ragged second chunk) into a cache of 21 + 8,
     then 8 greedy decode steps: logits against JAX at every step, then
@@ -295,11 +453,12 @@ def test_kernel_variants_at_full_width(monkeypatch):
     """The tensors the model hands its kernels at the published widths, one
     (mamba, shared attn) group and a last Mamba block, bf16: each Mamba
     block's norm over d_model (448 vectors) and its gated out_norm over
-    d_inner (896 vectors) take the vec forward, whose limit reaches 896,
-    and the simt backward, which keeps 768; the shared block's two norms
-    and the final one vec; the scan, 112 heads of 64, N = 64, the tc
-    variant (95,264 bytes of shared memory at chunk 256). A prefill runs
-    2 x 2 + 2 + 1 norms and 2 scans, a decode step the norms alone."""
+    d_inner (896 vectors, two warps a row in the backward) take the vec
+    kernel both ways; the shared block's two norms and the final one vec;
+    the scan, 112 heads of 64, N = 64, the tc variant both ways (95,264
+    bytes of shared memory at chunk 256 forward, 148,516 backward). A
+    prefill runs 2 x 2 + 2 + 1 norms and 2 scans, a decode step the norms
+    alone."""
     norms, scans = [], []
 
     def norm_probe(x, w, **kw):
@@ -322,7 +481,7 @@ def test_kernel_variants_at_full_width(monkeypatch):
                          generator=torch.Generator().manual_seed(1))
     pos = torch.arange(S)[None].expand(B, S)
     d, di = cfg.d_model, cfg.d_inner
-    mamba = [(d, "vec", "vec"), (di, "vec", "simt")]
+    mamba = [(d, "vec", "vec"), (di, "vec", "vec")]
     per_pass = mamba + [(d, "vec", "vec")] * 2 + mamba + [(d, "vec", "vec")]
     with torch.inference_mode():
         _, cache = tt.prefill(params, cfg, toks, pos)
@@ -330,10 +489,14 @@ def test_kernel_variants_at_full_width(monkeypatch):
         assert scans == [((112, 64), (1, 64), "tc")] * 2
         tt.decode_step(params, cfg, toks[:, :1], pos[:, :1] + S, cache, S)
     assert norms == per_pass * 2 and len(scans) == 2
-    assert di // 8 == 896
+    assert di // 8 == 896 and bwd_vec_split(di // 8) == 2
     x = torch.empty(4, 2048, 112, 64, dtype=BF16)
     assert _ssd_variant(x, x[..., :1, :], x[..., :1, :]) == "tc"
     assert smem_bytes(64, 64, 256, "tc") == 95_264 <= MAX_SMEM_BYTES
+    x = x[:2]                                  # the training batch, 2 x 2048
+    bc = x[..., :1, :]
+    assert _ssd_bwd_variant(x, bc, bc, torch.empty_like(x), 256) == "tc"
+    assert bwd_smem_bytes(64, 64, 256, "tc") == 148_516 <= MAX_SMEM_BYTES
 
 
 # ---------------------------------------------------------------- launchers
