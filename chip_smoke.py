@@ -238,8 +238,10 @@ exits non-zero:
    the decision latency's p50 and p99, rounds, batches and the batch-size
    histogram; then one full 64-lane service batch, and the decision alone
    on its states, under torch.profiler;
-8. LM training: Mamba2-1.3B at its full published width, seeded weights drawn
-   on the card, ``make_train_step`` at the train launcher's optimizer (lr
+8. LM training (every run under remat, the configs' default: where a
+   count below says "each way", the forward's layer kernels launch twice
+   that, the recompute, and the final norm once): Mamba2-1.3B at its full
+   published width, seeded weights drawn on the card, ``make_train_step`` at the train launcher's optimizer (lr
    3e-4, warmup 20) on ``data_iterator`` batches: (a) the launcher's
    defaults, 8 x 128, 5 steps; (b) 2 x 2048 (8 chunks of 256), 3 steps; each
    after a warm-up step, with ms per step, tokens/s, the losses (all
@@ -324,6 +326,21 @@ exits non-zero:
    all 6 requests finish; provision_service (a moe+dqn learner, 3 sub-jobs
    of real payload training chained through checkpoints, a 6-lane sweep),
    raising unless no payload step is lost and the summaries are finite;
+8c. remat and the distributed launcher: TinyLlama-1.1B's first 2 layers
+   at full width, ``loss_fn``'s gradient on a 2 x 2048 batch with remat
+   off and on (the same loss and gradient bits, each way's peak memory and
+   ms, the forward kernels' launches twice under remat, the backward's
+   once); then ``launch.train --distributed`` at the launcher's defaults
+   on a world of one (NCCL, torchrun's variables set by the script; cut
+   for time to the model's first 2 layers and a zlib level-0 checkpoint),
+   a sub-job against the plain launcher's and a second resumed through
+   ``restore_checkpoint(shardings=)`` on ``make_host_mesh()`` against a
+   plain one resumed from the same checkpoint: the same losses bit for bit;
+8d. the dry run's cell ``tinyllama-1.1b x train_4k x 16x16``
+   (``repro_torch.launch.dryrun``: a fake process group of 256 and meta
+   tensors, on the host), started as a process of its own when the script
+   starts so that it runs beside the card's phases, waited for here: its
+   ``[ ok ]`` line and its record (memory per device, roofline terms);
 5. each kernel's time at the serving paths' shapes (L2 flushed before each
    launch) beside its plain version, the PyTorch library call that
    computes the same function, and the least time the card could take
@@ -385,14 +402,16 @@ exits non-zero:
    RMSNorm, autograd through ``F.rms_norm``.
 
 Phases run in the order 1, 2, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g, 4h, 4i, 4j,
-6, 7, 8, 8b, 5, and each ends with a ``[phase]`` line of its wall time.
+6, 7, 8, 8b, 8c, 8d, 5, and each ends with a ``[phase]`` line of its wall
+time. Every LM training run goes through remat, as the configs have it:
+the forward kernels' counts in its checks include the recompute.
 Each kernel's ``launches`` in the JSON record sums the counts of every
 path that runs it (phases 3, 4, 4b, 4c's to 4j's prefill and decode
 steps, 6, 7, 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
 Gemma-3 and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
 Qwen1.5-4B, HuBERT, DeepSeek-V2, Qwen2-VL and Zamba2-7B and the launcher
-at its defaults, and 8b), each counted from 0 just before its path and
-read just after.
+at its defaults, 8b, and 8c's remat run and four launcher sub-jobs), each
+counted from 0 just before its path and read just after.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA card the script exits
@@ -404,11 +423,13 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import resource
 import shutil
 import subprocess
 import sys
 import time
+import zlib
 from collections import Counter, defaultdict
 from pathlib import Path
 
@@ -3530,22 +3551,32 @@ def _train_pass_counts(cfg, passes: int) -> dict:
     GEMMs (the backward one fused call a projection, dX and dW); plus the
     final norm; none for LayerNorm (HuBERT, whose attention takes the
     reference math too); every norm vectorised and every scan, flash and
-    GEMM on the tensor cores, both ways."""
+    GEMM on the tensor cores, both ways. Under ``cfg.remat`` every layer's
+    forward runs again in the backward (the recompute), so its forward
+    launches count twice; the final norm's, outside the layers, once."""
     layers = cfg.n_layers
+    runs = _passes(cfg)
     per_layer = 2 + 2 * cfg.sandwich_norm + 2 * cfg.qk_norm + 2 * cfg.use_mla
-    norms = passes * (per_layer * layers + 1) if cfg.norm_style == "rms" \
-        else 0
+    rms = cfg.norm_style == "rms"
+    norms = passes * (per_layer * layers + 1) if rms else 0
     mamba = sum(seg.n_repeat * seg.pattern.count("mamba")
                 for seg in layer_plan(cfg))
     scans = passes * mamba
     flash = passes * (layers - mamba) if cfg.attn_impl == "flash" else 0
     moe_layers = layers - cfg.first_k_dense if cfg.family == "moe" else 0
     gemms = 2 * passes * moe_layers
-    return dict(_pass_counts(norms, scans, flash, gemms), rmsnorm_bwd=norms,
+    fwd_norms = passes * (runs * per_layer * layers + 1) if rms else 0
+    return dict(_pass_counts(fwd_norms, runs * scans, runs * flash,
+                             runs * gemms), rmsnorm_bwd=norms,
                 rmsnorm_bwd_vec=norms, ssd_bwd=scans, ssd_bwd_tc=scans,
                 flash_attention_bwd=flash, flash_bwd_tc=flash,
                 grouped_gemm_bwd=gemms, grouped_gemm_bwd_products=2 * gemms,
                 gemm_bwd_tc=2 * gemms)
+
+
+def _passes(cfg) -> int:
+    """Forward runs of a layer in a differentiated pass: 2 under remat."""
+    return 2 if cfg.remat else 1
 
 
 def _check_lm_train_counts(what: str, passes: int, cfg=LM) -> dict:
@@ -3666,9 +3697,14 @@ def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ,
     if got != _train_pass_counts(cfg, 1):
         raise RuntimeError(f"{run}: the gradient launched {got}")
     t0 = time.perf_counter()
+    # the CPU's plain path without remat: the same bits (tests/
+    # test_torch_remat.py), one forward fewer on the host
     with _RouteLog(force=[i for _, i in card.routes]) as cpu:
-        pval, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
+        pval, pgrads, _ = _lm_grads(cfg.replace(remat=False),
+                                    *_cpu_inputs(sub, batch))
     cpu_s = time.perf_counter() - t0
+    # the card's forward routes; remat's recompute repeats them after
+    card.routes = card.routes[:len(cpu.routes)]
     errs = _grad_errs(grads, pgrads)
     worst = max(errs, key=errs.get)
     routing = {}
@@ -3702,7 +3738,8 @@ def lm_grad_rounding(params, seeds=(0,)) -> None:
     for seed in seeds:
         batch = synth_batch(cfg, DataConfig(batch=1, seq_len=LM_GRAD_SEQ),
                             seed, device="cuda")
-        _, pgrads, _ = _lm_grads(cfg, *_cpu_inputs(sub, batch))
+        _, pgrads, _ = _lm_grads(cfg.replace(remat=False),
+                                 *_cpu_inputs(sub, batch))
         row, all_errs = {"seed": seed}, {}
         for arm, (scan, norm) in arms.items():
             ssd_ops._ssd_bwd_variant = lambda *a, v=scan: v
@@ -3939,8 +3976,10 @@ def gemma_train() -> dict:
     call of each with the window of 1024), the gradients checked at 1 x
     GEMMA_GRAD_SEQ, past the window."""
     def report(log, steps):
-        # the warm-up step, then the timed ones: one local and one global
-        want = Counter({GEMMA.sliding_window: steps + 1, 0: steps + 1})
+        # the warm-up step, then the timed ones: one local and one global,
+        # twice under remat (the recompute calls the wrapper again)
+        n = (steps + 1) * _passes(GEMMA_TRAIN)
+        want = Counter({GEMMA.sliding_window: n, 0: n})
         if log.windows != want:
             raise RuntimeError(f"flash windows {dict(log.windows)}, "
                                f"not {want}")
@@ -3964,7 +4003,9 @@ def moe_train() -> dict:
     _, batch, seq, _ = DENSE_TRAIN_RUN
 
     def report(log, steps):
-        pairs = (steps + 1) * QWEN_TRAIN.n_layers * batch * seq * QWEN.top_k
+        # routed pairs of every router call, remat's recompute among them
+        pairs = ((steps + 1) * _passes(QWEN_TRAIN) * QWEN_TRAIN.n_layers
+                 * batch * seq * QWEN.top_k)
         return dict(published_layers=QWEN.n_layers,
                     dropped=int(log.dropped), pairs=pairs,
                     dropped_share=int(log.dropped) / pairs,
@@ -4194,7 +4235,8 @@ def deepseek_train() -> dict:
     with _RouteLog() as log:
         counts = chained_run(tr, what, batch, seq, steps)
     moe_layers = DEEPSEEK_TRAIN.n_layers - DEEPSEEK_TRAIN.first_k_dense
-    pairs = (steps + 1) * moe_layers * batch * seq * DEEPSEEK.top_k
+    pairs = ((steps + 1) * _passes(DEEPSEEK_TRAIN) * moe_layers * batch
+             * seq * DEEPSEEK.top_k)
     line("lm_train", arch=DEEPSEEK_TRAIN.arch_id,
          run="DeepSeek-V2 routing", dropped=int(log.dropped), pairs=pairs,
          dropped_share=int(log.dropped) / pairs,
@@ -4465,6 +4507,205 @@ def phase_examples() -> dict:
              "reactive_summary", "reduction_pct")}, launches=counts)
     torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------- 8c. remat and the distributed launcher
+REMAT_RUN = (2, 2048)      # TinyLlama's first 2 layers, one step each way
+DIST_STEPS = (3, 2)        # the launcher's two sub-jobs in phase 8c
+DRYRUN_CELL = ("tinyllama-1.1b", "train_4k")
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 900
+
+
+def check_remat() -> dict:
+    """Remat on the card: TinyLlama-1.1B's first 2 layers at full width,
+    seeded fp32 weights drawn on the card, ``loss_fn``'s value and
+    gradient on one 2 x 2048 batch with ``remat`` off, then on: the same
+    loss and gradient bits (or the worst leaf's error, within
+    LM_REL_TOL, reported), the peak memory each way over the weights and
+    the batch, the ms of each after a warm-up, and the launches, checked:
+    the forward kernels twice with remat (the recompute) but the final
+    norm, the backward ones once either way. Returns the remat run's
+    launches."""
+    cfg = DENSE.replace(n_layers=LM_PLAIN_LAYERS)
+    params = transformer.init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+    batch_n, seq = REMAT_RUN
+    batch = synth_batch(cfg, DataConfig(batch=batch_n, seq_len=seq), 7,
+                        device="cuda")
+    runs, ms = {}, {"off": [], "on": []}
+    _lm_grads(cfg, params, batch)           # warm-up, both ways' kernels
+    for name in ("off", "on", "on", "off"):  # in turns: off, on, on, off
+        c = cfg.replace(remat=name == "on")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lval, grads, got = _lm_grads(c, params, batch)
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        if got != _train_pass_counts(c, 1):
+            raise RuntimeError(f"remat {name}: launched {got}, expected "
+                               f"{_train_pass_counts(c, 1)}")
+        runs[name] = (lval, grads, got, peak)
+        del grads
+    (l0, g0, c0, p0), (l1, g1, c1, p1) = runs["off"], runs["on"]
+    ms0, ms1 = ms["off"], ms["on"]
+    unequal = [path for (path, a), b in zip(_items(g0), _leaves(g1))
+               if not torch.equal(a, b)]
+    worst = max((float((a - b).abs().max()) / (float(a.abs().max()) or 1.0)
+                 for (_, a), b in zip(_items(g0), _leaves(g1))), default=0.0)
+    if worst > LM_REL_TOL or not np.isfinite(l1):
+        raise RuntimeError(f"remat changed the gradient: {worst} "
+                           f"({unequal[:5]}), loss {l0} vs {l1}")
+    if p1 >= p0:
+        raise RuntimeError(f"remat did not lower the peak: {p1} >= {p0}")
+    line("remat", arch=cfg.arch_id, layers=cfg.n_layers, batch=batch_n,
+         seq=seq, loss_bit_equal=l0 == l1, grads_bit_equal=not unequal,
+         unequal_leaves=len(unequal), worst_rel_err=worst,
+         rel_tol=LM_REL_TOL, peak_gb_off=p0 / 1e9, peak_gb_on=p1 / 1e9,
+         ms_off=ms0, ms_on=ms1, launches_off=c0, launches_on=c1)
+    del params, batch, runs, g0, g1
+    torch.cuda.empty_cache()
+    return c1
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch(args, write: bool) -> dict:
+    """``launch.train.main(args)``, its lines printed; with ``write`` False
+    its checkpoint is not written (``_NoCheckpoint``)."""
+    real = train_chain.AsyncCheckpointer
+    if not write:
+        train_chain.AsyncCheckpointer = _NoCheckpoint
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = train_launcher.main(args)
+        torch.cuda.synchronize()
+    finally:
+        train_chain.AsyncCheckpointer = real
+    print(buf.getvalue(), end="", flush=True)
+    return out
+
+
+def check_distributed() -> dict:
+    """``launch.train --distributed --arch tinyllama-1.1b`` at the
+    launcher's defaults (8 x 128) on a world of one: NCCL through
+    torchrun's variables, set here (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR 127.0.0.1 and a free port). Cut for time to the model's
+    first 2 layers at full width (the registry hands the launcher that
+    cut), and the checkpoint written with zlib at level 0 (stored: level
+    3 compresses fp32 weights at ~18 MB/s, 2.6 GB here). The plain
+    launcher's sub-job of DIST_STEPS[0] steps against the distributed one,
+    which writes its checkpoint; then a distributed sub-job resumed by
+    ``restore_checkpoint(shardings=)`` on ``make_host_mesh()`` against a
+    plain one resumed from the same checkpoint, DIST_STEPS[1] steps each:
+    the same losses bit for bit, and no process group left. Returns the
+    four sub-jobs' launches."""
+    import torch.distributed as dist
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint as ckpt_mod
+    cut = DENSE.replace(n_layers=LM_PLAIN_LAYERS)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    real_cfg, real_compress = registry.get_config, ckpt_mod._compress
+    ckpt = TRAIN_DIR / "distributed"
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    _set_lm_train_counts()
+    t0 = time.perf_counter()
+    os.environ.update(env)
+    registry.get_config = lambda arch, smoke=False: (
+        cut if arch == DENSE.arch_id and not smoke else real_cfg(arch, smoke))
+    # zlib at level 0 (stored): a stream either package reads
+    ckpt_mod._compress = lambda raw, codec: (
+        zlib.compress(raw, 0) if codec == "zlib" else real_compress(raw, codec))
+    try:
+        first, second = (["--arch", DENSE.arch_id, "--steps", str(n),
+                          "--ckpt-dir", str(ckpt)] for n in DIST_STEPS)
+        plain1 = _launch(first[:-1] + [str(TRAIN_DIR / "plain")], False)
+        dist1 = _launch(first + ["--distributed"], True)
+        t_save = time.perf_counter()
+        dist2 = _launch(second + ["--distributed"], False)
+        plain2 = _launch(second, False)
+    finally:
+        registry.get_config, ckpt_mod._compress = real_cfg, real_compress
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    got = _lm_train_counts()
+    n = sum(DIST_STEPS) * 2
+    if got != _train_pass_counts(cut, n) or dist.is_initialized():
+        raise RuntimeError(f"--distributed: launched {got} in {n} steps, "
+                           f"group left: {dist.is_initialized()}")
+    same = (plain1["losses"] == dist1["losses"]
+            and dist2["losses"] == plain2["losses"])
+    if not same or not (dist2["resumed"] and plain2["resumed"]) or \
+            dist2["steps_done"] != sum(DIST_STEPS):
+        raise RuntimeError(f"--distributed against the plain launcher: "
+                           f"{plain1['losses']} / {dist1['losses']}, then "
+                           f"{plain2['losses']} / {dist2['losses']}")
+    line("distributed", arch=cut.arch_id, layers=cut.n_layers,
+         params=dist1["params"], world=1, backend="nccl", batch=8, seq=128,
+         steps=list(DIST_STEPS), losses_first=dist1["losses"],
+         losses_resumed=dist2["losses"], bit_equal=same,
+         resumed_at=DIST_STEPS[0], checkpoint_gb=sum(
+             f.stat().st_size for f in ckpt.rglob("*") if f.is_file()) / 1e9,
+         resume_and_steps_s=time.perf_counter() - t_save, wall_s=wall,
+         launches=got)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return got
+
+
+def phase_remat_distributed() -> dict:
+    """Phase 8c: ``check_remat`` and ``check_distributed``. Returns their
+    launches."""
+    totals = Counter(check_remat())
+    totals.update(check_distributed())
+    torch.cuda.empty_cache()
+    return dict(totals)
+
+
+def start_dryrun():
+    """The dry run of DRYRUN_CELL (``repro_torch.launch.dryrun``) in a
+    process of its own on the host, begun with the script so that it runs
+    beside the card's phases: a fake process group of 256 ranks and meta
+    tensors, no card (it sees none) and one thread."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    arch, shape = DRYRUN_CELL
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(DRYRUN_DIR)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def phase_dryrun(proc) -> None:
+    """Phase 8d: wait for ``start_dryrun``'s process; raise unless it
+    printed ``[ ok ]`` for its cell and exited 0; print its record."""
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    arch, shape = DRYRUN_CELL
+    oks = [ln for ln in out.splitlines() if ln.startswith("[ ok ]")]
+    if proc.returncode or len(oks) != 1:
+        raise RuntimeError(f"dry run of {arch} x {shape}: exit "
+                           f"{proc.returncode}\n{out[-4000:]}")
+    print(oks[0], flush=True)
+    rec = json.loads((DRYRUN_DIR / f"{arch}__{shape}__16x16.json")
+                     .read_text())
+    line("dryrun", waited_s=time.perf_counter() - t0, record=rec)
 
 
 # ------------------------------------------------------------ 5. timing
@@ -5532,6 +5773,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
+    dry = start_dryrun()
+    try:
+        return run(dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+
+
+def run(dry) -> int:
     phase("1 build", phase_build)
     errs = phase("2 kernels", phase_kernels)
     trace, cfg, venv = agent_env()
@@ -5555,7 +5806,10 @@ def main() -> int:
     lm_train, runs = phase("8 LM training", phase_lm_train)
     paths.update(runs)
     examples = phase("8b examples", phase_examples)
-    for counts in (grid, service, lm_train, examples):
+    distributed = phase("8c remat and --distributed",
+                        phase_remat_distributed)
+    phase("8d dry run", phase_dryrun, dry)
+    for counts in (grid, service, lm_train, examples, distributed):
         launches.update(counts)
     records = phase("5 timing", phase_timing, errs, launches, paths)
     print(json.dumps({"kernels": records}))

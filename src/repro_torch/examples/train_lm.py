@@ -12,8 +12,8 @@ Usage:
 The config is the selected arch's family scaled to ~100M params (CPU
 feasible); loss on the learnable synthetic stream drops from ~ln(V) to
 well below it within a few hundred steps. As in the reference, the
-attention is ``attn_impl="chunked"``, which the port runs as its reference
-attention. A second invocation with the same ``--ckpt-dir`` resumes from
+attention is ``attn_impl="chunked"``, the flash-style scan over kv chunks
+(``models.attention.attention_chunked``). A second invocation with the same ``--ckpt-dir`` resumes from
 the first one's last step and continues the data stream there, as both
 packages' ``launch/train.py`` do. The reference example restarts the
 stream at step 0 on a resume, a deliberate divergence here: a resumed

@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_on, resolve_device, runs_plain
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -277,8 +277,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     log-sum-exp ``lse`` (fp32 (B, Hq, Sq)) and the out's gradient ``do``,
     under the forward's masks (``causal``, ``window``): (dq, dk, dv) in
     the inputs' dtypes and shapes. CUDA tensors launch the backward kernel
-    variant that ``_flash_bwd_variant`` names; CPU tensors, with
-    ``device="cpu"``, run ``flash_attention_bwd_ref``."""
+    variant that ``_flash_bwd_variant`` names; CPU and meta tensors, with
+    ``device="cpu"`` or ``"meta"``, run ``flash_attention_bwd_ref``."""
     dev = resolve_device(device)
     check_on(dev, q, k, v, o, lse, do)
     _check(q, k, v)
@@ -290,7 +290,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
         raise ValueError(f"lse must be float32 (B, Hq, Sq); got "
                          f"{lse.dtype} {tuple(lse.shape)}")
     scale = scale or 1.0 / math.sqrt(q.shape[3])
-    if dev.type == "cpu":
+    if runs_plain(dev):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, softcap=softcap,
                                        scale=scale)
@@ -364,13 +364,13 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
     CUDA tensors launch the kernel variant that ``_flash_variant`` names
     (strided inputs are read in place), differentiable through the
-    backward kernel when q, k or v needs a gradient; CPU tensors, with
-    ``device="cpu"``, run ``flash_attention_ref``."""
+    backward kernel when q, k or v needs a gradient; CPU and meta
+    tensors, with ``device="cpu"`` or ``"meta"``, run ``flash_attention_ref``."""
     dev = resolve_device(device)
     check_on(dev, q, k, v)
     _check(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
-    if dev.type == "cpu":
+    if runs_plain(dev):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
     return _flash_cuda(q, k, v, causal=causal, window=window,

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_on, resolve_device, runs_plain
 from repro_torch.kernels import _build
 
 
@@ -278,8 +278,9 @@ def grouped_gemm(x, w, *, device=None):
     """out[e] = x[e] @ w[e]. CUDA tensors launch the kernel variant that
     ``_gemm_variant`` names (the two leading axes of x and w may be
     strided), differentiable through ``_GemmFn`` (one launch of the fused
-    backward kernel in bf16) when x or w needs a gradient; CPU tensors,
-    with ``device="cpu"``, run ``grouped_gemm_ref``."""
+    backward kernel in bf16) when x or w needs a gradient; CPU and meta
+    tensors, with ``device="cpu"`` or ``"meta"``, run
+    ``grouped_gemm_ref``."""
     dev = resolve_device(device)
     check_on(dev, x, w)
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
@@ -291,7 +292,7 @@ def grouped_gemm(x, w, *, device=None):
                          "one of float32, bfloat16")
     if x.stride(-1) != 1 or w.stride(-1) != 1:
         raise ValueError("x and w need unit stride on their last axis")
-    if dev.type == "cpu":
+    if runs_plain(dev):
         return grouped_gemm_ref(x, w)
     return _gemm_cuda(x, w)
 

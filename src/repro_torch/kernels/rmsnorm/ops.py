@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_on, resolve_device, runs_plain
 from repro_torch.kernels import _build
 
 
@@ -194,8 +194,8 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6, gemma: bool = False,
                 device=None):
     """The backward of ``rmsnorm`` from its input x (..., d), weight w (d,)
     and the output's gradient dy (x's shape and dtype): (dx in x's dtype,
-    dw in w's). CUDA tensors launch the backward kernel; CPU tensors, with
-    ``device="cpu"``, run ``rmsnorm_bwd_ref``. Training reaches the kernel
+    dw in w's). CUDA tensors launch the backward kernel; CPU and meta
+    tensors, with ``device="cpu"`` or ``"meta"``, run ``rmsnorm_bwd_ref``. Training reaches the kernel
     through ``rmsnorm``'s autograd Function, not through this: it is the
     backward's stand-alone entry, as ``flash_attention_bwd`` is flash's, for
     callers that hold dy themselves (the tests, the kernel timings)."""
@@ -204,7 +204,7 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6, gemma: bool = False,
     _check(x, w)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError("dy must match x's shape and dtype")
-    if dev.type == "cpu":
+    if runs_plain(dev):
         return rmsnorm_bwd_ref(x, w, dy, eps=eps, gemma=gemma)
     return _rmsnorm_bwd_cuda(x, w, dy, eps=eps, gemma=gemma)
 
@@ -257,12 +257,12 @@ def rmsnorm(x, w, *, eps: float = 1e-6, gemma: bool = False, device=None):
     """x (..., d) in fp32 or bf16, w (d,) in either -> x's shape and dtype.
     CUDA tensors launch the kernel variant that ``_rmsnorm_variant`` names
     over the flattened rows, differentiable through the backward kernel
-    when x or w needs a gradient; CPU tensors, with ``device="cpu"``, run
-    ``rmsnorm_ref``."""
+    when x or w needs a gradient; CPU and meta tensors, with
+    ``device="cpu"`` or ``"meta"``, run ``rmsnorm_ref``."""
     dev = resolve_device(device)
     check_on(dev, x, w)
     _check(x, w)
-    if dev.type == "cpu":
+    if runs_plain(dev):
         return rmsnorm_ref(x, w, eps=eps, gemma=gemma)
     return _rmsnorm_cuda(x, w, eps=eps, gemma=gemma)
 

@@ -25,8 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import check_on, resolve_device
+from repro_torch.device import check_on, resolve_device, runs_plain
 from repro_torch.kernels import _build
+from repro_torch.roofline.scope import kernel_scope
 
 HEAD_DIMS = (16, 32, 64, 128)
 TC_STATE_DIMS = (16, 32, 64, 128)   # N of the tensor-core variant
@@ -78,16 +79,21 @@ def ssd_ref(x, dt, A, B, C, D, chunk: int, initial_state=None):
 
     seg = torch.cumsum(dtc * A.float(), dim=2)                  # (B,nc,Q,H)
     total = seg[:, :, -1:, :]
-    # intra-chunk: the part the kernel fuses
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(mask[None, None, :, :, None],
-                    torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :]),
-                    0.0)                                         # (B,nc,Q,Q,H)
-    CB = torch.einsum("bcqhn,bckhn->bcqkh", Cc, Bc)
-    scores = CB * L * dtc[:, :, None, :, :]
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xc)
-    states = torch.einsum("bcqh,bcqhn,bcqhp->bchpn",
-                          torch.exp(total - seg) * dtc, Bc, xc)  # (B,nc,H,P,N)
+    # intra-chunk: the part the kernel fuses (the reference's "pallas_ssd"
+    # scope, which the dry run's roofline counts as on-chip)
+    with kernel_scope("ssd"):
+        mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                     device=x.device))
+        L = torch.where(mask[None, None, :, :, None],
+                        torch.exp(seg[:, :, :, None, :]
+                                  - seg[:, :, None, :, :]),
+                        0.0)                                     # (B,nc,Q,Q,H)
+        CB = torch.einsum("bcqhn,bckhn->bcqkh", Cc, Bc)
+        scores = CB * L * dtc[:, :, None, :, :]
+        y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xc)
+        states = torch.einsum("bcqh,bcqhn,bcqhp->bchpn",
+                              torch.exp(total - seg) * dtc, Bc,
+                              xc)                                # (B,nc,H,P,N)
 
     # inter-chunk recurrence
     chunk_decay = torch.exp(total[:, :, 0, :])                   # (B,nc,H)
@@ -375,8 +381,8 @@ def ssd_bwd(x, dt, A, B, C, D, chunk: int, dy, initial_state=None,
     gradient ``d_final`` (fp32 (Bz,H,P,N)): (dx, ddt, dA, dB, dC, dD,
     d_initial_state or None), as ``ssd_bwd_ref`` describes them. CUDA
     tensors launch the backward kernel (x, B, C and dt read in place
-    through their strides); CPU tensors, with ``device="cpu"``, run
-    ``ssd_bwd_ref``. Training reaches the kernel through ``ssd``'s autograd
+    through their strides); CPU and meta tensors, with ``device="cpu"`` or
+    ``"meta"``, run ``ssd_bwd_ref``. Training reaches the kernel through ``ssd``'s autograd
     Function, not through this: it is the backward's stand-alone entry, as
     ``flash_attention_bwd`` is flash's, for callers that hold dy themselves
     (the tests, the kernel timings)."""
@@ -390,7 +396,7 @@ def ssd_bwd(x, dt, A, B, C, D, chunk: int, dy, initial_state=None,
                                                   x.shape[3], B.shape[3])
                                 or d_final.dtype != torch.float32):
         raise ValueError("d_final must be fp32 of shape (Bz,H,P,N)")
-    if dev.type == "cpu":
+    if runs_plain(dev):
         return ssd_bwd_ref(x, dt, A, B, C, D, chunk, dy, initial_state,
                            d_final)
     return _ssd_bwd_cuda(x, dt, A, B, C, D, chunk, dy, initial_state, d_final)
@@ -454,13 +460,13 @@ def ssd(x, dt, A, B, C, D, chunk: int, initial_state=None, *, device=None):
     state (Bz,H,P,N) fp32). CUDA tensors launch the kernel variant that
     ``_ssd_variant`` names (x, B, C and dt are read in place through their
     strides), differentiable through the backward kernel when any input
-    needs a gradient; CPU tensors, with ``device="cpu"``, run
-    ``ssd_ref``."""
+    needs a gradient; CPU and meta tensors, with ``device="cpu"`` or
+    ``"meta"``, run ``ssd_ref``."""
     dev = resolve_device(device)
     check_on(dev, x, dt, A, B, C, D,
              *(() if initial_state is None else (initial_state,)))
     _check(x, dt, A, B, C, D, chunk, initial_state)
-    if dev.type == "cpu":
+    if runs_plain(dev):
         return ssd_ref(x, dt, A, B, C, D, chunk, initial_state)
     return _ssd_cuda(x, dt, A, B, C, D, chunk, initial_state)
 

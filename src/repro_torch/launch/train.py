@@ -4,7 +4,11 @@
 The loop is the chained-sub-job protocol: resume from the newest
 checkpoint, train until the wall-clock guard (or step budget) fires,
 checkpoint, exit 0 — the successor sub-job (already queued by the
-provisioner) picks it up. It runs on one CUDA card unless ``--device cpu``
+provisioner) picks it up. With ``--distributed`` the sub-job first joins
+the process group torchrun describes (NCCL on CUDA, gloo on the CPU),
+resumes by placing the checkpoint on ``make_host_mesh()``
+(``restore_checkpoint(shardings=)``), trains as without the flag, and
+leaves the group at exit. It runs on one CUDA card unless ``--device cpu``
 is given; ``--arch`` names an architecture the port carries and defaults
 to TinyLlama-1.1B, as in the reference (``--arch qwen2-vl-7b`` trains on
 text batches with M-RoPE's (3, B, S) positions).
@@ -16,10 +20,14 @@ text batches with M-RoPE's (3, B, S) positions).
 from __future__ import annotations
 
 import argparse
+import os
 from typing import Dict, List, Optional
 
 
-def main(argv: Optional[List[str]] = None) -> Dict:
+def main(argv: Optional[List[str]] = None,
+         init_method: Optional[str] = None) -> Dict:
+    """``init_method`` overrides torchrun's environment as the process
+    group's rendezvous (a ``file://`` store where no socket is wanted)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true",
@@ -34,22 +42,42 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--distributed", action="store_true",
-                    help="multi-host training (not ported)")
+                    help="join torchrun's process group (NCCL on CUDA, "
+                         "gloo on the CPU) and resume on its host mesh")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed needs the port's dist/ layer (ROADMAP §1 item 5), "
-            "which does not exist yet")
-
-    from repro_torch.data import DataConfig, data_iterator
     from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    mesh = None
+    if args.distributed:
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_host_mesh
+        if dev.type == "cuda":          # one card a rank
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+            torch.cuda.set_device(dev)
+        # torchrun's environment: RANK, WORLD_SIZE, MASTER_ADDR/PORT
+        kw = {} if init_method is None else dict(
+            init_method=init_method, rank=int(os.environ.get("RANK", 0)),
+            world_size=int(os.environ.get("WORLD_SIZE", 1)))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                **kw)
+        mesh = make_host_mesh(dev)
+    try:
+        return _subjob(args, dev, mesh)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
+
+
+def _subjob(args, dev, mesh) -> Dict:
+    from repro_torch.data import DataConfig, data_iterator
     from repro_torch.models import registry, transformer
     from repro_torch.train import ChainConfig, ChainedTrainer, OptimizerConfig
 
-    dev = resolve_device(args.device)
     cfg = registry.get_config(args.arch, smoke=args.smoke)
     ocfg = OptimizerConfig(lr=args.lr, warmup_steps=20,
                            total_steps=args.max_steps)
@@ -58,7 +86,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     dc = DataConfig(batch=args.batch, seq_len=args.seq)
     trainer = ChainedTrainer(cfg, ocfg, chain,
                              data_iterator(cfg, dc, device=dev),
-                             num_microbatches=args.microbatches, device=dev)
+                             num_microbatches=args.microbatches, device=dev,
+                             mesh=mesh)
     resumed = trainer.maybe_resume()
     if resumed:
         print(f"[train] resumed at step {trainer.step}")

@@ -12,13 +12,14 @@ both packages, so with an image's repeated temporal positions
 ``attention_core`` dispatches as the reference does, with one deliberate
 divergence: ``flash`` with no ``kv_len_valid`` and more than one query goes
 to the flash-attention kernel, with or without a window. The reference
-sends a window to its chunked scan (``attention_chunked``), a flash-style
-jnp loop that computes the same function; the port has no such scan, and
-the kernel's window mask takes its place. Every other case, decode among
-them, computes the reference math (``attention_reference``). Padded q
-heads that do not divide into the kv heads reach the kernel with K/V
-broadcast to the q heads by ``_repeat_kv`` (a padded head reads the last kv
-head), since the kernel takes only Hq % Hkv == 0.
+sends a window to its chunked scan; the kernel's window mask takes its
+place here. ``chunked`` (and ``flash`` with ``kv_len_valid``) runs
+``attention_chunked``, the reference's flash-style scan over kv chunks
+with its recomputing backward; decode (one query) and ``reference`` run
+the reference math (``attention_reference``). Padded q heads that do not
+divide into the kv heads reach the kernel with K/V broadcast to the q
+heads by ``_repeat_kv`` (a padded head reads the last kv head), since the
+kernel takes only Hq % Hkv == 0.
 
 Two layouts share the projections. The LM's: x (B, S, d), ``wq`` (d, H,
 hd), products by ``torch.matmul`` as the reference's einsums. The agent's:
@@ -55,8 +56,10 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import constrain
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_gemm import grouped_gemm
+from repro_torch.roofline.scope import kernel_scope
 from .common import ModelConfig
 from .layers import apply_mrope, apply_norm, apply_rope, dense_init, init_norm
 
@@ -112,6 +115,133 @@ def attention_reference(q, k, v, q_pos, kv_pos, *, causal, window=0,
     return out.to(q.dtype)
 
 
+def _chunk_logits(qs, k_i, q_pos, p_i, causal, window, softcap,
+                  kv_len_valid):
+    """A kv chunk's raw and masked fp32 logits (B, H, Sq, c) of the scaled
+    queries ``qs`` against ``k_i``."""
+    raw = torch.einsum("bqhd,bkhd->bhqk", qs, k_i.float())
+    capped = _softcap(raw, softcap)
+    bias = _mask_bias(q_pos, p_i, causal, window, kv_len_valid)
+    while bias.ndim < 4:
+        bias = bias[:, None]
+    return capped, capped + bias
+
+
+class _ChunkedFn(torch.autograd.Function):
+    """The reference's ``_make_flash_chunked``: an fp32 online softmax
+    over kv chunks that saves each row's log-sum-exp, and a backward that
+    recomputes each chunk's probabilities from it, so the residuals are
+    O(S), never the (Sq, Skv) probabilities. Hq == Hkv (the caller
+    repeats GQA's kv; autograd of the repeat sums the groups' gradients).
+
+    The sequence is cut at multiples of ``chunk``; the last chunk is as
+    long as what is left. The reference pads it with zero keys at position
+    2**30, which only a causal mask removes: without one they add to the
+    softmax's denominator. Here no padded key exists, which is the
+    reference's function with the padding masked by its index."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap, scale,
+                chunk, kv_len_valid):
+        qs = q.float() * scale
+        Skv = k.shape[1]
+        m = l = acc = None
+        for c0 in range(0, Skv, chunk):
+            with kernel_scope("flash_attention"):
+                c = slice(c0, min(Skv, c0 + chunk))
+                _, logits = _chunk_logits(qs, k[:, c], q_pos,
+                                          kv_pos[..., c], causal, window,
+                                          softcap, kv_len_valid)
+                v_i = v[:, c].float()
+                if m is None:       # the first chunk: nothing to rescale
+                    m = logits.amax(dim=-1)
+                    p = torch.exp(logits - m[..., None])
+                    l = p.sum(dim=-1)
+                    acc = torch.einsum("bhqk,bkhd->bhqd", p, v_i)
+                    continue
+                m_new = torch.maximum(m, logits.amax(dim=-1))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(logits - m_new[..., None])
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bhqk,bkhd->bhqd", p, v_i)
+                m = m_new
+        l = torch.clamp(l, min=1e-30)
+        lse = m + torch.log(l)                                 # (B,H,Sq)
+        out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.opts = (causal, window, softcap, scale, chunk, kv_len_valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        causal, window, softcap, scale, chunk, kv_len_valid = ctx.opts
+        qs = q.float() * scale
+        go = g.float().transpose(1, 2)                       # (B,H,Sq,Dv)
+        delta = (go * out.float().transpose(1, 2)).sum(dim=-1)
+        Skv = k.shape[1]
+        dq, dks, dvs = None, [], []
+        for c0 in range(0, Skv, chunk):
+            with kernel_scope("flash_attention"):
+                c = slice(c0, min(Skv, c0 + chunk))
+                k_i = k[:, c].float()
+                capped, logits = _chunk_logits(qs, k_i, q_pos,
+                                               kv_pos[..., c], causal,
+                                               window, softcap, kv_len_valid)
+                p = torch.exp(logits - lse[..., None])       # (B,H,Sq,c)
+                dvs.append(torch.einsum("bhqk,bhqd->bkhd", p, go))
+                dp = torch.einsum("bhqd,bkhd->bhqk", go, v[:, c].float())
+                ds = p * (dp - delta[..., None])
+                if softcap:
+                    ds = ds * (1.0 - torch.square(capped / softcap))
+                dq_i = torch.einsum("bhqk,bkhd->bqhd", ds, k_i)
+                dq = dq_i if dq is None else dq + dq_i
+                # dk needs no extra scale: qs already carries it
+                dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qs))
+        dk = torch.cat(dks, dim=1) if len(dks) > 1 else dks[0]
+        dv = torch.cat(dvs, dim=1) if len(dvs) > 1 else dvs[0]
+        return ((dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None, None, None)
+
+
+def attention_chunked(q, k, v, q_pos, kv_pos, *, causal, window=0,
+                      softcap=0.0, scale=None, chunk=1024, kv_len_valid=None):
+    """Online softmax over kv chunks of ``chunk`` (``_ChunkedFn``): q
+    (B,Sq,Hq,D), k/v (B,Skv,Hkv,D[v]) -> (B,Sq,Hq,Dv) in q's dtype, the
+    reference's ``attention_chunked`` with windows, softcap and
+    ``kv_len_valid`` (a scalar or one a row) in its masks."""
+    Hq, D = q.shape[2], q.shape[3]
+    k, v = _repeat_kv(k, v, Hq)
+    scale = scale or (1.0 / math.sqrt(D))
+    opts = (bool(causal), int(window), float(softcap), scale,
+            int(min(chunk, k.shape[1])), kv_len_valid)
+    if getattr(q, "placements", None) is not None:
+        return _chunked_local(q, k, v, q_pos, kv_pos, opts)
+    return _ChunkedFn.apply(q, k, v, q_pos, kv_pos, *opts)
+
+
+def _chunked_local(q, k, v, q_pos, kv_pos, opts):
+    """``_ChunkedFn`` on DTensors through ``local_map``: every (batch row,
+    head) is independent, so each rank runs the scan on its own rows and
+    heads. q, k and v are placed as q is on its batch and head dims (k and
+    v sliced to q's heads where they arrive replicated), replicated on
+    any other; the positions follow the batch. The counterpart of the
+    kernel the reference's SPMD partitioner runs per device."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if opts[5] is not None:
+        raise NotImplementedError("kv_len_valid on DTensors")
+    qkv = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+                for p in q.placements)
+    pos = tuple(Shard(0) if p == Shard(0) else Replicate() for p in qkv)
+    fn = local_map(lambda *a: _ChunkedFn.apply(*a, *opts[:5], None),
+                   out_placements=list(qkv),
+                   in_placements=(qkv, qkv, qkv, pos, pos),
+                   device_mesh=q.device_mesh, redistribute_inputs=True)
+    return fn(q, k, v, q_pos, kv_pos)
+
+
 def attention_flash(q, k, v, q_pos, kv_pos, *, causal, window=0, softcap=0.0,
                     scale=None, kv_len_valid=None):
     # as in the reference, positions are implied by the sequence index
@@ -130,6 +260,11 @@ def attention_core(q, k, v, q_pos, kv_pos, cfg: ModelConfig, *, causal,
             k, v = _repeat_kv(k, v, q.shape[2])
         return attention_flash(q, k, v, q_pos, kv_pos, causal=causal,
                                window=window, softcap=softcap, scale=scale)
+    if impl in ("chunked", "flash"):
+        return attention_chunked(q, k, v, q_pos, kv_pos, causal=causal,
+                                 window=window, softcap=softcap, scale=scale,
+                                 chunk=cfg.attn_chunk,
+                                 kv_len_valid=kv_len_valid)
     return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
                                window=window, softcap=softcap, scale=scale,
                                kv_len_valid=kv_len_valid)
@@ -147,7 +282,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
             -2, (nq, hd)),
     }
     if cfg.n_heads != nq:  # zero the padded q heads: function preserving
-        mask = (torch.arange(nq) < cfg.n_heads).to(p["wq"].dtype)
+        mask = (torch.arange(nq, device=p["wq"].device)
+                < cfg.n_heads).to(p["wq"].dtype)
         p["wq"] = p["wq"] * mask[:, None]
         p["wo"] = p["wo"] * mask[:, None, None]
     if cfg.qkv_bias:
@@ -254,6 +390,10 @@ def attn_prefill(params, x, cfg: ModelConfig, positions, cache, *,
     cache (a window's ring buffer fills so), else the prompt's K/V in the
     first S slots and the given cache's after them."""
     q, k, v = _project_qkv(params, x, cfg, positions, theta)
+    # the cache's layout (sequence on "model") inside the layer, as the
+    # reference constrains it
+    k = constrain(k, "B", "M", None, None)
+    v = constrain(v, "B", "M", None, None)
     pos = _pos1d(positions)
     out = attention_core(q, k, v, pos, pos, cfg, causal=cfg.causal,
                          window=window, softcap=cfg.attn_logit_softcap)
@@ -414,25 +554,54 @@ def mla_latent_chunked(qn, qr, ckv, kr, w_uk, w_uv, wo, cfg: ModelConfig,
         l = torch.zeros((B, g, Sq), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, g, Sq, Dv), dtype=torch.float32, device=dev)
         for ci in range(n):
-            c = slice(ci * chunk, (ci + 1) * chunk)
-            ckv_i = ckv[:, c].float()                          # (B, k, R)
-            kn_i = (ckv_i @ w_k).unflatten(-1, (g, Dn)).permute(0, 2, 3, 1)
-            v_i = (ckv_i @ w_v).unflatten(-1, (g, Dv)).transpose(1, 2)
-            logits = qnf[:, hs] @ kn_i                         # (B,g,Sq,k)
-            logits += qrf[:, hs] @ kr[:, c].float().transpose(1, 2)[:, None]
-            kv_pos = ci * chunk + torch.arange(chunk, device=dev)[None]
-            logits += _mask_bias(q_pos, kv_pos, True, 0, S)[:, None]
-            m_new = torch.maximum(m, logits.amax(dim=-1))
-            corr = torch.exp(m - m_new)
-            p = logits.sub_(m_new[..., None]).exp_()
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + p @ v_i
-            m = m_new
-            del logits, p
+            with kernel_scope("flash_attention"):
+                c = slice(ci * chunk, (ci + 1) * chunk)
+                ckv_i = ckv[:, c].float()                      # (B, k, R)
+                kn_i = (ckv_i @ w_k).unflatten(-1, (g, Dn)).permute(
+                    0, 2, 3, 1)
+                v_i = (ckv_i @ w_v).unflatten(-1, (g, Dv)).transpose(1, 2)
+                logits = qnf[:, hs] @ kn_i                     # (B,g,Sq,k)
+                logits += (qrf[:, hs]
+                           @ kr[:, c].float().transpose(1, 2)[:, None])
+                kv_pos = ci * chunk + torch.arange(chunk, device=dev)[None]
+                logits += _mask_bias(q_pos, kv_pos, True, 0, S)[:, None]
+                m_new = torch.maximum(m, logits.amax(dim=-1))
+                corr = torch.exp(m - m_new)
+                p = logits.sub_(m_new[..., None]).exp_()
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + p @ v_i
+                m = m_new
+                del logits, p
         out[:, :, hs] = (acc / torch.clamp(l, min=1e-30)[..., None]).to(
             cfg.cdtype).transpose(1, 2)
     wo = wo.to(cfg.cdtype)
     return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _mla_scan_local(qn, qr, ckv, kr, w_uk, w_uv, wo, cfg: ModelConfig,
+                    chunk: int):
+    """``mla_latent_chunked`` on DTensors (the dry run's) through
+    ``local_map``: each rank scans its batch rows and its heads over every
+    position (the latents gathered whole on the head dims), with its
+    slice of the up-projections and of ``wo``; the output a partial sum
+    over the head dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    rows = tuple(p == Shard(0) for p in qn.placements)
+    heads = tuple(p == Shard(2) for p in qn.placements)
+
+    def pl(dim_if_heads, batch=True):
+        return tuple(Shard(0) if r and batch else
+                     Shard(dim_if_heads) if h and dim_if_heads is not None
+                     else Replicate() for r, h in zip(rows, heads))
+    return local_map(
+        lambda *a: mla_latent_chunked(*a, cfg, chunk=chunk),
+        out_placements=[Shard(0) if r else Partial() if h else Replicate()
+                        for r, h in zip(rows, heads)],
+        in_placements=(pl(2), pl(2), pl(None), pl(None), pl(1, False),
+                       pl(1, False), pl(0, False)),
+        device_mesh=qn.device_mesh, redistribute_inputs=True)(
+            qn, qr, ckv, kr, w_uk, w_uv, wo)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, s_cache: int, dtype=None,
@@ -452,8 +621,13 @@ def mla_prefill(params, x, cfg: ModelConfig, positions, cache):
     its first S slots and the given cache's after them."""
     qn, qr = _mla_q(params, x, cfg, positions)
     ckv, kr = _mla_latent(params, x, cfg, positions)
-    y = mla_latent_chunked(qn, qr, ckv, kr, params["w_uk"], params["w_uv"],
-                           params["wo"], cfg, chunk=cfg.attn_chunk)
+    ckv = constrain(ckv, "B", "M", None)
+    kr = constrain(kr, "B", "M", None)
+    scan = mla_latent_chunked
+    if getattr(qn, "placements", None) is not None:
+        scan = _mla_scan_local
+    y = scan(qn, qr, ckv, kr, params["w_uk"], params["w_uv"], params["wo"],
+             cfg, chunk=cfg.attn_chunk)
     S = x.shape[1]
     if S > cache["ckv"].shape[1]:
         raise ValueError(f"a prompt of {S} exceeds the cache's "

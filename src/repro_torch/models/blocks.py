@@ -18,7 +18,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import constrain
 from .common import ModelConfig
 from . import attention as attn_mod
 from . import moe as moe_mod
@@ -77,35 +79,62 @@ def apply_block(params: Dict, kind: str, x: torch.Tensor, cfg: ModelConfig,
     (x_out, aux_loss, cache_out); the aux loss is the MoE router's, an fp32
     scalar tensor for ``moe`` blocks in ``forward`` mode, and 0.0 for the
     rest and in the cached modes, whose callers drop it: there it stays a
-    Python number and costs no launch."""
-    aux = 0.0
+    Python number and costs no launch. Each branch (the norm and the
+    attention, MLP, MoE or Mamba mixer behind it) runs through ``_branch``,
+    which checkpoints it under ``remat_save_outputs``."""
     if kind == "mamba":
-        h = apply_norm(params["ln"], x, cfg)
-        if mode == "decode":
-            y, cache = ssm_mod.mamba_decode(params["mamba"], h, cfg, cache)
-        elif mode == "prefill":
-            # prefill fills the SSM state cache with the final state
-            y, cache = ssm_mod.mamba_prefill(params["mamba"], h, cfg, cache)
-        else:
-            y = ssm_mod.mamba_forward(params["mamba"], h, cfg)
-        return x + y, aux, cache
+        def mixer(x):
+            h = apply_norm(params["ln"], x, cfg)
+            if mode == "decode":
+                return ssm_mod.mamba_decode(params["mamba"], h, cfg, cache)
+            if mode == "prefill":
+                # prefill fills the SSM state cache with the final state
+                return ssm_mod.mamba_prefill(params["mamba"], h, cfg, cache)
+            return ssm_mod.mamba_forward(params["mamba"], h, cfg), cache
+        y, cache = _branch(cfg, mode, mixer, x)
+        return x + y, 0.0, cache
     _check_kind(kind)
-    h = apply_norm(params["ln1"], x, cfg)
-    a, cache = _attn_part(params, kind, h, cfg, positions, mode, cache,
+
+    def attention(x):
+        h = apply_norm(params["ln1"], x, cfg)
+        a, c = _attn_part(params, kind, h, cfg, positions, mode, cache,
                           index)
+        if cfg.parallel_block:
+            # one norm feeds both branches; the tree keeps the reference's
+            # unused ln2, whose gradient is zero
+            f, aux = _ffn_part(params, kind, h, cfg, mode)
+            return a + f, aux, c
+        if cfg.sandwich_norm:
+            a = apply_norm(params["post_ln1"], a, cfg)
+        return a, 0.0, c
+
+    def ffn(x):
+        f, aux = _ffn_part(params, kind, apply_norm(params["ln2"], x, cfg),
+                           cfg, mode)
+        if cfg.sandwich_norm:
+            f = apply_norm(params["post_ln2"], f, cfg)
+        return f, aux
+
+    a, aux, cache = _branch(cfg, mode, attention, x)
     if cfg.parallel_block:
-        # one norm feeds both branches; the tree keeps the reference's
-        # unused ln2, whose gradient is zero
-        f, aux = _ffn_part(params, kind, h, cfg, mode)
-        return x + (a + f), aux, cache
-    if cfg.sandwich_norm:
-        a = apply_norm(params["post_ln1"], a, cfg)
-    x = x + a
-    h = apply_norm(params["ln2"], x, cfg)
-    f, aux = _ffn_part(params, kind, h, cfg, mode)
-    if cfg.sandwich_norm:
-        f = apply_norm(params["post_ln2"], f, cfg)
+        return x + a, aux, cache
+    x = constrain(x + a, "B", "S", None)
+    f, aux = _branch(cfg, mode, ffn, x)
     return x + f, aux, cache
+
+
+def _branch(cfg: ModelConfig, mode: str, fn, x):
+    """``fn(x)``: a block's branch. Under ``cfg.remat`` with
+    ``remat_save_outputs``, in ``forward`` mode while autograd records, it
+    runs under ``torch.utils.checkpoint`` (non-reentrant): what stays is
+    its input, the residual stream between branches, and the backward
+    runs the branch again. That is the counterpart of the reference's
+    policy, which keeps each branch's output (``"block_out"``) and
+    recomputes the rest: one residual-sized tensor a branch either way."""
+    if (mode == "forward" and cfg.remat and cfg.remat_save_outputs
+            and torch.is_grad_enabled()):
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
 
 
 def _attn_part(params: Dict, kind: str, h: torch.Tensor, cfg: ModelConfig,

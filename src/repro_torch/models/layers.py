@@ -117,9 +117,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     assert sum(sections) == half, (tuple(sections), half)
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs         # (3, B, S, D/2)
-    stream = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))          # (D/2,)
+    stream = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (D/2,)
     return _rotate(x, angles.movedim(0, -1)[
         ..., torch.arange(half, device=x.device), stream])
 
@@ -172,12 +171,18 @@ def _lm_mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The reference's einsums: ``wi`` (d, 2, d_ff) gated or (d, d_ff)."""
     act = _act(cfg.mlp_activation)
     wi = params["wi"].to(cfg.cdtype)
-    h = x @ wi.reshape(wi.shape[0], -1)
-    if cfg.gated_mlp:
-        h = h.unflatten(-1, (2, -1))
-    if "bi" in params:
-        h = h + params["bi"].to(cfg.cdtype)
-    h = act(h[..., 0, :]) * h[..., 1, :] if cfg.gated_mlp else act(h)
+    if cfg.gated_mlp and getattr(wi, "placements", None) is not None \
+            and "bi" not in params:
+        # a DTensor (the dry run): gate and up one product each, since
+        # flattening (2, d_ff) with d_ff sharded would gather the weight
+        h = act(x @ wi[:, 0]) * (x @ wi[:, 1])
+    else:
+        h = x @ wi.reshape(wi.shape[0], -1)
+        if cfg.gated_mlp:
+            h = h.unflatten(-1, (2, -1))
+        if "bi" in params:
+            h = h + params["bi"].to(cfg.cdtype)
+        h = act(h[..., 0, :]) * h[..., 1, :] if cfg.gated_mlp else act(h)
     out = h @ params["wo"].to(cfg.cdtype)
     if "bo" in params:
         out = out + params["bo"].to(cfg.cdtype)
@@ -193,10 +198,43 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
     """Rows of the table in the compute dtype (gathered, then cast: the
     same values as the reference's cast-then-take)."""
-    x = params["table"][tokens].to(cfg.cdtype)
+    table = params["table"]
+    if getattr(table, "placements", None) is not None:
+        x = _embed_sharded(table, tokens).to(cfg.cdtype)
+    else:
+        x = table[tokens].to(cfg.cdtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
     return x
+
+
+def _embed_sharded(table, tokens):
+    """The lookup of a DTensor table (the dry run's) through ``local_map``:
+    where the vocab is sharded, each rank looks up the tokens its slice
+    holds and gives zeros for the rest, a partial sum there; the tokens'
+    own placements elsewhere. The vocab-parallel embedding XLA partitions
+    the reference's take into; DTensor's own rule for it fails in the
+    backward."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    out = [Partial() if i in vocab else p
+           for i, p in enumerate(tokens.placements)]
+
+    def look(tab, tok):
+        start = 0
+        for i in vocab:
+            start = start * mesh.size(i) + coord[i]
+        rel = tok.long() - start * tab.shape[0]
+        ok = (rel >= 0) & (rel < tab.shape[0])
+        return F.embedding(torch.where(ok, rel, 0), tab) * ok[..., None]
+    return local_map(look, out_placements=out,
+                     in_placements=(tuple(table.placements),
+                                    tuple(tokens.placements)),
+                     device_mesh=mesh)(table, tokens)
 
 
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,

@@ -41,6 +41,7 @@ import math
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gemm import grouped_gemm
 from .common import ModelConfig
@@ -167,8 +168,14 @@ def _topk(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     C = max(1, int(math.ceil(S * K * cfg.capacity_factor / E)))
     probs, gates, idx = _route(params, x, cfg)
     slots, keep, counts = _capacity_slots(idx, E, C)
-    xin = _dispatch(x, slots, E * B * C)
-    yout = _expert_ffn(params["experts"], xin.reshape(E, B * C, d), cfg)
+    xin = _dispatch(x, slots, E * B * C).reshape(E, B * C, d)
+    n = params["experts"]["wi"].shape[0]
+    if n == E:
+        yout = _expert_ffn(params["experts"], xin, cfg)
+    else:   # a rank's n experts from "first" (``_moe_sharded``), zeros around
+        e0 = params["experts"]["first"]
+        yout = F.pad(_expert_ffn(params["experts"], xin[e0:e0 + n], cfg),
+                     (0, 0, 0, 0, e0, E - e0 - n))
     out = yout.reshape(E * B * C, d)[torch.where(keep, slots, 0)]
     w = torch.where(keep, gates, 0.0).to(cfg.cdtype)[..., None]
     if round_products:
@@ -218,9 +225,64 @@ def dense_moe(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     return y.to(cfg.cdtype).reshape(lead + (-1,)), aux
 
 
+def _flat(tree: Dict) -> list:
+    """The leaves of a tree of dicts, in its order."""
+    return [leaf for v in tree.values()
+            for leaf in (_flat(v) if isinstance(v, dict) else [v])]
+
+
+def _rebuild(tree: Dict, leaves) -> Dict:
+    """``tree``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    return {k: _rebuild(v, leaves) if isinstance(v, dict) else next(leaves)
+            for k, v in tree.items()}
+
+
+def _moe_sharded(params: Dict, x, cfg: ModelConfig, scheme: str,
+                 with_aux: bool):
+    """``moe_forward`` on DTensors (the dry run's) through ``local_map``.
+    Each rank routes its own rows over every expert (the router is
+    replicated) and runs the experts it holds: all of them with their ff
+    sharded, where the output is a partial sum over ff, or its slice of
+    the experts, where it is a partial sum over experts (the others' rows
+    zero). The aux loss is each rank's mean over its groups, averaged
+    across the batch shards. DTensor has no rule for the capacity
+    dispatch's in-place index writes; XLA partitions the reference's
+    one-hot einsums into the same work."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    leaves = _flat(params)
+    xp = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    split = {i for t in leaves for i, p in enumerate(t.placements)
+             if isinstance(p, Shard)}
+    wi = params["experts"]["wi"]
+    by_expert = [i for i, p in enumerate(wi.placements) if p == Shard(0)]
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    offset = coord[by_expert[0]] if by_expert else 0
+
+    def local(xl, *ls):
+        tree = _rebuild(params, iter(ls))
+        tree["experts"]["first"] = offset * tree["experts"]["wi"].shape[0]
+        y, aux = moe_forward(tree, xl, cfg, scheme, with_aux)
+        if not torch.is_tensor(aux):
+            aux = torch.zeros((), dtype=torch.float32, device=xl.device)
+        return y, aux
+
+    y_pl = [Partial() if i in split else p for i, p in enumerate(xp)]
+    aux_pl = [Partial("avg") if p == Shard(0) else Replicate() for p in xp]
+    y, aux = local_map(
+        local, out_placements=(y_pl, aux_pl),
+        in_placements=(xp,) + tuple(tuple(t.placements) for t in leaves),
+        device_mesh=mesh, redistribute_inputs=True)(x, *leaves)
+    return y, (aux if with_aux else 0.0)
+
+
 def moe_forward(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 scheme: str = "topk", with_aux: bool = True
                 ) -> Tuple[torch.Tensor, object]:
+    if getattr(params["router"], "placements", None) is not None:
+        return _moe_sharded(params, x, cfg, scheme, with_aux)
     if scheme == "dense":
         return dense_moe(params, x, cfg, with_aux)
     if scheme == "sorted":

@@ -19,12 +19,16 @@ serves two layouts:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.convert import tree_map
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import constrain
 from .blocks import apply_block, init_block, init_block_cache
 from .common import ModelConfig, layer_plan
 from .attention import NEG_INF
@@ -105,6 +109,17 @@ def _stack(trees: List):
     return torch.stack(trees)
 
 
+def _forward_body(seg, layer: Dict, cfg: ModelConfig, positions, x, aux):
+    """One repetition of a segment's pattern in ``forward`` mode, the
+    reference's scan body: (x, aux) -> (x, aux), each block's router loss
+    added in order."""
+    x = constrain(x, "B", "S", None)
+    for j, kind in enumerate(seg.pattern):
+        x, a, _ = apply_block(layer[f"b{j}"], kind, x, cfg, positions)
+        aux = aux + a
+    return constrain(x, "B", "S", None), aux
+
+
 def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                 mode: str = "forward", cache: Optional[Dict] = None,
                 index=None, s_cache: Optional[int] = None):
@@ -115,9 +130,25 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
     ``decode`` ``cache`` is read and a new one returned (the input is not
     written), otherwise it is None. ``index`` (decode: the tokens already
     cached, a scalar or one a row) places the token in the attention
-    caches; Mamba blocks read neither."""
+    caches; Mamba blocks read neither.
+
+    Remat: with ``cfg.remat`` in ``forward`` mode while autograd records,
+    each repetition of a segment's pattern (the reference's scan body: one
+    layer, or one Gemma-3 local/global period, or one Zamba2 group with
+    its tied block) runs under ``torch.utils.checkpoint`` (non-reentrant):
+    only its input is kept, and the backward runs it again to rebuild its
+    activations, as ``jax.checkpoint`` with ``nothing_saveable`` does. The
+    values and gradients are the same bits; the kernels' forward launch
+    counters count the recompute too. With ``cfg.remat_save_outputs`` each
+    block's branches are checkpointed one by one instead, so the residual
+    stream between branches is what stays, the counterpart of the
+    reference's ``save_only_these_names("block_out")``."""
     aux = 0.0
     cache_out = []
+    # the whole repetition is recomputed; with remat_save_outputs each
+    # block's branches are checkpointed instead (``blocks._branch``)
+    remat = (mode == "forward" and cfg.remat and not cfg.remat_save_outputs
+             and torch.is_grad_enabled())
     for si, (seg, seg_params) in enumerate(zip(layer_plan(cfg),
                                                params["segments"])):
         layers = []
@@ -128,17 +159,25 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
             per_layer[f"b{j}"] = ([p] * seg.n_repeat if shared
                                   else _layers(p, seg.n_repeat))
         for r in range(seg.n_repeat):
+            layer = {name: per_layer[name][r] for name in per_layer}
+            if mode == "forward":
+                body = functools.partial(_forward_body, seg, layer, cfg,
+                                         positions)
+                if remat:
+                    x, aux = checkpoint(body, x, aux, use_reentrant=False)
+                else:
+                    x, aux = body(x, aux)
+                continue
             new = {}
             for j, kind in enumerate(seg.pattern):
                 name = f"b{j}"
-                c = None
                 if mode == "prefill":
                     c = init_block_cache(kind, cfg, x.shape[0], s_cache,
                                          dtype=cfg.cdtype, device=x.device)
-                elif mode == "decode":
+                else:
                     c = _layer(cache["segments"][si][name], r)
-                x, a, new[name] = apply_block(per_layer[name][r], kind, x,
-                                              cfg, positions, mode, c, index)
+                x, a, new[name] = apply_block(layer[name], kind, x, cfg,
+                                              positions, mode, c, index)
                 aux = aux + a
             layers.append(new)
         if mode in _CACHED_MODES:
@@ -161,7 +200,7 @@ def embed_inputs(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
         x = inputs.to(cfg.cdtype)
     if vision_embeds is not None:
         x = torch.where(vision_mask[..., None], vision_embeds.to(x.dtype), x)
-    return x
+    return constrain(x, "B", "S", None)
 
 
 def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions,
@@ -195,11 +234,17 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
     logp = torch.log_softmax(logits, dim=-1)
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    # each row's -log p(label) by ``nll_loss``, the values a gather takes:
+    # DTensor's gather backward allocates the batch-sharded logits'
+    # gradient at its global shape on every rank
+    nll = F.nll_loss(logp.flatten(0, -2), safe.flatten(),
+                     reduction="none").view(safe.shape)
     denom = torch.clamp(valid.sum(), min=1)
     ce = torch.where(valid, nll, 0.0).sum() / denom
     loss = ce if isinstance(aux, float) and aux == 0.0 else ce + aux
-    hits = valid & (logits.argmax(-1) == labels)
+    # the argmax as max's first index: DTensor's argmax of vocab-sharded
+    # logits fails where a rank holds one row of the batch
+    hits = valid & (logits.max(-1).indices == labels)
     return loss, {"ce": ce, "aux": aux, "accuracy": hits.sum() / denom}
 
 

@@ -26,7 +26,9 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.convert import tree_map
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding as shd
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 from .checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
@@ -47,8 +49,15 @@ class ChainConfig:
 class ChainedTrainer:
     def __init__(self, cfg: ModelConfig, ocfg: OptimizerConfig,
                  chain: ChainConfig, data_iter, seed: int = 0,
-                 num_microbatches: int = 1, device=None):
+                 num_microbatches: int = 1, device=None, mesh=None):
+        """``mesh``: a ``DeviceMesh`` over the running process group whose
+        "model" axis is 1 (``launch.mesh.make_host_mesh``): a resume
+        places the checkpoint's leaves on it by the sharding rules
+        (``restore_checkpoint(shardings=)``) and trains on this rank's
+        shards, which on such a mesh are the whole leaves, one replica a
+        rank."""
         self.cfg, self.ocfg, self.chain = cfg, ocfg, chain
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.data_iter = data_iter
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -65,12 +74,29 @@ class ChainedTrainer:
         s = latest_step(self.chain.ckpt_dir)
         if s is None:
             return False
-        state, step = restore_checkpoint(
-            self.chain.ckpt_dir, {"params": self.params,
-                                  "opt": self.opt_state}, device=self.device)
+        template = {"params": self.params, "opt": self.opt_state}
+        if self.mesh is None:
+            state, step = restore_checkpoint(self.chain.ckpt_dir, template,
+                                             device=self.device)
+        else:
+            state, step = restore_checkpoint(
+                self.chain.ckpt_dir, template,
+                shardings=self._shardings(template))
+            state = tree_map(lambda t: t.to_local(), state)
         self.params, self.opt_state = state["params"], state["opt"]
         self.step = step
         return True
+
+    def _shardings(self, template):
+        """(mesh, placements) of every leaf of {"params", "opt"} by the
+        reference's rules on ``self.mesh``."""
+        if shd.axis_size(self.mesh, "model") != 1:
+            raise ValueError("ChainedTrainer trains whole replicas: its "
+                             "mesh's model axis must be 1")
+        return {"params": shd.to_shardings(self.mesh, shd.params_pspecs(
+                    self.cfg, template["params"], self.mesh)),
+                "opt": shd.to_shardings(self.mesh, shd.opt_state_pspecs(
+                    self.cfg, template["opt"], self.mesh))}
 
     # ------------------------------------------------------------ sub-job
     def run_subjob(self, n_steps: int,

@@ -241,17 +241,41 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _at_path(tree, key: str):
+    """The subtree of ``tree`` at a '/'-joined path of ``_tree_paths``."""
+    for part in key.split("/") if key else ():
+        tree = tree[int(part)] if isinstance(tree, (list, tuple)) \
+            else tree[part]
+    return tree
+
+
+def _place(t: torch.Tensor, sharding):
+    """A whole leaf placed by ``sharding``, a (DeviceMesh, placements)
+    pair, on the mesh's device type: this rank keeps its shards. Every
+    rank read the same bytes, so no rank sends any."""
+    import inspect
+    from torch.distributed.tensor import distribute_tensor
+    mesh, placements = sharding
+    kw = {}
+    if "src_data_rank" in inspect.signature(distribute_tensor).parameters:
+        kw["src_data_rank"] = None
+    return distribute_tensor(t.to(mesh.device_type), mesh, list(placements),
+                             **kw)
+
+
 def restore_checkpoint(directory: str, template, step: Optional[int] = None,
                        shardings=None, verify: bool = True, device=None):
     """Restore into the structure of ``template`` (a tree of dicts and
     lists; its leaves only name the keys) as tensors on ``device`` (CUDA
-    unless ``device="cpu"``). Returns ``(tree, step)``. Placing leaves into
-    a mesh's shardings belongs to the distributed layer, which the port
-    does not have."""
-    if shardings is not None:
-        raise NotImplementedError("restore into shardings needs dist/, "
-                                  "which is not ported")
-    dev = resolve_device(device)
+    unless ``device="cpu"``). Returns ``(tree, step)``.
+
+    With ``shardings`` (the same structure, each leaf a (DeviceMesh,
+    placements) pair, as ``dist.sharding.to_shardings`` gives them), each
+    leaf is read, checked against its digest, and placed as a DTensor on
+    its mesh's device type by ``distribute_tensor`` (``device`` is then
+    not read). This is the elastic-restart path: a checkpoint has no mesh
+    baked in, so any mesh shape restores it."""
+    dev = resolve_device(device) if shardings is None else None
     base = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -274,7 +298,12 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None,
             dig = hashlib.blake2b(buf, digest_size=16).hexdigest()
             if dig != m["digest"]:
                 raise IOError(f"digest mismatch for {key!r} (corrupt shard)")
-        out[key] = _leaf_tensor(buf, m["shape"], m["dtype"], dev)
+        if shardings is None:
+            out[key] = _leaf_tensor(buf, m["shape"], m["dtype"], dev)
+        else:
+            out[key] = _place(_leaf_tensor(buf, m["shape"], m["dtype"],
+                                           torch.device("cpu")),
+                              _at_path(shardings, key))
     return _unflatten(template, out), manifest["step"]
 
 

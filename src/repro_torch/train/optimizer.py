@@ -29,6 +29,12 @@ are the same, and its fp32 temporaries stay ~0.27 GB each where a whole
 leaf as large as Gemma-3's tied table (1.41 B elements) or DeepSeek-V2's
 stacked experts (2.52 B a MoE layer) would add several of 4-10 GB to the
 step's peak. ``global_norm`` squares such a leaf a slice at a time too.
+
+Donated leaves may be DTensors (the dry run's sharded trees): the update
+is elementwise, so each rank updates its own shards (``_local``), with
+each gradient already at its parameter's placements
+(``step.value_and_grad`` reduces it there), and ``global_norm`` sums the
+shards' squares across the mesh.
 """
 from __future__ import annotations
 
@@ -90,11 +96,18 @@ def init_opt_state(params, ocfg: OptimizerConfig) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _local(t):
+    """A DTensor's shard on this rank; any other tensor as it is."""
+    to_local = getattr(t, "to_local", None)
+    return t if to_local is None else to_local()
+
+
 def _square_sum(x: torch.Tensor) -> torch.Tensor:
     """The fp32 sum of ``x``'s squares; a leaf of more than UPDATE_SLICE
     elements is squared a slice at a time, so no fp32 square of the whole
-    leaf is made (10 GB for DeepSeek-V2's stacked experts)."""
-    if x.numel() <= UPDATE_SLICE:
+    leaf is made (10 GB for DeepSeek-V2's stacked experts). A DTensor is
+    squared whole, each rank its own shard."""
+    if x.numel() <= UPDATE_SLICE or _local(x) is not x:
         return torch.sum(torch.square(x.float()))
     flat = x.reshape(-1)
     return torch.stack([torch.sum(torch.square(flat[j:j + UPDATE_SLICE]
@@ -139,7 +152,10 @@ def _check_donatable(leaves) -> None:
         if not t.is_contiguous():
             raise ValueError(f"a donated leaf {tuple(t.shape)} is not "
                              "contiguous")
-        key = (t.device, t.untyped_storage().data_ptr())
+        st = t.untyped_storage()
+        # a meta storage has no address: its identity stands for one
+        key = (t.device, st._cdata if t.device.type == "meta"
+               else st.data_ptr())
         if t.numel() and key in seen:
             raise ValueError("two donated leaves share one storage")
         seen.add(key)
@@ -168,21 +184,27 @@ def adamw_update(grads, params, opt_state, ocfg: OptimizerConfig,
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=stepf.device), stepf)
 
-    ps, gs = _leaves(params), _leaves(grads)
-    ms, vs = _leaves(opt_state["m"]), _leaves(opt_state["v"])
+    dps = _leaves(params)                # DTensors are updated shard-wise
+    ps, gs = [_local(t) for t in dps], [_local(t) for t in _leaves(grads)]
+    ms = [_local(t) for t in _leaves(opt_state["m"])]
+    vs = [_local(t) for t in _leaves(opt_state["v"])]
+    clip, lr_, bc1, bc2 = (_local(t) for t in (clip, lr, bc1, bc2))
     if not len(ps) == len(gs) == len(ms) == len(vs):
         raise ValueError("params, grads and optimizer state differ in "
                          "their trees")
     if donate:
         _check_donatable(ps + ms + vs)
         _empty(grads)
+    elif any(t is not d for t, d in zip(ps, dps)):
+        raise ValueError("DTensor leaves are updated in place only "
+                         "(donate=True)")
     matrix = 2 + widened(params)        # the rank of a decayed leaf
     new_p, new_m, new_v = [], [], []
     for i, (p, m, v) in enumerate(zip(ps, ms, vs)):
         g, gs[i] = gs[i], None
         # decay matrices only
         kw = dict(decay=bool(p.ndim >= matrix and ocfg.weight_decay),
-                  clip=clip, lr=lr, bc1=bc1, bc2=bc2, ocfg=ocfg)
+                  clip=clip, lr=lr_, bc1=bc1, bc2=bc2, ocfg=ocfg)
         flat = [t.reshape(-1) for t in (p, g, m, v)]
         if donate:                      # into the leaf's own storage
             out = [p, m, v]

@@ -37,7 +37,7 @@ def value_and_grad(loss_fn, params: Dict, *args, has_aux: bool = False):
     out = loss_fn(p, *args)
     loss, aux = out if has_aux else (out, None)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    it = iter(torch.zeros_like(t) if g is None else g
+    it = iter(torch.zeros_like(t) if g is None else _at(g, t)
               for t, g in zip(leaves, grads))
     grads = tree_map(lambda _: next(it), params)
     if not has_aux:
@@ -46,10 +46,40 @@ def value_and_grad(loss_fn, params: Dict, *args, has_aux: bool = False):
     return (loss.detach(), aux), grads
 
 
+def _at(g, t):
+    """A DTensor leaf's gradient at the leaf's own placements: the
+    data-parallel reduction of its partial sums. Any other as it is."""
+    placements = getattr(t, "placements", None)
+    if placements is None or tuple(g.placements) == tuple(placements):
+        return g
+    return g.redistribute(t.device_mesh, placements)
+
+
+def _split_local(x, n: int):
+    """A DTensor batch leaf split into n micro-batches on each rank's own
+    rows: the local (b, ...) -> (n, b/n, ...) (M-RoPE positions, (3, b,
+    S) -> (n, 3, b/n, S)), placed one dim further on. Each rank runs its
+    shard in n steps, the data-parallel layout; the rows of a global
+    micro-batch are every rank's i-th slice."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = _split_microbatches({"x": x.to_local()}, n)["x"]
+    placements = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+                  for p in x.placements]
+    shape = tuple(_split_microbatches(
+        {"x": torch.empty(x.shape, device="meta")}, n)["x"].shape)
+    return DTensor.from_local(local, x.device_mesh, placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def _split_microbatches(batch: Dict, n: int) -> Dict:
     """Each leaf (B, ...) -> (n, B/n, ...); positions in M-RoPE form, (3,
-    B, S), split on their batch axis -> (n, 3, B/n, S)."""
+    B, S), split on their batch axis -> (n, 3, B/n, S). A DTensor leaf is
+    split on each rank's rows (``_split_local``)."""
     def rs(x):
+        if getattr(x, "placements", None) is not None:
+            return _split_local(x, n)
         if x.ndim >= 1 and x.shape[0] % n == 0:
             return x.reshape((n, x.shape[0] // n) + x.shape[1:])
         if x.ndim >= 2 and x.shape[1] % n == 0:
@@ -85,8 +115,8 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
         if num_microbatches > 1:
             mbs = _split_microbatches(batch, num_microbatches)
             dev = next(iter(batch.values())).device
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dtype),
+                             params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(num_microbatches):
@@ -132,6 +162,8 @@ def make_serve_step(cfg: ModelConfig, sample: str = "greedy"):
     def serve_step(params, token, positions, cache, index):
         logits, cache = transformer.decode_step(params, cfg, token, positions,
                                                 cache, index)
-        next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        # argmax as max's first index (DTensor's argmax fails on a rank
+        # holding one row of vocab-sharded logits)
+        next_token = logits.max(-1).indices.to(torch.int32)[:, None]
         return next_token, logits, cache
     return serve_step

@@ -1,6 +1,7 @@
-"""``chip_smoke.py``'s profile helper on the CPU: a profiler session in
-which CUPTI hands back no device event is run again, a bounded number of
-times, and the profile fails if none of them recorded any."""
+"""``chip_smoke.py``'s helpers on the CPU: a profiler session in which
+CUPTI hands back no device event is run again, a bounded number of times,
+and the profile fails if none of them recorded any; phase 8's expected
+launches count remat's recompute; phase 8d's dry-run process and record."""
 import importlib.util
 import json
 from pathlib import Path
@@ -66,3 +67,58 @@ def test_profile_device_runs_again_when_no_device_event(smoke, monkeypatch,
                if s.startswith("[profile_retry]")]
     assert [r["attempt"] for r in retries] == list(range(1, empty + 1))
     assert sum(s.startswith("[profile] ") for s in out) == 1
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "zamba2-7b",
+                                  "qwen2-moe-a2.7b", "gemma3-27b"])
+def test_train_counts_count_the_recompute(smoke, arch):
+    """Phase 8's expected launches with remat (the configs' default): the
+    forward kernels twice a pass but the final norm, the backward ones as
+    without remat."""
+    from repro_torch.models import registry
+    cfg = registry.get_config(arch)
+    if arch != "zamba2-7b":
+        cfg = cfg.replace(attn_impl="flash")
+    on = smoke._train_pass_counts(cfg, 3)
+    off = smoke._train_pass_counts(cfg.replace(remat=False), 3)
+    for k in ("flash_attention", "ssd", "grouped_gemm"):
+        assert on[k] == 2 * off[k]
+    assert on["rmsnorm"] == 2 * off["rmsnorm"] - 3       # final norm once
+    for k in off:
+        if "bwd" in k:
+            assert on[k] == off[k]
+    assert off["rmsnorm"] == off["rmsnorm_bwd"] > 0
+
+
+def test_dryrun_process_and_its_record(smoke, monkeypatch, tmp_path,
+                                       capsys):
+    """Phase 8d starts the dry run's cell in a process of its own with no
+    card, and prints its ``[ ok ]`` line and record; a cell that did not
+    print one fails the phase."""
+    seen = {}
+
+    class Proc:
+        def __init__(self, cmd, env, **kw):
+            seen.update(cmd=cmd, env=env)
+            self.returncode = 0
+
+        def communicate(self, timeout):
+            return "[ ok ] tinyllama-1.1b x train_4k x 16x16: mem/dev=1\n", ""
+
+    monkeypatch.setattr(smoke, "DRYRUN_DIR", tmp_path)
+    monkeypatch.setattr(smoke.subprocess, "Popen", Proc)
+    proc = smoke.start_dryrun()
+    assert seen["cmd"][1:] == ["-m", "repro_torch.launch.dryrun", "--arch",
+                               "tinyllama-1.1b", "--shape", "train_4k",
+                               "--out", str(tmp_path)]
+    assert seen["env"]["CUDA_VISIBLE_DEVICES"] == ""
+    tmp_path.mkdir(exist_ok=True)
+    (tmp_path / "tinyllama-1.1b__train_4k__16x16.json").write_text(
+        json.dumps({"arch": "tinyllama-1.1b", "status": "ok", "tag": ""}))
+    smoke.phase_dryrun(proc)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("[ ok ] tinyllama-1.1b x train_4k")
+    assert json.loads(out[1].split(" ", 1)[1])["record"]["status"] == "ok"
+    proc.communicate = lambda timeout: ("[FAIL] x\n", "")
+    with pytest.raises(RuntimeError, match="dry run"):
+        smoke.phase_dryrun(proc)

@@ -122,7 +122,21 @@ def test_train_lm_scaled_config_is_the_reference(monkeypatch, tmp_path,
     assert lines == ref_lines
 
 
-def test_train_lm_loss_falls_and_resumes(tmp_path, capsys):
+@pytest.fixture
+def one_intra_op_thread():
+    """200 steps of a 2-layer, d-64 model are ops of a few hundred
+    microseconds: at the process's default of one intra-op thread a core,
+    OpenMP's threads spin between them, and with the suite's other
+    workers on the same cores a step took 1.8 s where it takes 0.1 s on
+    one thread. The test runs on one; the count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_train_lm_loss_falls_and_resumes(tmp_path, capsys,
+                                         one_intra_op_thread):
     """Two invocations on one checkpoint directory, each a sub-job of 100
     steps of the dense family scaled down: the first starts at 0, the
     second resumes at 100, continues the data stream there and ends at

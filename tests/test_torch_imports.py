@@ -34,6 +34,12 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "repro", "msgpack"))
 assert not bad, bad
+import torch.distributed
+assert not torch.distributed.is_initialized()   # nothing joins at import
+for name in ("repro_torch.dist.sharding", "repro_torch.launch.mesh",
+             "repro_torch.launch.dryrun", "repro_torch.roofline.hw",
+             "repro_torch.roofline.analysis", "repro_torch.roofline.scope"):
+    assert name in names, name
 print(len(names))
 """
 
@@ -44,7 +50,7 @@ def test_imports_without_jax_or_repro():
                           str(ROOT / "chip_smoke.py")], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 66       # every module imported
+    assert int(out.stdout.split()[-1]) >= 92       # every module imported
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -148,8 +154,10 @@ def test_resolve_device():
             resolve_device()
         with pytest.raises(RuntimeError):
             resolve_device("cuda:0")
+    # the meta device (shapes only, the dry run's) only when asked for
+    assert resolve_device("meta") == torch.device("meta")
     with pytest.raises(ValueError):
-        resolve_device("meta")
+        resolve_device("mps")
 
 
 def test_cpu_tensors_need_cpu_device():

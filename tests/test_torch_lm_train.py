@@ -411,7 +411,8 @@ def test_train_launcher_on_the_cpu(tmp_path, capsys):
         torch.Generator().manual_seed(0), TCFG))
 
 
-def test_train_launcher_asks_for_cuda_and_refuses_unported(tmp_path):
+def test_train_launcher_asks_for_cuda_and_refuses_unported(tmp_path,
+                                                           monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         t_launch.main(["--smoke", "--steps", "1", "--ckpt-dir",
                        str(tmp_path)])
@@ -424,5 +425,10 @@ def test_train_launcher_asks_for_cuda_and_refuses_unported(tmp_path):
     with pytest.raises(KeyError, match="qwen2-vl-72b"):
         t_launch.main(["--arch", "qwen2-vl-72b", "--smoke", "--device",
                        "cpu", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="dist/"):
-        t_launch.main(["--distributed", "--device", "cpu"])
+    # --distributed is ported (tests/test_torch_restore.py): without
+    # torchrun's environment it refuses to start, and joins no group
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="RANK"):
+        t_launch.main(["--distributed", "--device", "cpu", "--smoke"])
+    assert not torch.distributed.is_initialized()

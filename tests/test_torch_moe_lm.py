@@ -712,7 +712,8 @@ def test_train_step_matches_jax(model, monkeypatch, route):
     if route == "card":
         assert fa_ops.flash_attention_bwd.launches == 2
         assert norm_ops.rmsnorm.bwd_launches == 2 * 2 + 1
-        assert gemm_ops.grouped_gemm.launches == 2 * 2
+        # the forward's and remat's recompute of it
+        assert gemm_ops.grouped_gemm.launches == 2 * 2 * 2
         assert gemm_ops.grouped_gemm.bwd_launches == 2 * 2 * 2
     for name in ("ce", "aux", "loss", "lr", "grad_norm"):
         np.testing.assert_allclose(float(tm[name]), float(jm[name]),

@@ -469,7 +469,8 @@ def test_train_step_matches_jax(model, monkeypatch, route):
     tp1, ts1, tm = make_train_step(tcfg, OptimizerConfig(**OPT))(
         tp, tstate, {k: torch.from_numpy(v) for k, v in batch.items()})
     if route == "card":
-        assert fa_ops.flash_attention.launches == jcfg.n_layers
+        # the forward's and remat's recompute of it
+        assert fa_ops.flash_attention.launches == 2 * jcfg.n_layers
         assert fa_ops.flash_attention_bwd.launches == jcfg.n_layers
         assert norm_ops.rmsnorm.bwd_launches == 2 * jcfg.n_layers + 1
     for name in ("ce", "loss", "lr", "grad_norm"):
