@@ -35,7 +35,8 @@ exits non-zero:
    GQA, D = 128, long and ragged sequences, TinyLlama's training layer
    (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128), Qwen1.5-4B's
    training layer (2,2048,20/20,128), Qwen2-VL's (2,2048,28/4,128), one
-   share of its group of 7, and Gemma-3's
+   share of its group of 7, Command-R's (2,2048,64/8,128), one share of
+   its group of 8, and at a batch of 1, two shares, and Gemma-3's
    local and global training layers at (2,2048,32/16,128); with the
    window mask in every form: 1024 at S 2048, 1000 at a ragged S of 2050,
    48 (under one tile), the short form at S 144; each "tc" case also
@@ -305,7 +306,14 @@ exits non-zero:
    fused backward calls a step, all tc; 9 RMSNorm each way, vec; no
    flash), the pairs dropped at capacity, its 2 layers' gradients at 1 x
    128 against the CPU with the host's peak memory, and one donated step
-   under torch.profiler; Qwen2-VL-7B at full width on 10 of 28 layers,
+   under torch.profiler; Command-R 35B at full width (d 8192, 64 q heads
+   over 8 kv heads of 128, d_ff 22,528, the tied 256,000-row table, the
+   parallel block, LayerNorm) on 4 of 40 layers, bf16 m and v, every
+   LayerNorm scale drawn N(1, 0.3) and bias N(0, 0.3), 2 x 2048 (a flash
+   launch a layer each way, tc, the backward's streaming form at one share
+   of the group of 8; no RMSNorm), its first 2 layers and the tied head at
+   1 x 128 against the CPU with the host's peak memory, and one donated
+   step under torch.profiler; Qwen2-VL-7B at full width on 10 of 28 layers,
    fp32 m and v, QKV biases drawn nonzero, 2 x 2048 with a 1,024-token
    image a row (a flash launch a layer each way, tc, the backward's
    streaming form at one share of the group of 7; 21 RMSNorm each way,
@@ -409,7 +417,8 @@ Each kernel's ``launches`` in the JSON record sums the counts of every
 path that runs it (phases 3, 4, 4b, 4c's to 4j's prefill and decode
 steps, 6, 7, 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
 Gemma-3 and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
-Qwen1.5-4B, HuBERT, DeepSeek-V2, Qwen2-VL and Zamba2-7B and the launcher
+Qwen1.5-4B, HuBERT, DeepSeek-V2, Command-R, Qwen2-VL and Zamba2-7B and the
+launcher
 at its defaults, 8b, and 8c's remat run and four launcher sub-jobs), each
 counted from 0 just before its path and read just after.
 
@@ -485,6 +494,7 @@ from repro_torch.kernels.ssd.ops import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd.ops import (  # noqa: E402
     _launch_bwd as ssd_launch_bwd)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch.dryrun import MetaGenerator  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -493,6 +503,7 @@ from repro_torch.models.blocks import (apply_block,  # noqa: E402
                                        init_block_cache)
 from repro_torch.models.layers import apply_norm, lm_logits  # noqa: E402
 from repro_torch.models.common import layer_plan  # noqa: E402
+from repro_torch.roofline.analysis import StepCounter  # noqa: E402
 from repro_torch.serve import (ProvisionService, Request,  # noqa: E402
                                ServeEngine, ServiceConfig)
 from repro_torch.sim import (LOAD_LEVELS, PROFILES,  # noqa: E402
@@ -662,6 +673,21 @@ DEEPSEEK_TRAIN = deepseek_v2_236b.CONFIG.replace(n_layers=2)
 DEEPSEEK_TRAIN_OCFG = dataclasses.replace(TRAIN_OCFG, state_dtype="bfloat16")
 DEEPSEEK_TRAIN_RUN = ("1 x 2048", 1, 2048, 3)
 DEEPSEEK_GRAD_SEQ = 128   # its 2-layer check: the host holds ~42 GB
+# Command-R 35B training (phase 8): its published width on 4 of 40 layers
+# through ChainedTrainer's donated step with bf16 m and v, the reference's
+# dry run's choice for it too (``BF16_OPT_STATE``): 12 bytes a parameter
+# with the fp32 gradient, the tied 256,000 x 8,192 table 25.2 GB of them
+# and a layer 8.46 GB, and at the embedding's backward three 8.39 GB
+# gradients of the table and the layers' stacked gradient besides; the
+# deepest cut whose step, counted on meta tensors (``meta_step_peak``),
+# peaks under ~76 GB at 2 x 2048 (5 layers: 84.4 GB; PERF.md §6)
+CMDR_TRAIN = command_r_35b.CONFIG.replace(n_layers=4)
+CMDR_TRAIN_PARAMS = 30_284_201_984 - (command_r_35b.CONFIG.n_layers
+                                      - CMDR_TRAIN.n_layers) \
+    * CMDR_LAYER_PARAMS
+CMDR_GRAD_SEQ = 128     # its 2-layer check: the host holds the tied table
+                        # and 2 layers, ~3.5 B fp32 parameters, and their
+                        # gradients
 # phase 4j: Qwen2-VL-7B at its published width and depth (28 layers, d
 # 3584, 28 q heads over 4 kv heads of 128, M-RoPE; 7.62 B parameters, 30.5
 # GB fp32)
@@ -1039,6 +1065,15 @@ def _bwd_counts():
             grouped_gemm.bwd_tc_launches, flash_attention_bwd.tc_launches)
 
 
+# the streaming flash backward's shares of a kv head's q heads
+# (``bwd_splits``) at Command-R's heads on an H100's 132 SMs: 512 dkdv
+# blocks at 2 x 2048 take one, 256 at 1 x 2048 two (fp32 partials summed
+# by a last pass)
+FLASH_BWD_SHARES = {
+    "flash bwd Command-R training (2,2048,64/8,128) bf16, a group of 8": 1,
+    "flash bwd Command-R heads at a batch of 1 (1,2048,64/8,128) bf16": 2}
+
+
 def check_backward(gen, errs: dict) -> None:
     """The backward kernels through autograd, as training runs them, against
     their plain versions on the same inputs. Flash: the forward keeps each
@@ -1049,7 +1084,10 @@ def check_backward(gen, errs: dict) -> None:
     heads), causal, softcap and ragged, and in its streaming form for GQA,
     D = 128, long sequences and the LM training layers (TinyLlama's
     (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128), Gemma-3's
-    local and global ones at (2,2048,32/16,128)); with a window in every
+    local and global ones at (2,2048,32/16,128), Command-R's
+    (2,2048,64/8,128) at one share of a kv head's 8 q heads and, at a
+    batch of 1, two, each share count held to FLASH_BWD_SHARES); with a
+    window in every
     form: 1024 at S 2048, 1000 (no multiple of 64) at a ragged S of 2050,
     48 (under one tile), GQA 32/16 and 8/4, D 64 and 128, the short form at
     S 144 with 64, fp32 on the CUDA cores; each "tc" case also through
@@ -1096,6 +1134,12 @@ def check_backward(gen, errs: dict) -> None:
          "tc"),
         ("flash bwd Qwen2-VL training (2,2048,28/4,128) bf16, a group of 7",
          causal, (2, LM_PROMPT, LM_PROMPT, VL.nq, VL.nkv, VL.hd, bf16), "tc"),
+        ("flash bwd Command-R training (2,2048,64/8,128) bf16, a group of 8",
+         causal, (2, LM_PROMPT, LM_PROMPT, CMDR.nq, CMDR.nkv, CMDR.hd, bf16),
+         "tc"),
+        ("flash bwd Command-R heads at a batch of 1 (1,2048,64/8,128) bf16",
+         causal, (1, LM_PROMPT, LM_PROMPT, CMDR.nq, CMDR.nkv, CMDR.hd, bf16),
+         "tc"),
         ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32", both,
          (2, 97, 131, 8, 2, 64, torch.float32), "simt"),
         ("flash bwd Gemma-3 global training (2,2048,32/16,128) bf16", causal,
@@ -1168,6 +1212,10 @@ def check_backward(gen, errs: dict) -> None:
                 extra["splits"] = bwd_splits(
                     q.shape[0], k.shape[1], Hkv, Hq // Hkv,
                     torch.cuda.get_device_properties(0).multi_processor_count)
+                want = FLASH_BWD_SHARES.get(name)
+                if want is not None and extra["splits"] != want:
+                    raise RuntimeError(f"{name}: {extra['splits']} shares, "
+                                       f"not {want}")
             simt = flash_launch_bwd(q, k, v, out, lse, dout, "simt", **run)
             extra["simt_max_abs_err"] = max(
                 _err(g, r, atol, rtol, f"{name} simt d{n}")
@@ -3793,20 +3841,29 @@ def _group_ms(rec: dict) -> dict:
 
 
 def profile_lm_train_step(params, opt, batch, seq, cfg=LM, ocfg=TRAIN_OCFG,
-                          donate=False) -> None:
+                          donate=False, fresh_cache=False) -> None:
     """One train step of ``cfg`` at batch x seq under torch.profiler, its
     device time split by kernel group; AdamW's device time apart, from a
     profile of ``adamw_update`` alone on that step's gradients (the rest of
     "other" is the model's elementwise work and the loss). With ``donate``
     both write ``params`` and ``opt`` in place, as ``ChainedTrainer``'s
-    step does: the profiled steps train them on."""
+    step does: the profiled steps train them on. With ``fresh_cache`` the
+    allocator's cache is emptied before each step and before the
+    gradients (``chained_run``'s), inside the profiled wall."""
     step_fn = make_train_step(cfg, ocfg, donate=donate)
     b = synth_batch(cfg, DataConfig(batch=batch, seq_len=seq), 100,
                     device="cuda")
+
+    def step():
+        if fresh_cache:
+            torch.cuda.empty_cache()
+        return step_fn(params, opt, b)
     rec = profile_device(f"{cfg.arch_id} train step {batch} x {seq}",
-                         lambda: step_fn(params, opt, b), 1, "step",
-                         batch=batch, seq=seq)
+                         step, 1, "step", batch=batch, seq=seq,
+                         fresh_cache=fresh_cache)
     groups = _group_ms(rec)
+    if fresh_cache:
+        torch.cuda.empty_cache()
     (_, _), grads = value_and_grad_aux(
         lambda p, bb: transformer.loss_fn(p, cfg, bb), params, b,
         has_aux=True)
@@ -4078,14 +4135,21 @@ def _chained_trainer(cfg, ocfg, batch: int, seq: int, draw=None):
     return tr
 
 
-def chained_run(tr, what: str, batch: int, seq: int, steps: int) -> dict:
+def chained_run(tr, what: str, batch: int, seq: int, steps: int,
+                fresh_cache: bool = False) -> dict:
     """``steps`` steps of the donated ``ChainedTrainer`` ``tr``, one
     ``run_subjob(1)`` each, after a warm-up step: host ms a step after
     ``synchronize``, tokens (frames) a second, the losses, the peak memory;
     raising unless each step's launches are one pass's
     (``_train_pass_counts``) and every parameter and optimizer leaf kept its
-    storage. Returns the launches of the ``steps`` steps."""
+    storage. With ``fresh_cache`` the allocator's cache is emptied before
+    each step, outside its time, so that every step allocates as the first
+    one did (a step whose peak nears the card's memory can fail on the
+    split blocks a previous step left). Returns the launches of the
+    ``steps`` steps."""
     cfg = tr.cfg
+    if fresh_cache:
+        torch.cuda.empty_cache()
     tr.run_subjob(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4094,6 +4158,8 @@ def chained_run(tr, what: str, batch: int, seq: int, steps: int) -> dict:
     ms, losses, counts = [], [], Counter()
     for i in range(steps):
         _set_lm_train_counts()
+        if fresh_cache:
+            torch.cuda.empty_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses += tr.run_subjob(1)["losses"]
@@ -4107,7 +4173,7 @@ def chained_run(tr, what: str, batch: int, seq: int, steps: int) -> dict:
     line("lm_train", arch=cfg.arch_id, layers=cfg.n_layers, run=what,
          trainer="ChainedTrainer, donated", batch=batch, seq=seq,
          steps=steps, state_dtype=tr.ocfg.state_dtype or "float32",
-         ms_per_step=_ms(ms), tokens_per_s=batch * seq / np.mean(ms) * 1e3,
+         fresh_cache=fresh_cache, ms_per_step=_ms(ms), tokens_per_s=batch * seq / np.mean(ms) * 1e3,
          losses=_finite(what, losses), step=tr.step,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
          peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
@@ -4261,6 +4327,84 @@ def deepseek_train() -> dict:
     return counts
 
 
+def meta_step_peak(cfg, ocfg, batch: int, seq: int) -> tuple:
+    """A donated train step of ``cfg`` at batch x seq run on meta tensors
+    under ``StepCounter``: (the parameters' and optimizer state's GB plus
+    the most the step allocates at once, the op that set it). The
+    allocation order is the card's, without the caching allocator's
+    rounding: the cut's memory before any card run."""
+    params = transformer.init(MetaGenerator(), cfg)
+    opt = init_opt_state(params, ocfg)
+    b = {k: torch.zeros(batch, seq, dtype=torch.int32, device="meta")
+         for k in ("inputs", "labels")}
+    state = sum(t.numel() * t.element_size() for t in _leaves([params, opt]))
+    with StepCounter(exclude=(params, opt, b)) as counter:
+        make_train_step(cfg, ocfg, donate=True)(params, opt, b)
+    return (state + counter.peak_bytes) / 1e9, counter.peak_op
+
+
+def cmdr_train() -> dict:
+    """Command-R 35B training at its full published width (d 8192, 64 q
+    heads over 8 kv heads of 128, d_ff 22,528, the tied 256,000-row table,
+    the parallel block, LayerNorm) on CMDR_TRAIN's cut of its 40 layers
+    through ``ChainedTrainer``'s donated step with bf16 m and v, every
+    LayerNorm scale drawn N(1, CMDR_NORM_STD) and bias N(0, CMDR_NORM_STD):
+    the parameters held to the reference's count at that depth, the step's
+    peak counted on meta tensors first (``meta_step_peak``);
+    DENSE_TRAIN_RUN's 3 steps at 2 x 2048 (``chained_run``, each step from
+    an emptied allocator cache: the second step of 4 layers, whose peak
+    nears the card's, failed on the blocks the first had split; every step
+    a flash launch a layer forward, again in remat's recompute, and one
+    backward, all on the tensor cores, the backward's streaming form at
+    one share of a kv head's group of 8; no RMSNorm: LayerNorm is plain
+    PyTorch, as in the reference); the first 2 layers and the tied head at
+    1 x CMDR_GRAD_SEQ against the CPU, with the host's peak memory; one
+    donated step under torch.profiler by kernel group. Returns the run's
+    launches."""
+    torch.cuda.empty_cache()
+    cfg = CMDR_TRAIN
+    what, batch, seq, steps = DENSE_TRAIN_RUN
+    meta_gb, meta_op = meta_step_peak(cfg, DEEPSEEK_TRAIN_OCFG, batch, seq)
+    t0 = time.perf_counter()
+    tr = _chained_trainer(cfg, DEEPSEEK_TRAIN_OCFG, batch, seq,
+                          lambda gen, p: _draw_layer_norms(gen, p,
+                                                           CMDR_NORM_STD))
+    n = sum(t.numel() for t in _leaves(tr.params))
+    if n != CMDR_TRAIN_PARAMS:
+        raise RuntimeError(f"Command-R at {cfg.n_layers} layers has "
+                           f"{n} parameters, not the reference's "
+                           f"{CMDR_TRAIN_PARAMS}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    line("lm_train", arch=cfg.arch_id, run="Command-R cut",
+         layers=cfg.n_layers, published_layers=command_r_35b.CONFIG.n_layers,
+         params=n, param_gb=_tree_gb(tr.params),
+         opt_state_gb=_tree_gb(tr.opt_state),
+         state_dtype=DEEPSEEK_TRAIN_OCFG.state_dtype,
+         parallel_block=cfg.parallel_block,
+         tied_table=list(tr.params["embed"]["table"].shape),
+         norm_std=CMDR_NORM_STD,
+         flash_bwd_form=bwd_tc_form(seq, seq, cfg.nq, cfg.nkv, cfg.hd),
+         flash_bwd_splits=bwd_splits(batch, seq, cfg.nkv,
+                                     cfg.nq // cfg.nkv, sms),
+         meta_step_peak_gb=meta_gb, meta_step_peak_op=meta_op,
+         init_s=time.perf_counter() - t0)
+    counts = chained_run(tr, what, batch, seq, steps, fresh_cache=True)
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_lm_train_grads(tr.params, cfg, CMDR_GRAD_SEQ)
+    line("lm_train", arch=cfg.arch_id,
+         run="2-layer gradient check, host memory",
+         wall_s=time.perf_counter() - t1, **_host_memory())
+    torch.cuda.empty_cache()
+    profile_lm_train_step(tr.params, tr.opt_state, batch, seq, cfg,
+                          DEEPSEEK_TRAIN_OCFG, donate=True, fresh_cache=True)
+    del tr
+    torch.cuda.empty_cache()
+    line("lm_train", arch=cfg.arch_id, run="Command-R training, all",
+         wall_s=time.perf_counter() - t0)
+    return counts
+
+
 def _with_image(data, image):
     """``data``'s batches, each with ``image``'s M-RoPE positions and
     vision inputs (``vl_image``) at its batch and length."""
@@ -4377,6 +4521,7 @@ def phase_lm_train() -> tuple:
     donated step against the functional one (``check_donation``),
     ``ChainedTrainer``'s donated runs of Qwen1.5-4B (``qwen4b_train``),
     HuBERT X-Large (``hubert_run``), DeepSeek-V2-236B (``deepseek_train``),
+    Command-R 35B (``cmdr_train``),
     Qwen2-VL-7B (``vl_train``) and Zamba2-7B (``zamba_train``), the
     launcher at ``--smoke`` and the launcher at its defaults. Returns the
     launches of (a), (b), (c), the 2 x 2048 runs, the donated step, the
@@ -4426,7 +4571,8 @@ def phase_lm_train() -> tuple:
     torch.cuda.empty_cache()
     runs = {}
     for train in (dense_train, gemma_train, moe_train, check_donation,
-                  qwen4b_train, hubert_run, deepseek_train, vl_train,
+                  qwen4b_train, hubert_run, deepseek_train, cmdr_train,
+                  vl_train,
                   zamba_train):
         runs[train.__name__] = train()
         for k, v in runs[train.__name__].items():
@@ -5617,7 +5763,9 @@ def time_lm_backward(gen, errs: dict, launches: dict, paths: dict) -> list:
     then the norm backward at Gemma-3's, DeepSeek-V2's, Qwen2-VL's and
     Zamba2-7B's training shapes (its out_norm, (4096,7168), 896 vectors a
     row) and the scan's backward at Zamba2-7B's training layer, x
-    (2,2048,112,64), N = 64 (``paths``: the launches of phase 8's runs)."""
+    (2,2048,112,64), N = 64, and the flash backward at Command-R's
+    training layer, (2,2048,64/8,128) (``paths``: the launches of phase 8's
+    runs)."""
     rows = LM_TRAIN_RUNS[1][1] * LM_TRAIN_RUNS[1][2]
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     extra = {"simt_ms": 0.0, "ms_no_lead": 0.0, "host_us": 0.0}
@@ -5722,6 +5870,10 @@ def time_lm_backward(gen, errs: dict, launches: dict, paths: dict) -> list:
         shape=f"x, dy ({Bz},{S},{H},64) bf16, B/C ({Bz},{S},1,{N}) bf16, "
               "chunk 256: one Zamba2-7B training layer's scan backward", **t)
     line("time", **zamba_ssd_rec, **extra)
+    line("time", **time_flash_bwd_lm(gen, CMDR_TRAIN, "Command-R",
+                                     splits=(1, 2)),
+         launches_a_step=CMDR_TRAIN.n_layers,
+         launches=paths["cmdr_train"]["flash_attention_bwd"])
     return [norm_rec, ssd_rec, zamba_norm_rec, zamba_ssd_rec]
 
 

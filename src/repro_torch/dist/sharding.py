@@ -17,6 +17,14 @@ What JAX expresses with its own types, the port expresses so:
 * ``to_shardings`` maps specs to DTensor placements on a ``DeviceMesh``:
   ``Shard(d)`` on every mesh dim that a spec names for tensor dim d,
   ``Replicate()`` on the rest;
+* a ``DeviceMesh`` dim may stand for several logical axes: a dim named
+  "pod+data" is the pod and data axes folded into one, pod major, as a
+  spec entry ("pod", "data") shards a tensor dim. ``fold_axes`` finds the
+  dims a set of specs needs: axes that every spec names together share a
+  dim, and an axis that no spec names (pure replication) has none. DTensor
+  plans a redistribution on a 3-dim mesh by a graph search over every
+  candidate strategy, minutes an op; on the folded 2-dim mesh it plans as
+  on 16x16 (``launch.mesh.make_folded_mesh``, the dry run);
 * ``constrain`` is ``with_sharding_constraint``: inside an
   ``activation_context`` it ``redistribute``s a DTensor to the placements
   its logical axes give. Outside one (tests, single-device runs) it is the
@@ -34,6 +42,8 @@ import contextlib
 import dataclasses
 import threading
 from typing import Dict, Sequence, Tuple
+
+import torch
 
 
 def _entry(e):
@@ -79,16 +89,29 @@ class AbstractMesh:
 
 
 # ----------------------------------------------------------------- mesh utils
-def _axis_names(mesh) -> Tuple[str, ...]:
+FOLD = "+"      # joins the logical axes of one folded DeviceMesh dim
+
+
+def _mesh_dims(mesh) -> Tuple[str, ...]:
+    """The mesh's dim names; a folded DeviceMesh dim's name joins its
+    axes with ``FOLD``."""
     if isinstance(mesh, AbstractMesh):
         return mesh.axis_names
     return tuple(mesh.mesh_dim_names or ())
 
 
+def _axis_names(mesh) -> Tuple[str, ...]:
+    """The logical axes, in mesh order."""
+    return tuple(a for d in _mesh_dims(mesh) for a in d.split(FOLD))
+
+
 def _axis_sizes(mesh) -> Dict[str, int]:
     if isinstance(mesh, AbstractMesh):
         return mesh.shape
-    return dict(zip(_axis_names(mesh), mesh.shape))
+    if any(FOLD in d for d in _mesh_dims(mesh)):
+        raise ValueError("a folded mesh has no size per axis: compute specs "
+                         "on the logical mesh (make_abstract_mesh)")
+    return dict(zip(_mesh_dims(mesh), mesh.shape))
 
 
 def axis_size(mesh, name: str) -> int:
@@ -117,24 +140,78 @@ def batch_axes(mesh, global_batch: int) -> Tuple[str, ...]:
     return tuple(axes)
 
 
+def _names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _names_run(names, group) -> bool:
+    """Does ``names`` hold ``group`` as a run, in its order?"""
+    n = len(group)
+    return any(tuple(names[i:i + n]) == tuple(group)
+               for i in range(len(names) - n + 1))
+
+
 def placements(mesh, spec) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``'s dims, in their order:
-    ``Shard(d)`` where the spec names the mesh dim for tensor dim d,
-    ``Replicate()`` elsewhere."""
+    ``Shard(d)`` where the spec names the mesh dim for tensor dim d (all
+    the axes of a folded dim, as a run), ``Replicate()`` elsewhere. A spec
+    that names an axis the mesh lacks, or part of a folded dim, raises."""
     from torch.distributed.tensor import Replicate, Shard
+    have = set(_axis_names(mesh))
+    for entry in spec:
+        for a in _names(entry):
+            if a not in have:
+                raise ValueError(f"{spec} names {a!r}, which the mesh "
+                                 f"{_mesh_dims(mesh)} lacks")
     out = []
-    for name in _axis_names(mesh):
+    for name in _mesh_dims(mesh):
+        group = tuple(name.split(FOLD))
         dim = None
         for d, entry in enumerate(spec):
-            names = entry if isinstance(entry, tuple) else (entry,)
-            if name in names:
+            names = _names(entry)
+            if any(a in names for a in group):
+                if not _names_run(names, group):
+                    raise ValueError(f"{spec} splits the folded mesh dim "
+                                     f"{name!r}")
                 dim = d
         out.append(Replicate() if dim is None else Shard(dim))
     return tuple(out)
 
 
+def fold_axes(mesh, specs) -> Tuple[Tuple[str, ...], ...]:
+    """The DeviceMesh dims that ``specs`` need on the logical ``mesh``,
+    each a tuple of axes in mesh order: an axis that no spec names is left
+    out (its devices replicate the rest), and adjacent axes that every
+    spec names together, the first right before the second, share a dim.
+    On 16x16 every dry-run cell names both axes apart; on 2x16x16 the batch
+    names ("pod", "data") and nothing names either alone, so the cell runs
+    on ("pod+data", "model")."""
+    entries = [_names(e) for s in specs for e in s if e is not None]
+    groups = []
+    for a in _axis_names(mesh):
+        if not any(a in e for e in entries):
+            continue
+        if groups and all(
+                (a in e) == (groups[-1][-1] in e) and (
+                    a not in e or _names_run(e, (groups[-1][-1], a)))
+                for e in entries):
+            groups[-1] = groups[-1] + (a,)
+        else:
+            groups.append((a,))
+    return tuple(groups)
+
+
 def _is_spec(x) -> bool:
     return isinstance(x, PartitionSpec)
+
+
+def spec_leaves(specs) -> list:
+    """The PartitionSpecs of a tree of them, in order."""
+    out = []
+    _map_specs(out.append, specs)
+    return out
 
 
 def _map_specs(fn, tree):
@@ -348,15 +425,37 @@ def logical_spec(shape, axes) -> P:
 
 def constrain(x, *axes):
     """``with_sharding_constraint`` on logical axes: inside a context a
-    DTensor is redistributed to the placements they give (differentiably);
-    with no context, or a plain tensor, ``x`` as it is."""
+    DTensor is redistributed to the placements they give, and so is its
+    cotangent in the backward (``_Constrain``); with no context, or a
+    plain tensor, ``x`` as it is. The context's mesh gives the spec (a
+    folded DeviceMesh cannot: pass the logical mesh); the tensor's own
+    mesh the placements."""
     if getattr(_ctx, "state", None) is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    mesh = x.device_mesh
-    want = placements(mesh, logical_spec(x.shape, axes))
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh, want)
+    want = placements(x.device_mesh, logical_spec(x.shape, axes))
+    return _Constrain.apply(x, want)
+
+
+class _Constrain(torch.autograd.Function):
+    """``constrain``'s redistribution, whose backward redistributes the
+    cotangent to the same placements: ``with_sharding_constraint``
+    constrains both. DTensor's own ``redistribute`` leaves a cotangent
+    where the ops behind it put it: a pending sum over "model" from the
+    vocab-sharded head reaches every layer's output projections, whose
+    weight gradients DTensor then computes at full width on each rank."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.want:
+            g = g.redistribute(g.device_mesh, ctx.want)
+        return g, None

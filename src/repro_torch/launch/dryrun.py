@@ -9,14 +9,20 @@ Usage:
 How a cell runs, and what stands for the reference's JAX machinery:
 
 * the reference's 512 placeholder XLA devices are a fake process group
-  (``torch.testing``'s ``FakeStore``, backend ``"fake"``) of the mesh's
-  size, this process its rank 0: collectives are issued and counted but
-  move nothing. The cell initialises it and destroys it when done; nothing
-  here touches a process group at import;
+  (``torch.testing``'s ``FakeStore``, backend ``"fake"``), this process
+  its rank 0: collectives are issued and counted but move nothing. The
+  cell initialises it and destroys it when done; nothing here touches a
+  process group at import;
 * ``jax.eval_shape`` is the meta device: parameters, optimizer state,
   batch and cache are meta tensors (``MetaGenerator`` draws the
-  parameters), placed by the ported sharding rules with
-  ``distribute_tensor`` on a ``DeviceMesh`` over the fake group;
+  parameters), their specs computed by the ported sharding rules on the
+  logical mesh (equal to JAX's), and placed with ``distribute_tensor`` on
+  the ``DeviceMesh`` those specs need (``shd.fold_axes``): on 2x16x16 the
+  batch's ("pod", "data") is one dim of 32, "pod+data", where DTensor
+  plans as on 16x16 (a 3-dim mesh costs its planner a graph search over
+  every candidate strategy, minutes an op), and an axis no spec names
+  (the pod of a batch of 1) is left out, its devices replicating the
+  rest; the fake group has that mesh's size;
 * ``jit(...).lower().compile()`` is one call of the step
   (``make_train_step`` with the reference's micro-batches and donated
   state, ``make_prefill_step`` or ``make_serve_step``) under
@@ -26,7 +32,8 @@ How a cell runs, and what stands for the reference's JAX machinery:
   ``out_shardings``;
 * XLA's ``memory_analysis`` is the argument, output and alias bytes of
   the local shards and the step's peak allocation (temp = peak less the
-  outputs' new bytes, so the total per device is arguments + peak); its
+  outputs' new bytes, so the total per device is arguments + peak), with
+  the op at the peak and the live bytes by op then (``memory.peak``); its
   ``cost_analysis`` has no counterpart, and ``counted`` holds the
   counter's flops and bytes in its place;
 * ``lower_s``/``compile_s`` are the cell's wall seconds, ``wall_s``.
@@ -45,6 +52,7 @@ import torch
 
 from repro_torch.convert import tree_map
 from repro_torch.dist import sharding as shd
+from repro_torch.launch.mesh import make_folded_mesh, production_axes
 from repro_torch.models import registry, transformer
 from repro_torch.models.common import ModelConfig
 from repro_torch.roofline import analysis as ra
@@ -126,8 +134,10 @@ def _place(mesh, tree, specs):
 
 def build_cell(arch: str, shape, mesh, variant: dict = None,
                smoke: bool = False):
-    """Returns (cfg, fn, args, out_specs, meta): ``fn(*args)`` runs the
-    step on the placed meta tensors; ``out_specs`` places its outputs.
+    """Returns (cfg, fn, args, arg_specs, out_specs, meta) on the logical
+    ``mesh`` (``shd.make_abstract_mesh``): ``args`` are meta tensors,
+    ``arg_specs`` their specs, to be placed on a ``DeviceMesh``;
+    ``fn(*placed)`` runs the step; ``out_specs`` place its outputs.
     ``shape`` names a cell of ``registry.SHAPES`` or is a ``ShapeSpec``;
     ``smoke`` takes the arch's reduced config (tests)."""
     variant = variant or {}
@@ -136,25 +146,22 @@ def build_cell(arch: str, shape, mesh, variant: dict = None,
     specs = registry.input_specs(cfg, spec)
     params = transformer.init(MetaGenerator(), cfg)
     pspecs = shd.params_pspecs(cfg, params, mesh)
-    params = _place(mesh, params, pspecs)
     P = shd.P
 
     if spec.kind == "train":
         ocfg = OptimizerConfig(
             state_dtype="bfloat16" if arch in BF16_OPT_STATE else None)
-        opt = init_opt_state(tree_map(lambda t: torch.empty(
-            t.shape, dtype=t.dtype, device="meta"), params), ocfg)
+        opt = init_opt_state(params, ocfg)
         ospecs = shd.opt_state_pspecs(cfg, opt, mesh,
                                       zero_pod=bool(variant.get("zero_pod")))
-        opt = _place(mesh, opt, ospecs)
         nm = microbatches(arch, mesh, spec.global_batch, variant)
         step = make_train_step(cfg, ocfg, num_microbatches=nm,
                                grad_accum_dtype=variant.get("grad_accum"),
                                donate=True)
         batch = {k: specs[k] for k in ("inputs", "labels", "positions")}
-        batch = _place(mesh, batch, shd.train_batch_pspecs(cfg, mesh, batch))
-        return cfg, step, (params, opt, batch), [pspecs, ospecs, P()], {
-            "num_microbatches": nm}
+        bspecs = shd.train_batch_pspecs(cfg, mesh, batch)
+        return cfg, step, [params, opt, batch], [pspecs, ospecs, bspecs], \
+            [pspecs, ospecs, P()], {"num_microbatches": nm}
 
     baxes = shd.batch_axes(mesh, spec.global_batch) or None
     logits_spec = P(baxes, "model")
@@ -163,10 +170,10 @@ def build_cell(arch: str, shape, mesh, variant: dict = None,
                                        dtype=torch.bfloat16, device="meta")
         cspecs = shd.cache_pspecs(cfg, cache, mesh, spec.global_batch,
                                   mode=variant.get("cache_mode", "seq"))
-        inp = {k: specs[k] for k in ("inputs", "positions")}
-        inp = _place(mesh, inp, shd.train_batch_pspecs(cfg, mesh, inp))
+        inp = [specs["inputs"], specs["positions"]]
+        ispecs = shd.train_batch_pspecs(cfg, mesh, inp)
         step = make_prefill_step(cfg, s_cache=spec.seq_len)
-        return cfg, step, (params, inp["inputs"], inp["positions"]), [
+        return cfg, step, [params] + inp, [pspecs] + ispecs, [
             logits_spec, cspecs], {}
 
     cache = specs["cache"]
@@ -174,11 +181,10 @@ def build_cell(arch: str, shape, mesh, variant: dict = None,
                               mode=variant.get("cache_mode", "seq"))
     tok_spec = P(baxes, None)
     pos_spec = P(None, baxes, None) if cfg.mrope_sections else tok_spec
-    token, positions, cache, index = _place(
-        mesh, [specs["token"], specs["positions"], cache, specs["index"]],
-        [tok_spec, pos_spec, cspecs, P()])
     step = make_serve_step(cfg)
-    return cfg, step, (params, token, positions, cache, index), [
+    return cfg, step, [params, specs["token"], specs["positions"], cache,
+                       specs["index"]], \
+        [pspecs, tok_spec, pos_spec, cspecs, P()], [
         tok_spec, logits_spec, cspecs], {}
 
 
@@ -214,42 +220,67 @@ def _aliased_bytes(out, args) -> int:
     return sum(n)
 
 
+def _peak_ops(counter, top: int = 8) -> dict:
+    """The op whose output set the step's peak, and the ops whose outputs
+    were live then, largest first (bytes per device)."""
+    by_op = sorted(counter.peak_live_by_op.items(), key=lambda kv: -kv[1])
+    return {"op": counter.peak_op,
+            "live_bytes_by_op": dict(by_op[:top])}
+
+
 def measure_cell(arch: str, shape, mesh, mesh_name: str,
                  variant: dict = None, smoke: bool = False) -> dict:
-    """One cell on an existing ``mesh`` (its fake group initialised)."""
+    """One cell on the logical ``mesh``: its specs computed there, a fake
+    process group made for the ``DeviceMesh`` they need
+    (``shd.fold_axes``: on 2x16x16, ("pod+data", "model"), or the
+    16x16 dims where no spec names "pod") and destroyed when done."""
+    import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
     t0 = time.time()
     variant = variant or {}
-    cfg, fn, args, out_specs, meta = build_cell(arch, shape, mesh, variant,
-                                                smoke)
+    cfg, fn, args, arg_specs, out_specs, meta = build_cell(
+        arch, shape, mesh, variant, smoke)
     spec = registry.shape_spec(shape)
-    arg_bytes = _local_bytes(args)
-    grad = spec.kind == "train"
-    with shd.activation_context(mesh, spec.global_batch,
-                                seq_parallel=bool(variant.get(
-                                    "seq_parallel"))), \
-            torch.set_grad_enabled(grad), implicit_replication(), \
-            ra.StepCounter(exclude=args) as counter:
-        out = list(fn(*args))
-        if spec.kind == "train":
-            out[2] = out[2]["loss"]
-        out = _redistribute(mesh, out, out_specs)
-    out_bytes = _local_bytes(out)
-    alias = _aliased_bytes(out, args)
+    bax = shd.batch_axes(mesh, spec.global_batch)
+    groups = shd.fold_axes(mesh, shd.spec_leaves([arg_specs, out_specs])
+                           + [shd.P(bax or None, "model")])
+    world = 1
+    for g in groups:
+        for a in g:
+            world *= shd.axis_size(mesh, a)
+    fake_group(world)
+    try:
+        dmesh = make_folded_mesh(mesh, groups, device_type="cpu")
+        args = _place(dmesh, args, arg_specs)
+        arg_bytes = _local_bytes(args)
+        grad = spec.kind == "train"
+        with shd.activation_context(mesh, spec.global_batch,
+                                    seq_parallel=bool(variant.get(
+                                        "seq_parallel"))), \
+                torch.set_grad_enabled(grad), implicit_replication(), \
+                ra.StepCounter(exclude=args) as counter:
+            out = list(fn(*args))
+            if spec.kind == "train":
+                out[2] = out[2]["loss"]
+            out = _redistribute(dmesh, out, out_specs)
+        out_bytes = _local_bytes(out)
+        alias = _aliased_bytes(out, args)
+    finally:
+        dist.destroy_process_group()
     stats = counter.stats
     roof = ra.roofline_from_stats(stats)
     n_tokens = spec.global_batch * (spec.seq_len if spec.kind != "decode"
                                     else 1)
     mf = ra.model_flops(cfg, n_tokens,
                         "train" if spec.kind == "train" else "infer")
-    n_chips = mesh.size()
+    n_chips = mesh.size
     temp = counter.peak_bytes - (out_bytes - alias)
     return {
         "arch": arch, "shape": spec.name, "mesh": mesh_name,
         "status": "ok",
         "skip_reason": "",
         "n_chips": n_chips,
-        "meta": meta,
+        "meta": dict(meta, device_mesh=[shd.FOLD.join(g) for g in groups]),
         "wall_s": time.time() - t0,
         "memory": {
             "argument_bytes": arg_bytes,
@@ -258,6 +289,7 @@ def measure_cell(arch: str, shape, mesh, mesh_name: str,
             "alias_bytes": alias,
             "total_per_device": arg_bytes + out_bytes + temp - alias,
             "hbm_limit": hw.HBM_BYTES,
+            "peak": _peak_ops(counter),
         },
         "counted": {"flops": stats.flops, "bytes accessed": stats.hbm_bytes},
         "roofline": roof.to_dict(),
@@ -281,17 +313,12 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: pathlib.Path,
              variant: dict = None, tag: str = "", mesh_shape=None,
              smoke: bool = False) -> dict:
     """One cell on the production mesh (or on ``mesh_shape``, axis names
-    to sizes in order, for small meshes): its fake group made and
-    destroyed around it. Writes and returns the record."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.launch.mesh import make_production_mesh
+    to sizes in order, for small meshes). Writes and returns the record."""
     if mesh_shape is None:
-        mesh_name = "2x16x16" if multi_pod else "16x16"
-        sizes = (2, 16, 16) if multi_pod else (16, 16)
-    else:
-        mesh_name = "x".join(str(s) for s in mesh_shape.values())
-        sizes = tuple(mesh_shape.values())
+        mesh_shape = production_axes(multi_pod)
+    mesh_name = "x".join(str(s) for s in mesh_shape.values())
+    mesh = shd.make_abstract_mesh(tuple(mesh_shape.values()),
+                                  tuple(mesh_shape))
     spec = registry.shape_spec(shape)
     cfg0 = registry.get_config(arch, smoke=smoke)
     ok, why = registry.cell_supported(cfg0, spec)
@@ -299,19 +326,7 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: pathlib.Path,
            "status": "skipped", "skip_reason": why}
     if not ok:
         return rec
-    world = 1
-    for s in sizes:
-        world *= s
-    fake_group(world)
-    try:
-        if mesh_shape is None:
-            mesh = make_production_mesh(multi_pod=multi_pod)
-        else:
-            mesh = init_device_mesh("cpu", sizes,
-                                    mesh_dim_names=tuple(mesh_shape))
-        rec = measure_cell(arch, spec, mesh, mesh_name, variant, smoke)
-    finally:
-        dist.destroy_process_group()
+    rec = measure_cell(arch, spec, mesh, mesh_name, variant, smoke)
     out_dir.mkdir(parents=True, exist_ok=True)
     suffix = f"__{tag}" if tag else ""
     rec["variant"] = variant or {}

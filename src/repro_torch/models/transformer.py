@@ -169,6 +169,14 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                     x, aux = body(x, aux)
                 continue
             new = {}
+            # the residual pinned to its batch layout before the
+            # repetition and after each block (``constrain``, the identity
+            # outside a sharding context): the reference's cached scans
+            # pin nothing and XLA resolves a block's pending sum itself,
+            # where DTensor carries the output projection's pending sum
+            # into the next block and gathers the head- or channel-sharded
+            # weights of its projections there
+            x = constrain(x, "B", "S", None)
             for j, kind in enumerate(seg.pattern):
                 name = f"b{j}"
                 if mode == "prefill":
@@ -178,6 +186,7 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
                     c = _layer(cache["segments"][si][name], r)
                 x, a, new[name] = apply_block(layer[name], kind, x, cfg,
                                               positions, mode, c, index)
+                x = constrain(x, "B", "S", None)
                 aux = aux + a
             layers.append(new)
         if mode in _CACHED_MODES:

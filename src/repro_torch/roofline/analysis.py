@@ -38,7 +38,9 @@ not.
 
 ``StepCounter`` also tracks the bytes of the storages the step allocates
 (``peak_bytes``; a storage is freed when its last tensor dies), the
-dry run's temp memory.
+dry run's temp memory, and at the peak the op whose output set it
+(``peak_op``) and the live bytes by the op that allocated them
+(``peak_live_by_op``).
 
 Roofline terms (seconds): flops / PEAK_FLOPS_BF16, hbm_bytes / HBM_BW,
 collective_bytes / COLLECTIVE_BW, per device: the H100's datasheet
@@ -143,13 +145,18 @@ class StepCounter(TorchDispatchMode):
     (an ``HloStats``), and the bytes of the storages allocated meanwhile:
     ``live_bytes`` now, ``peak_bytes`` the most at once. Storages of
     tensors passed to ``exclude`` (the step's arguments) are not counted
-    as allocations."""
+    as allocations. At the peak it keeps the op that set it
+    (``peak_op``) and the bytes then live by allocating op
+    (``peak_live_by_op``)."""
 
     def __init__(self, exclude=()):
         super().__init__()
         self.stats = HloStats()
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.peak_op = None
+        self.peak_live_by_op: Dict[str, int] = {}
+        self._live_by_op: Dict[str, int] = {}
         self._known = set()
         for t in _tensors(exclude):
             self._known.add(self._key(t))
@@ -161,7 +168,7 @@ class StepCounter(TorchDispatchMode):
             t = t._local_tensor
         return t.untyped_storage()._cdata
 
-    def _track(self, out) -> None:
+    def _track(self, out, op: str) -> None:
         for t in _tensors(out):
             st = t.untyped_storage()
             key = st._cdata
@@ -170,12 +177,17 @@ class StepCounter(TorchDispatchMode):
             self._known.add(key)
             nbytes = st.nbytes()
             self.live_bytes += nbytes
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-            weakref.finalize(st, self._free, key, nbytes)
+            self._live_by_op[op] = self._live_by_op.get(op, 0) + nbytes
+            if self.live_bytes > self.peak_bytes:
+                self.peak_bytes = self.live_bytes
+                self.peak_op = op
+                self.peak_live_by_op = dict(self._live_by_op)
+            weakref.finalize(st, self._free, key, nbytes, op)
 
-    def _free(self, key, nbytes) -> None:
+    def _free(self, key, nbytes, op) -> None:
         self._known.discard(key)
         self.live_bytes -= nbytes
+        self._live_by_op[op] -= nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -196,7 +208,7 @@ class StepCounter(TorchDispatchMode):
                 nbytes = _nbytes(args[0])
                 s.add_collective(kind, nbytes, 1, dtype=dt)
                 s.hbm_bytes += nbytes + _nbytes(out)
-            self._track(out)
+            self._track(out, name)
             return out
         if func.namespace == "aten" and name in _MATMULS:
             s.flops += _matmul_flops(name, args, out)
@@ -207,7 +219,7 @@ class StepCounter(TorchDispatchMode):
             s.hbm_by_opcode[name] = s.hbm_by_opcode.get(name, 0.0) + nbytes
             if active() in KERNEL_SCOPES:
                 s.kernel_fusable_bytes += nbytes
-        self._track(out)
+        self._track(out, name)
         return out
 
 

@@ -1,7 +1,9 @@
 """``chip_smoke.py``'s helpers on the CPU: a profiler session in which
 CUPTI hands back no device event is run again, a bounded number of times,
 and the profile fails if none of them recorded any; phase 8's expected
-launches count remat's recompute; phase 8d's dry-run process and record."""
+launches count remat's recompute; phase 8's Command-R cut has the
+reference's parameter count and a step's launches; phase 8d's dry-run
+process and record."""
 import importlib.util
 import json
 from pathlib import Path
@@ -88,6 +90,36 @@ def test_train_counts_count_the_recompute(smoke, arch):
         if "bwd" in k:
             assert on[k] == off[k]
     assert off["rmsnorm"] == off["rmsnorm_bwd"] > 0
+
+
+def test_command_r_training_cut(smoke):
+    """Phase 8's Command-R run: its cut (the tied table and the first
+    layers, on meta tensors) has the reference's count that ``cmdr_train``
+    holds it to; it is the deepest whose donated 2 x 2048 step, counted
+    on meta tensors, peaks under the card's 80 GB (one layer more does
+    not), at the embedding's backward; and a step launches a flash a layer
+    forward, twice with the recompute, and one backward, all on the tensor
+    cores, and no RMSNorm, SSD or grouped GEMM (LayerNorm, a dense
+    block)."""
+    from repro_torch.launch.dryrun import MetaGenerator
+    from repro_torch.models import transformer
+    cfg = smoke.CMDR_TRAIN
+    params = transformer.init(MetaGenerator(), cfg)
+    n = []
+    smoke.tree_map(lambda t: n.append(t.numel()), params)
+    assert sum(n) == smoke.CMDR_TRAIN_PARAMS
+    assert cfg.attn_impl == "flash" and cfg.norm_style == "layer"
+    L = cfg.n_layers
+    ocfg = smoke.DEEPSEEK_TRAIN_OCFG
+    assert ocfg.state_dtype == "bfloat16"
+    gb, op = smoke.meta_step_peak(cfg, ocfg, 2, 2048)
+    more, _ = smoke.meta_step_peak(cfg.replace(n_layers=L + 1), ocfg, 2,
+                                   2048)
+    assert gb < 77 < 80 < more and op == "index_put"
+    got = smoke._train_pass_counts(cfg, 1)
+    assert {k: v for k, v in got.items() if v} == {
+        "flash_attention": 2 * L, "flash_tc": 2 * L,
+        "flash_attention_bwd": L, "flash_bwd_tc": L}
 
 
 def test_dryrun_process_and_its_record(smoke, monkeypatch, tmp_path,

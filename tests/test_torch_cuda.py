@@ -764,6 +764,11 @@ def _bwd_counts():
         # share a kv head), D = 128; ragged
         (2, 28, 4, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),
         (1, 28, 4, 1001, 1001, 128, BF16, True, 0, 0.0, "tc"),
+        # Command-R's training layer: streaming, GQA 64/8 (a group of 8),
+        # D = 128; one share at 2 x 2048, two at 1 x 2048, four ragged
+        (2, 64, 8, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),
+        (1, 64, 8, 2048, 2048, 128, BF16, True, 0, 0.0, "tc"),
+        (1, 64, 8, 1001, 1001, 128, BF16, True, 0, 0.0, "tc"),
     ])
 def test_flash_backward_matches_plain(cuda, B, Hq, Hkv, Sq, Skv, D, dtype,
                                       causal, window, softcap, variant):
@@ -814,6 +819,8 @@ def _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal, seed=0, window=0):
     (1, 16, 2, 777, 64, True, 100, "stream"),       # windowed, 8 shares
     (4, 8, 8, 144, 32, True, 48, "short"),
     (2, 28, 4, 2048, 128, True, 0, "stream"),       # Qwen2-VL's, group 7
+    (2, 64, 8, 2048, 128, True, 0, "stream"),       # Command-R's, group 8
+    (1, 64, 8, 2048, 128, True, 0, "stream"),       # its two shares
 ])
 def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, window,
                                       form):
@@ -829,6 +836,27 @@ def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, window,
         again = flash_attention_bwd(q, k, v, o, lse, do, **opts)
         for name, a, b in zip("qkv", first, again):
             assert torch.equal(a, b), f"d{name} differs between calls"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,splits", [(2, 2048, 1), (1, 2048, 2),
+                                        (1, 1001, 4)])
+def test_flash_backward_shares_at_command_r(cuda, B, S, splits):
+    """Command-R's 64 q heads over 8 kv heads of 128 on an H100 SXM's 132
+    SMs: ``bwd_splits`` gives one share a kv head at its 2 x 2048 training
+    batch (512 dkdv blocks, each summing 8 q heads), two at a batch of 1
+    and four at a ragged 1 x 1001; the wrapper's own count gives the same
+    bits as that count named."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert sms == 132 and fa_ops.bwd_splits(B, S, 8, 8, sms) == splits
+    assert fa_ops.bwd_tc_form(S, S, 64, 8, 128) == "stream"
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, 64, 8, S, 128, True)
+    opts = dict(causal=True, softcap=0.0, scale=128 ** -0.5)
+    auto = fa_ops._launch_bwd(q, k, v, o, lse, do.contiguous(), "tc", **opts)
+    named = fa_ops._launch_bwd(q, k, v, o, lse, do.contiguous(), "tc",
+                               splits=splits, **opts)
+    for name, a, b in zip("qkv", auto, named):
+        assert torch.equal(a, b), f"d{name}"
 
 
 @pytest.mark.cuda

@@ -408,6 +408,9 @@ def test_flash_bwd_tc_form(name, form):
     (2, 1001, 2, 4, 4),
     (1, 130, 1, 8, 8),
     (4, 2048, 4, 8, 1),      # 512 blocks already
+    (2, 2048, 8, 8, 1),      # Command-R training, 64/8 heads: 512 blocks
+    (1, 2048, 8, 8, 2),      # its batch of 1: 256 blocks a share
+    (1, 1001, 8, 8, 4),      # ragged: 128 blocks a share
 ])
 def test_flash_bwd_splits(B, Skv, Hkv, group, splits):
     """The streaming dkdv kernel shares a kv head's q heads among as many

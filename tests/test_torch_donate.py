@@ -25,7 +25,12 @@ p, m and v into that leaf's own storage, slice by slice, through
   the same parameters and state: the parameters within 1e-4 of each
   leaf's scale, m and v within one bf16 ulp of each element (one rounding
   to bf16 of two fp32 values that agree within rounding may land either
-  side).
+  side);
+* one ``ChainedTrainer`` step of Command-R ``SMOKE`` (the parallel block,
+  LayerNorm scales and biases drawn, the tied table) with bf16 m and v,
+  after two, against JAX's AdamW update of the gradient that step takes,
+  to the same bounds; ln2, which the parallel block never reads, takes a
+  zero gradient on both sides.
 
 ``global_norm`` squares a leaf of more than ``UPDATE_SLICE`` elements a
 slice at a time (no fp32 square of the whole leaf); at whole leaves and in
@@ -39,12 +44,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import command_r_35b as j_cr
 from repro.configs import deepseek_v2_236b as j_ds
 from repro.models import transformer as jt
 from repro.train.optimizer import OptimizerConfig as JOptimizerConfig
 from repro.train.optimizer import adamw_update as j_adamw_update
 from repro.train.optimizer import global_norm as j_global_norm
 from repro_torch import convert
+from repro_torch.configs import command_r_35b as t_cr
 from repro_torch.configs import deepseek_v2_236b as t_ds
 from repro_torch.configs import gemma3_27b as t_gemma
 from repro_torch.configs import tinyllama_1_1b as t_tiny
@@ -221,6 +228,40 @@ def _jax_bf16(tree):
         t.numpy()), tree)
 
 
+def _near_jax(ours, ref_p, ref_s, opt, n_leaves):
+    """The port's parameters within TOL of each JAX leaf's scale, its bf16
+    m and v within one bf16 ulp of each JAX element."""
+    for mine, theirs in ((ours, ref_p), (opt["m"], ref_s["m"]),
+                         (opt["v"], ref_s["v"])):
+        flat = {jax.tree_util.keystr(path): b for path, b in
+                jax.tree_util.tree_flatten_with_path(theirs)[0]}
+        leaves = dict(_paths(mine))
+        assert leaves.keys() == flat.keys() and len(flat) == n_leaves
+        for path, b in flat.items():
+            t = leaves[path]
+            a = t.float().numpy()
+            b = np.asarray(b, np.float32)
+            assert a.shape == b.shape, path
+            if theirs is ref_p:
+                bound = TOL * max(np.abs(b).max(), 1e-30)
+            else:
+                assert t.dtype == torch.bfloat16
+                bound = BF16_ULP * np.abs(b)
+            assert (np.abs(a - b) <= bound).all(), path
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) pairs, each path as ``jax.tree_util.keystr`` writes
+    it."""
+    if isinstance(tree, dict):
+        return [kv for k in tree for kv in _paths(tree[k],
+                                                  f"{prefix}['{k}']")]
+    if isinstance(tree, list):
+        return [kv for i, v in enumerate(tree)
+                for kv in _paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
 def test_bf16_state_update_on_mla_matches_jax():
     """One donated update with bf16 m and v on DeepSeek-V2 ``SMOKE``,
     after two so that m and v are not zero, against JAX's update of the
@@ -246,23 +287,59 @@ def test_bf16_state_update_on_mla_matches_jax():
     j_in = [_jax_bf16(t) for t in (grads, params, opt)]
     ref_p, ref_s, _ = j_adamw_update(*j_in, jocfg)
     adamw_update(grads, params, opt, ocfg, donate=True)
-    for ours, theirs in ((params, ref_p), (opt["m"], ref_s["m"]),
-                         (opt["v"], ref_s["v"])):
-        flat = jax.tree_util.tree_flatten_with_path(theirs)[0]
-        mine = _leaves(ours)
-        assert len(mine) == len(flat) == 32
-        for t, (path, b) in zip(mine, flat):
-            a = t.float().numpy()
-            b = np.asarray(b, np.float32)
-            assert a.shape == b.shape, path
-            if theirs is ref_p:
-                bound = TOL * max(np.abs(b).max(), 1e-30)
-            else:
-                assert t.dtype == torch.bfloat16
-                bound = BF16_ULP * np.abs(b)
-            assert (np.abs(a - b) <= bound).all(), \
-                jax.tree_util.keystr(path)
+    _near_jax(params, ref_p, ref_s, opt, 32)
     assert int(opt["step"]) == int(ref_s["step"]) == 3
+
+
+def _copy_into(dst, src):
+    """Each leaf of ``src`` copied into ``dst``'s leaf at the same path."""
+    if isinstance(dst, dict):
+        assert dst.keys() == src.keys()
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, list):
+        assert len(dst) == len(src)
+        for a, b in zip(dst, src):
+            _copy_into(a, b)
+    else:
+        dst.copy_(src)
+
+
+def test_chained_trainer_bf16_step_on_command_r_matches_jax(tmp_path):
+    """``ChainedTrainer``'s third donated step on Command-R ``SMOKE`` with
+    bf16 m and v, from JAX's weights (LayerNorm scales N(1, 0.3), biases
+    N(0, 0.3)), against JAX's update of the gradient of that step's batch
+    from the same parameters and state; every leaf keeps its storage."""
+    jcfg, tcfg = j_cr.SMOKE, t_cr.SMOKE
+    jp = jt.init(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(0)
+    jp = jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.asarray(
+            (str(path[-1]) == "['scale']") + 0.3 * rng.normal(size=a.shape),
+            a.dtype) if str(path[-1]) in ("['scale']", "['bias']") else a,
+        jp)
+    ocfg = OptimizerConfig(**OPT, state_dtype="bfloat16")
+    jocfg = JOptimizerConfig(**OPT, state_dtype="bfloat16")
+    dc = DataConfig(batch=2, seq_len=16, seed=4)
+    tr = ChainedTrainer(tcfg, ocfg, ChainConfig(ckpt_dir=str(tmp_path),
+                                                ckpt_every=10**9),
+                        data_iterator(tcfg, dc, device="cpu"), seed=0,
+                        device="cpu")
+    _copy_into(tr.params, convert.from_jax(jax.tree.map(np.array, jp),
+                                           device="cpu"))
+    tr.run_subjob(2)
+    params, opt = tree_map(torch.clone, (tr.params, tr.opt_state))
+    ptrs = _ptrs((tr.params, tr.opt_state))
+    batch = next(data_iterator(tcfg, dc, start_step=2, device="cpu"))
+    _, grads = value_and_grad(tt.loss_fn, params, tcfg, batch, has_aux=True)
+    ln2 = grads["segments"][0]["b0"]["ln2"]
+    assert not ln2["scale"].any() and not ln2["bias"].any()
+    ref_p, ref_s, _ = j_adamw_update(
+        *[_jax_bf16(t) for t in (grads, params, opt)], jocfg)
+    tr.run_subjob(1)
+    assert _ptrs((tr.params, tr.opt_state)) == ptrs and tr.step == 3
+    _near_jax(tr.params, ref_p, ref_s, tr.opt_state, 13)
+    assert int(tr.opt_state["step"]) == int(ref_s["step"]) == 3
 
 
 @pytest.mark.parametrize("slice_elems", [t_opt.UPDATE_SLICE, 1000, 7])

@@ -3,7 +3,8 @@ cells: ``SHAPES``, ``cell_supported``, ``runnable_cells`` and
 ``input_specs`` (meta tensors of JAX's shapes and dtypes, the decode
 cache's leaves included) against the JAX package's registry;
 ``dryrun_config`` against the reference's for its variants; a ``SMOKE``
-cell of each kind run on a fake (2, 2) process group, whose
+cell of each kind run on a fake (2, 2) process group and on a fake
+(2, 2, 2) one (folded to ("pod+data", "model")), whose
 record has the reference's keys (``counted`` in place of
 ``xla_cost_analysis``, ``wall_s`` in place of ``lower_s``/``compile_s``)
 and the argument bytes the sharding specs give each device; and no
@@ -107,13 +108,28 @@ def _local_bytes(tree, specs, sizes) -> int:
     return n
 
 
-@pytest.mark.parametrize("arch,kind", [
-    ("tinyllama-1.1b", "train"), ("tinyllama-1.1b", "prefill"),
-    ("tinyllama-1.1b", "decode"), ("deepseek-v2-236b", "train")])
+_CELLS = [("tinyllama-1.1b", "train"), ("tinyllama-1.1b", "prefill"),
+          ("tinyllama-1.1b", "decode"), ("deepseek-v2-236b", "train")]
+
+
+@pytest.mark.parametrize("arch,kind", _CELLS)
 def test_smoke_cell_runs_on_a_fake_group(arch, kind, tmp_path):
     """DeepSeek-V2's: MLA and its MoE layer, its 8 experts sharded 4 a
     rank over "model" (``models.moe._moe_sharded``)."""
-    mesh = {"data": 2, "model": 2}
+    _check_smoke_cell(arch, kind, {"data": 2, "model": 2}, tmp_path,
+                      ["data", "model"])
+
+
+@pytest.mark.parametrize("arch,kind", _CELLS)
+def test_smoke_cell_runs_on_a_fake_2x2x2_group(arch, kind, tmp_path):
+    """The multi-pod mesh's cells: every spec names "pod" and "data"
+    together, so the cell runs on ("pod+data", "model") over 8 ranks,
+    and each device holds what the (2, 2, 2) specs give it."""
+    _check_smoke_cell(arch, kind, {"pod": 2, "data": 2, "model": 2},
+                      tmp_path, ["pod+data", "model"])
+
+
+def _check_smoke_cell(arch, kind, mesh, tmp_path, device_mesh):
     spec = _SPECS[kind]
     rec = dryrun.run_cell(arch, spec, False, tmp_path, mesh_shape=mesh,
                           smoke=True)
@@ -121,6 +137,7 @@ def test_smoke_cell_runs_on_a_fake_group(arch, kind, tmp_path):
     assert set(rec) == _KEYS
     assert rec["status"] == "ok" and rec["n_chips"] == int(np.prod(
         list(mesh.values())))
+    assert rec["meta"]["device_mesh"] == device_mesh
     assert (tmp_path / f"{arch}__{spec.name}__"
             f"{'x'.join(map(str, mesh.values()))}.json").is_file()
     # the argument bytes each device holds, from the specs
@@ -140,8 +157,10 @@ def test_smoke_cell_runs_on_a_fake_group(arch, kind, tmp_path):
         batch = {k: ins[k] for k in ("inputs", "labels", "positions")}
         want += _local_bytes(batch, shd.train_batch_pspecs(cfg, amesh, batch),
                              mesh)
+        shards = int(np.prod([mesh[a] for a in shd.batch_axes(
+            amesh, spec.global_batch)]))
         assert rec["meta"]["num_microbatches"] == min(
-            dryrun.TRAIN_MICROBATCHES[arch], spec.global_batch // 2)
+            dryrun.TRAIN_MICROBATCHES[arch], spec.global_batch // shards)
         mem = rec["memory"]
         assert mem["alias_bytes"] == mem["output_bytes"] - 4   # the loss
     elif kind == "prefill":
@@ -156,6 +175,11 @@ def test_smoke_cell_runs_on_a_fake_group(arch, kind, tmp_path):
                 cfg, ins["cache"], amesh, spec.global_batch),
              shd.P()], mesh)
     assert rec["memory"]["argument_bytes"] == want
+    # the op at the peak, and the live bytes by op then
+    peak = rec["memory"]["peak"]
+    assert isinstance(peak["op"], str) and peak["live_bytes_by_op"]
+    assert sum(peak["live_bytes_by_op"].values()) <= \
+        rec["memory"]["temp_bytes"] + rec["memory"]["output_bytes"]
     r = rec["roofline"]
     assert r["flops_per_device"] > 0 and rec["counted"]["flops"] == \
         r["flops_per_device"]

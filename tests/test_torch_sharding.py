@@ -7,8 +7,10 @@ JAX trees come from ``jax.eval_shape``, the port's from its meta-device
 init; both hold only shapes. Then the reference's own cases
 (``tests/test_sharding.py``, ``tests/test_moe.py``'s ZeRO case) on the
 port, ``to_shardings`` with ``distribute_tensor`` on a fake 4x4 group,
-and ``constrain`` as the identity outside a context and on plain
-tensors."""
+``constrain`` as the identity outside a context and on plain tensors,
+and the folded meshes of the dry run: ``fold_axes`` on the production
+meshes' specs, and placements on ("pod+data", "model") over a fake
+group of 8, its ranks laid out as the (2, 2, 2) mesh's, pod major."""
 import functools
 
 import jax
@@ -249,3 +251,119 @@ def test_constrain_outside_a_context_is_the_identity(fake_4x4):
         assert tuple(c.placements) == (Shard(0), Replicate())
         assert shd.logical_spec((8, 4, 16), ("B", "M", None)) == \
             shd.P("data", "model", None)
+
+
+# ------------------------------------------------ folded meshes
+def _cell_specs(arch, shape, mesh, zero_pod=False):
+    """Every spec a dry-run cell places, and the batch's, on ``mesh``."""
+    cfg = registry.get_config(arch).padded(16)
+    spec = registry.SHAPES[shape]
+    tp, _ = _trees(arch, True)
+    out = shd.spec_leaves(shd.params_pspecs(cfg, tp, mesh))
+    ins = registry.input_specs(cfg, shape)
+    if spec.kind == "train":
+        opt = init_opt_state(tp, OptimizerConfig(state_dtype="bfloat16"))
+        out += shd.spec_leaves(shd.opt_state_pspecs(cfg, opt, mesh,
+                                                    zero_pod=zero_pod))
+        out += shd.spec_leaves(shd.train_batch_pspecs(cfg, mesh, ins))
+    else:
+        out += shd.spec_leaves(shd.cache_pspecs(cfg, ins["cache"], mesh,
+                                                spec.global_batch))
+    bax = shd.batch_axes(mesh, spec.global_batch)
+    return out + [shd.P(bax or None, "model")]
+
+
+@pytest.mark.parametrize("arch,shape,mesh,zero_pod,want", [
+    ("tinyllama-1.1b", "train_4k", "16x16", False, (("data",), ("model",))),
+    ("tinyllama-1.1b", "train_4k", "2x16x16", False,
+     (("pod", "data"), ("model",))),
+    ("tinyllama-1.1b", "decode_32k", "2x16x16", False,
+     (("pod", "data"), ("model",))),
+    ("tinyllama-1.1b", "train_4k", "2x16x16", True,
+     (("pod",), ("data",), ("model",))),
+    ("zamba2-7b", "long_500k", "2x16x16", False, (("data",), ("model",))),
+    ("mamba2-1.3b", "long_500k", "2x16x16", False, (("model",),)),
+    ("mamba2-1.3b", "long_500k", "16x16", False, (("model",),))])
+def test_fold_axes_of_the_dry_run_cells(arch, shape, mesh, zero_pod, want):
+    """On 16x16 both dims stay where a spec names each; on 2x16x16 the
+    batch's ("pod", "data") folds into one dim, ZeRO over "pod" alone
+    keeps the three, and a batch of 1 names no "pod" (its devices
+    replicate the other pod's): Zamba2's attention cache shards its
+    sequence over ("data", "model"), while Mamba2's state names no
+    "data" either."""
+    m = MESHES[mesh][0]
+    specs = _cell_specs(arch, shape, m, zero_pod)
+    groups = shd.fold_axes(m, specs)
+    assert groups == want
+    # every spec maps onto the folded dims
+    dims = shd.make_abstract_mesh(
+        tuple(1 for _ in groups), tuple(shd.FOLD.join(g) for g in groups))
+    for s in specs:
+        shd.placements(dims, s)
+
+
+def test_placements_on_a_folded_mesh():
+    """("pod", "data") is one Shard on "pod+data"; a spec naming "pod" or
+    "data" alone, or an axis the mesh lacks, raises; the folded mesh's
+    ranks are the (2, 2, 2) mesh's, pod major, so each rank holds the
+    same block either way."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.mesh import make_folded_mesh
+    m3 = shd.make_abstract_mesh((2, 2, 2), ("pod", "data", "model"))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        folded = make_folded_mesh(m3, (("pod", "data"), ("model",)),
+                                  device_type="cpu")
+        full = init_device_mesh("cpu", (2, 2, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        assert folded.mesh_dim_names == ("pod+data", "model")
+        assert torch.equal(folded.mesh, full.mesh.reshape(4, 2))
+        spec = shd.P(("pod", "data"), None, "model")
+        assert shd.placements(folded, spec) == (Shard(0), Shard(2))
+        assert shd.placements(full, spec) == (Shard(0), Shard(0), Shard(2))
+        assert shd.placements(folded, shd.P()) == (Replicate(), Replicate())
+        for bad in (shd.P("pod"), shd.P(None, "data"), shd.P("expert"),
+                    shd.P(("data", "pod"))):
+            with pytest.raises(ValueError):
+                shd.placements(folded, bad)
+        with pytest.raises(ValueError):
+            shd.axis_size(folded, "pod")
+        t = torch.randn(8, 3, 4, generator=torch.Generator().manual_seed(0))
+        a = distribute_tensor(t, folded, list(shd.placements(folded, spec)),
+                              src_data_rank=None).to_local()
+        b = distribute_tensor(t, full, list(shd.placements(full, spec)),
+                              src_data_rank=None).to_local()
+        assert torch.equal(a, b) and torch.equal(a, t[:2, :, :2])
+        with pytest.raises(ValueError):
+            make_folded_mesh(m3, (("data",), ("model",)), device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_constrain_constrains_the_cotangent(fake_4x4):
+    """A row-parallel projection's output joins the residual through
+    ``constrain``, and a vocab-sharded head sends back a cotangent
+    pending a sum over "model": the cotangent is redistributed to the
+    residual's placements, so the projection's weight gradient stays
+    sharded over "model" (without it DTensor computes it at full width on
+    each rank, a pending sum)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = fake_4x4
+    gen = torch.Generator().manual_seed(0)
+
+    def place(shape, pl):
+        return distribute_tensor(torch.randn(*shape, generator=gen), mesh,
+                                 pl).requires_grad_(True)
+    x = place((8, 4, 16), [Shard(0), Replicate()])
+    h = place((8, 4, 32), [Shard(0), Shard(2)])
+    wo = place((32, 16), [Replicate(), Shard(0)])
+    table = place((64, 16), [Replicate(), Shard(0)])
+    with shd.activation_context(mesh, 8):
+        r = shd.constrain(x + h @ wo, "B", "S", None)
+        assert tuple(r.placements) == (Shard(0), Replicate())
+        logits = r @ table.T
+        assert tuple(logits.placements) == (Shard(0), Shard(2))
+        g, = torch.autograd.grad(logits.sum(), [wo])
+    assert tuple(g.placements)[1] == Shard(0)
