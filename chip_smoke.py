@@ -471,7 +471,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     _flash_variant, _launch as flash_launch, _launch_bwd as flash_launch_bwd,
-    bwd_splits, bwd_tc_form)
+    bwd_splits, bwd_tc_form, fwd_form)
 from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
                                           grouped_gemm_bwd_ref,
                                           grouped_gemm_ref)
@@ -716,6 +716,7 @@ ZAMBA_TRAIN_PARAMS = ZAMBA_FULL_PARAMS - (70 - ZAMBA_TRAIN_MAMBA) \
 ZAMBA_GRAD_MAMBA = 2    # its gradient check: 2 Mamba blocks, each followed
                         # by the shared block, so 2 applications of it
 TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
+LAUNCHER_SEQ = 128       # its default tokens a row
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 EXAMPLES_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_examples"
 
@@ -814,16 +815,22 @@ def _fast(kernel):
     return "tc", kernel.tc_launches
 
 
-def _run_variant(kernel, variant: str, name: str, fn):
+def _run_variant(kernel, variant: str, name: str, fn, form=None):
     """``fn()``, synchronised, after checking through the kernel's counters
-    that it launched once and ran ``variant``."""
+    that it launched once and ran ``variant`` and, for flash's tensor-core
+    variant, ``form`` (counted in ``wg_launches`` where it is the Hopper
+    streaming form)."""
     n, n_fast = kernel.launches, _fast(kernel)[1]
+    n_wg = getattr(kernel, "wg_launches", 0)
     out = fn()
     torch.cuda.synchronize()
     ran = (kernel.launches - n, _fast(kernel)[1] - n_fast)
     if ran != (1, int(variant != "simt")):
         raise RuntimeError(f"{name}: expected one {variant} launch, counted "
                            f"{ran} (launches, {_fast(kernel)[0]} launches)")
+    if form is not None and kernel.wg_launches - n_wg != int(form == "wg"):
+        raise RuntimeError(f"{name}: expected the {form} form, counted "
+                           f"{kernel.wg_launches - n_wg} Hopper-form launches")
     return out
 
 
@@ -839,70 +846,84 @@ def phase_kernels() -> dict:
     cases = [
         ("flash agent (640,144,8,32) bf16", dict(causal=False),
          (B, HISTORY, HISTORY, 8, 8, 32, torch.bfloat16), "tc", BF16_TOL,
-         BF16_TOL),
+         BF16_TOL, "short"),
         ("flash causal GQA window softcap (2,97|131,8/2,64) bf16",
          dict(causal=True, window=40, softcap=30.0),
-         (2, 97, 131, 8, 2, 64, torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
+         (2, 97, 131, 8, 2, 64, torch.bfloat16), "tc", BF16_TOL, BF16_TOL,
+         "wg"),
         ("flash causal GQA window softcap (2,97|131,8/2,64) fp32",
          dict(causal=True, window=40, softcap=30.0),
-         (2, 97, 131, 8, 2, 64, torch.float32), "simt", FP32_FLASH_TOL, 0.0),
+         (2, 97, 131, 8, 2, 64, torch.float32), "simt", FP32_FLASH_TOL, 0.0,
+         None),
         ("flash (3,50,4,16) bf16", dict(causal=False),
-         (3, 50, 50, 4, 4, 16, torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
+         (3, 50, 50, 4, 4, 16, torch.bfloat16), "tc", BF16_TOL, BF16_TOL,
+         "short"),
+        ("flash causal GQA (2,300,8/2,32) bf16, the mma.sync streaming form",
+         dict(causal=True), (2, 300, 300, 8, 2, 32, torch.bfloat16), "tc",
+         BF16_TOL, BF16_TOL, "stream"),
         ("flash causal (1,200,4,128) bf16", dict(causal=True),
-         (1, 200, 200, 4, 4, 128, torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
+         (1, 200, 200, 4, 4, 128, torch.bfloat16), "tc", BF16_TOL, BF16_TOL,
+         "wg"),
         ("flash fused qkv views (2,77,3,4,64) bf16", dict(causal=True),
-         "fused", "tc", BF16_TOL, BF16_TOL),
+         "fused", "tc", BF16_TOL, BF16_TOL, "short"),
         ("flash TinyLlama prefill, causal GQA (4,2048,32/4,64) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, DENSE.nq,
                              DENSE.nkv, DENSE.hd, torch.bfloat16), "tc",
-         BF16_TOL, BF16_TOL),
+         BF16_TOL, BF16_TOL, "wg"),
         ("flash Qwen2-MoE prefill, causal (4,2048,16/16,128) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, QWEN.nq,
                              QWEN.nkv, QWEN.hd, torch.bfloat16), "tc",
-         BF16_TOL, BF16_TOL),
+         BF16_TOL, BF16_TOL, "wg"),
         ("flash Qwen1.5-4B prefill, causal (4,2048,20/20,128) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, QWEN4B.nq,
                              QWEN4B.nkv, QWEN4B.hd, torch.bfloat16), "tc",
-         BF16_TOL, BF16_TOL),
+         BF16_TOL, BF16_TOL, "wg"),
         ("flash Gemma-3 local prefill, causal GQA window 1024 "
          "(4,2048,32/16,128) bf16",
          dict(causal=True, window=GEMMA.sliding_window),
          (LM_BATCH, LM_PROMPT, LM_PROMPT, GEMMA.nq, GEMMA.nkv, GEMMA.hd,
-          torch.bfloat16), "tc", BF16_TOL, BF16_TOL),
+          torch.bfloat16), "tc", BF16_TOL, BF16_TOL, "wg"),
         ("flash Gemma-3 global prefill, causal GQA (4,2048,32/16,128) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, GEMMA.nq,
                              GEMMA.nkv, GEMMA.hd, torch.bfloat16), "tc",
-         BF16_TOL, BF16_TOL),
+         BF16_TOL, BF16_TOL, "wg"),
         ("flash Gemma-3 ragged, causal GQA window 1024 (2,1100,32/16,128) "
          "bf16", dict(causal=True, window=GEMMA.sliding_window),
          (2, 1100, 1100, GEMMA.nq, GEMMA.nkv, GEMMA.hd, torch.bfloat16),
-         "tc", BF16_TOL, BF16_TOL),
+         "tc", BF16_TOL, BF16_TOL, "wg"),
         ("flash Command-R prefill, causal GQA (4,2048,64/8,128) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, CMDR.nq,
                              CMDR.nkv, CMDR.hd, torch.bfloat16), "tc",
-         BF16_TOL, BF16_TOL),
+         BF16_TOL, BF16_TOL, "wg"),
         ("flash Qwen2-VL prefill, causal GQA (4,2048,28/4,128) bf16",
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, VL.nq,
                              VL.nkv, VL.hd, torch.bfloat16), "tc",
-         BF16_TOL, BF16_TOL),
+         BF16_TOL, BF16_TOL, "wg"),
         # rows whose block's first kv tiles are all outside the window, at
         # a scale whose rounding once made their exponents inf
         ("flash causal GQA window 1024 (1,2048,8/4,64) bf16",
          dict(causal=True, window=GEMMA.sliding_window),
          (1, 2048, 2048, 8, 4, 64, torch.bfloat16), "tc", BF16_TOL,
-         BF16_TOL),
+         BF16_TOL, "wg"),
     ]
-    for name, opts, shape, variant, atol, rtol in cases:
+    for name, opts, shape, variant, atol, rtol, form in cases:
         if shape == "fused":
             q, k, v = _randn(gen, (2, 77, 3, 4, 64), torch.bfloat16).unbind(2)
         else:
             q, k, v = flash_inputs(gen, *shape)
+        if variant == "tc" and fwd_form(q.shape[1], k.shape[1],
+                                        q.shape[3]) != form:
+            raise RuntimeError(f"{name}: fwd_form says "
+                               f"{fwd_form(q.shape[1], k.shape[1], q.shape[3])}")
         out = _run_variant(flash_attention, variant, name,
-                           lambda: flash_attention(q, k, v, **opts))
+                           lambda: flash_attention(q, k, v, **opts), form)
         err = _err(out, flash_attention_ref(q, k, v, **opts), atol, rtol, name)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0), err)
-        line("check", case=name, variant=variant, max_abs_err=err, atol=atol,
-             rtol=rtol)
+        if form == "wg":
+            errs["flash_attention_wg"] = max(
+                errs.get("flash_attention_wg", 0.0), err)
+        line("check", case=name, variant=variant, form=form, max_abs_err=err,
+             atol=atol, rtol=rtol)
     # the GEMM: every projection shape of the trunk (q, k, v, o; ffn in;
     # ffn out) and a ragged one on the tensor cores, expert_mlp's strided
     # gate view, and on the CUDA cores fp32 and an f (53) under TMA's
@@ -1062,16 +1083,19 @@ def phase_kernels() -> dict:
 
 def _bwd_counts():
     return (flash_attention_bwd.launches, grouped_gemm.bwd_launches,
-            grouped_gemm.bwd_tc_launches, flash_attention_bwd.tc_launches)
+            grouped_gemm.bwd_tc_launches, flash_attention_bwd.tc_launches,
+            flash_attention_bwd.wg_launches)
 
 
-# the streaming flash backward's shares of a kv head's q heads
-# (``bwd_splits``) at Command-R's heads on an H100's 132 SMs: 512 dkdv
-# blocks at 2 x 2048 take one, 256 at 1 x 2048 two (fp32 partials summed
-# by a last pass)
+# the Hopper streaming flash backward's shares of a kv head's q heads
+# (``bwd_splits``) on an H100's 132 SMs, 128 kv rows a dkdv block:
+# Command-R's 256 blocks at 2 x 2048 take one, its 128 at 1 x 2048 two,
+# Qwen2-VL's 128 two of its group of 7 (3 and 4 q heads; fp32 partials
+# summed by a last pass)
 FLASH_BWD_SHARES = {
     "flash bwd Command-R training (2,2048,64/8,128) bf16, a group of 8": 1,
-    "flash bwd Command-R heads at a batch of 1 (1,2048,64/8,128) bf16": 2}
+    "flash bwd Command-R heads at a batch of 1 (1,2048,64/8,128) bf16": 2,
+    "flash bwd Qwen2-VL training (2,2048,28/4,128) bf16, a group of 7": 2}
 
 
 def check_backward(gen, errs: dict) -> None:
@@ -1081,12 +1105,14 @@ def check_backward(gen, errs: dict) -> None:
     backward launch of the variant named are held against
     ``flash_attention_bwd_ref`` on the forward's out; the tensor-core
     variant in its short form at every head dim it takes (the trunk's MHA
-    heads), causal, softcap and ragged, and in its streaming form for GQA,
-    D = 128, long sequences and the LM training layers (TinyLlama's
+    heads), causal, softcap and ragged, and in its Hopper streaming form
+    (wgmma fed by TMA, D = 64 and 128; the counters show the form) for
+    GQA, D = 128, long sequences and the LM training layers (TinyLlama's
     (2,2048,32/4,64), Qwen2-MoE's heads at (2,1024,16/16,128), Gemma-3's
     local and global ones at (2,2048,32/16,128), Command-R's
     (2,2048,64/8,128) at one share of a kv head's 8 q heads and, at a
-    batch of 1, two, each share count held to FLASH_BWD_SHARES); with a
+    batch of 1, two, Qwen2-VL's group of 7 at two, each share count held
+    to FLASH_BWD_SHARES), its mma.sync streaming form at D = 32; with a
     window in every
     form: 1024 at S 2048, 1000 (no multiple of 64) at a ragged S of 2050,
     48 (under one tile), GQA 32/16 and 8/4, D 64 and 128, the short form at
@@ -1120,6 +1146,8 @@ def check_backward(gen, errs: dict) -> None:
          (2, 97, 131, 4, 4, 64, bf16), "tc"),
         ("flash bwd fused qkv views (2,77,3,4,64) bf16", causal, "fused",
          "tc"),
+        ("flash bwd causal GQA (1,300,8/2,32) bf16, the mma.sync streaming "
+         "form", causal, (1, 300, 300, 8, 2, 32, bf16), "tc"),
         ("flash bwd causal GQA ragged (2,1001,8/2,64) bf16", causal,
          (2, 1001, 1001, 8, 2, 64, bf16), "tc"),
         ("flash bwd causal softcap GQA (1,200,4/2,128) bf16", both,
@@ -1177,10 +1205,16 @@ def check_backward(gen, errs: dict) -> None:
         grads = torch.autograd.grad(out, leaves, do)
         torch.cuda.synchronize()
         after = _bwd_counts()
-        if (after[0] - before[0], after[3] - before[3]) != \
-                (1, int(variant == "tc")):
+        form = (bwd_tc_form(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                            q.shape[3]) if variant == "tc" else None)
+        if (after[0] - before[0], after[3] - before[3],
+                after[4] - before[4]) != (1, int(variant == "tc"),
+                                          int(form == "wg")):
             raise RuntimeError(f"{name}: expected one {variant} backward "
-                               f"launch, counted {before} -> {after}")
+                               f"launch ({form}), counted {before} -> {after}")
+        if form not in (None, "short") and \
+                (form == "wg") != (q.shape[3] in (64, 128)):
+            raise RuntimeError(f"{name}: the {form} form at D {q.shape[3]}")
         q, k, v, out = (t.detach() for t in (q, k, v, out))
         if shape == "fused":
             grads = grads[0].unbind(2)
@@ -1206,12 +1240,15 @@ def check_backward(gen, errs: dict) -> None:
         del again
         if variant == "tc":
             Hq, Hkv = q.shape[2], k.shape[2]
-            extra["form"] = bwd_tc_form(q.shape[1], k.shape[1], Hq, Hkv,
-                                        q.shape[3])
-            if extra["form"] == "stream":
+            extra["form"] = form
+            if form == "wg":
+                errs["flash_attention_bwd_wg"] = max(
+                    errs.get("flash_attention_bwd_wg", 0.0), err)
+            if form != "short":
                 extra["splits"] = bwd_splits(
                     q.shape[0], k.shape[1], Hkv, Hq // Hkv,
-                    torch.cuda.get_device_properties(0).multi_processor_count)
+                    torch.cuda.get_device_properties(0).multi_processor_count,
+                    form)
                 want = FLASH_BWD_SHARES.get(name)
                 if want is not None and extra["splits"] != want:
                     raise RuntimeError(f"{name}: {extra['splits']} shares, "
@@ -1862,6 +1899,7 @@ def _leaves(tree):
 def _counts():
     return {"flash_attention": flash_attention.launches,
             "flash_tc": flash_attention.tc_launches,
+            "flash_wg": flash_attention.wg_launches,
             "rmsnorm": rmsnorm.launches, "rmsnorm_vec": rmsnorm.vec_launches,
             "ssd": ssd.launches, "ssd_tc": ssd.tc_launches,
             "grouped_gemm": grouped_gemm.launches,
@@ -1870,17 +1908,22 @@ def _counts():
 
 def _set_counts() -> None:
     flash_attention.launches = flash_attention.tc_launches = 0
+    flash_attention.wg_launches = 0
     rmsnorm.launches = rmsnorm.vec_launches = 0
     ssd.launches = ssd.tc_launches = 0
     grouped_gemm.launches = grouped_gemm.tc_launches = 0
 
 
 def _pass_counts(norms: int, scans: int, flash: int = 0,
-                 gemms: int = 0) -> dict:
+                 gemms: int = 0, flash_wg: int = None) -> dict:
     """The counts of a pass of ``norms`` RMSNorm, ``scans`` SSD, ``flash``
     flash and ``gemms`` grouped GEMM launches, every norm vectorised and
-    every scan, flash and GEMM on the tensor cores."""
-    return {"flash_attention": flash, "flash_tc": flash, "rmsnorm": norms,
+    every scan, flash and GEMM on the tensor cores, ``flash_wg`` of the
+    flash launches (by default all: the LM layers' heads of 64 and 128 at
+    their prompts) in the Hopper streaming form."""
+    return {"flash_attention": flash, "flash_tc": flash,
+            "flash_wg": flash if flash_wg is None else flash_wg,
+            "rmsnorm": norms,
             "rmsnorm_vec": norms, "ssd": scans, "ssd_tc": scans,
             "grouped_gemm": gemms, "gemm_tc": gemms}
 
@@ -3573,6 +3616,7 @@ def _set_lm_train_counts() -> None:
     rmsnorm.bwd_launches = rmsnorm.bwd_vec_launches = 0
     ssd.bwd_launches = ssd.bwd_tc_launches = 0
     flash_attention_bwd.launches = flash_attention_bwd.tc_launches = 0
+    flash_attention_bwd.wg_launches = 0
     grouped_gemm.bwd_launches = grouped_gemm.bwd_tc_launches = 0
     grouped_gemm.bwd_fused_calls = 0
 
@@ -3583,12 +3627,13 @@ def _lm_train_counts() -> dict:
                 ssd_bwd=ssd.bwd_launches, ssd_bwd_tc=ssd.bwd_tc_launches,
                 flash_attention_bwd=flash_attention_bwd.launches,
                 flash_bwd_tc=flash_attention_bwd.tc_launches,
+                flash_bwd_wg=flash_attention_bwd.wg_launches,
                 grouped_gemm_bwd=grouped_gemm.bwd_fused_calls,
                 grouped_gemm_bwd_products=grouped_gemm.bwd_launches,
                 gemm_bwd_tc=grouped_gemm.bwd_tc_launches)
 
 
-def _train_pass_counts(cfg, passes: int) -> dict:
+def _train_pass_counts(cfg, passes: int, seq: int = LM_PROMPT) -> dict:
     """The launches of ``passes`` differentiated micro-batch passes of
     ``cfg``, each forward and backward: per layer two RMSNorm (Gemma-3 six:
     its post-norms and QK-norm too; DeepSeek-V2 four: MLA's q_norm and
@@ -3601,7 +3646,11 @@ def _train_pass_counts(cfg, passes: int) -> dict:
     reference math too); every norm vectorised and every scan, flash and
     GEMM on the tensor cores, both ways. Under ``cfg.remat`` every layer's
     forward runs again in the backward (the recompute), so its forward
-    launches count twice; the final norm's, outside the layers, once."""
+    launches count twice; the final norm's, outside the layers, once.
+    Flash at sequences of ``seq`` takes the Hopper streaming form where
+    ``fwd_form`` and ``bwd_tc_form`` say so (the LM heads of 64 and 128
+    past the short forms: every run but TinyLlama's forward at 128
+    tokens, which fits the short form)."""
     layers = cfg.n_layers
     runs = _passes(cfg)
     per_layer = 2 + 2 * cfg.sandwich_norm + 2 * cfg.qk_norm + 2 * cfg.use_mla
@@ -3614,10 +3663,15 @@ def _train_pass_counts(cfg, passes: int) -> dict:
     moe_layers = layers - cfg.first_k_dense if cfg.family == "moe" else 0
     gemms = 2 * passes * moe_layers
     fwd_norms = passes * (runs * per_layer * layers + 1) if rms else 0
+    wg = bool(flash) and fwd_form(seq, seq, cfg.hd) == "wg"
+    bwd_wg = bool(flash) and bwd_tc_form(seq, seq, cfg.nq, cfg.nkv,
+                                         cfg.hd) == "wg"
     return dict(_pass_counts(fwd_norms, runs * scans, runs * flash,
-                             runs * gemms), rmsnorm_bwd=norms,
+                             runs * gemms, runs * flash * wg),
+                rmsnorm_bwd=norms,
                 rmsnorm_bwd_vec=norms, ssd_bwd=scans, ssd_bwd_tc=scans,
                 flash_attention_bwd=flash, flash_bwd_tc=flash,
+                flash_bwd_wg=flash * bwd_wg,
                 grouped_gemm_bwd=gemms, grouped_gemm_bwd_products=2 * gemms,
                 gemm_bwd_tc=2 * gemms)
 
@@ -3627,12 +3681,13 @@ def _passes(cfg) -> int:
     return 2 if cfg.remat else 1
 
 
-def _check_lm_train_counts(what: str, passes: int, cfg=LM) -> dict:
+def _check_lm_train_counts(what: str, passes: int, cfg=LM,
+                           seq: int = LM_PROMPT) -> dict:
     """The launches since the counts were zeroed must be those of
-    ``passes`` differentiated micro-batch passes of ``cfg``
-    (``_train_pass_counts``)."""
+    ``passes`` differentiated micro-batch passes of ``cfg`` at ``seq``
+    tokens a row (``_train_pass_counts``)."""
     got = _lm_train_counts()
-    want = _train_pass_counts(cfg, passes)
+    want = _train_pass_counts(cfg, passes, seq)
     if not passes or got != want:
         raise RuntimeError(f"{what}: launched {got}, expected {want}")
     return got
@@ -3673,7 +3728,7 @@ def lm_train_run(state, what, batch, seq, steps, microbatches=1, cfg=LM):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
-    counts = _check_lm_train_counts(what, steps * microbatches, cfg)
+    counts = _check_lm_train_counts(what, steps * microbatches, cfg, seq)
     line("lm_train", arch=cfg.arch_id, layers=cfg.n_layers, run=what,
          batch=batch, seq=seq, steps=steps,
          microbatches=microbatches, ms_per_step=_ms(ms),
@@ -3742,7 +3797,7 @@ def check_lm_train_grads(params, full=LM, seq=LM_GRAD_SEQ,
         batch.update(vision)
     with _RouteLog() as card:
         lval, grads, got = _lm_grads(cfg, sub, batch)
-    if got != _train_pass_counts(cfg, 1):
+    if got != _train_pass_counts(cfg, 1, seq):
         raise RuntimeError(f"{run}: the gradient launched {got}")
     t0 = time.perf_counter()
     # the CPU's plain path without remat: the same bits (tests/
@@ -3968,7 +4023,8 @@ def check_train_launcher_default() -> dict:
     got = _lm_train_counts()
     if out["arch"] != DENSE.arch_id or \
             out["steps_done"] != TRAIN_DEFAULT_STEPS or \
-            got != _train_pass_counts(DENSE, TRAIN_DEFAULT_STEPS):
+            got != _train_pass_counts(DENSE, TRAIN_DEFAULT_STEPS,
+                                      LAUNCHER_SEQ):
         raise RuntimeError(f"launch.train at its defaults: {out['arch']}, "
                            f"{out['steps_done']} steps, launched {got}")
     line("lm_train", run="launcher defaults, no --arch", arch=out["arch"],
@@ -4093,7 +4149,7 @@ def check_donation() -> dict:
     _set_lm_train_counts()
     dp, do, dm = make_train_step(cfg, TRAIN_OCFG, donate=True)(*mine, b)
     torch.cuda.synchronize()
-    counts = _check_lm_train_counts("donated step", 1, cfg)
+    counts = _check_lm_train_counts("donated step", 1, cfg, seq)
     if dp is not mine[0] or do is not mine[1] or \
             [t.data_ptr() for t in _leaves([dp, do])] != ptrs:
         raise RuntimeError("the donated step did not keep its leaves")
@@ -4165,7 +4221,8 @@ def chained_run(tr, what: str, batch: int, seq: int, steps: int,
         losses += tr.run_subjob(1)["losses"]
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        counts.update(_check_lm_train_counts(f"{what}, step {i}", 1, cfg))
+        counts.update(_check_lm_train_counts(f"{what}, step {i}", 1, cfg,
+                                             seq))
     counts = dict(counts)
     if [t.data_ptr() for t in _leaves([tr.params, tr.opt_state])] != ptrs:
         raise RuntimeError(f"{what}: a donated leaf moved")
@@ -4691,9 +4748,9 @@ def check_remat() -> dict:
         lval, grads, got = _lm_grads(c, params, batch)
         ms[name].append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated() - base
-        if got != _train_pass_counts(c, 1):
+        if got != _train_pass_counts(c, 1, seq):
             raise RuntimeError(f"remat {name}: launched {got}, expected "
-                               f"{_train_pass_counts(c, 1)}")
+                               f"{_train_pass_counts(c, 1, seq)}")
         runs[name] = (lval, grads, got, peak)
         del grads
     (l0, g0, c0, p0), (l1, g1, c1, p1) = runs["off"], runs["on"]
@@ -4791,7 +4848,8 @@ def check_distributed() -> dict:
     wall = time.perf_counter() - t0
     got = _lm_train_counts()
     n = sum(DIST_STEPS) * 2
-    if got != _train_pass_counts(cut, n) or dist.is_initialized():
+    if got != _train_pass_counts(cut, n, LAUNCHER_SEQ) or \
+            dist.is_initialized():
         raise RuntimeError(f"--distributed: launched {got} in {n} steps, "
                            f"group left: {dist.is_initialized()}")
     same = (plain1["losses"] == dist1["losses"]
@@ -4995,9 +5053,16 @@ def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 local",
                                   GEMMA.sliding_window))
     line("time", **time_flash_gqa(gen, GEMMA, "Gemma-3 global"))
-    line("time", **time_flash_gqa(gen, CMDR, "Command-R"),
-         launches_a_prefill=CMDR.n_layers,
+    cmdr = time_flash_gqa(gen, CMDR, "Command-R")
+    line("time", **cmdr, launches_a_prefill=CMDR.n_layers,
          launches=paths["cmdr"]["flash_attention"])
+    # the Hopper streaming form (flash_fwd_wg_kernel) as a kernel of its
+    # own, every LM path's launches of it, timed at Command-R's layer
+    wg_rec = _wg_record("flash_attention, Hopper streaming form",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:33",
+                        launches["flash_wg"], errs["flash_attention_wg"],
+                        cmdr)
     line("time", **time_flash_gqa(gen, VL, "Qwen2-VL"),
          launches_a_prefill=VL.n_layers,
          launches=paths["vl"]["flash_attention"])
@@ -5140,19 +5205,32 @@ def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
         shape="x (4,2048,64,64) bf16, B/C (4,2048,1,128) bf16, "
         "chunk 256: one Mamba2 layer's prefill scan", **t)
     line("time", **ssd_rec, **extra)
-    return [flash_rec, gemm_rec, norm_rec, ssd_rec] + time_backward(
+    return [flash_rec, wg_rec, gemm_rec, norm_rec, ssd_rec] + time_backward(
         gen, errs, launches) + time_lm_backward(gen, errs, launches, paths)
+
+
+def _wg_record(name, source, replaces, n, err, t) -> dict:
+    """The kernels-line record of a Hopper streaming form, from a phase 5
+    ``[time]`` row ``t``; raises unless the LM paths launched it."""
+    if not n:
+        raise RuntimeError(f"{name}: no LM path launched it")
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=n, max_abs_err=err,
+                **{k: t[k] for k in ("ms", "old_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "shape")})
 
 
 def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
     """Flash at one prefill layer of ``cfg``, (4,2048) causal, bf16 (for
     TinyLlama 32 q heads over 4 kv heads of 64, phase 4c's path; for
     Qwen2-MoE 16 over 16 of 128, phase 4d's; for Gemma-3 32 over 16 of 128,
-    phase 4e's, its local layers with ``window``): the streaming form beside
-    the CUDA-core variant, the plain version and SDPA with ``enable_gqa``
-    (with a window, one SDPA call with the band as its boolean
-    ``attn_mask``). The bound counts k and v at their own heads and the
-    products of the (q, k) pairs the masks leave visible."""
+    phase 4e's, its local layers with ``window``): the form the wrapper
+    runs (``form``: the Hopper streaming form) beside the mma.sync
+    streaming form it replaced (``old_ms``), the CUDA-core variant, the
+    plain version and SDPA with ``enable_gqa`` (with a window, one SDPA
+    call with the band as its boolean ``attn_mask``). The bound counts k
+    and v at their own heads and the products of the (q, k) pairs the
+    masks leave visible."""
     B, S, Hq, Hkv, D = LM_BATCH, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -5160,6 +5238,9 @@ def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
     def gqa():
         return flash_attention(q, k, v, causal=True, window=window)
     ms, variant = timed_variant(flash_attention, gqa)
+    old_ms = time_ms(lambda: flash_launch(
+        q, k, v, "tc", causal=True, window=window, softcap=0.0,
+        scale=D ** -0.5, form="stream"))
     # visible keys of query p: p + 1, at most the window
     seen = torch.arange(1, S + 1)
     if window:
@@ -5186,7 +5267,8 @@ def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
         name=f"flash_attention {what} prefill layer",
         shape=f"q ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, causal"
               + (f", window {window}" if window else ""),
-        variant=variant, ms=ms,
+        variant=variant, form=fwd_form(S, S, D), ms=ms, old_ms=old_ms,
+        old_form="stream",
         plain_ms=time_ms(lambda: flash_attention_ref(
             q, k, v, causal=True, window=window), reps=3),
         library_ms=lib_ms, library=lib, library_factor=ms / lib_ms,
@@ -5282,19 +5364,22 @@ def time_moe_gemms(gen, cfg=QWEN, model="Qwen2-MoE") -> list:
     return recs
 
 
-def time_flash_bwd_lm(gen, cfg, what: str, splits=(), window=0) -> dict:
+def time_flash_bwd_lm(gen, cfg, what: str, window=0) -> dict:
     """The flash backward at one training layer of ``cfg``, (2,2048)
     causal, bf16 (TinyLlama: 32 q heads over 4 kv heads of 64; Qwen2-MoE:
     16 over 16 of 128; Gemma-3: 32 over 16 of 128, its local layers with
     ``window``), from the forward's out and lse: the variant
-    ``_flash_bwd_variant`` picks (the tensor cores' streaming form) beside
-    the "simt" kernels at the same shape, its plain version and SDPA's
-    backward (``enable_gqa`` where the heads are grouped; with a window,
-    the band as its boolean ``attn_mask``); with ``splits``, the streaming
-    form again at each of those split counts of a kv head's q heads
-    (``splits_ms``). The bound: q, o, dO, dq at the q heads and k, v, dk,
-    dv at the kv heads read or written once; five products (q.k^T again,
-    dP, dV, dQ, dK) over the (q, k) pairs the masks leave visible."""
+    ``_flash_bwd_variant`` picks (the tensor cores' Hopper streaming form,
+    ``form``, at ``splits`` shares of a kv head's q heads) beside the
+    mma.sync streaming form it replaced at its own split rule (``old_ms``,
+    ``old_splits``), the "simt" kernels at the same shape, its plain
+    version and SDPA's backward (``enable_gqa`` where the heads are
+    grouped; with a window, the band as its boolean ``attn_mask``); where
+    a kv head has several q heads, the Hopper form again at every share
+    count up to the group (``splits_ms``). The bound: q, o, dO, dq at the
+    q heads and k, v, dk, dv at the kv heads read or written once; five
+    products (q.k^T again, dP, dV, dQ, dK) over the (q, k) pairs the masks
+    leave visible."""
     B, S, Hq, Hkv, D = 2, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     do = _randn(gen, q.shape, torch.bfloat16)
@@ -5308,12 +5393,17 @@ def time_flash_bwd_lm(gen, cfg, what: str, splits=(), window=0) -> dict:
     ms, variant = timed_variant(flash_attention_bwd, bwd, reps=10)
     run = dict(causal=True, window=window, softcap=0.0, scale=D ** -0.5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    extra = {"form": bwd_tc_form(S, S, Hq, Hkv, D),
-             "splits": bwd_splits(B, S, Hkv, Hq // Hkv, sms)}
-    if splits:
+    form = bwd_tc_form(S, S, Hq, Hkv, D)
+    extra = {"form": form,
+             "splits": bwd_splits(B, S, Hkv, Hq // Hkv, sms, form),
+             "old_ms": time_ms(lambda: flash_launch_bwd(
+                 q, k, v, o, lse, do, "tc", form="stream", **run), reps=10),
+             "old_form": "stream",
+             "old_splits": bwd_splits(B, S, Hkv, Hq // Hkv, sms, "stream")}
+    if Hq > Hkv:
         extra["splits_ms"] = {n: time_ms(lambda n=n: flash_launch_bwd(
             q, k, v, o, lse, do, "tc", splits=n, **run), reps=10)
-            for n in splits}
+            for n in range(1, Hq // Hkv + 1)}
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     if window:
@@ -5596,14 +5686,12 @@ def time_backward(gen, errs: dict, launches: dict) -> list:
         shape="dX and dW of one trunk layer's 6 projections, E=10, C=9216, "
               "bf16, one fused launch a projection", **tot)
     line("time", **gemm_rec, **extra)
-    line("time", **time_flash_bwd_lm(gen, DENSE, "TinyLlama",
-                                     splits=(1, 2, 4, 8)))
+    line("time", **time_flash_bwd_lm(gen, DENSE, "TinyLlama"))
     line("time", **time_flash_bwd_lm(gen, QWEN, "Qwen2-MoE"))
     line("time", **time_flash_bwd_lm(gen, QWEN4B, "Qwen1.5-4B"))
     line("time", **time_flash_bwd_lm(gen, VL, "Qwen2-VL"),
          launches_a_step=VL_TRAIN.n_layers)
     line("time", **time_flash_bwd_lm(gen, GEMMA, "Gemma-3 local",
-                                     splits=(1, 2),
                                      window=GEMMA.sliding_window))
     line("time", **time_flash_bwd_lm(gen, GEMMA, "Gemma-3 global"))
     for model, cfg, batch in MOE_TRAIN_GEMMS:
@@ -5870,11 +5958,15 @@ def time_lm_backward(gen, errs: dict, launches: dict, paths: dict) -> list:
         shape=f"x, dy ({Bz},{S},{H},64) bf16, B/C ({Bz},{S},1,{N}) bf16, "
               "chunk 256: one Zamba2-7B training layer's scan backward", **t)
     line("time", **zamba_ssd_rec, **extra)
-    line("time", **time_flash_bwd_lm(gen, CMDR_TRAIN, "Command-R",
-                                     splits=(1, 2)),
-         launches_a_step=CMDR_TRAIN.n_layers,
+    cmdr = time_flash_bwd_lm(gen, CMDR_TRAIN, "Command-R")
+    line("time", **cmdr, launches_a_step=CMDR_TRAIN.n_layers,
          launches=paths["cmdr_train"]["flash_attention_bwd"])
-    return [norm_rec, ssd_rec, zamba_norm_rec, zamba_ssd_rec]
+    wg_rec = _wg_record("flash_attention_bwd, Hopper streaming form",
+                        "src/repro_torch/csrc/flash_attention_bwd.cu",
+                        "src/repro/models/attention.py:168",
+                        launches["flash_bwd_wg"],
+                        errs["flash_attention_bwd_wg"], cmdr)
+    return [norm_rec, ssd_rec, zamba_norm_rec, zamba_ssd_rec, wg_rec]
 
 
 def time_ssd_bwd(gen, cfg, host=False) -> tuple:

@@ -5,12 +5,17 @@ side, to tell a change of the code the card runs from a change of nothing.
         --change . --source flash_attention_bwd \\
         --pair flash_bwd_tc_kernelILi32EE flash_bwd_tc_kernelILi32ELb0EE \\
         [--pair ...] [--out chiprun_out/sass]
+    python -m repro_torch.analysis.sass_diff --parent build/parent \\
+        --change . --source moe_gemm --all
 
 Needs the CUDA toolkit (``nvcc``, ``cuobjdump``), not a card. Each tree's
 ``src/repro_torch/csrc/<source>.cu`` is compiled to a cubin with the flags
 ``kernels/_build.py`` builds the libraries with. A ``--pair`` names a
 kernel in each tree by a piece of its mangled name (a template gaining an
-argument changes the name). For each pair the script prints one
+argument changes the name); ``--all`` pairs every kernel of the parent's
+source with the change's kernel of the same name (the anonymous
+namespace's per-file tag aside) and lists the change's new kernels in a
+``[sass-new]`` line. For each pair the script prints one
 ``[sass]`` JSON line: each side's registers, stack and spill bytes from
 ``-Xptxas=-v``, its instruction count, and how many instructions differ
 once addresses, encodings, branch targets and the offsets of the kernel's
@@ -85,6 +90,21 @@ def usage(ptxas_log: str) -> dict:
     return out
 
 
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+
+
+def same_name_pairs(parent, change) -> tuple:
+    """[(parent name, change name)] of the kernels both trees have, by
+    their names with the anonymous namespace's tag blanked, and the
+    change's kernels the parent lacks."""
+    def key(n):
+        return _ANON.sub("anon", n)
+    by_key = {key(n): n for n in change}
+    pairs = [(n, by_key[key(n)]) for n in parent if key(n) in by_key]
+    old = {key(n) for n in parent}
+    return pairs, sorted(n for n in change if key(n) not in old)
+
+
 def find(names, piece: str) -> str:
     hits = [n for n in names if piece in n]
     if len(hits) != 1:
@@ -113,26 +133,38 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--change", required=True, type=Path)
     ap.add_argument("--source", required=True)
-    ap.add_argument("--pair", nargs=2, action="append", required=True,
+    ap.add_argument("--pair", nargs=2, action="append", default=[],
                     metavar=("PARENT_PIECE", "CHANGE_PIECE"))
+    ap.add_argument("--all", action="store_true",
+                    help="pair every kernel of the parent by its name")
     ap.add_argument("--out", default=Path("chiprun_out/sass"), type=Path)
     args = ap.parse_args(argv)
+    if not args.pair and not args.all:
+        ap.error("name a --pair or --all")
     args.out.mkdir(parents=True, exist_ok=True)
     sides = {"parent": compile_tree(args.parent.resolve(), args.source,
                                     args.out),
              "change": compile_tree(args.change.resolve(), args.source,
                                     args.out)}
-    for pieces in args.pair:
+    pairs = list(args.pair)
+    if args.all:
+        same, new = same_name_pairs(sides["parent"][1], sides["change"][1])
+        pairs += same
+        print("[sass-new] " + json.dumps({"source": args.source,
+                                          "kernels": new}), flush=True)
+    for i, pieces in enumerate(pairs):
         rec, code = {"pair": list(pieces)}, {}
         for (side, (use, funcs)), piece in zip(sides.items(), pieces):
-            name = find(funcs, piece)
+            name = piece if piece in funcs else find(funcs, piece)
             code[side] = normalise(funcs[name])
             rec[side] = dict(use.get(name, {}), instructions=len(code[side]))
-            (args.out / f"{pieces[1]}.{side}").write_text(
+        stem = f"{args.source}.{i}" if args.all else pieces[1]
+        for side in sides:
+            (args.out / f"{stem}.{side}").write_text(
                 "\n".join(code[side]) + "\n")
         diff = list(difflib.unified_diff(code["parent"], code["change"],
                                          "parent", "change", lineterm=""))
-        (args.out / f"{pieces[1]}.diff").write_text("\n".join(diff) + "\n")
+        (args.out / f"{stem}.diff").write_text("\n".join(diff) + "\n")
         rec["differing"] = sum(1 for ln in diff if ln[:1] in "+-"
                                and not ln.startswith(("+++", "---")))
         print("[sass] " + json.dumps(rec), flush=True)

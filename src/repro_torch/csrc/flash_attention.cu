@@ -33,7 +33,8 @@
 // weight, inside the 2e-2 bf16 tolerance; the reference keeps p in fp32).
 // A tile's 16-column groups past Skv are skipped, their count a template
 // argument, so S=144 costs 144 columns, not 192, and no predicated-off
-// work. Two forms, chosen from the shapes:
+// work. Three forms, chosen by the C entry from the shapes (launch_tc;
+// mirrored by ops.py's fwd_form; its last argument can name one):
 //  - short sequences whose q, K and V fit in 48 KB of shared memory at once
 //    (the agent's S=144 at D=32: 27 KB): one block per (head, batch) loads
 //    all of them with one wait, and its warps (at most 4, the 16-row groups
@@ -41,10 +42,19 @@
 //    the resident tiles with no further barrier. A (head, batch) is only
 //    36 KB of traffic, so what a block pays is its load's latency: one
 //    exposed wait instead of one per kv tile, and no idle fourth warp;
-//  - longer sequences: one block per (64-row q tile, head, batch), 4 warps;
-//    K and V tiles double-buffered, so the next tile's copy overlaps this
-//    tile's products; warps whose 16 rows lie past Sq skip their products
-//    but keep to the block's barriers.
+//  - longer sequences at D = 16 and 32 (the mma.sync streaming form): one
+//    block per (64-row q tile, head, batch), 4 warps; K and V tiles
+//    double-buffered, so the next tile's copy overlaps this tile's
+//    products; warps whose 16 rows lie past Sq skip their products but
+//    keep to the block's barriers;
+//  - longer sequences at D = 64 and 128, every LM layer the port runs
+//    (the Hopper streaming form, namespace wg below): wgmma fed by TMA
+//    rings, warp-specialised. At the LM prefill shapes the bound is the
+//    tensor cores' (4 x 2048 causal, Command-R's 64 q heads of 128: 275
+//    GFLOP, 0.278 ms at 989 TFLOP/s, against 0.302 GB of q, k, v and o,
+//    0.090 ms), and mma.sync reaches at most about half of wgmma's rate
+//    on this card: the mma.sync form ran at 23% of that bound, 2.48x
+//    SDPA's time (PERF.md).
 //
 // "simt", fp32 (TF32 would break the 3e-5 fp32 bound) and unaligned views:
 // the CUDA-core kernel. One thread block per (64-row q tile, head, batch);
@@ -76,6 +86,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -584,17 +595,26 @@ flash_fwd_tc_short_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
+// the short form takes the input: at most 16 row groups of q, whose q, K
+// and V fit kShortSmem
+inline bool short_fits(int Sq, int Skv, int D) {
+  const long long sq16 = (Sq + 15) / 16 * 16, skv16 = (Skv + 15) / 16 * 16;
+  return sq16 <= 16 * 16 && (sq16 + 2 * skv16) * D * 2 <= kShortSmem;
+}
+
+// the short form (short_form) or the mma.sync streaming form
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    int B, int Hq, int Hkv, int Sq, int Skv,
                    const long long* qs, const long long* ks_, const long long* vs_,
-                   int causal, int window, float softcap, float scale, cudaStream_t stream) {
+                   int causal, int window, float softcap, float scale, bool short_form,
+                   cudaStream_t stream) {
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
              *vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
   const long long sq16 = (Sq + 15) / 16 * 16, skv16 = (Skv + 15) / 16 * 16;
   const long long short_bytes = (sq16 + 2 * skv16) * D * 2;
-  if (sq16 <= 16 * 16 && short_bytes <= kShortSmem) {
+  if (short_form) {
     // 16-row groups spread evenly over at most 4 warps
     const int groups = (int)(sq16 / 16), per = (groups + kShortWarps - 1) / kShortWarps;
     flash_fwd_tc_short_kernel<D><<<dim3(1, Hq, B), 32 * ((groups + per - 1) / per),
@@ -626,19 +646,367 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 
 }  // namespace tc
 
+// ------------------------------------------- tc, the Hopper streaming form
+// One block per (128-row q tile, q head, batch), blockIdx.x the q head so
+// that the q heads of a kv head run side by side and share its K/V tiles
+// through L2, the q tiles longest causal rows first. Three warpgroups: one
+// producer, whose one thread issues TMA loads (Q once, then K and V tiles
+// of 128 rows into a ring of STAGES mbarrier-guarded stages; K and V each
+// complete on a barrier of their own, so S = Q.K^T starts before V lands),
+// and two consumers of 64 q rows each. A consumer runs S = Q.K^T on wgmma
+// (both operands from shared memory, K-major), the online softmax on the
+// fp32 fragment as the mma.sync form does (softcap and masks tested once
+// per tile, the row max on raw scores, ex2 with the folded scale), then
+// O += P.V on wgmma with P rounded to bf16 from the S fragment (the
+// register A operand) and V read through the transpose bit. Two overlaps
+// hide the softmax behind the tensor cores: a consumer issues tile t's
+// S = Q.K^T together with tile t - 1's O += P.V and runs tile t's softmax
+// while they run (then rescales O, frees stage t - 1 and rounds P; P's
+// registers are never written while a product reads them), and the two
+// consumers issue their products in turns (hopper.cuh's Turns), so that
+// one's softmax runs while the other's products do (each shortened the LM
+// prefill layers on an H100; PERF.md gives the form's times). setmaxnreg
+// moves the producer's registers to the consumers (24 and 240 a thread).
+// Tiles that the causal mask or the window empty for the whole block are
+// not loaded; a tile that one consumer's rows do not see costs it a masked
+// product. The epilogue stages each consumer's normalised rows as bf16 in
+// its rows of the Q tile (the 128-byte swizzle its TMA store map names)
+// and stores them with TMA, which clips rows past Sq.
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using repro::pack_bf16;
+using repro::ex2;
+using namespace repro::hopper;
+
+constexpr int BQ = 128, BKV = 128;            // q rows a block, kv rows a tile
+constexpr int CONSUMERS = 2, THREADS = (CONSUMERS + 1) * 128;
+constexpr int BOX_ROW = 128;                  // bytes of a box row: 64 bf16
+
+template <int D>
+struct Fwd {
+  static constexpr int BOXES = D / 64;        // 64-column boxes across a row
+  static constexpr int Q_BOX = BQ * BOX_ROW;  // one box of the q tile
+  static constexpr int T_BOX = BKV * BOX_ROW; // one box of a K or V tile
+  static constexpr int Q_BYTES = BOXES * Q_BOX;
+  static constexpr int T_BYTES = BOXES * T_BOX;
+  // a consumer holds two tiles' stages at once (tile t's K, tile t - 1's
+  // V), so a third lets the producer load ahead: 225 KB at D = 128
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int SMEM = Q_BYTES + STAGES * 2 * T_BYTES + (1 + 3 * STAGES) * 8 + 1024;
+  static_assert(SMEM <= 232448, "an H100 block's shared memory");
+};
+
+// the running max of the raw scores and the partial sums of this thread's
+// two rows
+struct Rows {
+  float m0, m1, l0, l1;
+};
+
+// The online softmax of one tile's scores in the fragment sf (columns from
+// k0) for this thread's rows p0 and p0 + 8 of a warpgroup's rows from r0:
+// softcap, the masks where the tile meets the diagonal, the window's lower
+// edge or the end of the keys, the new row max, the exponents in place of
+// the scores, the sums updated, and the factors (c0, c1) that O's earlier
+// columns take. It writes no register but sf's and its own scalars, so it
+// can run while a product that reads P's registers is in flight.
+__device__ __forceinline__ void softmax_tile(float (&sf)[BKV / 2], Rows& st, float& c0,
+                                             float& c1, int k0, int r0, int p0, int t4,
+                                             const tc::Scores& sc) {
+  if (sc.softcap != 0.f) {
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) sf[i] = tanhf(sf[i] * sc.cap_in) * sc.softcap;
+  }
+  if ((sc.causal && k0 + BKV - 1 > r0) || (sc.window && r0 + 63 - k0 >= sc.window) ||
+      k0 + BKV > sc.Skv) {
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) {
+      const int kp = k0 + 8 * (i / 4) + 2 * t4 + (i & 1), qp = p0 + 8 * ((i / 2) & 1);
+      bool ok = kp < sc.Skv;
+      if (sc.causal) ok = ok && kp <= qp;
+      if (sc.window) ok = ok && qp - kp < sc.window;
+      if (!ok) sf[i] = kNegInf;
+    }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sf[4 * j], sf[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sf[4 * j + 2], sf[4 * j + 3]));
+  }
+  const float mn0 = fmaxf(st.m0, tc::quad_max(mx0)), mn1 = fmaxf(st.m1, tc::quad_max(mx1));
+  c0 = ex2((st.m0 - mn0) * sc.mul);
+  c1 = ex2((st.m1 - mn1) * sc.mul);
+  st.m0 = mn0;
+  st.m1 = mn1;
+  // a row that has seen only masked columns keeps the max kNegInf: a zero
+  // offset sends its exponents to ex2(-huge) = 0 (tc::attend_groups)
+  const float b0 = mn0 == kNegInf ? 0.f : mn0 * sc.mul;
+  const float b1 = mn1 == kNegInf ? 0.f : mn1 * sc.mul;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    sf[4 * j] = ex2(fmaf(sf[4 * j], sc.mul, -b0));
+    sf[4 * j + 1] = ex2(fmaf(sf[4 * j + 1], sc.mul, -b0));
+    sf[4 * j + 2] = ex2(fmaf(sf[4 * j + 2], sc.mul, -b1));
+    sf[4 * j + 3] = ex2(fmaf(sf[4 * j + 3], sc.mul, -b1));
+    ps0 += sf[4 * j] + sf[4 * j + 1];
+    ps1 += sf[4 * j + 2] + sf[4 * j + 3];
+  }
+  st.l0 = st.l0 * c0 + ps0;
+  st.l1 = st.l1 * c1 + ps1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int Hq,
+                    int group, int Sq, int Skv, int causal, int window, float softcap,
+                    float scale) {
+  using F = Fwd<D>;
+  constexpr int STAGES = F::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023) & ~1023u;
+  const uint32_t s_q = base, s_kv = base + F::Q_BYTES;
+  const uint32_t q_full = s_kv + STAGES * 2 * F::T_BYTES;
+  const uint32_t k_full0 = q_full + 8, v_full0 = k_full0 + 8 * STAGES;
+  const uint32_t empty0 = v_full0 + 8 * STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.z : (int)blockIdx.z) * BQ;
+  // kv tiles that hold an unmasked column for some row of the block
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int t_begin = window ? max(0, q0 - window + 1) / BKV : 0;
+  const int n_t = max(0, (kv_end + BKV - 1) / BKV - t_begin);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full0 + 8 * s, 1);
+      mbar_init(v_full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {
+    setmaxnreg_dec<24>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      mbar_expect_tx(q_full, F::Q_BYTES);
+      for (int bx = 0; bx < F::BOXES; ++bx)
+        tma_load(s_q + bx * F::Q_BOX, &qmap, q_full, 64 * bx, h, q0, b);
+      for (int it = 0; it < n_t; ++it) {
+        const int s = it % STAGES, k0 = (t_begin + it) * BKV;
+        if (it >= STAGES) mbar_wait(empty0 + 8 * s, (it / STAGES - 1) & 1);
+        const uint32_t kt = s_kv + s * 2 * F::T_BYTES, vt = kt + F::T_BYTES;
+        mbar_expect_tx(k_full0 + 8 * s, F::T_BYTES);
+        for (int bx = 0; bx < F::BOXES; ++bx)
+          tma_load(kt + bx * F::T_BOX, &kmap, k_full0 + 8 * s, 64 * bx, hk, k0, b);
+        mbar_expect_tx(v_full0 + 8 * s, F::T_BYTES);
+        for (int bx = 0; bx < F::BOXES; ++bx)
+          tma_load(vt + bx * F::T_BOX, &vmap, v_full0 + 8 * s, 64 * bx, hk, k0, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  // consumer wg owns q rows [r0, r0 + 64); this thread rows p0 and p0 + 8
+  const int wg = warp / 4, wi = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int r0 = q0 + 64 * wg, p0 = r0 + 16 * wi + g;
+  const tc::Scores sc = tc::make_scores(Skv, causal, window, softcap, scale);
+  const uint32_t qa = s_q + wg * 64 * BOX_ROW;   // the warpgroup's rows of box 0
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  Rows st = {kNegInf, kNegInf, 0.f, 0.f};
+  uint32_t pa[BKV / 16][4];
+  // S = Q.K^T from the K tile at kt into sf; O += P.V from the V tile at vt
+  auto scores = [&](float (&sf)[BKV / 2], uint32_t kt) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sf, sw128_desc(qa + (kk / 4) * F::Q_BOX + (kk % 4) * 32, 16, 1024),
+               sw128_desc(kt + (kk / 4) * F::T_BOX + (kk % 4) * 32, 16, 1024), kk > 0);
+    wgmma_commit();
+  };
+  auto pv = [&](uint32_t vt) {
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs(o, pa[kk], sw128_desc(vt + kk * 16 * BOX_ROW, F::T_BOX, 1024));
+    wgmma_commit();
+  };
+  auto stage = [&](int it) { return s_kv + it % STAGES * 2 * F::T_BYTES; };
+  auto phase = [&](int it) { return (it / STAGES) & 1; };
+  // the consumers issue in turns, n_t + 1 each: the first tile's scores,
+  // then each tile's with the previous one's O += P.V, then the last P.V
+  Turns turns = {wg, n_t + 1, 0};
+
+  auto pack_p = [&](const float (&sf)[BKV / 2]) {
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+      pa[j / 2][2 * (j % 2)] = pack_bf16(sf[4 * j], sf[4 * j + 1]);
+      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(sf[4 * j + 2], sf[4 * j + 3]);
+    }
+  };
+
+  // Tile it's scores are issued with tile it - 1's O += P.V, so that its
+  // softmax runs while the tensor cores take that product; then stage
+  // it - 1 is freed, O rescaled and P rounded into the A registers (never
+  // while a product that reads them is in flight).
+  mbar_wait(q_full, 0);
+  if (n_t > 0) {
+    float sf[BKV / 2], c0, c1;
+    mbar_wait(k_full0, 0);
+    turns.begin();
+    wgmma_fence();
+    scores(sf, stage(0));
+    turns.end();
+    wgmma_wait<0>();
+    softmax_tile(sf, st, c0, c1, t_begin * BKV, r0, p0, t4, sc);
+    pack_p(sf);
+  }
+  for (int it = 1; it < n_t; ++it) {
+    float sf[BKV / 2], c0, c1;
+    mbar_wait(k_full0 + 8 * (it % STAGES), phase(it));
+    mbar_wait(v_full0 + 8 * ((it - 1) % STAGES), phase(it - 1));
+    turns.begin();
+    wgmma_fence();
+    scores(sf, stage(it));
+    pv(stage(it - 1) + F::T_BYTES);
+    turns.end();
+    wgmma_wait<1>();
+    softmax_tile(sf, st, c0, c1, (t_begin + it) * BKV, r0, p0, t4, sc);
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((it - 1) % STAGES));
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= c0;
+      o[4 * j + 1] *= c0;
+      o[4 * j + 2] *= c1;
+      o[4 * j + 3] *= c1;
+    }
+    pack_p(sf);
+  }
+  if (n_t > 0) {   // the last tile's O += P.V
+    mbar_wait(v_full0 + 8 * ((n_t - 1) % STAGES), phase(n_t - 1));
+    turns.begin();
+    wgmma_fence();
+    pv(stage(n_t - 1) + F::T_BYTES);
+    turns.end();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((n_t - 1) % STAGES));
+  }
+
+  // normalise; lse; the rows as bf16 into this warpgroup's rows of the q
+  // tile, then one TMA store per 64-column box
+  const float L0 = fmaxf(tc::quad_sum(st.l0), 1e-30f), L1 = fmaxf(tc::quad_sum(st.l1), 1e-30f);
+  const float i0 = 1.f / L0, i1 = 1.f / L1;
+  if (lse != nullptr && t4 == 0) {
+    const float lse_mul = softcap != 0.f ? 1.f : scale;
+    float* lp = lse + ((long long)b * Hq + h) * Sq;
+    if (p0 < Sq) lp[p0] = st.m0 * lse_mul + logf(L0);
+    if (p0 + 8 < Sq) lp[p0 + 8] = st.m1 * lse_mul + logf(L1);
+  }
+  named_sync(1 + wg, 128);   // every warp of the warpgroup is done reading its q rows
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = 16 * wi + g + 8 * hr;
+      const uint32_t addr = qa + (j / 8) * F::Q_BOX + row * BOX_ROW +
+                            (((j % 8) ^ (row % 8)) << 4) + t4 * 4;
+      const float inv = hr ? i1 : i0;
+      const uint32_t v = pack_bf16(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+      asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  named_sync(1 + wg, 128);
+  if (threadIdx.x % 128 == 0 && r0 < Sq) {
+    for (int bx = 0; bx < F::BOXES; ++bx) tma_store(&omap, qa + bx * F::Q_BOX, 64 * bx, h, r0, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int Hq, int Hkv, int Sq, int Skv, const long long* qs, const long long* ks_,
+                   const long long* vs_, int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const long long os[3] = {(long long)Sq * Hq * D, (long long)Hq * D, D};
+  CUtensorMap qm, km, vm, om;
+  if (!make_bshd_map(enc, &qm, q, B, Sq, Hq, D, qs, BQ) ||
+      !make_bshd_map(enc, &km, k, B, Skv, Hkv, D, ks_, BKV) ||
+      !make_bshd_map(enc, &vm, v, B, Skv, Hkv, D, vs_, BKV) ||
+      !make_bshd_map(enc, &om, o, B, Sq, Hq, D, os, 64))
+    return cudaErrorInvalidValue;
+  // the shared-memory limit is raised once per device
+  static bool attr[repro::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = repro::current_device(&dev);
+  if (err != cudaSuccess) return err;
+  if (!attr[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_wg_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Fwd<D>::SMEM);
+    if (err != cudaSuccess) return err;
+    attr[dev] = true;
+  }
+  flash_fwd_wg_kernel<D><<<dim3(Hq, B, (Sq + BQ - 1) / BQ), THREADS, Fwd<D>::SMEM, stream>>>(
+      qm, km, vm, om, lse, Hq, Hq / Hkv, Sq, Skv, causal, window, softcap, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// form codes shared with kernels/_build.py (FORM_CODES): the entry's own
+// choice, or the one named
+constexpr int kFormAuto = 0, kFormShort = 1, kFormStream = 2, kFormWg = 3;
+
+// The tensor-core variant in the form asked for; kFormAuto picks the short
+// form where it fits, else the Hopper streaming form at D in {64, 128},
+// else the mma.sync streaming form (mirrored by ops.py's fwd_form). A form
+// the input does not fit is refused.
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                      int Hq, int Hkv, int Sq, int Skv, const long long* qs,
+                      const long long* ks_, const long long* vs_, int causal, int window,
+                      float softcap, float scale, int form, cudaStream_t stream) {
+  const bool fits = tc::short_fits(Sq, Skv, D);
+  if (form == kFormAuto) form = fits ? kFormShort : D >= 64 ? kFormWg : kFormStream;
+  if (form == kFormWg) {
+    if constexpr (D >= 64)
+      return wg::launch<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window,
+                           softcap, scale, stream);
+    return cudaErrorInvalidValue;
+  }
+  if ((form == kFormShort && !fits) || (form != kFormShort && form != kFormStream))
+    return cudaErrorInvalidValue;
+  return tc::launch<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window,
+                       softcap, scale, form == kFormShort, stream);
+}
+
 // variant 0: the CUDA-core kernel for T; variant 1: the tensor-core kernel (bf16)
 template <typename T>
 cudaError_t dispatch_d(int variant, int D, const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                        const long long* qs, const long long* ks_, const long long* vs_,
-                       int causal, int window, float softcap, float scale,
+                       int causal, int window, float softcap, float scale, int form,
                        cudaStream_t stream) {
 #define REPRO_FLASH_D(DD)                                                                 \
   case DD:                                                                                \
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {                                \
       if (variant == 1)                                                                   \
-        return tc::launch<DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
-                              window, softcap, scale, stream);                            \
+        return launch_tc<DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
+                             window, softcap, scale, form, stream);                       \
     }                                                                                     \
     return launch_simt<T, DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
                               window, softcap, scale, stream);
@@ -669,8 +1037,10 @@ extern "C" int flash_attention_fwd(
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int window, float softcap, float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || (variant != 0 && variant != 1)) return cudaErrorInvalidValue;
+    int causal, int window, float softcap, float scale, void* stream, int form) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || (variant != 0 && variant != 1) ||
+      (variant == 0 && form != kFormAuto))
+    return cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_ss, q_sh};
   const long long kst[3] = {k_sb, k_ss, k_sh};
   const long long vst[3] = {v_sb, v_ss, v_sh};
@@ -685,10 +1055,10 @@ extern "C" int flash_attention_fwd(
   switch (dtype) {
     case repro::kFloat32:
       return dispatch_d<float>(variant, D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, kst, vst,
-                               causal, window, softcap, scale, s);
+                               causal, window, softcap, scale, form, s);
     case repro::kBFloat16:
       return dispatch_d<__nv_bfloat16>(variant, D, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, kst,
-                                       vst, causal, window, softcap, scale, s);
+                                       vst, causal, window, softcap, scale, form, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -40,8 +40,8 @@
 // to the tensor cores, and fp32 keeps a CUDA-core kernel. Two variants,
 // chosen by the wrapper from the inputs before the launch
 // (kernels/flash_attention/ops.py:_flash_bwd_variant), and the tensor-core
-// one in two forms, chosen here from the shapes (mirrored by ops.py's
-// bwd_tc_form):
+// one in three forms, chosen here from the shapes (mirrored by ops.py's
+// bwd_tc_form; the entry's last argument can name one):
 //
 // "tc", bf16 with 16-byte rows (strides multiples of 8, aligned pointers),
 // D in {16, 32, 64, 128}:
@@ -59,7 +59,14 @@
 //    Phase 2, after one barrier: each warp owns 16-row groups of q and
 //    computes dQ = dS.K, reading dS with transposed ldmatrix from the dS^T
 //    it stored. dK, dV and dQ leave from the accumulators in 4-byte pairs.
-//  - the streaming form, for every other input (GQA, D = 128, long and
+//  - the Hopper streaming form (namespace wg below), for every other
+//    input at D = 64 and 128 (GQA, D = 128, long and ragged sequences:
+//    every LM training layer), the mma.sync streaming form's structure on
+//    wgmma fed by TMA rings: at Command-R's training layer (2 x 2048
+//    causal, 64 q heads over 8 of 128) the five products are 344 GFLOP,
+//    0.348 ms at 989 TFLOP/s, against 0.302 GB moved, 0.090 ms, and the
+//    mma.sync form ran at 15% of that bound, 2.47x SDPA's backward;
+//  - the mma.sync streaming form, at D = 16 and 32 (GQA, long and
 //    ragged sequences): FlashAttention-2's backward as two launches on the
 //    stream, recomputing S and dP in each (7 products where the function
 //    needs 5: the price of no dQ atomics and no fp32 dQ scratch).
@@ -104,11 +111,13 @@
 #include <initializer_list>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-// variant codes shared with kernels/_build.py
+// variant and form codes shared with kernels/_build.py
 constexpr int kSimt = 0, kTc = 1;
+constexpr int kFormAuto = 0, kFormShort = 1, kFormStream = 2, kFormWg = 3;
 
 using repro::from_f32;
 using repro::to_f32;
@@ -1144,6 +1153,438 @@ cudaError_t launch_stream(const void* q, const void* k, const void* v, const voi
 
 }  // namespace tc
 
+// ------------------------------------------- tc, the Hopper streaming form
+// The mma.sync streaming form's two kernels on wgmma fed by TMA rings, at
+// D in {64, 128}: three warpgroups a block, one producer (one thread
+// issuing TMA loads into a ring of mbarrier-guarded stages; setmaxnreg
+// gives its registers to the others) and two consumers of 64 resident
+// rows each.
+//  - dq: one block per (128-row q tile, q head, batch), the longest causal
+//    rows first, a kv head's q heads side by side. q and dO are resident
+//    (TMA, once); the consumers first compute their rows' delta =
+//    rowsum(dO * O) from the resident dO and O read once, and store it for
+//    dkdv. K and V tiles of 64 rows stream through the ring, from the first
+//    the window lets the block see to the diagonal. Per tile: S = q.K^T and
+//    dP = dO.V^T (wgmma, operands in shared memory, K-major), P and dS in
+//    fp32 (prob_ds), then dQ += dS.K with dS rounded to bf16 as the
+//    register A operand and K read through the transpose bit.
+//  - dkdv: one block per (128-row kv tile, kv head, share of its q heads,
+//    batch), the first kv tiles (the most causal rows) first. K and V are
+//    resident; q and dO tiles of 64 rows stream with their rows' lse and
+//    delta (1-D TMA boxes from the row rounded down to 16 bytes), for each q head of the share in order, from the
+//    first q tile the causal mask lets see the block. Per tile: S^T =
+//    K.q^T and dP^T = V.dO^T, P^T and dS^T in fp32, then dV += P^T.dO and
+//    dK += dS^T.q with P^T and dS^T as register A operands and dO and q
+//    read through the transpose bit. A share is any count up to the group:
+//    share i takes the q heads [i g / n, (i + 1) g / n) of a group of g, and
+//    with n > 1 writes fp32 partials that the split pass sums in share
+//    order, so two calls give the same bits.
+// A consumer whose rows see none of a tile waits for it and frees it
+// without a product; tiles masked for the whole block are not loaded.
+// Gradients leave from the accumulators in 4-byte pairs (8-byte pairs for
+// the partials).
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+using namespace repro::hopper;
+
+constexpr int BR = 128;                       // resident rows a block: q (dq), kv (dkdv)
+constexpr int BT = 64;                        // rows of a streamed tile
+constexpr int CONSUMERS = 2, THREADS = (CONSUMERS + 1) * 128;
+constexpr int BOX_ROW = 128;                  // bytes of a box row: 64 bf16
+constexpr int R_BOX = BR * BOX_ROW;           // one box of a resident operand
+constexpr int T_BOX = BT * BOX_ROW;           // one box of a streamed tile
+// a tile's lse or delta: a 1-D TMA box must start on 16 bytes, so it starts
+// at the row rounded down to 4 and holds 4 rows more; a slot of 384 bytes
+constexpr int L_BOX = BT + 4, L_SLOT = 384;
+
+template <int D>
+struct Bwd {
+  static constexpr int BOXES = D / 64;
+  static constexpr int R_BYTES = BOXES * R_BOX;   // one resident operand
+  static constexpr int T_BYTES = BOXES * T_BOX;   // one streamed operand tile
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  // lse and delta: the block's rows (dq), a slot each a stage (dkdv)
+  static constexpr int L_BYTES = 2 * STAGES * L_SLOT > 8 * BR ? 2 * STAGES * L_SLOT : 8 * BR;
+  // resident pair, the ring (two operands a stage), lse and delta, barriers
+  static constexpr int SMEM =
+      2 * R_BYTES + STAGES * 2 * T_BYTES + L_BYTES + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_base(const uint8_t* raw) {
+  return (static_cast<uint32_t>(__cvta_generic_to_shared(raw)) + 1023) & ~1023u;
+}
+
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ o,
+                       const float* __restrict__ lse, float* __restrict__ delta,
+                       bf16* __restrict__ dq, int Hq, int group, int Sq, int Skv, int causal,
+                       float softcap, float scale, int window) {
+  using W = Bwd<D>;
+  constexpr int STAGES = W::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  uint8_t* gbase = smem_raw + (base - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)));
+  const uint32_t s_q = base, s_do = base + W::R_BYTES, s_ring = s_do + W::R_BYTES;
+  float* lse_s = reinterpret_cast<float*>(gbase + 2 * W::R_BYTES + STAGES * 2 * W::T_BYTES);
+  float* delta_s = lse_s + BR;
+  const uint32_t bars = base + 2 * W::R_BYTES + STAGES * 2 * W::T_BYTES + W::L_BYTES;
+  const uint32_t r_full = bars, full0 = bars + 8, empty0 = full0 + 8 * STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const int n_qt = (Sq + BR - 1) / BR;
+  const int q0 = (causal ? n_qt - 1 - (int)blockIdx.z : (int)blockIdx.z) * BR;
+  // kv tiles that hold an unmasked column for some row of the block
+  const int kv_end = causal ? min(Skv, q0 + BR) : Skv;
+  const int t_begin = kWindow ? max(0, q0 - window + 1) / BT : 0;
+  const int n_t = max(0, (kv_end + BT - 1) / BT - t_begin);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(r_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {
+    setmaxnreg_dec<24>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      mbar_expect_tx(r_full, 2 * W::R_BYTES);
+      for (int bx = 0; bx < W::BOXES; ++bx) {
+        tma_load(s_q + bx * R_BOX, &qmap, r_full, 64 * bx, h, q0, b);
+        tma_load(s_do + bx * R_BOX, &domap, r_full, 64 * bx, h, q0, b);
+      }
+      for (int it = 0; it < n_t; ++it) {
+        const int s = it % STAGES, k0 = (t_begin + it) * BT;
+        if (it >= STAGES) mbar_wait(empty0 + 8 * s, (it / STAGES - 1) & 1);
+        const uint32_t kt = s_ring + s * 2 * W::T_BYTES, vt = kt + W::T_BYTES;
+        mbar_expect_tx(full0 + 8 * s, 2 * W::T_BYTES);
+        for (int bx = 0; bx < W::BOXES; ++bx) {
+          tma_load(kt + bx * T_BOX, &kmap, full0 + 8 * s, 64 * bx, hk, k0, b);
+          tma_load(vt + bx * T_BOX, &vmap, full0 + 8 * s, 64 * bx, hk, k0, b);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int wg = warp / 4, wi = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int r0 = q0 + 64 * wg, p0 = r0 + 16 * wi + g;
+  const long long o_row = (long long)Hq * D;   // row stride of o, dO, dq
+  const long long orow0 = (long long)b * Sq * o_row + (long long)h * D;
+  mbar_wait(r_full, 0);
+  // delta = rowsum(dO * O), two threads a row, each half of its 16-byte
+  // chunks (dO from the resident tile, O read once); stored for dkdv
+  {
+    constexpr int CPR = D / 8;
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2, p = q0 + r;
+    float dl = 0.f;
+    if (p < Sq) {
+      const bf16* orow = o + orow0 + (long long)p * o_row;
+      for (int c = half * CPR / 2; c < (half + 1) * CPR / 2; ++c) {
+        const uint4 gv = *reinterpret_cast<const uint4*>(
+            gbase + W::R_BYTES + (c / 8) * R_BOX + r * BOX_ROW + (((c % 8) ^ (r % 8)) << 4));
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c * 8);
+        const uint32_t gw[4] = {gv.x, gv.y, gv.z, gv.w}, ow[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = repro::unpack_bf16(gw[e]), bo = repro::unpack_bf16(ow[e]);
+          dl = fmaf(a.x, bo.x, fmaf(a.y, bo.y, dl));
+        }
+      }
+    }
+    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+    if (half == 0) {
+      const long long lrow = ((long long)b * Hq + h) * Sq + p;
+      delta_s[r] = dl;
+      lse_s[r] = p < Sq ? lse[lrow] : 0.f;
+      if (p < Sq) delta[lrow] = dl;
+    }
+  }
+  named_sync(1, CONSUMERS * 128);
+  const float L0 = lse_s[p0 - q0], L1 = lse_s[p0 + 8 - q0];
+  const float D0 = delta_s[p0 - q0], D1 = delta_s[p0 + 8 - q0];
+  const uint32_t qa = s_q + wg * 64 * BOX_ROW, ga = s_do + wg * 64 * BOX_ROW;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_t; ++it) {
+    const int s = it % STAGES, k0 = (t_begin + it) * BT;
+    const uint32_t kt = s_ring + s * 2 * W::T_BYTES, vt = kt + W::T_BYTES;
+    const bool seen = r0 < Sq && (!causal || k0 <= r0 + 63) &&
+                      (!kWindow || r0 - (k0 + BT - 1) < window);
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    if (seen) {
+      float sf[BT / 2], dp[BT / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * R_BOX + (kk % 4) * 32, toff = (kk / 4) * T_BOX + (kk % 4) * 32;
+        wgmma_ss(sf, sw128_desc(qa + off, 16, 1024), sw128_desc(kt + toff, 16, 1024), kk > 0);
+        wgmma_ss(dp, sw128_desc(ga + off, 16, 1024), sw128_desc(vt + toff, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      // masks only where the tile meets the diagonal, the window's lower
+      // edge or an edge of the operands
+      const bool edge = (causal && k0 + BT - 1 > r0) || (kWindow && r0 + 63 - k0 >= window) ||
+                        k0 + BT > Skv || r0 + 64 > Sq;
+      uint32_t da[BT / 16][4];
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = p0 + 8 * (e >> 1), c = k0 + 8 * j + 2 * t4 + (e & 1);
+          tc::prob_ds(sf[4 * j + e], dp[4 * j + e], e < 2 ? L0 : L1, e < 2 ? D0 : D1, scale,
+                      softcap,
+                      !edge || (i < Sq && c < Skv && (!causal || c <= i) &&
+                                (!kWindow || i - c < window)));
+        }
+        da[j / 2][2 * (j % 2)] = repro::pack_bf16(dp[4 * j], dp[4 * j + 1]);
+        da[j / 2][2 * (j % 2) + 1] = repro::pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)
+        wgmma_rs(acc, da[kk], sw128_desc(kt + kk * 16 * BOX_ROW, T_BOX, 1024));
+      wgmma_commit();
+      wgmma_wait();
+    }
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+  // dQ (times the scale q.k^T carried), rows p0 and p0 + 8 below Sq
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int p = p0 + 8 * hr;
+    if (p >= Sq) continue;
+    bf16* row = dq + orow0 + (long long)p * o_row + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          repro::pack_bf16(acc[4 * j + 2 * hr] * scale, acc[4 * j + 2 * hr + 1] * scale);
+  }
+}
+
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const __grid_constant__ CUtensorMap lmap,
+                         const __grid_constant__ CUtensorMap dlmap, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, float* __restrict__ part, int Hq, int Hkv,
+                         int group, int splits, int Sq, int Skv, int causal, float softcap,
+                         float scale, int window) {
+  using W = Bwd<D>;
+  constexpr int STAGES = W::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  uint8_t* gbase = smem_raw + (base - static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)));
+  const uint32_t s_k = base, s_v = base + W::R_BYTES, s_ring = s_v + W::R_BYTES;
+  const uint32_t s_l = s_ring + STAGES * 2 * W::T_BYTES;       // lse, then delta, a slot a stage
+  const float* lse_s = reinterpret_cast<const float*>(gbase + (s_l - base));
+  const float* delta_s = lse_s + STAGES * L_SLOT / 4;
+  const uint32_t bars = s_l + W::L_BYTES;
+  const uint32_t r_full = bars, full0 = bars + 8, empty0 = full0 + 8 * STAGES;
+
+  const int hk = blockIdx.x / splits, split = blockIdx.x % splits, b = blockIdx.y;
+  const int k_start = blockIdx.z * BR;
+  // this block's q heads, and the q tiles from the first the causal mask
+  // lets see its rows to the last a window lets see them
+  const int h_lo = hk * group + split * group / splits;
+  const int per = hk * group + (split + 1) * group / splits - h_lo;
+  const int i_first = causal ? k_start / BT : 0;
+  const int i_end = kWindow ? min(Sq, min(Skv, k_start + BR) - 1 + window) : Sq;
+  const int n_qt = max(0, (i_end + BT - 1) / BT - i_first);
+  const int n_it = per * n_qt;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(r_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {
+    setmaxnreg_dec<24>();
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      mbar_expect_tx(r_full, 2 * W::R_BYTES);
+      for (int bx = 0; bx < W::BOXES; ++bx) {
+        tma_load(s_k + bx * R_BOX, &kmap, r_full, 64 * bx, hk, k_start, b);
+        tma_load(s_v + bx * R_BOX, &vmap, r_full, 64 * bx, hk, k_start, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % STAGES, h = h_lo + it / n_qt, i0 = (i_first + it % n_qt) * BT;
+        if (it >= STAGES) mbar_wait(empty0 + 8 * s, (it / STAGES - 1) & 1);
+        const uint32_t qt = s_ring + s * 2 * W::T_BYTES, gt = qt + W::T_BYTES, bar = full0 + 8 * s;
+        mbar_expect_tx(bar, 2 * W::T_BYTES + 2 * L_BOX * 4);
+        for (int bx = 0; bx < W::BOXES; ++bx) {
+          tma_load(qt + bx * T_BOX, &qmap, bar, 64 * bx, h, i0, b);
+          tma_load(gt + bx * T_BOX, &domap, bar, 64 * bx, h, i0, b);
+        }
+        // rows past Sq read the next head's (masked below)
+        const int lrow = ((b * Hq + h) * Sq + i0) & ~3;
+        tma_load(s_l + s * L_SLOT, &lmap, bar, lrow);
+        tma_load(s_l + (STAGES + s) * L_SLOT, &dlmap, bar, lrow);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int wg = warp / 4, wi = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int j0 = k_start + 64 * wg;   // the warpgroup's first kv row
+  const uint32_t ka = s_k + wg * 64 * BOX_ROW, va = s_v + wg * 64 * BOX_ROW;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  mbar_wait(r_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % STAGES, i0 = (i_first + it % n_qt) * BT;
+    const int l_off = ((b * Hq + h_lo + it / n_qt) * Sq + i0) & 3;   // the tile's row in its box
+    const uint32_t qt = s_ring + s * 2 * W::T_BYTES, gt = qt + W::T_BYTES;
+    const bool seen = j0 < Skv && (!causal || j0 <= i0 + BT - 1) &&
+                      (!kWindow || i0 - (j0 + 63) < window);
+    mbar_wait(full0 + 8 * s, (it / STAGES) & 1);
+    if (seen) {
+      float st[BT / 2], dpt[BT / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * R_BOX + (kk % 4) * 32, toff = (kk / 4) * T_BOX + (kk % 4) * 32;
+        wgmma_ss(st, sw128_desc(ka + off, 16, 1024), sw128_desc(qt + toff, 16, 1024), kk > 0);
+        wgmma_ss(dpt, sw128_desc(va + off, 16, 1024), sw128_desc(gt + toff, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      // element 4n + e: kv row j0 + 16 wi + g + 8 (e >> 1), q row i0 + 8n +
+      // 2 t4 + (e & 1)
+      const bool edge = (causal && j0 + 63 > i0) || (kWindow && i0 + BT - 1 - j0 >= window) ||
+                        i0 + BT > Sq || j0 + 64 > Skv;
+      const float* ls = lse_s + s * L_SLOT / 4 + l_off;
+      const float* dls = delta_s + s * L_SLOT / 4 + l_off;
+      uint32_t pa[BT / 16][4], sa[BT / 16][4];
+#pragma unroll
+      for (int n = 0; n < BT / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 8 * n + 2 * t4 + (e & 1), i = i0 + r;
+          const int j = j0 + 16 * wi + g + 8 * (e >> 1);
+          tc::prob_ds(st[4 * n + e], dpt[4 * n + e], ls[r], dls[r], scale, softcap,
+                      !edge || (i < Sq && j < Skv && (!causal || j <= i) &&
+                                (!kWindow || i - j < window)));
+        }
+        pa[n / 2][2 * (n % 2)] = repro::pack_bf16(st[4 * n], st[4 * n + 1]);
+        pa[n / 2][2 * (n % 2) + 1] = repro::pack_bf16(st[4 * n + 2], st[4 * n + 3]);
+        sa[n / 2][2 * (n % 2)] = repro::pack_bf16(dpt[4 * n], dpt[4 * n + 1]);
+        sa[n / 2][2 * (n % 2) + 1] = repro::pack_bf16(dpt[4 * n + 2], dpt[4 * n + 3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        wgmma_rs(dva, pa[kk], sw128_desc(gt + kk * 16 * BOX_ROW, T_BOX, 1024));
+        wgmma_rs(dka, sa[kk], sw128_desc(qt + kk * 16 * BOX_ROW, T_BOX, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait();
+    }
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+  // dK (times the scale q.k^T carried) and dV, kv rows below Skv: bf16
+  // with one share, else this share's fp32 partials [split][dK, dV][B,
+  // Skv, Hkv, D]
+  const long long kv_row = (long long)Hkv * D;
+  const long long off0 = (long long)b * Skv * kv_row + (long long)hk * D + 2 * t4;
+  const long long n = (long long)gridDim.y * Skv * kv_row;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int j = j0 + 16 * wi + g + 8 * hr;
+    if (j >= Skv) continue;
+    const long long at = off0 + (long long)j * kv_row;
+    if (splits == 1) {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        *reinterpret_cast<uint32_t*>(dk + at + 8 * c) =
+            repro::pack_bf16(dka[4 * c + 2 * hr] * scale, dka[4 * c + 2 * hr + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + at + 8 * c) =
+            repro::pack_bf16(dva[4 * c + 2 * hr], dva[4 * c + 2 * hr + 1]);
+      }
+    } else {
+      float* pk = part + 2 * split * n + at;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        *reinterpret_cast<float2*>(pk + 8 * c) =
+            make_float2(dka[4 * c + 2 * hr] * scale, dka[4 * c + 2 * hr + 1] * scale);
+        *reinterpret_cast<float2*>(pk + n + 8 * c) =
+            make_float2(dva[4 * c + 2 * hr], dva[4 * c + 2 * hr + 1]);
+      }
+    }
+  }
+}
+
+template <int D, bool kWindow>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, float* part, int splits, int B, int Hq, int Hkv, int Sq, int Skv,
+                   const long long* qs, const long long* ks_, const long long* vs_, int causal,
+                   int window, float softcap, float scale, cudaStream_t stream) {
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  const long long gs[3] = {(long long)Sq * Hq * D, (long long)Hq * D, D};   // dO, contiguous
+  const long long n_rows = (long long)B * Hq * Sq;
+  CUtensorMap qr, gr, kt, vt, kr, vr, qt, gt, lm, dlm;
+  if (!make_bshd_map(enc, &qr, q, B, Sq, Hq, D, qs, BR) ||
+      !make_bshd_map(enc, &gr, dout, B, Sq, Hq, D, gs, BR) ||
+      !make_bshd_map(enc, &kt, k, B, Skv, Hkv, D, ks_, BT) ||
+      !make_bshd_map(enc, &vt, v, B, Skv, Hkv, D, vs_, BT) ||
+      !make_bshd_map(enc, &kr, k, B, Skv, Hkv, D, ks_, BR) ||
+      !make_bshd_map(enc, &vr, v, B, Skv, Hkv, D, vs_, BR) ||
+      !make_bshd_map(enc, &qt, q, B, Sq, Hq, D, qs, BT) ||
+      !make_bshd_map(enc, &gt, dout, B, Sq, Hq, D, gs, BT) ||
+      !make_f32_map(enc, &lm, lse, n_rows, L_BOX) || !make_f32_map(enc, &dlm, delta, n_rows, L_BOX))
+    return cudaErrorInvalidValue;
+  static bool attr_dq[repro::kMaxDevices] = {}, attr_dkdv[repro::kMaxDevices] = {};
+  cudaError_t err = tc::raise_smem(flash_bwd_dq_wg_kernel<D, kWindow>, Bwd<D>::SMEM, attr_dq);
+  if (err == cudaSuccess)
+    err = tc::raise_smem(flash_bwd_dkdv_wg_kernel<D, kWindow>, Bwd<D>::SMEM, attr_dkdv);
+  if (err != cudaSuccess) return err;
+  const int group = Hq / Hkv;
+  flash_bwd_dq_wg_kernel<D, kWindow>
+      <<<dim3(Hq, B, (Sq + BR - 1) / BR), THREADS, Bwd<D>::SMEM, stream>>>(
+          qr, gr, kt, vt, static_cast<const bf16*>(o), lse, delta, static_cast<bf16*>(dq), Hq,
+          group, Sq, Skv, causal, softcap, scale, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wg_kernel<D, kWindow>
+      <<<dim3(Hkv * splits, B, (Skv + BR - 1) / BR), THREADS, Bwd<D>::SMEM, stream>>>(
+          kr, vr, qt, gt, lm, dlm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, Hq,
+          Hkv, group, splits, Sq, Skv, causal, softcap, scale, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n = (long long)B * Skv * Hkv * D;
+  tc::flash_bwd_split_sum_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, stream>>>(
+      part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 // the short tensor-core form takes the input (else the streaming one)
 bool short_form(int Hq, int Hkv, int Sq, int Skv, int D) {
   return Hq == Hkv && D <= 64 && Sq <= tc::kMaxS && Skv <= tc::kMaxS &&
@@ -1174,8 +1615,9 @@ extern "C" int flash_attention_bwd(
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int window, float softcap, float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || window < 0)
+    int causal, int window, float softcap, float scale, void* stream, int form) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sq <= 0 || Skv <= 0 || window < 0 || form < kFormAuto ||
+      form > kFormWg)
     return cudaErrorInvalidValue;
   const long long qs[3] = {q_sb, q_ss, q_sh};
   const long long kst[3] = {k_sb, k_ss, k_sh};
@@ -1188,7 +1630,10 @@ extern "C" int flash_attention_bwd(
                           static_cast<const void*>(dk), static_cast<const void*>(dv)})
       ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
     if (!ok) return cudaErrorInvalidValue;
-    if (short_form(Hq, Hkv, Sq, Skv, D)) {
+    const bool fits = short_form(Hq, Hkv, Sq, Skv, D), wg_d = D == 64 || D == 128;
+    if (form == kFormAuto) form = fits ? kFormShort : wg_d ? kFormWg : kFormStream;
+    if ((form == kFormShort && !fits) || (form == kFormWg && !wg_d)) return cudaErrorInvalidValue;
+    if (form == kFormShort) {
       switch (D) {
 #define REPRO_FLASH_BWD_SHORT(DD)                                                             \
   case DD:                                                                                    \
@@ -1206,9 +1651,26 @@ extern "C" int flash_attention_bwd(
           return cudaErrorInvalidValue;
       }
     }
-    if (delta == nullptr || splits < 1 || (Hq / Hkv) % splits != 0 ||
-        (splits > 1 && part == nullptr))
+    // the Hopper form shares a group among any count of blocks up to its
+    // size, the mma.sync form among a divisor of it
+    if (delta == nullptr || splits < 1 || splits > Hq / Hkv || (splits > 1 && part == nullptr) ||
+        (form == kFormStream && (Hq / Hkv) % splits != 0))
       return cudaErrorInvalidValue;
+    if (form == kFormWg) {
+      if (D == 64)
+        return window ? wg::launch<64, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                                             splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
+                                             window, softcap, scale, s)
+                      : wg::launch<64, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                                              splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
+                                              0, softcap, scale, s);
+      return window ? wg::launch<128, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                                            splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
+                                            window, softcap, scale, s)
+                    : wg::launch<128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
+                                             splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
+                                             0, softcap, scale, s);
+    }
     switch (D) {
 #define REPRO_FLASH_BWD_STREAM(DD)                                                            \
   case DD:                                                                                    \
@@ -1227,7 +1689,7 @@ extern "C" int flash_attention_bwd(
         return cudaErrorInvalidValue;
     }
   }
-  if (variant != kSimt || delta == nullptr) return cudaErrorInvalidValue;
+  if (variant != kSimt || delta == nullptr || form != kFormAuto) return cudaErrorInvalidValue;
   switch (dtype) {
     case repro::kFloat32:
       return dispatch_d<float>(D, q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv,

@@ -32,16 +32,19 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # tensor-core one (flash, the GEMM, the SSD scan and its backward) or the
 # 16-byte-vector one (RMSNorm and its backward)
 VARIANT_CODES = {"simt": 0, "tc": 1, "vec": 1}
+# form codes of the flash kernels' tensor-core variant (the C entries' last
+# argument): the entry's own choice from the shapes, or the form named
+FORM_CODES = {"auto": 0, "short": 1, "stream": 2, "wg": 3}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of each library's entry points: {function: argtypes}, the
 # first one the library's default
 SIGNATURES = {
     "flash_attention": {"flash_attention_fwd":
-                        [_P] * 5 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P]},
+                        [_P] * 5 + [_I] * 8 + [_L] * 9 + [_I, _I, _F, _F, _P, _I]},
     "flash_attention_bwd": {"flash_attention_bwd":
                             [_P] * 11 + [_I] * 9 + [_L] * 9
-                            + [_I, _I, _F, _F, _P]},
+                            + [_I, _I, _F, _F, _P, _I]},
     "moe_gemm": {"grouped_gemm": [_P] * 3 + [_I] * 7 + [_L] * 4 + [_P],
                  "grouped_gemm_bwd": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P]},
     "rmsnorm": {"rmsnorm_fwd":

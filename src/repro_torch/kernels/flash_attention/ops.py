@@ -5,18 +5,21 @@ card.
 Port of ``repro/kernels/flash_attention`` (``_fwd_kernel`` in kernel.py,
 the (B, S, H, D) layout wrapper in ops.py). The forward kernel is
 ``repro_torch/csrc/flash_attention.cu``, in two variants: bf16 on the
-tensor cores (``mma.sync``, ``cp.async`` loads) and a CUDA-core one for
-fp32 and for unaligned views. The backward kernel,
-``repro_torch/csrc/flash_attention_bwd.cu``, computes the VJP the JAX
-package writes out for its chunked attention (``flash_bwd``,
+tensor cores and a CUDA-core one for fp32 and for unaligned views. The
+backward kernel, ``repro_torch/csrc/flash_attention_bwd.cu``, computes the
+VJP the JAX package writes out for its chunked attention (``flash_bwd``,
 ``repro/models/attention.py:168-204``); the Pallas kernel has none. It has
 two variants too: bf16 on the tensor cores, for every input the forward
-sends there, and a CUDA-core one for fp32 and unaligned views. The
-tensor-core one has two forms, chosen by the C entry point from the shapes
-(``bwd_tc_form`` mirrors the rule): a short form for MHA heads that fit one
-block's shared memory whole (the agent's trunk), and a streaming form for
-the rest (GQA, D = 128, long sequences). Each source's note says what
-bounds it on the H100 and how the design answers that.
+sends there, and a CUDA-core one for fp32 and unaligned views. Each
+tensor-core variant has three forms, chosen by its C entry point from the
+shapes (``fwd_form`` and ``bwd_tc_form`` mirror the rules): a short form
+for heads that fit one block's shared memory whole (the agent's trunk,
+``mma.sync``), the Hopper streaming form ("wg": ``wgmma`` fed by TMA
+rings, D = 64 and 128, every LM layer) and the ``mma.sync`` streaming form
+("stream", D = 16 and 32). The wrappers count the Hopper form's launches
+in ``wg_launches``; ``_launch`` and ``_launch_bwd`` can name a form (the
+C entries' last argument) to time one against another. Each source's
+note says what bounds it on the H100 and how the design answers that.
 
 On CUDA tensors that need a gradient, ``flash_attention`` runs through
 ``_FlashFn``: its forward asks the kernel for each row's log-sum-exp, and
@@ -46,6 +49,19 @@ BWD_TC_MAX_SMEM = 232448
 # count aims at
 BWD_KV_ROWS = 64
 BWD_BLOCKS_PER_SM = 4
+# the forward's short form: at most this many q rows, q, K and V within the
+# default 48 KB of shared memory (csrc/flash_attention.cu, tc::short_fits)
+FWD_SHORT_MAX_S = 256
+FWD_SHORT_SMEM = 48 * 1024
+# the head dims of the Hopper streaming forms ("wg": wgmma fed by TMA), the
+# kv rows of their dkdv block, and the blocks an SM their split count aims
+# at: one block is resident an SM (160 KB of shared memory, 384 threads),
+# and 2 a SM picked the fastest share count at the LM training layers
+# (chip_smoke.py phase 5's splits_ms on an H100: Command-R's 1, TinyLlama's
+# 2, Qwen2-VL's 2 within 1% of its best)
+WG_HEAD_DIMS = (64, 128)
+BWD_WG_KV_ROWS = 128
+BWD_WG_BLOCKS_PER_SM = 2
 
 
 def _mask(Sq, Skv, causal, window, device):
@@ -162,10 +178,25 @@ def _flash_variant(q, k, v) -> str:
     return "tc"
 
 
+def fwd_form(Sq: int, Skv: int, D: int) -> str:
+    """The form of the tensor-core forward the C entry point runs
+    (``launch_tc`` in csrc/flash_attention.cu): "short" where q, K and V
+    fit one block's default shared memory (the agent's trunk), else "wg",
+    the Hopper streaming form (wgmma fed by TMA), at D in WG_HEAD_DIMS,
+    else "stream", the mma.sync streaming form (D = 16, 32)."""
+    sq16, skv16 = -(-Sq // 16) * 16, -(-Skv // 16) * 16
+    if sq16 <= FWD_SHORT_MAX_S and (sq16 + 2 * skv16) * D * 2 <= FWD_SHORT_SMEM:
+        return "short"
+    return "wg" if D in WG_HEAD_DIMS else "stream"
+
+
 def _launch(q, k, v, variant: str, *, causal, window, softcap, scale,
-            lse=False):
+            lse=False, form=None):
     """Run ``variant`` of the kernel on CUDA tensors q, k, v (checked by the
-    caller) and return out, or (out, lse) with ``lse``; counts nothing."""
+    caller) and return out, or (out, lse) with ``lse``; counts nothing.
+    ``form`` names the tensor-core form to run (``fwd_form``'s names; by
+    default the C entry's own choice): phase 5 and the card's tests time
+    and check one form against another."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -181,7 +212,8 @@ def _launch(q, k, v, variant: str, *, causal, window, softcap, scale,
                  B, Hq, Hkv, Sq, Skv, D,
                  *_build.row_strides(q), *_build.row_strides(k), *_build.row_strides(v),
                  int(bool(causal)), int(window), float(softcap), float(scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 torch.cuda.current_stream(q.device).cuda_stream,
+                 _build.FORM_CODES[form or "auto"])
     _build.check_launch("flash_attention", err)
     return (out, lse_t) if lse else out
 
@@ -196,28 +228,39 @@ def bwd_smem_bytes(Sq: int, Skv: int, D: int) -> int:
 
 def bwd_tc_form(Sq: int, Skv: int, Hq: int, Hkv: int, D: int) -> str:
     """The form of the tensor-core backward the C entry point runs
-    (``short_form`` in csrc/flash_attention_bwd.cu): "short" for MHA heads
-    with D <= 64 whose q, dO, K, V and dS^T fit one block's shared memory
-    (both sequences <= BWD_TC_MAX_S), else "stream"."""
+    (csrc/flash_attention_bwd.cu): "short" for MHA heads with D <= 64
+    whose q, dO, K, V and dS^T fit one block's shared memory (both
+    sequences <= BWD_TC_MAX_S; ``short_form``), else "wg", the Hopper
+    streaming form, at D in WG_HEAD_DIMS, else "stream", the mma.sync
+    streaming form (D = 16, 32)."""
     if Hq == Hkv and D <= 64 and max(Sq, Skv) <= BWD_TC_MAX_S \
             and bwd_smem_bytes(Sq, Skv, D) <= BWD_TC_MAX_SMEM:
         return "short"
-    return "stream"
+    return "wg" if D in WG_HEAD_DIMS else "stream"
 
 
-def bwd_splits(B: int, Skv: int, Hkv: int, group: int, sms: int) -> int:
-    """How many dkdv blocks of the streaming form share a kv head's
-    ``group`` q heads: the largest power of two dividing the group that
-    keeps the grid (B * Hkv * ceil(Skv / BWD_KV_ROWS) blocks a share)
-    within BWD_BLOCKS_PER_SM blocks an SM. Under the causal mask the first
-    kv tiles see the most q rows; more, smaller blocks let the card spread
-    them. A window takes the same rule: at Gemma-3's local training layer
-    it picks 1 share, the faster of 1 and 2 (chip_smoke.py phase 5's
-    splits_ms on an H100). Above 1 the shares write fp32 partials that a
-    last pass sums in split order."""
+def bwd_splits(B: int, Skv: int, Hkv: int, group: int, sms: int,
+               form: str = "wg") -> int:
+    """How many dkdv blocks of a streaming form share a kv head's
+    ``group`` q heads, keeping the grid (B * Hkv * ceil(Skv / rows) blocks
+    a share) within a number of blocks an SM. Under the causal mask the
+    first kv tiles see the most q rows; more, smaller blocks let the card
+    spread them. The Hopper form ("wg", 128 kv rows a block, within
+    BWD_WG_BLOCKS_PER_SM) takes the largest count up to the group, even or
+    not (share i of n takes the q heads [i g / n, (i + 1) g / n)), so
+    Qwen2-VL's group of 7 splits too; the mma.sync form ("stream", 64
+    rows, within BWD_BLOCKS_PER_SM) the largest power of two dividing the
+    group. A window takes the same rule: at Gemma-3's local
+    training layer the mma.sync form picks 1 share, the faster of 1 and 2
+    (chip_smoke.py phase 5's splits_ms on an H100). Above 1 the shares
+    write fp32 partials that a last pass sums in split order."""
+    if form == "wg":
+        blocks = B * Hkv * -(-Skv // BWD_WG_KV_ROWS)
+        return max(1, min(group, BWD_WG_BLOCKS_PER_SM * sms // blocks))
+    cap = BWD_BLOCKS_PER_SM * sms
     blocks = B * Hkv * -(-Skv // BWD_KV_ROWS)
     s = 1
-    while group % (2 * s) == 0 and blocks * 2 * s <= BWD_BLOCKS_PER_SM * sms:
+    while group % (2 * s) == 0 and blocks * 2 * s <= cap:
         s *= 2
     return s
 
@@ -235,11 +278,13 @@ def _flash_bwd_variant(q, k, v, o, do) -> str:
 
 
 def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, window=0,
-                softcap, scale, splits=None):
+                softcap, scale, splits=None, form=None):
     """Run ``variant`` of the backward kernel on CUDA tensors (o and do
-    contiguous) and return (dq, dk, dv); counts nothing. The streaming
-    tensor-core form shares a kv head's q heads among ``splits`` blocks
-    (by default ``bwd_splits``), with fp32 scratch for their partials."""
+    contiguous) and return (dq, dk, dv); counts nothing. ``form`` names the
+    tensor-core form (``bwd_tc_form``'s names; by default the C entry's own
+    choice). A streaming tensor-core form shares a kv head's q heads among
+    ``splits`` blocks (by default ``bwd_splits`` for that form), with fp32
+    scratch for their partials."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -252,7 +297,8 @@ def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, window=0,
         # the short form's MHA heads (a group of 1) always take 1
         splits = 1 if variant != "tc" else bwd_splits(
             B, Skv, Hkv, Hq // Hkv,
-            torch.cuda.get_device_properties(q.device).multi_processor_count)
+            torch.cuda.get_device_properties(q.device).multi_processor_count,
+            form or bwd_tc_form(Sq, Skv, Hq, Hkv, D))
     part = (torch.empty(2 * splits * dk.numel(), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
     fn = _build.load("flash_attention_bwd")
@@ -266,7 +312,8 @@ def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, window=0,
                  *_build.row_strides(q), *_build.row_strides(k),
                  *_build.row_strides(v), int(bool(causal)), int(window),
                  float(softcap), float(scale),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 torch.cuda.current_stream(q.device).cuda_stream,
+                 _build.FORM_CODES[form or "auto"])
     _build.check_launch("flash_attention_bwd", err)
     return dq, dk, dv
 
@@ -300,6 +347,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.tc_launches = 0
+flash_attention_bwd.wg_launches = 0
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, window, softcap, scale):
@@ -313,6 +361,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, window, softcap, scale):
     if q.numel() and k.numel():         # an empty problem launches nothing
         flash_attention_bwd.launches += 1
         flash_attention_bwd.tc_launches += variant == "tc"
+        flash_attention_bwd.wg_launches += variant == "tc" and bwd_tc_form(
+            q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3]) == "wg"
     return grads
 
 
@@ -325,7 +375,7 @@ class _FlashFn(torch.autograd.Function):
         variant = _flash_variant(q, k, v)
         out, lse = _launch(q, k, v, variant, causal=causal, window=window,
                            softcap=softcap, scale=scale, lse=True)
-        _count(out, variant)
+        _count(out, k, variant)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap,
                         scale=scale)
@@ -338,10 +388,12 @@ class _FlashFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def _count(out, variant: str) -> None:
+def _count(out, k, variant: str) -> None:
     if out.numel():                     # an empty out launches nothing
         flash_attention.launches += 1
         flash_attention.tc_launches += variant == "tc"
+        flash_attention.wg_launches += variant == "tc" and fwd_form(
+            out.shape[1], k.shape[1], out.shape[3]) == "wg"
 
 
 def _flash_cuda(q, k, v, *, causal, window, softcap, scale):
@@ -354,7 +406,7 @@ def _flash_cuda(q, k, v, *, causal, window, softcap, scale):
     variant = _flash_variant(q, k, v)
     out = _launch(q, k, v, variant, causal=causal, window=window,
                   softcap=softcap, scale=scale)
-    _count(out, variant)
+    _count(out, k, variant)
     return out
 
 
@@ -379,3 +431,4 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
+flash_attention.wg_launches = 0

@@ -120,3 +120,22 @@ def test_sass_diff_blanks_what_a_new_parameter_moves():
     assert sass_diff.usage(log) == {"_Z1kILi32EEvPfi": {
         "stack": 16, "spill_stores": 16, "spill_loads": 28,
         "registers": 255}}
+
+
+def test_sass_diff_pairs_every_kernel_by_name():
+    """``--all`` pairs each kernel of the parent with the change's of the
+    same mangled name, the anonymous namespace's per-file tag (which
+    differs between two trees' builds) blanked; the change's kernels the
+    parent lacks come back apart (the new forms)."""
+    from repro_torch.analysis import sass_diff
+    tag_a = "_ZN55_GLOBAL__N__04cf38d3_18_flash_attention_cu_2c1389792tc"
+    tag_b = "_ZN55_GLOBAL__N__9a1b2c3d_18_flash_attention_cu_77aa00ff2tc"
+    parent = [tag_a + "19flash_fwd_tc_kernelILi64EEEvPK13__nv_bfloat16",
+              "_Z11split_sumPKfPfxi"]
+    change = [tag_b + "19flash_fwd_tc_kernelILi64EEEvPK13__nv_bfloat16",
+              "_Z11split_sumPKfPfxi",
+              "_ZN55_GLOBAL__N__9a1b2c3d_18_flash_attention_cu_77aa00ff2wg"
+              "19flash_fwd_wg_kernelILi64EEEv14CUtensorMap_st"]
+    pairs, new = sass_diff.same_name_pairs(parent, change)
+    assert pairs == list(zip(parent, change[:2]))
+    assert new == [change[2]]

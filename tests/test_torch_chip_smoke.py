@@ -99,8 +99,8 @@ def test_command_r_training_cut(smoke):
     on meta tensors, peaks under the card's 80 GB (one layer more does
     not), at the embedding's backward; and a step launches a flash a layer
     forward, twice with the recompute, and one backward, all on the tensor
-    cores, and no RMSNorm, SSD or grouped GEMM (LayerNorm, a dense
-    block)."""
+    cores in the Hopper streaming form, and no RMSNorm, SSD or grouped
+    GEMM (LayerNorm, a dense block)."""
     from repro_torch.launch.dryrun import MetaGenerator
     from repro_torch.models import transformer
     cfg = smoke.CMDR_TRAIN
@@ -118,8 +118,8 @@ def test_command_r_training_cut(smoke):
     assert gb < 77 < 80 < more and op == "index_put"
     got = smoke._train_pass_counts(cfg, 1)
     assert {k: v for k, v in got.items() if v} == {
-        "flash_attention": 2 * L, "flash_tc": 2 * L,
-        "flash_attention_bwd": L, "flash_bwd_tc": L}
+        "flash_attention": 2 * L, "flash_tc": 2 * L, "flash_wg": 2 * L,
+        "flash_attention_bwd": L, "flash_bwd_tc": L, "flash_bwd_wg": L}
 
 
 def test_dryrun_process_and_its_record(smoke, monkeypatch, tmp_path,

@@ -24,8 +24,8 @@ The backward kernels (flash's, and the GEMM's two products) run through
 autograd as training runs them, against their plain versions on the same
 inputs: flash fp32 3e-5 absolute and 1e-5 relative, the GEMM fp32 2e-5
 (sums over up to 1001 terms), bf16 2e-2; flash's tensor-core backward in
-both forms (the short one at the trunk's MHA heads, the streaming one for
-GQA, D = 128 and long or ragged sequences, at every split count of a
+every form (the short one at the trunk's MHA heads, the streaming ones
+for GQA, D = 128 and long or ragged sequences, at every split count of a
 group) and bit for bit against itself over repeated calls, all of it with
 a window too (Gemma-3's local training layer, a window of 1000 at a ragged
 S of 2050, one under a tile, the short form, fp32); the GEMM's fused bf16
@@ -47,7 +47,12 @@ vectors (the fewest two warps take) in both dtypes, and at 897 vectors
 ("simt"); the SSD backward also at Zamba2-7B's training layer,
 x (2,2048,112,64) with N = 64 and one group, and ragged at its 112 heads
 with an initial state; every backward case the same bit for bit over a
-repeated call.
+repeated call. Flash's two streaming forms are also named (the Hopper
+form, ``wg``: wgmma fed by TMA rings, and the mma.sync form it replaced)
+and held to the plain versions both ways at every LM layer the port runs,
+ragged at 1100, under a window with softcap and on fused-qkv views; the
+Hopper backward bit for bit at one share and at several, even and not;
+the counters show each launch's form.
 
 Qwen2-MoE's MoE layer at ``SMOKE`` runs on the card against the CPU (its
 two grouped GEMMs on the tensor cores in bf16), and the grouped GEMM at the
@@ -812,15 +817,16 @@ def _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal, seed=0, window=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window,form", [
-    (2, 8, 2, 1001, 64, True, 0, "stream"),   # q heads shared among blocks
-    (1, 4, 4, 300, 128, False, 0, "stream"),
+    (2, 8, 2, 1001, 64, True, 0, "wg"),       # q heads shared among blocks
+    (1, 4, 4, 300, 128, False, 0, "wg"),
     (4, 8, 8, 144, 32, False, 0, "short"),
-    (2, 32, 16, 2048, 128, True, 1024, "stream"),   # Gemma-3's local layer
-    (1, 16, 2, 777, 64, True, 100, "stream"),       # windowed, 8 shares
+    (2, 32, 16, 2048, 128, True, 1024, "wg"),       # Gemma-3's local layer
+    (1, 16, 2, 777, 64, True, 100, "wg"),           # windowed, 8 shares
     (4, 8, 8, 144, 32, True, 48, "short"),
-    (2, 28, 4, 2048, 128, True, 0, "stream"),       # Qwen2-VL's, group 7
-    (2, 64, 8, 2048, 128, True, 0, "stream"),       # Command-R's, group 8
-    (1, 64, 8, 2048, 128, True, 0, "stream"),       # its two shares
+    (2, 28, 4, 2048, 128, True, 0, "wg"),           # Qwen2-VL's, group 7
+    (2, 64, 8, 2048, 128, True, 0, "wg"),           # Command-R's, group 8
+    (1, 64, 8, 2048, 128, True, 0, "wg"),           # its two shares
+    (1, 8, 2, 300, 32, True, 0, "stream"),          # the mma.sync form
 ])
 def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, window,
                                       form):
@@ -843,13 +849,14 @@ def test_flash_backward_bit_identical(cuda, B, Hq, Hkv, S, D, causal, window,
                                         (1, 1001, 4)])
 def test_flash_backward_shares_at_command_r(cuda, B, S, splits):
     """Command-R's 64 q heads over 8 kv heads of 128 on an H100 SXM's 132
-    SMs: ``bwd_splits`` gives one share a kv head at its 2 x 2048 training
-    batch (512 dkdv blocks, each summing 8 q heads), two at a batch of 1
-    and four at a ragged 1 x 1001; the wrapper's own count gives the same
-    bits as that count named."""
+    SMs, in the Hopper form (128 kv rows a dkdv block): ``bwd_splits``
+    gives one share a kv head at its 2 x 2048 training batch (256 blocks,
+    each summing 8 q heads), two at a batch of 1 and four at a ragged 1 x
+    1001; the wrapper's own count gives the same bits as that count
+    named."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert sms == 132 and fa_ops.bwd_splits(B, S, 8, 8, sms) == splits
-    assert fa_ops.bwd_tc_form(S, S, 64, 8, 128) == "stream"
+    assert fa_ops.bwd_tc_form(S, S, 64, 8, 128) == "wg"
     q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, 64, 8, S, 128, True)
     opts = dict(causal=True, softcap=0.0, scale=128 ** -0.5)
     auto = fa_ops._launch_bwd(q, k, v, o, lse, do.contiguous(), "tc", **opts)
@@ -912,6 +919,137 @@ def test_flash_backward_strided_views(cuda):
                                    out.detach(), lse, do, causal=True)
     torch.testing.assert_close(g.float(), torch.stack(refs, 2).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+# ------------------------------------------- the tensor-core forms by name
+def _form_counts():
+    return (flash_attention.launches, flash_attention.tc_launches,
+            flash_attention.wg_launches, flash_attention_bwd.launches,
+            flash_attention_bwd.tc_launches, flash_attention_bwd.wg_launches)
+
+
+# (B, Hq, Hkv, S, D, causal, window, softcap): each LM layer the port runs
+# flash at, ragged at 1100, under a window with softcap
+FORM_CASES = [
+    (2, 32, 4, 2048, 64, True, 0, 0.0),      # TinyLlama
+    (2, 16, 16, 2048, 128, True, 0, 0.0),    # Qwen2-MoE
+    (2, 20, 20, 2048, 128, True, 0, 0.0),    # Qwen1.5-4B
+    (2, 32, 16, 2048, 128, True, 1024, 0.0),  # Gemma-3 local
+    (2, 32, 16, 2048, 128, True, 0, 0.0),    # Gemma-3 global
+    (2, 64, 8, 2048, 128, True, 0, 0.0),     # Command-R
+    (2, 28, 4, 2048, 128, True, 0, 0.0),     # Qwen2-VL
+    (1, 28, 4, 1100, 128, True, 0, 0.0),     # ragged
+    (2, 32, 16, 1100, 128, True, 1024, 0.0),
+    (2, 8, 2, 1100, 64, True, 300, 30.0),    # a window with softcap
+    (1, 8, 2, 333, 64, False, 0, 30.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wg", "stream"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,causal,window,softcap", FORM_CASES)
+def test_flash_forms_match_plain(cuda, B, Hq, Hkv, S, D, causal, window,
+                                 softcap, form):
+    """The Hopper streaming form (``wg``: wgmma fed by TMA rings) and the
+    mma.sync streaming form it replaces, each named, forward (out and lse)
+    and backward against the plain versions at every LM layer shape, 2e-2
+    in bf16; the wrappers' own choice at these shapes is the Hopper form,
+    counted in ``wg_launches`` both ways."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal,
+                                            seed=S + D, window=window)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    run = dict(opts, scale=D ** -0.5)
+    out, lse = fa_ops._launch(q, k, v, "tc", lse=True, form=form, **run)
+    torch.testing.assert_close(out.float(), flash_attention_ref(
+        q, k, v, **opts).float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **opts),
+                               atol=1e-4, rtol=1e-5)
+    grads = fa_ops._launch_bwd(q, k, v, out, lse, do.contiguous(), "tc",
+                               form=form, **run)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, do, **opts)
+    for name, g, r in zip("qkv", grads, refs):
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2, msg=f"d{name}")
+    assert fa_ops.fwd_form(S, S, D) == "wg"
+    assert fa_ops.bwd_tc_form(S, S, Hq, Hkv, D) == "wg"
+    before = _form_counts()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch.autograd.grad(flash_attention(*leaves, **opts), leaves, do)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_form_counts(), before)) == \
+        (1, 1, 1, 1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wg", "stream"])
+def test_flash_forms_on_fused_views(cuda, form):
+    """q, k, v as views of one fused (B, S, 3, H, D) tensor read in place
+    by both streaming forms (the Hopper form's TMA maps take the views'
+    strides), forward and backward, at S = 300 past the short forms."""
+    a, do = _normal(7, (2, 300, 3, 4, 64), (2, 300, 4, 64))
+    q, k, v = torch.from_numpy(a).to(cuda, torch.bfloat16).unbind(2)
+    do = torch.from_numpy(do).to(cuda, torch.bfloat16)
+    run = dict(causal=True, window=0, softcap=0.0, scale=0.125)
+    out, lse = fa_ops._launch(q, k, v, "tc", lse=True, form=form, **run)
+    torch.testing.assert_close(out.float(), flash_attention_ref(
+        q, k, v, causal=True).float(), atol=2e-2, rtol=2e-2)
+    grads = fa_ops._launch_bwd(q, k, v, out, lse, do, "tc", form=form, **run)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=True)
+    for name, g, r in zip("qkv", grads, refs):
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,window,splits", [
+    (2, 28, 4, 2048, 128, 0, 1), (2, 28, 4, 2048, 128, 0, 4),  # Qwen2-VL
+    (2, 32, 4, 2048, 64, 0, 1), (2, 32, 4, 2048, 64, 0, 3),    # TinyLlama
+    (1, 16, 2, 777, 64, 100, 5),
+])
+def test_flash_backward_wg_bit_identical(cuda, B, Hq, Hkv, S, D, window,
+                                         splits):
+    """The Hopper form's backward, named, gives the same bits over
+    repeated calls at one share and at more (uneven shares of the group
+    included: 7 heads in 4 shares, 8 in 3 or 5), and within 2e-2 of the
+    plain backward."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, True,
+                                            window=window)
+    run = dict(causal=True, window=window, softcap=0.0, scale=D ** -0.5)
+    first = fa_ops._launch_bwd(q, k, v, o, lse, do, "tc", form="wg",
+                               splits=splits, **run)
+    again = fa_ops._launch_bwd(q, k, v, o, lse, do, "tc", form="wg",
+                               splits=splits, **run)
+    for name, a, b in zip("qkv", first, again):
+        assert torch.equal(a, b), f"d{name} differs between calls"
+    refs = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                   window=window)
+    for name, g, r in zip("qkv", first, refs):
+        torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Hq,Hkv,S,D,form", [
+    (2, 8, 8, 144, 32, "short"), (1, 8, 2, 300, 32, "stream"),
+    (1, 8, 2, 300, 64, "wg"), (1, 4, 4, 128, 64, "short"),
+])
+def test_flash_counters_show_the_form(cuda, B, Hq, Hkv, S, D, form):
+    """Each launch through the wrappers counts its form: ``wg_launches``
+    rises with ``tc_launches`` where the Hopper form runs, both ways, and
+    not at the short or mma.sync forms; a form the shapes do not take is
+    refused by the C entry, with nothing run in its place."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, True)
+    before = _form_counts()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch.autograd.grad(flash_attention(*leaves, causal=True), leaves, do)
+    torch.cuda.synchronize()
+    wg = int(form == "wg")
+    assert tuple(a - b for a, b in zip(_form_counts(), before)) == \
+        (1, 1, wg, 1, 1, wg)
+    if D < 64:
+        with pytest.raises(RuntimeError):
+            fa_ops._launch(q, k, v, "tc", causal=True, window=0, softcap=0.0,
+                           scale=D ** -0.5, form="wg")
 
 
 @pytest.mark.cuda

@@ -388,40 +388,53 @@ def test_flash_bwd_variant(name, variant):
 
 @pytest.mark.parametrize("name,form", [
     ("trunk", "short"), ("fused_qkv", "short"), ("gqa", "stream"),
-    ("d128", "stream"), ("long", "stream"), ("d64_s256", "stream"),
-    ("tinyllama_train", "stream"), ("qwen_moe_train", "stream"),
+    ("d128", "wg"), ("long", "stream"), ("d64_s256", "wg"),
+    ("tinyllama_train", "wg"), ("qwen_moe_train", "wg"),
 ])
 def test_flash_bwd_tc_form(name, form):
     """``bwd_tc_form`` mirrors the C entry point's choice of the
     tensor-core form: the short form keeps the trunk's MHA heads whole in
     shared memory; GQA, D = 128 and sequences past 256 or past the short
-    form's shared memory stream their tiles."""
+    form's shared memory stream their tiles, through the Hopper form
+    (wgmma fed by TMA) at D = 64 and 128, the mma.sync form at D = 16
+    and 32."""
     q, k = _flash_bwd_case(name)[:2]
     assert bwd_tc_form(q.shape[1], k.shape[1], q.shape[2], k.shape[2],
                        q.shape[3]) == form
 
 
-@pytest.mark.parametrize("B,Skv,Hkv,group,splits", [
-    (2, 2048, 4, 8, 2),      # TinyLlama training, 2 x 2048: 256 blocks a share
-    (8, 128, 4, 8, 8),       # the train launcher's 8 x 128: 64 blocks a share
-    (2, 2048, 16, 1, 1),     # Qwen2-MoE training, MHA: nothing to share
-    (2, 1001, 2, 4, 4),
-    (1, 130, 1, 8, 8),
-    (4, 2048, 4, 8, 1),      # 512 blocks already
-    (2, 2048, 8, 8, 1),      # Command-R training, 64/8 heads: 512 blocks
-    (1, 2048, 8, 8, 2),      # its batch of 1: 256 blocks a share
-    (1, 1001, 8, 8, 4),      # ragged: 128 blocks a share
+# (B, Skv, Hkv, group, the mma.sync form's shares, the Hopper form's): the
+# blocks a share counted at 64 and at 128 kv rows a block
+@pytest.mark.parametrize("B,Skv,Hkv,group,splits,wg_splits", [
+    (2, 2048, 4, 8, 2, 2),   # TinyLlama training, 2 x 2048: 256 / 128 blocks a share
+    (8, 128, 4, 8, 8, 8),    # the train launcher's 8 x 128: 64 / 32 blocks a share
+    (2, 2048, 16, 1, 1, 1),  # Qwen2-MoE training, MHA: nothing to share
+    (2, 1001, 2, 4, 4, 4),
+    (1, 130, 1, 8, 8, 8),
+    (4, 2048, 4, 8, 1, 1),   # 512 / 256 blocks
+    (2, 2048, 8, 8, 1, 1),   # Command-R training, 64/8 heads: 512 / 256 blocks
+    (1, 2048, 8, 8, 2, 2),   # its batch of 1
+    (1, 1001, 8, 8, 4, 4),   # ragged: 128 / 64 blocks a share
+    (2, 2048, 4, 7, 1, 2),   # Qwen2-VL training, a group of 7: 128 blocks at 128 rows
 ])
-def test_flash_bwd_splits(B, Skv, Hkv, group, splits):
-    """The streaming dkdv kernel shares a kv head's q heads among as many
-    blocks as keep its grid within BWD_BLOCKS_PER_SM blocks an SM of an
-    H100's 132, a power of two that divides the group."""
-    s = bwd_splits(B, Skv, Hkv, group, 132)
+def test_flash_bwd_splits(B, Skv, Hkv, group, splits, wg_splits):
+    """A streaming dkdv kernel shares a kv head's q heads among as many
+    blocks as keep its grid within a number of blocks an SM of an H100's
+    132: the mma.sync form a power of two that divides the group, within
+    BWD_BLOCKS_PER_SM, the Hopper form any count up to the group, within
+    BWD_WG_BLOCKS_PER_SM."""
+    cap = fa_ops.BWD_BLOCKS_PER_SM * 132
+    s = bwd_splits(B, Skv, Hkv, group, 132, "stream")
     assert s == splits and group % s == 0
     blocks = B * Hkv * -(-Skv // fa_ops.BWD_KV_ROWS)
-    assert blocks * s <= fa_ops.BWD_BLOCKS_PER_SM * 132 or s == 1
-    assert group % (2 * s) or \
-        blocks * 2 * s > fa_ops.BWD_BLOCKS_PER_SM * 132
+    assert blocks * s <= cap or s == 1
+    assert group % (2 * s) or blocks * 2 * s > cap
+    w = bwd_splits(B, Skv, Hkv, group, 132)
+    assert w == wg_splits == bwd_splits(B, Skv, Hkv, group, 132, "wg")
+    blocks = B * Hkv * -(-Skv // fa_ops.BWD_WG_KV_ROWS)
+    cap = fa_ops.BWD_WG_BLOCKS_PER_SM * 132
+    assert 1 <= w <= group and (blocks * w <= cap or w == 1)
+    assert w == group or blocks * (w + 1) > cap
 
 
 def _record_bwd_launch(monkeypatch, q, k, v, o, do, **opts):
@@ -463,7 +476,9 @@ def test_flash_bwd_launch_arguments(monkeypatch, name, splits):
     scratch (B, Hq, Sq) every variant fills, the streaming form's fp32
     partials of 2 x splits x dk's elements where a kv head's q heads are
     shared, the split count (1 for the short form and the CUDA-core
-    kernels), the shapes and the strides."""
+    kernels; TinyLlama's training layer takes the Hopper form's 2), the
+    shapes and the strides, and last the form: 0, the entry's own
+    choice."""
     q, k, v, o, do = _flash_bwd_case(name)
     args, sizes, (lse, variant, (dq, dk, dv)) = _record_bwd_launch(
         monkeypatch, q, k, v, o, do)
@@ -480,11 +495,11 @@ def test_flash_bwd_launch_arguments(monkeypatch, name, splits):
     assert args[20:29] == (*fa_ops._build.row_strides(q),
                            *fa_ops._build.row_strides(k),
                            *fa_ops._build.row_strides(v))
-    assert args[29:] == (1, 0, 0.0, 0.125, 7)
+    assert args[29:] == (1, 0, 0.0, 0.125, 7, 0)
 
 
 @pytest.mark.parametrize("name,form", [
-    ("gemma_train", "stream"),    # Gemma-3's training layers, local and global
+    ("gemma_train", "wg"),        # Gemma-3's training layers, local and global
     ("trunk", "short"),           # a window in the short form
     ("long", "stream"),           # a window under one tile, ragged S
 ])
@@ -499,26 +514,32 @@ def test_flash_bwd_windowed_form(name, form):
                        q.shape[3]) == form
 
 
-@pytest.mark.parametrize("B,Skv,Hkv,group,window,splits", [
-    (2, 2048, 16, 2, 1024, 1),   # Gemma-3's local training layer: 1024 blocks
-    (1, 2048, 16, 2, 1024, 1),   # its 2-layer gradient check: 512 blocks
-    (2, 2048, 4, 8, 1024, 2),    # a group of 8: 256 blocks a share
-    (1, 512, 2, 8, 100, 8),      # 16 blocks
-    (2, 2048, 4, 8, 2048, 2),    # a window as long as the sequence
-    (2, 2048, 4, 8, 4096, 2),
+# (..., the mma.sync form's shares at D = 16, the Hopper form's at D = 64)
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("B,Skv,Hkv,group,window,splits,wg_splits", [
+    (2, 2048, 16, 2, 1024, 1, 1),  # Gemma-3's local training layer: 1024 / 512 blocks
+    (1, 2048, 16, 2, 1024, 1, 1),  # its 2-layer gradient check: 512 / 256 blocks
+    (2, 2048, 4, 8, 1024, 2, 2),   # a group of 8: 256 / 128 blocks a share
+    (1, 512, 2, 8, 100, 8, 8),     # 16 / 8 blocks
+    (2, 2048, 4, 8, 2048, 2, 2),   # a window as long as the sequence
+    (2, 2048, 4, 8, 4096, 2, 2),
 ])
-def test_flash_bwd_windowed_splits(monkeypatch, B, Skv, Hkv, group, window,
-                                   splits):
+def test_flash_bwd_windowed_splits(monkeypatch, D, B, Skv, Hkv, group,
+                                   window, splits, wg_splits):
     """A window leaves the split count to the causal rule: the launch with
-    the window hands the C entry point ``bwd_splits``'s count, the same as
-    without one (at Gemma-3's local training layer 1 share, the faster of
-    the two measured)."""
-    q = torch.zeros(B, Skv, Hkv * group, 16, dtype=BF16)
-    k = torch.zeros(B, Skv, Hkv, 16, dtype=BF16)
+    the window hands the C entry point ``bwd_splits``'s count for the form
+    the head dim takes (the mma.sync form at D = 16, the Hopper form at
+    D = 64), the same as without one (at Gemma-3's local training layer
+    the mma.sync form's 1 share, the faster of the two measured)."""
+    q = torch.zeros(B, Skv, Hkv * group, D, dtype=BF16)
+    k = torch.zeros(B, Skv, Hkv, D, dtype=BF16)
+    form = bwd_tc_form(Skv, Skv, Hkv * group, Hkv, D)
+    assert form == ("stream" if D == 16 else "wg")
     args = _record_bwd_launch(monkeypatch, q, k, k, q, q,
                               window=window)[0]
-    assert args[13] == splits == bwd_splits(B, Skv, Hkv, group, 132)
-    assert args[30] == window
+    want = splits if D == 16 else wg_splits
+    assert args[13] == want == bwd_splits(B, Skv, Hkv, group, 132, form)
+    assert args[30] == window and args[34] == 0
     assert args[13] == _record_bwd_launch(monkeypatch, q, k, k, q, q)[0][13]
 
 
@@ -535,7 +556,7 @@ def test_flash_bwd_launch_arguments_with_a_window(monkeypatch, name, window,
     B, S, Hq, D = q.shape
     assert ((B, Hq, S), torch.float32) in sizes
     assert (args[10] is None) == (splits == 1) and args[13] == splits
-    assert args[29:] == (1, window, 0.0, 0.125, 7)
+    assert args[29:] == (1, window, 0.0, 0.125, 7, 0)
 
 
 def test_flash_bwd_smem_mirror():

@@ -582,8 +582,9 @@ def test_kernel_variants_at_full_width(monkeypatch):
     """The tensors the model hands its kernels at the published widths
     (one layer, bf16, M-RoPE positions with an image): flash at 28 q heads
     over 4 kv heads of 128 takes the tensor cores, and its backward the
-    streaming form with one share of the group of 7 at a 2 x 2048 training
-    layer on 132 SMs (no power of two above 1 divides 7); the three norms
+    Hopper streaming form with 2 shares of the group of 7 (3 and 4 q
+    heads) at a 2 x 2048 training layer on 132 SMs, 1 at 4 x 2048; the
+    three norms
     over d 3584 (448 vectors) the vec variant both ways. A prefill runs 1
     flash and 3 norms, a decode step the norms alone."""
     flashes, norms = [], []
@@ -615,8 +616,8 @@ def test_kernel_variants_at_full_width(monkeypatch):
         tt.decode_step(params, cfg, torch.from_numpy(toks[:, :1]),
                        torch.from_numpy(pos[..., -1:] + 1), cache, S)
     assert len(flashes) == 1 and norms == [(3584, "vec", "vec")] * 6
-    assert bwd_tc_form(2048, 2048, 28, 4, 128) == "stream"
-    assert bwd_splits(2, 2048, 4, 7, 132) == 1
+    assert bwd_tc_form(2048, 2048, 28, 4, 128) == "wg"
+    assert bwd_splits(2, 2048, 4, 7, 132) == 2
     assert bwd_splits(4, 2048, 4, 7, 132) == 1
 
 
