@@ -282,20 +282,28 @@ exits non-zero:
    ``repro_torch.launch.train --smoke`` for 3 steps, again for 3
    resumed ("resumed at step 3") against an uninterrupted 6-step run, and
    ``launch.serve --smoke --ckpt-dir`` serving from its checkpoint; last,
-   ``repro_torch.launch.train`` with no ``--arch`` (TinyLlama-1.1B, the
-   reference's default) at its full-width defaults, 8 x 128, for 3 steps,
-   its checkpoint not written: finite losses, the peak memory, and 66 flash
-   backwards, all on the tensor cores; before the launchers, the donated
+   Mirage's sub-job chain at full width: ``repro_torch.launch.train`` with
+   no ``--arch`` (TinyLlama-1.1B, the reference's default) at its defaults,
+   8 x 128, a sub-job of 3 steps ending in its exit checkpoint (the
+   parameters and AdamW moments, 13.2 GB, through the launcher's own
+   writer), a second resumed from it for 2 steps, their losses against an
+   uninterrupted 5-step run bit for bit, every flash on the tensor cores
+   both ways, each save's and the restore's wall time beside the disk's
+   raw write of the same bytes (raising past 60 s, or past 1.5 times the
+   raw write where the disk is slower than that) and the host's resident
+   set; before the launchers, the donated
    step (``make_train_step(..., donate=True)``, the one ``ChainedTrainer``
    runs, as the reference jits its step with donated params and optimizer
    state): TinyLlama's first 2 layers at full width, one 2 x 2048 step
    functional and donated from the same state, raising unless every leaf
    holds the same bits and every donated leaf kept its storage; then three
    runs through ``ChainedTrainer``'s donated step, each a warm-up and 3
-   steps with ms a step, tokens/s, losses, the peak memory and the
-   launches checked, its checkpoints not written: Qwen1.5-4B at full
-   width on 32 of 40 layers, fp32 m and v, QKV biases drawn nonzero, 2 x
-   2048 (a flash launch a layer each way, tc; 65 RMSNorm each way, vec);
+   steps of the trainer's step function with ms a step, tokens/s,
+   losses, the peak memory (beside the step's peak counted on meta
+   tensors first, ``meta_step_peak``, where it chose the depth) and the
+   launches checked: Qwen1.5-4B at full width and depth, all 40 layers,
+   fp32 m and v, QKV biases drawn nonzero, 2 x 2048 (a flash launch a
+   layer each way, tc; 81 RMSNorm each way, vec);
    HuBERT X-Large at full width and depth (48 layers, heads of 80,
    LayerNorm, bidirectional) on 4 x 1000 frames, after a timed
    ``forward`` and ``loss_fn`` on the same batch (no kernel launch on its
@@ -308,7 +316,7 @@ exits non-zero:
    128 against the CPU with the host's peak memory, and one donated step
    under torch.profiler; Command-R 35B at full width (d 8192, 64 q heads
    over 8 kv heads of 128, d_ff 22,528, the tied 256,000-row table, the
-   parallel block, LayerNorm) on 4 of 40 layers, bf16 m and v, every
+   parallel block, LayerNorm) on 5 of 40 layers, bf16 m and v, every
    LayerNorm scale drawn N(1, 0.3) and bias N(0, 0.3), 2 x 2048 (a flash
    launch a layer each way, tc, the backward's streaming form at one share
    of the group of 8; no RMSNorm), its first 2 layers and the tied head at
@@ -318,10 +326,10 @@ exits non-zero:
    image a row (a flash launch a layer each way, tc, the backward's
    streaming form at one share of the group of 7; 21 RMSNorm each way,
    vec), its 2 layers' gradients at 1 x 512 with a 64-token image against
-   the CPU; Zamba2-7B at full width on 25 of 81 layers (3 x (6 Mamba2 +
+   the CPU; Zamba2-7B at full width on 32 of 81 layers (4 x (6 Mamba2 +
    the tied shared block) + 4 Mamba2), fp32 m and v, every norm scale
-   drawn N(1, 0.3), 2 x 2048, raising unless each step launched 22 SSD
-   scans each way (tc) and 51 RMSNorm each way (vec, the out_norms' 22
+   drawn N(1, 0.3), 2 x 2048, raising unless each step launched 28 SSD
+   scans each way (tc) and 65 RMSNorm each way (vec, the out_norms' 28
    backwards at 896 vectors a row on two warps) and no flash, with the
    peak memory; a sub-model of 2 Mamba2 blocks each followed by the shared
    block, its gradients at 1 x 512 against the CPU (the tied leaves' the
@@ -340,7 +348,8 @@ exits non-zero:
    ms, the forward kernels' launches twice under remat, the backward's
    once); then ``launch.train --distributed`` at the launcher's defaults
    on a world of one (NCCL, torchrun's variables set by the script; cut
-   for time to the model's first 2 layers and a zlib level-0 checkpoint),
+   for time to the model's first 2 layers; every sub-job writes its
+   checkpoint through the launcher's own writer),
    a sub-job against the plain launcher's and a second resumed through
    ``restore_checkpoint(shardings=)`` on ``make_host_mesh()`` against a
    plain one resumed from the same checkpoint: the same losses bit for bit;
@@ -418,8 +427,8 @@ path that runs it (phases 3, 4, 4b, 4c's to 4j's prefill and decode
 steps, 6, 7, 8: runs (a), (b) and (c), the 2 x 2048 runs of TinyLlama,
 Gemma-3 and Qwen2-MoE, the donated step, the ``ChainedTrainer`` runs of
 Qwen1.5-4B, HuBERT, DeepSeek-V2, Command-R, Qwen2-VL and Zamba2-7B and the
-launcher
-at its defaults, 8b, and 8c's remat run and four launcher sub-jobs), each
+chain's two sub-jobs at the launcher's defaults, 8b, and 8c's remat run and
+four launcher sub-jobs), each
 counted from 0 just before its path and read just after.
 
 The last two lines are the kernels' JSON record and
@@ -438,7 +447,6 @@ import shutil
 import subprocess
 import sys
 import time
-import zlib
 from collections import Counter, defaultdict
 from pathlib import Path
 
@@ -493,6 +501,8 @@ from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ops import _launch as ssd_launch  # noqa: E402
 from repro_torch.kernels.ssd.ops import (  # noqa: E402
     _launch_bwd as ssd_launch_bwd)
+from repro_torch.analysis.ckpt_stages import (RssPeak,  # noqa: E402
+                                              raw_write_s)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch.dryrun import MetaGenerator  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
@@ -510,6 +520,7 @@ from repro_torch.sim import (LOAD_LEVELS, PROFILES,  # noqa: E402
                              get_fault_spec, get_scenario, iter_scenarios,
                              make_env, make_vector_env, synthesize_trace)
 from repro_torch.train import chain as train_chain  # noqa: E402
+from repro_torch.train import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.train import (OptimizerConfig, adamw_update,  # noqa: E402
                                init_opt_state, make_prefill_step,
                                make_serve_step, make_train_step)
@@ -602,9 +613,11 @@ DEEPSEEK_NORMS = 4 * DEEPSEEK.n_layers + 1  # ln1, ln2, q_norm, kv_norm a
 DEEPSEEK_GEMMS = 2 * (DEEPSEEK.n_layers - DEEPSEEK.first_k_dense)
 DEEPSEEK_NORM_STD = 0.3     # the norm scales drawn N(1, .): the reference
                             # inits them 1, where a swapped q/kv norm hides
-DEEPSEEK_PLAIN_PROMPT, DEEPSEEK_PLAIN_DECODE = 256, 4  # within one
+DEEPSEEK_PLAIN_PROMPT, DEEPSEEK_PLAIN_DECODE = 256, 2  # within one
                         # latent chunk of 1,024, as 512 was; a prompt of
-                        # 256 (not 512) for the script's time
+                        # 256 (not 512) and 2 decode steps (not 4) for the
+                        # script's time: each CPU call reads the MoE layer's
+                        # 15.9 GB of experts
 NEAR_TIE = 1e-5         # a router's K-th and (K+1)-th probabilities this close
 LM_REL_TOL = 2e-2       # bf16 model outputs: 2e-2 of the output's largest
                         # magnitude (a few bf16 ulps, as in the CPU tests)
@@ -657,9 +670,9 @@ CMDR_PARAMS = 30_284_201_984 - (command_r_35b.CONFIG.n_layers
                                 - CMDR.n_layers) * CMDR_LAYER_PARAMS
 CMDR_NORM_STD = 0.3     # LayerNorm scales N(1, .) and biases N(0, .)
 # its training (phase 8) through ChainedTrainer's donated step, fp32 m and
-# v, 16 bytes a parameter with the gradient: the deepest cut whose
-# predicted peak at 2 x 2048 stays under ~70 GB (PERF.md §4)
-QWEN4B_TRAIN = qwen1_5_4b.CONFIG.replace(n_layers=32)
+# v, 16 bytes a parameter with the gradient: whole, all 40 layers, the
+# step counted on meta tensors (``meta_step_peak``) at 67.33 GB at 2 x 2048
+QWEN4B_TRAIN = qwen1_5_4b.CONFIG
 # HuBERT X-Large (phase 8) at its published width and depth: forward, loss
 # and training on 4 x 1000 frames (20 s of audio at 50 frames/s)
 HUBERT = hubert_xlarge.CONFIG
@@ -673,15 +686,15 @@ DEEPSEEK_TRAIN = deepseek_v2_236b.CONFIG.replace(n_layers=2)
 DEEPSEEK_TRAIN_OCFG = dataclasses.replace(TRAIN_OCFG, state_dtype="bfloat16")
 DEEPSEEK_TRAIN_RUN = ("1 x 2048", 1, 2048, 3)
 DEEPSEEK_GRAD_SEQ = 128   # its 2-layer check: the host holds ~42 GB
-# Command-R 35B training (phase 8): its published width on 4 of 40 layers
+# Command-R 35B training (phase 8): its published width on 5 of 40 layers
 # through ChainedTrainer's donated step with bf16 m and v, the reference's
 # dry run's choice for it too (``BF16_OPT_STATE``): 12 bytes a parameter
 # with the fp32 gradient, the tied 256,000 x 8,192 table 25.2 GB of them
-# and a layer 8.46 GB, and at the embedding's backward three 8.39 GB
-# gradients of the table and the layers' stacked gradient besides; the
-# deepest cut whose step, counted on meta tensors (``meta_step_peak``),
-# peaks under ~76 GB at 2 x 2048 (5 layers: 84.4 GB; PERF.md §6)
-CMDR_TRAIN = command_r_35b.CONFIG.replace(n_layers=4)
+# and a layer 8.46 GB; the table's gradient one 8.39 GB buffer
+# (``layers.TiedTable``). The deepest cut whose step, counted on meta
+# tensors (``meta_step_peak``), peaks at or under the 75.90 GB the card
+# ran 4 layers at before that buffer: 5 layers 74.90 GB, 6 84.83
+CMDR_TRAIN = command_r_35b.CONFIG.replace(n_layers=5)
 CMDR_TRAIN_PARAMS = 30_284_201_984 - (command_r_35b.CONFIG.n_layers
                                       - CMDR_TRAIN.n_layers) \
     * CMDR_LAYER_PARAMS
@@ -704,18 +717,23 @@ VL_PLAIN_IMAGE = (64, 8, 8)     # the 1 x 512 checks' image, 64 tokens
 VL_TRAIN = VL.replace(n_layers=10)
 # Zamba2-7B's training (phase 8) through ChainedTrainer's donated step, fp32
 # m and v, 16 bytes a parameter with the gradient: whole groups of (6 Mamba2
-# + the shared block) and the 4-block remainder, 3 groups + 4 = 25 layers,
-# 22 Mamba blocks (2.15 B parameters, 34.4 GB), predicted ~63 GB with the
-# activations (~0.9 GB a Mamba block at d_inner 7168, ~3 GB an application
-# of the reference attention's fp32 scores); 4 groups would pass 75 GB
-ZAMBA_TRAIN = zamba2_7b.CONFIG.replace(n_layers=25)
+# + the shared block) and the 4-block remainder, 4 groups + 4 = 32 layers,
+# 28 Mamba blocks (2.62 B parameters, 41.9 GB): the deepest such cut whose
+# step, counted on meta tensors (``meta_step_peak``), stays at or under
+# 75.90 GB (32 layers 69.51 GB, 39 77.00; the count keeps the reference
+# attention's fp32 scores, and the card's 25-layer step peaked at 40.93
+# GB against its 62.03)
+ZAMBA_TRAIN = zamba2_7b.CONFIG.replace(n_layers=32)
 ZAMBA_TRAIN_MAMBA = sum(seg.n_repeat * seg.pattern.count("mamba")
                         for seg in layer_plan(ZAMBA_TRAIN))
 ZAMBA_TRAIN_PARAMS = ZAMBA_FULL_PARAMS - (70 - ZAMBA_TRAIN_MAMBA) \
     * ZAMBA_MAMBA_PARAMS
 ZAMBA_GRAD_MAMBA = 2    # its gradient check: 2 Mamba blocks, each followed
                         # by the shared block, so 2 applications of it
-TRAIN_DEFAULT_STEPS = 3  # the train launcher at its defaults (TinyLlama)
+CHAIN_STEPS = (3, 2)     # the launcher's two sub-jobs at its defaults
+CKPT_BUDGET_S = 60.0     # its full-width save and restore, each; or,
+CKPT_DISK_FACTOR = 1.5   # where the disk writes the shard slower, this
+                         # many times the disk's raw write of its bytes
 LAUNCHER_SEQ = 128       # its default tokens a row
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 EXAMPLES_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_examples"
@@ -1327,16 +1345,34 @@ def check_backward(gen, errs: dict) -> None:
         del x, w, dy, dx, dw, rdx, rdw, xd, wd
 
 
-def _rel_err(out, ref, what, tol=LM_REL_TOL) -> float:
-    """max|out - ref|, raising unless within ``tol`` of ref's largest
-    magnitude."""
-    out, ref = out.float().cpu(), ref.float().cpu()
-    if out.shape != ref.shape or not torch.isfinite(out).all():
-        raise RuntimeError(f"{what}: bad output {out.shape} vs {ref.shape}")
-    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+def _err_scale(out, ref, what) -> tuple:
+    """(max|out - ref|, max|ref|) on the host: ``out`` copied there once
+    and differenced in place, ``ref`` read once (a few passes over a
+    multi-GB gradient, where the host's memory sets the time). A NaN or
+    inf in ``out`` makes the error non-finite, and that raises."""
+    ref = ref.detach().to("cpu", torch.float32)
+    diff = out.detach().to("cpu", torch.float32, copy=True)
+    if diff.shape != ref.shape:
+        raise RuntimeError(f"{what}: bad output {diff.shape} vs {ref.shape}")
+    err = diff.sub_(ref).abs_().max().item()
+    lo, hi = torch.aminmax(ref)
+    scale = max(-lo.item(), hi.item())
+    if not np.isfinite(err):
+        raise RuntimeError(f"{what}: bad output, max|out - ref| = {err}")
+    return err, scale
+
+
+def _within(what, err: float, scale: float, tol: float) -> None:
     if err > tol * scale:
         raise RuntimeError(f"{what}: kernel path off the plain path by {err}"
                            f" (scale {scale}, tolerance {tol} of it)")
+
+
+def _rel_err(out, ref, what, tol=LM_REL_TOL) -> float:
+    """max|out - ref|, raising unless within ``tol`` of ref's largest
+    magnitude."""
+    err, scale = _err_scale(out, ref, what)
+    _within(what, err, scale, tol)
     return err
 
 
@@ -3765,8 +3801,9 @@ def _grad_errs(grads, pgrads) -> dict:
     magnitude, every leaf within LM_REL_TOL of it."""
     errs = {}
     for (path, g), pg in zip(_items(grads), _leaves(pgrads)):
-        err = _rel_err(g, pg, f"gradient {path} {tuple(g.shape)}")
-        scale = float(pg.abs().max())
+        what = f"gradient {path} {tuple(g.shape)}"
+        err, scale = _err_scale(g, pg, what)
+        _within(what, err, scale, LM_REL_TOL)
         errs[path] = err / scale if scale else 0.0
     return errs
 
@@ -3978,69 +4015,109 @@ def check_train_launcher() -> None:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
-class _NoCheckpoint:
-    """Stands in for the train launcher's checkpointer in the full-width
-    run: it records the steps it is asked to save and writes nothing. A
-    TinyLlama-1.1B state with its AdamW moments is ~13.2 GB, too slow to
-    compress and write inside the script's time limit; the launcher's
-    checkpoint and resume run at ``--smoke`` (``check_train_launcher``)."""
-    saves: list = []
-
-    def __init__(self, directory, keep_last=3):
-        _NoCheckpoint.saves = []
-
-    def save(self, step, state) -> None:
-        _NoCheckpoint.saves.append(step)
-
-    def wait(self) -> None:
-        pass
+def _trainer_step(tr) -> float:
+    """One step of ``ChainedTrainer`` ``tr``'s donated step function on
+    its own data stream, as ``run_subjob`` takes it, without a sub-job's
+    exit checkpoint (the chain's own run writes those,
+    ``check_train_chain``): the loss."""
+    batch = next(tr.data_iter)
+    tr.params, tr.opt_state, metrics = tr.step_fn(tr.params, tr.opt_state,
+                                                  batch)
+    tr.step += 1
+    return float(metrics["loss"])
 
 
-def check_train_launcher_default() -> dict:
-    """``repro_torch.launch.train`` with no ``--arch`` (TinyLlama-1.1B, the
-    reference's default) at its full-width defaults, 8 x 128, for
-    TRAIN_DEFAULT_STEPS steps, its checkpoint not written (``_NoCheckpoint``):
-    finite losses, the peak memory, and exactly one flash forward and
-    backward a layer a step and DENSE_NORMS RMSNorm each way, every flash
-    on the tensor cores both ways and every norm vectorised. Returns the
-    launches."""
+def _shard_bytes(step_dir: Path) -> int:
+    return sum(f.stat().st_size for f in step_dir.iterdir())
+
+
+def check_train_chain() -> dict:
+    """Mirage's sub-job chain at full width: ``repro_torch.launch.train``
+    with no ``--arch`` (TinyLlama-1.1B, the reference's default) at its
+    defaults, 8 x 128. Sub-job 1 runs CHAIN_STEPS[0] steps and ends in its
+    exit checkpoint, the parameters and AdamW moments (13.2 GB) through the
+    launcher's own writer; sub-job 2 resumes from it (``maybe_resume``,
+    every leaf's digest checked) and runs CHAIN_STEPS[1] steps, ending in
+    its own. Their losses against one uninterrupted run of the sum (the
+    launcher's trainer built as ``launch.train`` builds it, its donated
+    step driven straight through): the same bits. Every step one pass:
+    each flash on the tensor cores both ways, each norm vectorised.
+    ``[lm_train]`` lines: each save's wall time (``save()`` until
+    ``wait()`` returns, the sub-job's ``exit_ckpt_s``), bytes and rate;
+    the disk's raw write of the same bytes into the same directory; the
+    restore's wall time; the host's resident set during each sub-job.
+    Raises unless each save and the restore take at most CKPT_BUDGET_S
+    or, where the disk's raw write takes longer than that, at most
+    CKPT_DISK_FACTOR times it. Returns the sub-jobs' launches."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    ckpt = TRAIN_DIR / "chain"
+    n1, n2 = CHAIN_STEPS
+    t0 = time.perf_counter()
     _set_lm_train_counts()
     torch.cuda.reset_peak_memory_stats()
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    real, train_chain.AsyncCheckpointer = (train_chain.AsyncCheckpointer,
-                                           _NoCheckpoint)
-    buf = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(buf):
-            t0 = time.perf_counter()
-            out = train_launcher.main(["--steps", str(TRAIN_DEFAULT_STEPS),
-                                       "--ckpt-dir", str(TRAIN_DIR)])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        train_chain.AsyncCheckpointer = real
-    print(buf.getvalue(), end="", flush=True)
+    subjobs = []
+    for n in CHAIN_STEPS:
+        with RssPeak() as rss:
+            out = _launch(["--steps", str(n), "--ckpt-dir", str(ckpt)])
+        subjobs.append((out, rss))
+    peak = torch.cuda.max_memory_allocated() / 1e9
     got = _lm_train_counts()
-    if out["arch"] != DENSE.arch_id or \
-            out["steps_done"] != TRAIN_DEFAULT_STEPS or \
-            got != _train_pass_counts(DENSE, TRAIN_DEFAULT_STEPS,
-                                      LAUNCHER_SEQ):
-        raise RuntimeError(f"launch.train at its defaults: {out['arch']}, "
-                           f"{out['steps_done']} steps, launched {got}")
-    line("lm_train", run="launcher defaults, no --arch", arch=out["arch"],
-         params=out["params"], batch=8, seq=128, steps=out["steps_done"],
-         losses=_finite("launcher defaults", out["losses"]), wall_s=wall,
-         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-         checkpoint_saves_not_written=_NoCheckpoint.saves,
-         flash_bwd_launches=got["flash_attention_bwd"],
-         flash_bwd_by_variant={"tc": got["flash_bwd_tc"],
-                               "simt": got["flash_attention_bwd"]
-                               - got["flash_bwd_tc"]},
-         launches=got)
+    (first, rss1), (second, rss2) = subjobs
+    if first["arch"] != DENSE.arch_id or first["resumed"] or \
+            not second["resumed"] or second["steps_done"] != n1 + n2 or \
+            got != _train_pass_counts(DENSE, n1 + n2, LAUNCHER_SEQ):
+        raise RuntimeError(f"the chain at the launcher's defaults: "
+                           f"{first['arch']}, resumed {first['resumed']} / "
+                           f"{second['resumed']}, {second['steps_done']} "
+                           f"steps, launched {got}")
+    _set_lm_train_counts()
+    tr = _chained_trainer(DENSE, TRAIN_OCFG, 8, LAUNCHER_SEQ)
+    ref = [_trainer_step(tr) for _ in range(n1 + n2)]
+    del tr
+    torch.cuda.empty_cache()
+    ref_counts = _lm_train_counts()
+    losses = first["losses"] + second["losses"]
+    if losses != ref or ref_counts != _train_pass_counts(
+            DENSE, n1 + n2, LAUNCHER_SEQ):
+        raise RuntimeError(f"the chain's losses {losses} against the "
+                           f"uninterrupted run's {ref}; it launched "
+                           f"{ref_counts}")
+    shards = [_shard_bytes(ckpt / f"step_{s:09d}") for s in (n1, n1 + n2)]
+    leaves = len(json.loads((ckpt / f"step_{n1:09d}" / "manifest.json")
+                            .read_text())["leaves"])
+    raw_s = raw_write_s(ckpt, shards[0])
+    saves = [first["exit_ckpt_s"], second["exit_ckpt_s"]]
+    slow_disk = raw_s > CKPT_BUDGET_S
+    limit = CKPT_DISK_FACTOR * raw_s if slow_disk else CKPT_BUDGET_S
+    for (out, rss), save_s, nbytes in zip(subjobs, saves, shards):
+        line("lm_train", run="chain sub-job", arch=out["arch"],
+             params=out["params"], batch=8, seq=LAUNCHER_SEQ,
+             steps_done=out["steps_done"], resumed=out["resumed"],
+             restore_s=out["resume_s"] if out["resumed"] else None,
+             losses=_finite("the chain", out["losses"]),
+             save_s=save_s, checkpoint_gb=nbytes / 1e9,
+             save_gb_per_s=nbytes / 1e9 / save_s,
+             codec=ckpt_mod.DEFAULT_CODEC,
+             level=ckpt_mod.LEVELS[ckpt_mod.DEFAULT_CODEC],
+             host_rss_start_gb=rss.start_gb, host_peak_rss_gb=rss.peak_gb)
+    restore_s = second["resume_s"]
+    line("lm_train", run="chain, resumed against uninterrupted",
+         arch=DENSE.arch_id, steps=list(CHAIN_STEPS), losses=losses,
+         uninterrupted=ref, bit_equal=True, leaves_digest_checked=leaves,
+         save_s=saves, restore_s=restore_s,
+         raw_write_s=raw_s, raw_write_gb=shards[0] / 1e9,
+         raw_write_gb_per_s=shards[0] / 1e9 / raw_s,
+         budget_s=limit, budget_by=(f"{CKPT_DISK_FACTOR}x the disk's raw "
+                                    f"write" if slow_disk else
+                                    f"{CKPT_BUDGET_S:.0f} s"),
+         peak_gb=peak, wall_s=time.perf_counter() - t0, launches=got,
+         **_host_memory())
+    if max(saves + [restore_s]) > limit:
+        raise RuntimeError(f"the full-width checkpoint: saves {saves} s, "
+                           f"restore {restore_s} s, over {limit} s (raw "
+                           f"write {raw_s} s)")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    return {"flash_attention": got["flash_attention"],
-            "flash_attention_bwd": got["flash_attention_bwd"],
-            "rmsnorm": got["rmsnorm"], "rmsnorm_bwd": got["rmsnorm_bwd"]}
+    return got
 
 
 def lm_cut_train(cfg, run: str, draw=None, log=None, grad_seq=LM_GRAD_SEQ,
@@ -4173,18 +4250,12 @@ def check_donation() -> dict:
 def _chained_trainer(cfg, ocfg, batch: int, seq: int, draw=None):
     """``ChainedTrainer`` of ``cfg`` on the card (its own seeded draw;
     ``draw`` then redraws some leaves) on ``data_iterator`` batches of
-    batch x seq, its checkpoints not written (``_NoCheckpoint``)."""
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    real, train_chain.AsyncCheckpointer = (train_chain.AsyncCheckpointer,
-                                           _NoCheckpoint)
-    try:
-        tr = train_chain.ChainedTrainer(
-            cfg, ocfg, train_chain.ChainConfig(ckpt_dir=str(TRAIN_DIR),
-                                               ckpt_every=10**9),
-            data_iterator(cfg, DataConfig(batch=batch, seq_len=seq),
-                          device="cuda"), seed=0, device="cuda")
-    finally:
-        train_chain.AsyncCheckpointer = real
+    batch x seq. Its steps are driven by ``_trainer_step``."""
+    tr = train_chain.ChainedTrainer(
+        cfg, ocfg, train_chain.ChainConfig(ckpt_dir=str(TRAIN_DIR),
+                                           ckpt_every=10**9),
+        data_iterator(cfg, DataConfig(batch=batch, seq_len=seq),
+                      device="cuda"), seed=0, device="cuda")
     if draw is not None:
         draw(torch.Generator(device="cuda").manual_seed(1), tr.params)
     torch.cuda.synchronize()
@@ -4192,21 +4263,22 @@ def _chained_trainer(cfg, ocfg, batch: int, seq: int, draw=None):
 
 
 def chained_run(tr, what: str, batch: int, seq: int, steps: int,
-                fresh_cache: bool = False) -> dict:
-    """``steps`` steps of the donated ``ChainedTrainer`` ``tr``, one
-    ``run_subjob(1)`` each, after a warm-up step: host ms a step after
+                fresh_cache: bool = False, meta=None) -> dict:
+    """``steps`` steps of the donated ``ChainedTrainer`` ``tr``
+    (``_trainer_step``) after a warm-up step: host ms a step after
     ``synchronize``, tokens (frames) a second, the losses, the peak memory;
     raising unless each step's launches are one pass's
     (``_train_pass_counts``) and every parameter and optimizer leaf kept its
     storage. With ``fresh_cache`` the allocator's cache is emptied before
     each step, outside its time, so that every step allocates as the first
     one did (a step whose peak nears the card's memory can fail on the
-    split blocks a previous step left). Returns the launches of the
-    ``steps`` steps."""
+    split blocks a previous step left). ``meta``: the step's peak counted
+    on meta tensors first (``meta_step_peak``), printed beside the card's.
+    Returns the launches of the ``steps`` steps."""
     cfg = tr.cfg
     if fresh_cache:
         torch.cuda.empty_cache()
-    tr.run_subjob(1)
+    _trainer_step(tr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ptrs = [t.data_ptr() for t in _leaves([tr.params, tr.opt_state])]
@@ -4218,7 +4290,7 @@ def chained_run(tr, what: str, batch: int, seq: int, steps: int,
             torch.cuda.empty_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses += tr.run_subjob(1)["losses"]
+        losses.append(_trainer_step(tr))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         counts.update(_check_lm_train_counts(f"{what}, step {i}", 1, cfg,
@@ -4234,6 +4306,8 @@ def chained_run(tr, what: str, batch: int, seq: int, steps: int,
          losses=_finite(what, losses), step=tr.step,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
          peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+         meta_step_peak_gb=None if meta is None else meta[0],
+         meta_step_peak_op=None if meta is None else meta[1],
          allocator={k: after.get(k, 0) - stats.get(k, 0) for k in (
              "num_alloc_retries", "num_device_alloc", "num_device_free")},
          launches=counts)
@@ -4245,22 +4319,26 @@ def _tree_gb(tree) -> float:
 
 
 def qwen4b_train() -> dict:
-    """Qwen1.5-4B training at its full published width on QWEN4B_TRAIN's
-    cut of its 40 layers through ``ChainedTrainer``'s donated step, fp32
-    m and v, the QKV biases drawn nonzero: DENSE_TRAIN_RUN's 3 steps at 2 x
-    2048 (``chained_run``; every step a flash launch each way a layer, on
-    the tensor cores, 20 q heads over 20 kv heads of 128, and 2 RMSNorm
-    a layer + 1 each way, vectorised). Returns the launches."""
+    """Qwen1.5-4B training at its full published width and depth
+    (QWEN4B_TRAIN, all 40 layers) through ``ChainedTrainer``'s donated
+    step, fp32 m and v, the QKV biases drawn nonzero, the step's peak
+    counted on meta tensors first (``meta_step_peak``): DENSE_TRAIN_RUN's
+    3 steps at 2 x 2048 (``chained_run``; every step a flash launch each
+    way a layer, on the tensor cores, 20 q heads over 20 kv heads of 128,
+    and 2 RMSNorm a layer + 1 each way, vectorised). Returns the
+    launches."""
+    what, batch, seq, steps = DENSE_TRAIN_RUN
+    meta = meta_step_peak(QWEN4B_TRAIN, TRAIN_OCFG, batch, seq)
     t0 = time.perf_counter()
     tr = _chained_trainer(QWEN4B_TRAIN, TRAIN_OCFG, 2, LM_PROMPT,
                           _draw_qkv_bias)
-    line("lm_train", arch=QWEN4B.arch_id, run="Qwen1.5-4B cut",
+    line("lm_train", arch=QWEN4B.arch_id, run="Qwen1.5-4B whole",
          layers=QWEN4B_TRAIN.n_layers, published_layers=QWEN4B.n_layers,
          params=sum(t.numel() for t in _leaves(tr.params)),
          param_gb=_tree_gb(tr.params), opt_state_gb=_tree_gb(tr.opt_state),
-         qkv_bias_std=QKV_BIAS_STD)
-    what, batch, seq, steps = DENSE_TRAIN_RUN
-    counts = chained_run(tr, what, batch, seq, steps)
+         qkv_bias_std=QKV_BIAS_STD, meta_step_peak_gb=meta[0],
+         meta_step_peak_op=meta[1])
+    counts = chained_run(tr, what, batch, seq, steps, meta=meta)
     del tr
     torch.cuda.empty_cache()
     line("lm_train", arch=QWEN4B.arch_id, run="Qwen1.5-4B training, all",
@@ -4409,8 +4487,8 @@ def cmdr_train() -> dict:
     the parameters held to the reference's count at that depth, the step's
     peak counted on meta tensors first (``meta_step_peak``);
     DENSE_TRAIN_RUN's 3 steps at 2 x 2048 (``chained_run``, each step from
-    an emptied allocator cache: the second step of 4 layers, whose peak
-    nears the card's, failed on the blocks the first had split; every step
+    an emptied allocator cache: a second step whose peak nears the card's
+    failed on the blocks the first had split; every step
     a flash launch a layer forward, again in remat's recompute, and one
     backward, all on the tensor cores, the backward's streaming form at
     one share of a kv head's group of 8; no RMSNorm: LayerNorm is plain
@@ -4445,7 +4523,8 @@ def cmdr_train() -> dict:
                                      cfg.nq // cfg.nkv, sms),
          meta_step_peak_gb=meta_gb, meta_step_peak_op=meta_op,
          init_s=time.perf_counter() - t0)
-    counts = chained_run(tr, what, batch, seq, steps, fresh_cache=True)
+    counts = chained_run(tr, what, batch, seq, steps, fresh_cache=True,
+                         meta=(meta_gb, meta_op))
     t1 = time.perf_counter()
     torch.cuda.empty_cache()
     check_lm_train_grads(tr.params, cfg, CMDR_GRAD_SEQ)
@@ -4519,17 +4598,20 @@ def _zamba_grad_sub(params, full=ZAMBA_TRAIN):
 
 def zamba_train() -> dict:
     """Zamba2-7B training at its full published width on ZAMBA_TRAIN's cut
-    of its 81 layers (3 groups of 6 Mamba2 blocks and the tied shared
+    of its 81 layers (4 groups of 6 Mamba2 blocks and the tied shared
     attention block, then 4 Mamba2 blocks) through ``ChainedTrainer``'s
     donated step, fp32 m and v, every norm scale drawn N(1,
-    ZAMBA_NORM_STD): DENSE_TRAIN_RUN's 3 steps at 2 x 2048 (``chained_run``;
-    every step 22 SSD scans each way, on the tensor cores, and 51 RMSNorm
-    each way, vectorised, the out_norms' 22 backwards at 896 vectors a row
-    among them; no flash: the shared block's head dim of 112 keeps the
-    reference attention); a sub-model of 2 Mamba blocks each followed by
+    ZAMBA_NORM_STD), the step's peak counted on meta tensors first
+    (``meta_step_peak``): DENSE_TRAIN_RUN's 3 steps at 2 x 2048
+    (``chained_run``; every step 28 SSD scans each way, on the tensor
+    cores, and 65 RMSNorm each way, vectorised, the out_norms' 28
+    backwards at 896 vectors a row among them; no flash: the shared
+    block's head dim of 112 keeps the reference attention); a sub-model of 2 Mamba blocks each followed by
     the shared block, its gradients at 1 x 512 against the CPU (the tied
     leaves' the sum over both applications); one donated step under
     torch.profiler by kernel group. Returns the launches."""
+    what, batch, seq, steps = DENSE_TRAIN_RUN
+    meta = meta_step_peak(ZAMBA_TRAIN, TRAIN_OCFG, batch, seq)
     t0 = time.perf_counter()
     tr = _chained_trainer(ZAMBA_TRAIN, TRAIN_OCFG, 2, LM_PROMPT,
                           lambda gen, p: _draw_unit_norms(gen, p,
@@ -4553,9 +4635,9 @@ def zamba_train() -> dict:
          ssd_bwd_smem_bytes=ssd_ops.bwd_smem_bytes(
              ZAMBA_TRAIN.ssm_headdim, ZAMBA_TRAIN.ssm_state,
              ZAMBA_TRAIN.ssm_chunk, "tc"),
+         meta_step_peak_gb=meta[0], meta_step_peak_op=meta[1],
          init_s=time.perf_counter() - t0)
-    what, batch, seq, steps = DENSE_TRAIN_RUN
-    counts = chained_run(tr, what, batch, seq, steps)
+    counts = chained_run(tr, what, batch, seq, steps, meta=meta)
     check_lm_train_grads(tr.params, ZAMBA_TRAIN, LM_GRAD_SEQ,
                          cut=_zamba_grad_sub,
                          run=f"{ZAMBA_GRAD_MAMBA} x (Mamba2 + the shared "
@@ -4580,10 +4662,10 @@ def phase_lm_train() -> tuple:
     HuBERT X-Large (``hubert_run``), DeepSeek-V2-236B (``deepseek_train``),
     Command-R 35B (``cmdr_train``),
     Qwen2-VL-7B (``vl_train``) and Zamba2-7B (``zamba_train``), the
-    launcher at ``--smoke`` and the launcher at its defaults. Returns the
-    launches of (a), (b), (c), the 2 x 2048 runs, the donated step, the
-    ``ChainedTrainer`` runs and the launcher at its defaults, and each
-    model run's own by its function's name."""
+    launcher at ``--smoke`` and the sub-job chain at the launcher's
+    defaults (``check_train_chain``). Returns the launches of (a), (b),
+    (c), the 2 x 2048 runs, the donated step, the ``ChainedTrainer`` runs
+    and the chain, and each model run's own by its function's name."""
     torch.backends.cuda.matmul.allow_tf32 = False
     state = _train_state(LM)
     totals = defaultdict(int)
@@ -4636,7 +4718,7 @@ def phase_lm_train() -> tuple:
             totals[k] += v
     check_train_launcher()
     torch.cuda.empty_cache()
-    for k, v in check_train_launcher_default().items():
+    for k, v in check_train_chain().items():
         totals[k] += v
     torch.cuda.empty_cache()
     return dict(totals), runs
@@ -4781,19 +4863,12 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _launch(args, write: bool) -> dict:
-    """``launch.train.main(args)``, its lines printed; with ``write`` False
-    its checkpoint is not written (``_NoCheckpoint``)."""
-    real = train_chain.AsyncCheckpointer
-    if not write:
-        train_chain.AsyncCheckpointer = _NoCheckpoint
+def _launch(args) -> dict:
+    """``launch.train.main(args)``, its lines printed."""
     buf = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(buf):
-            out = train_launcher.main(args)
-        torch.cuda.synchronize()
-    finally:
-        train_chain.AsyncCheckpointer = real
+    with contextlib.redirect_stdout(buf):
+        out = train_launcher.main(args)
+    torch.cuda.synchronize()
     print(buf.getvalue(), end="", flush=True)
     return out
 
@@ -4804,42 +4879,40 @@ def check_distributed() -> dict:
     torchrun's variables, set here (RANK, WORLD_SIZE, LOCAL_RANK,
     MASTER_ADDR 127.0.0.1 and a free port). Cut for time to the model's
     first 2 layers at full width (the registry hands the launcher that
-    cut), and the checkpoint written with zlib at level 0 (stored: level
-    3 compresses fp32 weights at ~18 MB/s, 2.6 GB here). The plain
-    launcher's sub-job of DIST_STEPS[0] steps against the distributed one,
-    which writes its checkpoint; then a distributed sub-job resumed by
-    ``restore_checkpoint(shardings=)`` on ``make_host_mesh()`` against a
-    plain one resumed from the same checkpoint, DIST_STEPS[1] steps each:
-    the same losses bit for bit, and no process group left. Returns the
-    four sub-jobs' launches."""
+    cut); every sub-job writes its exit checkpoint (2.6 GB) through the
+    launcher's own writer. The plain launcher's sub-job of DIST_STEPS[0]
+    steps against the distributed one; then a distributed sub-job resumed
+    from the distributed one's checkpoint by ``restore_checkpoint(
+    shardings=)`` on ``make_host_mesh()`` against a plain one resumed from
+    a copy of it, DIST_STEPS[1] steps each: the same losses bit for bit,
+    and no process group left. Returns the four sub-jobs' launches."""
     import torch.distributed as dist
     from repro_torch.models import registry
-    from repro_torch.train import checkpoint as ckpt_mod
     cut = DENSE.replace(n_layers=LM_PLAIN_LAYERS)
     env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
     saved_env = {k: os.environ.get(k) for k in env}
-    real_cfg, real_compress = registry.get_config, ckpt_mod._compress
-    ckpt = TRAIN_DIR / "distributed"
+    real_cfg = registry.get_config
+    ckpt, copy = TRAIN_DIR / "distributed", TRAIN_DIR / "plain_resumed"
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     _set_lm_train_counts()
     t0 = time.perf_counter()
     os.environ.update(env)
     registry.get_config = lambda arch, smoke=False: (
         cut if arch == DENSE.arch_id and not smoke else real_cfg(arch, smoke))
-    # zlib at level 0 (stored): a stream either package reads
-    ckpt_mod._compress = lambda raw, codec: (
-        zlib.compress(raw, 0) if codec == "zlib" else real_compress(raw, codec))
     try:
         first, second = (["--arch", DENSE.arch_id, "--steps", str(n),
                           "--ckpt-dir", str(ckpt)] for n in DIST_STEPS)
-        plain1 = _launch(first[:-1] + [str(TRAIN_DIR / "plain")], False)
-        dist1 = _launch(first + ["--distributed"], True)
+        plain1 = _launch(first[:-1] + [str(TRAIN_DIR / "plain")])
+        dist1 = _launch(first + ["--distributed"])
+        checkpoint_gb = sum(f.stat().st_size for f in ckpt.rglob("*")
+                            if f.is_file()) / 1e9
+        shutil.copytree(ckpt, copy)
         t_save = time.perf_counter()
-        dist2 = _launch(second + ["--distributed"], False)
-        plain2 = _launch(second, False)
+        dist2 = _launch(second + ["--distributed"])
+        plain2 = _launch(second[:-1] + [str(copy)])
     finally:
-        registry.get_config, ckpt_mod._compress = real_cfg, real_compress
+        registry.get_config = real_cfg
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -4863,8 +4936,9 @@ def check_distributed() -> dict:
          params=dist1["params"], world=1, backend="nccl", batch=8, seq=128,
          steps=list(DIST_STEPS), losses_first=dist1["losses"],
          losses_resumed=dist2["losses"], bit_equal=same,
-         resumed_at=DIST_STEPS[0], checkpoint_gb=sum(
-             f.stat().st_size for f in ckpt.rglob("*") if f.is_file()) / 1e9,
+         resumed_at=DIST_STEPS[0], checkpoint_gb=checkpoint_gb,
+         save_s=dist1["exit_ckpt_s"],
+         restore_s=[dist2["resume_s"], plain2["resume_s"]],
          resume_and_steps_s=time.perf_counter() - t_save, wall_s=wall,
          launches=got)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)

@@ -18,7 +18,7 @@ with its defaults for all of these but ext and float32.
 from __future__ import annotations
 
 import struct
-from typing import Any, Tuple
+from typing import Any, Callable, Iterator, Tuple
 
 _B = struct.Struct(">B")
 _H = struct.Struct(">H")
@@ -95,20 +95,33 @@ def _pack(obj: Any, out: bytearray) -> None:
         _pack_len(len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB), out)
         out += data
     elif isinstance(obj, (bytes, bytearray, memoryview)):
-        data = bytes(obj)
-        _pack_len(len(data), 0, 0, (0xC4, 0xC5, 0xC6), out)
-        out += data
+        out += bin_header(memoryview(obj).nbytes)
+        out += obj
     elif isinstance(obj, (list, tuple)):
         _pack_len(len(obj), 0x90, 16, (0xDC, 0xDD), out)
         for v in obj:
             _pack(v, out)
     elif isinstance(obj, dict):
-        _pack_len(len(obj), 0x80, 16, (0xDE, 0xDF), out)
+        out += map_header(len(obj))
         for k, v in obj.items():
             _pack(k, out)
             _pack(v, out)
     else:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
+
+
+def map_header(n: int) -> bytes:
+    """The header of a map of ``n`` pairs, as ``packb`` writes it."""
+    out = bytearray()
+    _pack_len(n, 0x80, 16, (0xDE, 0xDF), out)
+    return bytes(out)
+
+
+def bin_header(n: int) -> bytes:
+    """The header of a bin of ``n`` bytes, as ``packb`` writes it."""
+    out = bytearray()
+    _pack_len(n, 0, 0, (0xC4, 0xC5, 0xC6), out)
+    return bytes(out)
 
 
 def packb(obj: Any, use_bin_type: bool = True) -> bytes:
@@ -200,3 +213,33 @@ def unpackb(packed: bytes, raw: bool = False) -> Any:
     if r.off != len(r.mv):
         raise ValueError("unpack(b) received extra data.")
     return obj
+
+
+def iter_bin_map(read: Callable[[int], bytes]) -> Iterator[Tuple[str, int]]:
+    """The pairs of a map of str (or bytes) keys to bin values, read
+    from a stream through ``read(n)`` (exactly n bytes): yields each key
+    and its value's length, and the caller reads those bytes before the
+    next pair, so no value is held here. Raises ``ValueError`` on any
+    other type code."""
+    c = read(1)[0]
+    if 0x80 <= c < 0x90:
+        n = c & 0x0F
+    elif c in _MAP:
+        n = _MAP[c].unpack(read(_MAP[c].size))[0]
+    else:
+        raise ValueError(f"Unpack failed: 0x{c:02x} does not start a map")
+    for _ in range(n):
+        c = read(1)[0]
+        if 0xA0 <= c < 0xC0:
+            key = str(read(c & 0x1F), "utf-8")
+        elif c in _STR or c in _BIN:
+            st = _STR.get(c) or _BIN[c]
+            key = read(st.unpack(read(st.size))[0])
+            key = str(key, "utf-8") if c in _STR else bytes(key)
+        else:
+            raise ValueError(f"Unpack failed: map key of type 0x{c:02x}")
+        c = read(1)[0]
+        if c not in _BIN:
+            raise ValueError(f"Unpack failed: value of type 0x{c:02x}, "
+                             "not bin")
+        yield key, _BIN[c].unpack(read(_BIN[c].size))[0]

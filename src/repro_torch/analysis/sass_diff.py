@@ -90,7 +90,17 @@ def usage(ptxas_log: str) -> dict:
     return out
 
 
-_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+")
+_ANON = re.compile(r"(\d+)(?=_GLOBAL__N__)")
+
+
+def _blank_anon(name: str) -> str:
+    """``name`` with the anonymous namespace's mangled component (its
+    length, then that many characters: the tag nvcc derives from the
+    file's path, which differs between two trees) blanked."""
+    m = _ANON.search(name)
+    if m is None:
+        return name
+    return name[:m.start()] + "anon" + name[m.end() + int(m.group(1)):]
 
 
 def same_name_pairs(parent, change) -> tuple:
@@ -98,7 +108,7 @@ def same_name_pairs(parent, change) -> tuple:
     their names with the anonymous namespace's tag blanked, and the
     change's kernels the parent lacks."""
     def key(n):
-        return _ANON.sub("anon", n)
+        return _blank_anon(n)
     by_key = {key(n): n for n in change}
     pairs = [(n, by_key[key(n)]) for n in parent if key(n) in by_key]
     old = {key(n) for n in parent}

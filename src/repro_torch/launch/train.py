@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 from typing import Dict, List, Optional
 
 
@@ -88,18 +89,21 @@ def _subjob(args, dev, mesh) -> Dict:
                              data_iterator(cfg, dc, device=dev),
                              num_microbatches=args.microbatches, device=dev,
                              mesh=mesh)
+    t0 = time.monotonic()
     resumed = trainer.maybe_resume()
+    resume_s = time.monotonic() - t0
     if resumed:
-        print(f"[train] resumed at step {trainer.step}")
+        print(f"[train] resumed at step {trainer.step} ({resume_s:.1f} s)")
         trainer.data_iter = data_iterator(cfg, dc, start_step=trainer.step,
                                           device=dev)
     n = transformer.param_count(trainer.params)
     print(f"[train] arch={args.arch} params={n:,} target_steps={args.steps}")
     info = trainer.run_subjob(args.steps)
     print(f"[train] exit: {info['reason']} at step {info['steps_done']} "
-          f"(stragglers flagged: {info['stragglers']})")
+          f"(stragglers flagged: {info['stragglers']}; exit checkpoint "
+          f"{info['exit_ckpt_s']:.1f} s)")
     return dict(info, arch=cfg.arch_id, device=str(dev), params=n,
-                resumed=resumed)
+                resumed=resumed, resume_s=resume_s)
 
 
 if __name__ == "__main__":

@@ -194,13 +194,83 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig):
     return {"table": embed_init(gen, cfg.vocab, cfg.d_model, cfg.pdtype)}
 
 
-def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
+class TiedTable:
+    """One forward's tied table, whose gradient lives in one buffer. The
+    head's product is the forward's last use of the table, so its
+    backward runs first: it hands autograd the table's gradient and keeps
+    it here (``grad``); the lookup's backward then sums the looked-up rows'
+    gradients into that buffer in place and hands autograd none. Autograd
+    alone would also allocate the lookup's own table-sized gradient and
+    add the two."""
+
+    def __init__(self):
+        self.grad = None
+
+
+class _TiedLookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward adds into the head's gradient of
+    the table (``TiedTable``). A repeated token's rows are summed in a
+    fixed order, so two calls give the same bits: on the card by
+    ``index_put_`` accumulating (a stable sort of the tokens, then each
+    token's rows in position order), on the host by ``index_add_``'s
+    serial loop (the host's ``index_put_`` sums in parallel)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, tie):
+        ctx.save_for_backward(tokens)
+        ctx.tie, ctx.table_shape = tie, table.shape
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        head, ctx.tie.grad = ctx.tie.grad, None
+        grad = g.new_zeros(ctx.table_shape) if head is None else head
+        flat, rows = tokens.reshape(-1), g.reshape(-1, g.shape[-1])
+        if grad.is_cuda:
+            grad.index_put_((flat,), rows, accumulate=True)
+        else:
+            grad.index_add_(0, flat, rows)
+        # the head's buffer is autograd's already: nothing more to add
+        return (grad if head is None else None), None, None
+
+
+class _TiedHead(torch.autograd.Function):
+    """The tied head's fp32 logits, ``x.float() @ table.float().T``. Its
+    backward computes the products autograd's would and keeps the table's
+    gradient in ``tie`` for the lookup's backward."""
+
+    @staticmethod
+    def forward(ctx, x, table, tie):
+        ctx.save_for_backward(x, table)
+        ctx.tie = tie
+        return x.float() @ table.float().T
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gt = None
+        if ctx.needs_input_grad[0]:
+            gx = (g2 @ table.float()).view(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gt = (g2.t() @ x.reshape(-1, x.shape[-1]).float()).to(
+                table.dtype)
+            ctx.tie.grad = gt
+        return gx, gt, None
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
+                 tie: Optional[TiedTable] = None) -> torch.Tensor:
     """Rows of the table in the compute dtype (gathered, then cast: the
-    same values as the reference's cast-then-take)."""
+    same values as the reference's cast-then-take). With ``tie`` (a tied
+    table's forward) the rows' gradient goes into the head's
+    (``TiedTable``)."""
     table = params["table"]
     if getattr(table, "placements", None) is not None:
         x = _embed_sharded(table, tokens).to(cfg.cdtype)
+    elif tie is not None:
+        x = _TiedLookup.apply(table, tokens, tie).to(cfg.cdtype)
     else:
         x = table[tokens].to(cfg.cdtype)
     if cfg.embed_scale:
@@ -238,11 +308,17 @@ def _embed_sharded(table, tokens):
 
 
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,
-              embed_params=None) -> torch.Tensor:
+              embed_params=None, tie: Optional[TiedTable] = None
+              ) -> torch.Tensor:
     """Final projection to the (padded) vocab: fp32 logits from an fp32
-    product (PyTorch's default matmul precision, no TF32)."""
+    product (PyTorch's default matmul precision, no TF32). ``tie``: the
+    forward's ``TiedTable``, which the lookup shares."""
     if cfg.tie_embeddings:
-        logits = x.float() @ embed_params["table"].float().T
+        table = embed_params["table"]
+        if tie is not None and getattr(table, "placements", None) is None:
+            logits = _TiedHead.apply(x, table, tie)
+        else:
+            logits = x.float() @ table.float().T
     else:
         logits = x.float() @ params["head"].float()
     if cfg.final_logit_softcap:

@@ -32,8 +32,8 @@ from repro_torch.dist.sharding import constrain
 from .blocks import apply_block, init_block, init_block_cache
 from .common import ModelConfig, layer_plan
 from .attention import NEG_INF
-from .layers import (apply_norm, dense_init, embed_tokens, init_embedding,
-                     init_lm_head, init_norm, lm_logits)
+from .layers import (TiedTable, apply_norm, dense_init, embed_tokens,
+                     init_embedding, init_lm_head, init_norm, lm_logits)
 
 _CACHED_MODES = ("prefill", "decode")
 
@@ -198,13 +198,15 @@ def apply_trunk(params: Dict, cfg: ModelConfig, x: torch.Tensor, positions,
 
 def embed_inputs(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
                  vision_embeds: Optional[torch.Tensor] = None,
-                 vision_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 vision_mask: Optional[torch.Tensor] = None,
+                 tie: Optional[TiedTable] = None) -> torch.Tensor:
     """Token embeddings (or frames) in the compute dtype; with
     ``vision_embeds`` (B, S, d), the rows where ``vision_mask`` (B, S) is
     set are the vision encoder's patch embeddings instead (the encoder is
-    a stub, as in the reference: its output is an input here)."""
+    a stub, as in the reference: its output is an input here). ``tie``:
+    the forward's ``TiedTable`` where the head shares the table."""
     if cfg.embed_inputs:
-        x = embed_tokens(params["embed"], inputs, cfg)
+        x = embed_tokens(params["embed"], inputs, cfg, tie)
     else:
         x = inputs.to(cfg.cdtype)
     if vision_embeds is not None:
@@ -217,9 +219,12 @@ def forward(params: Dict, cfg: ModelConfig, inputs: torch.Tensor, positions,
     """Full forward: returns (logits (B,S,V) fp32, aux loss: the MoE
     blocks' router losses summed, a float 0.0 without MoE blocks).
     ``positions`` (B, S), or (3, B, S) under M-RoPE."""
-    x = embed_inputs(params, cfg, inputs, vision_embeds, vision_mask)
+    # a tied table's gradient in one buffer (``TiedTable``)
+    tie = TiedTable() if cfg.tie_embeddings else None
+    x = embed_inputs(params, cfg, inputs, vision_embeds, vision_mask, tie)
     x, aux, _ = apply_trunk(params, cfg, x, positions, mode="forward")
-    return lm_logits(params, x, cfg, embed_params=params.get("embed")), aux
+    return lm_logits(params, x, cfg, embed_params=params.get("embed"),
+                     tie=tie), aux
 
 
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):

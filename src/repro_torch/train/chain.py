@@ -68,6 +68,7 @@ class ChainedTrainer:
         self.ckpt = AsyncCheckpointer(chain.ckpt_dir)
         self.stragglers = StragglerMonitor()
         self.step = 0
+        self._saved_step = None     # the newest step handed to the writer
 
     # ------------------------------------------------------------ resume
     def maybe_resume(self) -> bool:
@@ -84,7 +85,7 @@ class ChainedTrainer:
                 shardings=self._shardings(template))
             state = tree_map(lambda t: t.to_local(), state)
         self.params, self.opt_state = state["params"], state["opt"]
-        self.step = step
+        self.step = self._saved_step = step
         return True
 
     def _shardings(self, template):
@@ -131,11 +132,20 @@ class ChainedTrainer:
             t_prev = now
             losses.append(float(metrics["loss"]))
             if self.step % self.chain.ckpt_every == 0:
-                self.ckpt.save(self.step, {"params": self.params,
-                                           "opt": self.opt_state})
-        # checkpoint at exit: the successor resumes from here
-        self.ckpt.save(self.step, {"params": self.params,
-                                   "opt": self.opt_state})
+                self._save()
+        # checkpoint at exit: the successor resumes from here. Its wall
+        # time, until the shard is durable, is what the guard's grace must
+        # cover beside the last step; a step already handed to the writer
+        # is not written twice
+        t0 = time.monotonic()
+        if self._saved_step != self.step:
+            self._save()
         self.ckpt.wait()
         return {"steps_done": self.step, "reason": reason,
-                "losses": losses, "stragglers": self.stragglers.flagged}
+                "losses": losses, "stragglers": self.stragglers.flagged,
+                "exit_ckpt_s": time.monotonic() - t0}
+
+    def _save(self) -> None:
+        self.ckpt.save(self.step, {"params": self.params,
+                                   "opt": self.opt_state})
+        self._saved_step = self.step

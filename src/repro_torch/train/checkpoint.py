@@ -20,7 +20,17 @@ Restored leaves are tensors on the caller's device.
 
 Compression: ``zstandard`` when available, stdlib ``zlib`` otherwise. The
 codec is recorded in the manifest so shards restore on any host; restoring
-a zstd shard on a host without ``zstandard`` raises a clear error.
+a zstd shard on a host without ``zstandard`` raises a clear error. The
+shard is the reference's byte for byte once decompressed; zlib writes it
+at level 0 (``LEVELS``: stored blocks), where the reference compresses at
+3.
+
+Both directions stream: the writer packs one leaf at a time straight into
+the file and the reader reads one leaf at a time into a buffer of its own,
+so the host holds the state once (the asynchronous writer's snapshot) and
+not the payload besides. The blake2b digests and zlib's Adler-32 run in
+threads beside the stream. A stored zlib stream is read as it lies on
+disk; a compressed one (the reference's) is inflated.
 """
 from __future__ import annotations
 
@@ -30,9 +40,11 @@ import os
 import pathlib
 import re
 import shutil
+import struct
 import threading
 import time
 import zlib
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -47,27 +59,199 @@ except ImportError:                  # pragma: no cover - env-dependent
     zstd = None
 
 DEFAULT_CODEC = "zstd" if zstd is not None else "zlib"
+# zstd at the reference's level 3. zlib at level 0, stored blocks, written
+# here straight from the leaves' host buffers: on an H100 machine's 8-core
+# host zlib compresses fp32 weights at ~19 MB/s at levels 1 and 3 (12
+# minutes for TinyLlama-1.1B's 13.2 GB state) and writes level 0 at 0.68
+# GB/s (PERF.md §6); both packages' ``zlib.decompress`` read the stream
+LEVELS = {"zstd": 3, "zlib": 0}
+_CHUNK = 64 << 20           # bytes a compressor, a checksum or a read takes
+# blake2b, Adler-32 and the compressors release the GIL: the digests and
+# checksums run in these threads beside the stream
+_THREADS = max(1, min(8, (os.cpu_count() or 2) - 2))
+_BLOCK = 65535              # a stored deflate block's most bytes
+_STORED = struct.Struct("<BHH")     # its header: BFINAL/BTYPE, LEN, NLEN
+_ADLER = 65521
 
 
-def _compress(raw: bytes, codec: str) -> bytes:
+def _adler32_combine(a1: int, a2: int, len2: int) -> int:
+    """The Adler-32 of A + B from A's (``a1``), B's (``a2``) and B's
+    length (zlib's ``adler32_combine``)."""
+    rem = len2 % _ADLER
+    s1 = ((a1 & 0xFFFF) + (a2 & 0xFFFF) + _ADLER - 1) % _ADLER
+    s2 = (rem * (a1 & 0xFFFF) + (a1 >> 16) + (a2 >> 16) + _ADLER - rem) \
+        % _ADLER
+    return s1 | (s2 << 16)
+
+
+class _Stored:
+    """A zlib stream of stored blocks (level 0) into the file ``f``: the
+    two-byte header, each block's five-byte header before at most 65,535
+    bytes copied from the caller's buffer, an empty final block and the
+    Adler-32 of every byte, computed in ``pool`` a chunk at a time and
+    combined in order."""
+
+    def __init__(self, f, pool):
+        self._f, self._pool = f, pool
+        self._sums = []
+        self._out = bytearray(_CHUNK + _STORED.size * (_CHUNK // _BLOCK + 1))
+        f.write(b"\x78\x01")
+
+    def write(self, data) -> None:
+        mv = memoryview(data).cast("B")
+        for i in range(0, len(mv), _CHUNK):
+            piece = mv[i:i + _CHUNK]
+            self._sums.append((self._pool.submit(zlib.adler32, piece),
+                               len(piece)))
+            o = 0
+            for j in range(0, len(piece), _BLOCK):
+                n = min(_BLOCK, len(piece) - j)
+                _STORED.pack_into(self._out, o, 0, n, n ^ 0xFFFF)
+                self._out[o + 5:o + 5 + n] = piece[j:j + n]
+                o += 5 + n
+            self._f.write(memoryview(self._out)[:o])
+
+    def close(self) -> None:
+        adler = 1
+        for s, n in self._sums:
+            adler = _adler32_combine(adler, s.result(), n)
+        self._f.write(_STORED.pack(1, 0, 0xFFFF) + struct.pack(">I", adler))
+
+
+class _Compressed:
+    """zstd's stream (``compress`` then ``flush``) into ``f``."""
+
+    def __init__(self, f, comp):
+        self._f, self._comp = f, comp
+
+    def write(self, data) -> None:
+        mv = memoryview(data).cast("B")
+        for i in range(0, len(mv), _CHUNK):
+            self._f.write(self._comp.compress(mv[i:i + _CHUNK]))
+
+    def close(self) -> None:
+        self._f.write(self._comp.flush())
+
+
+def _sink(f, codec: str, size: int, pool):
+    """The writer of a shard of ``size`` raw bytes into ``f``. zstd's frame
+    records ``size`` so that a one-shot ``ZstdDecompressor().decompress``
+    (the reference's reader) takes it."""
     if codec == "zstd":
-        return zstd.ZstdCompressor(level=3).compress(raw)
+        return _Compressed(f, zstd.ZstdCompressor(
+            level=LEVELS["zstd"]).compressobj(size=size))
     if codec == "zlib":
-        return zlib.compress(raw, 3)
+        return _Stored(f, pool)
     raise ValueError(f"unknown checkpoint codec {codec!r}")
 
 
-def _decompress(blob: bytes, codec: str) -> bytes:
+class _NotStored(Exception):
+    """A zlib stream that is not stored blocks throughout."""
+
+
+class _StoredReader:
+    """``readinto`` over a zlib stream of stored blocks, the bytes read
+    from the file straight into the caller's buffer. Raises
+    ``_NotStored`` at a compressed block. Its Adler-32 is not checked:
+    the leaves' digests are."""
+
+    def __init__(self, f):
+        self._f = f
+        self._left = 0
+        self._final = False
+        if not _stored_start(f.read(3)):
+            raise _NotStored
+        f.seek(2)
+
+    def readinto(self, out) -> int:
+        mv = memoryview(out).cast("B")
+        got = 0
+        while got < len(mv):
+            if not self._left:
+                if self._final:
+                    break
+                head = self._f.read(_STORED.size)
+                if len(head) < _STORED.size:
+                    raise ValueError("checkpoint shard: truncated zlib "
+                                     "stream")
+                flags, n, check = _STORED.unpack(head)
+                if flags & 0x06:
+                    raise _NotStored
+                if check != n ^ 0xFFFF:
+                    raise ValueError("checkpoint shard: corrupt stored "
+                                     "block")
+                self._left, self._final = n, bool(flags & 1)
+                continue
+            k = self._f.readinto(mv[got:got + min(self._left,
+                                                  len(mv) - got)])
+            if not k:
+                raise ValueError("checkpoint shard: truncated zlib stream")
+            got += k
+            self._left -= k
+        return got
+
+
+def _stored_start(head: bytes) -> bool:
+    """Whether a zlib stream's first three bytes are its header (deflate,
+    no preset dictionary) and a stored block's."""
+    return (len(head) == 3 and (head[0] << 8 | head[1]) % 31 == 0
+            and head[0] & 0x0F == 8 and not head[1] & 0x20
+            and not head[2] & 0x06)
+
+
+class _Inflater:
+    """A zlib stream read through ``readinto``, at most the asked bytes
+    decompressed a call."""
+
+    def __init__(self, f):
+        self._f = f
+        self._d = zlib.decompressobj()
+
+    def readinto(self, out) -> int:
+        mv = memoryview(out).cast("B")
+        got = 0
+        while got < len(mv) and not self._d.eof:
+            data = self._d.unconsumed_tail or self._f.read(_CHUNK)
+            piece = self._d.decompress(data, len(mv) - got)
+            if not piece and not data:
+                raise ValueError("checkpoint shard: truncated zlib stream")
+            mv[got:got + len(piece)] = piece
+            got += len(piece)
+        return got
+
+
+def _source(f, codec: str, inflate: bool = False):
+    """The raw bytes of the shard open as ``f``, through ``readinto``: a
+    zlib stream of stored blocks read as it lies unless ``inflate``."""
     if codec == "zstd":
         if zstd is None:
             raise RuntimeError(
                 "checkpoint shard is zstd-compressed but the optional "
                 "'zstandard' module is not installed; install it or "
                 "re-save the checkpoint with the zlib codec")
-        return zstd.ZstdDecompressor().decompress(blob)
+        return zstd.ZstdDecompressor().stream_reader(f, read_size=_CHUNK)
     if codec == "zlib":
-        return zlib.decompress(blob)
+        if not inflate:
+            return _StoredReader(f)
+        return _Inflater(f)
     raise ValueError(f"unknown checkpoint codec {codec!r}")
+
+
+def _read_into(src, out) -> None:
+    """Fill ``out`` from ``src`` or raise on a short stream."""
+    mv = memoryview(out).cast("B")
+    got = 0
+    while got < len(mv):
+        n = src.readinto(mv[got:])
+        if not n:
+            raise ValueError("checkpoint shard: incomplete input")
+        got += n
+
+
+def _read(src, n: int) -> bytearray:
+    buf = bytearray(n)
+    _read_into(src, buf)
+    return buf
 
 
 def _tree_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, Any]]:
@@ -105,26 +289,47 @@ def _host(leaf):
     return np.array(leaf)
 
 
-def _leaf_bytes(leaf) -> Tuple[bytes, List[int], str]:
-    """Row-major bytes, shape and dtype name of one leaf."""
+def _nbytes(leaf) -> int:
+    if isinstance(leaf, _Snapshot):
+        return leaf.nbytes
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel() * leaf.element_size()
+    return np.asarray(leaf).nbytes
+
+
+def _leaf_array(leaf) -> Tuple[np.ndarray, List[int], str]:
+    """A leaf's row-major bytes as a flat uint8 array (a view where the
+    leaf is a contiguous host tensor or array: no copy), its shape and its
+    dtype name. A ``_Snapshot`` is waited for."""
+    if isinstance(leaf, _Snapshot):
+        leaf = leaf.future.result()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
+        shape = list(t.shape)
         if t.dtype == torch.bfloat16:
-            return (t.view(torch.int16).numpy().tobytes(), list(t.shape),
-                    "bfloat16")
+            return t.view(torch.int16).numpy().reshape(-1).view(np.uint8), \
+                shape, "bfloat16"
         arr = t.numpy()
     else:
         arr = np.asarray(leaf)
-    return arr.tobytes(), list(arr.shape), str(arr.dtype)
+        shape = list(arr.shape)
+    return np.ascontiguousarray(arr).reshape(-1).view(np.uint8), shape, \
+        str(arr.dtype)
 
 
-def _leaf_tensor(buf: bytes, shape: List[int], dtype: str,
+def _digest(buf) -> str:
+    return hashlib.blake2b(buf, digest_size=16).hexdigest()
+
+
+def _leaf_tensor(buf: np.ndarray, shape: List[int], dtype: str,
                  device: torch.device) -> torch.Tensor:
+    """The leaf held by the uint8 array ``buf``; on the CPU it keeps
+    ``buf``'s storage."""
+    arr = buf.view(np.int16 if dtype == "bfloat16" else dtype).reshape(shape)
+    t = torch.from_numpy(arr)
     if dtype == "bfloat16":
-        arr = np.frombuffer(buf, np.int16).reshape(shape).copy()
-        return torch.from_numpy(arr).view(torch.bfloat16).to(device)
-    arr = np.frombuffer(buf, dtype=dtype).reshape(shape).copy()
-    return torch.from_numpy(arr).to(device)
+        t = t.view(torch.bfloat16)
+    return t.to(device)
 
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -182,16 +387,7 @@ def save_checkpoint(directory: str, step: int, state: Dict,
     tmp.mkdir(parents=True)
     manifest = {"step": step, "leaves": [], "time": time.time(),
                 "treedef": None, "codec": DEFAULT_CODEC}
-    payload = {}
-    for key, leaf in _tree_paths(state):
-        buf, shape, dtype = _leaf_bytes(leaf)
-        manifest["leaves"].append({
-            "key": key, "shape": shape, "dtype": dtype,
-            "digest": hashlib.blake2b(buf, digest_size=16).hexdigest(),
-        })
-        payload[key] = buf
-    raw = msgpack.packb(payload, use_bin_type=True)
-    _write_durable(tmp / "data.msgpack.zst", _compress(raw, DEFAULT_CODEC))
+    _write_shard(tmp / "data.msgpack.zst", state, manifest)
     _write_durable(tmp / "manifest.json", json.dumps(manifest).encode())
     _fsync_path(tmp)
     old = base / f"step_{step:09d}.old"
@@ -206,6 +402,37 @@ def save_checkpoint(directory: str, step: int, state: Dict,
         shutil.rmtree(old)
     _gc(base, keep_last)
     return final
+
+
+def _write_shard(path: pathlib.Path, state, manifest: Dict) -> None:
+    """The msgpack map {key: bin} of ``state``'s leaves in ``_tree_paths``
+    order, the bytes the reference's ``packb`` gives, streamed leaf by
+    leaf through the codec's writer (``_sink``) into ``path`` and fsynced.
+    The host holds no copy of the payload: a chunk of it, and a leaf that
+    was on the card. Each leaf's digest, computed beside the stream, goes
+    into ``manifest["leaves"]``."""
+    leaves = _tree_paths(state)
+    sizes = [_nbytes(leaf) for _, leaf in leaves]
+    heads = [msgpack.packb(key) + msgpack.bin_header(n)
+             for (key, _), n in zip(leaves, sizes)]
+    head = msgpack.map_header(len(leaves))
+    size = len(head) + sum(map(len, heads)) + sum(sizes)
+    digests = []
+    with ThreadPoolExecutor(_THREADS) as pool, open(path, "wb") as f:
+        sink = _sink(f, manifest["codec"], size, pool)
+        sink.write(head)
+        for (key, leaf), header in zip(leaves, heads):
+            buf, shape, dtype = _leaf_array(leaf)
+            digests.append(pool.submit(_digest, buf))
+            sink.write(header)
+            sink.write(buf)
+            manifest["leaves"].append({"key": key, "shape": shape,
+                                       "dtype": dtype})
+        sink.close()
+        f.flush()
+        os.fsync(f.fileno())
+    for m, d in zip(manifest["leaves"], digests):
+        m["digest"] = d.result()
 
 
 def _gc(base: pathlib.Path, keep_last: int) -> None:
@@ -276,6 +503,9 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None,
     not read). This is the elastic-restart path: a checkpoint has no mesh
     baked in, so any mesh shape restores it."""
     dev = resolve_device(device) if shardings is None else None
+    if dev is not None and dev.type == "cuda" and dev.index is None:
+        # the copies run in worker threads: name this thread's card
+        dev = torch.device("cuda", torch.cuda.current_device())
     base = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -284,27 +514,63 @@ def restore_checkpoint(directory: str, template, step: Optional[int] = None,
     d = base / f"step_{step:09d}"
     manifest = json.loads((d / "manifest.json").read_text())
     codec = manifest.get("codec", "zstd")   # pre-codec shards were zstd
-    raw = _decompress((d / "data.msgpack.zst").read_bytes(), codec)
-    payload = msgpack.unpackb(raw, raw=False)
     meta = {m["key"]: m for m in manifest["leaves"]}
-
-    out = {}
-    for key, _ in _tree_paths(template):
-        m = meta.get(key)
-        if m is None:
+    wanted = [key for key, _ in _tree_paths(template)]
+    for key in wanted:
+        if key not in meta:
             raise KeyError(f"checkpoint missing leaf {key!r}")
-        buf = payload[key]
-        if verify:
-            dig = hashlib.blake2b(buf, digest_size=16).hexdigest()
-            if dig != m["digest"]:
-                raise IOError(f"digest mismatch for {key!r} (corrupt shard)")
-        if shardings is None:
-            out[key] = _leaf_tensor(buf, m["shape"], m["dtype"], dev)
-        else:
-            out[key] = _place(_leaf_tensor(buf, m["shape"], m["dtype"],
-                                           torch.device("cpu")),
-                              _at_path(shardings, key))
+    wanted = set(wanted)
+
+    def read(pool, inflate):
+        """Stream the shard leaf by leaf: each leaf's bytes read into a
+        buffer of its own, digested in ``pool`` and made a tensor on
+        ``dev`` there (on the CPU, the buffer itself; onto the card, a copy
+        under the next leaf's read)."""
+        out, checks = {}, []
+        with open(d / "data.msgpack.zst", "rb") as f:
+            src = _source(f, codec, inflate)
+            for key, n in msgpack.iter_bin_map(lambda k: _read(src, k)):
+                buf = np.empty(n, np.uint8)
+                _read_into(src, buf)
+                if key not in wanted:
+                    continue
+                m = meta[key]
+                if verify:
+                    checks.append((key, m["digest"],
+                                   pool.submit(_digest, buf)))
+                if shardings is None:
+                    out[key] = pool.submit(_leaf_tensor, buf, m["shape"],
+                                           m["dtype"], dev)
+                else:
+                    out[key] = _place(_leaf_tensor(
+                        buf, m["shape"], m["dtype"], torch.device("cpu")),
+                        _at_path(shardings, key))
+            if src.readinto(bytearray(1)):
+                raise ValueError("checkpoint shard: data after the payload")
+        return out, checks
+
+    with ThreadPoolExecutor(_THREADS) as pool:
+        try:
+            out, checks = read(pool, inflate=False)
+        except _NotStored:      # a compressed zlib stream (the reference's)
+            out, checks = read(pool, inflate=True)
+    for key, want, dig in checks:
+        if dig.result() != want:
+            raise IOError(f"digest mismatch for {key!r} (corrupt shard)")
+    if shardings is None:
+        out = {k: t.result() for k, t in out.items()}
+    for key in wanted - out.keys():
+        raise KeyError(f"checkpoint shard missing leaf {key!r}")
     return _unflatten(template, out), manifest["step"]
+
+
+class _Snapshot:
+    """A leaf whose host snapshot ``AsyncCheckpointer.save`` is still
+    taking: its byte count now, the snapshot through ``future``."""
+
+    def __init__(self, leaf):
+        self.nbytes = _nbytes(leaf)
+        self.future = Future()
 
 
 class AsyncCheckpointer:
@@ -318,19 +584,31 @@ class AsyncCheckpointer:
         self._last_error: Optional[BaseException] = None
 
     def save(self, step: int, state) -> None:
+        """Snapshot every leaf on the host, then return; the writer
+        starts on the first leaf while the others are copied."""
         self.wait()
-        host_state = _unflatten(state, {k: _host(v)
-                                        for k, v in _tree_paths(state)})
+        paths = _tree_paths(state)
+        snaps = {k: _Snapshot(v) for k, v in paths}
+        lazy = _unflatten(state, snaps)
 
         def work():
             try:
-                save_checkpoint(self.directory, step, host_state,
-                                self.keep_last)
+                save_checkpoint(self.directory, step, lazy, self.keep_last)
             except BaseException as e:   # surfaced on next wait()
                 self._last_error = e
 
         self._thread = threading.Thread(target=work, daemon=True)
         self._thread.start()
+        try:
+            for k, v in paths:
+                snaps[k].future.set_result(_host(v))
+        except BaseException as e:
+            for snap in snaps.values():
+                if not snap.future.done():
+                    snap.future.set_exception(e)
+            self._thread.join()
+            self._thread, self._last_error = None, None
+            raise
 
     def wait(self) -> None:
         if self._thread is not None:

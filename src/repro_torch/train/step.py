@@ -2,8 +2,10 @@
 
 ``make_train_step`` builds the update: micro-batched gradient accumulation
 (a Python loop over micro-batches in place of the reference's
-``lax.scan``), an fp32 (or bf16) accumulator, the optional
-``grad_transform`` hook (gradient compression), and the AdamW update. The
+``lax.scan``) into an fp32 (or bf16) accumulator summed in place, as XLA
+updates the scan's carry, each micro-batch's gradients dropped before the
+next runs; the optional ``grad_transform`` hook (gradient compression),
+and the AdamW update. The
 gradient is one ``torch.autograd.grad`` over every leaf
 (``value_and_grad``). Every step runs eagerly. By default, like
 ``adamw_update``, it returns new parameter and optimizer trees without
@@ -16,7 +18,7 @@ the new trees cost ~28 at the update.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -89,6 +91,19 @@ def _split_microbatches(batch: Dict, n: int) -> Dict:
     return {k: rs(v) for k, v in batch.items()}
 
 
+def _accumulate(acc: List, flat: List) -> None:
+    """``acc[i] += flat[i]`` in place, leaf by leaf, each gradient leaf
+    dropped once added (``flat`` is emptied): the reference's scan carry,
+    which XLA updates in place. The bits of ``a + g.to(acc.dtype)``: a
+    gradient of a narrower dtype is widened inside the add (exact), one of
+    a wider dtype rounded to the accumulator's first."""
+    for i, a in enumerate(acc):
+        g, flat[i] = flat[i], None
+        a.add_(g if torch.promote_types(g.dtype, a.dtype) == a.dtype
+               else g.to(a.dtype))
+    flat.clear()
+
+
 def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
                     num_microbatches: int = 1,
                     grad_transform: Optional[Callable] = None,
@@ -115,8 +130,10 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
         if num_microbatches > 1:
             mbs = _split_microbatches(batch, num_microbatches)
             dev = next(iter(batch.values())).device
-            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dtype),
-                             params)
+            acc = []
+            tree_map(lambda p: acc.append(torch.zeros_like(p,
+                                                           dtype=acc_dtype)),
+                     params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             ce_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(num_microbatches):
@@ -124,11 +141,15 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig,
                     params, {k: v[i] for k, v in mbs.items()})
                 flat = []
                 tree_map(flat.append, g)
-                it = iter(flat)
-                grads = tree_map(lambda a: a + next(it).to(acc_dtype), grads)
+                del g
+                _accumulate(acc, flat)
                 loss_sum = loss_sum + loss
                 ce_sum = ce_sum + metrics["ce"]
-            grads = tree_map(lambda g: g / num_microbatches, grads)
+            for a in acc:
+                a.div_(num_microbatches)
+            it = iter(acc)
+            grads = tree_map(lambda _: next(it), params)
+            del acc, it
             loss = loss_sum / num_microbatches
             metrics = {"ce": ce_sum / num_microbatches}
         else:

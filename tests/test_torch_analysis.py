@@ -139,3 +139,8 @@ def test_sass_diff_pairs_every_kernel_by_name():
     pairs, new = sass_diff.same_name_pairs(parent, change)
     assert pairs == list(zip(parent, change[:2]))
     assert new == [change[2]]
+    # the SSD sources' tag ends in no hex hash; its length prefix bounds it
+    ssd = ["_ZN37_GLOBAL__N__795c7cdb_6_ssd_cu_ssd_fwd10ssd_kernelI13__nv_"
+           "bfloat16Li64EEEvPKT_", "_ZN37_GLOBAL__N__a1b2c3d4_6_ssd_cu_"
+           "ssd_fwd10ssd_kernelI13__nv_bfloat16Li64EEEvPKT_"]
+    assert sass_diff.same_name_pairs(ssd[:1], ssd[1:]) == ([tuple(ssd)], [])

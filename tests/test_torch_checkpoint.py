@@ -3,6 +3,7 @@ format, so a tree saved by either restores in the other bit for bit (bf16
 leaves included), and the crash-consistency tests of
 ``tests/test_checkpoint_crash.py`` on the port's API."""
 import json
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -63,7 +64,18 @@ def test_tree_keys_and_order_are_jax():
         [k for k, _ in jckpt._tree_paths(_as_jax(tree))]
 
 
-def test_port_checkpoint_restores_in_jax(tmp_path):
+CODECS = ["zlib", "zstd"]
+
+
+def _codec(monkeypatch, codec):
+    """Both packages write ``codec``'s shards."""
+    monkeypatch.setattr(jckpt, "DEFAULT_CODEC", codec)
+    monkeypatch.setattr(tckpt, "DEFAULT_CODEC", codec)
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_port_checkpoint_restores_in_jax(tmp_path, monkeypatch, codec):
+    _codec(monkeypatch, codec)
     tree = _tree()
     save_checkpoint(str(tmp_path), 3, tree)
     restored, step = jckpt.restore_checkpoint(str(tmp_path), _as_jax(tree))
@@ -73,7 +85,9 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     assert restored["z"]["b16"].dtype == jnp.bfloat16
 
 
-def test_jax_checkpoint_restores_in_port(tmp_path):
+@pytest.mark.parametrize("codec", CODECS)
+def test_jax_checkpoint_restores_in_port(tmp_path, monkeypatch, codec):
+    _codec(monkeypatch, codec)
     tree = _tree()
     jckpt.save_checkpoint(str(tmp_path), 4, _as_jax(tree))
     restored, step = restore_checkpoint(str(tmp_path), tree, device="cpu")
@@ -86,22 +100,111 @@ def test_jax_checkpoint_restores_in_port(tmp_path):
     assert restored["z"]["b16"].dtype == torch.bfloat16
 
 
+def _written(base, codec):
+    """The decompressed shard and the manifest (its wall-clock time
+    dropped) of the step-1 checkpoint under ``base``."""
+    d = base / "step_000000001"
+    blob = (d / "data.msgpack.zst").read_bytes()
+    raw = zlib.decompress(blob) if codec == "zlib" else \
+        jckpt.zstd.ZstdDecompressor().decompress(blob)
+    man = json.loads((d / "manifest.json").read_text())
+    man.pop("time")
+    return raw, man
+
+
 def test_same_bytes_on_disk(tmp_path, monkeypatch):
-    """Both packages write the same shard and the same manifest (but its
-    wall-clock time) for the same tree and codec."""
-    monkeypatch.setattr(jckpt, "DEFAULT_CODEC", "zlib")
-    monkeypatch.setattr(tckpt, "DEFAULT_CODEC", "zlib")
+    """Both packages write the same shard, once decompressed, and the same
+    manifest (but its wall-clock time) for the same tree and codec. The
+    compressed bytes differ: the port's zlib writes stored blocks (level
+    0), the reference's compresses at level 3."""
+    _codec(monkeypatch, "zlib")
     tree = _tree()
     tckpt.save_checkpoint(str(tmp_path / "t"), 1, tree)
     jckpt.save_checkpoint(str(tmp_path / "j"), 1, _as_jax(tree))
-    shard = [(tmp_path / p / "step_000000001" / "data.msgpack.zst")
-             .read_bytes() for p in "tj"]
-    assert shard[0] == shard[1]
-    man = [json.loads((tmp_path / p / "step_000000001" / "manifest.json")
-                      .read_text()) for p in "tj"]
-    for m in man:
-        m.pop("time")
-    assert man[0] == man[1] and man[0]["codec"] == "zlib"
+    (raw_t, man_t), (raw_j, man_j) = (_written(tmp_path / p, "zlib")
+                                      for p in "tj")
+    assert raw_t == raw_j
+    assert man_t == man_j and man_t["codec"] == "zlib"
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_streamed_shard_is_the_references_payload(tmp_path, monkeypatch,
+                                                  codec):
+    """The shard the port streams leaf by leaf, decompressed, is the
+    reference's ``msgpack.packb`` of the tree's leaf bytes, byte for byte;
+    the manifest is the reference's but for its time."""
+    import msgpack
+    _codec(monkeypatch, codec)
+    tree = _tree()
+    tckpt.save_checkpoint(str(tmp_path / "t"), 1, tree)
+    jckpt.save_checkpoint(str(tmp_path / "j"), 1, _as_jax(tree))
+    raw, man = _written(tmp_path / "t", codec)
+    payload = {key: np.asarray(leaf).tobytes()
+               for key, leaf in jckpt._tree_paths(_as_jax(tree))}
+    assert raw == msgpack.packb(payload, use_bin_type=True)
+    assert man == _written(tmp_path / "j", codec)[1]
+
+
+@pytest.mark.parametrize("codec", CODECS)
+def test_large_and_many_leaves_round_trip(tmp_path, monkeypatch, codec):
+    """A leaf of 68 MB (past one 64 MiB chunk of the stream) among 300
+    small ones, fp32, bf16 and int: the same bits back, every leaf's
+    digest checked, and a wrong digest of the large leaf refused."""
+    _codec(monkeypatch, codec)
+    rng = np.random.default_rng(0)
+    tree = {"big": torch.from_numpy(rng.standard_normal(17_000_000,
+                                                        np.float32)),
+            "small": [torch.from_numpy(rng.standard_normal(
+                (i % 7, 3), np.float32)).to(torch.bfloat16 if i % 2
+                                            else torch.float32)
+                      for i in range(300)],
+            "ids": torch.arange(1000, dtype=torch.int64)}
+    save_checkpoint(str(tmp_path), 1, tree)
+    shard = tmp_path / "step_000000001" / "data.msgpack.zst"
+    if codec == "zlib":     # the stream's Adler-32, summed over chunks
+        assert len(zlib.decompress(shard.read_bytes())) > 68_000_000
+    checked = []
+    real = tckpt._digest
+
+    def digest(buf):
+        checked.append(buf.size)
+        return real(buf)
+    monkeypatch.setattr(tckpt, "_digest", digest)
+    restored, step = restore_checkpoint(str(tmp_path), tree, device="cpu")
+    assert step == 1 and len(checked) == 302
+    for (key, got), (_, want) in zip(tckpt._tree_paths(restored),
+                                     tckpt._tree_paths(tree)):
+        assert _bits(got) == _bits(want), key
+    manifest = tmp_path / "step_000000001" / "manifest.json"
+    m = json.loads(manifest.read_text())
+    assert m["leaves"][0]["key"] == "big"
+    m["leaves"][0]["digest"] = "0" * 32
+    manifest.write_text(json.dumps(m))
+    with pytest.raises(IOError, match="digest mismatch for 'big'"):
+        restore_checkpoint(str(tmp_path), tree, device="cpu")
+
+
+def test_zlib_stream_stored_then_compressed_restores(tmp_path,
+                                                     monkeypatch):
+    """A zlib shard whose first blocks are stored and the rest compressed
+    (a stream deflate may write): the stored reader meets a compressed
+    block, and the restore starts over inflating the stream."""
+    _codec(monkeypatch, "zlib")
+    tree = _tree()
+    save_checkpoint(str(tmp_path), 1, tree)
+    shard = tmp_path / "step_000000001" / "data.msgpack.zst"
+    raw = zlib.decompress(shard.read_bytes())
+    cut = len(raw) // 3
+    rest = zlib.compressobj(6, zlib.DEFLATED, -15)
+    mixed = (b"\x78\x01" + tckpt._STORED.pack(0, cut, cut ^ 0xFFFF)
+             + raw[:cut] + rest.compress(raw[cut:]) + rest.flush()
+             + zlib.adler32(raw).to_bytes(4, "big"))
+    assert zlib.decompress(mixed) == raw
+    shard.write_bytes(mixed)
+    restored, _ = restore_checkpoint(str(tmp_path), tree, device="cpu")
+    for (key, got), (_, want) in zip(tckpt._tree_paths(restored),
+                                     tckpt._tree_paths(tree)):
+        assert _bits(got) == _bits(want), key
 
 
 def test_zstd_shard_without_zstandard_raises(tmp_path, monkeypatch):
@@ -147,6 +250,23 @@ def test_async_snapshot_is_taken_at_save(tmp_path):
     ck.wait()
     restored, _ = restore_checkpoint(str(tmp_path), {"w": w}, device="cpu")
     assert torch.equal(restored["w"], torch.zeros(4))
+
+
+def test_async_snapshot_failure_raises_at_save(tmp_path):
+    """The writer starts on the first leaves while ``save`` snapshots the
+    rest: a snapshot that fails raises from ``save`` itself, the writer
+    publishes nothing, and the next ``wait`` and ``save`` start clean."""
+    class Bad:
+        def __array__(self, *args, **kwargs):
+            raise ValueError("no host copy")
+    ck = AsyncCheckpointer(str(tmp_path))
+    with pytest.raises(ValueError, match="no host copy"):
+        ck.save(1, {"a": torch.ones(4), "z": Bad()})
+    ck.wait()
+    assert latest_step(str(tmp_path)) is None
+    ck.save(2, {"a": torch.ones(4)})
+    ck.wait()
+    assert latest_step(str(tmp_path)) == 2
 
 
 # ------------------------------------------- tests/test_checkpoint_crash.py

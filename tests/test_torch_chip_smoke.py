@@ -2,8 +2,9 @@
 CUPTI hands back no device event is run again, a bounded number of times,
 and the profile fails if none of them recorded any; phase 8's expected
 launches count remat's recompute; phase 8's Command-R cut has the
-reference's parameter count and a step's launches; phase 8d's dry-run
-process and record."""
+reference's parameter count and a step's launches; the Qwen1.5-4B and
+Zamba2-7B depths chosen on meta tensors; phase 8d's dry-run process and
+record."""
 import importlib.util
 import json
 from pathlib import Path
@@ -96,8 +97,10 @@ def test_command_r_training_cut(smoke):
     """Phase 8's Command-R run: its cut (the tied table and the first
     layers, on meta tensors) has the reference's count that ``cmdr_train``
     holds it to; it is the deepest whose donated 2 x 2048 step, counted
-    on meta tensors, peaks under the card's 80 GB (one layer more does
-    not), at the embedding's backward; and a step launches a flash a layer
+    on meta tensors, peaks at or under the 75.90 GB the card ran 4 layers
+    at before the tied table's gradient was one buffer (one layer more
+    passes the card's 80 GB), at the layers' stacked gradient; and a step
+    launches a flash a layer
     forward, twice with the recompute, and one backward, all on the tensor
     cores in the Hopper streaming form, and no RMSNorm, SSD or grouped
     GEMM (LayerNorm, a dense block)."""
@@ -115,11 +118,37 @@ def test_command_r_training_cut(smoke):
     gb, op = smoke.meta_step_peak(cfg, ocfg, 2, 2048)
     more, _ = smoke.meta_step_peak(cfg.replace(n_layers=L + 1), ocfg, 2,
                                    2048)
-    assert gb < 77 < 80 < more and op == "index_put"
+    assert gb <= 75.90 < 80 < more and op == "stack"
     got = smoke._train_pass_counts(cfg, 1)
     assert {k: v for k, v in got.items() if v} == {
         "flash_attention": 2 * L, "flash_tc": 2 * L, "flash_wg": 2 * L,
         "flash_attention_bwd": L, "flash_bwd_tc": L, "flash_bwd_wg": L}
+
+
+@pytest.mark.parametrize("name", ["QWEN4B_TRAIN", "ZAMBA_TRAIN"])
+def test_training_depths_chosen_on_meta_tensors(smoke, name):
+    """Phase 8's Qwen1.5-4B and Zamba2-7B runs: the depth is the deepest
+    (Qwen1.5-4B: all 40 layers; Zamba2-7B: in whole groups of its plan)
+    whose donated 2 x 2048 step, counted on meta tensors, peaks at or
+    under the 75.90 GB of Command-R's 4-layer run on the card, and the
+    next group does not; Zamba2's cut has the parameter count
+    ``zamba_train`` holds it to."""
+    from repro_torch.launch.dryrun import MetaGenerator
+    from repro_torch.models import transformer
+    cfg = getattr(smoke, name)
+    gb, _ = smoke.meta_step_peak(cfg, smoke.TRAIN_OCFG, 2, 2048)
+    assert gb <= 75.90
+    if name == "QWEN4B_TRAIN":
+        assert cfg == smoke.qwen1_5_4b.CONFIG and cfg.n_layers == 40
+        return
+    more, _ = smoke.meta_step_peak(
+        cfg.replace(n_layers=cfg.n_layers + cfg.attn_every),
+        smoke.TRAIN_OCFG, 2, 2048)
+    assert more > 75.90 and cfg.n_layers % cfg.attn_every == 4
+    n = []
+    smoke.tree_map(lambda t: n.append(t.numel()),
+                   transformer.init(MetaGenerator(), cfg))
+    assert sum(n) == smoke.ZAMBA_TRAIN_PARAMS
 
 
 def test_dryrun_process_and_its_record(smoke, monkeypatch, tmp_path,

@@ -1427,3 +1427,69 @@ def test_provision_service_on_the_card(cuda):
     L = fc.trunk.n_layers
     assert (flash, gemm) == (res.n_batches * L, res.n_batches * L * 6)
     assert (flash_tc, gemm_tc) == (flash, gemm)
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_a_gigabyte_round_trips_on_the_card(cuda, tmp_path):
+    """A ~1 GB state on the card (fp32 leaves past the writer's 64 MiB
+    chunk, bf16 and int leaves, a 0-d step) saved by ``AsyncCheckpointer``
+    (its host snapshot taken at ``save``: the leaves are overwritten
+    before ``wait``) with the host's codec and restored onto the card:
+    every leaf the same bits, every digest checked (a wrong one refused)."""
+    import json
+    from repro_torch.train import (AsyncCheckpointer, restore_checkpoint)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = {"w": [torch.randn(48, 2048, 2048, generator=gen, device=cuda),
+                   torch.randn(4096, 4096, generator=gen, device=cuda)],
+             "h": torch.randn(1000, 999, generator=gen, device=cuda)
+             .to(torch.bfloat16),
+             "ids": torch.arange(12345, device=cuda),
+             "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    want = [t.clone() for t in (state["w"] + [state["h"], state["ids"],
+                                              state["step"]])]
+    assert sum(t.numel() * t.element_size() for t in want) > 0.8e9
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(3, state)
+    for t in state["w"]:
+        t.zero_()
+    ck.wait()
+    got, step = restore_checkpoint(str(tmp_path), state, device=cuda)
+    assert step == 3
+    for a, b in zip(got["w"] + [got["h"], got["ids"], got["step"]], want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    manifest = tmp_path / "step_000000003" / "manifest.json"
+    m = json.loads(manifest.read_text())
+    m["leaves"][-1]["digest"] = "0" * 32
+    manifest.write_text(json.dumps(m))
+    with pytest.raises(IOError, match="digest mismatch"):
+        restore_checkpoint(str(tmp_path), state, device=cuda)
+
+
+@pytest.mark.cuda
+def test_tied_table_backward_is_deterministic(cuda):
+    """The tied table's gradient (``layers.TiedTable``: the head's
+    product, then the looked-up rows summed into it in place) at a
+    Command-R-like width, 32,000 rows of 1,024, on 2 x 2048 tokens drawn
+    from 64 (each repeated ~64 times): the same bits over two calls, and
+    within fp32 rounding of autograd through the plain lookup and head."""
+    from repro_torch.models import layers
+    from repro_torch.models.common import ModelConfig
+    cfg = ModelConfig(arch_id="tied", d_model=1024, vocab_size=32000,
+                      tie_embeddings=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    table = torch.randn(32000, 1024, generator=gen, device=cuda) * 0.02
+    toks = torch.randint(0, 64, (2, 2048), generator=gen, device=cuda)
+    gout = torch.randn(2, 2048, 32000, generator=gen, device=cuda)
+
+    def grad(tie):
+        t = table.detach().requires_grad_(True)
+        x = layers.embed_tokens({"table": t}, toks, cfg, tie)
+        logits = layers.lm_logits({}, x * 1.5, cfg, {"table": t}, tie)
+        return torch.autograd.grad(logits, t, gout)[0]
+    one, two = grad(layers.TiedTable()), grad(layers.TiedTable())
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    plain = grad(None)
+    scale = float(plain.abs().max())
+    assert float((one - plain).abs().max()) <= 1e-5 * scale

@@ -342,6 +342,23 @@ def test_chained_trainer_resume_is_bit_identical(tmp_path):
     assert all(np.isfinite(losses))
 
 
+def test_chained_trainer_writes_each_step_once(tmp_path):
+    """With ``ckpt_every`` 2, a 4-step sub-job saves steps 2 and 4 (the
+    exit's step was handed to the writer already) and reports its exit
+    checkpoint's wall time; a resumed sub-job that runs no step writes
+    nothing."""
+    tr = _trainer(tmp_path)
+    saved, real = [], tr.ckpt.save
+    tr.ckpt.save = lambda step, state: saved.append(step) or real(step,
+                                                                   state)
+    info = tr.run_subjob(4)
+    assert saved == [2, 4] and info["exit_ckpt_s"] >= 0.0
+    again = _trainer(tmp_path, start=4)
+    assert again.maybe_resume() and again.step == 4
+    again.ckpt.save = lambda step, state: saved.append(step)
+    assert again.run_subjob(0)["steps_done"] == 4 and saved == [2, 4]
+
+
 def test_chained_trainer_stops_on_preemption(tmp_path):
     from repro_torch.train import PreemptionGuard
     tr = _trainer(tmp_path)

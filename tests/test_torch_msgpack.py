@@ -127,3 +127,45 @@ def test_journal_records_cross_packages(tmp_path):
         f.write(struct.pack("<II", 1, zlib.crc32(b"\x01")) + b"\x01")
     with pytest.raises(JournalCorruptionError, match="undecodable"):
         TJournal(path).replay()
+
+
+BIN_MAPS = [{}, {"a": b""}, {"k" * 40: b"x" * 300, b"raw": b"y" * 70000},
+            {str(i): bytes([i]) * i for i in range(20)},
+            {"k" * 300: memoryview(b"z" * 65536)}]
+
+
+@pytest.mark.parametrize("i", range(len(BIN_MAPS)))
+def test_iter_bin_map_reads_msgpacks_maps(i):
+    """``iter_bin_map`` on ``msgpack``'s bytes of a map of str or bytes
+    keys to bin values, in every header width (fixmap and map16, fixstr,
+    str8 and str16, bin8, bin16, bin32), the values read by the caller;
+    ``map_header``/``bin_header`` are ``packb``'s."""
+    want = {k: bytes(v) for k, v in BIN_MAPS[i].items()}
+    blob = msgpack.packb(want, use_bin_type=True)
+    assert _msgpack.packb(BIN_MAPS[i]) == blob
+    mv, off = memoryview(blob), [0]
+
+    def read(n):
+        off[0] += n
+        if off[0] > len(mv):
+            raise ValueError("short")
+        return mv[off[0] - n:off[0]]
+    got = {key: bytes(read(n)) for key, n in _msgpack.iter_bin_map(read)}
+    assert got == want and off[0] == len(blob)
+    assert blob.startswith(_msgpack.map_header(len(want)))
+    for n in (0, 255, 256, 65535, 65536):
+        assert _msgpack.bin_header(n) == msgpack.packb(
+            bytes(n), use_bin_type=True)[:-n or None]
+
+
+@pytest.mark.parametrize("blob", [msgpack.packb([b"a"]),
+                                  msgpack.packb({1: b"a"}),
+                                  msgpack.packb({"a": "text"})])
+def test_iter_bin_map_refuses_other_types(blob):
+    mv, off = memoryview(blob), [0]
+
+    def read(n):
+        off[0] += n
+        return mv[off[0] - n:off[0]]
+    with pytest.raises(ValueError, match="Unpack failed"):
+        list(_msgpack.iter_bin_map(read))
