@@ -88,7 +88,7 @@ class DQNLearner:
         reference. Nothing made under ``inference_mode`` here outlives the
         call: the returned actions are numpy."""
         states = torch.tensor(np.asarray(state_matrices, np.float32),
-                              device=self.device)
+                              dtype=torch.float32, device=self.device)
         with torch.inference_mode():
             q = q_values(self.params, self.fc, states).cpu().numpy()
         a = np.argmax(q, axis=-1)

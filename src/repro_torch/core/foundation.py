@@ -47,7 +47,8 @@ def _init_trunk(gen: torch.Generator, fc: FoundationConfig, n: int) -> Dict:
     d = fc.trunk.d_model
     return {
         "embed_in": dense_init(gen, STATE_DIM + 1, d, torch.float32, (n,)),
-        "pos": torch.randn((n, fc.history, d), generator=gen) * 0.02,
+        "pos": torch.randn((n, fc.history, d), generator=gen,
+                           dtype=torch.float32, device=gen.device) * 0.02,
         "trunk": tf.init(gen, fc.trunk, n_experts=n),
         "v_head": dense_init(gen, d, 1, torch.float32, (n,)),
         "p_head": dense_init(gen, d, 2, torch.float32, (n,)),
@@ -77,7 +78,8 @@ def _trunk_apply(params: Dict, fc: FoundationConfig, states: torch.Tensor,
     x = torch.cat([states.float(), act], dim=-1)
     h = torch.einsum("nkm,emd->enkd", x, params["embed_in"]) \
         + params["pos"][:, None]
-    pos = torch.arange(k, device=states.device).expand(N, k)
+    pos = torch.arange(k, dtype=torch.long, device=states.device).expand(
+        N, k)
     h, _, _ = tf.apply_trunk(params["trunk"], cfg, h.to(cfg.cdtype), pos)
     # the pool runs in the compute dtype, then casts (foundation.py:82)
     return h.mean(dim=2).float()
@@ -98,7 +100,8 @@ def _gate(params: Dict, fc: FoundationConfig, states: torch.Tensor,
     cur = states[:, -1, :].float()
     if fc.gate_time_feature:
         tp = (time_pos.float() if time_pos is not None
-              else torch.zeros(states.shape[0], device=states.device))
+              else torch.zeros(states.shape[0], dtype=torch.float32,
+                               device=states.device))
         cur = torch.cat([cur, tp[:, None]], dim=-1)
     g = torch.softmax(cur @ params["gate"], dim=-1)
     if fc.gate_top1:
@@ -127,8 +130,9 @@ def q_values(params: Dict, fc: FoundationConfig, states: torch.Tensor,
     The two actions run as one trunk pass over the batch stacked to 2B."""
     B = states.shape[0]
     ep = _experts(params, fc)
-    action = torch.cat([torch.full((B,), -1.0), torch.full((B,), 1.0)]).to(
-        states.device)
+    action = torch.cat([
+        torch.full((B,), a, dtype=torch.float32, device=states.device)
+        for a in (-1.0, 1.0)])
     feats = _trunk_apply(ep, fc, torch.cat([states, states]), action)
     q = _heads(ep, feats)[0]                                     # (E, 2B)
     per_exp = q.unflatten(1, (2, B)).transpose(1, 2)             # (E, B, 2)
@@ -139,7 +143,8 @@ def policy_logits(params: Dict, fc: FoundationConfig, states: torch.Tensor,
                   time_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """P-head action logits (B, 2); action input is the 0 placeholder."""
     ep = _experts(params, fc)
-    action = torch.zeros(states.shape[0], device=states.device)
+    action = torch.zeros(states.shape[0], dtype=torch.float32,
+                         device=states.device)
     per_exp = _heads(ep, _trunk_apply(ep, fc, states, action))[1]
     return _combine(params, fc, per_exp, states, time_pos)
 

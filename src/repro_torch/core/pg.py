@@ -70,7 +70,7 @@ class PGLearner:
         the reference's numpy draws in its order; nothing made under
         ``inference_mode`` outlives the call."""
         states = torch.tensor(np.asarray(state_matrices, np.float32),
-                              device=self.device)
+                              dtype=torch.float32, device=self.device)
         with torch.inference_mode():
             logits = policy_logits(self.params, self.fc, states)
             p = torch.softmax(logits, -1).cpu().numpy()

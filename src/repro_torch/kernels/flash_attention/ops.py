@@ -359,9 +359,9 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, *, causal, window, softcap, scale):
                         causal=causal, window=window, softcap=softcap,
                         scale=scale)
     if q.numel() and k.numel():         # an empty problem launches nothing
-        flash_attention_bwd.launches += 1
-        flash_attention_bwd.tc_launches += variant == "tc"
-        flash_attention_bwd.wg_launches += variant == "tc" and bwd_tc_form(
+        flash_attention_bwd.launches += 1  # repro-static: ok[jit-purity] launch counter
+        flash_attention_bwd.tc_launches += variant == "tc"  # repro-static: ok[jit-purity] launch counter
+        flash_attention_bwd.wg_launches += variant == "tc" and bwd_tc_form(  # repro-static: ok[jit-purity] launch counter
             q.shape[1], k.shape[1], q.shape[2], k.shape[2], q.shape[3]) == "wg"
     return grads
 
@@ -390,9 +390,9 @@ class _FlashFn(torch.autograd.Function):
 
 def _count(out, k, variant: str) -> None:
     if out.numel():                     # an empty out launches nothing
-        flash_attention.launches += 1
-        flash_attention.tc_launches += variant == "tc"
-        flash_attention.wg_launches += variant == "tc" and fwd_form(
+        flash_attention.launches += 1  # repro-static: ok[jit-purity] launch counter
+        flash_attention.tc_launches += variant == "tc"  # repro-static: ok[jit-purity] launch counter
+        flash_attention.wg_launches += variant == "tc" and fwd_form(  # repro-static: ok[jit-purity] launch counter
             out.shape[1], k.shape[1], out.shape[3]) == "wg"
 
 

@@ -219,8 +219,8 @@ def _rmsnorm_bwd_cuda(x, w, dy, *, eps, gemma):
     variant = _rmsnorm_bwd_variant(flat, w, dy)
     dx, dw = _launch_bwd(flat, w, dy, variant, eps=eps, gemma=gemma)
     if flat.numel():                    # an empty problem launches nothing
-        rmsnorm.bwd_launches += 1
-        rmsnorm.bwd_vec_launches += variant == "vec"
+        rmsnorm.bwd_launches += 1  # repro-static: ok[jit-purity] launch counter
+        rmsnorm.bwd_vec_launches += variant == "vec"  # repro-static: ok[jit-purity] launch counter
     return dx.reshape(x.shape), dw
 
 
@@ -248,8 +248,8 @@ def _forward_cuda(x, w, *, eps, gemma):
     variant = _rmsnorm_variant(flat, w)
     out = _launch(flat, w, variant, eps=eps, gemma=gemma)
     if out.numel():                     # an empty out launches nothing
-        rmsnorm.launches += 1
-        rmsnorm.vec_launches += variant == "vec"
+        rmsnorm.launches += 1  # repro-static: ok[jit-purity] launch counter
+        rmsnorm.vec_launches += variant == "vec"  # repro-static: ok[jit-purity] launch counter
     return out.reshape(x.shape)
 
 

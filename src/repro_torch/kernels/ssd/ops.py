@@ -411,8 +411,8 @@ def _ssd_bwd_cuda(x, dt, A, B, C, D, chunk, dy, initial_state, d_final):
     variant = _ssd_bwd_variant(x, B, C, dy, Q)
     out = _launch_bwd(x, dt, A, B, C, D, Q, dy, initial_state, d_final,
                       variant)
-    ssd.bwd_launches += 1
-    ssd.bwd_tc_launches += variant == "tc"
+    ssd.bwd_launches += 1  # repro-static: ok[jit-purity] launch counter
+    ssd.bwd_tc_launches += variant == "tc"  # repro-static: ok[jit-purity] launch counter
     return out
 
 
@@ -428,8 +428,8 @@ def _forward_cuda(x, dt, A, B, C, D, chunk, initial_state):
     variant = _ssd_variant(x, B, C)
     out = _launch(x, dt, A, B, C, D, min(chunk, x.shape[1]), initial_state,
                   variant)
-    ssd.launches += 1
-    ssd.tc_launches += variant == "tc"
+    ssd.launches += 1  # repro-static: ok[jit-purity] launch counter
+    ssd.tc_launches += variant == "tc"  # repro-static: ok[jit-purity] launch counter
     return out
 
 

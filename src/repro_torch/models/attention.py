@@ -95,7 +95,8 @@ def _repeat_kv(k, v, n_heads: int):
     if n_heads % Hkv == 0:
         rep = n_heads // Hkv
         return k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
-    idx = torch.clamp(torch.arange(n_heads, device=k.device), max=Hkv - 1)
+    idx = torch.clamp(torch.arange(n_heads, dtype=torch.long, device=k.device),
+                      max=Hkv - 1)
     return k[:, :, idx, :], v[:, :, idx, :]
 
 
@@ -282,15 +283,18 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
             -2, (nq, hd)),
     }
     if cfg.n_heads != nq:  # zero the padded q heads: function preserving
-        mask = (torch.arange(nq, device=p["wq"].device)
+        mask = (torch.arange(nq, dtype=torch.long, device=p["wq"].device)
                 < cfg.n_heads).to(p["wq"].dtype)
         p["wq"] = p["wq"] * mask[:, None]
         p["wo"] = p["wo"] * mask[:, None, None]
     if cfg.qkv_bias:
         lead = tuple(lead)
-        p["bq"] = torch.zeros(lead + (nq, hd), dtype=cfg.pdtype)
-        p["bk"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype)
-        p["bv"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype)
+        p["bq"] = torch.zeros(lead + (nq, hd), dtype=cfg.pdtype,
+                               device=gen.device)
+        p["bk"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype,
+                               device=gen.device)
+        p["bv"] = torch.zeros(lead + (nkv, hd), dtype=cfg.pdtype,
+                               device=gen.device)
     if cfg.qk_norm:
         p["q_norm"] = init_norm(cfg, hd, lead)
         p["k_norm"] = init_norm(cfg, hd, lead)
@@ -423,7 +427,7 @@ def attn_decode(params, x, cfg: ModelConfig, positions, cache, index, *,
     index = torch.as_tensor(index, device=x.device)
     col = index.reshape(-1, 1)                               # (B or 1, 1)
     slot = col % size if window else torch.clamp(col, max=size - 1)
-    j = torch.arange(size, device=x.device)
+    j = torch.arange(size, dtype=torch.long, device=x.device)
     hit = (j == slot)[:, :, None, None]
     cache = {"k": torch.where(hit, k.to(cache["k"].dtype), cache["k"]),
              "v": torch.where(hit, v.to(cache["v"].dtype), cache["v"])}
@@ -542,7 +546,7 @@ def mla_latent_chunked(qn, qr, ckv, kr, w_uk, w_uv, wo, cfg: ModelConfig,
     scale = _mla_scale(cfg)
     qnf = (qn.float() * scale).transpose(1, 2)              # (B, H, Sq, Dn)
     qrf = (qr.float() * scale).transpose(1, 2)              # (B, H, Sq, Dr)
-    q_pos = torch.arange(Sq, device=dev)[None]
+    q_pos = torch.arange(Sq, dtype=torch.long, device=dev)[None]
     group = max(1, min(H, MLA_LOGITS_BYTES // (4 * B * Sq * chunk)))
     out = torch.empty((B, Sq, H, Dv), dtype=cfg.cdtype, device=dev)
     for h0 in range(0, H, group):
@@ -563,7 +567,8 @@ def mla_latent_chunked(qn, qr, ckv, kr, w_uk, w_uv, wo, cfg: ModelConfig,
                 logits = qnf[:, hs] @ kn_i                     # (B,g,Sq,k)
                 logits += (qrf[:, hs]
                            @ kr[:, c].float().transpose(1, 2)[:, None])
-                kv_pos = ci * chunk + torch.arange(chunk, device=dev)[None]
+                kv_pos = ci * chunk + torch.arange(
+                    chunk, dtype=torch.long, device=dev)[None]
                 logits += _mask_bias(q_pos, kv_pos, True, 0, S)[:, None]
                 m_new = torch.maximum(m, logits.amax(dim=-1))
                 corr = torch.exp(m - m_new)
@@ -649,7 +654,7 @@ def mla_decode(params, x, cfg: ModelConfig, positions, cache, index):
     size = cache["ckv"].shape[1]
     index = torch.as_tensor(index, device=x.device)
     col = index.reshape(-1, 1)                            # (B or 1, 1)
-    j = torch.arange(size, device=x.device)
+    j = torch.arange(size, dtype=torch.long, device=x.device)
     hit = (j == torch.clamp(col, max=size - 1))[:, :, None]
     cache = {"ckv": torch.where(hit, ckv_t.to(cache["ckv"].dtype),
                                 cache["ckv"]),

@@ -30,7 +30,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dims, dtype,
     if isinstance(out_dims, int):
         out_dims = (out_dims,)
     w = torch.empty(tuple(lead) + (in_dim,) + tuple(out_dims),
-                    device=gen.device)
+                    dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     # scaled in place: a stacked expert leaf is tens of GB at full width
     return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
@@ -39,7 +39,7 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dims, dtype,
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype) -> torch.Tensor:
     """Unit truncated normal (±2σ) of shape (vocab, dim)."""
-    w = torch.empty((vocab, dim), device=gen.device)
+    w = torch.empty((vocab, dim), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return w.to(dtype)
 
@@ -49,8 +49,9 @@ def init_norm(cfg: ModelConfig, dim: Optional[int] = None,
               lead: Sequence[int] = ()):
     shape = tuple(lead) + (dim or cfg.d_model,)
     if cfg.norm_style == "layer":
-        return {"scale": torch.ones(shape, dtype=cfg.pdtype),
-                "bias": torch.zeros(shape, dtype=cfg.pdtype)}
+        # on the host: the init moves the whole tree in one pass
+        return {"scale": torch.ones(shape, dtype=cfg.pdtype),  # repro-static: ok[dtype-discipline] host init constant
+                "bias": torch.zeros(shape, dtype=cfg.pdtype)}  # repro-static: ok[dtype-discipline] host init constant
     fill = torch.zeros if cfg.gemma_norm else torch.ones
     return {"scale": fill(shape, dtype=cfg.pdtype)}
 
@@ -118,9 +119,10 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * freqs         # (3, B, S, D/2)
     stream = torch.tensor([i for i, n in enumerate(sections)
-                           for _ in range(n)], device=x.device)  # (D/2,)
+                           for _ in range(n)], dtype=torch.long,
+                          device=x.device)                       # (D/2,)
     return _rotate(x, angles.movedim(0, -1)[
-        ..., torch.arange(half, device=x.device), stream])
+        ..., torch.arange(half, dtype=torch.long, device=x.device), stream])
 
 
 # ------------------------------------------------------------------------ mlp
@@ -140,8 +142,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
          "wo": dense_init(gen, dff, din, cfg.pdtype, lead)}
     if cfg.mlp_bias:
         p["bi"] = torch.zeros(tuple(lead) + ((2, dff) if cfg.gated_mlp
-                                             else (dff,)), dtype=cfg.pdtype)
-        p["bo"] = torch.zeros(tuple(lead) + (din,), dtype=cfg.pdtype)
+                                             else (dff,)), dtype=cfg.pdtype,
+                              device=gen.device)
+        p["bo"] = torch.zeros(tuple(lead) + (din,), dtype=cfg.pdtype,
+                              device=gen.device)
     return p
 
 
@@ -274,7 +278,8 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
     else:
         x = table[tokens].to(cfg.cdtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype,
+                             device=x.device)
     return x
 
 

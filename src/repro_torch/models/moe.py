@@ -125,11 +125,12 @@ def _capacity_slots(idx: torch.Tensor, E: int, C: int):
     # (B, E, S*K): each expert's queue along the last axis, whose running
     # count is one scan a row (a scan along the pairs' axis of (B, S*K, E)
     # runs each of its B*E columns serially)
-    onehot = flat == torch.arange(E, device=idx.device)[None, :, None]
+    onehot = flat == torch.arange(E, dtype=torch.long,
+                                  device=idx.device)[None, :, None]
     queue = torch.cumsum(onehot, dim=-1, dtype=torch.int32)
     pos = (queue.gather(1, flat)[:, 0] - 1).reshape(B, S, K).long()
     keep = pos < C
-    b = torch.arange(B, device=idx.device)[:, None, None]
+    b = torch.arange(B, dtype=torch.long, device=idx.device)[:, None, None]
     slots = torch.where(keep, (idx * B + b) * C + pos, E * B * C)
     return slots, keep, queue[..., -1]
 
@@ -140,7 +141,7 @@ def _dispatch(x: torch.Tensor, slots: torch.Tensor, n: int) -> torch.Tensor:
     B, S, K = slots.shape
     tok = torch.full((n + 1,), B * S, dtype=torch.long, device=x.device)
     tok.index_copy_(0, slots.reshape(-1), torch.arange(
-        B * S, device=x.device).repeat_interleave(K))
+        B * S, dtype=torch.long, device=x.device).repeat_interleave(K))
     rows = torch.cat([x.reshape(B * S, -1), x.new_zeros(1, x.shape[-1])])
     return rows[tok[:n]]
 

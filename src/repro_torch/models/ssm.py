@@ -35,11 +35,12 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     lead = tuple(lead)
 
     def conv_init(ch):
-        w = torch.randn(lead + (W, ch), generator=gen, device=gen.device)
+        w = torch.randn(lead + (W, ch), generator=gen, dtype=torch.float32,
+                        device=gen.device)
         return (w * (1.0 / math.sqrt(W))).to(cfg.pdtype)
 
     def full(shape, value, dtype):
-        return torch.full(lead + shape, value, dtype=dtype)
+        return torch.full(lead + shape, value, dtype=dtype, device=gen.device)
 
     return {
         "w_z": dense_init(gen, d, din, cfg.pdtype, lead),
@@ -53,7 +54,10 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
         "conv_B_b": full((ng * st,), 0.0, cfg.pdtype),
         "conv_C_w": conv_init(ng * st),
         "conv_C_b": full((ng * st,), 0.0, cfg.pdtype),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, nh)).expand(
+        # on the host, whatever gen's device: the card's linspace and log
+        # may round differently
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32,
+                                          device="cpu")).expand(
             lead + (nh,)).clone(),
         "D": full((nh,), 1.0, torch.float32),
         "dt_bias": full((nh,), math.log(math.expm1(0.01)), torch.float32),

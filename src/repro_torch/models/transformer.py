@@ -43,8 +43,8 @@ def init(gen: torch.Generator, cfg: ModelConfig,
     """Parameters drawn from ``gen``. Without ``n_experts``: the LM tree of
     the reference (``embed``, ``segments``, ``final_norm``, ``head``; a tied
     position one unstacked block tree), every leaf on ``gen``'s device.
-    With it: ``n_experts`` stacked agent trunks
-    (drawn leaves on ``gen``'s device, constant ones on the CPU, as
+    With it: ``n_experts`` stacked agent trunks (drawn leaves and the
+    biases on ``gen``'s device, the norms' constants on the CPU, as
     ``init_foundation`` moves them); the unused ``head`` leaf of the
     reference's tree is kept so the trees convert one to one."""
     if n_experts is None:
@@ -237,13 +237,14 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict):
     positions = batch.get("positions")
     if positions is None:
         B, S = batch["inputs"].shape[:2]
-        positions = torch.arange(S, device=batch["inputs"].device).expand(
-            B, S)
+        positions = torch.arange(S, dtype=torch.long,
+                                 device=batch["inputs"].device).expand(B, S)
     logits, aux = forward(params, cfg, batch["inputs"], positions,
                           batch.get("vision_embeds"), batch.get("vision_mask"))
     labels = batch["labels"]
     if cfg.vocab != cfg.vocab_size:     # the sharding-padded vocab entries
-        pad = torch.arange(cfg.vocab, device=logits.device) >= cfg.vocab_size
+        pad = torch.arange(cfg.vocab, dtype=torch.long,
+                           device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad, NEG_INF, logits)
     logp = torch.log_softmax(logits, dim=-1)
     valid = labels >= 0
