@@ -59,7 +59,14 @@ exits non-zero:
    the counters (RMSNorm's "vec" and the scan's "tc" for bf16 they can
    address, "simt" otherwise) and, where that is the fast one, the "simt"
    variant held to the same bound on the same inputs; their reductions
-   (dw; dA, dB, dC, dD) the same bit for bit over repeated calls;
+   (dw; dA, dB, dC, dD) the same bit for bit over repeated calls; flash
+   at the head dims 48, 80, 96 and 112 (HuBERT X-Large's 80, Zamba2-7B's
+   112: the Hopper form on its D = 64 or 128 kernels, the columns past D
+   read as zeros) and 72 (the CUDA cores only), causal GQA with a window
+   and softcap at ragged 97|131, causal GQA at a ragged 333 and MHA at 64,
+   bf16 and fp32, through autograd with each launch's variant and form
+   counted both ways, then every other tensor-core form its shapes take,
+   named, both ways, all against the plain versions;
 3. the agent's serving path at its full published width: ``evaluate_batch``
    over 32 lockstep episodes of ``V100/medium/single`` at history 144, for
    ``moe+dqn`` (Mirage's default), ``transformer+dqn`` and ``reactive``,
@@ -175,7 +182,8 @@ exits non-zero:
    seeded fp32 weights drawn on the card (2,618,293,440 parameters, the
    reference's count at that depth, or it raises) with every norm scale
    drawn N(1, 0.3): as 4c, a 4 x 2048 prefill into a cache of 2,080 and 32
-   decode steps, raising unless each prefill launched exactly 28 scans,
+   decode steps, raising unless each prefill launched exactly 28 scans
+   and 4 flash kernels (the shared block's heads of 112, the Hopper form),
    all on the tensor cores, and 65 RMSNorm (56 on Mamba blocks, the
    out_norms at 896 vectors a row among them, 8 on the shared block's
    applications, the final one), all vectorised, and each step no scan
@@ -306,8 +314,10 @@ exits non-zero:
    layer each way, tc; 81 RMSNorm each way, vec);
    HuBERT X-Large at full width and depth (48 layers, heads of 80,
    LayerNorm, bidirectional) on 4 x 1000 frames, after a timed
-   ``forward`` and ``loss_fn`` on the same batch (no kernel launch on its
-   path), and its first 2 layers' gradients against the CPU; DeepSeek-V2
+   ``forward`` and ``loss_fn`` on the same batch (a flash launch a layer
+   each, non-causal, in the Hopper form), a flash launch a layer each way
+   (the forward twice, remat's recompute), and its first 2 layers'
+   gradients against the CPU; DeepSeek-V2
    at full width on 2 of 60 layers (the dense first layer and one MoE
    layer, 5.19 B parameters), bf16 m and v, every norm scale drawn N(1,
    0.3), 1 x 2048 (the routed experts' 2 grouped GEMMs forward and 2
@@ -326,11 +336,15 @@ exits non-zero:
    image a row (a flash launch a layer each way, tc, the backward's
    streaming form at one share of the group of 7; 21 RMSNorm each way,
    vec), its 2 layers' gradients at 1 x 512 with a 64-token image against
-   the CPU; Zamba2-7B at full width on 32 of 81 layers (4 x (6 Mamba2 +
+   the CPU; Zamba2-7B at full width on 39 of 81 layers (5 x (6 Mamba2 +
    the tied shared block) + 4 Mamba2), fp32 m and v, every norm scale
-   drawn N(1, 0.3), 2 x 2048, raising unless each step launched 28 SSD
-   scans each way (tc) and 65 RMSNorm each way (vec, the out_norms' 28
-   backwards at 896 vectors a row on two warps) and no flash, with the
+   drawn N(1, 0.3), 2 x 2048, raising unless each step launched 34 SSD
+   scans each way (tc), 79 RMSNorm each way (vec, the out_norms' 34
+   backwards at 896 vectors a row on two warps) and a flash an
+   application of the shared block each way (tc, the Hopper form at heads
+   of 112, the forward twice with the recompute), and unless the card's
+   peak stays at or under 75.90 GB (the depth's budget, which the meta
+   count, printed beside it, chose the depth by), with the
    peak memory; a sub-model of 2 Mamba2 blocks each followed by the shared
    block, its gradients at 1 x 512 against the CPU (the tied leaves' the
    sum over both applications); one donated step under torch.profiler by
@@ -382,7 +396,13 @@ exits non-zero:
    Zamba2-7B's d_model and out_norm, (8192, 3584) and (8192, 7168) bf16,
    and the scan at one of its prefill layers, (4,2048,112,64) with N = 64;
    flash at Command-R's prefill layer, (4,2048,64/8,128) causal, and at
-   Qwen2-VL's, (4,2048,28/4,128), beside SDPA with ``enable_gqa``; the
+   Qwen2-VL's, (4,2048,28/4,128), beside SDPA with ``enable_gqa``; flash
+   both ways at Zamba2-7B's shared block, (4,2048,32/32,112) causal and
+   (2,2048,32/32,112) for the backward, and at HuBERT X-Large's layer,
+   (4,1000,16/16,80) non-causal, in the Hopper form (on its D = 128
+   kernels, ``padded_product_factor``) beside the mma.sync form, SDPA and
+   the bound at the head's own D (four records of their own in the JSON
+   line, with the launches of those models' paths); the
    grouped
    GEMM at Qwen2-MoE's routed experts' shapes (E = 60: a prefill's 684
    rows an expert and a decode step's 4, through wi and wo) and at
@@ -478,8 +498,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_ref,
     flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
-    _flash_variant, _launch as flash_launch, _launch_bwd as flash_launch_bwd,
-    bwd_splits, bwd_tc_form, fwd_form)
+    WG_HEAD_DIMS, _flash_variant, _launch as flash_launch,
+    _launch_bwd as flash_launch_bwd, bwd_splits, bwd_tc_form, fwd_form)
 from repro_torch.kernels.moe_gemm import (grouped_gemm,  # noqa: E402
                                           grouped_gemm_bwd_ref,
                                           grouped_gemm_ref)
@@ -717,13 +737,14 @@ VL_PLAIN_IMAGE = (64, 8, 8)     # the 1 x 512 checks' image, 64 tokens
 VL_TRAIN = VL.replace(n_layers=10)
 # Zamba2-7B's training (phase 8) through ChainedTrainer's donated step, fp32
 # m and v, 16 bytes a parameter with the gradient: whole groups of (6 Mamba2
-# + the shared block) and the 4-block remainder, 4 groups + 4 = 32 layers,
-# 28 Mamba blocks (2.62 B parameters, 41.9 GB): the deepest such cut whose
-# step, counted on meta tensors (``meta_step_peak``), stays at or under
-# 75.90 GB (32 layers 69.51 GB, 39 77.00; the count keeps the reference
-# attention's fp32 scores, and the card's 25-layer step peaked at 40.93
-# GB against its 62.03)
-ZAMBA_TRAIN = zamba2_7b.CONFIG.replace(n_layers=32)
+# + the shared block) and the 4-block remainder, 5 groups + 4 = 39 layers,
+# 34 Mamba blocks (3.09 B parameters, 49.4 GB): the deepest such cut whose
+# step, counted on meta tensors (``meta_step_peak``; the flash wrapper
+# there allocates the kernels' buffers, no S x S scores), stays at or
+# under 75.90 GB (39 layers 74.88 GB, 46 82.37). ``zamba_train`` raises
+# if the card's own peak passes ZAMBA_TRAIN_PEAK_GB
+ZAMBA_TRAIN = zamba2_7b.CONFIG.replace(n_layers=39)
+ZAMBA_TRAIN_PEAK_GB = 75.90
 ZAMBA_TRAIN_MAMBA = sum(seg.n_repeat * seg.pattern.count("mamba")
                         for seg in layer_plan(ZAMBA_TRAIN))
 ZAMBA_TRAIN_PARAMS = ZAMBA_FULL_PARAMS - (70 - ZAMBA_TRAIN_MAMBA) \
@@ -859,8 +880,8 @@ def phase_kernels() -> dict:
     B = 2 * LANES * mirage_agent.N_EXPERTS
     errs = {}
     # flash: both variants (bf16 on the tensor cores, fp32 on the CUDA
-    # cores), every head dim's tensor-core path, and q, k, v as strided views
-    # of one fused (B, S, 3, H, D) tensor
+    # cores), every head dim's tensor-core path, q, k, v as strided views
+    # of one fused (B, S, 3, H, D) tensor, and every LM layer's shape
     cases = [
         ("flash agent (640,144,8,32) bf16", dict(causal=False),
          (B, HISTORY, HISTORY, 8, 8, 32, torch.bfloat16), "tc", BF16_TOL,
@@ -917,6 +938,14 @@ def phase_kernels() -> dict:
          dict(causal=True), (LM_BATCH, LM_PROMPT, LM_PROMPT, VL.nq,
                              VL.nkv, VL.hd, torch.bfloat16), "tc",
          BF16_TOL, BF16_TOL, "wg"),
+        # the two layers whose heads the Hopper form runs on its D = 128
+        # kernels; phase 5's records at them carry these errors
+        (ZAMBA_FLASH_CASE, dict(causal=True),
+         (LM_BATCH, LM_PROMPT, LM_PROMPT, ZAMBA.nq, ZAMBA.nkv, ZAMBA.hd,
+          torch.bfloat16), "tc", BF16_TOL, BF16_TOL, "wg"),
+        (HUBERT_FLASH_CASE, dict(causal=False),
+         (HUBERT_BATCH, HUBERT_FRAMES, HUBERT_FRAMES, HUBERT.nq, HUBERT.nkv,
+          HUBERT.hd, torch.bfloat16), "tc", BF16_TOL, BF16_TOL, "wg"),
         # rows whose block's first kv tiles are all outside the window, at
         # a scale whose rounding once made their exponents inf
         ("flash causal GQA window 1024 (1,2048,8/4,64) bf16",
@@ -937,6 +966,7 @@ def phase_kernels() -> dict:
                            lambda: flash_attention(q, k, v, **opts), form)
         err = _err(out, flash_attention_ref(q, k, v, **opts), atol, rtol, name)
         errs["flash_attention"] = max(errs.get("flash_attention", 0.0), err)
+        errs.setdefault("flash_case", {})[name] = err
         if form == "wg":
             errs["flash_attention_wg"] = max(
                 errs.get("flash_attention_wg", 0.0), err)
@@ -1096,6 +1126,7 @@ def phase_kernels() -> dict:
         del args, y, final, y_ref, final_ref
     check_backward(gen, errs)
     check_lm_backward(gen, errs)
+    check_head_dims(gen, errs)
     return errs
 
 
@@ -1130,7 +1161,9 @@ def check_backward(gen, errs: dict) -> None:
     local and global ones at (2,2048,32/16,128), Command-R's
     (2,2048,64/8,128) at one share of a kv head's 8 q heads and, at a
     batch of 1, two, Qwen2-VL's group of 7 at two, each share count held
-    to FLASH_BWD_SHARES), its mma.sync streaming form at D = 32; with a
+    to FLASH_BWD_SHARES; Zamba2-7B's shared block at (2,2048,32/32,112)
+    and HuBERT X-Large's non-causal (4,1000,16/16,80), the form on its D =
+    128 kernels), its mma.sync streaming form at D = 32; with a
     window in every
     form: 1024 at S 2048, 1000 (no multiple of 64) at a ragged S of 2050,
     48 (under one tile), GQA 32/16 and 8/4, D 64 and 128, the short form at
@@ -1186,6 +1219,12 @@ def check_backward(gen, errs: dict) -> None:
         ("flash bwd Command-R heads at a batch of 1 (1,2048,64/8,128) bf16",
          causal, (1, LM_PROMPT, LM_PROMPT, CMDR.nq, CMDR.nkv, CMDR.hd, bf16),
          "tc"),
+        (ZAMBA_FLASH_BWD_CASE, causal,
+         (2, LM_PROMPT, LM_PROMPT, ZAMBA_TRAIN.nq, ZAMBA_TRAIN.nkv,
+          ZAMBA_TRAIN.hd, bf16), "tc"),
+        (HUBERT_FLASH_BWD_CASE, dict(causal=False, softcap=0.0),
+         (HUBERT_BATCH, HUBERT_FRAMES, HUBERT_FRAMES, HUBERT.nq, HUBERT.nkv,
+          HUBERT.hd, bf16), "tc"),
         ("flash bwd causal GQA softcap (2,97|131,8/2,64) fp32", both,
          (2, 97, 131, 8, 2, 64, torch.float32), "simt"),
         ("flash bwd Gemma-3 global training (2,2048,32/16,128) bf16", causal,
@@ -1231,7 +1270,7 @@ def check_backward(gen, errs: dict) -> None:
             raise RuntimeError(f"{name}: expected one {variant} backward "
                                f"launch ({form}), counted {before} -> {after}")
         if form not in (None, "short") and \
-                (form == "wg") != (q.shape[3] in (64, 128)):
+                (form == "wg") != (q.shape[3] in WG_HEAD_DIMS):
             raise RuntimeError(f"{name}: the {form} form at D {q.shape[3]}")
         q, k, v, out = (t.detach() for t in (q, k, v, out))
         if shape == "fused":
@@ -1245,6 +1284,7 @@ def check_backward(gen, errs: dict) -> None:
                   for n, g, r in zip("qkv", grads, refs))
         errs["flash_attention_bwd"] = max(
             errs.get("flash_attention_bwd", 0.0), err)
+        errs.setdefault("flash_bwd_case", {})[name] = err
         extra = {"window": opts["window"]}
         # launches that compare, not counted: the variant again, bit for
         # bit, and for "tc" the "simt" kernels on the same inputs
@@ -1343,6 +1383,120 @@ def check_backward(gen, errs: dict) -> None:
              route="fused" if bf else "two launches", max_abs_err=err,
              atol=tol, rtol=tol, **extra)
         del x, w, dy, dx, dw, rdx, rdw, xd, wd
+
+
+# phase 2's cases at the two layers whose heads the Hopper form pads, each
+# at the shape its path gives the kernel: Zamba2-7B's shared block at a
+# prefill (phase 4h) and a training step (phase 8), HuBERT X-Large's
+# encoder layer at its 4 x 1000 frames both ways (phase 8)
+ZAMBA_FLASH_CASE = ("flash Zamba2-7B shared block prefill, causal "
+                    "(4,2048,32/32,112) bf16")
+HUBERT_FLASH_CASE = "flash HuBERT X-Large layer, non-causal (4,1000,16/16,80) bf16"
+ZAMBA_FLASH_BWD_CASE = ("flash bwd Zamba2-7B shared block training "
+                        "(2,2048,32/32,112) bf16")
+HUBERT_FLASH_BWD_CASE = ("flash bwd HuBERT X-Large training, non-causal "
+                         "(4,1000,16/16,80) bf16")
+
+
+# the head dims the tensor-core variant takes besides 16, 32, 64 and 128
+# (HuBERT X-Large's 80, Zamba2-7B's 112), and one only the CUDA-core
+# variant takes
+NEW_HEAD_DIMS = (48, 80, 96, 112)
+SIMT_HEAD_DIM = 72
+
+
+# flash's counters both ways, by their ``_lm_train_counts`` names
+FLASH_COUNTS = ("flash_attention", "flash_tc", "flash_wg",
+                "flash_attention_bwd", "flash_bwd_tc", "flash_bwd_wg")
+
+
+def check_head_dims(gen, errs: dict) -> None:
+    """Flash at the head dims 48, 80, 96 and 112 (the Hopper form on its D
+    = 64 or 128 kernels, the columns past D read as zeros; the mma.sync
+    forms at D itself) and at 72, which only the CUDA-core variant takes.
+    Each case runs through autograd as training does, its launches counted
+    both ways (the variant, and the form ``fwd_form`` / ``bwd_tc_form``
+    name), against the plain versions: out, the row log-sum-exp, dq, dk,
+    dv; each bf16 case at a tensor-core head dim then runs every other
+    form its shapes take, named, on the same inputs both ways (launches
+    that compare, not counted). Cases: causal GQA 8/2 at ragged 97|131
+    with a window of 40 and softcap (the short forms at 48, the Hopper
+    form past it), causal GQA 8/2 at a ragged 333 (the Hopper form), MHA
+    4/4 at 64 non-causal (the forward's short form), each in bf16, and the
+    first in fp32 (CUDA cores); at 72 the first in both dtypes."""
+    cases = []
+    for D in NEW_HEAD_DIMS + (SIMT_HEAD_DIM,):
+        cases += [((2, 97, 131, 8, 2, D, dt), dict(causal=True, window=40,
+                                                   softcap=30.0))
+                  for dt in (torch.bfloat16, torch.float32)]
+        if D in NEW_HEAD_DIMS:
+            cases += [((2, 333, 333, 8, 2, D, torch.bfloat16),
+                       dict(causal=True, window=0, softcap=0.0)),
+                      ((2, 64, 64, 4, 4, D, torch.bfloat16),
+                       dict(causal=False, window=0, softcap=0.0))]
+    for shape, opts in cases:
+        B, Sq, Skv, Hq, Hkv, D, dtype = shape
+        name = (f"flash head dim {D} ({B},{Sq}|{Skv},{Hq}/{Hkv}) "
+                f"{str(dtype)[6:]}, causal {opts['causal']}, window "
+                f"{opts['window']}, softcap {opts['softcap']}")
+        leaves = [t.requires_grad_(True)
+                  for t in flash_inputs(gen, B, Sq, Skv, Hq, Hkv, D, dtype)]
+        q, k, v = (t.detach() for t in leaves)
+        do = _randn(gen, q.shape, dtype)
+        variant = "tc" if dtype == torch.bfloat16 and D % 16 == 0 else "simt"
+        tc = variant == "tc"
+        form = fwd_form(Sq, Skv, D) if tc else None
+        bwd_form = bwd_tc_form(Sq, Skv, Hq, Hkv, D) if tc else None
+        before = _lm_train_counts()
+        out = flash_attention(*leaves, **opts)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        after = _lm_train_counts()
+        got = tuple(after[n] - before[n] for n in FLASH_COUNTS)
+        want = (1, int(tc), int(form == "wg"), 1, int(tc),
+                int(bwd_form == "wg"))
+        if got != want:
+            raise RuntimeError(f"{name}: launched {got} (launches, tc, wg "
+                               f"forward then backward), not {want}")
+        out = out.detach()
+        atol, rtol, brtol = ((BF16_TOL, BF16_TOL, BF16_TOL) if tc or
+                             dtype == torch.bfloat16 else
+                             (FP32_FLASH_TOL, 0.0, FP32_FLASH_BWD_RTOL))
+        ref = flash_attention_ref(q, k, v, **opts)
+        run = dict(opts, scale=D ** -0.5)
+        _, lse = flash_launch(q, k, v, variant, lse=True, **run)
+        lse_ref = flash_attention_lse_ref(q, k, **opts)
+        refs = flash_attention_bwd_ref(q, k, v, out, lse_ref, do, **opts)
+        err = _err(out, ref, atol, rtol, name)
+        lse_err = _err(lse, lse_ref, LSE_ATOL, 1e-5, name + " lse")
+        bwd_err = max(_err(g, r, atol, brtol, f"{name} d{n}")
+                      for n, g, r in zip("qkv", grads, refs))
+        named = {}
+        if tc:
+            forms = ["stream", "wg"] + ["short"] * (form == "short")
+            for f in forms:
+                o_f, lse_f = flash_launch(q, k, v, "tc", lse=True, form=f,
+                                          **run)
+                named[f"fwd_{f}"] = max(
+                    _err(o_f, ref, atol, rtol, f"{name} {f} out"),
+                    _err(lse_f, lse_ref, LSE_ATOL, 1e-5, f"{name} {f} lse"))
+            forms = ["stream", "wg"] + ["short"] * (bwd_form == "short")
+            for f in forms:
+                g_f = flash_launch_bwd(q, k, v, out, lse_ref, do.contiguous(),
+                                       "tc", form=f, **run)
+                named[f"bwd_{f}"] = max(
+                    _err(g, r, atol, brtol, f"{name} {f} d{n}")
+                    for n, g, r in zip("qkv", g_f, refs))
+        for key, e in (("flash_attention", max([err] + [
+                           e for f, e in named.items() if f[:3] == "fwd"])),
+                       ("flash_attention_bwd", max([bwd_err] + [
+                           e for f, e in named.items() if f[:3] == "bwd"]))):
+            errs[key] = max(errs.get(key, 0.0), e)
+        line("check", case=name, head_dim=D, variant=variant, form=form,
+             bwd_form=bwd_form, max_abs_err=err, lse_max_abs_err=lse_err,
+             bwd_max_abs_err=bwd_err, named_forms_max_abs_err=named,
+             atol=atol, rtol=rtol)
+        del leaves, q, k, v, do, out, grads, ref, refs
 
 
 def _err_scale(out, ref, what) -> tuple:
@@ -2980,6 +3134,7 @@ def phase_qwen4b() -> dict:
 
 # ---------------------------------------------- 4h. Zamba2-7B serving
 _ZAMBA_GROUPS = (   # device-time groups of a Zamba2 serving profile
+    ("flash", ("flash_fwd",)),
     ("ssd", ("ssd_kernel", "ssd_tc_kernel")),
     ("rmsnorm", ("rmsnorm_kernel", "rmsnorm_vec_kernel")),
     ("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
@@ -3037,7 +3192,7 @@ def check_zamba_plain(params, toks) -> None:
         _set_counts()
         lg, _ = transformer.prefill(sub, cfg, x, pos)
         torch.cuda.synchronize()
-        if _counts() != _pass_counts(2 * mamba + 2 * n + 1, mamba):
+        if _counts() != _pass_counts(2 * mamba + 2 * n + 1, mamba, n):
             raise RuntimeError(f"{cfg.n_layers}-layer prefill launched "
                                f"{_counts()}")
         lg32, _ = transformer.prefill(sub, cfg32, x, pos)
@@ -3087,8 +3242,10 @@ def phase_zamba() -> dict:
     fp32 weights drawn on the card with every norm scale drawn N(1,
     ZAMBA_NORM_STD): a 4 x 2048 prefill into a cache of 2048 + 32
     positions and 32 greedy decode steps (28 scans a prefill on the tensor
-    cores, 65 RMSNorm a pass vectorised, the out_norms at 896 vectors a
-    row among them), the peak memory, 14
+    cores, 4 flash launches in the Hopper form, the shared block's heads
+    of 112, and 65 RMSNorm a pass vectorised, the out_norms at 896 vectors
+    a row among them; a decode step's attention keeps the reference math),
+    the peak memory, 14
     layers against the CPU, a profiled prefill and decode step, and
     ``ServeEngine`` at the launcher's defaults, its slots refilled. Returns
     the prefill's and decode steps' launches."""
@@ -3120,12 +3277,14 @@ def phase_zamba() -> dict:
 
     _set_counts()                     # Zamba2-7B's main path
     res = lm_prefill_decode(ZAMBA, params, toks, pos,
-                            _pass_counts(ZAMBA_NORMS, ZAMBA_MAMBA),
+                            _pass_counts(ZAMBA_NORMS, ZAMBA_MAMBA, ZAMBA_ATTN),
                             _pass_counts(ZAMBA_NORMS, 0), s_cache=s_cache)
     launches = _counts()
     line("zamba_serve", batch=LM_BATCH, prompt=LM_PROMPT, s_cache=s_cache,
          decode_steps=LM_DECODE, launches=launches,
-         ssd_per_prefill=ZAMBA_MAMBA, rmsnorm_per_pass=ZAMBA_NORMS,
+         ssd_per_prefill=ZAMBA_MAMBA, flash_per_prefill=ZAMBA_ATTN,
+         flash_form=fwd_form(LM_PROMPT, LM_PROMPT, ZAMBA.hd),
+         rmsnorm_per_pass=ZAMBA_NORMS,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, **res)
     check_zamba_plain(params, toks)
     profile_serving("zamba_profile", ZAMBA, params, toks, pos, s_cache,
@@ -3678,15 +3837,15 @@ def _train_pass_counts(cfg, passes: int, seq: int = LM_PROMPT) -> dict:
     scan, for each attention layer of a config at ``attn_impl="flash"`` a
     flash call, and for each MoE layer the routed experts' two grouped
     GEMMs (the backward one fused call a projection, dX and dW); plus the
-    final norm; none for LayerNorm (HuBERT, whose attention takes the
-    reference math too); every norm vectorised and every scan, flash and
-    GEMM on the tensor cores, both ways. Under ``cfg.remat`` every layer's
-    forward runs again in the backward (the recompute), so its forward
-    launches count twice; the final norm's, outside the layers, once.
-    Flash at sequences of ``seq`` takes the Hopper streaming form where
-    ``fwd_form`` and ``bwd_tc_form`` say so (the LM heads of 64 and 128
-    past the short forms: every run but TinyLlama's forward at 128
-    tokens, which fits the short form)."""
+    final norm; none for LayerNorm (HuBERT, Command-R); every norm
+    vectorised and every scan, flash and GEMM on the tensor cores, both
+    ways. Under ``cfg.remat`` every layer's forward runs again in the
+    backward (the recompute), so its forward launches count twice; the
+    final norm's, outside the layers, once. Flash at sequences of ``seq``
+    takes the Hopper streaming form where ``fwd_form`` and ``bwd_tc_form``
+    say so (the LM heads of 64, 80, 112 and 128 past the short forms: every
+    run but TinyLlama's forward at 128 tokens, which fits the short
+    form)."""
     layers = cfg.n_layers
     runs = _passes(cfg)
     per_layer = 2 + 2 * cfg.sandwich_norm + 2 * cfg.qk_norm + 2 * cfg.use_mla
@@ -4351,10 +4510,12 @@ def hubert_run() -> dict:
     1280, 16 heads of 80, LayerNorm, bidirectional, frames in), the
     weights ``ChainedTrainer`` draws on the card: ``forward`` and
     ``loss_fn`` on HUBERT_BATCH x HUBERT_FRAMES frames (timed after a
-    warm-up; finite logits of the expected shape; no kernel launch, as its
-    path runs none: LayerNorm, and head dim 80 keeps the reference
-    attention), 3 donated training steps at that batch, and its first 2
-    layers' gradients against the CPU. Returns the steps' launches."""
+    warm-up; finite logits of the expected shape; a flash launch a layer
+    each, non-causal, on the tensor cores in the Hopper form at its heads
+    of 80, and nothing else: LayerNorm), 3 donated training steps at that
+    batch (flash each way a layer, the forward twice with remat's
+    recompute), and its first 2 layers' gradients against the CPU. Returns
+    the steps' launches."""
     t0 = time.perf_counter()
     tr = _chained_trainer(HUBERT, TRAIN_OCFG, HUBERT_BATCH, HUBERT_FRAMES)
     b = synth_batch(HUBERT, DataConfig(batch=HUBERT_BATCH,
@@ -4374,14 +4535,20 @@ def hubert_run() -> dict:
         torch.cuda.synchronize()
         loss_ms = (time.perf_counter() - t1) * 1e3
     counts = _lm_train_counts()
-    if any(counts.values()):
-        raise RuntimeError(f"HuBERT's forward launched {counts}")
+    flash = 2 * HUBERT.n_layers     # forward, then loss_fn
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=flash, flash_tc=flash, flash_wg=flash)
+    if fwd_form(HUBERT_FRAMES, HUBERT_FRAMES, HUBERT.hd) != "wg" \
+            or counts != want:
+        raise RuntimeError(f"HuBERT's forward and loss_fn launched {counts}, "
+                           f"not {want}")
     want = (HUBERT_BATCH, HUBERT_FRAMES, HUBERT.vocab)
     if tuple(logits.shape) != want or not torch.isfinite(logits).all():
         raise RuntimeError(f"HuBERT logits {tuple(logits.shape)}, not {want}")
     line("hubert", arch=HUBERT.arch_id, run="forward and loss_fn",
          layers=HUBERT.n_layers, d_model=HUBERT.d_model, heads=HUBERT.nq,
-         head_dim=HUBERT.hd, params=sum(t.numel() for t in _leaves(
+         head_dim=HUBERT.hd, attn_impl=HUBERT.attn_impl,
+         params=sum(t.numel() for t in _leaves(
              tr.params)), batch=HUBERT_BATCH, frames=HUBERT_FRAMES,
          logits_shape=list(logits.shape), forward_ms=fwd_ms,
          loss_fn_ms=loss_ms,
@@ -4598,15 +4765,17 @@ def _zamba_grad_sub(params, full=ZAMBA_TRAIN):
 
 def zamba_train() -> dict:
     """Zamba2-7B training at its full published width on ZAMBA_TRAIN's cut
-    of its 81 layers (4 groups of 6 Mamba2 blocks and the tied shared
+    of its 81 layers (5 groups of 6 Mamba2 blocks and the tied shared
     attention block, then 4 Mamba2 blocks) through ``ChainedTrainer``'s
     donated step, fp32 m and v, every norm scale drawn N(1,
     ZAMBA_NORM_STD), the step's peak counted on meta tensors first
-    (``meta_step_peak``): DENSE_TRAIN_RUN's 3 steps at 2 x 2048
-    (``chained_run``; every step 28 SSD scans each way, on the tensor
-    cores, and 65 RMSNorm each way, vectorised, the out_norms' 28
-    backwards at 896 vectors a row among them; no flash: the shared
-    block's head dim of 112 keeps the reference attention); a sub-model of 2 Mamba blocks each followed by
+    (``meta_step_peak``, printed beside the card's; the card's may not
+    pass ZAMBA_TRAIN_PEAK_GB): DENSE_TRAIN_RUN's 3 steps at 2 x 2048
+    (``chained_run``; every step 34 SSD scans each way, on the tensor
+    cores, 79 RMSNorm each way, vectorised, the out_norms' 34 backwards
+    at 896 vectors a row among them, and a flash launch each way an
+    application of the shared block, its heads of 112 on the tensor cores
+    in the Hopper form); a sub-model of 2 Mamba blocks each followed by
     the shared block, its gradients at 1 x 512 against the CPU (the tied
     leaves' the sum over both applications); one donated step under
     torch.profiler by kernel group. Returns the launches."""
@@ -4638,6 +4807,10 @@ def zamba_train() -> dict:
          meta_step_peak_gb=meta[0], meta_step_peak_op=meta[1],
          init_s=time.perf_counter() - t0)
     counts = chained_run(tr, what, batch, seq, steps, meta=meta)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if peak > ZAMBA_TRAIN_PEAK_GB:
+        raise RuntimeError(f"Zamba2-7B at {ZAMBA_TRAIN.n_layers} layers "
+                           f"peaked at {peak} GB, past {ZAMBA_TRAIN_PEAK_GB}")
     check_lm_train_grads(tr.params, ZAMBA_TRAIN, LM_GRAD_SEQ,
                          cut=_zamba_grad_sub,
                          run=f"{ZAMBA_GRAD_MAMBA} x (Mamba2 + the shared "
@@ -5132,14 +5305,36 @@ def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
          launches=paths["cmdr"]["flash_attention"])
     # the Hopper streaming form (flash_fwd_wg_kernel) as a kernel of its
     # own, every LM path's launches of it, timed at Command-R's layer
-    wg_rec = _wg_record("flash_attention, Hopper streaming form",
-                        "src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:33",
-                        launches["flash_wg"], errs["flash_attention_wg"],
-                        cmdr)
+    wg_rec = _kernel_record(cmdr, "src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:33",
+                            launches["flash_wg"], errs["flash_attention_wg"],
+                            keep=WG_KEYS,
+                            name="flash_attention, Hopper streaming form")
     line("time", **time_flash_gqa(gen, VL, "Qwen2-VL"),
          launches_a_prefill=VL.n_layers,
          launches=paths["vl"]["flash_attention"])
+    # the two layers whose head dims the Hopper form runs on its D = 128
+    # kernels, the columns past D read as zeros: Zamba2-7B's shared block
+    # (phase 4h: an application a group) and HuBERT X-Large's encoder
+    # (phase 8: a layer each forward, at its 4 x 1000 frames, non-causal)
+    layer_recs = [
+        _kernel_record(time_flash_gqa(gen, ZAMBA, "Zamba2-7B shared block"),
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention/kernel.py:33",
+                       paths["zamba"]["flash_attention"],
+                       errs["flash_case"][ZAMBA_FLASH_CASE],
+                       launches_a_prefill=ZAMBA_ATTN),
+        _kernel_record(time_flash_gqa(gen, HUBERT, "HuBERT X-Large",
+                                      causal=False, B=HUBERT_BATCH,
+                                      S=HUBERT_FRAMES),
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention/kernel.py:33",
+                       paths["hubert_run"]["flash_attention"],
+                       errs["flash_case"][HUBERT_FLASH_CASE],
+                       name="flash_attention HuBERT X-Large layer",
+                       launches_a_step=2 * HUBERT.n_layers)]
+    for rec in layer_recs:
+        line("time", **rec)
     # RMSNorm as Gemma-3's QK-norm (its 32 q heads' rows of 128) and as
     # DeepSeek-V2's q_norm and kv_norm run at a 4 x 2048 prefill
     rows = LM_BATCH * LM_PROMPT
@@ -5280,43 +5475,63 @@ def phase_timing(errs: dict, launches: dict, paths: dict) -> list:
         "chunk 256: one Mamba2 layer's prefill scan", **t)
     line("time", **ssd_rec, **extra)
     return [flash_rec, wg_rec, gemm_rec, norm_rec, ssd_rec] + time_backward(
-        gen, errs, launches) + time_lm_backward(gen, errs, launches, paths)
+        gen, errs, launches) + time_lm_backward(gen, errs, launches, paths) \
+        + layer_recs
 
 
-def _wg_record(name, source, replaces, n, err, t) -> dict:
-    """The kernels-line record of a Hopper streaming form, from a phase 5
-    ``[time]`` row ``t``; raises unless the LM paths launched it."""
+# the keys a Hopper streaming form's record keeps of its phase 5 row
+WG_KEYS = ("ms", "old_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+           "shape")
+
+
+def _kernel_record(t, source, replaces, n, err, keep=None, **kw) -> dict:
+    """The kernels-line record of a phase 5 ``[time]`` row ``t`` (its keys
+    in ``keep``, or all), with ``n`` launches on the main path, raising if
+    none, and ``err``, the kernel's error in phase 2 (at a model's layer:
+    its case at that layer's shape); ``kw`` adds keys or replaces them."""
+    name = kw.get("name", t.get("name"))
     if not n:
-        raise RuntimeError(f"{name}: no LM path launched it")
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=n, max_abs_err=err,
-                **{k: t[k] for k in ("ms", "old_ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms", "shape")})
+        raise RuntimeError(f"{name}: no path launched it")
+    t = t if keep is None else {k: t[k] for k in keep}
+    return dict(t, route="cuda", source=source, replaces=replaces,
+                launches=n, max_abs_err=err, **kw)
 
 
-def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
+def _padded(D: int) -> dict:
+    """The Hopper form's padding at head dim D: the kernel width it runs
+    on (64 or 128, the columns past D read as zeros) and its products
+    over the head's own."""
+    width = 64 if D <= 64 else 128
+    return {"kernel_width": width, "padded_product_factor": width / D}
+
+
+def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0, causal=True,
+                   B=LM_BATCH, S=LM_PROMPT) -> dict:
     """Flash at one prefill layer of ``cfg``, (4,2048) causal, bf16 (for
     TinyLlama 32 q heads over 4 kv heads of 64, phase 4c's path; for
     Qwen2-MoE 16 over 16 of 128, phase 4d's; for Gemma-3 32 over 16 of 128,
-    phase 4e's, its local layers with ``window``): the form the wrapper
-    runs (``form``: the Hopper streaming form) beside the mma.sync
-    streaming form it replaced (``old_ms``), the CUDA-core variant, the
-    plain version and SDPA with ``enable_gqa`` (with a window, one SDPA
-    call with the band as its boolean ``attn_mask``). The bound counts k
-    and v at their own heads and the products of the (q, k) pairs the
-    masks leave visible."""
-    B, S, Hq, Hkv, D = LM_BATCH, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
+    phase 4e's, its local layers with ``window``; for Zamba2-7B's shared
+    block 32 over 32 of 112, phase 4h's; HuBERT X-Large's encoder layer at
+    its (4,1000) frames, 16 over 16 of 80, non-causal): the form the
+    wrapper runs (``form``: the Hopper streaming form; at a head dim off 64
+    and 128 on its wider kernel, ``_padded``) beside the mma.sync
+    streaming form (``old_ms``), the CUDA-core variant, the plain version
+    and SDPA with ``enable_gqa`` (with a window, one SDPA call with the
+    band as its boolean ``attn_mask``). The bound counts k and v at their
+    own heads and the products of the (q, k) pairs the masks leave
+    visible, at the head's own D."""
+    Hq, Hkv, D = cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def gqa():
-        return flash_attention(q, k, v, causal=True, window=window)
+        return flash_attention(q, k, v, causal=causal, window=window)
     ms, variant = timed_variant(flash_attention, gqa)
     old_ms = time_ms(lambda: flash_launch(
-        q, k, v, "tc", causal=True, window=window, softcap=0.0,
+        q, k, v, "tc", causal=causal, window=window, softcap=0.0,
         scale=D ** -0.5, form="stream"))
-    # visible keys of query p: p + 1, at most the window
-    seen = torch.arange(1, S + 1)
+    # visible keys of query p: p + 1 (causal) or S, at most the window
+    seen = torch.arange(1, S + 1) if causal else torch.full((S,), S)
     if window:
         seen = seen.clamp(max=window)
     pairs = B * Hq * int(seen.sum())
@@ -5334,24 +5549,25 @@ def time_flash_gqa(gen, cfg=DENSE, what="TinyLlama", window=0) -> dict:
     else:
         def library():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
         lib = "F.scaled_dot_product_attention(enable_gqa=True)"
     lib_ms = time_ms(library)
     return dict(
         name=f"flash_attention {what} prefill layer",
-        shape=f"q ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, causal"
+        shape=f"q ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, "
+              + ("causal" if causal else "non-causal")
               + (f", window {window}" if window else ""),
         variant=variant, form=fwd_form(S, S, D), ms=ms, old_ms=old_ms,
         old_form="stream",
         plain_ms=time_ms(lambda: flash_attention_ref(
-            q, k, v, causal=True, window=window), reps=3),
+            q, k, v, causal=causal, window=window), reps=3),
         library_ms=lib_ms, library=lib, library_factor=ms / lib_ms,
         simt_ms=time_ms(lambda: flash_launch(
-            q, k, v, "simt", causal=True, window=window, softcap=0.0,
+            q, k, v, "simt", causal=causal, window=window, softcap=0.0,
             scale=D ** -0.5), reps=3),
         host_us=host_us(gqa), bound_ms=bms, bound_by=by,
         bound_share=bms / ms, bytes=nbytes, flops=4 * pairs * D,
-        visible_pairs_a_head=pairs // (B * Hq))
+        visible_pairs_a_head=pairs // (B * Hq), **_padded(D))
 
 
 def time_norm(gen, name: str, rows: int, dim: int, gemma: bool,
@@ -5438,11 +5654,14 @@ def time_moe_gemms(gen, cfg=QWEN, model="Qwen2-MoE") -> list:
     return recs
 
 
-def time_flash_bwd_lm(gen, cfg, what: str, window=0) -> dict:
+def time_flash_bwd_lm(gen, cfg, what: str, window=0, causal=True, B=2,
+                      S=LM_PROMPT) -> dict:
     """The flash backward at one training layer of ``cfg``, (2,2048)
     causal, bf16 (TinyLlama: 32 q heads over 4 kv heads of 64; Qwen2-MoE:
     16 over 16 of 128; Gemma-3: 32 over 16 of 128, its local layers with
-    ``window``), from the forward's out and lse: the variant
+    ``window``; Zamba2-7B's shared block: 32 over 32 of 112; HuBERT
+    X-Large: 16 over 16 of 80 at its (4,1000) frames, non-causal), from
+    the forward's out and lse: the variant
     ``_flash_bwd_variant`` picks (the tensor cores' Hopper streaming form,
     ``form``, at ``splits`` shares of a kv head's q heads) beside the
     mma.sync streaming form it replaced at its own split rule (``old_ms``,
@@ -5453,19 +5672,19 @@ def time_flash_bwd_lm(gen, cfg, what: str, window=0) -> dict:
     count up to the group (``splits_ms``). The bound: q, o, dO, dq at the
     q heads and k, v, dk, dv at the kv heads read or written once; five
     products (q.k^T again, dP, dV, dQ, dK) over the (q, k) pairs the masks
-    leave visible."""
-    B, S, Hq, Hkv, D = 2, LM_PROMPT, cfg.nq, cfg.nkv, cfg.hd
+    leave visible, at the head's own D."""
+    Hq, Hkv, D = cfg.nq, cfg.nkv, cfg.hd
     q, k, v = flash_inputs(gen, B, S, S, Hq, Hkv, D, torch.bfloat16)
     do = _randn(gen, q.shape, torch.bfloat16)
-    o, lse = flash_launch(q, k, v, _flash_variant(q, k, v), causal=True,
+    o, lse = flash_launch(q, k, v, _flash_variant(q, k, v), causal=causal,
                           window=window, softcap=0.0, scale=D ** -0.5,
                           lse=True)
 
     def bwd():
-        return flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                    window=window)
     ms, variant = timed_variant(flash_attention_bwd, bwd, reps=10)
-    run = dict(causal=True, window=window, softcap=0.0, scale=D ** -0.5)
+    run = dict(causal=causal, window=window, softcap=0.0, scale=D ** -0.5)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     form = bwd_tc_form(S, S, Hq, Hkv, D)
     extra = {"form": form,
@@ -5488,12 +5707,12 @@ def time_flash_bwd_lm(gen, cfg, what: str, window=0) -> dict:
             enable_gqa=Hq != Hkv)
         lib = "(attn_mask=band, enable_gqa=True)"
     else:
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=Hq != Hkv)
         lib = "(enable_gqa=True)" if Hq != Hkv else ""
     dot = do.transpose(1, 2).contiguous()
-    # visible keys of query p: p + 1, at most the window
-    seen = torch.arange(1, S + 1)
+    # visible keys of query p: p + 1 (causal) or S, at most the window
+    seen = torch.arange(1, S + 1) if causal else torch.full((S,), S)
     if window:
         seen = seen.clamp(max=window)
     pairs = B * Hq * int(seen.sum())
@@ -5505,17 +5724,19 @@ def time_flash_bwd_lm(gen, cfg, what: str, window=0) -> dict:
     return dict(
         name=f"flash_attention_bwd {what} training layer",
         shape=f"q,o,dO ({B},{S},{Hq},{D}), k,v ({B},{S},{Hkv},{D}) bf16, "
-              "causal" + (f", window {window}" if window else ""),
+              + ("causal" if causal else "non-causal")
+              + (f", window {window}" if window else ""),
         variant=variant, ms=ms,
         simt_ms=time_ms(lambda: flash_launch_bwd(q, k, v, o, lse, do,
                                                  "simt", **run), reps=3),
         plain_ms=time_ms(lambda: flash_attention_bwd_ref(
-            q, k, v, o, lse, do, causal=True, window=window), reps=3),
+            q, k, v, o, lse, do, causal=causal, window=window), reps=3),
         library_ms=lib_ms,
         library=f"F.scaled_dot_product_attention{lib} backward",
         library_factor=ms / lib_ms, host_us=host_us(bwd, reps=10),
         bound_ms=bms, bound_by=by, bound_share=bms / ms, bytes=nbytes,
-        flops=flops, visible_pairs_a_head=pairs // (B * Hq), **extra)
+        flops=flops, visible_pairs_a_head=pairs // (B * Hq), **extra,
+        **_padded(D))
 
 
 def time_gemm_bwd_lm(gen, shapes, model) -> list:
@@ -6035,12 +6256,35 @@ def time_lm_backward(gen, errs: dict, launches: dict, paths: dict) -> list:
     cmdr = time_flash_bwd_lm(gen, CMDR_TRAIN, "Command-R")
     line("time", **cmdr, launches_a_step=CMDR_TRAIN.n_layers,
          launches=paths["cmdr_train"]["flash_attention_bwd"])
-    wg_rec = _wg_record("flash_attention_bwd, Hopper streaming form",
-                        "src/repro_torch/csrc/flash_attention_bwd.cu",
-                        "src/repro/models/attention.py:168",
-                        launches["flash_bwd_wg"],
-                        errs["flash_attention_bwd_wg"], cmdr)
-    return [norm_rec, ssd_rec, zamba_norm_rec, zamba_ssd_rec, wg_rec]
+    wg_rec = _kernel_record(cmdr, "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:168",
+                            launches["flash_bwd_wg"],
+                            errs["flash_attention_bwd_wg"], keep=WG_KEYS,
+                            name="flash_attention_bwd, Hopper streaming form")
+    # the backward at Zamba2-7B's shared block (2 x 2048) and HuBERT
+    # X-Large's encoder (4 x 1000 frames, non-causal), the Hopper form on
+    # its D = 128 kernels
+    layer_recs = [
+        _kernel_record(time_flash_bwd_lm(gen, ZAMBA_TRAIN,
+                                         "Zamba2-7B shared block"),
+                       "src/repro_torch/csrc/flash_attention_bwd.cu",
+                       "src/repro/models/attention.py:168",
+                       paths["zamba_train"]["flash_attention_bwd"],
+                       errs["flash_bwd_case"][ZAMBA_FLASH_BWD_CASE],
+                       launches_a_step=ZAMBA_TRAIN.n_layers
+                       - ZAMBA_TRAIN_MAMBA),
+        _kernel_record(time_flash_bwd_lm(gen, HUBERT, "HuBERT X-Large",
+                                         causal=False, B=HUBERT_BATCH,
+                                         S=HUBERT_FRAMES),
+                       "src/repro_torch/csrc/flash_attention_bwd.cu",
+                       "src/repro/models/attention.py:168",
+                       paths["hubert_run"]["flash_attention_bwd"],
+                       errs["flash_bwd_case"][HUBERT_FLASH_BWD_CASE],
+                       launches_a_step=HUBERT.n_layers)]
+    for rec in layer_recs:
+        line("time", **rec)
+    return [norm_rec, ssd_rec, zamba_norm_rec, zamba_ssd_rec, wg_rec] \
+        + layer_recs
 
 
 def time_ssd_bwd(gen, cfg, host=False) -> tuple:

@@ -7,10 +7,14 @@ the assignment: ``input_specs`` provides precomputed frame embeddings
 via rotary (adaptation of the conv-relative positional embedding; DESIGN
 §2.3). Encoder-only => no decode shapes.
 
-The port keeps the reference's ``attn_impl="reference"``: the head dim,
-1280/16 = 80, is not one the flash kernel takes (``HEAD_DIMS`` in
-``kernels/flash_attention/ops.py``), so no kernel of the port runs on its
-attention.
+The port's full config runs the flash-attention kernel
+(``attn_impl="flash"``) where the reference's runs ``"reference"``, at its
+16 heads of 1280/16 = 80 (the kernel's Hopper form, on its D = 128
+instantiation with the columns past 80 read as zeros): the encoder is
+non-causal and unwindowed, and neither training nor a forward passes
+``kv_len_valid``, the case the reference's ``attention_core`` sends to its
+flash kernel when asked, and both settings compute the same function there.
+``SMOKE`` keeps the reference's ``"reference"``.
 """
 from repro_torch.models.common import ModelConfig
 
@@ -30,5 +34,6 @@ CONFIG = ModelConfig(
     norm_eps=1e-5,
     gated_mlp=False,
     mlp_activation="gelu",
+    attn_impl="flash",
 )
 SMOKE = CONFIG.reduced()

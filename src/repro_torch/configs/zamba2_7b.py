@@ -10,10 +10,17 @@ per-invocation LoRA deltas; the reference uses the standard residual
 stream with fully tied shared-block weights (same parameter-sharing
 topology, simpler dataflow), and so does the port.
 
-The config is the reference's, ``attn_impl="reference"`` included: the
-shared block's head dim, 3584 / 32 = 112, is not one the flash kernel
-takes. Its Mamba blocks run the SSD scan (N = 64, 112 heads of 64, one
-group) and RMSNorm at d_model and at d_inner (the gated ``out_norm``).
+The port's full config runs the flash-attention kernel
+(``attn_impl="flash"``) where the reference's runs ``"reference"``, in the
+shared block's 32 heads of 3584 / 32 = 112 (the kernel's Hopper form, on
+its D = 128 instantiation with the columns past 112 read as zeros): a
+prefill or a training pass there is causal, unwindowed and has no
+``kv_len_valid``, the case the reference's ``attention_core`` sends to its
+flash kernel when asked, and both settings compute the same function there
+(decode takes the reference math either way). ``SMOKE`` keeps the
+reference's ``"reference"``. Its Mamba blocks run the SSD scan (N = 64, 112
+heads of 64, one group) and RMSNorm at d_model and at d_inner (the gated
+``out_norm``).
 """
 from repro_torch.models.common import ModelConfig
 
@@ -36,5 +43,6 @@ CONFIG = ModelConfig(
     shared_attn=True,
     rope_theta=10_000.0,
     mlp_activation="gelu",
+    attn_impl="flash",
 )
 SMOKE = CONFIG.reduced()

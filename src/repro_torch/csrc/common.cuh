@@ -38,11 +38,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 // Byte offset of 16-byte chunk c of row r in a bf16 tile whose rows hold E
 // elements (E/8 chunks). Chunks are XOR-swizzled within each 128-byte line,
 // so the 8 rows that one ldmatrix phase reads at one column land in 8
-// different bank groups.
+// different bank groups. Rows of a multiple of 8 chunks swizzle within the
+// row; other widths (the flash kernels' head dims of 48, 80, 96 and 112)
+// within the tile's 128-byte lines taken in order, which any tile of a
+// multiple of 8 chunks fills whole.
 template <int E>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   constexpr int CPR = E / 8;
-  if constexpr (CPR >= 8) {
+  if constexpr (CPR >= 8 && CPR % 8 == 0) {
     return (uint32_t)(r * CPR + ((c & ~7) | ((c & 7) ^ (r & 7)))) << 4;
   } else {
     const int lin = r * CPR + c, line = lin >> 3;

@@ -17,7 +17,9 @@
 // Two variants, chosen by the wrapper from dtype and alignment before the
 // launch (kernels/flash_attention/ops.py:_flash_variant):
 //
-// "tc", bf16 with 16-byte-aligned rows: the FlashAttention-2 layout. A
+// "tc", bf16 with 16-byte-aligned rows, D a multiple of 16 up to 128 (the
+// Pallas kernel takes any D over its whole-row tiles; past 128 the wrapper
+// raises): the FlashAttention-2 layout. A
 // warp owns 16 q rows; S = Q.K^T and O += P.V run on mma.sync.m16n8k16
 // (bf16 in, fp32 accumulators), over K and V tiles of 64 rows held in shared
 // memory as bf16, copied with 16-byte cp.async.cg (rows past Skv
@@ -42,14 +44,20 @@
 //    the resident tiles with no further barrier. A (head, batch) is only
 //    36 KB of traffic, so what a block pays is its load's latency: one
 //    exposed wait instead of one per kv tile, and no idle fourth warp;
-//  - longer sequences at D = 16 and 32 (the mma.sync streaming form): one
+//  - longer sequences at D = 16 and 32 (the mma.sync streaming form, which
+//    also runs every other D when named, as the short form does): one
 //    block per (64-row q tile, head, batch), 4 warps; K and V tiles
 //    double-buffered, so the next tile's copy overlaps this tile's
 //    products; warps whose 16 rows lie past Sq skip their products but
 //    keep to the block's barriers;
-//  - longer sequences at D = 64 and 128, every LM layer the port runs
-//    (the Hopper streaming form, namespace wg below): wgmma fed by TMA
-//    rings, warp-specialised. At the LM prefill shapes the bound is the
+//  - longer sequences at D from 48, every LM layer the port runs (the
+//    Hopper streaming form, namespace wg below): wgmma fed by TMA rings,
+//    warp-specialised, compiled at D = 64 and 128 only. D = 48 runs on the
+//    D = 64 kernel and 80, 96 and 112 (HuBERT X-Large's 80, Zamba2-7B's
+//    112) on the D = 128 one: the tensor maps name the true D, so TMA reads
+//    the columns past it as zeros (their products add nothing) and clips
+//    them on the store; the kernel itself is unchanged, at 1.14-1.6x the
+//    products the head needs. At the LM prefill shapes the bound is the
 //    tensor cores' (4 x 2048 causal, Command-R's 64 q heads of 128: 275
 //    GFLOP, 0.278 ms at 989 TFLOP/s, against 0.302 GB of q, k, v and o,
 //    0.090 ms), and mma.sync reaches at most about half of wgmma's rate
@@ -62,6 +70,9 @@
 // and of the accumulator in registers (D=16 uses one thread of 16 dims);
 // partial dot products are summed with warp shuffles. K/V tiles are staged
 // through shared memory as fp32; scores are processed 16 columns at a time.
+// It is compiled at D = 16, 32, 64 and 128 and takes the true D as its last
+// argument: any D up to 128 (bf16 too, where the tensor cores do not take
+// it) runs on the next of those, its loads and stores masked at the true D.
 //
 // Both variants apply the masks in registers with no padded copies of q, k
 // or v, skip the kv tiles that the causal or window mask empties for the
@@ -98,6 +109,9 @@ constexpr int kBlockQ = 64;      // query rows per thread block
 constexpr int kChunk = 16;       // kv columns per online-softmax update
 constexpr float kNegInf = -1e30f;
 
+// The CUDA-core kernel at D in {16, 32, 64, 128}, the next of those at or
+// above the true head dim dt (its last parameter): columns dt..D-1 are read
+// as zeros and never stored (a thread past dt computes on zeros).
 template <typename T, int D>
 __global__ void __launch_bounds__(kBlockQ * (D > 32 ? D / 32 : 1))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -106,7 +120,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
                  long long v_sb, long long v_ss, long long v_sh,
-                 int causal, int window, float softcap, float scale) {
+                 int causal, int window, float softcap, float scale, int dt) {
   constexpr int DPT = D > 32 ? 32 : D;      // head dims per thread
   constexpr int TPR = D / DPT;              // threads per query row
   constexpr int NT = kBlockQ * TPR;
@@ -128,7 +142,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* qp = q + b * q_sb + (long long)min(qpos, Sq - 1) * q_ss + h * q_sh + d0;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
-      qr[i] = to_f32(qp[i]) * scale;
+      qr[i] = d0 + i < dt ? to_f32(qp[i]) * scale : 0.f;
       acc[i] = 0.f;
     }
   }
@@ -152,7 +166,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = idx / D, dd = idx % D;
       const int kp = k0 + j;
       float kx = 0.f, vx = 0.f;
-      if (kp < Skv) {
+      if (kp < Skv && dd < dt) {
         kx = to_f32(kb[(long long)kp * k_ss + dd]);
         vx = to_f32(vb[(long long)kp * v_ss + dd]);
       }
@@ -205,26 +219,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qpos < Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* op = o + (((long long)b * Sq + qpos) * Hq + h) * D + d0;
+    T* op = o + (((long long)b * Sq + qpos) * Hq + h) * dt + d0;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) op[i] = from_f32<T>(acc[i] * inv);
+    for (int i = 0; i < DPT; ++i)
+      if (d0 + i < dt) op[i] = from_f32<T>(acc[i] * inv);
     if (lse != nullptr && tid % TPR == 0)
       lse[((long long)b * Hq + h) * Sq + qpos] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
+// the CUDA-core kernel at the true head dim dt: D itself where dt is one of
+// 16, 32, 64, 128, else the next of those with the columns past dt masked
 template <typename T, int D>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o, float* lse,
                         int B, int Hq, int Hkv, int Sq, int Skv,
                         const long long* qs, const long long* ks_, const long long* vs_,
                         int causal, int window, float softcap, float scale,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int dt) {
   constexpr int TPR = D > 32 ? D / 32 : 1;
   dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
   flash_fwd_kernel<T, D><<<grid, kBlockQ * TPR, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2],
-      ks_[0], ks_[1], ks_[2], vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
+      ks_[0], ks_[1], ks_[2], vs_[0], vs_[1], vs_[2], causal, window, softcap, scale, dt);
   return cudaGetLastError();
 }
 
@@ -935,19 +952,24 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// The kernel at D (64 or 128) for a true head dim dt <= D: the maps name
+// dt, so TMA reads columns dt..D-1 as zeros (their products add nothing)
+// and the store clips them, as it clips rows past Sq. At dt = 48, 80, 96
+// and 112 the padded columns cost 1.33x, 1.6x, 1.33x and 1.14x the
+// products the head needs (wgmma at n48..n112 would not).
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int Hq, int Hkv, int Sq, int Skv, const long long* qs, const long long* ks_,
                    const long long* vs_, int causal, int window, float softcap, float scale,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int dt) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
-  const long long os[3] = {(long long)Sq * Hq * D, (long long)Hq * D, D};
+  const long long os[3] = {(long long)Sq * Hq * dt, (long long)Hq * dt, dt};
   CUtensorMap qm, km, vm, om;
-  if (!make_bshd_map(enc, &qm, q, B, Sq, Hq, D, qs, BQ) ||
-      !make_bshd_map(enc, &km, k, B, Skv, Hkv, D, ks_, BKV) ||
-      !make_bshd_map(enc, &vm, v, B, Skv, Hkv, D, vs_, BKV) ||
-      !make_bshd_map(enc, &om, o, B, Sq, Hq, D, os, 64))
+  if (!make_bshd_map(enc, &qm, q, B, Sq, Hq, dt, qs, BQ) ||
+      !make_bshd_map(enc, &km, k, B, Skv, Hkv, dt, ks_, BKV) ||
+      !make_bshd_map(enc, &vm, v, B, Skv, Hkv, dt, vs_, BKV) ||
+      !make_bshd_map(enc, &om, o, B, Sq, Hq, dt, os, 64))
     return cudaErrorInvalidValue;
   // the shared-memory limit is raised once per device
   static bool attr[repro::kMaxDevices] = {};
@@ -972,20 +994,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 constexpr int kFormAuto = 0, kFormShort = 1, kFormStream = 2, kFormWg = 3;
 
 // The tensor-core variant in the form asked for; kFormAuto picks the short
-// form where it fits, else the Hopper streaming form at D in {64, 128},
-// else the mma.sync streaming form (mirrored by ops.py's fwd_form). A form
-// the input does not fit is refused.
+// form where it fits, else the Hopper streaming form at D >= 48 (D = 48 on
+// its D = 64 kernel, 80, 96 and 112 on its D = 128 one), else the mma.sync
+// streaming form (mirrored by ops.py's fwd_form). A form the input does not
+// fit is refused.
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                       int Hq, int Hkv, int Sq, int Skv, const long long* qs,
                       const long long* ks_, const long long* vs_, int causal, int window,
                       float softcap, float scale, int form, cudaStream_t stream) {
   const bool fits = tc::short_fits(Sq, Skv, D);
-  if (form == kFormAuto) form = fits ? kFormShort : D >= 64 ? kFormWg : kFormStream;
+  if (form == kFormAuto) form = fits ? kFormShort : D >= 48 ? kFormWg : kFormStream;
   if (form == kFormWg) {
-    if constexpr (D >= 64)
-      return wg::launch<D>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window,
-                           softcap, scale, stream);
+    if constexpr (D >= 48)
+      return wg::launch<D <= 64 ? 64 : 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_,
+                                            causal, window, softcap, scale, stream, D);
     return cudaErrorInvalidValue;
   }
   if ((form == kFormShort && !fits) || (form != kFormShort && form != kFormStream))
@@ -994,31 +1017,46 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, floa
                        softcap, scale, form == kFormShort, stream);
 }
 
-// variant 0: the CUDA-core kernel for T; variant 1: the tensor-core kernel (bf16)
+// variant 1: the tensor-core kernel (bf16) at D a multiple of 16 up to 128;
+// variant 0: the CUDA-core kernel for T at any D from 1 to 128
 template <typename T>
 cudaError_t dispatch_d(int variant, int D, const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                        const long long* qs, const long long* ks_, const long long* vs_,
                        int causal, int window, float softcap, float scale, int form,
                        cudaStream_t stream) {
-#define REPRO_FLASH_D(DD)                                                                 \
-  case DD:                                                                                \
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {                                \
-      if (variant == 1)                                                                   \
-        return launch_tc<DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
-                             window, softcap, scale, form, stream);                       \
-    }                                                                                     \
-    return launch_simt<T, DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal,      \
-                              window, softcap, scale, stream);
-  switch (D) {
-    REPRO_FLASH_D(16)
-    REPRO_FLASH_D(32)
-    REPRO_FLASH_D(64)
-    REPRO_FLASH_D(128)
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (variant == 1) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      switch (D) {
+#define REPRO_FLASH_D(DD)                                                                   \
+  case DD:                                                                                  \
+    return launch_tc<DD>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window, \
+                         softcap, scale, form, stream);
+        REPRO_FLASH_D(16)
+        REPRO_FLASH_D(32)
+        REPRO_FLASH_D(48)
+        REPRO_FLASH_D(64)
+        REPRO_FLASH_D(80)
+        REPRO_FLASH_D(96)
+        REPRO_FLASH_D(112)
+        REPRO_FLASH_D(128)
 #undef REPRO_FLASH_D
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
+  if (D <= 16)
+    return launch_simt<T, 16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window,
+                              softcap, scale, stream, D);
+  if (D <= 32)
+    return launch_simt<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window,
+                              softcap, scale, stream, D);
+  if (D <= 64)
+    return launch_simt<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window,
+                              softcap, scale, stream, D);
+  return launch_simt<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, qs, ks_, vs_, causal, window,
+                             softcap, scale, stream, D);
 }
 
 }  // namespace
@@ -1027,10 +1065,11 @@ cudaError_t dispatch_d(int variant, int D, const void* q, const void* k, const v
 // the given (batch, seq, head) strides in elements. o: contiguous
 // (B, Sq, Hq, D). lse: null, or fp32 (B, Hq, Sq) for each row's log-sum-exp
 // (the backward's residual). variant 0 runs the CUDA-core kernel (float32 or
-// bfloat16); variant 1 the tensor-core kernel, which takes bfloat16 with
-// strides that are multiples of 8 and 16-byte-aligned pointers and refuses
-// anything else (the caller chooses; nothing falls back). Returns the CUDA
-// error of the launch (0 on success).
+// bfloat16, D from 1 to 128); variant 1 the tensor-core kernel, which takes
+// bfloat16 with D a multiple of 16 up to 128, strides that are multiples of
+// 8 and 16-byte-aligned pointers and refuses anything else (the caller
+// chooses; nothing falls back). Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int variant,
     int B, int Hq, int Hkv, int Sq, int Skv, int D,

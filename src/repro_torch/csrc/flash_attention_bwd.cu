@@ -44,7 +44,8 @@
 // bwd_tc_form; the entry's last argument can name one):
 //
 // "tc", bf16 with 16-byte rows (strides multiples of 8, aligned pointers),
-// D in {16, 32, 64, 128}:
+// D a multiple of 16 up to 128 (each form takes each such D when named;
+// the short form up to 64):
 //  - the short form, for MHA heads with D <= 64 and both sequences <= 256
 //    whose q, dO, K, V and dS^T fit one block's shared memory (the agent
 //    trunk's): one block of 4 warps per (head, batch) copies q, dO, K and
@@ -60,8 +61,10 @@
 //    computes dQ = dS.K, reading dS with transposed ldmatrix from the dS^T
 //    it stored. dK, dV and dQ leave from the accumulators in 4-byte pairs.
 //  - the Hopper streaming form (namespace wg below), for every other
-//    input at D = 64 and 128 (GQA, D = 128, long and ragged sequences:
-//    every LM training layer), the mma.sync streaming form's structure on
+//    input at D from 48 (GQA, D = 128, long and ragged sequences: every
+//    LM training layer; 48 on its D = 64 kernels, 80, 96 and 112 on its D
+//    = 128 ones, the padded twins whose global reads and writes stop at
+//    the true D), the mma.sync streaming form's structure on
 //    wgmma fed by TMA rings: at Command-R's training layer (2 x 2048
 //    causal, 64 q heads over 8 of 128) the five products are 344 GFLOP,
 //    0.348 ms at 989 TFLOP/s, against 0.302 GB moved, 0.090 ms, and the
@@ -92,6 +95,9 @@
 //
 // "simt", fp32 (TF32 would break the 3e-5 fp32 bound) and views off 16
 // bytes: two kernels on the stream, no atomics:
+//  - compiled at D = 16, 32, 64 and 128, the true D their last argument:
+//    any D up to 128 runs on the next of those, loads and stores masked
+//    at the true D;
 //  - dq: one block per (64-row q tile, q head, batch). A row's TPR = D/16
 //    adjacent threads each own 16 head dims of scale*q, dO and the dQ
 //    accumulator in registers, and reduce dot products with warp shuffles.
@@ -140,13 +146,14 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Rows [r0, r0 + TILE) of a (rows, D) operand with row stride rs, times mul,
-// into a shared fp32 tile; rows at or past n as zeros.
+// into a shared fp32 tile; rows at or past n and columns at or past the true
+// head dim dt as zeros.
 template <typename T, int D, int TILE, int THREADS>
 __device__ __forceinline__ void stage(float (*tile)[D], const T* base, long long rs, int r0, int n,
-                                      float mul) {
+                                      float mul, int dt) {
   for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
     const int r = idx / D, dd = idx % D, p = r0 + r;
-    tile[r][dd] = p < n ? to_f32(base[(long long)p * rs + dd]) * mul : 0.f;
+    tile[r][dd] = p < n && dd < dt ? to_f32(base[(long long)p * rs + dd]) * mul : 0.f;
   }
 }
 
@@ -164,6 +171,9 @@ __device__ __forceinline__ float2 prob_grad(float s, float dp, float lse, float 
   return make_float2(p, p * (dp - delta) * fac);
 }
 
+// The CUDA-core dq kernel at D in {16, 32, 64, 128}, the next of those at
+// or above the true head dim dt (its last parameter): columns dt..D-1 are
+// read as zeros and never stored.
 template <typename T, int D>
 __global__ void __launch_bounds__(Shape<D>::THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -173,7 +183,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh,
-                    int causal, int window, float softcap, float scale) {
+                    int causal, int window, float softcap, float scale, int dt) {
   constexpr int TPR = Shape<D>::TPR, THREADS = Shape<D>::THREADS, TILE = Shape<D>::TILE;
   __shared__ __align__(16) float ks[TILE][D];
   __shared__ __align__(16) float vs[TILE][D];
@@ -186,13 +196,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   float qr[kDPT], gr[kDPT], acc[kDPT];
   const T* qp = q + b * q_sb + (long long)ic * q_ss + h * q_sh + d0;
-  const long long orow = (((long long)b * Sq + ic) * Hq + h) * D + d0;
+  const long long orow = (((long long)b * Sq + ic) * Hq + h) * dt + d0;
   float dl = 0.f;
 #pragma unroll
   for (int e = 0; e < kDPT; ++e) {
-    qr[e] = to_f32(qp[e]) * scale;
-    gr[e] = to_f32(dout[orow + e]);
-    dl = fmaf(gr[e], to_f32(o[orow + e]), dl);
+    const bool in = d0 + e < dt;
+    qr[e] = in ? to_f32(qp[e]) * scale : 0.f;
+    gr[e] = in ? to_f32(dout[orow + e]) : 0.f;
+    dl = fmaf(gr[e], in ? to_f32(o[orow + e]) : 0.f, dl);
     acc[e] = 0.f;
   }
   dl = row_sum<TPR>(dl);
@@ -208,8 +219,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* vb = v + b * v_sb + hk * v_sh;
   for (int k0 = kv_begin; k0 < kv_end; k0 += TILE) {
     __syncthreads();   // every thread is done with the previous tile
-    stage<T, D, TILE, THREADS>(ks, kb, k_ss, k0, Skv, 1.f);
-    stage<T, D, TILE, THREADS>(vs, vb, v_ss, k0, Skv, 1.f);
+    stage<T, D, TILE, THREADS>(ks, kb, k_ss, k0, Skv, 1.f, dt);
+    stage<T, D, TILE, THREADS>(vs, vb, v_ss, k0, Skv, 1.f, dt);
     __syncthreads();
     const int jn = min(TILE, kv_end - k0);   // the same for every thread
 #pragma unroll 2
@@ -233,10 +244,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   if (i < Sq) {
 #pragma unroll
-    for (int e = 0; e < kDPT; ++e) dq[orow + e] = from_f32<T>(acc[e] * scale);
+    for (int e = 0; e < kDPT; ++e)
+      if (d0 + e < dt) dq[orow + e] = from_f32<T>(acc[e] * scale);
   }
 }
 
+// The CUDA-core dkdv kernel (D and dt as flash_bwd_dq_kernel's)
 template <typename T, int D>
 __global__ void __launch_bounds__(Shape<D>::THREADS)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -246,7 +259,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       long long q_sb, long long q_ss, long long q_sh,
                       long long k_sb, long long k_ss, long long k_sh,
                       long long v_sb, long long v_ss, long long v_sh,
-                      int causal, int window, float softcap, float scale) {
+                      int causal, int window, float softcap, float scale, int dt) {
   constexpr int TPR = Shape<D>::TPR, THREADS = Shape<D>::THREADS, TILE = Shape<D>::TILE;
   __shared__ __align__(16) float qs[TILE][D];
   __shared__ __align__(16) float gs[TILE][D];
@@ -265,8 +278,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const T* vp = v + b * v_sb + (long long)jc * v_ss + hk * v_sh + d0;
 #pragma unroll
     for (int e = 0; e < kDPT; ++e) {
-      kr[e] = to_f32(kp[e]);
-      vr[e] = to_f32(vp[e]);
+      const bool in = d0 + e < dt;
+      kr[e] = in ? to_f32(kp[e]) : 0.f;
+      vr[e] = in ? to_f32(vp[e]) : 0.f;
       dka[e] = dva[e] = 0.f;
     }
   }
@@ -277,13 +291,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int i_end = window ? min(Sq, min(Skv, k_start + kRows) - 1 + window) : Sq;
   for (int h = hk * group; h < (hk + 1) * group; ++h) {
     const T* qb = q + b * q_sb + h * q_sh;
-    const T* gb = dout + (long long)b * Sq * Hq * D + (long long)h * D;
+    const T* gb = dout + (long long)b * Sq * Hq * dt + (long long)h * dt;
     const float* lb = lse + ((long long)b * Hq + h) * Sq;
     const float* db = delta + ((long long)b * Hq + h) * Sq;
     for (int i0 = i_begin; i0 < i_end; i0 += TILE) {
       __syncthreads();   // every thread is done with the previous tile
-      stage<T, D, TILE, THREADS>(qs, qb, q_ss, i0, Sq, scale);
-      stage<T, D, TILE, THREADS>(gs, gb, (long long)Hq * D, i0, Sq, 1.f);
+      stage<T, D, TILE, THREADS>(qs, qb, q_ss, i0, Sq, scale, dt);
+      stage<T, D, TILE, THREADS>(gs, gb, (long long)Hq * dt, i0, Sq, 1.f, dt);
       for (int r = threadIdx.x; r < TILE; r += THREADS) {
         ls[r] = i0 + r < Sq ? lb[i0 + r] : 0.f;
         dls[r] = i0 + r < Sq ? db[i0 + r] : 0.f;
@@ -315,56 +329,58 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     }
   }
   if (live) {
-    const long long off = (((long long)b * Skv + j) * Hkv + hk) * D + d0;
+    const long long off = (((long long)b * Skv + j) * Hkv + hk) * dt + d0;
 #pragma unroll
     for (int e = 0; e < kDPT; ++e) {
-      dk[off + e] = from_f32<T>(dka[e]);
-      dv[off + e] = from_f32<T>(dva[e]);
+      if (d0 + e < dt) {
+        dk[off + e] = from_f32<T>(dka[e]);
+        dv[off + e] = from_f32<T>(dva[e]);
+      }
     }
   }
 }
 
+// the two CUDA-core kernels at D for a true head dim dt <= D
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Hq,
                    int Hkv, int Sq, int Skv, const long long* qs, const long long* ks_,
                    const long long* vs_, int causal, int window, float softcap, float scale,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int dt) {
   constexpr int THREADS = Shape<D>::THREADS;
   const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
           *vp = static_cast<const T*>(v);
-  flash_bwd_dq_kernel<T, D><<<dim3((Sq + kRows - 1) / kRows, Hq, B), THREADS, 0, stream>>>(
+  const dim3 dq_grid((Sq + kRows - 1) / kRows, Hq, B), kv_grid((Skv + kRows - 1) / kRows, Hkv, B);
+  flash_bwd_dq_kernel<T, D><<<dq_grid, THREADS, 0, stream>>>(
       qp, kp, vp, static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), Hq, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1], ks_[2],
-      vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
+      vs_[0], vs_[1], vs_[2], causal, window, softcap, scale, dt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<T, D><<<dim3((Skv + kRows - 1) / kRows, Hkv, B), THREADS, 0, stream>>>(
+  flash_bwd_dkdv_kernel<T, D><<<kv_grid, THREADS, 0, stream>>>(
       qp, kp, vp, static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
       static_cast<T*>(dv), Hq, Hkv, Hq / Hkv, Sq, Skv, qs[0], qs[1], qs[2], ks_[0], ks_[1],
-      ks_[2], vs_[0], vs_[1], vs_[2], causal, window, softcap, scale);
+      ks_[2], vs_[0], vs_[1], vs_[2], causal, window, softcap, scale, dt);
   return cudaGetLastError();
 }
 
+// the CUDA-core kernels at any D from 1 to 128: the next of 16, 32, 64 and
+// 128 at or above it
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, int B, int Hq, int Hkv, int Sq, int Skv, const long long* qs,
                        const long long* ks_, const long long* vs_, int causal, int window,
                        float softcap, float scale, cudaStream_t stream) {
-  switch (D) {
 #define REPRO_FLASH_BWD_D(DD)                                                                  \
-  case DD:                                                                                     \
-    return launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, qs,    \
-                         ks_, vs_, causal, window, softcap, scale, stream);
-    REPRO_FLASH_BWD_D(16)
-    REPRO_FLASH_BWD_D(32)
-    REPRO_FLASH_BWD_D(64)
-    REPRO_FLASH_BWD_D(128)
+  return launch<T, DD>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, qs, ks_, \
+                       vs_, causal, window, softcap, scale, stream, D);
+  if (D < 1 || D > 128) return cudaErrorInvalidValue;
+  if (D <= 16) REPRO_FLASH_BWD_D(16)
+  if (D <= 32) REPRO_FLASH_BWD_D(32)
+  if (D <= 64) REPRO_FLASH_BWD_D(64)
+  REPRO_FLASH_BWD_D(128)
 #undef REPRO_FLASH_BWD_D
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 // -------------------------------------------------------------- tc variant
@@ -1155,7 +1171,8 @@ cudaError_t launch_stream(const void* q, const void* k, const void* v, const voi
 
 // ------------------------------------------- tc, the Hopper streaming form
 // The mma.sync streaming form's two kernels on wgmma fed by TMA rings, at
-// D in {64, 128}: three warpgroups a block, one producer (one thread
+// D in {64, 128} (any D from 48 on these, padded: launch below): three
+// warpgroups a block, one producer (one thread
 // issuing TMA loads into a ring of mbarrier-guarded stages; setmaxnreg
 // gives its registers to the others) and two consumers of 64 resident
 // rows each.
@@ -1215,15 +1232,17 @@ __device__ __forceinline__ uint32_t smem_base(const uint8_t* raw) {
   return (static_cast<uint32_t>(__cvta_generic_to_shared(raw)) + 1023) & ~1023u;
 }
 
-template <int D, bool kWindow>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
-                       const __grid_constant__ CUtensorMap domap,
-                       const __grid_constant__ CUtensorMap kmap,
-                       const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ o,
-                       const float* __restrict__ lse, float* __restrict__ delta,
-                       bf16* __restrict__ dq, int Hq, int group, int Sq, int Skv, int causal,
-                       float softcap, float scale, int window) {
+// The dq kernel's body at D (64 or 128); with kPad, D is the kernel's
+// width above the true head dim dt: the maps name dt (TMA reads columns
+// dt..D-1 as zeros), and what leaves through no map, O's reads for delta
+// and dQ's stores, stops at dt.
+template <int D, bool kWindow, bool kPad>
+__device__ __forceinline__ void dq_wg(const CUtensorMap* qmap, const CUtensorMap* domap,
+                                      const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                      const bf16* __restrict__ o, const float* __restrict__ lse,
+                                      float* __restrict__ delta, bf16* __restrict__ dq, int Hq,
+                                      int group, int Sq, int Skv, int causal, float softcap,
+                                      float scale, int window, int dt) {
   using W = Bwd<D>;
   constexpr int STAGES = W::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -1259,8 +1278,8 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
     if (warp == CONSUMERS * 4 && lane == 0) {
       mbar_expect_tx(r_full, 2 * W::R_BYTES);
       for (int bx = 0; bx < W::BOXES; ++bx) {
-        tma_load(s_q + bx * R_BOX, &qmap, r_full, 64 * bx, h, q0, b);
-        tma_load(s_do + bx * R_BOX, &domap, r_full, 64 * bx, h, q0, b);
+        tma_load(s_q + bx * R_BOX, qmap, r_full, 64 * bx, h, q0, b);
+        tma_load(s_do + bx * R_BOX, domap, r_full, 64 * bx, h, q0, b);
       }
       for (int it = 0; it < n_t; ++it) {
         const int s = it % STAGES, k0 = (t_begin + it) * BT;
@@ -1268,8 +1287,8 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
         const uint32_t kt = s_ring + s * 2 * W::T_BYTES, vt = kt + W::T_BYTES;
         mbar_expect_tx(full0 + 8 * s, 2 * W::T_BYTES);
         for (int bx = 0; bx < W::BOXES; ++bx) {
-          tma_load(kt + bx * T_BOX, &kmap, full0 + 8 * s, 64 * bx, hk, k0, b);
-          tma_load(vt + bx * T_BOX, &vmap, full0 + 8 * s, 64 * bx, hk, k0, b);
+          tma_load(kt + bx * T_BOX, kmap, full0 + 8 * s, 64 * bx, hk, k0, b);
+          tma_load(vt + bx * T_BOX, vmap, full0 + 8 * s, 64 * bx, hk, k0, b);
         }
       }
     }
@@ -1279,13 +1298,13 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int wg = warp / 4, wi = warp % 4, g = lane / 4, t4 = lane % 4;
   const int r0 = q0 + 64 * wg, p0 = r0 + 16 * wi + g;
-  const long long o_row = (long long)Hq * D;   // row stride of o, dO, dq
-  const long long orow0 = (long long)b * Sq * o_row + (long long)h * D;
+  const long long o_row = (long long)Hq * (kPad ? dt : D);   // row stride of o, dO, dq
+  const long long orow0 = (long long)b * Sq * o_row + (long long)h * (kPad ? dt : D);
   mbar_wait(r_full, 0);
   // delta = rowsum(dO * O), two threads a row, each half of its 16-byte
   // chunks (dO from the resident tile, O read once); stored for dkdv
   {
-    constexpr int CPR = D / 8;
+    const int CPR = (kPad ? dt : D) / 8;
     const int r = threadIdx.x / 2, half = threadIdx.x % 2, p = q0 + r;
     float dl = 0.f;
     if (p < Sq) {
@@ -1370,22 +1389,49 @@ flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
     bf16* row = dq + orow0 + (long long)p * o_row + 2 * t4;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j) =
-          repro::pack_bf16(acc[4 * j + 2 * hr] * scale, acc[4 * j + 2 * hr + 1] * scale);
+      if (!kPad || 8 * j < dt)
+        *reinterpret_cast<uint32_t*>(row + 8 * j) =
+            repro::pack_bf16(acc[4 * j + 2 * hr] * scale, acc[4 * j + 2 * hr + 1] * scale);
   }
 }
 
 template <int D, bool kWindow>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
-                         const __grid_constant__ CUtensorMap vmap,
-                         const __grid_constant__ CUtensorMap qmap,
-                         const __grid_constant__ CUtensorMap domap,
-                         const __grid_constant__ CUtensorMap lmap,
-                         const __grid_constant__ CUtensorMap dlmap, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, float* __restrict__ part, int Hq, int Hkv,
-                         int group, int splits, int Sq, int Skv, int causal, float softcap,
-                         float scale, int window) {
+flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap domap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ o,
+                       const float* __restrict__ lse, float* __restrict__ delta,
+                       bf16* __restrict__ dq, int Hq, int group, int Sq, int Skv, int causal,
+                       float softcap, float scale, int window) {
+  dq_wg<D, kWindow, false>(&qmap, &domap, &kmap, &vmap, o, lse, delta, dq, Hq, group, Sq, Skv,
+                           causal, softcap, scale, window, D);
+}
+
+// the same at a true head dim dt below D, its last parameter
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wg_pad_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap domap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ o,
+                           const float* __restrict__ lse, float* __restrict__ delta,
+                           bf16* __restrict__ dq, int Hq, int group, int Sq, int Skv, int causal,
+                           float softcap, float scale, int window, int dt) {
+  dq_wg<D, kWindow, true>(&qmap, &domap, &kmap, &vmap, o, lse, delta, dq, Hq, group, Sq, Skv,
+                          causal, softcap, scale, window, dt);
+}
+
+// The dkdv kernel's body (kPad and dt as dq_wg's: dK, dV and their fp32
+// partials stop at dt)
+template <int D, bool kWindow, bool kPad>
+__device__ __forceinline__ void dkdv_wg(const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                        const CUtensorMap* qmap, const CUtensorMap* domap,
+                                        const CUtensorMap* lmap, const CUtensorMap* dlmap,
+                                        bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                        float* __restrict__ part, int Hq, int Hkv, int group,
+                                        int splits, int Sq, int Skv, int causal, float softcap,
+                                        float scale, int window, int dt) {
   using W = Bwd<D>;
   constexpr int STAGES = W::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -1425,8 +1471,8 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
     if (warp == CONSUMERS * 4 && lane == 0) {
       mbar_expect_tx(r_full, 2 * W::R_BYTES);
       for (int bx = 0; bx < W::BOXES; ++bx) {
-        tma_load(s_k + bx * R_BOX, &kmap, r_full, 64 * bx, hk, k_start, b);
-        tma_load(s_v + bx * R_BOX, &vmap, r_full, 64 * bx, hk, k_start, b);
+        tma_load(s_k + bx * R_BOX, kmap, r_full, 64 * bx, hk, k_start, b);
+        tma_load(s_v + bx * R_BOX, vmap, r_full, 64 * bx, hk, k_start, b);
       }
       for (int it = 0; it < n_it; ++it) {
         const int s = it % STAGES, h = h_lo + it / n_qt, i0 = (i_first + it % n_qt) * BT;
@@ -1434,13 +1480,13 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
         const uint32_t qt = s_ring + s * 2 * W::T_BYTES, gt = qt + W::T_BYTES, bar = full0 + 8 * s;
         mbar_expect_tx(bar, 2 * W::T_BYTES + 2 * L_BOX * 4);
         for (int bx = 0; bx < W::BOXES; ++bx) {
-          tma_load(qt + bx * T_BOX, &qmap, bar, 64 * bx, h, i0, b);
-          tma_load(gt + bx * T_BOX, &domap, bar, 64 * bx, h, i0, b);
+          tma_load(qt + bx * T_BOX, qmap, bar, 64 * bx, h, i0, b);
+          tma_load(gt + bx * T_BOX, domap, bar, 64 * bx, h, i0, b);
         }
         // rows past Sq read the next head's (masked below)
         const int lrow = ((b * Hq + h) * Sq + i0) & ~3;
-        tma_load(s_l + s * L_SLOT, &lmap, bar, lrow);
-        tma_load(s_l + (STAGES + s) * L_SLOT, &dlmap, bar, lrow);
+        tma_load(s_l + s * L_SLOT, lmap, bar, lrow);
+        tma_load(s_l + (STAGES + s) * L_SLOT, dlmap, bar, lrow);
       }
     }
     return;
@@ -1509,8 +1555,8 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
   // dK (times the scale q.k^T carried) and dV, kv rows below Skv: bf16
   // with one share, else this share's fp32 partials [split][dK, dV][B,
   // Skv, Hkv, D]
-  const long long kv_row = (long long)Hkv * D;
-  const long long off0 = (long long)b * Skv * kv_row + (long long)hk * D + 2 * t4;
+  const long long kv_row = (long long)Hkv * (kPad ? dt : D);
+  const long long off0 = (long long)b * Skv * kv_row + (long long)hk * (kPad ? dt : D) + 2 * t4;
   const long long n = (long long)gridDim.y * Skv * kv_row;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -1520,6 +1566,7 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
     if (splits == 1) {
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) {
+        if (kPad && 8 * c >= dt) break;
         *reinterpret_cast<uint32_t*>(dk + at + 8 * c) =
             repro::pack_bf16(dka[4 * c + 2 * hr] * scale, dka[4 * c + 2 * hr + 1] * scale);
         *reinterpret_cast<uint32_t*>(dv + at + 8 * c) =
@@ -1529,6 +1576,7 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
       float* pk = part + 2 * split * n + at;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c) {
+        if (kPad && 8 * c >= dt) break;
         *reinterpret_cast<float2*>(pk + 8 * c) =
             make_float2(dka[4 * c + 2 * hr] * scale, dka[4 * c + 2 * hr + 1] * scale);
         *reinterpret_cast<float2*>(pk + n + 8 * c) =
@@ -1539,45 +1587,95 @@ flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
 }
 
 template <int D, bool kWindow>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const __grid_constant__ CUtensorMap lmap,
+                         const __grid_constant__ CUtensorMap dlmap, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, float* __restrict__ part, int Hq, int Hkv,
+                         int group, int splits, int Sq, int Skv, int causal, float softcap,
+                         float scale, int window) {
+  dkdv_wg<D, kWindow, false>(&kmap, &vmap, &qmap, &domap, &lmap, &dlmap, dk, dv, part, Hq, Hkv,
+                             group, splits, Sq, Skv, causal, softcap, scale, window, D);
+}
+
+// the same at a true head dim dt below D, its last parameter
+template <int D, bool kWindow>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wg_pad_kernel(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap domap,
+                             const __grid_constant__ CUtensorMap lmap,
+                             const __grid_constant__ CUtensorMap dlmap, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, float* __restrict__ part, int Hq, int Hkv,
+                             int group, int splits, int Sq, int Skv, int causal, float softcap,
+                             float scale, int window, int dt) {
+  dkdv_wg<D, kWindow, true>(&kmap, &vmap, &qmap, &domap, &lmap, &dlmap, dk, dv, part, Hq, Hkv,
+                            group, splits, Sq, Skv, causal, softcap, scale, window, dt);
+}
+
+// The two kernels at D (64 or 128) for a true head dim dt <= D (D's own
+// kernels where dt = D, else their padded twins): the maps name dt, so TMA
+// reads columns dt..D-1 as zeros. At dt = 48, 80, 96 and 112 the padded
+// columns cost 1.33x, 1.6x, 1.33x and 1.14x the products the head needs.
+template <int D, bool kWindow>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
                    void* dv, float* part, int splits, int B, int Hq, int Hkv, int Sq, int Skv,
                    const long long* qs, const long long* ks_, const long long* vs_, int causal,
-                   int window, float softcap, float scale, cudaStream_t stream) {
+                   int window, float softcap, float scale, cudaStream_t stream, int dt) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
-  const long long gs[3] = {(long long)Sq * Hq * D, (long long)Hq * D, D};   // dO, contiguous
+  const long long gs[3] = {(long long)Sq * Hq * dt, (long long)Hq * dt, dt};   // dO, contiguous
   const long long n_rows = (long long)B * Hq * Sq;
   CUtensorMap qr, gr, kt, vt, kr, vr, qt, gt, lm, dlm;
-  if (!make_bshd_map(enc, &qr, q, B, Sq, Hq, D, qs, BR) ||
-      !make_bshd_map(enc, &gr, dout, B, Sq, Hq, D, gs, BR) ||
-      !make_bshd_map(enc, &kt, k, B, Skv, Hkv, D, ks_, BT) ||
-      !make_bshd_map(enc, &vt, v, B, Skv, Hkv, D, vs_, BT) ||
-      !make_bshd_map(enc, &kr, k, B, Skv, Hkv, D, ks_, BR) ||
-      !make_bshd_map(enc, &vr, v, B, Skv, Hkv, D, vs_, BR) ||
-      !make_bshd_map(enc, &qt, q, B, Sq, Hq, D, qs, BT) ||
-      !make_bshd_map(enc, &gt, dout, B, Sq, Hq, D, gs, BT) ||
+  if (!make_bshd_map(enc, &qr, q, B, Sq, Hq, dt, qs, BR) ||
+      !make_bshd_map(enc, &gr, dout, B, Sq, Hq, dt, gs, BR) ||
+      !make_bshd_map(enc, &kt, k, B, Skv, Hkv, dt, ks_, BT) ||
+      !make_bshd_map(enc, &vt, v, B, Skv, Hkv, dt, vs_, BT) ||
+      !make_bshd_map(enc, &kr, k, B, Skv, Hkv, dt, ks_, BR) ||
+      !make_bshd_map(enc, &vr, v, B, Skv, Hkv, dt, vs_, BR) ||
+      !make_bshd_map(enc, &qt, q, B, Sq, Hq, dt, qs, BT) ||
+      !make_bshd_map(enc, &gt, dout, B, Sq, Hq, dt, gs, BT) ||
       !make_f32_map(enc, &lm, lse, n_rows, L_BOX) || !make_f32_map(enc, &dlm, delta, n_rows, L_BOX))
     return cudaErrorInvalidValue;
+  const bool pad = dt != D;
   static bool attr_dq[repro::kMaxDevices] = {}, attr_dkdv[repro::kMaxDevices] = {};
-  cudaError_t err = tc::raise_smem(flash_bwd_dq_wg_kernel<D, kWindow>, Bwd<D>::SMEM, attr_dq);
+  static bool attr_dq_pad[repro::kMaxDevices] = {}, attr_dkdv_pad[repro::kMaxDevices] = {};
+  cudaError_t err =
+      pad ? tc::raise_smem(flash_bwd_dq_wg_pad_kernel<D, kWindow>, Bwd<D>::SMEM, attr_dq_pad)
+          : tc::raise_smem(flash_bwd_dq_wg_kernel<D, kWindow>, Bwd<D>::SMEM, attr_dq);
   if (err == cudaSuccess)
-    err = tc::raise_smem(flash_bwd_dkdv_wg_kernel<D, kWindow>, Bwd<D>::SMEM, attr_dkdv);
+    err = pad ? tc::raise_smem(flash_bwd_dkdv_wg_pad_kernel<D, kWindow>, Bwd<D>::SMEM,
+                               attr_dkdv_pad)
+              : tc::raise_smem(flash_bwd_dkdv_wg_kernel<D, kWindow>, Bwd<D>::SMEM, attr_dkdv);
   if (err != cudaSuccess) return err;
   const int group = Hq / Hkv;
-  flash_bwd_dq_wg_kernel<D, kWindow>
-      <<<dim3(Hq, B, (Sq + BR - 1) / BR), THREADS, Bwd<D>::SMEM, stream>>>(
-          qr, gr, kt, vt, static_cast<const bf16*>(o), lse, delta, static_cast<bf16*>(dq), Hq,
-          group, Sq, Skv, causal, softcap, scale, window);
+  const dim3 dq_grid(Hq, B, (Sq + BR - 1) / BR), kv_grid(Hkv * splits, B, (Skv + BR - 1) / BR);
+  if (pad)
+    flash_bwd_dq_wg_pad_kernel<D, kWindow><<<dq_grid, THREADS, Bwd<D>::SMEM, stream>>>(
+        qr, gr, kt, vt, static_cast<const bf16*>(o), lse, delta, static_cast<bf16*>(dq), Hq,
+        group, Sq, Skv, causal, softcap, scale, window, dt);
+  else
+    flash_bwd_dq_wg_kernel<D, kWindow><<<dq_grid, THREADS, Bwd<D>::SMEM, stream>>>(
+        qr, gr, kt, vt, static_cast<const bf16*>(o), lse, delta, static_cast<bf16*>(dq), Hq,
+        group, Sq, Skv, causal, softcap, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_wg_kernel<D, kWindow>
-      <<<dim3(Hkv * splits, B, (Skv + BR - 1) / BR), THREADS, Bwd<D>::SMEM, stream>>>(
-          kr, vr, qt, gt, lm, dlm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, Hq,
-          Hkv, group, splits, Sq, Skv, causal, softcap, scale, window);
+  if (pad)
+    flash_bwd_dkdv_wg_pad_kernel<D, kWindow><<<kv_grid, THREADS, Bwd<D>::SMEM, stream>>>(
+        kr, vr, qt, gt, lm, dlm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, Hq, Hkv,
+        group, splits, Sq, Skv, causal, softcap, scale, window, dt);
+  else
+    flash_bwd_dkdv_wg_kernel<D, kWindow><<<kv_grid, THREADS, Bwd<D>::SMEM, stream>>>(
+        kr, vr, qt, gt, lm, dlm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, Hq, Hkv,
+        group, splits, Sq, Skv, causal, softcap, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const long long n = (long long)B * Skv * Hkv * D;
+  const long long n = (long long)B * Skv * Hkv * dt;
   tc::flash_bwd_split_sum_kernel<<<(unsigned)((n / 8 + 255) / 256), 256, 0, stream>>>(
       part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits);
   return cudaGetLastError();
@@ -1602,9 +1700,10 @@ bool short_form(int Hq, int Hkv, int Sq, int Skv, int D) {
 // Hq / Hkv (the wrapper's bwd_splits: blocks an SM up to 4, with or
 // without a window). causal and window (0: none) are the forward's masks.
 // Sq, Skv > 0, window >= 0. dtype: repro::Dtype of q, k, v, o, dout and the
-// gradients. variant 0 runs the CUDA-core kernels; variant 1 the
-// tensor-core ones, which take bfloat16 with D in {16, 32, 64, 128},
-// strides that are multiples of 8 and 16-byte-aligned pointers, and refuse
+// gradients. variant 0 runs the CUDA-core kernels (D from 1 to 128);
+// variant 1 the tensor-core ones, which take bfloat16 with D a multiple of
+// 16 up to 128, strides that are multiples of 8 and 16-byte-aligned
+// pointers, and refuse
 // anything else (the caller chooses; nothing falls back): the short form
 // where short_form says so (splits ignored), else the streaming form.
 // Returns the CUDA error of the launches (0 on success).
@@ -1630,7 +1729,10 @@ extern "C" int flash_attention_bwd(
                           static_cast<const void*>(dk), static_cast<const void*>(dv)})
       ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
     if (!ok) return cudaErrorInvalidValue;
-    const bool fits = short_form(Hq, Hkv, Sq, Skv, D), wg_d = D == 64 || D == 128;
+    // D a multiple of 16 up to 128; the Hopper form from 48 (48 on its D =
+    // 64 kernels, 80, 96 and 112 on its D = 128 ones)
+    if (D < 16 || D > 128 || D % 16) return cudaErrorInvalidValue;
+    const bool fits = short_form(Hq, Hkv, Sq, Skv, D), wg_d = D >= 48;
     if (form == kFormAuto) form = fits ? kFormShort : wg_d ? kFormWg : kFormStream;
     if ((form == kFormShort && !fits) || (form == kFormWg && !wg_d)) return cudaErrorInvalidValue;
     if (form == kFormShort) {
@@ -1645,6 +1747,7 @@ extern "C" int flash_attention_bwd(
                                                 scale, s);
         REPRO_FLASH_BWD_SHORT(16)
         REPRO_FLASH_BWD_SHORT(32)
+        REPRO_FLASH_BWD_SHORT(48)
         REPRO_FLASH_BWD_SHORT(64)
 #undef REPRO_FLASH_BWD_SHORT
         default:
@@ -1657,19 +1760,19 @@ extern "C" int flash_attention_bwd(
         (form == kFormStream && (Hq / Hkv) % splits != 0))
       return cudaErrorInvalidValue;
     if (form == kFormWg) {
-      if (D == 64)
+      if (D <= 64)
         return window ? wg::launch<64, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
                                              splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
-                                             window, softcap, scale, s)
+                                             window, softcap, scale, s, D)
                       : wg::launch<64, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
                                               splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
-                                              0, softcap, scale, s);
+                                              0, softcap, scale, s, D);
       return window ? wg::launch<128, true>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
                                             splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
-                                            window, softcap, scale, s)
+                                            window, softcap, scale, s, D)
                     : wg::launch<128, false>(q, k, v, o, dout, lse, delta, dq, dk, dv, part,
                                              splits, B, Hq, Hkv, Sq, Skv, qs, kst, vst, causal,
-                                             0, softcap, scale, s);
+                                             0, softcap, scale, s, D);
     }
     switch (D) {
 #define REPRO_FLASH_BWD_STREAM(DD)                                                            \
@@ -1682,7 +1785,11 @@ extern "C" int flash_attention_bwd(
                                                  vst, causal, 0, softcap, scale, s);
       REPRO_FLASH_BWD_STREAM(16)
       REPRO_FLASH_BWD_STREAM(32)
+      REPRO_FLASH_BWD_STREAM(48)
       REPRO_FLASH_BWD_STREAM(64)
+      REPRO_FLASH_BWD_STREAM(80)
+      REPRO_FLASH_BWD_STREAM(96)
+      REPRO_FLASH_BWD_STREAM(112)
       REPRO_FLASH_BWD_STREAM(128)
 #undef REPRO_FLASH_BWD_STREAM
       default:

@@ -5,7 +5,9 @@ card.
 Port of ``repro/kernels/flash_attention`` (``_fwd_kernel`` in kernel.py,
 the (B, S, H, D) layout wrapper in ops.py). The forward kernel is
 ``repro_torch/csrc/flash_attention.cu``, in two variants: bf16 on the
-tensor cores and a CUDA-core one for fp32 and for unaligned views. The
+tensor cores (head dims the multiples of 16 up to 128) and a CUDA-core one
+for fp32, unaligned views and the other head dims up to 128 (the Pallas
+kernel takes any head dim; past 128 both raise). The
 backward kernel, ``repro_torch/csrc/flash_attention_bwd.cu``, computes the
 VJP the JAX package writes out for its chunked attention (``flash_bwd``,
 ``repro/models/attention.py:168-204``); the Pallas kernel has none. It has
@@ -15,11 +17,13 @@ tensor-core variant has three forms, chosen by its C entry point from the
 shapes (``fwd_form`` and ``bwd_tc_form`` mirror the rules): a short form
 for heads that fit one block's shared memory whole (the agent's trunk,
 ``mma.sync``), the Hopper streaming form ("wg": ``wgmma`` fed by TMA
-rings, D = 64 and 128, every LM layer) and the ``mma.sync`` streaming form
-("stream", D = 16 and 32). The wrappers count the Hopper form's launches
-in ``wg_launches``; ``_launch`` and ``_launch_bwd`` can name a form (the
-C entries' last argument) to time one against another. Each source's
-note says what bounds it on the H100 and how the design answers that.
+rings, D from 48, every LM layer: 48 on its D = 64 kernels, HuBERT's 80
+and Zamba2's 112 on its D = 128 ones, the columns past D read as zeros)
+and the ``mma.sync`` streaming form ("stream", D = 16 and 32). The
+wrappers count the Hopper form's launches in ``wg_launches``; ``_launch``
+and ``_launch_bwd`` can name a form (the C entries' last argument) to time
+one against another. Each source's note says what bounds it on the H100
+and how the design answers that.
 
 On CUDA tensors that need a gradient, ``flash_attention`` runs through
 ``_FlashFn``: its forward asks the kernel for each row's log-sum-exp, and
@@ -27,7 +31,8 @@ its backward launches the backward kernel (``flash_attention_bwd``), both
 with the call's masks, the window included (Gemma-3's local layers train
 through it). With no gradient to track (serving, ``inference_mode``) the
 forward kernel is launched directly. CPU tensors run the plain versions,
-which autograd differentiates.
+which autograd differentiates; meta tensors (a step's memory counted before
+the card runs it) allocate what the kernels do and launch nothing.
 """
 from __future__ import annotations
 
@@ -37,9 +42,15 @@ import torch
 
 from repro_torch.device import check_on, resolve_device, runs_plain
 from repro_torch.kernels import _build
+from repro_torch.roofline import hw
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+# the head dims the kernels take: the CUDA-core variant any D up to
+# MAX_HEAD_DIM (compiled at 16, 32, 64 and 128, a D between them on the next
+# with the columns past D masked), the tensor-core variant the multiples of
+# 16 up to it
+MAX_HEAD_DIM = 128
+HEAD_DIMS = tuple(range(16, MAX_HEAD_DIM + 1, 16))
 # the tensor-core backward's short form's limits (csrc/flash_attention_bwd.cu,
 # tc::): the longest sequence its dS^T tile holds, and an H100 block's
 # shared memory
@@ -53,13 +64,14 @@ BWD_BLOCKS_PER_SM = 4
 # default 48 KB of shared memory (csrc/flash_attention.cu, tc::short_fits)
 FWD_SHORT_MAX_S = 256
 FWD_SHORT_SMEM = 48 * 1024
-# the head dims of the Hopper streaming forms ("wg": wgmma fed by TMA), the
-# kv rows of their dkdv block, and the blocks an SM their split count aims
-# at: one block is resident an SM (160 KB of shared memory, 384 threads),
-# and 2 a SM picked the fastest share count at the LM training layers
-# (chip_smoke.py phase 5's splits_ms on an H100: Command-R's 1, TinyLlama's
-# 2, Qwen2-VL's 2 within 1% of its best)
-WG_HEAD_DIMS = (64, 128)
+# the head dims of the Hopper streaming forms ("wg": wgmma fed by TMA; 48
+# runs on their D = 64 kernels, 80, 96 and 112 on their D = 128 ones, the
+# columns past D read as zeros), the kv rows of their dkdv block, and the
+# blocks an SM their split count aims at: one block is resident an SM (160
+# KB of shared memory, 384 threads), and 2 a SM picked the fastest share
+# count at the LM training layers (chip_smoke.py phase 5's splits_ms on an
+# H100: Command-R's 1, TinyLlama's 2, Qwen2-VL's 2 within 1% of its best)
+WG_HEAD_DIMS = (48, 64, 80, 96, 112, 128)
 BWD_WG_KV_ROWS = 128
 BWD_WG_BLOCKS_PER_SM = 2
 
@@ -152,8 +164,9 @@ def _check(q, k, v):
     B, Sq, Hq, D = q.shape
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError("q and k/v differ in batch or head dim")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported (one of {HEAD_DIMS})")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} not supported: the kernels take 1 to "
+                         f"{MAX_HEAD_DIM}")
     if Hq % k.shape[2]:
         raise ValueError(f"{Hq} q heads do not divide into {k.shape[2]} "
                          "kv heads")
@@ -166,11 +179,12 @@ def _check(q, k, v):
 
 def _flash_variant(q, k, v) -> str:
     """The kernel a CUDA launch runs, chosen from the inputs alone: "tc"
-    (tensor cores, 16-byte copies) for bfloat16 whose rows start on 16-byte
-    boundaries -- every stride a multiple of 8 elements, 16-byte-aligned
-    data -- else "simt" (fp32 stays off the tensor cores: TF32 would break
-    its 3e-5 bound)."""
-    if q.dtype != torch.bfloat16:
+    (tensor cores, 16-byte copies) for bfloat16 at a head dim in HEAD_DIMS
+    whose rows start on 16-byte boundaries -- every stride a multiple of 8
+    elements, 16-byte-aligned data -- else "simt" (fp32 stays off the
+    tensor cores: TF32 would break its 3e-5 bound; a head dim off the
+    multiples of 16 runs on the CUDA cores in either dtype)."""
+    if q.dtype != torch.bfloat16 or q.shape[3] not in HEAD_DIMS:
         return "simt"
     for t in (q, k, v):
         if t.data_ptr() % 16 or any(s % 8 for s in _build.row_strides(t)):
@@ -183,7 +197,8 @@ def fwd_form(Sq: int, Skv: int, D: int) -> str:
     (``launch_tc`` in csrc/flash_attention.cu): "short" where q, K and V
     fit one block's default shared memory (the agent's trunk), else "wg",
     the Hopper streaming form (wgmma fed by TMA), at D in WG_HEAD_DIMS,
-    else "stream", the mma.sync streaming form (D = 16, 32)."""
+    else "stream", the mma.sync streaming form (D = 16, 32). Every form
+    takes every D of HEAD_DIMS where it is named (``_launch``'s ``form``)."""
     sq16, skv16 = -(-Sq // 16) * 16, -(-Skv // 16) * 16
     if sq16 <= FWD_SHORT_MAX_S and (sq16 + 2 * skv16) * D * 2 <= FWD_SHORT_SMEM:
         return "short"
@@ -193,7 +208,8 @@ def fwd_form(Sq: int, Skv: int, D: int) -> str:
 def _launch(q, k, v, variant: str, *, causal, window, softcap, scale,
             lse=False, form=None):
     """Run ``variant`` of the kernel on CUDA tensors q, k, v (checked by the
-    caller) and return out, or (out, lse) with ``lse``; counts nothing.
+    caller) and return out, or (out, lse) with ``lse``; counts nothing. On
+    meta tensors it allocates the same and launches nothing.
     ``form`` names the tensor-core form to run (``fwd_form``'s names; by
     default the C entry's own choice): phase 5 and the card's tests time
     and check one form against another."""
@@ -202,7 +218,7 @@ def _launch(q, k, v, variant: str, *, causal, window, softcap, scale,
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
     lse_t = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
              if lse else None)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.is_meta:
         return (out, lse_t) if lse else out
     fn = _build.load("flash_attention")
     with torch.cuda.device(q.device):
@@ -232,7 +248,8 @@ def bwd_tc_form(Sq: int, Skv: int, Hq: int, Hkv: int, D: int) -> str:
     whose q, dO, K, V and dS^T fit one block's shared memory (both
     sequences <= BWD_TC_MAX_S; ``short_form``), else "wg", the Hopper
     streaming form, at D in WG_HEAD_DIMS, else "stream", the mma.sync
-    streaming form (D = 16, 32)."""
+    streaming form (D = 16, 32). The streaming forms take every D of
+    HEAD_DIMS where they are named, the short form D <= 64."""
     if Hq == Hkv and D <= 64 and max(Sq, Skv) <= BWD_TC_MAX_S \
             and bwd_smem_bytes(Sq, Skv, D) <= BWD_TC_MAX_SMEM:
         return "short"
@@ -280,7 +297,8 @@ def _flash_bwd_variant(q, k, v, o, do) -> str:
 def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, window=0,
                 softcap, scale, splits=None, form=None):
     """Run ``variant`` of the backward kernel on CUDA tensors (o and do
-    contiguous) and return (dq, dk, dv); counts nothing. ``form`` names the
+    contiguous) and return (dq, dk, dv); counts nothing (on meta tensors:
+    the same allocations, the card's split count, no launch). ``form`` names the
     tensor-core form (``bwd_tc_form``'s names; by default the C entry's own
     choice). A streaming tensor-core form shares a kv head's q heads among
     ``splits`` blocks (by default ``bwd_splits`` for that form), with fp32
@@ -296,11 +314,13 @@ def _launch_bwd(q, k, v, o, lse, do, variant: str, *, causal, window=0,
     if splits is None:
         # the short form's MHA heads (a group of 1) always take 1
         splits = 1 if variant != "tc" else bwd_splits(
-            B, Skv, Hkv, Hq // Hkv,
+            B, Skv, Hkv, Hq // Hkv, hw.SMS if q.is_meta else
             torch.cuda.get_device_properties(q.device).multi_processor_count,
             form or bwd_tc_form(Sq, Skv, Hq, Hkv, D))
     part = (torch.empty(2 * splits * dk.numel(), dtype=torch.float32,
                         device=q.device) if splits > 1 else None)
+    if q.is_meta:
+        return dq, dk, dv
     fn = _build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -324,8 +344,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
     log-sum-exp ``lse`` (fp32 (B, Hq, Sq)) and the out's gradient ``do``,
     under the forward's masks (``causal``, ``window``): (dq, dk, dv) in
     the inputs' dtypes and shapes. CUDA tensors launch the backward kernel
-    variant that ``_flash_bwd_variant`` names; CPU and meta tensors, with
-    ``device="cpu"`` or ``"meta"``, run ``flash_attention_bwd_ref``."""
+    variant that ``_flash_bwd_variant`` names; CPU tensors, with
+    ``device="cpu"``, run ``flash_attention_bwd_ref``; meta tensors, with
+    ``device="meta"``, allocate what the kernel does and launch nothing."""
     dev = resolve_device(device)
     check_on(dev, q, k, v, o, lse, do)
     _check(q, k, v)
@@ -337,6 +358,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0,
         raise ValueError(f"lse must be float32 (B, Hq, Sq); got "
                          f"{lse.dtype} {tuple(lse.shape)}")
     scale = scale or 1.0 / math.sqrt(q.shape[3])
+    if dev.type == "meta":
+        return _launch_bwd(q, k, v, o.contiguous(), lse, do.contiguous(),
+                           _flash_bwd_variant(q, k, v, o, do), causal=causal,
+                           window=window, softcap=softcap, scale=scale)
     if runs_plain(dev):
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, softcap=softcap,
@@ -388,6 +413,33 @@ class _FlashFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class _FlashMetaFn(torch.autograd.Function):
+    """Meta tensors (shapes only, a step's memory counted before the card
+    runs it): what the kernels allocate, launching nothing and counting
+    nothing -- out and the row log-sum-exp forward; dq, dk, dv, delta and
+    a split's fp32 partials backward; never the plain version's S x S
+    scores."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out, lse = _launch(q, k, v, _flash_variant(q, k, v), causal=causal,
+                           window=window, softcap=softcap, scale=scale,
+                           lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = _launch_bwd(q, k, v, out, lse, do,
+                                 _flash_bwd_variant(q, k, v, out, do),
+                                 **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def _count(out, k, variant: str) -> None:
     if out.numel():                     # an empty out launches nothing
         flash_attention.launches += 1  # repro-static: ok[jit-purity] launch counter
@@ -416,12 +468,16 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
 
     CUDA tensors launch the kernel variant that ``_flash_variant`` names
     (strided inputs are read in place), differentiable through the
-    backward kernel when q, k or v needs a gradient; CPU and meta
-    tensors, with ``device="cpu"`` or ``"meta"``, run ``flash_attention_ref``."""
+    backward kernel when q, k or v needs a gradient; CPU tensors, with
+    ``device="cpu"``, run ``flash_attention_ref``; meta tensors, with
+    ``device="meta"``, go through ``_FlashMetaFn``: the kernels'
+    allocations, no launch and no S x S scores."""
     dev = resolve_device(device)
     check_on(dev, q, k, v)
     _check(q, k, v)
     scale = scale or 1.0 / math.sqrt(q.shape[3])
+    if dev.type == "meta":
+        return _FlashMetaFn.apply(q, k, v, causal, window, softcap, scale)
     if runs_plain(dev):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)

@@ -18,6 +18,7 @@ POWER_LIMIT = "700.00 W"
 PEAK_FLOPS_BF16 = 989e12       # dense bf16 tensor-core FLOP/s, per GPU
 HBM_BW = 3.35e12               # HBM3 bytes/s, per GPU
 HBM_BYTES = 80 * 10**9         # 80 GB per GPU
+SMS = 132                      # streaming multiprocessors, per GPU
 NVLINK_BW = 450e9              # bytes/s each way, per GPU, within a node
 INTERNODE_BW = 50e9            # bytes/s each way, per GPU, between nodes
 COLLECTIVE_BW = INTERNODE_BW   # what collective_s divides by (see above)

@@ -52,7 +52,11 @@ form, ``wg``: wgmma fed by TMA rings, and the mma.sync form it replaced)
 and held to the plain versions both ways at every LM layer the port runs,
 ragged at 1100, under a window with softcap and on fused-qkv views; the
 Hopper backward bit for bit at one share and at several, even and not;
-the counters show each launch's form.
+the counters show each launch's form. At the head dims 48, 80, 96 and 112
+(HuBERT X-Large's 80, Zamba2-7B's 112) every form the shapes take is
+named, both ways (the Hopper backward's shares too); the CUDA-core variant
+runs head dims off 16, 32, 64 and 128 in fp32 and in bf16 (72, 40), and a
+head dim past 128 is refused.
 
 Qwen2-MoE's MoE layer at ``SMOKE`` runs on the card against the CPU (its
 two grouped GEMMs on the tensor cores in bf16), and the grouped GEMM at the
@@ -1050,6 +1054,128 @@ def test_flash_counters_show_the_form(cuda, B, Hq, Hkv, S, D, form):
         with pytest.raises(RuntimeError):
             fa_ops._launch(q, k, v, "tc", causal=True, window=0, softcap=0.0,
                            scale=D ** -0.5, form="wg")
+
+
+# ------------------------------------- flash at the head dims 48 to 112
+# (B, Hq, Hkv, S, causal, window, softcap): GQA at a ragged S past the
+# short forms, causal; MHA non-causal under a window with softcap; MHA at
+# S = 64, whose q, K and V fit the forward's short form at every D
+NEW_D_CASES = [
+    (2, 4, 2, 333, True, 0, 0.0),
+    (1, 4, 4, 200, False, 64, 30.0),
+    (2, 4, 4, 64, True, 0, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [48, 80, 96, 112])
+@pytest.mark.parametrize("B,Hq,Hkv,S,causal,window,softcap", NEW_D_CASES)
+def test_flash_forms_at_new_head_dims(cuda, B, Hq, Hkv, S, causal, window,
+                                      softcap, D):
+    """The tensor-core variant at D = 48, 80, 96 and 112 in every form the
+    shapes take, each named (the Hopper form on its D = 64 or 128 kernels,
+    the columns past D read as zeros; the mma.sync forms at D itself):
+    forward (out and lse) and backward against the plain versions, 2e-2 in
+    bf16, and the wrappers' own choice, counted through autograd."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, B, Hq, Hkv, S, D, causal,
+                                            seed=S + D, window=window)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    run = dict(opts, scale=D ** -0.5)
+    ref = flash_attention_ref(q, k, v, **opts).float()
+    lse_ref = flash_attention_lse_ref(q, k, **opts)
+    fwd_forms = ["stream", "wg"] + ["short"] * (fa_ops.fwd_form(S, S, D)
+                                                == "short")
+    for form in fwd_forms:
+        out, lse = fa_ops._launch(q, k, v, "tc", lse=True, form=form, **run)
+        torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2,
+                                   msg=f"{form} out")
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5,
+                                   msg=f"{form} lse")
+    out = fa_ops._launch(q, k, v, "tc", **run)
+    refs = flash_attention_bwd_ref(q, k, v, out, lse_ref, do, **opts)
+    bwd_forms = ["stream", "wg"] + ["short"] * (
+        fa_ops.bwd_tc_form(S, S, Hq, Hkv, D) == "short")
+    for form in bwd_forms:
+        grads = fa_ops._launch_bwd(q, k, v, out, lse_ref, do.contiguous(),
+                                   "tc", form=form, **run)
+        for name, g, r in zip("qkv", grads, refs):
+            assert g.shape == r.shape
+            torch.testing.assert_close(g.float(), r.float(), atol=2e-2,
+                                       rtol=2e-2, msg=f"{form} d{name}")
+    before = _form_counts()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    torch.autograd.grad(flash_attention(*leaves, **opts), leaves, do)
+    torch.cuda.synchronize()
+    wg = int(fa_ops.fwd_form(S, S, D) == "wg")
+    bwd_wg = int(fa_ops.bwd_tc_form(S, S, Hq, Hkv, D) == "wg")
+    assert tuple(a - b for a, b in zip(_form_counts(), before)) == \
+        (1, 1, wg, 1, 1, bwd_wg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [80, 112])
+@pytest.mark.parametrize("splits", [2, 3])
+def test_flash_backward_shares_at_new_head_dims(cuda, D, splits):
+    """The Hopper backward at D = 80 and 112 writing fp32 partials that
+    the last pass sums (a group of 4 in 2 and 3 shares): within 2e-2 of
+    the plain backward, and the same bits over a repeated call."""
+    q, k, v, o, lse, do = _flash_bwd_inputs(cuda, 1, 8, 2, 300, D, True)
+    run = dict(causal=True, window=0, softcap=0.0, scale=D ** -0.5)
+    first = fa_ops._launch_bwd(q, k, v, o, lse, do, "tc", form="wg",
+                               splits=splits, **run)
+    again = fa_ops._launch_bwd(q, k, v, o, lse, do, "tc", form="wg",
+                               splits=splits, **run)
+    refs = flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for name, a, b, r in zip("qkv", first, again, refs):
+        assert torch.equal(a, b), f"d{name} differs between calls"
+        torch.testing.assert_close(a.float(), r.float(), atol=2e-2,
+                                   rtol=2e-2, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(72, BF16), (72, FP32), (80, FP32),
+                                     (112, FP32), (8, FP32), (40, BF16),
+                                     (100, FP32)])
+def test_flash_cuda_cores_at_any_head_dim(cuda, D, dtype):
+    """The CUDA-core variant at head dims off its 16, 32, 64 and 128 (run
+    on the next of those, the columns past D masked): a bf16 D that the
+    tensor cores do not take (72, 40) runs it too. Forward and backward
+    through autograd against the plain versions, causal GQA at a ragged S
+    with softcap, fp32 3e-5 absolute and 1e-5 relative, bf16 2e-2."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda, TORCH[dtype]) for a in
+                   _normal(D, (1, 150, 4, D), (1, 150, 2, D),
+                           (1, 150, 2, D), (1, 150, 4, D)))
+    assert fa_ops._flash_variant(q, k, v) == "simt"
+    opts = dict(causal=True, window=0, softcap=20.0)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = _form_counts()
+    out = flash_attention(*leaves, **opts)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_form_counts(), before)) == \
+        (1, 0, 0, 1, 0, 0)
+    atol, rtol = (3e-5, 1e-5) if dtype == FP32 else (2e-2, 2e-2)
+    torch.testing.assert_close(out.float(), flash_attention_ref(
+        q, k, v, **opts).float(), atol=atol, rtol=rtol)
+    lse = fa_ops._launch(q, k, v, "simt", scale=D ** -0.5, lse=True,
+                         **opts)[1]
+    torch.testing.assert_close(lse, flash_attention_lse_ref(q, k, **opts),
+                               atol=1e-4, rtol=1e-5)
+    refs = flash_attention_bwd_ref(q, k, v, out.detach(), lse, do, **opts)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.shape == r.shape
+        torch.testing.assert_close(g.float(), r.float(), atol=atol,
+                                   rtol=rtol, msg=f"d{name}")
+
+
+@pytest.mark.cuda
+def test_flash_refuses_head_dims_past_128(cuda):
+    """A head dim past 128 raises before any launch, naming the bound."""
+    q = torch.zeros(1, 8, 2, 136, device=cuda, dtype=torch.bfloat16)
+    n = flash_attention.launches
+    with pytest.raises(ValueError, match="1 to 128"):
+        flash_attention(q, q, q)
+    assert flash_attention.launches == n
 
 
 @pytest.mark.cuda

@@ -3,8 +3,9 @@ what the wrappers hand the C entry points for it, on CPU tensors.
 
 The tensor-core forward and backward each have three forms: the short one
 (the agent trunk's heads whole in shared memory), the Hopper streaming
-form ("wg": wgmma fed by TMA rings, D = 64 and 128) and the mma.sync
-streaming form ("stream", D = 16 and 32). The C entry points choose from
+form ("wg": wgmma fed by TMA rings, D from 48 to 128; HuBERT's 80 and
+Zamba2's 112 on its D = 128 kernels) and the mma.sync streaming form
+("stream", D = 16 and 32). The C entry points choose from
 the shapes; ``fwd_form`` and ``bwd_tc_form`` mirror the choice, and the
 wrappers count each launch's form in ``wg_launches``. A ``form`` argument,
 last in each entry's signature, forces one (phase 5 of chip_smoke.py times
@@ -22,9 +23,9 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
-from repro_torch.configs import (command_r_35b, gemma3_27b, mirage_agent,
-                                 qwen1_5_4b, qwen2_moe_a2_7b, qwen2_vl_7b,
-                                 tinyllama_1_1b)
+from repro_torch.configs import (command_r_35b, gemma3_27b, hubert_xlarge,
+                                 mirage_agent, qwen1_5_4b, qwen2_moe_a2_7b,
+                                 qwen2_vl_7b, tinyllama_1_1b, zamba2_7b)
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
@@ -35,13 +36,17 @@ from repro_torch.kernels.flash_attention.ops import (bwd_splits, bwd_tc_form,
 BF16 = torch.bfloat16
 LM = {"TinyLlama": tinyllama_1_1b.CONFIG, "Qwen2-MoE": qwen2_moe_a2_7b.CONFIG,
       "Qwen1.5-4B": qwen1_5_4b.CONFIG, "Gemma-3": gemma3_27b.CONFIG,
-      "Command-R": command_r_35b.CONFIG, "Qwen2-VL": qwen2_vl_7b.CONFIG}
+      "Command-R": command_r_35b.CONFIG, "Qwen2-VL": qwen2_vl_7b.CONFIG,
+      "HuBERT": hubert_xlarge.CONFIG, "Zamba2": zamba2_7b.CONFIG}
 TRUNK = mirage_agent.CONFIG
 
 
 def test_lm_head_dims_take_the_hopper_forms():
-    """Every LM the port runs flash at has heads of 64 or 128."""
-    assert {cfg.hd for cfg in LM.values()} == set(fa_ops.WG_HEAD_DIMS)
+    """Every LM the port runs flash at has heads the Hopper forms take:
+    64 and 128, HuBERT's 80 and Zamba2's 112; each runs flash."""
+    dims = {cfg.hd for cfg in LM.values()}
+    assert dims == {64, 80, 112, 128} and dims <= set(fa_ops.WG_HEAD_DIMS)
+    assert all(cfg.attn_impl == "flash" for cfg in LM.values())
 
 
 # (Sq, Skv, D, the forward's form): the LM prefill and training layers,
@@ -66,6 +71,15 @@ FWD_CASES = [
     (300, 300, 16, "stream"),           # past 16 row groups
     (2048, 2048, 32, "stream"),
     (20, 20, 128, "short"),             # a decode-sized prompt
+    (2048, 2048, LM["Zamba2"].hd, "wg"),    # the shared block's 112
+    (1000, 1000, LM["HuBERT"].hd, "wg"),    # HuBERT's 4 x 1000 frames
+    (512, 512, 80, "wg"),
+    (300, 300, 48, "wg"),
+    (300, 300, 96, "wg"),
+    (64, 64, 112, "short"),             # 43 KB of q, K and V
+    (144, 144, 48, "short"),
+    (144, 144, 80, "wg"),               # 69 KB
+    (333, 333, 112, "wg"),
 ]
 
 
@@ -78,7 +92,7 @@ def test_fwd_form(Sq, Skv, D, form):
     sq16, skv16 = -(-Sq // 16) * 16, -(-Skv // 16) * 16
     fits = sq16 <= 256 and (sq16 + 2 * skv16) * D * 2 <= 48 * 1024
     assert (form == "short") == fits
-    assert (form == "wg") == (not fits and D in (64, 128))
+    assert (form == "wg") == (not fits and D in fa_ops.WG_HEAD_DIMS)
 
 
 # (Sq, Skv, Hq, Hkv, D, the backward's form)
@@ -97,6 +111,13 @@ BWD_CASES = [(2048, 2048, cfg.nq, cfg.nkv, cfg.hd, "wg")
     (144, 144, 8, 2, 32, "stream"),     # GQA at D = 32
     (257, 257, 8, 8, 32, "stream"),
     (2048, 2048, 8, 8, 16, "stream"),
+    (1000, 1000, 16, 16, 80, "wg"),     # HuBERT's training frames
+    (512, 512, 32, 32, 112, "wg"),      # Zamba2's 2-layer check
+    (200, 200, 4, 4, 48, "short"),      # MHA at D = 48: 188 KB
+    (97, 131, 8, 2, 48, "wg"),          # GQA
+    (144, 144, 4, 4, 80, "wg"),         # the short form stops at D = 64
+    (300, 300, 4, 2, 96, "wg"),
+    (257, 257, 8, 8, 48, "wg"),         # past the dS^T tile's 256
 ]
 
 
@@ -109,7 +130,7 @@ def test_bwd_tc_form(Sq, Skv, Hq, Hkv, D, form):
     short = Hq == Hkv and D <= 64 and max(Sq, Skv) <= fa_ops.BWD_TC_MAX_S \
         and fa_ops.bwd_smem_bytes(Sq, Skv, D) <= fa_ops.BWD_TC_MAX_SMEM
     assert (form == "short") == short
-    assert (form == "wg") == (not short and D in (64, 128))
+    assert (form == "wg") == (not short and D in fa_ops.WG_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("B", [1, 2])
@@ -214,11 +235,13 @@ def test_bwd_launch_arguments_with_a_form(entry, form, splits):
     assert args[34] == _build.FORM_CODES[form or "auto"]
 
 
-# (q, k, v shape, the form counted): the LM prefills, the trunk, D = 32
+# (q, k, v shape, the form counted): the LM prefills, the trunk, D = 32,
+# HuBERT's and Zamba2's heads of 80 and 112
 @pytest.mark.parametrize("shape,wg", [
     ((4, 2048, 32, 4, 64), True), ((4, 2048, 28, 4, 128), True),
     ((2, 1100, 32, 16, 128), True), ((2, 144, 8, 8, 32), False),
     ((1, 300, 8, 8, 32), False), ((1, 300, 8, 8, 64), True),
+    ((4, 1000, 16, 16, 80), True), ((2, 2048, 32, 32, 112), True),
 ])
 def test_launches_count_their_form(entry, shape, wg):
     """The card's route on CPU tensors (the entry points recorded): a
@@ -254,6 +277,103 @@ def test_fp32_counts_no_form(entry):
     assert args[6] == 0 and args[-1] == 0     # variant "simt", form "auto"
     assert (flash_attention.launches, flash_attention.tc_launches,
             flash_attention.wg_launches) == (1, 0, 0)
+
+
+@pytest.mark.parametrize("D,dtype,variant", [
+    (48, BF16, "tc"), (80, BF16, "tc"), (96, BF16, "tc"), (112, BF16, "tc"),
+    (72, BF16, "simt"), (40, BF16, "simt"), (8, BF16, "simt"),
+    (80, torch.float32, "simt"), (100, torch.float32, "simt"),
+])
+def test_variant_at_any_head_dim(D, dtype, variant):
+    """``_flash_variant`` (and the backward's) from the inputs alone: the
+    tensor cores for bf16 at a multiple of 16 up to 128, the CUDA cores
+    for any other head dim in either dtype, as for fp32."""
+    q, k, v = _qkv(1, 40, 4, 2, D, dtype)
+    assert (D in fa_ops.HEAD_DIMS) == (D % 16 == 0)
+    assert fa_ops._flash_variant(q, k, v) == variant
+    assert fa_ops._flash_bwd_variant(q, k, v, q, q) == variant
+
+
+@pytest.mark.parametrize("D", [136, 129, 0])
+def test_check_raises_outside_1_to_128(D):
+    """``_check`` refuses a head dim past 128 (or none), naming the
+    bound."""
+    q, k, v = _qkv(1, 8, 2, 2, D)
+    with pytest.raises(ValueError, match="1 to 128"):
+        fa_ops._check(q, k, v)
+
+
+@pytest.mark.parametrize("D", [48, 80, 96, 112])
+def test_bwd_smem_bytes_at_new_head_dims(D):
+    """``bwd_smem_bytes`` (``tc::smem_bytes``) at the new head dims: q, dO,
+    K, V at 2 bytes an element, the dS^T rows and lse, delta; the short
+    form takes D = 48 only where it fits one block."""
+    assert fa_ops.bwd_smem_bytes(200, 200, D) == \
+        4 * D * 416 + 208 * 256 * 2 + 8 * 208
+    short = bwd_tc_form(256, 256, 4, 4, D) == "short"
+    assert short == (D <= 64 and fa_ops.bwd_smem_bytes(256, 256, D)
+                     <= fa_ops.BWD_TC_MAX_SMEM)
+
+
+@pytest.mark.parametrize("D,variant", [(80, "tc"), (112, "tc"), (72, "simt")])
+def test_launch_arguments_at_new_head_dims(entry, D, variant):
+    """The wrappers hand the C entries the true head dim (the kernels pad
+    it themselves) and the variant's code, both ways: HuBERT's 80,
+    Zamba2's 112, and 72 on the CUDA cores."""
+    q, k, v = _qkv(1, 300, 4, 2, D)
+    fa_ops._flash_cuda(q, k, v, causal=True, window=0, softcap=0.0,
+                       scale=D ** -0.5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa_ops._flash_cuda(*leaves, causal=True, window=0, softcap=0.0,
+                             scale=D ** -0.5)
+    torch.autograd.grad(out, leaves, torch.zeros_like(out))
+    (_, fwd), _, (_, bwd) = entry
+    code = _build.VARIANT_CODES[variant]
+    assert fwd[6] == code and fwd[12] == D
+    assert bwd[12] == code and bwd[19] == D
+    wg = int(variant == "tc")
+    assert (flash_attention.launches, flash_attention.tc_launches,
+            flash_attention.wg_launches) == (2, 2 * wg, 2 * wg)
+    assert (flash_attention_bwd.launches, flash_attention_bwd.tc_launches,
+            flash_attention_bwd.wg_launches) == (1, wg, wg)
+
+
+# (q, k, v shape): Zamba2's shared block and HuBERT's layer at their
+# training batches (MHA, one share), TinyLlama's (a group of 8, two shares)
+@pytest.mark.parametrize("shape", [(2, 2048, 32, 32, 112),
+                                   (4, 1000, 16, 16, 80),
+                                   (2, 2048, 32, 4, 64)])
+def test_meta_tensors_allocate_the_kernels_buffers(entry, shape):
+    """On meta tensors (a step's memory counted before the card runs it)
+    the wrappers launch nothing and count nothing, and allocate what the
+    kernels do, never the plain version's S x S scores: out and the fp32
+    row log-sum-exp forward; dq, dk, dv, fp32 delta and, where a kv head's
+    q heads are shared among blocks, 2 x splits x dk's fp32 partials
+    backward, at the card's 132 SMs; ``flash_attention_bwd`` the same."""
+    from repro_torch.roofline.analysis import StepCounter
+    B, S, Hq, Hkv, D = shape
+    leaves = [t.to("meta").requires_grad_(True) for t in _qkv(*shape)]
+    do = torch.empty(B, S, Hq, D, dtype=BF16, device="meta")
+    q_bytes, k_bytes, rows = 2 * B * S * Hq * D, 2 * B * S * Hkv * D, \
+        4 * B * Hq * S
+    splits = bwd_splits(B, S, Hkv, Hq // Hkv, 132)
+    part = 2 * splits * k_bytes * 2 if splits > 1 else 0
+    assert fa_ops.hw.SMS == 132 and splits == (1 if Hq == Hkv else 2)
+    with StepCounter(exclude=leaves + [do]) as c:
+        out = flash_attention(*leaves, device="meta")
+        assert c.peak_bytes == q_bytes + rows           # out, lse
+        grads = torch.autograd.grad(out, leaves, do)
+    assert c.peak_bytes == q_bytes + rows + q_bytes + 2 * k_bytes + rows \
+        + part
+    assert c.peak_bytes < 4 * B * Hq * S * S            # one fp32 score
+    assert [g.shape for g in grads] == [t.shape for t in leaves]
+    q, k, v = (t.detach() for t in leaves)
+    lse = torch.empty(B, Hq, S, device="meta")
+    with StepCounter(exclude=[q, k, v, out, lse, do]) as c:
+        flash_attention_bwd(q, k, v, out.detach(), lse, do, device="meta")
+    assert c.peak_bytes == q_bytes + 2 * k_bytes + rows + part
+    assert entry == []
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (0, 0)
 
 
 # ------------------------------------------ CPU path at a Hopper-form shape

@@ -3,14 +3,17 @@
 HuBERT X-Large is an encoder of 48 bidirectional layers, d 1280, 16 heads
 of 80, d_ff 5120 (GELU, ungated), LayerNorm, vocabulary 504 (the masked-unit
 targets), fed precomputed frame embeddings (``embed_inputs=False``). Its
-config keeps the reference's ``attn_impl="reference"``: head dim 80 is not
-one the flash kernel takes. Held here, on weights drawn in JAX and
+config is the reference's but ``attn_impl="flash"``: the flash kernel's
+Hopper form runs its heads of 80 (``SMOKE`` keeps ``"reference"``). Held
+here, on weights drawn in JAX and
 converted, every LayerNorm scale and bias first drawn away from the
 init's 1 and 0 (so a misplaced norm shows), at two sizes: ``SMOKE`` (2
 layers, d 64, 4 heads of 16) and a variant with the published head dim,
 2 heads of 80 over d 160, which ``SMOKE``'s 16 hides:
 
-* ``forward`` on frames, ``loss_fn`` and every leaf's gradient;
+* ``forward`` on frames, ``loss_fn`` and every leaf's gradient, and the
+  same under ``attn_impl="flash"`` (the flash wrapper's plain version on
+  the CPU) against JAX's ``"reference"`` model;
 * bidirectional attention: a change to the last frame moves the first
   frame's logits (in both packages, by the same amount);
 * ``ServeEngine`` refuses the encoder, as the reference's does, and so the
@@ -93,14 +96,18 @@ def models():
 
 # ------------------------------------------------------------------ config
 def test_config_is_the_reference():
+    """The reference's config but ``attn_impl="flash"`` (its heads of 80 on
+    the flash kernel); ``SMOKE`` is the reference's, ``"reference"``."""
     full = t_hub.CONFIG
-    assert asdict(full) == asdict(j_hub.CONFIG)
+    assert j_hub.CONFIG.attn_impl == "reference"
+    assert asdict(full) == asdict(j_hub.CONFIG.replace(attn_impl="flash"))
     assert asdict(t_hub.SMOKE) == asdict(j_hub.SMOKE)
+    assert t_hub.SMOKE.attn_impl == "reference"
     assert (full.n_layers, full.d_model, full.nq, full.nkv, full.hd,
             full.d_ff, full.vocab) == (48, 1280, 16, 16, 80, 5120, 504)
     assert (full.causal, full.is_encoder, full.embed_inputs,
             full.norm_style, full.gated_mlp, full.attn_impl) == (
-        False, True, False, "layer", False, "reference")
+        False, True, False, "layer", False, "flash")
     assert not full.supports_decode
     assert registry.get_config("hubert-xlarge") is t_hub.CONFIG
     assert registry.get_config("hubert-xlarge", smoke=True) is t_hub.SMOKE
@@ -161,6 +168,41 @@ def test_loss_and_grads_match_jax(models, size):
     (loss, _), grads = value_and_grad(tt.loss_fn, tp, tcfg, tb,
                                       has_aux=True)
     np.testing.assert_allclose(float(loss), float(jl), atol=TOL)
+    ours = jax.tree_util.tree_flatten_with_path(
+        convert.tree_map(_np, grads))[0]
+    theirs = jax.tree_util.tree_flatten_with_path(jg)[0]
+    assert len(ours) == len(theirs) == 13
+    for (pa, a), (pb, b) in zip(ours, theirs):
+        assert pa == pb
+        np.testing.assert_allclose(a, np.asarray(b), atol=TOL,
+                                   err_msg=jax.tree_util.keystr(pa))
+
+
+@pytest.mark.parametrize("size", list(SIZES))
+def test_flash_matches_jax_reference(models, size):
+    """The port under ``attn_impl="flash"`` (the config's setting: each
+    layer's non-causal, unwindowed attention through the flash wrapper,
+    its plain version here) against JAX's ``"reference"`` model on the
+    same weights: ``forward`` on frames, ``loss_fn`` and every leaf's
+    gradient, 1e-4."""
+    jcfg, tcfg = _configs(size)
+    tcfg = tcfg.replace(attn_impl="flash")
+    assert jcfg.attn_impl == "reference"
+    jp, tp = models[size]
+    x, pos = _frames(jcfg, 2, 20, seed=5), _pos(2, 20)
+    with torch.inference_mode():
+        logits, _ = tt.forward(tp, tcfg, torch.from_numpy(x),
+                               torch.from_numpy(pos))
+    jl, _ = jt.forward(jp, jcfg, jnp.asarray(x), jnp.asarray(pos))
+    np.testing.assert_allclose(_np(logits), np.asarray(jl), atol=TOL)
+    jb = j_synth_batch(jcfg, JDataConfig(batch=2, seq_len=16, seed=6), 0)
+    tb = synth_batch(tcfg, DataConfig(batch=2, seq_len=16, seed=6), 0,
+                     device="cpu")
+    (jloss, _), jg = jax.value_and_grad(jt.loss_fn, has_aux=True)(
+        jp, jcfg, jax.tree.map(jnp.asarray, jb))
+    (loss, _), grads = value_and_grad(tt.loss_fn, tp, tcfg, tb,
+                                      has_aux=True)
+    np.testing.assert_allclose(float(loss), float(jloss), atol=TOL)
     ours = jax.tree_util.tree_flatten_with_path(
         convert.tree_map(_np, grads))[0]
     theirs = jax.tree_util.tree_flatten_with_path(jg)[0]

@@ -91,8 +91,8 @@ def test_flash_plain_matches_pallas(B, Hq, Hkv, S, D, dtype, causal, window,
 def test_flash_wrapper_rejects(bad):
     q = torch.zeros(1, 8, 4, 32)
     k = v = torch.zeros(1, 8, 4, 32)
-    if bad == "head_dim":
-        q = k = v = torch.zeros(1, 8, 4, 48)
+    if bad == "head_dim":            # past the kernels' 128
+        q = k = v = torch.zeros(1, 8, 4, 136)
     elif bad == "gqa":
         k = v = torch.zeros(1, 8, 3, 32)
     elif bad == "dtype":

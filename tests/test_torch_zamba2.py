@@ -14,7 +14,9 @@ published head dim that ``SMOKE``'s 16 hides.
 
 Checked: the tree (one unstacked shared tree, converted both ways),
 ``forward``, ``loss_fn`` and every leaf's gradient (the shared leaves'
-the sum over their applications, as JAX's scan closure gives it), one
+the sum over their applications, as JAX's scan closure gives it), the
+same under the config's ``attn_impl="flash"`` against JAX's
+``"reference"`` model, one
 ``make_train_step`` step, plain and through the card's route (the RMSNorm
 and SSD autograd Functions with their launches' plain versions), against
 JAX's train step, ``ChainedTrainer``'s donated step against the functional
@@ -127,14 +129,19 @@ class RepairedJServeEngine(JServeEngine):
 
 # ------------------------------------------------------------------ config
 def test_config_is_the_reference():
+    """The reference's config but ``attn_impl="flash"`` (the shared block's
+    heads of 112 on the flash kernel); ``SMOKE`` is the reference's,
+    ``"reference"``."""
     full_j, full_t = j_zamba.CONFIG, t_zamba.CONFIG
-    assert asdict(full_t) == asdict(full_j)
+    assert full_j.attn_impl == "reference"
+    assert asdict(full_t) == asdict(full_j.replace(attn_impl="flash"))
     assert asdict(t_zamba.SMOKE) == asdict(j_zamba.SMOKE)
+    assert t_zamba.SMOKE.attn_impl == "reference"
     assert (full_t.n_layers, full_t.d_model, full_t.d_inner,
             full_t.ssm_nheads, full_t.ssm_headdim, full_t.ssm_state,
             full_t.ssm_ngroups, full_t.nq, full_t.hd, full_t.d_ff,
             full_t.vocab, full_t.attn_impl) == (
-        81, 3584, 7168, 112, 64, 64, 1, 32, 112, 14336, 32_000, "reference")
+        81, 3584, 7168, 112, 64, 64, 1, 32, 112, 14336, 32_000, "flash")
     plan = layer_plan(full_t)
     assert [(s.n_repeat, s.pattern, s.shared) for s in plan] == [
         (11, ("mamba",) * 6 + ("attn",), (False,) * 6 + (True,)),
@@ -226,6 +233,38 @@ def test_loss_and_grads_match_jax(model):
     wq = grads["segments"][0]["b2"]["attn"]["wq"]
     assert wq.shape == (tcfg.d_model, tcfg.nq, tcfg.hd)
     assert float(wq.abs().max()) > 1e2 * TOL
+
+
+def test_flash_matches_jax_reference(model):
+    """The port under ``attn_impl="flash"`` (the config's setting: the
+    shared block's causal, unwindowed attention through the flash wrapper,
+    its plain version here) against JAX's ``"reference"`` model on the
+    same weights: ``forward``, the training loss and every leaf's gradient
+    (the tied block's the sum over its two applications), 1e-4."""
+    jcfg, tcfg, jp, tp = model
+    tcfg = tcfg.replace(attn_impl="flash")
+    assert jcfg.attn_impl == "reference"
+    toks, pos = _tokens(jcfg, 2, 40, seed=12), _pos(2, 40)
+    with torch.inference_mode():
+        logits, _ = tt.forward(tp, tcfg, torch.from_numpy(toks),
+                               torch.from_numpy(pos))
+    jl, _ = jt.forward(jp, jcfg, jnp.asarray(toks), jnp.asarray(pos))
+    np.testing.assert_allclose(_np(logits), np.asarray(jl), atol=TOL)
+    toks = _tokens(jcfg, 2, 37, seed=13)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    (jloss, _), jg = jax.value_and_grad(jt.loss_fn, has_aux=True)(
+        jp, jcfg, jax.tree.map(jnp.asarray, batch))
+    (loss, _), grads = value_and_grad(
+        tt.loss_fn, tp, tcfg, {k: torch.from_numpy(v) for k, v in
+                               batch.items()}, has_aux=True)
+    np.testing.assert_allclose(float(loss), float(jloss), atol=TOL)
+    ours = jax.tree_util.tree_flatten_with_path(convert.tree_map(_np, grads))
+    theirs = jax.tree_util.tree_flatten_with_path(jg)[0]
+    assert len(ours[0]) == len(theirs) == 62
+    for (pa, a), (pb, b) in zip(ours[0], theirs):
+        assert pa == pb
+        np.testing.assert_allclose(a, np.asarray(b), atol=TOL,
+                                   err_msg=jax.tree_util.keystr(pa))
 
 
 def _card_route(monkeypatch):
